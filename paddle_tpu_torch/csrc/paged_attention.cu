@@ -1,20 +1,31 @@
-// Paged-KV decode attention for Hopper (sm_90a), bf16 pages, fp32 math.
+// Paged-KV decode attention for Hopper (sm_90a), bf16 or int8 pages, fp32
+// math.
 //
-// Replaces: paddle_tpu/ops/pallas/paged_attention.py, paged_decode_attention
-// (the Pallas `_kernel`, launched by the pallas_call at line 215).
+// Replaces: paddle_tpu/ops/pallas/paged_attention.py,
+// * paged_decode_attention (the Pallas `_kernel`, launched by the
+//   pallas_call at line 215): bf16 pages, paged_decode_attention_bf16 below;
+// * paged_decode_attention_q8 (the Pallas `_kernel_q8`, launched by the
+//   pallas_call at line 296): int8 pages with one f32 scale per (page, kv
+//   head, slot) for K and for V, paged_decode_attention_q8 below.
+// Both are one template, paged_decode_kernel<T>, on the page element type.
 //
 // Computes, per batch row b and query head h:
 //   out[b, h] = softmax(q[b, h] . K_b^T * sm_scale) . V_b
 // where K_b / V_b are the first lens[b] slots of the row's pages, looked up
 // through tables[b, :] in a shared pool [num_pages, nkv, page, d].  Table
 // entries past ceil(lens[b] / page) point at the junk page 0; they are never
-// read.  A row with lens[b] == 0 writes zeros.
+// read.  A row with lens[b] == 0 writes zeros.  With int8 pages K_b and V_b
+// are codes times their slot's scale; as in the TPU kernel the scales are
+// folded into the logits (q . (k * ks) = (q . k) * ks) and into the
+// probabilities (sum p * (v * vs) = sum (p * vs) * v), so no d-wide dequant
+// is done.
 //
 // What bounds it on the card: bytes.  One decode token does 4*d FLOPs per
-// (head, key) pair against 4*d bytes of K and V per (kv head, key): about
-// g = n/nkv FLOPs per byte, far below the ~295 FLOPs/byte where an H100's
-// bf16 tensor cores would be the limit.  The floor is reading every used K/V
-// byte of the pool once at 3.35 TB/s.
+// (head, key) pair against 4*d bytes of bf16 K and V (2*d of int8, plus 8
+// bytes of scales) per (kv head, key): about g = n/nkv FLOPs per byte (2g for
+// int8), far below the ~295 FLOPs/byte where an H100's bf16 tensor cores
+// would be the limit.  The floor is reading every used K/V byte of the pool
+// once at 3.35 TB/s; int8 pages halve it.
 //
 // What the design does about it:
 // * One block per (row, kv head).  The g query heads of a GQA group share the
@@ -23,14 +34,16 @@
 // * Only the row's used pages are visited (the loop runs ceil(len/page)
 //   times), and only the valid slots of the last page are loaded, so traffic
 //   scales with the row's real length, not with pages_max.
-// * Each page is staged in shared memory with 16-byte coalesced loads; the K
-//   rows are padded by 8 bf16 so the per-key 16-byte row reads of the score
-//   loop are free of bank conflicts.
+// * Each page is staged in shared memory with 16-byte coalesced loads (8 bf16
+//   or 16 int8 values a load) and stays in its stored type there; the K rows
+//   are padded by 16 bytes so the per-key 16-byte row reads of the score loop
+//   are free of bank conflicts.  int8 pages move half the bytes of bf16 ones.
 // * The softmax is online (running max / sum per head in fp32), so a row of
 //   any length needs one pass.
 // This first version computes the dot products on the CUDA cores and does not
 // overlap a page's load with the previous page's math; tensor cores (mma) and
-// a cp.async / TMA double buffer are later work.
+// a cp.async / TMA double buffer are later work.  Both forms inherit the
+// per-page latency chain that keeps K1 far from its bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,8 +54,14 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxGroup = 16;        // q heads per kv head
 constexpr int kMaxDimPerThread = 2;  // head_dim <= 2 * kThreads
-constexpr int kKPad = 8;             // bf16 padding of a staged K row
+constexpr int kKPadBytes = 16;       // padding of a staged K row
 constexpr float kNegInf = -1e30f;    // NEG_INF of the JAX kernels
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
+
+template <typename T>
+__host__ __device__ constexpr bool is_q8() { return sizeof(T) == 1; }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -56,40 +75,52 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <typename T>
 size_t smem_bytes(int g, int d, int page) {
-  return (size_t)page * (d + kKPad) * 2   // K page
-       + (size_t)page * d * 2             // V page
-       + (size_t)g * d * 4                // q of the group, fp32
-       + (size_t)g * page * 4             // scores / probabilities
-       + (size_t)3 * g * 4;               // running max, sum, rescale
+  const int kpad = kKPadBytes / (int)sizeof(T);
+  return (size_t)page * (d + kpad) * sizeof(T)      // K page
+       + (size_t)page * d * sizeof(T)               // V page
+       + (size_t)g * d * 4                          // q of the group, fp32
+       + (size_t)g * page * 4                       // scores / probabilities
+       + (size_t)3 * g * 4                          // running max, sum, rescale
+       + (is_q8<T>() ? (size_t)2 * page * 4 : 0);   // the page's K / V scales
 }
 
+// kscale / vscale: [num_pages, nkv, page] f32 for int8 pages, unused (null)
+// for bf16 ones.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ kpool,
-                    const __nv_bfloat16* __restrict__ vpool,
+                    const T* __restrict__ kpool,
+                    const T* __restrict__ vpool,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale,
                     const int* __restrict__ tables,
                     const int* __restrict__ lens,
                     __nv_bfloat16* __restrict__ out,
                     int n, int nkv, int d, int page, int pages_max,
                     float sm_scale) {
+  constexpr bool kQ8 = is_q8<T>();
+  constexpr int kChunk = 16 / (int)sizeof(T);   // elements per 16-byte load
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int g = n / nkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int kstride = d + kKPad;
-  const int chunks = d / 8;          // 16-byte chunks of a row
+  const int kstride = d + kKPadBytes / (int)sizeof(T);
+  const int chunks = d / kChunk;     // 16-byte chunks of a row
 
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + (size_t)page * kstride;
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + (size_t)page * kstride;
   float* qs = reinterpret_cast<float*>(vs + (size_t)page * d);
   float* ps = qs + g * d;
   float* m_s = ps + g * page;
   float* l_s = m_s + g;
   float* a_s = l_s + g;
+  float* ksc = a_s + g;              // int8 pages only
+  float* vsc = ksc + page;
 
   const __nv_bfloat16* qg = q + ((size_t)b * n + (size_t)kvh * g) * d;
   for (int i = tid; i < g * d; i += kThreads) qs[i] = __bfloat162float(qg[i]);
@@ -109,14 +140,21 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < used; ++j) {
     const int pid = tables[(size_t)b * pages_max + j];
     const int nvalid = min(page, len - j * page);
-    const size_t base = ((size_t)pid * nkv + kvh) * (size_t)page * d;
+    const size_t head = (size_t)pid * nkv + kvh;
+    const size_t base = head * (size_t)page * d;
     __syncthreads();  // the previous page's readers are done with ks/vs/ps
     for (int i = tid; i < nvalid * chunks; i += kThreads) {
       const int r = i / chunks, c = i - r * chunks;
       const uint4 kk = reinterpret_cast<const uint4*>(kpool + base + (size_t)r * d)[c];
       const uint4 vv = reinterpret_cast<const uint4*>(vpool + base + (size_t)r * d)[c];
-      *reinterpret_cast<uint4*>(ks + r * kstride + c * 8) = kk;
-      *reinterpret_cast<uint4*>(vs + r * d + c * 8) = vv;
+      *reinterpret_cast<uint4*>(ks + r * kstride + c * kChunk) = kk;
+      *reinterpret_cast<uint4*>(vs + r * d + c * kChunk) = vv;
+    }
+    if (kQ8) {
+      for (int t = tid; t < nvalid; t += kThreads) {
+        ksc[t] = kscale[head * page + t];
+        vsc[t] = vscale[head * page + t];
+      }
     }
     __syncthreads();
 
@@ -130,21 +168,21 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         float dot = 0.f;
         for (int c = 0; c < chunks; ++c) {
           const uint4 kk = kr[c];
-          const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kk);
+          const T* kv = reinterpret_cast<const T*>(&kk);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 kf = __bfloat1622float2(k2[e]);
-            dot = fmaf(qr[c * 8 + 2 * e], kf.x, dot);
-            dot = fmaf(qr[c * 8 + 2 * e + 1], kf.y, dot);
-          }
+          for (int e = 0; e < kChunk; ++e)
+            dot = fmaf(qr[c * kChunk + e], to_float(kv[e]), dot);
         }
         s = dot * sm_scale;
+        if (kQ8) s *= ksc[t];
       }
       ps[i] = s;
     }
     __syncthreads();
 
-    // online softmax update: one warp per head
+    // online softmax update: one warp per head.  The normaliser sums the
+    // probabilities; with int8 pages the V scale then folds into each
+    // probability the P . V sum reads.
     for (int h = warp; h < g; h += kThreads / 32) {
       float mx = kNegInf;
       for (int t = lane; t < nvalid; t += 32) mx = fmaxf(mx, ps[h * page + t]);
@@ -154,7 +192,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       float sum = 0.f;
       for (int t = lane; t < page; t += 32) {
         const float p = t < nvalid ? expf(ps[h * page + t] - m_new) : 0.f;
-        ps[h * page + t] = p;
+        ps[h * page + t] = (kQ8 && t < nvalid) ? p * vsc[t] : p;
         sum += p;
       }
       sum = warp_sum(sum);
@@ -176,7 +214,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       for (int h = 0; h < kMaxGroup; ++h)
         if (h < g) acc[h][i] *= a_s[h];
       for (int t = 0; t < nvalid; ++t) {
-        const float vf = __bfloat162float(vs[t * d + dd]);
+        const float vf = to_float(vs[t * d + dd]);
 #pragma unroll
         for (int h = 0; h < kMaxGroup; ++h)
           if (h < g) acc[h][i] = fmaf(ps[h * page + t], vf, acc[h][i]);
@@ -202,18 +240,39 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
 // Lift the kernel's dynamic shared-memory cap to `smem` on the current
 // device, calling the runtime only when a larger size than before is asked
-// for there (the call costs about as much as a launch).
-cudaError_t raise_smem_cap(const void* kernel, size_t smem) {
+// for there (the call costs about as much as a launch).  One cache per
+// kernel instantiation.
+template <typename T>
+cudaError_t raise_smem_cap(size_t smem) {
   constexpr int kMaxDevices = 64;
   static size_t cap[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && smem <= cap[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute((const void*)paged_decode_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err == cudaSuccess && dev < kMaxDevices) cap[dev] = smem;
   return err;
+}
+
+template <typename T>
+int launch(const void* q, const void* kpool, const void* vpool,
+           const void* kscale, const void* vscale, const void* tables,
+           const void* lens, void* out, int B, int n, int nkv, int d,
+           int page, int pages_max, float sm_scale, void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  const size_t smem = smem_bytes<T>(n / nkv, d, page);
+  cudaError_t err = raise_smem_cap<T>(smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B, nkv);
+  paged_decode_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const T*)kpool, (const T*)vpool,
+      (const float*)kscale, (const float*)vscale, (const int*)tables,
+      (const int*)lens, (__nv_bfloat16*)out, n, nkv, d, page, pages_max,
+      sm_scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -226,22 +285,26 @@ extern "C" int paged_decode_attention_bf16(
     const void* q, const void* kpool, const void* vpool, const void* tables,
     const void* lens, void* out, int B, int n, int nkv, int d, int page,
     int pages_max, float sm_scale, void* stream) {
-  const int g = n / nkv;
-  if (B == 0) return (int)cudaSuccess;
-  const size_t smem = smem_bytes(g, d, page);
-  cudaError_t err = raise_smem_cap((const void*)paged_decode_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, nkv);
-  paged_decode_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kpool,
-      (const __nv_bfloat16*)vpool, (const int*)tables, (const int*)lens,
-      (__nv_bfloat16*)out, n, nkv, d, page, pages_max, sm_scale);
-  return (int)cudaGetLastError();
+  return launch<__nv_bfloat16>(q, kpool, vpool, nullptr, nullptr, tables,
+                               lens, out, B, n, nkv, d, page, pages_max,
+                               sm_scale, stream);
 }
 
-// Dynamic shared memory one launch needs; the wrapper rejects shapes above
-// the card's 227 KB per block.
+// As paged_decode_attention_bf16 over int8 pools, with kscale / vscale
+// [num_pages, nkv, page] f32.  The caller checks d % 16 == 0 as well.
+extern "C" int paged_decode_attention_q8(
+    const void* q, const void* kpool, const void* vpool, const void* kscale,
+    const void* vscale, const void* tables, const void* lens, void* out,
+    int B, int n, int nkv, int d, int page, int pages_max, float sm_scale,
+    void* stream) {
+  return launch<int8_t>(q, kpool, vpool, kscale, vscale, tables, lens, out,
+                        B, n, nkv, d, page, pages_max, sm_scale, stream);
+}
+
+// Dynamic shared memory one launch needs (int8 pages when q8 != 0); the
+// wrapper rejects shapes above the card's 227 KB per block.
 extern "C" long long paged_decode_attention_smem_bytes(int n, int nkv, int d,
-                                                       int page) {
-  return (long long)smem_bytes(n / nkv, d, page);
+                                                       int page, int q8) {
+  return (long long)(q8 ? smem_bytes<int8_t>(n / nkv, d, page)
+                        : smem_bytes<__nv_bfloat16>(n / nkv, d, page));
 }

@@ -3,7 +3,8 @@
 Counterpart of ``paddle_tpu/models/llama_pretrain.py``, for what the serving
 main path runs: :class:`LlamaPretrainConfig`, :func:`init_params` (same
 shapes and scale, a seeded ``torch.Generator`` on the device, no mesh),
-:func:`_rms_norm` (composite branch), :func:`_mm` (plain-weight branch) and
+:func:`_rms_norm` (composite branch), :func:`_mm` (plain weights, and
+weight-only int8 ``{"q", "s"}`` dicts through the int8 matmul kernel) and
 :func:`_block_post_attn` (composite FFN branch).  Training (the train step,
 remat, the mesh) is not ported yet.
 
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
+from ..ops.int8_matmul import int8_matmul
 
 __all__ = ["LlamaPretrainConfig", "init_params", "layer_params"]
 
@@ -93,8 +95,11 @@ def init_params(cfg: LlamaPretrainConfig, seed: int = 0,
 
 
 def layer_params(params: Dict[str, Any], layer: int) -> Dict[str, Any]:
-    """Layer ``layer``'s block params: views into the stacked tensors."""
-    return {k: w[layer] for k, w in params["blocks"].items()}
+    """Layer ``layer``'s block params: views into the stacked tensors (of
+    both tensors of an int8 ``{"q", "s"}`` dict)."""
+    return {k: ({n: t[layer] for n, t in w.items()} if isinstance(w, dict)
+                else w[layer])
+            for k, w in params["blocks"].items()}
 
 
 def _rms_norm(x, w, eps):
@@ -104,12 +109,17 @@ def _rms_norm(x, w, eps):
 
 
 def _mm(x, w, dt):
-    """Matmul against a plain weight.  Weight-only int8 dicts
-    (``{"q", "s"}`` from ``quantize_params_int8``) are not ported yet."""
+    """Matmul against a plain weight, or against a weight-only int8 dict
+    ``{"q": int8 [K, N], "s": f32 [N]}`` from ``quantize_params_int8``.
+    The dict goes to :func:`int8_matmul` for any K and N (the JAX code
+    takes its Pallas kernel only for lane-aligned dims and an XLA
+    dequant-then-matmul otherwise; the port's kernel masks ragged edges,
+    so it has one branch)."""
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "int8 weight dicts need the int8_matmul kernel (K3), which "
-            "ROADMAP.md queues as the next slice (int8 serving path)")
+        K = w["q"].shape[0]
+        x2 = x.reshape(-1, K).to(dt).contiguous()
+        out = int8_matmul(x2, w["q"], w["s"], out_dtype=dt)
+        return out.reshape(*x.shape[:-1], out.shape[-1])
     return x @ w.to(dt)
 
 

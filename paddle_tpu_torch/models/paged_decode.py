@@ -1,17 +1,18 @@
 """Paged-KV-cache decoding: the page allocator, the per-token decode step and
 the packed varlen prefill.
 
-Counterpart of ``paddle_tpu/models/paged_decode.py`` for the default serving
-lane (bf16 or fp32 pages, one device): :class:`PagedKVCache` (free list,
-row alloc / growth / release, the batched page write, ``audit``),
-:func:`_rope_rows`, :func:`_rope_at`, :func:`_pick_token`,
-:func:`_decode_layer` (fp branch), :func:`make_paged_decode_step` (``step``,
-optionally returning the logits) and :func:`_packed_prefill_body`.
+Counterpart of ``paddle_tpu/models/paged_decode.py`` for the serving lane
+on one device, with bf16 / fp32 pages or int8 pages (``kv_quant="int8"``):
+:class:`PagedKVCache` (free list, row alloc / growth / release, the batched
+page write, ``audit``), :func:`_rope_rows`, :func:`_rope_at`,
+:func:`_pick_token`, :func:`_decode_layer`, :func:`make_paged_decode_step`
+(``step`` and ``step_q8``, optionally returning the logits) and
+:func:`_packed_prefill_body` (fp and ``q8`` forms, without history).
 
 PyTorch runs eagerly, so the JAX jit wrappers and their memo caches have no
 counterpart, and the pools update in place instead of being donated.  The
-prefix index, the host page tier, swap and export, int8 pages and TP meshes
-are later slices; asking for them raises ``NotImplementedError``.
+prefix index, the host page tier, swap and export and TP meshes are later
+slices; asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import torch
 
 from .._device import resolve_device
 from ..ops.flash_varlen import flash_attention_segmented
-from ..ops.paged_attention import paged_decode_attention
+from ..ops.paged_attention import (paged_decode_attention,
+                                   paged_decode_attention_q8,
+                                   quantize_kv_token)
 from .llama_pretrain import (LlamaPretrainConfig, _block_post_attn, _mm,
                              _rms_norm, layer_params)
 
@@ -36,17 +39,18 @@ class PagedKVCache:
     """Free-list page allocator + device page pools for all layers.
 
     Pools: ``[L, num_pages, nkv, page, d]`` tensors on ``device`` (CUDA
-    unless asked otherwise).  Page 0 is reserved as the junk page unused
-    table slots point at; the kernel never reads it."""
+    unless asked otherwise).  With ``kv_quant="int8"`` the pools are int8
+    and ``kscale`` / ``vscale`` ``[L, num_pages, nkv, page]`` f32 hold one
+    scale per (page, head, slot); otherwise both are ``None``.  Page 0 is
+    reserved as the junk page unused table slots point at; the kernels
+    never read it."""
 
     def __init__(self, cfg: LlamaPretrainConfig, num_pages: int,
                  pages_max: int, batch: int, page: int = 64,
                  dtype=None, kv_quant: Optional[str] = None,
                  mesh=None, host_pages: int = 0, device=None):
-        if kv_quant is not None:
-            raise NotImplementedError(
-                "int8 KV pages need paged_decode_attention_q8 (K4), "
-                "queued in ROADMAP.md as the next slice")
+        if kv_quant not in (None, "int8"):
+            raise ValueError("kv_quant must be None or 'int8'")
         if mesh is not None:
             raise NotImplementedError(
                 "kv-head-sharded pools (TP meshes) are not ported yet")
@@ -58,13 +62,20 @@ class PagedKVCache:
         self.page = page
         self.pages_max = pages_max
         self.num_pages = num_pages
+        self.kv_quant = kv_quant
         self.device = resolve_device(device)
-        dt = dtype or cfg.dtype
+        dt = torch.int8 if kv_quant == "int8" else (dtype or cfg.dtype)
         L = cfg.num_hidden_layers
         nkv, d = cfg.num_key_value_heads, cfg.head_dim
         shape = (L, num_pages, nkv, page, d)
         self.kpool = torch.zeros(shape, dtype=dt, device=self.device)
         self.vpool = torch.zeros(shape, dtype=dt, device=self.device)
+        self.kscale = self.vscale = None
+        if kv_quant == "int8":
+            self.kscale = torch.ones(shape[:-1], dtype=torch.float32,
+                                     device=self.device)
+            self.vscale = torch.ones(shape[:-1], dtype=torch.float32,
+                                     device=self.device)
         self._free = list(range(num_pages - 1, 0, -1))   # page 0 reserved
         self.tables = np.zeros((batch, pages_max), np.int32)
         self.lens = np.zeros((batch,), np.int32)
@@ -128,7 +139,9 @@ class PagedKVCache:
     def write_pages_batch(self, entries) -> None:
         """Write a whole admission wave: every entry's
         ``(slot, ks [Lyr, S >= L, nkv, d], vs, L, first_page)`` K/V lands
-        in the row's pages through one indexed copy per pool tensor."""
+        in the row's pages through one indexed copy per pool tensor.  With
+        int8 pages each token is quantized per (layer, slot, head) and its
+        scales land in the scale pools at the same page ids."""
         page = self.page
         ids_all, kss, vss = [], [], []
         for slot, ks, vs, L, first_page in entries:
@@ -147,15 +160,24 @@ class PagedKVCache:
         ids = np.concatenate(ids_all)
         npg = ids.shape[0]
         Lyr, nkv, d = ks.shape[0], ks.shape[2], ks.shape[3]
+        ks_s = vs_s = None
+        if self.kv_quant == "int8":
+            ks, ks_s = quantize_kv_token(ks)
+            vs, vs_s = quantize_kv_token(vs)
+            ks_s = ks_s.reshape(Lyr, npg, page, nkv).permute(0, 1, 3, 2)
+            vs_s = vs_s.reshape(Lyr, npg, page, nkv).permute(0, 1, 3, 2)
         kb = ks.reshape(Lyr, npg, page, nkv, d).permute(0, 1, 3, 2, 4)
         vb = vs.reshape(Lyr, npg, page, nkv, d).permute(0, 1, 3, 2, 4)
-        self._scatter_pages(ids, kb, vb)
+        self._scatter_pages(ids, kb, vb, ks_s, vs_s)
 
-    def _scatter_pages(self, ids, kb, vb) -> None:
+    def _scatter_pages(self, ids, kb, vb, ks_s=None, vs_s=None) -> None:
         """The page-write device seam (one call per admission wave)."""
         idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         self.kpool[:, idx] = kb.to(self.kpool.dtype)
         self.vpool[:, idx] = vb.to(self.vpool.dtype)
+        if self.kv_quant == "int8":
+            self.kscale[:, idx] = ks_s
+            self.vscale[:, idx] = vs_s
         self.scatter_dispatches += 1
 
     def release_row(self, b: int) -> None:
@@ -261,10 +283,13 @@ def _pick_token(logits, temperature, generator=None, top_k: int = 0,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def _decode_layer(cfg, bp, kp, vp, xc, tables, lens, page_ids, slots):
+def _decode_layer(cfg, bp, kp, vp, xc, tables, lens, page_ids, slots,
+                  ks=None, vs=None):
     """One transformer layer of a paged decode step: write this token's
     K/V into the layer's pool pages (in place), then paged attention over
-    ``lens + 1`` slots and the block FFN."""
+    ``lens + 1`` slots and the block FFN.  With ``ks`` / ``vs`` (the
+    layer's scale pools) the pages are int8: the token's K and V are
+    quantized per (row, head) and their scales written beside them."""
     n, d = cfg.num_attention_heads, cfg.head_dim
     nkv = cfg.num_key_value_heads
     dt = cfg.dtype
@@ -275,23 +300,31 @@ def _decode_layer(cfg, bp, kp, vp, xc, tables, lens, page_ids, slots):
     v = _mm(y, bp["wv"], dt).reshape(B, 1, nkv, d)
     q = _rope_rows(q, cfg.rope_theta, lens)
     k = _rope_rows(k, cfg.rope_theta, lens)
-    kp[page_ids, :, slots] = k[:, 0].to(kp.dtype)
-    vp[page_ids, :, slots] = v[:, 0].to(vp.dtype)
-    attn = paged_decode_attention(q[:, 0].contiguous(), kp, vp, tables,
-                                  lens + 1)
+    if ks is not None:
+        kq, kss = quantize_kv_token(k[:, 0])
+        vq, vss = quantize_kv_token(v[:, 0])
+        kp[page_ids, :, slots] = kq
+        vp[page_ids, :, slots] = vq
+        ks[page_ids, :, slots] = kss
+        vs[page_ids, :, slots] = vss
+        attn = paged_decode_attention_q8(q[:, 0].contiguous(), kp, vp, ks,
+                                         vs, tables, lens + 1)
+    else:
+        kp[page_ids, :, slots] = k[:, 0].to(kp.dtype)
+        vp[page_ids, :, slots] = v[:, 0].to(vp.dtype)
+        attn = paged_decode_attention(q[:, 0].contiguous(), kp, vp, tables,
+                                      lens + 1)
     return _block_post_attn(bp, xc, attn[:, None], cfg)
 
 
 def _build_step_fns(cfg: LlamaPretrainConfig, temperature: float,
                     with_logits: bool, top_k: int, top_p: float):
-    """The per-token step body (the fp ``step`` of the JAX factory)."""
+    """The per-token step bodies ``(step, step_q8)`` of the JAX factory:
+    fp pages, and int8 pages with their scale pools."""
     dt = cfg.dtype
 
-    def tail(x, params):
-        h = _rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)
-        return _mm(h, params["lm_head"], dt).float()
-
-    def step(params, kpool, vpool, tables, lens, tok, generator=None):
+    def run(params, kpool, vpool, kscale, vscale, tables, lens, tok,
+            generator):
         B = tok.shape[0]
         page = kpool.shape[3]
         x = params["embed"][tok[:, None].long()].to(dt)
@@ -301,15 +334,28 @@ def _build_step_fns(cfg: LlamaPretrainConfig, temperature: float,
         # the JAX step scans the layers with the pools as scan xs/ys; here
         # a Python loop writes each layer's pool slice in place
         for layer in range(cfg.num_hidden_layers):
+            scales = (() if kscale is None
+                      else (kscale[layer], vscale[layer]))
             x = _decode_layer(cfg, layer_params(params, layer), kpool[layer],
-                              vpool[layer], x, tables, lens, page_ids, slots)
-        logits = tail(x, params)
+                              vpool[layer], x, tables, lens, page_ids, slots,
+                              *scales)
+        h = _rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)
+        logits = _mm(h, params["lm_head"], dt).float()
         nxt = _pick_token(logits, temperature, generator, top_k, top_p)
-        if with_logits:
-            return kpool, vpool, nxt, logits
-        return kpool, vpool, nxt
+        return (nxt, logits) if with_logits else (nxt,)
 
-    return step
+    def step(params, kpool, vpool, tables, lens, tok, generator=None):
+        out = run(params, kpool, vpool, None, None, tables, lens, tok,
+                  generator)
+        return (kpool, vpool) + out
+
+    def step_q8(params, kpool, vpool, kscale, vscale, tables, lens, tok,
+                generator=None):
+        out = run(params, kpool, vpool, kscale, vscale, tables, lens, tok,
+                  generator)
+        return (kpool, vpool, kscale, vscale) + out
+
+    return step, step_q8
 
 
 def make_paged_decode_step(cfg: LlamaPretrainConfig,
@@ -318,19 +364,21 @@ def make_paged_decode_step(cfg: LlamaPretrainConfig,
                            with_logits: bool = False,
                            top_k: int = 0, top_p: float = 1.0):
     """``step(params, kpool, vpool, tables, lens, tok, generator=None)
-    -> (kpool, vpool, next_tok)``, plus the fp32 ``[B, V]`` logits with
-    ``with_logits=True``.
+    -> (kpool, vpool, next_tok)`` -- or, with ``kv_quant="int8"``,
+    ``step(params, kpool, vpool, kscale, vscale, tables, lens, tok,
+    generator=None) -> (kpool, vpool, kscale, vscale, next_tok)`` -- plus
+    the fp32 ``[B, V]`` logits with ``with_logits=True``.
 
     ``lens [B]`` int32 = cached context per row BEFORE this token;
     ``tok [B]`` = this step's input token; ``tables [B, pages_max]``
     int32.  The new K/V land at per-row slot ``lens[b]`` of the pools,
     which are updated in place and returned; callers bump ``lens`` and
     the page tables on the host (:class:`PagedKVCache`)."""
-    if kv_quant is not None:
-        raise NotImplementedError(
-            "int8 KV decode needs paged_decode_attention_q8 (K4), queued "
-            "in ROADMAP.md as the next slice")
-    return _build_step_fns(cfg, temperature, with_logits, top_k, top_p)
+    if kv_quant not in (None, "int8"):
+        raise ValueError("kv_quant must be None or 'int8'")
+    step, step_q8 = _build_step_fns(cfg, temperature, with_logits, top_k,
+                                    top_p)
+    return step_q8 if kv_quant == "int8" else step
 
 
 def _packed_prefill_body(cfg: LlamaPretrainConfig, q8: bool = False,
@@ -341,13 +389,16 @@ def _packed_prefill_body(cfg: LlamaPretrainConfig, q8: bool = False,
     Every waiting context packs into one token stream with segment ids
     (bucket-tail padding rides a sentinel id and attends only itself);
     ``pos`` holds within-segment RoPE positions; attention is the
-    segment-masked causal kernel (its plain version on the CPU).  The
-    int8-pool (``q8``) and prefix-cache history (``with_hist``) forms are
-    later slices."""
-    if q8 or with_hist:
+    segment-masked causal kernel (its plain version on the CPU).
+
+    ``q8`` (int8 pools): without history the JAX form only threads the
+    scale pools through its scan, and the stream attends over its own
+    unquantized K/V; the port's form is the same ``run``, and the pages
+    are quantized when :meth:`PagedKVCache.write_pages_batch` writes them.
+    The prefix-cache history form (``with_hist``) is a later slice."""
+    if with_hist:
         raise NotImplementedError(
-            "the packed prefill's int8-pool and prefix-history forms are "
-            "not ported yet")
+            "the packed prefill's prefix-history form is not ported yet")
     n, d = cfg.num_attention_heads, cfg.head_dim
     nkv = cfg.num_key_value_heads
     dt = cfg.dtype

@@ -7,7 +7,9 @@ with packed admission (the JAX engine's defaults: ``packed=True``,
 ``run_to_completion``; admission waves pack every waiting context into one
 segmented-attention prefill; decode ticks run one paged decode step for the
 whole fixed-size batch; on pool exhaustion the youngest request is
-preempted recompute-style and resumes through the packed lane.
+preempted recompute-style and resumes through the packed lane.  Weights may
+be int8 (``quantize_params_int8``) and the cache's pages int8
+(``PagedKVCache(kv_quant="int8")``), each independently of the other.
 
 Not ported yet, and refused at construction when asked for: the overlap,
 mixed, horizon and speculative lanes, TP meshes, prefix caching, scheduler
@@ -137,8 +139,10 @@ class ContinuousBatchingEngine:
         self._admit_seq = 0
         self._stream: List = []     # (rid, token) in emission order
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._step = make_paged_decode_step(cfg, temperature, top_k=top_k,
-                                            top_p=top_p)
+        self._step = make_paged_decode_step(cfg, temperature,
+                                            kv_quant=cache.kv_quant,
+                                            top_k=top_k, top_p=top_p)
+        # int8 pages need no other prefill: write_pages_batch quantizes
         self._prefill = _packed_prefill_body(cfg)
         self._next_tok = np.zeros((self.B,), np.int64)
         self._remaining = np.zeros((self.B,), np.int64)
@@ -512,9 +516,15 @@ class ContinuousBatchingEngine:
         tables = torch.from_numpy(cache.tables.copy()).to(dev)
         lens = torch.from_numpy(cache.lens.copy()).to(dev)
         tok = torch.from_numpy(self._next_tok.copy()).to(dev)
-        cache.kpool, cache.vpool, nxt = self._step(
-            self.params, cache.kpool, cache.vpool, tables, lens, tok,
-            self._gen)
+        if cache.kv_quant == "int8":
+            (cache.kpool, cache.vpool, cache.kscale, cache.vscale,
+             nxt) = self._step(self.params, cache.kpool, cache.vpool,
+                               cache.kscale, cache.vscale, tables, lens, tok,
+                               self._gen)
+        else:
+            cache.kpool, cache.vpool, nxt = self._step(
+                self.params, cache.kpool, cache.vpool, tables, lens, tok,
+                self._gen)
         cache.lens = cache.lens + self._active_mask
         self.decode_steps += 1
         nxt = nxt.cpu().numpy()

@@ -1,0 +1,133 @@
+"""Weight-only int8 matmul: the CUDA kernel's wrapper, its plain version and
+the quantizer.
+
+Counterpart of ``paddle_tpu/ops/pallas/int8_matmul.py``:
+:func:`quantize_int8` is a copy of the JAX quantizer (per output channel,
+absmax / 127, a zero column gets scale 1, round half to even, clip to
+±127); :func:`int8_matmul` replaces the Pallas ``int8_matmul`` with the
+hand-written Hopper kernel in ``csrc/int8_matmul.cu``; and
+:func:`int8_matmul_plain` follows the Pallas kernel's numerics: f32
+accumulation, the per-column scale applied to the f32 accumulator, one
+rounding to the output type.
+
+A tensor on the CPU goes to the plain version; a CUDA tensor goes to the
+kernel, or the wrapper raises.  There is no quiet fallback from one to the
+other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+__all__ = ["int8_matmul", "int8_matmul_plain", "quantize_int8", "launches"]
+
+# kernel launches made by int8_matmul (a run can show that its main path
+# went through the kernel)
+launches = 0
+
+
+def quantize_int8(w):
+    """Per-output-channel symmetric int8 quantization of ``w [..., K, N]``
+    -> ``{"q": int8 [..., K, N], "s": f32 [..., N]}``.  Leading dims are
+    quantized independently, as ``jax.vmap(quantize_int8)`` does."""
+    wf = w.float()
+    s = wf.abs().amax(dim=-2) / 127.0
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(wf / s[..., None, :]), -127, 127)
+    return {"q": q.to(torch.int8), "s": s}
+
+
+def int8_matmul_plain(x, q, s, out_dtype=None):
+    """``x [M, K] @ (q [K, N] int8) * s [N]`` in f32, rounded once to
+    ``out_dtype`` (``x``'s type by default)."""
+    out = (x.float() @ q.float()) * s.float()
+    return out.to(out_dtype or x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    """The launcher, looked up and typed once per process."""
+    fn = _build.library("int8_matmul").int8_matmul_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(M, N, K, sms) -> int:
+    """How many slices of K the kernel splits the product into (1 when
+    the output tiles alone fill the card)."""
+    fn = _build.library("int8_matmul").int8_matmul_splits
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return int(fn(M, N, K, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(x, q, s, out_dtype):
+    if x.dim() != 2 or q.dim() != 2 or s.dim() != 1:
+        raise ValueError(f"want x [M, K], q [K, N] and s [N], got "
+                         f"{tuple(x.shape)}, {tuple(q.shape)}, "
+                         f"{tuple(s.shape)}")
+    M, K = x.shape
+    if q.shape[0] != K or s.shape[0] != q.shape[1]:
+        raise ValueError(f"shapes do not chain: x {tuple(x.shape)}, q "
+                         f"{tuple(q.shape)}, s {tuple(s.shape)}")
+    if K % 16:
+        raise ValueError(f"kernel takes K % 16 == 0, got K={K}")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"kernel writes bf16, asked for {out_dtype}")
+    for name, t, dt in (("x", x, torch.bfloat16), ("q", q, torch.int8),
+                        ("s", s, torch.float32)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def int8_matmul(x, q, s, out_dtype=None):
+    """``x [M, K] @ dequant(q [K, N] int8, s [N] f32) -> [M, N]``.
+
+    On the card ``x`` is bf16, K a multiple of 16 and the output bf16; M
+    and N may be anything.  The bf16 copy of the weight never exists in
+    device memory: the kernel widens each int8 tile in shared memory."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, q, s, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no int8 matmul for {x.device}")
+    _check(x, q, s, out_dtype)
+    global launches
+    M, K = x.shape
+    N = q.shape[1]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    splits = _splits(M, N, K, _sm_count(x.device.index or 0))
+    # f32 partial sums of each K slice; the kernel's second pass adds
+    # them, scales and rounds once
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    err = _kernel_fn()(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, N, K, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"int8_matmul kernel launch failed: cudaError "
+                           f"{err}")
+    launches += 1
+    return out

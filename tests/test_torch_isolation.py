@@ -31,6 +31,7 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.models.serving_engine\n"
         "import paddle_tpu_torch.models.weights\n"
+        "import paddle_tpu_torch.ops.int8_matmul\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

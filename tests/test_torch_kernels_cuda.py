@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions on a CUDA card, at
 shapes ``chip_smoke.py`` does not reach: other page sizes and head dims, the
-largest GQA group the paged kernel holds, empty rows, ragged and batched
-packed streams, non-causal attention, and the wrappers' refusals.
+largest GQA group the paged kernels hold, empty rows, int8 pages with a
+slot quantized from an all-zero token, ragged and batched packed streams,
+non-causal attention, the int8 matmul at ragged M, N and K, and the
+wrappers' refusals.
 
 Every test needs a card and skips without one.  The card machine has no JAX,
 so run this file there without the suite's conftest:
@@ -21,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from paddle_tpu_torch.ops import flash_varlen as fv  # noqa: E402
+from paddle_tpu_torch.ops import int8_matmul as im  # noqa: E402
 from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -56,11 +59,14 @@ def _paged_case(gen, n, nkv, d, page, lens, pages_max):
     return q, kp, vp, tables, lens_t
 
 
-@pytest.mark.parametrize("n,nkv,d,page,lens,pages_max", [
+PAGED_CASES = [
     (32, 2, 64, 16, [0, 1, 15, 16, 17, 100], 8),     # group of 16, empty row
     (8, 8, 128, 32, [33, 64, 1], 3),
     (16, 4, 256, 8, [9, 40], 5),                     # the widest head_dim
-])
+]
+
+
+@pytest.mark.parametrize("n,nkv,d,page,lens,pages_max", PAGED_CASES)
 def test_paged_decode_kernel_matches_plain(gen, n, nkv, d, page, lens,
                                            pages_max):
     q, kp, vp, tables, lens_t = _paged_case(gen, n, nkv, d, page, lens,
@@ -91,6 +97,78 @@ def test_paged_decode_kernel_refuses_what_it_cannot_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_decode_attention(q.transpose(1, 2).contiguous()
                                   .transpose(1, 2), kp, vp, tables, lens)
+
+
+@pytest.mark.parametrize("n,nkv,d,page,lens,pages_max", PAGED_CASES)
+def test_paged_decode_q8_kernel_matches_plain(gen, n, nkv, d, page, lens,
+                                              pages_max):
+    q, kp, vp, tables, lens_t = _paged_case(gen, n, nkv, d, page, lens,
+                                            pages_max)
+    kp[int(tables[1, 0]), 0, 0] = 0      # a slot from an all-zero token
+    kq, ks = pa.quantize_kv_token(kp)
+    vq, vs = pa.quantize_kv_token(vp)
+    assert float(ks[int(tables[1, 0]), 0, 0]) == 1.0
+    before = pa.launches_q8
+    out = pa.paged_decode_attention_q8(q, kq, vq, ks, vs, tables, lens_t)
+    torch.cuda.synchronize()
+    assert pa.launches_q8 == before + 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    ref = pa.paged_decode_attention_q8_plain(q.float(), kq, vq, ks, vs,
+                                             tables, lens_t)
+    for b, L in enumerate(lens):
+        if L == 0:
+            assert (out[b] == 0).all()          # an empty row writes zeros
+        else:
+            torch.testing.assert_close(out[b].float(), ref[b], **TOL)
+
+
+def test_paged_decode_q8_kernel_refuses_what_it_cannot_take(gen):
+    q, kp, vp, tables, lens = _paged_case(gen, 4, 2, 72, 16, [5], 2)
+    kq, ks = pa.quantize_kv_token(kp)
+    with pytest.raises(ValueError, match="d % 16"):      # 72 % 16 != 0
+        pa.paged_decode_attention_q8(q, kq, kq, ks, ks, tables, lens)
+    q, kp, vp, tables, lens = _paged_case(gen, 4, 2, 64, 16, [5], 2)
+    kq, ks = pa.quantize_kv_token(kp)
+    with pytest.raises(TypeError):                       # bf16 pages
+        pa.paged_decode_attention_q8(q, kp, vp, ks, ks, tables, lens)
+    with pytest.raises(ValueError, match="kscale"):
+        pa.paged_decode_attention_q8(q, kq, kq, ks[:, :, :8].contiguous(),
+                                     ks, tables, lens)
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (1, 256, 384),
+    (5, 11008, 200),        # ragged N, the widest K of LLaMA-7B
+    (8, 4096, 4096),        # decode: split over K
+    (200, 512, 1000),       # several 64-row tiles, ragged M and N
+    (8, 48, 64),            # K shorter than one 64-deep tile
+])
+def test_int8_matmul_kernel_matches_plain(gen, M, K, N):
+    x = _randn(gen, M, K)
+    w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+    qd = im.quantize_int8(w)
+    before = im.launches
+    out = im.int8_matmul(x, qd["q"], qd["s"])
+    torch.cuda.synchronize()
+    assert im.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    ref = im.int8_matmul_plain(x, qd["q"], qd["s"], torch.float32)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+def test_int8_matmul_kernel_refuses_what_it_cannot_take(gen):
+    x = _randn(gen, 4, 64)
+    qd = im.quantize_int8(torch.randn((64, 32), generator=gen,
+                                      device="cuda"))
+    with pytest.raises(TypeError):                      # fp32 activations
+        im.int8_matmul(x.float(), qd["q"], qd["s"])
+    with pytest.raises(TypeError):                      # the kernel writes bf16
+        im.int8_matmul(x, qd["q"], qd["s"], out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="K % 16"):
+        im.int8_matmul(x[:, :40].contiguous(), qd["q"][:40].contiguous(),
+                       qd["s"])
+    with pytest.raises(ValueError, match="contiguous"):
+        im.int8_matmul(x, qd["q"].t().contiguous().t(), qd["s"])
 
 
 def _segments(rows, T):

@@ -61,11 +61,21 @@ def test_block_post_attn_matches_jax():
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
-def test_mm_refuses_int8_weight_dicts():
-    x = torch.zeros((2, 4))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tlp._mm(x, {"q": torch.zeros((4, 4), dtype=torch.int8),
-                    "s": torch.ones(4)}, torch.float32)
+def test_mm_on_int8_weight_dicts_matches_jax():
+    """Hidden 64 is not lane-aligned, so JAX's ``_mm`` takes its XLA
+    dequant-then-matmul branch on a ``{"q", "s"}`` dict; the port's one
+    branch (the int8 matmul's plain version on the CPU) gives the same
+    fp32 numbers through a [b, s, K] activation."""
+    from paddle_tpu.ops.pallas.int8_matmul import quantize_int8
+    rng = np.random.default_rng(7)
+    x = _rand(rng, 2, 5, H)
+    qd = quantize_int8(jnp.asarray(_rand(rng, H, 96, scale=H ** -0.5)))
+    ref = np.asarray(jlp._mm(jnp.asarray(x), qd, jnp.float32))
+    got = tlp._mm(torch.from_numpy(x),
+                  {k: torch.tensor(np.asarray(v)) for k, v in qd.items()},
+                  torch.float32)
+    assert tuple(got.shape) == (2, 5, 96)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
 def test_rope_rows_matches_jax():

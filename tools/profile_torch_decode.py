@@ -5,16 +5,18 @@ its time on one CUDA card.
 Run from the repository root:
 
     python3 tools/profile_torch_decode.py [--batch 8] [--ctx 1024] [--steps 8]
+                                          [--int8]
 
 Builds LLaMA-7B (full width and depth, random weights from ``--seed``) and
-the port's engine, admits ``--batch`` prompts of ``--ctx`` tokens in one
-packed wave, then:
+the port's engine (with ``--int8``: int8 weights from
+``quantize_params_int8`` over int8 KV pages), admits ``--batch`` prompts of
+``--ctx`` tokens in one packed wave, then:
 
 * times ``--steps`` decode steps on the host clock, each ending in the
   engine's own blocking fetch (the step time a client sees per token);
 * profiles ``--steps`` more with ``torch.profiler`` and sums the device
-  time of every CUDA kernel by name: the two ported kernels, the matrix
-  products, and the rest.
+  time of every CUDA kernel by name: the ported kernels, the library
+  matrix products, and the rest.
 
 Prints one JSON line: the card (nvidia-smi name and power limit), the step
 time, the device busy share (kernel time over step time) and the kernel
@@ -33,9 +35,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def _kind(name: str) -> str:
     if "paged_decode_kernel" in name:
+        # the int8-page instantiation's template argument is int8_t
+        if "char" in name:
+            return "paged_decode_attention_q8 (K4)"
         return "paged_decode_attention (K1)"
     if "seg_fwd_kernel" in name:
         return "flash_attention_segmented (K2)"
+    if "int8_matmul" in name:
+        return "int8_matmul (K3)"
     low = name.lower()
     if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "cublas",
                               "xmma")):
@@ -49,12 +56,15 @@ def main():
     ap.add_argument("--ctx", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weights over int8 KV pages")
     args = ap.parse_args()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         sys.exit(1)
+    from paddle_tpu_torch.models.decode import quantize_params_int8
     from paddle_tpu_torch.models.llama_pretrain import (LlamaPretrainConfig,
                                                         init_params)
     from paddle_tpu_torch.models.paged_decode import PagedKVCache
@@ -70,8 +80,11 @@ def main():
     new = 2 * args.steps + 4
     pages_max = -(-(args.ctx + new) // page)
     cache = PagedKVCache(cfg, num_pages=1 + args.batch * pages_max,
-                         pages_max=pages_max, batch=args.batch, page=page)
+                         pages_max=pages_max, batch=args.batch, page=page,
+                         kv_quant="int8" if args.int8 else None)
     params = init_params(cfg, seed=args.seed)
+    if args.int8:
+        params = quantize_params_int8(params)
     eng = ContinuousBatchingEngine(cfg, params, cache)
     rng = np.random.default_rng(args.seed)
     for _ in range(args.batch):
@@ -105,6 +118,7 @@ def main():
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({
         "card": card, "model": "LLaMA-7B (LlamaPretrainConfig defaults)",
+        "weights_and_pages": "int8" if args.int8 else "bf16",
         "batch": args.batch, "ctx": args.ctx, "steps": args.steps,
         "step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
         "device_busy_share": busy_ms / step_ms if step_ms else None,
