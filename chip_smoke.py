@@ -6,13 +6,18 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, one JSON line each on stdout:
 
 1. device  - the card's name and power limit (nvidia-smi), TF32 off.
-2. build   - nvcc builds every kernel of the serving paths, in parallel.
+2. build   - nvcc builds every kernel of the serving and training paths,
+             in parallel.
 3. k1..k4  - each kernel against its plain PyTorch version on the card, at
              the main paths' shapes (k1, k2, k4: nkv = 32 as LLaMA-7B and
              nkv = 8 for GQA; k3: decode w_gate, w_down and lm_head and a
              prefill wave): max abs error, kernel / plain / library-call
              times (CUDA events, median of 25 runs after warm-up, L2
              flushed before each) and the least time the card could take.
+   k5, k6a, k6b, k6c, k8 - the training kernels the same way, at the
+             trainer's shapes ([8, 2048, 16, 128] bf16, causal; the w_gate
+             leaf [24, 2048, 5504]) and at a ragged length, head_dim 64
+             and a leaf size no vector divides.
 4. serve   - LLaMA-7B at full width and depth with random weights from a
              seed behind the port's GenerationServer: concurrent /generate
              requests and one /generate_stream; every reply complete, each
@@ -30,7 +35,21 @@ Phases, one JSON line each on stdout:
              kernel replaced by its plain version: logits within
              INT8_LOGIT_LIMIT, a planted fault beyond it; the int8 path's
              distance from the bf16 path is printed, not gated.
-6. kernels - one JSON object with an entry per ported kernel.
+6. train   - the 1.345 B-parameter LLaMA of the JAX package's training
+             bench (vocab 32000, hidden 2048, FFN 5504, 24 layers, 16 heads
+             of 128; bf16 compute over f32 masters, remat full, chunked
+             loss) with random weights from the seed: four AdamW steps of
+             make_train_step on one batch of 8 x 2049 tokens.  Every loss
+             finite, the first within 1.0 of ln 32000, the fourth below the
+             first, and K5, K6a, K6b, K6c, K8 launched as often as the code
+             predicts.
+7. train_grads - the same model cut to 2 layers and batch 2: forward_loss
+             and its gradients through the kernels and with every kernel of
+             the slice replaced by its plain version; the largest gradient
+             difference of any leaf within GRAD_LIMIT of that leaf's largest
+             gradient, a planted fault (the RoPE backward rotating with
+             +sin) beyond it.
+8. kernels - one JSON object with an entry per ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before that line.  Without a CUDA device, or without the package
@@ -76,6 +95,32 @@ REPORT_MARGIN = 0.05
 # and the planted fault's 4.33, 4.26 and 4.67.
 INT8_LOGIT_LIMIT = 0.4
 
+# The training slice's gradient check.  One forward_loss + backward through
+# the kernels (K5, K6a-c) and one with each replaced by its plain version,
+# from the same f32 params and tokens, both computing in bf16.  The measure
+# is the largest difference of any gradient leaf over that leaf's largest
+# magnitude.  Set above the sound runs' largest and below a planted
+# fault's (the RoPE backward rotating with +sin instead of -sin), which the
+# run also measures.  On an H100 at seeds 0, 1 and 2 the sound difference
+# was 0.0143, 0.0169 and 0.0141 and the planted fault's 1.436, 1.354 and
+# 1.466.
+GRAD_LIMIT = 0.1
+PEAK_F32_FLOPS = 67e12             # CUDA cores, for the elementwise kernels
+# one bf16 rounding of the result; the RoPE kernel is expected bit for bit
+K5_TOL = dict(atol=2 ** -7, rtol=2 ** -7)
+# a few units in the last place of f32: the compiler may fuse a multiply
+# and an add where the plain version rounds twice
+K8_TOL = dict(atol=1e-6, rtol=1e-5)
+# the trainer of the JAX package's training bench, whole
+TRAIN_CFG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                 num_hidden_layers=24, num_attention_heads=16,
+                 max_seq_len=2048, remat=True, remat_policy="full",
+                 loss_chunks=4)
+TRAIN_BATCH, TRAIN_TOKENS, TRAIN_STEPS = 8, 2049, 4
+# (B, S, H, d) of K5 and K6: the trainer's shape, a ragged length, head_dim 64
+TRAIN_SHAPES = [(8, 2048, 16, 128), (2, 2047, 16, 128), (2, 2048, 16, 64)]
+K8_SIZES = [24 * 2048 * 5504, 1_000_003]      # w_gate; no multiple of 4
+
 K1_LENS = [1, 64, 65, 2048, 300, 1000, 1500, 777]
 # (M, K, N): decode w_gate, w_down and lm_head at batch 8, a prefill wave
 K3_SHAPES = [(8, 4096, 11008), (8, 11008, 4096), (8, 4096, 32000),
@@ -111,19 +156,20 @@ def time_ms(torch, fn, flush, reps=25):
     return statistics.median(times)
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, peak_flops=PEAK_BF16_FLOPS):
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name, got, ref):
+def check_close(name, got, ref, tol=None):
     torch = sys.modules["torch"]
+    tol = tol or TOL
     err = float((got.float() - ref.float()).abs().max())
     if not torch.isfinite(got.float()).all():
         fail(f"{name}: non-finite output")
-    if not torch.allclose(got.float(), ref.float(), **TOL):
-        fail(f"{name}: max abs err {err} beyond atol/rtol 2e-2")
+    if not torch.allclose(got.float(), ref.float(), **tol):
+        fail(f"{name}: max abs err {err} beyond atol/rtol {tol}")
     return err
 
 
@@ -266,6 +312,140 @@ def phase_k3(torch, im, shape, gen, flush):
     res = dict(M=M, K=K, N=N, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     emit("k3", **res)
+    return res
+
+
+def phase_k5(torch, rp, shape, gen, flush, timed):
+    """K5 forward and backward (the same kernel with -sin) against the
+    plain rotate-half on the same bf16 x."""
+    B, S, N, d = shape
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    cos, sin = rp.rope_tables(S, d)
+    err = 0.0
+    for neg in (False, True):
+        out = rp._apply(x, cos, sin, neg)
+        ref = rp._composite(x, cos, sin, neg)
+        torch.cuda.synchronize()
+        err = max(err, check_close(f"K5 {shape} neg_sin={neg}", out, ref,
+                                   K5_TOL))
+    res = dict(shape=list(shape), max_abs_err=err)
+    if timed:
+        nbytes = 2 * x.numel() * 2 + 2 * cos.numel() * 4
+        b_ms, b_by = bound(nbytes, 3 * x.numel(), PEAK_F32_FLOPS)
+        res.update(
+            ms=time_ms(torch, lambda: rp._apply(x, cos, sin, False), flush),
+            plain_ms=time_ms(torch, lambda: rp._composite(x, cos, sin, False),
+                             flush),
+            library_ms=None, library="no single call", bound_ms=b_ms,
+            bound_by=b_by)
+    emit("k5", **res)
+    return res
+
+
+def phase_k6(torch, fa, shape, gen, flush, timed):
+    """K6a, K6b and K6c against their plain versions on the same bf16
+    q, k, v and dout, causal.  The backward kernels and their plain versions
+    both start from the forward kernel's out and lse.  -> three results."""
+    import torch.nn.functional as F
+    B, S, H, d = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    out, lse = fa._fwd_kernel(q, k, v, True)
+    ref, ref_lse = fa._fwd_plain(q.float(), k.float(), v.float(), True)
+    torch.cuda.synchronize()
+    err_a = check_close(f"K6a {shape}", out, ref)
+    lse_err = check_close(f"K6a lse {shape}", lse, ref_lse)
+    del ref, ref_lse
+    delta = fa._delta(do, out)
+    dq = fa._bwd_dq_kernel(q, k, v, do, lse, delta, True)
+    dk, dv = fa._bwd_dkv_kernel(q, k, v, do, lse, delta, True)
+    f32 = (q.float(), k.float(), v.float(), do.float(), lse, delta, True)
+    ref_dq = fa._bwd_dq_plain(*f32)
+    torch.cuda.synchronize()
+    err_b = check_close(f"K6b {shape}", dq, ref_dq)
+    del ref_dq
+    ref_dk, ref_dv = fa._bwd_dkv_plain(*f32)
+    torch.cuda.synchronize()
+    err_c = max(check_close(f"K6c dk {shape}", dk, ref_dk),
+                check_close(f"K6c dv {shape}", dv, ref_dv))
+    del ref_dk, ref_dv, f32
+    res = [dict(shape=list(shape), max_abs_err=err_a, lse_max_abs_err=lse_err),
+           dict(shape=list(shape), max_abs_err=err_b),
+           dict(shape=list(shape), max_abs_err=err_c)]
+    if timed:
+        args = (q, k, v, do, lse, delta, True)
+        # yardsticks only: SDPA's forward, and its whole autograd backward
+        # (dq, dk and dv in one call, so K6b and K6c share the reading)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush)
+        dot = do.transpose(1, 2)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True), flush)
+        del lib_out
+        pairs = B * H * S * (S + 1) // 2
+        io = q.numel() * 2                      # one [B, S, H, d] bf16 tensor
+        stat = B * H * S * 4                    # lse or delta
+        for r, ms, plain, lib, nbytes, mults in (
+                (res[0], time_ms(torch, lambda: fa._fwd_kernel(q, k, v, True),
+                                 flush),
+                 time_ms(torch, lambda: fa._fwd_plain(q, k, v, True), flush,
+                         reps=5), lib_fwd, 4 * io + stat, 2),
+                (res[1], time_ms(torch, lambda: fa._bwd_dq_kernel(*args),
+                                 flush),
+                 time_ms(torch, lambda: fa._bwd_dq_plain(*args), flush,
+                         reps=5), lib_bwd, 5 * io + 2 * stat, 3),
+                (res[2], time_ms(torch, lambda: fa._bwd_dkv_kernel(*args),
+                                 flush),
+                 time_ms(torch, lambda: fa._bwd_dkv_plain(*args), flush,
+                         reps=5), lib_bwd, 6 * io + 2 * stat, 4)):
+            b_ms, b_by = bound(nbytes, pairs * mults * 2 * d)
+            r.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                     bound_by=b_by, visible_pairs=pairs)
+        res[1]["library"] = res[2]["library"] = (
+            "SDPA's whole backward: dq, dk and dv in one call")
+    for phase, r in zip(("k6a", "k6b", "k6c"), res):
+        emit(phase, **r)
+    return res
+
+
+def phase_k8(torch, aw, n, gen, flush, timed):
+    """K8 on one leaf of ``n`` elements against its plain version; f32 and
+    bf16 gradients."""
+    hyper = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda")
+    m = 0.1 * torch.randn(n, generator=gen, device="cuda")
+    v = 0.01 * torch.rand(n, generator=gen, device="cuda")
+    err = 0.0
+    for t, grad in ((1, g), (7, g.to(torch.bfloat16))):
+        want = aw.fused_adamw_plain(p, grad, m, v, t, **hyper)
+        got = (p.clone(), m.clone(), v.clone())
+        aw.fused_adamw(got[0], grad, got[1], got[2], t, **hyper)
+        torch.cuda.synchronize()
+        for name, a, b in zip("pmv", got, want):
+            err = max(err, check_close(f"K8 n={n} t={t} {name}", a, b,
+                                       K8_TOL))
+        del want, got
+    res = dict(n=n, max_abs_err=err)
+    if timed:
+        # yardstick only: the library's fused AdamW step on one tensor
+        lp = p.clone().requires_grad_(True)
+        lp.grad = g
+        opt = torch.optim.AdamW([lp], lr=hyper["lr"], betas=(0.9, 0.95),
+                                eps=1e-8, weight_decay=0.1, fused=True)
+        lib_ms = time_ms(torch, opt.step, flush)
+        del opt, lp
+        b_ms, b_by = bound(28 * n, 12 * n, PEAK_F32_FLOPS)
+        res.update(
+            ms=time_ms(torch, lambda: aw.fused_adamw(p, g, m, v, 3, **hyper),
+                       flush),
+            plain_ms=time_ms(torch, lambda: aw.fused_adamw_plain(
+                p, g, m, v, 3, **hyper), flush, reps=5),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    emit("k8", **res)
     return res
 
 
@@ -424,7 +604,12 @@ def patched(*seams):
 COUNTERS = [("paged_decode_attention", "pa", "launches"),
             ("flash_attention_segmented", "fv", "launches"),
             ("int8_matmul", "im", "launches"),
-            ("paged_decode_attention_q8", "pa", "launches_q8")]
+            ("paged_decode_attention_q8", "pa", "launches_q8"),
+            ("fused_rope", "rp", "launches"),
+            ("flash_attention_fwd", "fa", "launches"),
+            ("flash_attention_bwd_dq", "fa", "launches_dq"),
+            ("flash_attention_bwd_dkv", "fa", "launches_dkv"),
+            ("fused_adamw", "aw", "launches")]
 
 
 def zero_counts(mods):
@@ -656,6 +841,143 @@ def phase_serve_int8(torch, cfg, seed, params, mods, dev="cuda"):
     return stats["launches"]
 
 
+def train_launches_per_step(cfg):
+    """What the code launches in one AdamW step under remat full: K8 once
+    per leaf (9 stacked block leaves, embed, final_norm, lm_head); K6a in
+    every layer's forward and again in its recompute; K6b and K6c once per
+    layer; K5 on q and k in the forward, the recompute and the backward."""
+    L = cfg.num_hidden_layers
+    return {"fused_adamw": 12, "flash_attention_fwd": 2 * L,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+            "fused_rope": 2 * L * 3}
+
+
+def phase_train(torch, cfg, seed, mods, card, dev="cuda"):
+    """Four AdamW steps of the whole trainer on one seeded batch; ``card``
+    (the card's name and power limit) goes on the line beside the times."""
+    from paddle_tpu_torch.models.llama_pretrain import (
+        init_adamw_state, init_params, make_train_step)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev, dtype=cfg.param_dtype)
+    state = init_adamw_state(params, device=dev)
+    step = make_train_step(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_TOKENS),
+                           generator=gen, device=dev)
+    n_params = sum(p.numel() for p in params["blocks"].values()) + sum(
+        params[k].numel() for k in ("embed", "final_norm", "lm_head"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zero_counts(mods)
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, loss = step(params, state, tokens)
+        end.record()
+        events.append((start, end))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    steady = statistics.median(step_ms[1:])
+    want = {k: n * TRAIN_STEPS
+            for k, n in train_launches_per_step(cfg).items()}
+    emit("train", model="LLaMA 1.345B (the JAX package's training bench)",
+         card=card, params=n_params, layers=cfg.num_hidden_layers, batch=TRAIN_BATCH,
+         seq=TRAIN_TOKENS - 1, optimizer="adamw", remat="full",
+         loss_chunks=cfg.loss_chunks, steps=TRAIN_STEPS, setup_s=setup_s,
+         losses=losses, step_ms=step_ms, steady_step_ms=steady,
+         tokens_per_s=TRAIN_BATCH * (TRAIN_TOKENS - 1) / steady * 1e3,
+         peak_mem_gb=peak / 2**30, launches=launches,
+         launches_predicted=want)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: a loss is not finite: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"train: the first loss {losses[0]} is not within 1.0 of "
+             f"ln {cfg.vocab_size} = {math.log(cfg.vocab_size)}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall over {TRAIN_STEPS} steps on one "
+             f"batch: {losses}")
+    if state["t"] != TRAIN_STEPS:
+        fail(f"train: the optimizer counts {state['t']} steps")
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"train: kernel {name} was launched {launches[name]} times, "
+                 f"the code predicts {n}")
+    return launches
+
+
+def phase_train_grads(torch, cfg, seed, mods, dev="cuda"):
+    """forward_loss and its gradients at 2 layers and batch 2 through the
+    kernels, through their plain versions, and through the kernels with a
+    planted fault."""
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    rp, fa = mods["rp"], mods["fa"]
+    small = type(cfg)(**dict(TRAIN_CFG, num_hidden_layers=2))
+    params = tlp.init_params(small, seed=seed, device=dev,
+                             dtype=small.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, small.vocab_size, (2, TRAIN_TOKENS),
+                           generator=gen, device=dev)
+    fwd = tlp.make_forward(small)
+
+    def loss_and_grads():
+        live = tlp._map_params(lambda p: p.detach().requires_grad_(True),
+                               params)
+        loss = fwd(live, tokens)
+        grads = torch.autograd.grad(loss, tlp._leaves(live))
+        return float(loss.detach()), grads
+
+    def worst(a, b):
+        """Largest difference of any leaf over that leaf's largest
+        magnitude in ``b``."""
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(a, b))
+
+    t0 = time.perf_counter()
+    zero_counts(mods)
+    loss_k, grads_k = loss_and_grads()
+    used = read_counts(mods)
+    with patched((tlp, "fused_rope",
+                  lambda x, cos, sin: rp._composite(x, cos, sin, False)),
+                 (tlp, "flash_attention",
+                  lambda q, k, v, causal=False: fa.sdpa_plain(q, k, v,
+                                                              causal))):
+        zero_counts(mods)
+        loss_p, grads_p = loss_and_grads()
+        if any(read_counts(mods).values()):
+            fail("train_grads: the plain pass launched a kernel")
+    # planted fault: the RoPE backward rotates with +sin instead of -sin
+    real = rp._apply
+    with patched((rp, "_apply",
+                  lambda x, cos, sin, neg_sin: real(x, cos, sin, False))):
+        _, grads_f = loss_and_grads()
+    torch.cuda.synchronize()
+    diff, fault = worst(grads_k, grads_p), worst(grads_f, grads_p)
+    emit("train_grads", layers=2, batch=2, seq=TRAIN_TOKENS - 1,
+         loss_kernels=loss_k, loss_plain=loss_p,
+         grad_max_rel_diff=diff, grad_limit=GRAD_LIMIT,
+         planted_fault_max_rel_diff=fault, launches=used,
+         check_s=time.perf_counter() - t0)
+    for name in train_launches_per_step(small):
+        if name != "fused_adamw" and used[name] <= 0:
+            fail(f"train_grads: kernel {name} was not launched")
+    if not all(torch.isfinite(g).all() for g in grads_k):
+        fail("train_grads: a gradient is not finite")
+    if diff > GRAD_LIMIT:
+        fail(f"train_grads: the kernels' gradients differ from their plain "
+             f"versions' by {diff} of a leaf's largest (limit {GRAD_LIMIT})")
+    if fault <= GRAD_LIMIT:
+        fail(f"train_grads: the planted fault moved the gradients by only "
+             f"{fault}, within the limit {GRAD_LIMIT}: the check cannot see "
+             f"it")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -664,10 +986,13 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script measures the port on a card)")
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_varlen as fv
+    from paddle_tpu_torch.ops import fused_adamw as aw
     from paddle_tpu_torch.ops import int8_matmul as im
     from paddle_tpu_torch.ops import paged_attention as pa
-    mods = {"pa": pa, "fv": fv, "im": im}
+    from paddle_tpu_torch.ops import rope as rp
+    mods = {"pa": pa, "fv": fv, "im": im, "rp": rp, "fa": fa, "aw": aw}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -683,7 +1008,8 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    names = ["paged_attention", "flash_varlen", "int8_matmul"]
+    names = ["paged_attention", "flash_varlen", "int8_matmul", "rope",
+             "flash_attention", "fused_adamw"]
     t0 = time.perf_counter()
     secs = _build.build(names)
     for name in names:
@@ -698,17 +1024,32 @@ def main():
     k2 = [phase_k2(torch, fv, nkv, gen, flush) for nkv in (32, 8)]
     k3 = [phase_k3(torch, im, shape, gen, flush) for shape in K3_SHAPES]
     k4 = [phase_k4(torch, pa, nkv, gen, flush) for nkv in (32, 8)]
+    k5 = [phase_k5(torch, rp, shape, gen, flush, timed=i == 0)
+          for i, shape in enumerate(TRAIN_SHAPES)]
+    k6 = [phase_k6(torch, fa, shape, gen, flush, timed=i == 0)
+          for i, shape in enumerate(TRAIN_SHAPES)]
+    k8 = [phase_k8(torch, aw, n, gen, flush, timed=i == 0)
+          for i, n in enumerate(K8_SIZES)]
     del flush
+    torch.cuda.empty_cache()
     from paddle_tpu_torch.models.llama_pretrain import LlamaPretrainConfig
     cfg = LlamaPretrainConfig()
     launches, params = phase_serve(torch, cfg, args.seed, mods)
     torch.cuda.empty_cache()             # the bf16 serve's cache is gone
     launches_int8 = phase_serve_int8(torch, cfg, args.seed, params, mods)
-    # each kernel's launches in the two serve phases together
-    launches = {k: launches[k] + launches_int8[k] for k in launches}
+    del params
+    torch.cuda.empty_cache()             # the serves' weights are gone
+    train_cfg = LlamaPretrainConfig(**TRAIN_CFG)
+    launches_train = phase_train(torch, train_cfg, args.seed, mods, card)
+    torch.cuda.empty_cache()
+    phase_train_grads(torch, train_cfg, args.seed, mods)
+    # each kernel's launches in the two serve phases and the train phase
+    launches = {k: launches[k] + launches_int8[k] + launches_train[k]
+                for k in launches}
 
     def entry(name, source, replaces, runs):
-        main_shape = runs[0]   # nkv = 32 (LLaMA-7B); K3: decode w_gate
+        # nkv = 32 (LLaMA-7B); K3: decode w_gate; K5-K8: the trainer's shape
+        main_shape = runs[0]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in runs),
@@ -729,6 +1070,22 @@ def main():
         entry("paged_decode_attention_q8",
               "paddle_tpu_torch/csrc/paged_attention.cu",
               "paddle_tpu/ops/pallas/paged_attention.py:296", k4),
+        entry("fused_rope", "paddle_tpu_torch/csrc/rope.cu",
+              "paddle_tpu/ops/pallas/rope.py:107", k5),
+        entry("flash_attention_fwd",
+              "paddle_tpu_torch/csrc/flash_attention.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:285",
+              [r[0] for r in k6]),
+        entry("flash_attention_bwd_dq",
+              "paddle_tpu_torch/csrc/flash_attention.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:319",
+              [r[1] for r in k6]),
+        entry("flash_attention_bwd_dkv",
+              "paddle_tpu_torch/csrc/flash_attention.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:336",
+              [r[2] for r in k6]),
+        entry("fused_adamw", "paddle_tpu_torch/csrc/fused_adamw.cu",
+              "paddle_tpu/ops/pallas/fused_adamw.py:82", k8),
     ], "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,7 +14,9 @@ torch = pytest.importorskip("torch")
 
 from paddle_tpu_torch.models import llama_pretrain as tlp  # noqa: E402
 from paddle_tpu_torch.models.paged_decode import PagedKVCache  # noqa: E402
-from paddle_tpu_torch.models.weights import params_from_jax  # noqa: E402
+from paddle_tpu_torch.models.weights import (  # noqa: E402
+    opt_state_from_jax, params_from_jax)
+from paddle_tpu_torch.ops.rope import rope_tables  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
@@ -32,8 +34,13 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.models.serving_engine\n"
         "import paddle_tpu_torch.models.weights\n"
         "import paddle_tpu_torch.ops.int8_matmul\n"
+        "import paddle_tpu_torch.ops.rope\n"
+        "import paddle_tpu_torch.ops.flash_attention\n"
+        "import paddle_tpu_torch.ops.fused_adamw\n"
+        "import paddle_tpu_torch.ops.chunked_loss\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
+        "import tools.profile_torch_train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
@@ -47,6 +54,8 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
 def _sources():
     yield ROOT / "chip_smoke.py"
     yield ROOT / "tools" / "profile_torch_decode.py"
+    yield ROOT / "tools" / "profile_torch_train.py"
+    yield ROOT / "tools" / "torch_profile_common.py"
     yield from sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
 
 
@@ -77,6 +86,22 @@ def test_entry_points_without_a_device_and_without_cuda_raise(monkeypatch):
         tlp.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"w": [1.0]})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        opt_state_from_jax({"t": 0, "moments": {"w": [1.0]}})
+    params = tlp.init_params(cfg, device="cpu", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlp.init_adamw_state(params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlp.init_adafactor_state(params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlp.make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rope_tables(4, 8)
+    state = tlp.init_adamw_state(params, device="cpu")
+    assert state["moments"]["embed"]["m"].device.type == "cpu"
+    step = tlp.make_train_step(cfg, device="cpu")
+    _, _, loss = step(params, state, torch.zeros((2, 5), dtype=torch.long))
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
     # asking for the CPU explicitly is the one way to get it
     cache = PagedKVCache(cfg, num_pages=4, pages_max=2, batch=1, page=8,
                          device="cpu")

@@ -2,8 +2,10 @@
 shapes ``chip_smoke.py`` does not reach: other page sizes and head dims, the
 largest GQA group the paged kernels hold, empty rows, int8 pages with a
 slot quantized from an all-zero token, ragged and batched packed streams,
-non-causal attention, the int8 matmul at ragged M, N and K, and the
-wrappers' refusals.
+non-causal attention, the int8 matmul at ragged M, N and K, the training
+kernels (fused RoPE, flash attention forward and backward, fused AdamW) at
+one row, one token, ragged lengths, head_dim 64, non-causal and leaves of 1
+and 129 elements, and the wrappers' refusals.
 
 Every test needs a card and skips without one.  The card machine has no JAX,
 so run this file there without the suite's conftest:
@@ -22,8 +24,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops import flash_varlen as fv  # noqa: E402
+from paddle_tpu_torch.ops import fused_adamw as aw  # noqa: E402
 from paddle_tpu_torch.ops import int8_matmul as im  # noqa: E402
+from paddle_tpu_torch.ops import rope  # noqa: E402
 from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -226,3 +231,119 @@ def test_segmented_kernel_refuses_what_it_cannot_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         fv._seg_fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), k,
                     seg, True)
+
+
+@pytest.mark.parametrize("b,s,n,d,dtype", [
+    (1, 1, 1, 128, torch.bfloat16),
+    (2, 65, 3, 64, torch.bfloat16),       # ragged length, head_dim 64
+    (1, 7, 2, 16, torch.bfloat16),        # the narrowest bf16 head
+    (2, 33, 2, 128, torch.float32),
+])
+def test_fused_rope_kernel_matches_plain_bit_for_bit(gen, b, s, n, d, dtype):
+    """Forward and backward: the kernel rounds each product and sum on
+    its own, as the plain version does."""
+    x = torch.randn((b, s, n, d), generator=gen, device="cuda",
+                    dtype=torch.float32).to(dtype).requires_grad_(True)
+    ct = torch.randn((b, s, n, d), generator=gen, device="cuda",
+                     dtype=torch.float32).to(dtype)
+    cos, sin = rope.rope_tables(s, d)
+    before = rope.launches
+    out = rope.fused_rope(x, cos, sin)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    assert rope.launches == before + 2
+    assert torch.equal(out, rope._composite(x.detach(), cos, sin, False))
+    assert torch.equal(x.grad, rope._composite(ct, cos, sin, True))
+
+
+def test_fused_rope_kernel_refuses_what_it_cannot_take(gen):
+    cos, sin = rope.rope_tables(4, 24)
+    with pytest.raises(ValueError, match="d/2"):         # 12 % 8 != 0
+        rope.fused_rope(_randn(gen, 1, 4, 2, 24), cos, sin)
+    cos, sin = rope.rope_tables(4, 64)
+    with pytest.raises(TypeError):
+        rope.fused_rope(_randn(gen, 1, 4, 2, 64).half(), cos, sin)
+    with pytest.raises(ValueError, match="cos / sin"):
+        rope.fused_rope(_randn(gen, 1, 5, 2, 64), cos, sin)
+    with pytest.raises(ValueError, match="contiguous"):
+        rope.fused_rope(_randn(gen, 1, 2, 4, 64).transpose(1, 2), cos, sin)
+
+
+@pytest.mark.parametrize("b,s,h,d,causal", [
+    (1, 1, 1, 128, True),                 # one token
+    (1, 65, 2, 128, True),                # one row past a tile
+    (2, 200, 3, 64, True),                # ragged, head_dim 64
+    (2, 130, 2, 128, False),              # non-causal, ragged
+    (1, 128, 4, 64, False),
+])
+def test_flash_attention_kernels_match_plain(gen, b, s, h, d, causal):
+    q, k, v, ct = (_randn(gen, b, s, h, d) for _ in range(4))
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, causal)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == tuple(
+        c + 1 for c in before)
+    ref, lse = fa._fwd_plain(q.float(), k.float(), v.float(), causal)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    _, lse_k = fa._fwd_kernel(q, k, v, causal)
+    torch.testing.assert_close(lse_k, lse, **TOL)
+    # the plain backward from the kernel's own saved forward
+    args = (q.float(), k.float(), v.float(), ct.float(), lse_k,
+            fa._delta(ct, out), causal)
+    dq = fa._bwd_dq_plain(*args)
+    dk, dv = fa._bwd_dkv_plain(*args)
+    for name, got, want in (("dq", qg.grad, dq), ("dk", kg.grad, dk),
+                            ("dv", vg.grad, dv)):
+        assert torch.isfinite(got.float()).all(), name
+        torch.testing.assert_close(got.float(), want, **TOL, msg=name)
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_take(gen):
+    q, k = _randn(gen, 1, 8, 2, 128), _randn(gen, 1, 16, 2, 128)
+    with pytest.raises(ValueError, match="q_len == kv_len"):
+        fa.flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="q_len <= kv_len"):
+        fa.flash_attention(k, q, q, causal=True)
+    q96 = _randn(gen, 1, 8, 2, 96)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q96, q96, q96)
+    with pytest.raises(ValueError, match="head counts"):
+        fa.flash_attention(q, _randn(gen, 1, 8, 1, 128),
+                           _randn(gen, 1, 8, 1, 128))
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.float(), q.float(), q.float())
+
+
+@pytest.mark.parametrize("n", [1, 129, 4096 + 3])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 100])
+def test_fused_adamw_kernel_matches_plain(gen, n, g_dtype, t):
+    """A few units in the last place: the compiler may fuse a multiply
+    and an add where the plain version rounds twice."""
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
+    m = 0.1 * torch.randn(n, generator=gen, device="cuda")
+    v = 0.01 * torch.rand(n, generator=gen, device="cuda")
+    hyper = dict(lr=3e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    want = aw.fused_adamw_plain(p, g, m, v, t, **hyper)
+    before = aw.launches
+    out_p, out_mo = aw.fused_adamw(p, g, m, v, t, **hyper)
+    torch.cuda.synchronize()
+    assert aw.launches == before + 1
+    assert out_p is p and out_mo["m"] is m and out_mo["v"] is v
+    for got, ref in zip((p, m, v), want):
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-5)
+
+
+def test_fused_adamw_kernel_refuses_what_it_cannot_take(gen):
+    p = torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError, match="share a shape"):
+        aw.fused_adamw(p, torch.zeros(4, device="cuda"), p.clone(),
+                       p.clone(), 1, 1e-3)
+    with pytest.raises(TypeError):
+        aw.fused_adamw(p.bfloat16(), p.clone(), p.clone(), p.clone(), 1, 1e-3)
+    with pytest.raises(ValueError, match="boundary"):
+        big = torch.zeros(9, device="cuda")
+        aw.fused_adamw(big[1:], p.clone(), p.clone(), p.clone(), 1, 1e-3)

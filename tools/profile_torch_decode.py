@@ -26,11 +26,12 @@ breakdown.  Exits non-zero without a CUDA device.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from tools.torch_profile_common import card_line, device_time  # noqa: E402
 
 
 def _kind(name: str) -> str:
@@ -71,10 +72,7 @@ def main():
     from paddle_tpu_torch.models.serving_engine import (
         ContinuousBatchingEngine)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     cfg = LlamaPretrainConfig()
     page = 64
     new = 2 * args.steps + 4
@@ -105,30 +103,15 @@ def main():
         for _ in range(args.steps):
             eng.step()
         torch.cuda.synchronize()
-    per_name, per_kind = {}, {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.time_range.elapsed_us()
-        n, c = per_name.get(evt.name, (0.0, 0))
-        per_name[evt.name] = (n + us, c + 1)
-        k = _kind(evt.name)
-        per_kind[k] = per_kind.get(k, 0.0) + us
-    busy_ms = sum(per_kind.values()) / 1e3 / args.steps
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
+    busy_ms, by_kind, top = device_time(torch, prof, _kind, args.steps, 12)
     print(json.dumps({
         "card": card, "model": "LLaMA-7B (LlamaPretrainConfig defaults)",
         "weights_and_pages": "int8" if args.int8 else "bf16",
         "batch": args.batch, "ctx": args.ctx, "steps": args.steps,
         "step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
         "device_busy_share": busy_ms / step_ms if step_ms else None,
-        "per_step_ms_by_kind": {k: v / 1e3 / args.steps
-                                for k, v in sorted(per_kind.items(),
-                                                   key=lambda kv: -kv[1])},
-        "top_kernels": [{"name": name[:120],
-                         "ms_per_step": t / 1e3 / args.steps,
-                         "launches_per_step": c / args.steps}
-                        for name, (t, c) in top],
+        "per_step_ms_by_kind": by_kind,
+        "top_kernels": top,
     }), flush=True)
 
 
