@@ -18,6 +18,12 @@ Phases, one JSON line each on stdout:
              trainer's shapes ([8, 2048, 16, 128] bf16, causal; the w_gate
              leaf [24, 2048, 5504]) and at a ragged length, head_dim 64
              and a leaf size no vector divides.
+   k7      - the segmented backward, dq (K7a) and dk / dv (K7b), from K2's
+             lse, at the packed trainer's shape ([8, 2048, 16, 128], rows
+             packed by pack_documents), GQA (32 q heads over 8), T = 2000,
+             head_dim 64, non-causal and many 1-token segments before a -1
+             pad tail; and autograd through flash_attention_segmented
+             against autograd through its plain version.
 4. serve   - LLaMA-7B at full width and depth with random weights from a
              seed behind the port's GenerationServer: concurrent /generate
              requests and one /generate_stream; every reply complete, each
@@ -49,7 +55,24 @@ Phases, one JSON line each on stdout:
              difference of any leaf within GRAD_LIMIT of that leaf's largest
              gradient, a planted fault (the RoPE backward rotating with
              +sin) beyond it.
-8. kernels - one JSON object with an entry per ported kernel.
+8. train_packed - the same trainer on packed rows: four AdamW steps of
+             forward_loss(params, tokens, segment_ids), torch.autograd.grad
+             and adamw_update on one batch of 8 x 2049 tokens whose rows
+             pack_documents (paddle_tpu_torch/models/packing.py) fills
+             with documents of 32-2049 tokens, an unsourced placeholder mix
+             (the plain loss head, as JAX takes with segment ids).  Loss checks
+             as in train; K2, K7a, K7b, K5 and K8 launched as often as the
+             code predicts, K6a-c never.
+9. train_packed_grads - 2 layers, batch 2, packed: the gradients through
+             the kernels against their plain versions' within GRAD_LIMIT,
+             also at 4 kv heads (group 4), where a planted fault (K7b
+             summing only the first q head of each group) lands beyond it;
+             and each target's loss in the packed rows against its loss in
+             its document run alone: their mean absolute difference within
+             PACKED_TOKEN_LIMIT, a planted fault (K2 given one segment for
+             the whole row) beyond it; the packed mean loss against the
+             documents' token-weighted mean is printed.
+10. kernels - one JSON object with an entry per ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before that line.  Without a CUDA device, or without the package
@@ -67,6 +90,9 @@ import threading
 import time
 
 import numpy as np
+
+from paddle_tpu_torch.models.packing import (
+    documents, pack_documents, packed_step, segment_runs)
 
 # H100 SXM data-sheet peaks (dense): the bound of every kernel line
 PEAK_BF16_FLOPS = 989e12
@@ -127,6 +153,30 @@ K3_SHAPES = [(8, 4096, 11008), (8, 11008, 4096), (8, 4096, 32000),
              (2048, 4096, 11008)]
 K2_SEGMENTS = [700, 64, 1, 900, 300]   # + sentinel padding up to T
 K2_T = 2048
+# K7 cases (name, B, T, q heads, kv heads, head_dim, causal, layout): the
+# packed trainer's attention, GQA, a ragged length, head_dim 64, non-causal,
+# and 1,000 one-token segments + a 600-token document + a -1 pad tail.  The
+# first two are timed.
+K7_CASES = [("trainer", 8, 2048, 16, 16, 128, True, "packed"),
+            ("gqa", 2, 2048, 32, 8, 128, True, "packed"),
+            ("ragged", 2, 2000, 16, 16, 128, True, "packed"),
+            ("d64", 2, 2048, 16, 16, 64, True, "packed"),
+            ("noncausal", 2, 2048, 16, 16, 128, False, "packed"),
+            ("ones_pad", 2, 2048, 16, 16, 128, True, "ones_pad")]
+# JAX's packed-pretraining invariant: each target's loss in the packed rows
+# equals its loss in its document run alone, so the packed loss is the
+# token-weighted mean of the documents' losses.  Both sides compute in bf16
+# through other kernels (K2 on the packed rows, K6a on a document alone) and
+# other matmul shapes.  PACKED_TOKEN_LIMIT bounds the mean absolute
+# difference of the targets' losses: set above the sound runs' largest and
+# below a planted fault's (K2 given one segment for the whole row, so
+# attention crosses every document boundary), which the run also measures.
+# On an H100 at seeds 0, 1 and 2 the sound difference was 0.00940, 0.00944
+# and 0.00953 and the planted fault's 0.758, 0.940 and 0.917.  The
+# difference of the two mean losses is printed, not gated: the fault moves
+# each target's loss up or down, so the mean's shift rests on how the signs
+# fall (sound 2.7e-4, 1.0e-4, 1.9e-4; fault 0.0120, 0.0132, 0.0063).
+PACKED_TOKEN_LIMIT = 0.05
 
 
 def emit(phase, **fields):
@@ -411,6 +461,96 @@ def phase_k6(torch, fa, shape, gen, flush, timed):
     return res
 
 
+def k7_segments(layout, B, T, seed):
+    """Segment ids [B, T] of a K7 case: the trunk's ids of packed rows
+    (``pack_documents`` over T + 1 tokens, the last column dropped as
+    forward_loss drops it), or 1,000 one-token segments, a 600-token
+    document and a -1 pad tail."""
+    if layout == "packed":
+        return pack_documents(seed, B, T + 1)[:, :-1].copy()
+    seg = np.full((B, T), -1, np.int32)
+    seg[:, :1000] = np.arange(1000, dtype=np.int32)
+    seg[:, 1000:1600] = 1000
+    return seg
+
+
+def phase_k7(torch, fv, fa, case, seed, gen, flush, timed):
+    """K7a and K7b against their plain versions on the same bf16 q, k, v,
+    dout and K2's lse; for the GQA case also autograd through
+    flash_attention_segmented against autograd through its plain version.
+    -> (dq result, dk / dv result)."""
+    import torch.nn.functional as F
+    name, B, T, n, nkv, d, causal, layout = case
+    seg_np = k7_segments(layout, B, T, seed)
+    seg = torch.from_numpy(seg_np).cuda()
+    q, do = (torch.randn((B, T, n, d), generator=gen, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, T, nkv, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    out, lse = fv._seg_fwd(q, k, v, seg, causal)
+    delta = fa._delta(do, out)
+    ranges = fv._tile_ranges(seg)
+    args = (q, k, v, seg, do, lse, delta, ranges, causal)
+    dq = fv._seg_bwd_dq_kernel(*args)
+    dk, dv = fv._seg_bwd_dkv_kernel(*args)
+    plain = (q, k, v, seg, do, lse, delta, causal)
+    f32 = (q.float(), k.float(), v.float(), seg, do.float(), lse, delta,
+           causal)
+    ref_dq = fv._seg_bwd_dq_plain(*f32)
+    torch.cuda.synchronize()
+    err_a = check_close(f"K7a {name}", dq, ref_dq)
+    del ref_dq
+    ref_dk, ref_dv = fv._seg_bwd_dkv_plain(*f32)
+    torch.cuda.synchronize()
+    err_b = max(check_close(f"K7b dk {name}", dk, ref_dk),
+                check_close(f"K7b dv {name}", dv, ref_dv))
+    del ref_dk, ref_dv, f32
+    shape = dict(B=B, T=T, n=n, nkv=nkv, d=d, causal=causal, layout=layout)
+    res = [dict(case=name, max_abs_err=err_a, **shape),
+           dict(case=name, max_abs_err=err_b, **shape)]
+    if name == "gqa":
+        # the autograd path end to end: K2, then K7a and K7b
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fv.flash_attention_segmented(*leaves, seg, causal).backward(do)
+        ref = [x.float().requires_grad_(True) for x in (q, k, v)]
+        fv.segmented_sdpa_plain(*ref, seg, causal).backward(do.float())
+        torch.cuda.synchronize()
+        res[0]["autograd_max_abs_err"] = max(
+            check_close(f"K7 autograd d{w} {name}", a.grad, b.grad)
+            for w, a, b in zip("qkv", leaves, ref))
+        del leaves, ref
+    if timed:
+        # yardstick only: the whole autograd backward (dq, dk and dv in one
+        # call) of SDPA with the block-diagonal boolean mask
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=fv._seg_vis(seg, causal),
+            enable_gqa=nkv != n)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+            flush)
+        del lib_out, qt, kt, vt
+        runs = segment_runs(seg_np)
+        pairs = int(sum(L * (L + 1) // 2 if causal else L * L for L in runs))
+        io_q, io_k = q.numel() * 2, k.numel() * 2
+        rest = 2 * B * n * T * 4 + B * T * 4           # lse, delta; seg
+        for r, fn, pfn, nbytes, mults in (
+                (res[0], fv._seg_bwd_dq_kernel, fv._seg_bwd_dq_plain,
+                 3 * io_q + 2 * io_k + rest, 6),
+                (res[1], fv._seg_bwd_dkv_kernel, fv._seg_bwd_dkv_plain,
+                 2 * io_q + 4 * io_k + rest, 8)):
+            b_ms, b_by = bound(nbytes, pairs * n * mults * d)
+            r.update(ms=time_ms(torch, lambda: fn(*args), flush),
+                     plain_ms=time_ms(torch, lambda: pfn(*plain), flush,
+                                      reps=5),
+                     library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by,
+                     visible_pairs=pairs, documents=documents(seg_np),
+                     library="SDPA's whole backward: dq, dk, dv in one call")
+    emit("k7", dq=res[0], dkv=res[1])
+    return res
+
+
 def phase_k8(torch, aw, n, gen, flush, timed):
     """K8 on one leaf of ``n`` elements against its plain version; f32 and
     bf16 gradients."""
@@ -609,7 +749,9 @@ COUNTERS = [("paged_decode_attention", "pa", "launches"),
             ("flash_attention_fwd", "fa", "launches"),
             ("flash_attention_bwd_dq", "fa", "launches_dq"),
             ("flash_attention_bwd_dkv", "fa", "launches_dkv"),
-            ("fused_adamw", "aw", "launches")]
+            ("fused_adamw", "aw", "launches"),
+            ("flash_attention_segmented_bwd_dq", "fv", "launches_bwd_dq"),
+            ("flash_attention_segmented_bwd_dkv", "fv", "launches_bwd_dkv")]
 
 
 def zero_counts(mods):
@@ -912,6 +1054,241 @@ def phase_train(torch, cfg, seed, mods, card, dev="cuda"):
     return launches
 
 
+def train_packed_launches_per_step(cfg):
+    """What the code launches in one packed AdamW step under remat full:
+    K2 in every layer's forward and its recompute, K7a and K7b once per
+    layer, K5 and K8 as in the unpacked step, and none of K6a-c (the packed
+    path never takes the unsegmented attention)."""
+    L = cfg.num_hidden_layers
+    return {"fused_adamw": 12, "flash_attention_segmented": 2 * L,
+            "flash_attention_segmented_bwd_dq": L,
+            "flash_attention_segmented_bwd_dkv": L, "fused_rope": 2 * L * 3,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+
+
+def phase_train_packed(torch, cfg, seed, mods, card, dev="cuda"):
+    """Four AdamW steps of the whole trainer on one seeded packed batch."""
+    import warnings
+    from paddle_tpu_torch.models.llama_pretrain import (
+        _packed_targets, init_adamw_state, init_params, make_forward)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev, dtype=cfg.param_dtype)
+    state = init_adamw_state(params, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_TOKENS),
+                           generator=gen, device=dev)
+    seg_np = pack_documents(seed, TRAIN_BATCH, TRAIN_TOKENS)
+    seg = torch.from_numpy(seg_np).to(dev)
+    valid = int(_packed_targets(seg)[1].sum())
+    step = packed_step(make_forward(cfg), tokens, seg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    zero_counts(mods)
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        for _ in range(TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, loss = step(params, state)
+            end.record()
+            events.append((start, end))
+            losses.append(loss)
+        torch.cuda.synchronize()
+    launches = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    steady = statistics.median(step_ms[1:])
+    want = {k: n * TRAIN_STEPS
+            for k, n in train_packed_launches_per_step(cfg).items()}
+    emit("train_packed",
+         model="LLaMA 1.345B (the JAX package's training bench), packed",
+         card=card, layers=cfg.num_hidden_layers, batch=TRAIN_BATCH,
+         seq=TRAIN_TOKENS - 1, documents=documents(seg_np),
+         pad_tokens=int((seg_np < 0).sum()), valid_targets=valid,
+         optimizer="adamw", remat="full", loss_head="plain (segment ids)",
+         plain_head_warnings=sum("unchunked loss head" in str(w.message)
+                                 for w in warned),
+         steps=TRAIN_STEPS, setup_s=setup_s, losses=losses, step_ms=step_ms,
+         steady_step_ms=steady,
+         tokens_per_s=TRAIN_BATCH * (TRAIN_TOKENS - 1) / steady * 1e3,
+         valid_tokens_per_s=valid / steady * 1e3,
+         peak_mem_gb=peak / 2**30, launches=launches,
+         launches_predicted=want)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_packed: a loss is not finite: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"train_packed: the first loss {losses[0]} is not within 1.0 "
+             f"of ln {cfg.vocab_size} = {math.log(cfg.vocab_size)}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_packed: the loss did not fall over {TRAIN_STEPS} steps "
+             f"on one batch: {losses}")
+    if state["t"] != TRAIN_STEPS:
+        fail(f"train_packed: the optimizer counts {state['t']} steps")
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"train_packed: kernel {name} was launched {launches[name]} "
+                 f"times, the code predicts {n}")
+    return launches
+
+
+def phase_train_packed_grads(torch, cfg, seed, mods, dev="cuda"):
+    """The packed forward_loss and its gradients at 2 layers and batch 2
+    through the kernels and through their plain versions (also at 4 kv
+    heads, with a planted K7b fault there), and the packed loss against the
+    documents run alone."""
+    import warnings
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    rp, fv = mods["rp"], mods["fv"]
+    seg_np = pack_documents(seed + 1, 2, TRAIN_TOKENS)
+    seg = torch.from_numpy(seg_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, TRAIN_TOKENS),
+                           generator=gen, device=dev)
+    plain = ((tlp, "fused_rope",
+              lambda x, cos, sin: rp._composite(x, cos, sin, False)),
+             (tlp, "flash_attention_segmented",
+              lambda q, k, v, seg, causal=False: fv.segmented_sdpa_plain(
+                  q, k, v, seg, causal)))
+    real = fv._seg_bwd_dkv_kernel
+
+    def first_member_only(q, k, v, seg, dout, lse, delta, ranges, causal):
+        # planted fault: each kv head's dk / dv from its group's first q
+        # head alone
+        g = q.shape[2] // k.shape[2]
+        return real(q[:, :, ::g].contiguous(), k, v, seg,
+                    dout[:, :, ::g].contiguous(), lse[:, ::g].contiguous(),
+                    delta[:, ::g].contiguous(), ranges, causal)
+
+    def worst(a, b):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(a, b))
+
+    t0 = time.perf_counter()
+    res = {}
+    for name, nkv in (("mha", cfg.num_key_value_heads), ("gqa", 4)):
+        small = type(cfg)(**dict(TRAIN_CFG, num_hidden_layers=2,
+                                 num_key_value_heads=nkv))
+        params = tlp.init_params(small, seed=seed, device=dev,
+                                 dtype=small.param_dtype)
+        fwd = tlp.make_forward(small)
+
+        def loss_and_grads():
+            live = tlp._map_params(
+                lambda p: p.detach().requires_grad_(True), params)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")    # the plain loss head
+                loss = fwd(live, tokens, seg)
+            grads = torch.autograd.grad(loss, tlp._leaves(live))
+            return float(loss.detach()), grads
+
+        zero_counts(mods)
+        loss_k, grads_k = loss_and_grads()
+        used = read_counts(mods)
+        with patched(*plain):
+            zero_counts(mods)
+            loss_p, grads_p = loss_and_grads()
+            if any(read_counts(mods).values()):
+                fail("train_packed_grads: the plain pass launched a kernel")
+        for kernel in ("flash_attention_segmented",
+                       "flash_attention_segmented_bwd_dq",
+                       "flash_attention_segmented_bwd_dkv", "fused_rope"):
+            if used[kernel] <= 0:
+                fail(f"train_packed_grads: kernel {kernel} was not launched")
+        if not all(torch.isfinite(g).all() for g in grads_k):
+            fail("train_packed_grads: a gradient is not finite")
+        res[name] = dict(kv_heads=nkv, loss_kernels=loss_k,
+                         loss_plain=loss_p,
+                         grad_max_rel_diff=worst(grads_k, grads_p))
+        if name == "gqa":
+            with patched((fv, "_seg_bwd_dkv_kernel", first_member_only)):
+                _, grads_f = loss_and_grads()
+            res[name]["planted_fault_max_rel_diff"] = worst(grads_f, grads_p)
+        else:
+            mha_params, mha_fwd = params, fwd
+        del grads_k, grads_p
+    torch.cuda.synchronize()
+
+    # JAX's invariant: each target's loss in the packed rows is its loss in
+    # its document run alone (here through the unsegmented kernels), and the
+    # packed loss the documents' token-weighted mean.  The planted fault
+    # gives K2 one segment for the whole row.
+    alone = tlp.make_forward(type(cfg)(**dict(TRAIN_CFG, num_hidden_layers=2,
+                                              loss_chunks=0)))
+    head = tlp._plain_loss
+
+    def target_losses(fwd, toks, *seg_arg):
+        """forward_loss, and each target's loss [B, S - 1] f32 from the
+        loss head's input."""
+        seen = []
+
+        def spy(x, lm_head, targets, dt, valid=None):
+            logits = tlp._mm(x, lm_head, dt).float()
+            seen.append(-torch.log_softmax(logits, -1).gather(
+                -1, targets[..., None])[..., 0])
+            return head(x, lm_head, targets, dt, valid)
+
+        with torch.no_grad(), patched((tlp, "_plain_loss", spy)), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")        # the plain loss head
+            loss = fwd(mha_params, toks, *seg_arg)
+        return float(loss), seen[0]
+
+    def one_segment(q, k, v, seg, causal=False):
+        return fv.flash_attention_segmented(q, k, v, torch.zeros_like(seg),
+                                            causal)
+
+    packed_loss, packed = target_losses(mha_fwd, tokens, seg)
+    with patched((tlp, "flash_attention_segmented", one_segment)):
+        fault_loss, fault = target_losses(mha_fwd, tokens, seg)
+    separate = torch.zeros_like(packed)
+    total = weight = 0.0
+    for row in range(seg_np.shape[0]):
+        for doc in np.unique(seg_np[row][seg_np[row] >= 0]):
+            cols = np.flatnonzero(seg_np[row] == doc)
+            if len(cols) < 2:
+                continue                   # a document of one token: no target
+            loss, per_target = target_losses(
+                alone, tokens[row, cols[0]:cols[-1] + 1][None])
+            separate[row, cols[0]:cols[-1]] = per_target[0]
+            total += loss * (len(cols) - 1)
+            weight += len(cols) - 1
+    separate_loss = total / weight
+    valid = tlp._packed_targets(seg)[1].bool()
+    token_diff = float((packed - separate)[valid].abs().mean())
+    fault_token_diff = float((fault - separate)[valid].abs().mean())
+    emit("train_packed_grads", layers=2, batch=2, seq=TRAIN_TOKENS - 1,
+         documents=documents(seg_np), **res, grad_limit=GRAD_LIMIT,
+         packed_loss=packed_loss, documents_alone_loss=separate_loss,
+         loss_diff=abs(packed_loss - separate_loss),
+         planted_fault_loss_diff=abs(fault_loss - separate_loss),
+         target_loss_mean_abs_diff=token_diff,
+         planted_fault_target_loss_mean_abs_diff=fault_token_diff,
+         packed_token_limit=PACKED_TOKEN_LIMIT,
+         check_s=time.perf_counter() - t0)
+    for name, r in res.items():
+        if r["grad_max_rel_diff"] > GRAD_LIMIT:
+            fail(f"train_packed_grads ({name}): the kernels' gradients differ "
+                 f"from their plain versions' by {r['grad_max_rel_diff']} of "
+                 f"a leaf's largest (limit {GRAD_LIMIT})")
+    if res["gqa"]["planted_fault_max_rel_diff"] <= GRAD_LIMIT:
+        fail(f"train_packed_grads: the planted K7b fault moved the gradients "
+             f"by only {res['gqa']['planted_fault_max_rel_diff']}, within the "
+             f"limit {GRAD_LIMIT}: the check cannot see it")
+    if token_diff > PACKED_TOKEN_LIMIT:
+        fail(f"train_packed_grads: the targets' losses in the packed rows "
+             f"differ from the documents' run alone by {token_diff} on "
+             f"average (limit {PACKED_TOKEN_LIMIT})")
+    if fault_token_diff <= PACKED_TOKEN_LIMIT:
+        fail(f"train_packed_grads: attention across documents moved the "
+             f"targets' losses by only {fault_token_diff} on average, within "
+             f"the limit {PACKED_TOKEN_LIMIT}: the check cannot see it")
+
+
 def phase_train_grads(torch, cfg, seed, mods, dev="cuda"):
     """forward_loss and its gradients at 2 layers and batch 2 through the
     kernels, through their plain versions, and through the kernels with a
@@ -1009,7 +1386,7 @@ def main():
          cuda=torch.version.cuda)
 
     names = ["paged_attention", "flash_varlen", "int8_matmul", "rope",
-             "flash_attention", "fused_adamw"]
+             "flash_attention", "fused_adamw", "flash_varlen_bwd"]
     t0 = time.perf_counter()
     secs = _build.build(names)
     for name in names:
@@ -1030,6 +1407,8 @@ def main():
           for i, shape in enumerate(TRAIN_SHAPES)]
     k8 = [phase_k8(torch, aw, n, gen, flush, timed=i == 0)
           for i, n in enumerate(K8_SIZES)]
+    k7 = [phase_k7(torch, fv, fa, case, args.seed, gen, flush, timed=i < 2)
+          for i, case in enumerate(K7_CASES)]
     del flush
     torch.cuda.empty_cache()
     from paddle_tpu_torch.models.llama_pretrain import LlamaPretrainConfig
@@ -1043,12 +1422,18 @@ def main():
     launches_train = phase_train(torch, train_cfg, args.seed, mods, card)
     torch.cuda.empty_cache()
     phase_train_grads(torch, train_cfg, args.seed, mods)
-    # each kernel's launches in the two serve phases and the train phase
+    torch.cuda.empty_cache()
+    launches_packed = phase_train_packed(torch, train_cfg, args.seed, mods,
+                                         card)
+    torch.cuda.empty_cache()
+    phase_train_packed_grads(torch, train_cfg, args.seed, mods)
+    # each kernel's launches in the serve, train and train_packed phases
     launches = {k: launches[k] + launches_int8[k] + launches_train[k]
-                for k in launches}
+                + launches_packed[k] for k in launches}
 
     def entry(name, source, replaces, runs):
-        # nkv = 32 (LLaMA-7B); K3: decode w_gate; K5-K8: the trainer's shape
+        # nkv = 32 (LLaMA-7B); K3: decode w_gate; K5-K8: the trainer's shape,
+        # K7 the packed trainer's
         main_shape = runs[0]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
@@ -1086,6 +1471,14 @@ def main():
               [r[2] for r in k6]),
         entry("fused_adamw", "paddle_tpu_torch/csrc/fused_adamw.cu",
               "paddle_tpu/ops/pallas/fused_adamw.py:82", k8),
+        entry("flash_attention_segmented_bwd_dq",
+              "paddle_tpu_torch/csrc/flash_varlen_bwd.cu",
+              "paddle_tpu/ops/pallas/flash_varlen.py:399",
+              [r[0] for r in k7]),
+        entry("flash_attention_segmented_bwd_dkv",
+              "paddle_tpu_torch/csrc/flash_varlen_bwd.cu",
+              "paddle_tpu/ops/pallas/flash_varlen.py:438",
+              [r[1] for r in k7]),
     ], "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

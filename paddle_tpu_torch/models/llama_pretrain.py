@@ -10,12 +10,14 @@ seeded ``torch.Generator`` on the device, no mesh), :func:`_rms_norm`
 device: :func:`_rope` (the fused RoPE kernel), :func:`_attention` (the
 flash attention kernels, or the composite), the block forward under the
 ``full`` / ``flash`` rematerialisation policies, :func:`make_forward`
-(``forward_loss`` with the plain or the chunked loss head),
-:func:`adamw_update` (the fused AdamW kernel for f32 moments),
-:func:`adafactor_update` and :func:`make_train_step`.  Not ported yet (each
-raises ``NotImplementedError`` where asked for): the mesh and its parallel
-forms, ``segment_ids`` (packed pretraining), context parallelism and JAX's
-``dots`` / ``names`` / ``cheap`` checkpoint policies.
+(``forward_loss`` with the plain or the chunked loss head, and packed
+pretraining: ``segment_ids`` keep attention within each document through
+the segmented flash attention kernels and mask the boundary and padding
+targets of the loss), :func:`adamw_update` (the fused AdamW kernel for f32
+moments), :func:`adafactor_update` and :func:`make_train_step`.  Not ported
+yet (each raises ``NotImplementedError`` where asked for): the mesh and its
+parallel forms, context parallelism and JAX's ``dots`` / ``names`` /
+``cheap`` checkpoint policies.
 
 Params are a plain dict in the JAX tree's layout: ``embed [V, h]``,
 ``blocks`` (each entry stacked ``[L, ...]``), ``final_norm [h]``,
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
@@ -39,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops.chunked_loss import chunked_softmax_cross_entropy
 from ..ops.flash_attention import flash_attention
+from ..ops.flash_varlen import flash_attention_segmented, segmented_sdpa_plain
 from ..ops.fused_adamw import fused_adamw
 from ..ops.int8_matmul import int8_matmul
 from ..ops.rope import fused_rope, rope_tables
@@ -206,11 +210,20 @@ def _rope(q, k, theta):
     return rot(q), rot(k)
 
 
-def _attention(q, k, v, cfg: LlamaPretrainConfig):
+def _attention(q, k, v, cfg: LlamaPretrainConfig, seg=None):
     """Causal attention [b, s, n, d]: the flash attention kernels, or the
     composite when ``cfg.use_pallas_attention`` is off.  Both take full
     heads, so K and V are repeated up to the q heads first, as JAX does on
-    these branches."""
+    these branches.  ``seg`` [b, s] int32 (packed pretraining): attention
+    within each segment through the segmented kernels, or their plain
+    version when ``cfg.use_pallas_attention`` is off; both take K and V at
+    their kv heads (GQA-native, nothing repeated)."""
+    if seg is not None:
+        if cfg.use_pallas_attention:
+            return flash_attention_segmented(
+                q.contiguous(), k.contiguous(), v.contiguous(), seg,
+                causal=True)
+        return segmented_sdpa_plain(q, k, v, seg, True)
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)
@@ -241,10 +254,12 @@ def _block_pre_attn(bp: Dict[str, Any], x, cfg: LlamaPretrainConfig):
     return q, k, v
 
 
-def _block_forward(bp: Dict[str, Any], x, cfg: LlamaPretrainConfig):
-    """One transformer block; x [b, s, h] in the compute type."""
+def _block_forward(bp: Dict[str, Any], x, cfg: LlamaPretrainConfig,
+                   seg=None):
+    """One transformer block; x [b, s, h] in the compute type, ``seg`` the
+    packed rows' segment ids or None."""
     q, k, v = _block_pre_attn(bp, x, cfg)
-    attn = _attention(q, k, v, cfg)
+    attn = _attention(q, k, v, cfg, seg)
     return _block_post_attn(bp, x, attn, cfg)
 
 
@@ -253,13 +268,13 @@ _CKPT = dict(use_reentrant=False, preserve_rng_state=False)
 
 
 def _block_forward_flash_saved(bp: Dict[str, Any], x,
-                               cfg: LlamaPretrainConfig):
+                               cfg: LlamaPretrainConfig, seg=None):
     """Block forward where only the projections and the FFN are
     rematerialised: the attention call sits outside the two checkpoint
     regions, so its saved q / k / v / out / lse stay for the backward
     instead of the forward kernel running again."""
     q, k, v = checkpoint(_block_pre_attn, bp, x, cfg, **_CKPT)
-    attn = _attention(q, k, v, cfg)
+    attn = _attention(q, k, v, cfg, seg)
     return checkpoint(_block_post_attn, bp, x, attn, cfg, **_CKPT)
 
 
@@ -274,50 +289,84 @@ def _remat_wrap(fwd, cfg: LlamaPretrainConfig):
             f"remat_policy {cfg.remat_policy!r} is a JAX checkpoint policy "
             f"the port does not have yet; use 'full' or 'flash'")
 
-    def full(bp, x, cfg):
-        return checkpoint(fwd, bp, x, cfg, **_CKPT)
+    def full(bp, x, cfg, seg=None):
+        return checkpoint(fwd, bp, x, cfg, seg, **_CKPT)
 
     return full
 
 
-def _trunk_scan(blocks, x, cfg: LlamaPretrainConfig):
+def _trunk_scan(blocks, x, cfg: LlamaPretrainConfig, seg=None):
     """The layer loop over the stacked block params, with remat.  Each
     stacked leaf is unbound once, so its gradient is one stack of the
     layers' gradients."""
     fwd = _remat_wrap(_block_forward, cfg)
     per_layer = {name: w.unbind(0) for name, w in blocks.items()}
     for layer in range(cfg.num_hidden_layers):
-        x = fwd({name: ws[layer] for name, ws in per_layer.items()}, x, cfg)
+        x = fwd({name: ws[layer] for name, ws in per_layer.items()}, x, cfg,
+                seg)
     return x
 
 
 def make_forward(cfg: LlamaPretrainConfig):
-    """Returns ``forward_loss(params, tokens [B, S]) -> loss``: next-token
-    mean NLL of ``tokens[:, 1:]`` given ``tokens[:, :-1]``."""
+    """Returns ``forward_loss(params, tokens [B, S], segment_ids=None) ->
+    loss``: next-token mean NLL of ``tokens[:, 1:]`` given
+    ``tokens[:, :-1]``.
+
+    ``segment_ids`` [B, S] (packed pretraining: documents concatenated
+    along each row, contiguous runs of equal ids, padding -1): attention
+    stays within a document, and the mean runs over the targets of the same
+    document as their input that are not padding, so the last token of a
+    document is not trained to predict the next one's first.  With
+    ``loss_chunks > 1`` it warns and uses the plain head, as JAX does (no
+    masked chunked head exists)."""
     if cfg.context_parallel is not None:
         raise NotImplementedError(
             "context parallelism needs the mesh, which is not ported yet")
     _remat_wrap(_block_forward, cfg)         # an unported policy raises here
 
     def forward_loss(params, tokens, segment_ids=None):
-        if segment_ids is not None:
-            raise NotImplementedError(
-                "packed pretraining (segment_ids) is not ported yet")
         dt = cfg.dtype
         inputs = tokens[:, :-1]
         targets = tokens[:, 1:]
+        seg_in = valid = None
+        if segment_ids is not None:
+            seg_in, valid = _packed_targets(
+                torch.as_tensor(segment_ids, device=tokens.device))
         x = F.embedding(inputs, params["embed"]).to(dt)
-        x = _trunk_scan(params["blocks"], x, cfg)
+        x = _trunk_scan(params["blocks"], x, cfg, seg_in)
         x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-        if cfg.loss_chunks > 1:
+        if cfg.loss_chunks > 1 and seg_in is not None:
+            warnings.warn(
+                "packed segment pretraining uses the unchunked loss head "
+                "(masked chunked CE not implemented); at large vocab this "
+                "materialises full [B,S,V] logits", stacklevel=2)
+        if cfg.loss_chunks > 1 and seg_in is None:
             return chunked_softmax_cross_entropy(
                 x, params["lm_head"], targets, cfg.loss_chunks, dt)
-        logits = _mm(x, params["lm_head"], dt).float()
-        logp = torch.log_softmax(logits, -1)
-        ll = logp.gather(-1, targets[..., None])[..., 0]
-        return -ll.mean()
+        return _plain_loss(x, params["lm_head"], targets, dt, valid)
 
     return forward_loss
+
+
+def _packed_targets(segment_ids):
+    """Packed rows' segment ids [B, S] -> (the trunk's ids
+    ``segment_ids[:, :-1]`` as contiguous int32, the float mask [B, S-1]
+    of the targets that train: in the same document as their input, and
+    not padding (a negative id))."""
+    seg = segment_ids.to(torch.int32)
+    seg_in, seg_tg = seg[:, :-1].contiguous(), seg[:, 1:]
+    return seg_in, ((seg_in == seg_tg) & (seg_tg >= 0)).float()
+
+
+def _plain_loss(x, lm_head, targets, dt, valid=None):
+    """The unchunked loss head: the mean NLL of ``targets`` under the f32
+    log-softmax of ``x @ lm_head``, over the targets where the float mask
+    ``valid`` is 1 when it is given (divided by at least 1)."""
+    logits = _mm(x, lm_head, dt).float()
+    ll = torch.log_softmax(logits, -1).gather(-1, targets[..., None])[..., 0]
+    if valid is None:
+        return -ll.mean()
+    return -(ll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

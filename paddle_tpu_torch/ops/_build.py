@@ -2,9 +2,9 @@
 
 Each ``paddle_tpu_torch/csrc/<name>.cu`` compiles, at first use, into
 ``paddle_tpu_torch/_build/<name>-<hash>.so`` (the directory is listed in
-``.gitignore``).  The hash covers the source and the compiler flags, so an
-edited source rebuilds and an unchanged one loads the library already
-there.  The sources have a plain C interface: no PyTorch headers, so a
+``.gitignore``).  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header
+rebuilds and an unchanged one loads the library already there.  The sources have a plain C interface: no PyTorch headers, so a
 build takes seconds.  Nothing here runs at import time.
 """
 
@@ -48,10 +48,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:

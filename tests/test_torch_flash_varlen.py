@@ -1,8 +1,16 @@
-"""The port's segmented attention (plain version) and block ranges held
-against paddle_tpu's ``xla_segmented_sdpa`` and ``_segment_block_ranges``.
+"""The port's segmented attention held against paddle_tpu's on the CPU:
+the plain forward against ``xla_segmented_sdpa``; the plain backward passes
+(dq; dk and dv at the kv heads) and autograd through
+``flash_attention_segmented`` against ``jax.vjp`` of the JAX
+``flash_attention_segmented`` (its Pallas kernels in interpret mode) and of
+``xla_segmented_sdpa``; ``_segment_block_ranges`` and
+``segment_ids_from_cu_seqlens`` against their JAX originals.
 
 Inputs are made with numpy from a seed and given to both frameworks in
-fp32; tolerance 1e-5 for the attention, exact equality for the ranges.
+fp32.  Tolerances: 1e-5 for the forward; 1e-4 abs + 1e-4 rel for the
+gradients against the Pallas kernels (fp32 sums in another order over up to
+128 keys), 5e-4 abs against ``xla_segmented_sdpa`` (the bound the JAX tests
+hold their own kernels to); exact equality for ids and ranges.
 """
 
 import numpy as np
@@ -10,10 +18,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from paddle_tpu.ops.pallas import flash_varlen as jfv  # noqa: E402
 from paddle_tpu.ops.pallas.flash_varlen import (  # noqa: E402
     _segment_block_ranges as jax_ranges, xla_segmented_sdpa)
+from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops import flash_varlen as fv  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -110,3 +121,124 @@ def test_tile_ranges_cover_every_visible_key(lengths, total):
         for kt in range(lo // bq, hi // bq + 1):
             keys = range(kt * bq, min((kt + 1) * bq, total))
             assert any(s[j] == s[r] and j <= r for r in rows for j in keys)
+
+
+@pytest.mark.parametrize("lengths,total", [([40, 24, 8, 56], 128),
+                                           ([100, 28], 128),
+                                           ([8] * 16, 128),
+                                           ([1, 1, 5], 7)])
+def test_segment_ids_from_cu_seqlens_match_jax(lengths, total):
+    cu = np.cumsum([0] + lengths).astype(np.int32)
+    ref = np.asarray(jfv.segment_ids_from_cu_seqlens(jnp.asarray(cu), total))
+    got = fv.segment_ids_from_cu_seqlens(torch.from_numpy(cu), total)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _packed_rows(lengths, total=128):
+    """Two rows of ids: ``lengths`` (a JAX test layout), and a second
+    layout of other boundaries ending in a -1 pad run."""
+    seg = np.full((2, total), -1, np.int32)
+    for row, lens in enumerate((lengths, [30, 50, 1, 12])):
+        cu = np.cumsum([0] + lens)
+        for i in range(len(lens)):
+            seg[row, cu[i]:cu[i + 1]] = i
+    return seg
+
+
+def _bwd_case(seed, nkv, seg, n=4, d=16):
+    rng = np.random.default_rng(seed)
+    b, s = seg.shape
+    return [rng.standard_normal(shape).astype(np.float32) for shape in
+            ((b, s, n, d), (b, s, nkv, d), (b, s, nkv, d), (b, s, n, d))]
+
+
+def _jax_vjp(fn, q, k, v, do):
+    out, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v)))
+    return [np.asarray(x) for x in (out, *vjp(jnp.asarray(do)))]
+
+
+def _port_autograd(q, k, v, do, seg, causal):
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = fv.flash_attention_segmented(*leaves, torch.from_numpy(seg),
+                                       causal=causal)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    return [x.detach().numpy() for x in (out, *grads)]
+
+
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("lengths,causal,nkv", [
+    ([40, 24, 8, 56], True, 1), ([40, 24, 8, 56], False, 2),
+    ([100, 28], True, 2), ([100, 28], False, 1),
+    ([8] * 16, True, 1), ([8] * 16, False, 2)])
+def test_plain_backward_matches_jax_kernels(lengths, causal, nkv):
+    """dq (K7a's plain version), dk / dv (K7b's, at the kv heads) and
+    autograd through flash_attention_segmented on the CPU against the
+    Pallas kernels' vjp, 4 q heads over ``nkv`` kv heads, two rows of
+    different layouts (the second ending in a -1 pad run)."""
+    seg = _packed_rows(lengths)
+    q, k, v, do = _bwd_case(len(lengths) + nkv, nkv, seg)
+    ref = _jax_vjp(lambda *a: jfv.flash_attention_segmented(
+        *a, jnp.asarray(seg), causal=causal), q, k, v, do)
+
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tseg = torch.from_numpy(seg)
+    out = fv.segmented_sdpa_plain(tq, tk, tv, tseg, causal)
+    scores, vis = fv._seg_scores(tq, tk, tseg, causal)
+    lse = torch.logsumexp(scores.masked_fill(~vis, -1e30), dim=-1)
+    delta = fa._delta(tdo, out)
+    dq = fv._seg_bwd_dq_plain(tq, tk, tv, tseg, tdo, lse, delta, causal)
+    dk, dv = fv._seg_bwd_dkv_plain(tq, tk, tv, tseg, tdo, lse, delta, causal)
+    assert dk.shape == tk.shape and dv.shape == tv.shape
+    for name, got, want in zip(("out", "dq", "dk", "dv"),
+                               (out, dq, dk, dv), ref):
+        np.testing.assert_allclose(got.numpy(), want, **GRAD_TOL,
+                                   err_msg=f"plain {name}")
+    before = (fv.launches, fv.launches_bwd_dq, fv.launches_bwd_dkv)
+    for name, got, want in zip(("out", "dq", "dk", "dv"),
+                               _port_autograd(q, k, v, do, seg, causal), ref):
+        np.testing.assert_allclose(got, want, **GRAD_TOL,
+                                   err_msg=f"autograd {name}")
+    # CPU tensors: no kernel launch
+    assert (fv.launches, fv.launches_bwd_dq, fv.launches_bwd_dkv) == before
+
+
+@pytest.mark.parametrize("nkv", [1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_matches_xla_segmented_sdpa(causal, nkv):
+    seg = _packed_rows([40, 24, 8, 56])
+    q, k, v, do = _bwd_case(7 + nkv, nkv, seg)
+    ref = _jax_vjp(lambda *a: xla_segmented_sdpa(
+        *a, jnp.asarray(seg), causal), q, k, v, do)
+    for name, got, want in zip(("out", "dq", "dk", "dv"),
+                               _port_autograd(q, k, v, do, seg, causal), ref):
+        np.testing.assert_allclose(got, want, atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lengths,total", [([70, 1, 40], 130),
+                                           ([64, 64], 128),
+                                           ([3] * 50, 150)])
+def test_tile_ranges_cover_every_query_of_a_key_tile(lengths, total, causal):
+    """The dk / dv kernel's q range of each k tile, from the same ranges:
+    [max(lo, tile start if causal), min(hi, T - 1)] holds every q row that
+    sees a key of the tile, and no q tile wholly blind to it."""
+    seg = _seg(lengths, total)
+    qmin, qmax = fv._tile_ranges(torch.from_numpy(seg))
+    bk = fv.BLOCK_ROWS
+    s = seg[0]
+    for t in range(qmin.shape[1]):
+        keys = np.arange(t * bk, min((t + 1) * bk, total))
+        lo = int(qmin[0, t])
+        if causal:
+            lo = max(lo, t * bk)
+        hi = min(int(qmax[0, t]), total - 1)
+        seen = [r for j in keys for r in range(total)
+                if s[r] == s[j] and (not causal or j <= r)]
+        assert lo <= min(seen) and max(seen) <= hi
+        for qt in range(lo // bk, hi // bk + 1):
+            rows = range(qt * bk, min((qt + 1) * bk, total))
+            assert any(s[r] == s[j] and (not causal or j <= r)
+                       for r in rows for j in keys)

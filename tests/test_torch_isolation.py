@@ -33,6 +33,7 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.models.serving_engine\n"
         "import paddle_tpu_torch.models.weights\n"
+        "import paddle_tpu_torch.models.packing\n"
         "import paddle_tpu_torch.ops.int8_matmul\n"
         "import paddle_tpu_torch.ops.rope\n"
         "import paddle_tpu_torch.ops.flash_attention\n"

@@ -5,7 +5,10 @@ slot quantized from an all-zero token, ragged and batched packed streams,
 non-causal attention, the int8 matmul at ragged M, N and K, the training
 kernels (fused RoPE, flash attention forward and backward, fused AdamW) at
 one row, one token, ragged lengths, head_dim 64, non-causal and leaves of 1
-and 129 elements, and the wrappers' refusals.
+and 129 elements, the segmented backward (dq; dk and dv) at one token,
+lengths on either side of a tile, one segment filling a row, all 1-token
+segments, a GQA group of 8, head_dim 64 non-causal and a -1 pad tail, run
+twice for bit-identical results, and the wrappers' refusals.
 
 Every test needs a card and skips without one.  The card machine has no JAX,
 so run this file there without the suite's conftest:
@@ -176,10 +179,12 @@ def test_int8_matmul_kernel_refuses_what_it_cannot_take(gen):
         im.int8_matmul(x, qd["q"].t().contiguous().t(), qd["s"])
 
 
-def _segments(rows, T):
+def _segments(rows, T, pad=None):
+    """Runs of ids 0.. per row, then ``pad`` (default: a sentinel id of
+    the row's own) up to T."""
     seg = torch.empty((len(rows), T), dtype=torch.int32)
     for b, lengths in enumerate(rows):
-        seg[b] = len(lengths)                 # sentinel tail
+        seg[b] = len(lengths) if pad is None else pad
         at = 0
         for i, L in enumerate(lengths):
             seg[b, at:at + L] = i
@@ -347,3 +352,98 @@ def test_fused_adamw_kernel_refuses_what_it_cannot_take(gen):
     with pytest.raises(ValueError, match="boundary"):
         big = torch.zeros(9, device="cuda")
         aw.fused_adamw(big[1:], p.clone(), p.clone(), p.clone(), 1, 1e-3)
+
+
+def _seg_bwd_case(gen, T, n, nkv, d, rows, causal, pad=None):
+    B = len(rows)
+    q, do = _randn(gen, B, T, n, d), _randn(gen, B, T, n, d)
+    k, v = _randn(gen, B, T, nkv, d), _randn(gen, B, T, nkv, d)
+    seg = _segments(rows, T, pad)
+    out, lse = fv._seg_fwd(q, k, v, seg, causal)
+    return q, k, v, do, seg, lse, fa._delta(do, out)
+
+
+SEG_BWD_CASES = [
+    (1, 2, 2, 128, [[1]], True, None),                   # one token
+    (63, 4, 2, 128, [[20, 43]], True, None),             # one short tile
+    (65, 4, 4, 128, [[64, 1]], True, None),              # one row past a tile
+    (130, 4, 4, 128, [[130], [100]], True, None),        # a row-filling segment
+    (96, 2, 1, 128, [[1] * 96], True, None),             # all 1-token segments
+    (200, 16, 2, 128, [[50, 1, 149], [77, 60]], True, None),   # group of 8
+    (150, 4, 2, 64, [[40, 60, 50]], False, None),        # d=64, non-causal
+    (160, 4, 2, 128, [[30, 50], [1] * 40], True, -1),    # -1 pad tails
+]
+
+
+@pytest.mark.parametrize("T,n,nkv,d,rows,causal,pad", SEG_BWD_CASES)
+def test_segmented_backward_kernels_match_plain(gen, T, n, nkv, d, rows,
+                                                causal, pad):
+    q, k, v, do, seg, lse, delta = _seg_bwd_case(gen, T, n, nkv, d, rows,
+                                                 causal, pad)
+    ranges = fv._tile_ranges(seg)
+    before = (fv.launches_bwd_dq, fv.launches_bwd_dkv)
+    dq = fv._seg_bwd_dq_kernel(q, k, v, seg, do, lse, delta, ranges, causal)
+    dk, dv = fv._seg_bwd_dkv_kernel(q, k, v, seg, do, lse, delta, ranges,
+                                    causal)
+    torch.cuda.synchronize()
+    assert (fv.launches_bwd_dq, fv.launches_bwd_dkv) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert dk.shape == k.shape and dv.shape == v.shape
+    args = (q.float(), k.float(), v.float(), seg, do.float(), lse, delta,
+            causal)
+    want_dk, want_dv = fv._seg_bwd_dkv_plain(*args)
+    for name, got, want in (("dq", dq, fv._seg_bwd_dq_plain(*args)),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert torch.isfinite(got.float()).all(), name
+        torch.testing.assert_close(got.float(), want, **TOL, msg=name)
+
+
+def test_segmented_attention_autograd_matches_plain_autograd(gen):
+    """flash_attention_segmented(...).backward launches K2, K7a and K7b
+    once each and agrees with autograd through the plain version."""
+    T, n, nkv, d = 190, 8, 2, 128
+    q, do = _randn(gen, 2, T, n, d), _randn(gen, 2, T, n, d)
+    k, v = _randn(gen, 2, T, nkv, d), _randn(gen, 2, T, nkv, d)
+    seg = _segments([[70, 1, 100], [33, 33]], T, pad=-1)
+    before = (fv.launches, fv.launches_bwd_dq, fv.launches_bwd_dkv)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fv.flash_attention_segmented(*leaves, seg, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert (fv.launches, fv.launches_bwd_dq, fv.launches_bwd_dkv) == tuple(
+        c + 1 for c in before)
+    ref = [x.float().requires_grad_(True) for x in (q, k, v)]
+    fv.segmented_sdpa_plain(*ref, seg, True).backward(do.float())
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, ref):
+        assert got.grad.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.grad.float(), want.grad, **TOL,
+                                   msg=name)
+
+
+def test_segmented_backward_kernels_are_deterministic(gen):
+    """No atomics: two runs give the same bits (a GQA group of 4)."""
+    q, k, v, do, seg, lse, delta = _seg_bwd_case(
+        gen, 300, 8, 2, 128, [[100, 7, 150], [300]], True)
+    ranges = fv._tile_ranges(seg)
+    runs = [(fv._seg_bwd_dq_kernel(q, k, v, seg, do, lse, delta, ranges,
+                                   True),
+             *fv._seg_bwd_dkv_kernel(q, k, v, seg, do, lse, delta, ranges,
+                                     True)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+def test_segmented_backward_kernels_refuse_what_they_cannot_take(gen):
+    q, k, v, do, seg, lse, delta = _seg_bwd_case(gen, 64, 4, 2, 64, [[64]],
+                                                 True)
+    ranges = fv._tile_ranges(seg)
+    for fn in (fv._seg_bwd_dq_kernel, fv._seg_bwd_dkv_kernel):
+        with pytest.raises(TypeError):
+            fn(q, k, v, seg, do.float(), lse, delta, ranges, True)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q, k, v, seg, do.transpose(1, 2).contiguous().transpose(1, 2),
+               lse, delta, ranges, True)
+        with pytest.raises(ValueError, match="lse"):
+            fn(q, k, v, seg, do, lse.bfloat16(), delta, ranges, True)
+        with pytest.raises(ValueError, match="delta"):
+            fn(q, k, v, seg, do, lse, delta[:, :, :-1], ranges, True)

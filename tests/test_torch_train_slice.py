@@ -2,7 +2,9 @@
 ``forward_loss`` and its gradients per leaf, the rematerialisation policies
 among themselves, and three ``make_train_step`` steps under AdamW (f32 and
 bf16 moments) and Adafactor from a state carried across by
-``opt_state_from_jax``.
+``opt_state_from_jax``.  Packed pretraining (``segment_ids``): the loss and
+every gradient against JAX's under each loss head and remat policy, the
+packed loss against the documents run alone, and one AdamW step.
 
 Two small models, fp32 on both sides, weights and tokens made with numpy
 from a seed: ``gqa`` (hidden 64, 4 heads of 16 over 2 kv heads: the inline
@@ -26,6 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 from paddle_tpu.flags import set_flags  # noqa: E402
 from paddle_tpu.models import llama_pretrain as jlp  # noqa: E402
 from paddle_tpu_torch.models import llama_pretrain as tlp  # noqa: E402
+from paddle_tpu_torch.models.packing import packed_step  # noqa: E402
 from paddle_tpu_torch.models.weights import (  # noqa: E402
     opt_state_from_jax, params_from_jax)
 
@@ -229,13 +232,7 @@ def test_jax_checkpoint_policies_are_not_ported(policy):
         tlp.LlamaPretrainConfig(remat_policy="everything")
 
 
-def test_segment_ids_and_context_parallel_are_not_ported():
-    _, tcfg = _cfgs("gqa")
-    params = params_from_jax(_weights("gqa"), device="cpu")
-    tokens = torch.from_numpy(_tokens(0))
-    with pytest.raises(NotImplementedError, match="segment_ids"):
-        tlp.make_forward(tcfg)(params, tokens,
-                               segment_ids=torch.zeros_like(tokens))
+def test_context_parallel_is_not_ported():
     _, cp = _cfgs("gqa", context_parallel="ring")
     with pytest.raises(NotImplementedError, match="mesh"):
         tlp.make_forward(cp)
@@ -260,3 +257,125 @@ def test_init_params_stores_f32_masters_for_the_trainer():
     half = tlp.init_adamw_state(masters, moment_dtype=torch.bfloat16,
                                 device="cpu")
     assert half["moments"]["embed"]["v"].dtype == torch.bfloat16
+
+
+def _packed_ids():
+    """Segment ids [BATCH, SEQ] of packed rows: documents of other lengths
+    in each row, a document cut at a row's end, and -1 padding runs."""
+    layouts = [[5, 12], [17], [3, 1, 6, 4], [9, 4]]
+    seg = np.full((BATCH, SEQ), -1, np.int32)
+    for row, lens in enumerate(layouts):
+        at = 0
+        for i, L in enumerate(lens):
+            seg[row, at:at + L] = i
+            at += L
+    return seg
+
+
+def _jax_packed(jcfg, weights, tokens, seg):
+    return jax.value_and_grad(jlp.make_forward(jcfg))(
+        _to_jax(weights), jnp.asarray(tokens), jnp.asarray(seg))
+
+
+def _torch_packed(tcfg, weights, tokens, seg):
+    params = params_from_jax(weights, device="cpu")
+    live = tlp._map_params(lambda p: p.requires_grad_(True), params)
+    loss = tlp.make_forward(tcfg)(live, torch.from_numpy(tokens),
+                                  torch.from_numpy(seg))
+    grads = torch.autograd.grad(loss, tlp._leaves(live))
+    it = iter(grads)
+    return float(loss.detach()), tlp._map_params(lambda _: next(it), params)
+
+
+@pytest.mark.parametrize("loss_chunks", [1, 4])
+@pytest.mark.parametrize("model", ["gqa", "d128"])
+def test_packed_forward_loss_and_gradients_match_jax(model, loss_chunks):
+    """With segment ids, both sides take the masked plain loss head; with
+    loss_chunks > 1 both warn that they do."""
+    jcfg, tcfg = _cfgs(model, loss_chunks=loss_chunks)
+    weights, tokens, seg = _weights(model, 5), _tokens(5), _packed_ids()
+    if loss_chunks > 1:
+        with pytest.warns(UserWarning, match="unchunked loss head"):
+            ref, ref_g = _jax_packed(jcfg, weights, tokens, seg)
+        with pytest.warns(UserWarning, match="unchunked loss head"):
+            got, got_g = _torch_packed(tcfg, weights, tokens, seg)
+    else:
+        ref, ref_g = _jax_packed(jcfg, weights, tokens, seg)
+        got, got_g = _torch_packed(tcfg, weights, tokens, seg)
+    np.testing.assert_allclose(got, float(ref), atol=1e-5, rtol=1e-5)
+    _assert_tree_close(got_g, ref_g, 2e-5, "gradient of")
+
+
+def test_packed_composite_attention_matches_jax():
+    jcfg, tcfg = _cfgs("gqa", use_pallas_attention=False, remat=False)
+    weights, tokens, seg = _weights("gqa", 6), _tokens(6), _packed_ids()
+    ref, ref_g = _jax_packed(jcfg, weights, tokens, seg)
+    got, got_g = _torch_packed(tcfg, weights, tokens, seg)
+    np.testing.assert_allclose(got, float(ref), atol=1e-5, rtol=1e-5)
+    _assert_tree_close(got_g, ref_g, 2e-5, "gradient of")
+
+
+@pytest.mark.parametrize("model", ["gqa", "d128"])
+def test_packed_remat_policies_give_the_same_loss_and_gradients(model):
+    weights, tokens, seg = _weights(model, 7), _tokens(7), _packed_ids()
+    runs = {}
+    for name, kw in (("off", dict(remat=False)),
+                     ("full", dict(remat=True, remat_policy="full")),
+                     ("flash", dict(remat=True, remat_policy="flash"))):
+        _, tcfg = _cfgs(model, loss_chunks=1, **kw)
+        runs[name] = _torch_packed(tcfg, weights, tokens, seg)
+    for name in ("full", "flash"):
+        assert runs[name][0] == runs["off"][0]
+        for (leaf, a), (_, b) in zip(_flat(runs[name][1]),
+                                     _flat(runs["off"][1])):
+            assert torch.equal(a, b), f"{name}: gradient of {leaf} differs"
+
+
+@pytest.mark.parametrize("model,la,lb,S", [("gqa", 50, 70, 128),
+                                           ("d128", 20, 35, 64)])
+def test_packed_loss_equals_the_documents_run_alone(model, la, lb, S):
+    """JAX's packed-pretraining invariant (tests/test_flash_varlen.py):
+    one packed row of two documents and -1 padding gives the
+    token-weighted mean of the two documents' losses run alone."""
+    _, tcfg = _cfgs(model, remat=False, loss_chunks=1)
+    params = params_from_jax(_weights(model, 8), device="cpu")
+    fwd = tlp.make_forward(tcfg)
+    rng = np.random.default_rng(11)
+    doc_a = rng.integers(0, 96, la + 1)
+    doc_b = rng.integers(0, 96, lb + 1)
+    packed = np.zeros((1, S + 1), np.int64)
+    packed[0, :la + 1] = doc_a
+    packed[0, la + 1:la + lb + 2] = doc_b
+    seg = np.full((1, S + 1), -1, np.int32)
+    seg[0, :la + 1] = 0
+    seg[0, la + 1:la + lb + 2] = 1
+    with torch.no_grad():
+        loss = float(fwd(params, torch.from_numpy(packed),
+                         torch.from_numpy(seg)))
+        loss_a = float(fwd(params, torch.from_numpy(doc_a[None])))
+        loss_b = float(fwd(params, torch.from_numpy(doc_b[None])))
+    np.testing.assert_allclose(loss, (loss_a * la + loss_b * lb) / (la + lb),
+                               rtol=2e-5)
+
+
+def test_packed_adamw_step_matches_jax():
+    """One AdamW step after the packed backward (the port's packed_step:
+    autograd, then adamw_update) against JAX's adamw_update after
+    jax.value_and_grad of the packed forward."""
+    jcfg, tcfg = _cfgs("d128", loss_chunks=1)
+    weights, tokens, seg = _weights("d128", 9), _tokens(9), _packed_ids()
+    jloss, jgrads = _jax_packed(jcfg, weights, tokens, seg)
+    jparams = _to_jax(weights)
+    jparams, jstate = jlp.adamw_update(
+        jparams, jgrads, jlp.init_adamw_state(jparams, None))
+
+    params = params_from_jax(weights, device="cpu")
+    step = packed_step(tlp.make_forward(tcfg), torch.from_numpy(tokens),
+                       torch.from_numpy(seg))
+    params, state, loss = step(params,
+                               tlp.init_adamw_state(params, device="cpu"))
+    np.testing.assert_allclose(float(loss), float(jloss),
+                               atol=1e-5, rtol=1e-5)
+    assert state["t"] == int(jstate["t"]) == 1
+    # 10% of one step: see test_three_train_steps_match_jax
+    _assert_tree_close(params, jparams, 1e-5, "param", extra_abs=0.1 * 3e-4)

@@ -6,7 +6,7 @@ Run from the repository root:
 
     python3 tools/profile_torch_train.py [--layers 24] [--batch 8]
                                          [--seq 2049] [--steps 3]
-                                         [--remat-policy full]
+                                         [--remat-policy full] [--packed]
 
 Builds the 1.345 B-parameter LLaMA of the JAX package's training bench
 (vocab 32000, hidden 2048, FFN 5504, 24 layers, 16 heads of 128, bf16
@@ -17,11 +17,19 @@ on one seeded batch, then:
 * times ``--steps`` steps on the host clock, ending in a synchronize;
 * profiles ``--steps`` more with ``torch.profiler`` and sums the device
   time of every CUDA kernel by name: the ported kernels (fused RoPE, flash
-  attention forward / dq / dkv, fused AdamW), the library matrix products,
-  and the rest;
-* times the chunked loss head alone (forward and backward at the step's
-  shape, CUDA events), whose kernels the breakdown above counts among the
-  matrix products and the rest.
+  attention forward / dq / dkv, segmented attention forward / dq / dkv,
+  fused AdamW), the library matrix products, and the rest;
+* times the loss head alone (forward and backward at the step's shape, CUDA
+  events), whose kernels the breakdown above counts among the matrix
+  products and the rest.
+
+``--packed`` trains on packed rows instead: ``pack_documents``
+(``paddle_tpu_torch/models/packing.py``, as chip_smoke) fills each row with
+documents of 32-2049 tokens, and each step is
+``forward_loss(params, tokens, segment_ids)``, its gradients and
+``adamw_update`` (``packed_step``), through the segmented
+attention kernels and the plain (masked) loss head, which is then the head
+timed alone.
 
 Prints one JSON line: the card (nvidia-smi name and power limit), the step
 time, tokens per second, peak memory, the device busy share (kernel time
@@ -43,6 +51,12 @@ from tools.torch_profile_common import card_line, device_time  # noqa: E402
 def _kind(name: str) -> str:
     if "rope_kernel" in name:
         return "fused_rope (K5)"
+    if "seg_fwd_kernel" in name:
+        return "flash_attention_segmented fwd (K2)"
+    if "seg_bwd_dq_kernel" in name:
+        return "flash_attention_segmented bwd dq (K7a)"
+    if "seg_bwd_dkv_kernel" in name:
+        return "flash_attention_segmented bwd dk/dv (K7b)"
     if "flash_fwd_kernel" in name:
         return "flash_attention fwd (K6a)"
     if "flash_bwd_dq_kernel" in name:
@@ -67,13 +81,18 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--remat-policy", default="full",
                     choices=["full", "flash"])
+    ap.add_argument("--packed", action="store_true",
+                    help="rows packed with documents, through segment ids")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         sys.exit(1)
     from paddle_tpu_torch.models.llama_pretrain import (
-        LlamaPretrainConfig, init_adamw_state, init_params, make_train_step)
+        LlamaPretrainConfig, _packed_targets, _plain_loss, init_adamw_state,
+        init_params, make_forward, make_train_step)
+    from paddle_tpu_torch.models.packing import (
+        documents, pack_documents, packed_step)
     from paddle_tpu_torch.ops.chunked_loss import (
         chunked_softmax_cross_entropy)
 
@@ -85,10 +104,22 @@ def main():
         remat_policy=args.remat_policy)
     params = init_params(cfg, seed=args.seed, dtype=cfg.param_dtype)
     state = init_adamw_state(params)
-    step = make_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
                            generator=gen, device="cuda")
+    packing = {}
+    if args.packed:
+        seg_np = pack_documents(args.seed, args.batch, args.seq)
+        seg = torch.from_numpy(seg_np).cuda()
+        valid = _packed_targets(seg)[1]
+        packed = packed_step(make_forward(cfg), tokens, seg)
+        packing = dict(documents=documents(seg_np),
+                       valid_targets=int(valid.sum()))
+
+        def step(params, state, tokens):
+            return packed(params, state)
+    else:
+        step = make_train_step(cfg)
     for _ in range(2):                                   # warm-up, builds
         params, state, loss = step(params, state, tokens)
     torch.cuda.synchronize()
@@ -117,8 +148,11 @@ def main():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        head = chunked_softmax_cross_entropy(x, w, tokens[:, 1:],
-                                             cfg.loss_chunks, cfg.dtype)
+        if args.packed:
+            head = _plain_loss(x, w, tokens[:, 1:], cfg.dtype, valid)
+        else:
+            head = chunked_softmax_cross_entropy(x, w, tokens[:, 1:],
+                                                 cfg.loss_chunks, cfg.dtype)
         torch.autograd.grad(head, (x, w))
         end.record()
         end.synchronize()
@@ -127,12 +161,16 @@ def main():
         "card": card,
         "model": f"LLaMA 1.345B bench config, {args.layers} layers",
         "batch": args.batch, "seq": args.seq, "steps": args.steps,
-        "remat_policy": args.remat_policy, "loss": float(loss),
+        "remat_policy": args.remat_policy, "packed": args.packed,
+        **packing, "loss": float(loss),
         "step_ms": step_ms,
         "tokens_per_s": args.batch * (args.seq - 1) / step_ms * 1e3,
+        **({"valid_tokens_per_s": packing["valid_targets"] / step_ms * 1e3}
+           if args.packed else {}),
         "peak_mem_gb": peak / 2**30,
         "device_busy_ms_per_step": busy_ms,
         "device_busy_share": busy_ms / step_ms if step_ms else None,
+        "loss_head": "plain, masked" if args.packed else "chunked",
         "loss_head_fwd_bwd_ms": sorted(head_ms[1:])[len(head_ms[1:]) // 2],
         "per_step_ms_by_kind": by_kind,
         "top_kernels": top,
