@@ -24,6 +24,13 @@ Phases, one JSON line each on stdout:
              head_dim 64, non-causal and many 1-token segments before a -1
              pad tail; and autograd through flash_attention_segmented
              against autograd through its plain version.
+   k9, k10, k11 - the trunk's flagged kernels the same way: rms_norm
+             forward and backward (K9a-b; K9b run twice for bit-identical
+             results) at the trainer's [16384, 2048], decode's [8, 4096], a
+             ragged row count and an f32 weight; swiglu forward and backward
+             (K10a-b) at [16384, 5504], [8, 11008] and a ragged row count;
+             rmsnorm_matmul (K11) at the trainer's gate / up and q products,
+             decode's [8, 4096] x [4096, 11008] and a ragged M and N.
 4. serve   - LLaMA-7B at full width and depth with random weights from a
              seed behind the port's GenerationServer: concurrent /generate
              requests and one /generate_stream; every reply complete, each
@@ -72,7 +79,19 @@ Phases, one JSON line each on stdout:
              PACKED_TOKEN_LIMIT, a planted fault (K2 given one segment for
              the whole row) beyond it; the packed mean loss against the
              documents' token-weighted mean is printed.
-10. kernels - one JSON object with an entry per ported kernel.
+10. train_fused - the train phase's four AdamW steps with the trunk's
+             kernel flags on (paddle_tpu_torch/flags.py), once per flag
+             set: A = FLAGS_pallas_rms_norm + FLAGS_pallas_swiglu (K9, K10),
+             B = A + FLAGS_pallas_rmsnorm_matmul (K11; its branch bypasses K9
+             at ln1 / ln2 and K10).  Loss checks as in train; every kernel
+             launched as often as the code predicts; the flags are put back
+             afterwards.  train, train_packed and the serves launch K9-K11
+             never (the flags are off by default).
+11. train_fused_grads - train_grads under each set (one line a set), with
+             K9-K11 also replaced by their plain versions in the plain pass
+             and a planted fault per set beyond the limit (A: K9b's dx
+             without its xhat * c term; B: K11's epilogue without rstd).
+12. kernels - one JSON object with an entry per ported kernel (16).
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before that line.  Without a CUDA device, or without the package
@@ -129,7 +148,12 @@ INT8_LOGIT_LIMIT = 0.4
 # fault's (the RoPE backward rotating with +sin instead of -sin), which the
 # run also measures.  On an H100 at seeds 0, 1 and 2 the sound difference
 # was 0.0143, 0.0169 and 0.0141 and the planted fault's 1.436, 1.354 and
-# 1.466.
+# 1.466.  The same limit holds train_fused_grads, the check under the
+# trunk's flag sets with K9-K11 also replaced by their plain versions: on
+# an H100 at seeds 0, 1 and 2 the sound difference was 0.0154, 0.0142 and
+# 0.0147 under set A (planted fault, K9b's dx without its xhat * c term:
+# 2.57, 2.27, 2.31) and 0.0129, 0.0136 and 0.0144 under set B (K11's
+# epilogue without rstd: 593, 814, 671).
 GRAD_LIMIT = 0.1
 PEAK_F32_FLOPS = 67e12             # CUDA cores, for the elementwise kernels
 # one bf16 rounding of the result; the RoPE kernel is expected bit for bit
@@ -177,6 +201,28 @@ K7_CASES = [("trainer", 8, 2048, 16, 16, 128, True, "packed"),
 # each target's loss up or down, so the mean's shift rests on how the signs
 # fall (sound 2.7e-4, 1.0e-4, 1.9e-4; fault 0.0120, 0.0132, 0.0063).
 PACKED_TOKEN_LIMIT = 0.05
+# The trunk's flagged kernels.  K9 (rms_norm): the trainer's [16384, 2048]
+# bf16 (timed), decode's [8, 4096], a ragged row count, and bf16 x with an
+# f32 weight (the output promotes to f32).  K10 (swiglu): the trainer's FFN
+# [16384, 5504] (timed), decode's [8, 11008], a ragged row count.  K11
+# (rmsnorm_matmul): the trainer's gate / up and q products over the f32 ln
+# master (timed), decode's [8, 4096] x [4096, 11008] over a bf16 ln, and a
+# ragged M and N.  Tolerance TOL: one bf16 rounding of the result and
+# another summation order.
+K9_CASES = [("trainer", 16384, 2048, "bfloat16"),
+            ("decode", 8, 4096, "bfloat16"),
+            ("ragged", 4095, 2048, "bfloat16"),
+            ("promote", 4095, 2048, "float32")]
+K10_SHAPES = [(16384, 5504), (8, 11008), (4095, 5504)]
+K11_CASES = [("gate_up", 16384, 2048, 5504, "float32"),
+             ("q", 16384, 2048, 2048, "float32"),
+             ("decode", 8, 4096, 11008, "bfloat16"),
+             ("ragged", 1000, 2048, 1000, "float32")]
+# the flag sets of train_fused: A takes K9 and K10; B adds rmsnorm_matmul,
+# whose branch bypasses K9 at ln1 / ln2 and K10 altogether
+TRUNK_FLAGS = ("FLAGS_pallas_rms_norm", "FLAGS_pallas_swiglu",
+               "FLAGS_pallas_rmsnorm_matmul")
+FLAG_SETS = {"A": TRUNK_FLAGS[:2], "B": TRUNK_FLAGS}
 
 
 def emit(phase, **fields):
@@ -589,6 +635,137 @@ def phase_k8(torch, aw, n, gen, flush, timed):
     return res
 
 
+def phase_k9(torch, rn, case, eps, gen, flush, timed):
+    """K9a and K9b against their plain versions on the same bf16 x, weight
+    and dout; K9b twice for bit-identical results.  -> (fwd, bwd)."""
+    import torch.nn.functional as F
+    name, n, h, wdt = case
+    x = torch.randn((n, h), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(
+        getattr(torch, wdt))
+    odt = torch.promote_types(x.dtype, w.dtype)
+    do = torch.randn((n, h), generator=gen, device="cuda").to(odt)
+    out, rstd = rn._fwd(x, w, eps)
+    dx, dw = rn._bwd(x, w, rstd, do)
+    dx2, dw2 = rn._bwd(x, w, rstd, do)
+    want, want_rstd = rn.rms_norm_plain(x.float(), w.float(), eps)
+    want_dx, want_dw = rn.rms_norm_bwd_plain(x.float(), w.float(), want_rstd,
+                                             do.float())
+    torch.cuda.synchronize()
+    if out.dtype != odt or dx.dtype != x.dtype:
+        fail(f"K9 {name}: types out {out.dtype}, dx {dx.dtype}")
+    identical = bool(torch.equal(dx, dx2) and torch.equal(dw, dw2))
+    if not identical:
+        fail(f"K9b {name}: two runs on the same inputs differ")
+    err_a = max(check_close(f"K9a {name}", out, want),
+                check_close(f"K9a rstd {name}", rstd, want_rstd))
+    err_b = max(check_close(f"K9b dx {name}", dx, want_dx),
+                check_close(f"K9b dw {name}", dw, want_dw))
+    del want, want_dx, want_dw, dx2, dw2
+    shape = dict(case=name, rows=n, h=h, x="bfloat16", w=wdt)
+    res = [dict(max_abs_err=err_a, tolerance=TOL, **shape),
+           dict(max_abs_err=err_b, tolerance=TOL, bit_identical=identical,
+                **shape)]
+    if timed:
+        xs, ws, os_ = x.element_size(), w.element_size(), out.element_size()
+        # yardsticks only: the library's rms_norm and its autograd backward
+        lib_fwd = time_ms(torch, lambda: F.rms_norm(x, (h,), w, eps), flush)
+        xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
+        lib_out = F.rms_norm(xr, (h,), wr, eps)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (xr, wr), do, retain_graph=True), flush)
+        del lib_out
+        for r, ms, plain, lib, nbytes, flops in (
+                (res[0], time_ms(torch, lambda: rn._fwd(x, w, eps), flush),
+                 time_ms(torch, lambda: rn.rms_norm_plain(x, w, eps), flush),
+                 lib_fwd, n * h * (xs + os_) + h * ws + n * 4, 4 * n * h),
+                (res[1], time_ms(torch, lambda: rn._bwd(x, w, rstd, do),
+                                 flush),
+                 time_ms(torch, lambda: rn.rms_norm_bwd_plain(x, w, rstd, do),
+                         flush),
+                 lib_bwd, n * h * (2 * xs + os_) + h * (ws + 4) + n * 4,
+                 9 * n * h)):
+            b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+            r.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                     bound_by=b_by)
+        res[0]["library"] = "torch.nn.functional.rms_norm"
+        res[1]["library"] = "autograd backward of F.rms_norm"
+        res[1]["note"] = "ms includes the torch sum of the dw partials"
+    emit("k9", fwd=res[0], bwd=res[1])
+    return res
+
+
+def phase_k10(torch, sw, shape, gen, flush, timed):
+    """K10a and K10b against their plain versions on the same bf16 gate, up
+    and dout.  -> (fwd, bwd)."""
+    g, u, do = (2 * torch.randn(shape, generator=gen, device="cuda")
+                for _ in range(3))
+    g, u, do = (t.to(torch.bfloat16) for t in (g, u, do))
+    out = sw._fwd(g, u)
+    dg, du = sw._bwd(g, u, do)
+    want = sw.swiglu_plain(g.float(), u.float())
+    want_dg, want_du = sw.swiglu_bwd_plain(g.float(), u.float(), do.float())
+    torch.cuda.synchronize()
+    err_a = check_close(f"K10a {shape}", out, want)
+    err_b = max(check_close(f"K10b dg {shape}", dg, want_dg),
+                check_close(f"K10b du {shape}", du, want_du))
+    del want, want_dg, want_du
+    res = [dict(shape=list(shape), max_abs_err=err_a, tolerance=TOL),
+           dict(shape=list(shape), max_abs_err=err_b, tolerance=TOL)]
+    if timed:
+        nel = g.numel()
+        for r, ms, plain, nbytes, flops in (
+                (res[0], time_ms(torch, lambda: sw._fwd(g, u), flush),
+                 time_ms(torch, lambda: sw.swiglu_plain(g, u), flush),
+                 3 * nel * 2, 6 * nel),
+                (res[1], time_ms(torch, lambda: sw._bwd(g, u, do), flush),
+                 time_ms(torch, lambda: sw.swiglu_bwd_plain(g, u, do), flush),
+                 5 * nel * 2, 12 * nel)):
+            b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+            r.update(ms=ms, plain_ms=plain, library_ms=None,
+                     library="no single call", bound_ms=b_ms, bound_by=b_by)
+    emit("k10", fwd=res[0], bwd=res[1])
+    return res
+
+
+def phase_k11(torch, rmm, case, eps, gen, flush):
+    """K11 against its plain version on the same bf16 x and W and the
+    norm weight; the trainer's products timed."""
+    name, M, H, N, wldt = case
+    x = torch.randn((M, H), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    wl = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(
+        getattr(torch, wldt))
+    w = (torch.randn((H, N), generator=gen, device="cuda") * H ** -0.5).to(
+        torch.bfloat16)
+    out = rmm._fwd(x, wl, w, eps)
+    want = rmm.rmsnorm_matmul_plain(x, wl, w, eps)
+    torch.cuda.synchronize()
+    err = check_close(f"K11 {name}", out, want)
+    del want
+    res = dict(case=name, M=M, H=H, N=N, wl=wldt, max_abs_err=err,
+               tolerance=TOL)
+    if M >= 16384:
+        # yardstick only: cuBLAS on the activation normalised beforehand
+        xf = x.float()
+        y = (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+             * wl.float()).to(torch.bfloat16)
+        del xf
+        lib_ms = time_ms(torch, lambda: torch.matmul(y, w), flush)
+        del y
+        b_ms, b_by = bound((M * H + H * N + M * N) * 2 + H * wl.element_size(),
+                           2 * M * H * N)
+        res.update(ms=time_ms(torch, lambda: rmm._fwd(x, wl, w, eps), flush),
+                   plain_ms=time_ms(torch, lambda: rmm.rmsnorm_matmul_plain(
+                       x, wl, w, eps), flush, reps=5),
+                   library_ms=lib_ms,
+                   library="cuBLAS matmul on the pre-normalised activation",
+                   bound_ms=b_ms, bound_by=b_by)
+    emit("k11", **res)
+    return res
+
+
 def library_ms(torch, flush, q, k, v, mask, gqa):
     import torch.nn.functional as F
     return time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -751,7 +928,15 @@ COUNTERS = [("paged_decode_attention", "pa", "launches"),
             ("flash_attention_bwd_dkv", "fa", "launches_dkv"),
             ("fused_adamw", "aw", "launches"),
             ("flash_attention_segmented_bwd_dq", "fv", "launches_bwd_dq"),
-            ("flash_attention_segmented_bwd_dkv", "fv", "launches_bwd_dkv")]
+            ("flash_attention_segmented_bwd_dkv", "fv", "launches_bwd_dkv"),
+            ("rms_norm_fwd", "rn", "launches"),
+            ("rms_norm_bwd", "rn", "launches_bwd"),
+            ("swiglu_fwd", "sw", "launches"),
+            ("swiglu_bwd", "sw", "launches_bwd"),
+            ("rmsnorm_matmul", "rmm", "launches")]
+# the kernels only the trunk's flags reach (all off by default)
+FLAGGED = ("rms_norm_fwd", "rms_norm_bwd", "swiglu_fwd", "swiglu_bwd",
+           "rmsnorm_matmul")
 
 
 def zero_counts(mods):
@@ -834,6 +1019,9 @@ def drive(torch, cfg, params, cache, prompts, news, mods):
     for name in path:
         if launches[name] <= 0:
             fail(f"{phase}: kernel {name} was not launched")
+    for name in FLAGGED:
+        if launches[name]:
+            fail(f"{phase}: kernel {name} was launched with its flag off")
     if cache.audit()["owned"]:
         fail(f"{phase}: pages still owned after every request finished")
     stats = dict(
@@ -983,22 +1171,49 @@ def phase_serve_int8(torch, cfg, seed, params, mods, dev="cuda"):
     return stats["launches"]
 
 
-def train_launches_per_step(cfg):
+def train_launches_per_step(cfg, flag_set=None):
     """What the code launches in one AdamW step under remat full: K8 once
     per leaf (9 stacked block leaves, embed, final_norm, lm_head); K6a in
     every layer's forward and again in its recompute; K6b and K6c once per
-    layer; K5 on q and k in the forward, the recompute and the backward."""
+    layer; K5 on q and k in the forward, the recompute and the backward.
+    With the flags off, none of K9-K11.  Flag set A: K9a on ln1 and ln2 in
+    the forward and the recompute and on the final norm, K9b on each once;
+    K10a in the forward and the recompute, K10b once a layer.  Set B: K11
+    for q, k, v, gate and up in the forward and the recompute, and K9 on the
+    final norm alone (the fused branch bypasses K9 at ln1 / ln2 and K10)."""
     L = cfg.num_hidden_layers
-    return {"fused_adamw": 12, "flash_attention_fwd": 2 * L,
+    want = {"fused_adamw": 12, "flash_attention_fwd": 2 * L,
             "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
-            "fused_rope": 2 * L * 3}
+            "fused_rope": 2 * L * 3, **{name: 0 for name in FLAGGED}}
+    if flag_set == "A":
+        want.update(rms_norm_fwd=4 * L + 1, rms_norm_bwd=2 * L + 1,
+                    swiglu_fwd=2 * L, swiglu_bwd=L)
+    elif flag_set == "B":
+        want.update(rms_norm_fwd=1, rms_norm_bwd=1, rmsnorm_matmul=10 * L)
+    return want
 
 
-def phase_train(torch, cfg, seed, mods, card, dev="cuda"):
+@contextlib.contextmanager
+def trunk_flags(flag_set):
+    """The trunk's kernel flags of ``flag_set`` on (the others off) for the
+    block, put back as they were afterwards, on failure too."""
+    from paddle_tpu_torch.flags import get_flags, set_flags
+    saved = get_flags(list(TRUNK_FLAGS))
+    set_flags({n: n in FLAG_SETS.get(flag_set, ()) for n in TRUNK_FLAGS})
+    try:
+        yield
+    finally:
+        set_flags(saved)
+
+
+def phase_train(torch, cfg, seed, mods, card, dev="cuda", flag_set=None):
     """Four AdamW steps of the whole trainer on one seeded batch; ``card``
-    (the card's name and power limit) goes on the line beside the times."""
+    (the card's name and power limit) goes on the line beside the times.
+    With ``flag_set`` ("A" or "B", phase train_fused) the trunk's kernel
+    flags of that set are on for the steps."""
     from paddle_tpu_torch.models.llama_pretrain import (
         init_adamw_state, init_params, make_train_step)
+    phase = "train" if flag_set is None else "train_fused"
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device=dev, dtype=cfg.param_dtype)
     state = init_adamw_state(params, device=dev)
@@ -1010,26 +1225,29 @@ def phase_train(torch, cfg, seed, mods, card, dev="cuda"):
         params[k].numel() for k in ("embed", "final_norm", "lm_head"))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    zero_counts(mods)
-    torch.cuda.reset_peak_memory_stats()
     events, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        params, state, loss = step(params, state, tokens)
-        end.record()
-        events.append((start, end))
-        losses.append(loss)
-    torch.cuda.synchronize()
-    launches = read_counts(mods)
+    with trunk_flags(flag_set):
+        zero_counts(mods)
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, loss = step(params, state, tokens)
+            end.record()
+            events.append((start, end))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        launches = read_counts(mods)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     step_ms = [a.elapsed_time(b) for a, b in events]
     steady = statistics.median(step_ms[1:])
     want = {k: n * TRAIN_STEPS
-            for k, n in train_launches_per_step(cfg).items()}
-    emit("train", model="LLaMA 1.345B (the JAX package's training bench)",
+            for k, n in train_launches_per_step(cfg, flag_set).items()}
+    flags_on = list(FLAG_SETS[flag_set]) if flag_set else []
+    emit(phase, model="LLaMA 1.345B (the JAX package's training bench)",
+         flag_set=flag_set, flags=flags_on,
          card=card, params=n_params, layers=cfg.num_hidden_layers, batch=TRAIN_BATCH,
          seq=TRAIN_TOKENS - 1, optimizer="adamw", remat="full",
          loss_chunks=cfg.loss_chunks, steps=TRAIN_STEPS, setup_s=setup_s,
@@ -1037,20 +1255,21 @@ def phase_train(torch, cfg, seed, mods, card, dev="cuda"):
          tokens_per_s=TRAIN_BATCH * (TRAIN_TOKENS - 1) / steady * 1e3,
          peak_mem_gb=peak / 2**30, launches=launches,
          launches_predicted=want)
+    phase = f"{phase} {flag_set}" if flag_set else phase
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train: a loss is not finite: {losses}")
+        fail(f"{phase}: a loss is not finite: {losses}")
     if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
-        fail(f"train: the first loss {losses[0]} is not within 1.0 of "
+        fail(f"{phase}: the first loss {losses[0]} is not within 1.0 of "
              f"ln {cfg.vocab_size} = {math.log(cfg.vocab_size)}")
     if not losses[-1] < losses[0]:
-        fail(f"train: the loss did not fall over {TRAIN_STEPS} steps on one "
-             f"batch: {losses}")
+        fail(f"{phase}: the loss did not fall over {TRAIN_STEPS} steps on "
+             f"one batch: {losses}")
     if state["t"] != TRAIN_STEPS:
-        fail(f"train: the optimizer counts {state['t']} steps")
+        fail(f"{phase}: the optimizer counts {state['t']} steps")
     for name, n in want.items():
         if launches[name] != n:
-            fail(f"train: kernel {name} was launched {launches[name]} times, "
-                 f"the code predicts {n}")
+            fail(f"{phase}: kernel {name} was launched {launches[name]} "
+                 f"times, the code predicts {n}")
     return launches
 
 
@@ -1064,7 +1283,7 @@ def train_packed_launches_per_step(cfg):
             "flash_attention_segmented_bwd_dq": L,
             "flash_attention_segmented_bwd_dkv": L, "fused_rope": 2 * L * 3,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dkv": 0, **{name: 0 for name in FLAGGED}}
 
 
 def phase_train_packed(torch, cfg, seed, mods, card, dev="cuda"):
@@ -1289,12 +1508,16 @@ def phase_train_packed_grads(torch, cfg, seed, mods, dev="cuda"):
              f"the limit {PACKED_TOKEN_LIMIT}: the check cannot see it")
 
 
-def phase_train_grads(torch, cfg, seed, mods, dev="cuda"):
+def phase_train_grads(torch, cfg, seed, mods, dev="cuda", flag_set=None):
     """forward_loss and its gradients at 2 layers and batch 2 through the
     kernels, through their plain versions, and through the kernels with a
-    planted fault."""
+    planted fault.  With ``flag_set`` ("A" or "B", phase train_fused_grads)
+    the trunk's kernel flags of that set are on, and the planted fault is
+    the set's: A, K9b's dx without its xhat * c term; B, K11's epilogue
+    without the row's rstd."""
     import paddle_tpu_torch.models.llama_pretrain as tlp
-    rp, fa = mods["rp"], mods["fa"]
+    rp, fa, rn, sw, rmm = (mods[k] for k in ("rp", "fa", "rn", "sw", "rmm"))
+    phase = "train_grads" if flag_set is None else "train_fused_grads"
     small = type(cfg)(**dict(TRAIN_CFG, num_hidden_layers=2))
     params = tlp.init_params(small, seed=seed, device=dev,
                              dtype=small.param_dtype)
@@ -1316,43 +1539,70 @@ def phase_train_grads(torch, cfg, seed, mods, dev="cuda"):
         return max(float((x - y).abs().max() / y.abs().max())
                    for x, y in zip(a, b))
 
+    plain = ((tlp, "fused_rope",
+              lambda x, cos, sin: rp._composite(x, cos, sin, False)),
+             (tlp, "flash_attention",
+              lambda q, k, v, causal=False: fa.sdpa_plain(q, k, v, causal)),
+             (rn, "_fwd", rn.rms_norm_plain),
+             (rn, "_bwd", rn.rms_norm_bwd_plain),
+             (sw, "_fwd", sw.swiglu_plain),
+             (sw, "_bwd", sw.swiglu_bwd_plain),
+             (rmm, "_fwd", rmm.rmsnorm_matmul_plain))
+    real_rope, real_k9b, real_k11 = rp._apply, rn._bwd, rmm._fwd
+
+    def rope_plus_sin(x, cos, sin, neg_sin):
+        return real_rope(x, cos, sin, False)
+
+    def k9b_without_c(x, w, rstd, dout):
+        _, dw = real_k9b(x, w, rstd, dout)
+        return (w.float() * dout.float() * rstd[:, None]).to(x.dtype), dw
+
+    def k11_without_rstd(x, wl, w, eps):
+        xf = x.float()
+        rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (real_k11(x, wl, w, eps).float() / rstd).to(x.dtype)
+
+    fault_name, fault = {
+        None: ("the RoPE backward rotating with +sin instead of -sin",
+               (rp, "_apply", rope_plus_sin)),
+        "A": ("K9b's dx without its xhat * c term",
+              (rn, "_bwd", k9b_without_c)),
+        "B": ("K11's epilogue without the row's rstd",
+              (rmm, "_fwd", k11_without_rstd))}[flag_set]
     t0 = time.perf_counter()
-    zero_counts(mods)
-    loss_k, grads_k = loss_and_grads()
-    used = read_counts(mods)
-    with patched((tlp, "fused_rope",
-                  lambda x, cos, sin: rp._composite(x, cos, sin, False)),
-                 (tlp, "flash_attention",
-                  lambda q, k, v, causal=False: fa.sdpa_plain(q, k, v,
-                                                              causal))):
+    with trunk_flags(flag_set):
         zero_counts(mods)
-        loss_p, grads_p = loss_and_grads()
-        if any(read_counts(mods).values()):
-            fail("train_grads: the plain pass launched a kernel")
-    # planted fault: the RoPE backward rotates with +sin instead of -sin
-    real = rp._apply
-    with patched((rp, "_apply",
-                  lambda x, cos, sin, neg_sin: real(x, cos, sin, False))):
-        _, grads_f = loss_and_grads()
+        loss_k, grads_k = loss_and_grads()
+        used = read_counts(mods)
+        with patched(*plain):
+            zero_counts(mods)
+            loss_p, grads_p = loss_and_grads()
+            if any(read_counts(mods).values()):
+                fail(f"{phase}: the plain pass launched a kernel")
+        with patched(fault):
+            _, grads_f = loss_and_grads()
     torch.cuda.synchronize()
-    diff, fault = worst(grads_k, grads_p), worst(grads_f, grads_p)
-    emit("train_grads", layers=2, batch=2, seq=TRAIN_TOKENS - 1,
-         loss_kernels=loss_k, loss_plain=loss_p,
-         grad_max_rel_diff=diff, grad_limit=GRAD_LIMIT,
-         planted_fault_max_rel_diff=fault, launches=used,
-         check_s=time.perf_counter() - t0)
-    for name in train_launches_per_step(small):
-        if name != "fused_adamw" and used[name] <= 0:
-            fail(f"train_grads: kernel {name} was not launched")
+    diff, fault_diff = worst(grads_k, grads_p), worst(grads_f, grads_p)
+    emit(phase, flag_set=flag_set,
+         flags=list(FLAG_SETS[flag_set]) if flag_set else [], layers=2,
+         batch=2, seq=TRAIN_TOKENS - 1, loss_kernels=loss_k,
+         loss_plain=loss_p, grad_max_rel_diff=diff, grad_limit=GRAD_LIMIT,
+         planted_fault=fault_name, planted_fault_max_rel_diff=fault_diff,
+         launches=used, check_s=time.perf_counter() - t0)
+    phase = f"{phase} {flag_set}" if flag_set else phase
+    for name, n in train_launches_per_step(small, flag_set).items():
+        if name != "fused_adamw" and (used[name] > 0) != (n > 0):
+            fail(f"{phase}: kernel {name} was launched {used[name]} times, "
+                 f"the code predicts {'some' if n else 'none'}")
     if not all(torch.isfinite(g).all() for g in grads_k):
-        fail("train_grads: a gradient is not finite")
+        fail(f"{phase}: a gradient is not finite")
     if diff > GRAD_LIMIT:
-        fail(f"train_grads: the kernels' gradients differ from their plain "
+        fail(f"{phase}: the kernels' gradients differ from their plain "
              f"versions' by {diff} of a leaf's largest (limit {GRAD_LIMIT})")
-    if fault <= GRAD_LIMIT:
-        fail(f"train_grads: the planted fault moved the gradients by only "
-             f"{fault}, within the limit {GRAD_LIMIT}: the check cannot see "
-             f"it")
+    if fault_diff <= GRAD_LIMIT:
+        fail(f"{phase}: the planted fault ({fault_name}) moved the gradients "
+             f"by only {fault_diff}, within the limit {GRAD_LIMIT}: the "
+             f"check cannot see it")
 
 
 def main():
@@ -1368,8 +1618,12 @@ def main():
     from paddle_tpu_torch.ops import fused_adamw as aw
     from paddle_tpu_torch.ops import int8_matmul as im
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import rms_norm as rn
+    from paddle_tpu_torch.ops import rmsnorm_matmul as rmm
     from paddle_tpu_torch.ops import rope as rp
-    mods = {"pa": pa, "fv": fv, "im": im, "rp": rp, "fa": fa, "aw": aw}
+    from paddle_tpu_torch.ops import swiglu as sw
+    mods = {"pa": pa, "fv": fv, "im": im, "rp": rp, "fa": fa, "aw": aw,
+            "rn": rn, "sw": sw, "rmm": rmm}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1386,7 +1640,8 @@ def main():
          cuda=torch.version.cuda)
 
     names = ["paged_attention", "flash_varlen", "int8_matmul", "rope",
-             "flash_attention", "fused_adamw", "flash_varlen_bwd"]
+             "flash_attention", "fused_adamw", "flash_varlen_bwd", "rms_norm",
+             "swiglu", "rmsnorm_matmul"]
     t0 = time.perf_counter()
     secs = _build.build(names)
     for name in names:
@@ -1395,6 +1650,7 @@ def main():
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
     emit("build", seconds=time.perf_counter() - t0, per_source=secs)
 
+    from paddle_tpu_torch.models.llama_pretrain import LlamaPretrainConfig
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     k1 = [phase_k1(torch, pa, nkv, gen, flush) for nkv in (32, 8)]
@@ -1409,9 +1665,14 @@ def main():
           for i, n in enumerate(K8_SIZES)]
     k7 = [phase_k7(torch, fv, fa, case, args.seed, gen, flush, timed=i < 2)
           for i, case in enumerate(K7_CASES)]
+    eps = LlamaPretrainConfig.rms_norm_eps
+    k9 = [phase_k9(torch, rn, case, eps, gen, flush, timed=i == 0)
+          for i, case in enumerate(K9_CASES)]
+    k10 = [phase_k10(torch, sw, shape, gen, flush, timed=i == 0)
+           for i, shape in enumerate(K10_SHAPES)]
+    k11 = [phase_k11(torch, rmm, case, eps, gen, flush) for case in K11_CASES]
     del flush
     torch.cuda.empty_cache()
-    from paddle_tpu_torch.models.llama_pretrain import LlamaPretrainConfig
     cfg = LlamaPretrainConfig()
     launches, params = phase_serve(torch, cfg, args.seed, mods)
     torch.cuda.empty_cache()             # the bf16 serve's cache is gone
@@ -1427,13 +1688,21 @@ def main():
                                          card)
     torch.cuda.empty_cache()
     phase_train_packed_grads(torch, train_cfg, args.seed, mods)
-    # each kernel's launches in the serve, train and train_packed phases
-    launches = {k: launches[k] + launches_int8[k] + launches_train[k]
-                + launches_packed[k] for k in launches}
+    torch.cuda.empty_cache()
+    launches_fused = [phase_train(torch, train_cfg, args.seed, mods, card,
+                                  flag_set=flag_set) for flag_set in "AB"]
+    torch.cuda.empty_cache()
+    for flag_set in "AB":
+        phase_train_grads(torch, train_cfg, args.seed, mods, flag_set=flag_set)
+    # each kernel's launches in the serve, train, train_packed and
+    # train_fused phases
+    runs = [launches, launches_int8, launches_train, launches_packed,
+            *launches_fused]
+    launches = {k: sum(r[k] for r in runs) for k in launches}
 
     def entry(name, source, replaces, runs):
         # nkv = 32 (LLaMA-7B); K3: decode w_gate; K5-K8: the trainer's shape,
-        # K7 the packed trainer's
+        # K7 the packed trainer's; K9-K11 the trainer's (K11: gate / up)
         main_shape = runs[0]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
@@ -1479,6 +1748,16 @@ def main():
               "paddle_tpu_torch/csrc/flash_varlen_bwd.cu",
               "paddle_tpu/ops/pallas/flash_varlen.py:438",
               [r[1] for r in k7]),
+        entry("rms_norm_fwd", "paddle_tpu_torch/csrc/rms_norm.cu",
+              "paddle_tpu/ops/pallas/rms_norm.py:91", [r[0] for r in k9]),
+        entry("rms_norm_bwd", "paddle_tpu_torch/csrc/rms_norm.cu",
+              "paddle_tpu/ops/pallas/rms_norm.py:114", [r[1] for r in k9]),
+        entry("swiglu_fwd", "paddle_tpu_torch/csrc/swiglu.cu",
+              "paddle_tpu/ops/pallas/swiglu.py:72", [r[0] for r in k10]),
+        entry("swiglu_bwd", "paddle_tpu_torch/csrc/swiglu.cu",
+              "paddle_tpu/ops/pallas/swiglu.py:96", [r[1] for r in k10]),
+        entry("rmsnorm_matmul", "paddle_tpu_torch/csrc/rmsnorm_matmul.cu",
+              "paddle_tpu/ops/pallas/rmsnorm_matmul.py:93", k11),
     ], "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,21 +3,42 @@ pretraining step.
 
 Counterpart of ``paddle_tpu/models/llama_pretrain.py``.  For serving:
 :class:`LlamaPretrainConfig`, :func:`init_params` (same shapes and scale, a
-seeded ``torch.Generator`` on the device, no mesh), :func:`_rms_norm`
-(composite branch), :func:`_mm` (plain weights, and weight-only int8
-``{"q", "s"}`` dicts through the int8 matmul kernel) and
-:func:`_block_post_attn` (composite FFN branch).  For training, on one
-device: :func:`_rope` (the fused RoPE kernel), :func:`_attention` (the
-flash attention kernels, or the composite), the block forward under the
-``full`` / ``flash`` rematerialisation policies, :func:`make_forward`
-(``forward_loss`` with the plain or the chunked loss head, and packed
-pretraining: ``segment_ids`` keep attention within each document through
-the segmented flash attention kernels and mask the boundary and padding
-targets of the loss), :func:`adamw_update` (the fused AdamW kernel for f32
-moments), :func:`adafactor_update` and :func:`make_train_step`.  Not ported
-yet (each raises ``NotImplementedError`` where asked for): the mesh and its
-parallel forms, context parallelism and JAX's ``dots`` / ``names`` /
-``cheap`` checkpoint policies.
+seeded ``torch.Generator`` on the device, no mesh), :func:`_rms_norm`,
+:func:`_mm` (plain weights, and weight-only int8 ``{"q", "s"}`` dicts
+through the int8 matmul kernel) and :func:`_block_post_attn`.  For
+training, on one device: :func:`_rope` (the fused RoPE kernel),
+:func:`_attention` (the flash attention kernels, or the composite), the
+block forward under the ``full`` / ``flash`` rematerialisation policies,
+:func:`make_forward` (``forward_loss`` with the plain or the chunked loss
+head, and packed pretraining: ``segment_ids`` keep attention within each
+document through the segmented flash attention kernels and mask the
+boundary and padding targets of the loss), :func:`adamw_update` (the fused
+AdamW kernel for f32 moments), :func:`adafactor_update` and
+:func:`make_train_step`.  Not ported yet (each raises
+``NotImplementedError`` where asked for): the mesh and its parallel forms,
+context parallelism and JAX's ``dots`` / ``names`` / ``cheap`` checkpoint
+policies.
+
+The port's flags (``paddle_tpu_torch/flags.py``, all off by default as in
+JAX) route the trunk through three more kernels, read at call time so that
+a checkpoint's recompute takes the forward's branch:
+
+* ``FLAGS_pallas_rms_norm``: :func:`_rms_norm` through the rms_norm kernel
+  (``x`` rounded once, not twice) when the hidden size is a multiple of 128
+  and the weight is not an int8 dict.
+* ``FLAGS_pallas_rmsnorm_matmul``: :func:`_block_pre_attn` computes q, k and
+  v as three rmsnorm_matmul calls on the uncast ln1, and
+  :func:`_block_post_attn` gate and up as two on ln2 (then ``silu(gate) *
+  up`` in plain ops, as JAX does), for weights that are not int8 dicts.
+* ``FLAGS_pallas_swiglu``: otherwise, the FFN's ``silu(gate) * up`` through
+  the swiglu kernel.
+
+The serving lanes (``models/paged_decode.py``: the decode step's
+``_decode_layer`` and the packed prefill) call :func:`_rms_norm` and
+:func:`_block_post_attn`, so they take these kernels where JAX's lanes take
+its own: the rms_norm kernel on ln1, ln2 and the final norm, and the FFN
+branch of the other two flags; their q / k / v stay plain products, as in
+JAX.
 
 Params are a plain dict in the JAX tree's layout: ``embed [V, h]``,
 ``blocks`` (each entry stacked ``[L, ...]``), ``final_norm [h]``,
@@ -40,12 +61,16 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..flags import flags
 from ..ops.chunked_loss import chunked_softmax_cross_entropy
 from ..ops.flash_attention import flash_attention
 from ..ops.flash_varlen import flash_attention_segmented, segmented_sdpa_plain
 from ..ops.fused_adamw import fused_adamw
 from ..ops.int8_matmul import int8_matmul
+from ..ops.rms_norm import rms_norm
+from ..ops.rmsnorm_matmul import rmsnorm_matmul
 from ..ops.rope import fused_rope, rope_tables
+from ..ops.swiglu import swiglu
 
 __all__ = ["LlamaPretrainConfig", "init_params", "layer_params",
            "make_forward", "make_train_step", "init_adamw_state",
@@ -152,6 +177,12 @@ def layer_params(params: Dict[str, Any], layer: int) -> Dict[str, Any]:
 
 
 def _rms_norm(x, w, eps):
+    """RMSNorm in ``x``'s type: the rms_norm kernel under
+    ``FLAGS_pallas_rms_norm`` (JAX's conditions), else the composite, which
+    rounds ``x * rstd`` to x's type before the weight multiplies it."""
+    if flags.FLAGS_pallas_rms_norm and x.shape[-1] % 128 == 0 and \
+            not isinstance(w, dict):
+        return rms_norm(x, w.to(x.dtype), eps)
     var = torch.mean(torch.square(x.float()), -1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
     return (x.float() * rstd).to(x.dtype) * w.to(x.dtype)
@@ -174,13 +205,25 @@ def _mm(x, w, dt):
 
 def _block_post_attn(bp: Dict[str, Any], x, attn,
                      cfg: LlamaPretrainConfig):
-    """Output projection + residual + SwiGLU FFN."""
+    """Output projection + residual + SwiGLU FFN.  Under
+    ``FLAGS_pallas_rmsnorm_matmul`` ln2 fuses into the gate and up products
+    (weights that are not int8 dicts); otherwise ``FLAGS_pallas_swiglu``
+    sends ``silu(gate) * up`` to the swiglu kernel."""
     b, s, h = x.shape
     dt = cfg.dtype
+    eps = cfg.rms_norm_eps
     attn = attn.reshape(b, s, h)
     x = x + _mm(attn, bp["wo"], dt)
     res = x
-    y = _rms_norm(x, bp["ln2"], cfg.rms_norm_eps)
+    if flags.FLAGS_pallas_rmsnorm_matmul and \
+            not isinstance(bp["w_gate"], dict):
+        gate = F.silu(rmsnorm_matmul(x, bp["ln2"], bp["w_gate"].to(dt), eps))
+        up = rmsnorm_matmul(x, bp["ln2"], bp["w_up"].to(dt), eps)
+        return res + _mm(gate * up, bp["w_down"], dt)
+    y = _rms_norm(x, bp["ln2"], eps)
+    if flags.FLAGS_pallas_swiglu:
+        act = swiglu(_mm(y, bp["w_gate"], dt), _mm(y, bp["w_up"], dt))
+        return res + _mm(act, bp["w_down"], dt)
     gate = F.silu(_mm(y, bp["w_gate"], dt))
     up = _mm(y, bp["w_up"], dt)
     return res + _mm(gate * up, bp["w_down"], dt)
@@ -241,15 +284,26 @@ def _attention(q, k, v, cfg: LlamaPretrainConfig, seg=None):
 
 
 def _block_pre_attn(bp: Dict[str, Any], x, cfg: LlamaPretrainConfig):
-    """ln1 + QKV projections + rope -> q, k, v (K and V un-repeated)."""
+    """ln1 + QKV projections + rope -> q, k, v (K and V un-repeated).
+    Under ``FLAGS_pallas_rmsnorm_matmul`` (a ``wq`` that is not an int8
+    dict) ln1 fuses into each of the three products."""
     b, s, _ = x.shape
     n, d = cfg.num_attention_heads, cfg.head_dim
     nkv = cfg.num_key_value_heads
     dt = cfg.dtype
-    y = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
-    q = _mm(y, bp["wq"], dt).reshape(b, s, n, d)
-    k = _mm(y, bp["wk"], dt).reshape(b, s, nkv, d)
-    v = _mm(y, bp["wv"], dt).reshape(b, s, nkv, d)
+    eps = cfg.rms_norm_eps
+    if flags.FLAGS_pallas_rmsnorm_matmul and not isinstance(bp["wq"], dict):
+        q = rmsnorm_matmul(x, bp["ln1"], bp["wq"].to(dt), eps)
+        k = rmsnorm_matmul(x, bp["ln1"], bp["wk"].to(dt), eps)
+        v = rmsnorm_matmul(x, bp["ln1"], bp["wv"].to(dt), eps)
+    else:
+        y = _rms_norm(x, bp["ln1"], eps)
+        q = _mm(y, bp["wq"], dt)
+        k = _mm(y, bp["wk"], dt)
+        v = _mm(y, bp["wv"], dt)
+    q = q.reshape(b, s, n, d)
+    k = k.reshape(b, s, nkv, d)
+    v = v.reshape(b, s, nkv, d)
     q, k = _rope(q, k, cfg.rope_theta)
     return q, k, v
 

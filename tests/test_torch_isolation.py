@@ -39,6 +39,10 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.ops.flash_attention\n"
         "import paddle_tpu_torch.ops.fused_adamw\n"
         "import paddle_tpu_torch.ops.chunked_loss\n"
+        "import paddle_tpu_torch.ops.rms_norm\n"
+        "import paddle_tpu_torch.ops.swiglu\n"
+        "import paddle_tpu_torch.ops.rmsnorm_matmul\n"
+        "import paddle_tpu_torch.flags\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.profile_torch_train\n"

@@ -8,7 +8,11 @@ one row, one token, ragged lengths, head_dim 64, non-causal and leaves of 1
 and 129 elements, the segmented backward (dq; dk and dv) at one token,
 lengths on either side of a tile, one segment filling a row, all 1-token
 segments, a GQA group of 8, head_dim 64 non-causal and a -1 pad tail, run
-twice for bit-identical results, and the wrappers' refusals.
+twice for bit-identical results, the trunk's flagged kernels (rms_norm
+forward and backward, swiglu forward and backward, rmsnorm_matmul) at one
+row, rows no multiple of 8 or 128, f32 and mixed types, tensors off a
+16-byte boundary, ragged N, H no multiple of 128, K9b run twice for
+bit-identical results, and the wrappers' refusals.
 
 Every test needs a card and skips without one.  The card machine has no JAX,
 so run this file there without the suite's conftest:
@@ -33,6 +37,9 @@ from paddle_tpu_torch.ops import fused_adamw as aw  # noqa: E402
 from paddle_tpu_torch.ops import int8_matmul as im  # noqa: E402
 from paddle_tpu_torch.ops import rope  # noqa: E402
 from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
+from paddle_tpu_torch.ops import rms_norm as rn  # noqa: E402
+from paddle_tpu_torch.ops import rmsnorm_matmul as rmm  # noqa: E402
+from paddle_tpu_torch.ops import swiglu as sw  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -447,3 +454,195 @@ def test_segmented_backward_kernels_refuse_what_they_cannot_take(gen):
             fn(q, k, v, seg, do, lse.bfloat16(), delta, ranges, True)
         with pytest.raises(ValueError, match="delta"):
             fn(q, k, v, seg, do, lse, delta[:, :, :-1], ranges, True)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (rows, h, x type, w type): one row, decode's [8, 4096], a ragged row
+# count with the promote case, h no multiple of 8 (scalar accesses), h no
+# multiple of 128, f32 x with a bf16 weight
+RMS_CASES = [(1, 2048, "bfloat16", "bfloat16"),
+             (8, 4096, "bfloat16", "bfloat16"),
+             (4095, 2048, "bfloat16", "float32"),
+             (37, 200, "float32", "float32"),
+             (3, 136, "bfloat16", "bfloat16"),
+             (5, 64, "float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("n,h,xdt,wdt", RMS_CASES)
+def test_rms_norm_kernels_match_plain(gen, n, h, xdt, wdt):
+    x = torch.randn((n, h), generator=gen, device="cuda").to(
+        getattr(torch, xdt))
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(
+        getattr(torch, wdt))
+    do = torch.randn((n, h), generator=gen, device="cuda").to(
+        torch.promote_types(x.dtype, w.dtype))
+    before = (rn.launches, rn.launches_bwd)
+    out, rstd = rn._fwd(x, w, 1e-6)
+    dx, dw = rn._bwd(x, w, rstd, do)
+    torch.cuda.synchronize()
+    assert (rn.launches, rn.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == do.dtype and dx.dtype == x.dtype
+    assert dw.dtype == torch.float32
+    want, want_rstd = rn.rms_norm_plain(x.float(), w.float(), 1e-6)
+    want_dx, want_dw = rn.rms_norm_bwd_plain(x.float(), w.float(), want_rstd,
+                                             do.float())
+    torch.testing.assert_close(rstd, want_rstd, atol=1e-5, rtol=1e-5)
+    for name, got, ref in (("out", out, want), ("dx", dx, want_dx),
+                           ("dw", dw, want_dw)):
+        torch.testing.assert_close(got.float(), ref, **TOL, msg=name)
+
+
+def test_rms_norm_kernels_take_misaligned_views_and_are_deterministic(gen):
+    x = _randn(gen, 300, 256)
+    w = _randn(gen, 256)
+    do = _randn(gen, 300, 256)
+    out, rstd = rn._fwd(x, w, 1e-6)
+    runs = [rn._bwd(x, w, rstd, do) for _ in range(2)]
+    out_m, rstd_m = rn._fwd(_misaligned(x), _misaligned(w), 1e-6)
+    dx_m, dw_m = rn._bwd(_misaligned(x), _misaligned(w), rstd,
+                         _misaligned(do))
+    torch.cuda.synchronize()
+    for name, a, b in (("dx", *(r[0] for r in runs)),
+                       ("dw", *(r[1] for r in runs))):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+    torch.testing.assert_close(out_m.float(), out.float(), **TOL)
+    torch.testing.assert_close(dx_m.float(), runs[0][0].float(), **TOL)
+    torch.testing.assert_close(dw_m, runs[0][1], **TOL)
+
+
+def test_rms_norm_autograd_returns_each_input_type(gen):
+    x = _randn(gen, 2, 9, 128).requires_grad_(True)
+    w = torch.ones(128, device="cuda", requires_grad=True)
+    wb = w.to(torch.bfloat16)
+    before = (rn.launches, rn.launches_bwd)
+    rn.rms_norm(x, wb).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (rn.launches, rn.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+
+
+def test_rms_norm_kernels_refuse_what_they_cannot_take(gen):
+    x = _randn(gen, 4, 128)
+    with pytest.raises(ValueError, match="want x"):
+        rn._fwd(x, _randn(gen, 64), 1e-6)
+    with pytest.raises(TypeError):
+        rn._fwd(x.half(), x[0], 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        rn._fwd(x.t(), _randn(gen, 4), 1e-6)
+    out, rstd = rn._fwd(x, x[0].contiguous(), 1e-6)
+    with pytest.raises(ValueError, match="dout"):
+        rn._bwd(x, x[0].contiguous(), rstd, x.float())
+    with pytest.raises(ValueError, match="rstd"):
+        rn._bwd(x, x[0].contiguous(), rstd[:-1], x)
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (8, 11008), (3, 5, 7),
+                                   (4095, 136)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_swiglu_kernels_match_plain(gen, shape, dtype):
+    dt = getattr(torch, dtype)
+    g, u, do = (2 * torch.randn(shape, generator=gen, device="cuda")
+                for _ in range(3))
+    g, u, do = g.to(dt), u.to(dt), do.to(dt)
+    before = (sw.launches, sw.launches_bwd)
+    out = sw._fwd(g, u)
+    dg, du = sw._bwd(g, u, do)
+    torch.cuda.synchronize()
+    assert (sw.launches, sw.launches_bwd) == (before[0] + 1, before[1] + 1)
+    want = sw.swiglu_plain(g.float(), u.float())
+    want_dg, want_du = sw.swiglu_bwd_plain(g.float(), u.float(), do.float())
+    tol = TOL if dtype == "bfloat16" else dict(atol=1e-5, rtol=1e-5)
+    for name, got, ref in (("out", out, want), ("dg", dg, want_dg),
+                           ("du", du, want_du)):
+        assert got.dtype == dt, name
+        torch.testing.assert_close(got.float(), ref, **tol, msg=name)
+
+
+def test_swiglu_kernels_take_misaligned_views(gen):
+    g, u, do = (_randn(gen, 33, 64) for _ in range(3))
+    out = sw._fwd(g, u)
+    dg, du = sw._bwd(g, u, do)
+    out_m = sw._fwd(_misaligned(g), _misaligned(u))
+    dg_m, du_m = sw._bwd(_misaligned(g), _misaligned(u), _misaligned(do))
+    torch.cuda.synchronize()
+    for a, b in ((out, out_m), (dg, dg_m), (du, du_m)):
+        torch.testing.assert_close(a.float(), b.float(), **TOL)
+
+
+def test_swiglu_kernels_refuse_what_they_cannot_take(gen):
+    g = _randn(gen, 4, 8)
+    with pytest.raises(TypeError):
+        sw._fwd(g, g.float())
+    with pytest.raises(ValueError, match="shape"):
+        sw._fwd(g, g[:2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        sw._bwd(g, g, _randn(gen, 8, 4).t())
+    with pytest.raises(TypeError):
+        sw._fwd(g.half(), g.half())
+
+
+# (M, H, N, wl type): one row, the trainer's q shape cut to 300 rows,
+# decode's [8, 4096] x [4096, 11008], ragged M and N with H no multiple of
+# 128, N below one tile, a bf16 norm weight (the serving path)
+RMM_CASES = [(1, 2048, 2048, "float32"),
+             (300, 2048, 2048, "float32"),
+             (8, 4096, 11008, "bfloat16"),
+             (100, 48, 70, "float32"),
+             (130, 272, 129, "bfloat16"),
+             (65, 64, 8, "float32")]
+
+
+@pytest.mark.parametrize("M,H,N,wldt", RMM_CASES)
+def test_rmsnorm_matmul_kernel_matches_plain(gen, M, H, N, wldt):
+    x = _randn(gen, M, H)
+    wl = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(
+        getattr(torch, wldt))
+    w = _randn(gen, H, N) * H ** -0.5
+    before = rmm.launches
+    out = rmm._fwd(x, wl, w, 1e-6)
+    torch.cuda.synchronize()
+    assert rmm.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    torch.testing.assert_close(out.float(), rmm.rmsnorm_matmul_plain(
+        x, wl, w, 1e-6).float(), **TOL)
+
+
+def test_rmsnorm_matmul_autograd_runs_the_kernel_and_the_f32_backward(gen):
+    x = _randn(gen, 2, 40, 256).requires_grad_(True)
+    wl = torch.ones(256, device="cuda", requires_grad=True)
+    w = (_randn(gen, 256, 96) * 0.05).requires_grad_(True)
+    before = rmm.launches
+    rmm.rmsnorm_matmul(x, wl, w).float().sum().backward()
+    torch.cuda.synchronize()
+    assert rmm.launches == before + 1
+    assert (x.grad.dtype, wl.grad.dtype, w.grad.dtype) == (
+        torch.bfloat16, torch.float32, torch.bfloat16)
+    want = rmm._bwd(x.detach(), wl.detach(), w.detach(),
+                    torch.ones((2, 40, 96), device="cuda",
+                               dtype=torch.bfloat16), 1e-6)
+    for name, got, ref in zip(("dx", "dwl", "dw"), (x, wl, w), want):
+        assert torch.equal(got.grad, ref), name
+
+
+def test_rmsnorm_matmul_kernel_refuses_what_it_cannot_take(gen):
+    x = _randn(gen, 4, 64)
+    wl = torch.ones(64, device="cuda")
+    w = _randn(gen, 64, 32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        rmm._fwd(x[:, :40].contiguous(), wl[:40], w[:40].contiguous(), 1e-6)
+    with pytest.raises(TypeError):
+        rmm._fwd(x.float(), wl, w, 1e-6)
+    with pytest.raises(TypeError):
+        rmm._fwd(x, wl, w.float(), 1e-6)
+    with pytest.raises(ValueError, match="chain"):
+        rmm._fwd(x, wl, w[:32].contiguous(), 1e-6)
+    with pytest.raises(ValueError, match="boundary"):
+        rmm._fwd(x, _misaligned(wl), w, 1e-6)

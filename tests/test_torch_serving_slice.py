@@ -13,7 +13,10 @@ be the JAX teacher-forced argmax wherever JAX's top-2 margin exceeds 1e-3,
 and inside the port the batched lane must equal a solo run token for token.
 With int8 pages the JAX reference is JAX's own int8 path (its packed prefill
 quantized on the page write, then its ``step_q8`` teacher-forced), since the
-decode attends over quantized pages.
+decode attends over quantized pages.  With the trunk's kernel flags on in
+both packages (set A: rms_norm + swiglu; set B: all three), the packed
+prefill and the teacher-forced decode steps of a model whose hidden size
+takes the rms_norm kernel (128) against JAX's with its flags on.
 """
 
 import json
@@ -29,9 +32,11 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
+from paddle_tpu.flags import get_flags, set_flags  # noqa: E402
 from paddle_tpu.models import decode as jdec  # noqa: E402
 from paddle_tpu.models import llama_pretrain as jlp  # noqa: E402
 from paddle_tpu.models import paged_decode as jpd  # noqa: E402
+from paddle_tpu_torch import flags as tflags  # noqa: E402
 from paddle_tpu_torch.inference.serving import (  # noqa: E402
     GenerationServer, generate_http, generate_http_stream)
 from paddle_tpu_torch.models import decode as tdec  # noqa: E402
@@ -89,7 +94,8 @@ def _pack(prompts, bucket=64):
 def _jax_packed(jcfg, jparams, toks, seg, pos, q8=False):
     run = jax.jit(jpd._packed_prefill_body(jcfg, q8, False))
     T = toks.shape[1]
-    L, nkv, d = 2, KW["num_key_value_heads"], 16
+    L, nkv, d = (jcfg.num_hidden_layers, jcfg.num_key_value_heads,
+                 jcfg.head_dim)
     pool = jnp.zeros((L, 2, nkv, PAGE, d), jnp.int8 if q8 else jnp.float32)
     # the q8 form threads [L, ...] scale pools through its scan
     scale = (jnp.ones((L, 2, nkv, PAGE), jnp.float32) if q8
@@ -545,3 +551,66 @@ def test_http_front_serves_int8_weights_over_int8_pages(models, qparams):
     finally:
         srv.stop()
     assert cache.audit()["owned"] == 0
+
+
+TRUNK_FLAGS = ("FLAGS_pallas_rms_norm", "FLAGS_pallas_swiglu",
+               "FLAGS_pallas_rmsnorm_matmul")
+FLAG_SETS = {"A": TRUNK_FLAGS[:2], "B": TRUNK_FLAGS}
+FLAG_KW = dict(vocab_size=128, hidden_size=128, intermediate_size=256,
+               num_hidden_layers=2, num_attention_heads=2,
+               num_key_value_heads=1)
+
+
+@pytest.fixture
+def flag_set(request, monkeypatch):
+    """Turn a flag set on in both packages and restore both afterwards.
+    JAX reads its flags when it traces and memoises its jitted decode step
+    and prefill body per config, so the test gives it empty memos."""
+    monkeypatch.setattr(jpd, "_step_cache", {})
+    monkeypatch.setattr(jpd, "_packed_body_cache", {})
+    saved_jax = get_flags(list(TRUNK_FLAGS))
+    saved_port = tflags.get_flags(list(TRUNK_FLAGS))
+    on = {name: name in FLAG_SETS[request.param] for name in TRUNK_FLAGS}
+    set_flags(on)
+    tflags.set_flags(on)
+    yield request.param
+    set_flags(saved_jax)
+    tflags.set_flags(saved_port)
+
+
+@pytest.mark.parametrize("flag_set", ["A", "B"], indirect=True)
+def test_flagged_prefill_and_decode_step_logits_match_jax(flag_set,
+                                                          monkeypatch):
+    from paddle_tpu_torch.ops import rms_norm as trn
+    from paddle_tpu_torch.ops import rmsnorm_matmul as trm
+    from paddle_tpu_torch.ops import swiglu as tsw
+    calls = {"rms_norm": 0, "swiglu": 0, "rmsnorm_matmul": 0}
+    for mod, name in ((trn, "rms_norm"), (tsw, "swiglu"),
+                      (trm, "rmsnorm_matmul")):
+        def spy(*a, _real=mod._fwd, _name=name):
+            calls[_name] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(mod, "_fwd", spy)
+    jcfg = jlp.LlamaPretrainConfig(**FLAG_KW, dtype=jnp.float32,
+                                   param_dtype=jnp.float32)
+    tcfg = tlp.LlamaPretrainConfig(**FLAG_KW, dtype=torch.float32)
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1, 1, 1, 1),
+                ("dp", "pp", "sharding", "sep", "mp"))
+    jparams = jlp.init_params(jcfg, jax.random.PRNGKey(3), mesh)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
+    models = (jcfg, tcfg, jparams, tparams)
+    st = _prefill_wave(models)
+    np.testing.assert_allclose(st["tx"].numpy(), np.asarray(st["jx"]), **TOL)
+    _teacher_force_steps(models, st, steps=3)
+    L = tcfg.num_hidden_layers
+    # the prefill wave and three decode steps: ln1, ln2 (set A), the final
+    # norm of each decode step; the FFN in every layer of each pass
+    passes = 1 + 3
+    if flag_set == "A":
+        assert calls == {"rms_norm": passes * 2 * L + 3,
+                         "swiglu": passes * L, "rmsnorm_matmul": 0}
+    else:
+        assert calls == {"rms_norm": passes * L + 3, "swiglu": 0,
+                         "rmsnorm_matmul": passes * 2 * L}

@@ -4,7 +4,12 @@ among themselves, and three ``make_train_step`` steps under AdamW (f32 and
 bf16 moments) and Adafactor from a state carried across by
 ``opt_state_from_jax``.  Packed pretraining (``segment_ids``): the loss and
 every gradient against JAX's under each loss head and remat policy, the
-packed loss against the documents run alone, and one AdamW step.
+packed loss against the documents run alone, and one AdamW step.  The
+trunk's kernel flags (``FLAGS_pallas_rms_norm``, ``_swiglu``,
+``_rmsnorm_matmul``), set on both sides as set A (rms_norm + swiglu) or set
+B (all three): the loss and every gradient, packed under set B, and one
+AdamW step under set B; the port's routes counted against the code's
+prediction.
 
 Two small models, fp32 on both sides, weights and tokens made with numpy
 from a seed: ``gqa`` (hidden 64, 4 heads of 16 over 2 kv heads: the inline
@@ -25,8 +30,9 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from paddle_tpu.flags import set_flags  # noqa: E402
+from paddle_tpu.flags import get_flags, set_flags  # noqa: E402
 from paddle_tpu.models import llama_pretrain as jlp  # noqa: E402
+from paddle_tpu_torch import flags as tflags  # noqa: E402
 from paddle_tpu_torch.models import llama_pretrain as tlp  # noqa: E402
 from paddle_tpu_torch.models.packing import packed_step  # noqa: E402
 from paddle_tpu_torch.models.weights import (  # noqa: E402
@@ -379,3 +385,121 @@ def test_packed_adamw_step_matches_jax():
     assert state["t"] == int(jstate["t"]) == 1
     # 10% of one step: see test_three_train_steps_match_jax
     _assert_tree_close(params, jparams, 1e-5, "param", extra_abs=0.1 * 3e-4)
+
+
+TRUNK_FLAGS = ("FLAGS_pallas_rms_norm", "FLAGS_pallas_swiglu",
+               "FLAGS_pallas_rmsnorm_matmul")
+FLAG_SETS = {"A": TRUNK_FLAGS[:2], "B": TRUNK_FLAGS}
+
+
+@pytest.fixture
+def flag_set(request):
+    """Turn a flag set on in both packages (JAX reads its flags when it
+    traces, so every JAX function is built inside the test); restore both
+    afterwards: the flags are process-global on both sides."""
+    saved_jax = get_flags(list(TRUNK_FLAGS))
+    saved_port = tflags.get_flags(list(TRUNK_FLAGS))
+    on = {name: name in FLAG_SETS[request.param] for name in TRUNK_FLAGS}
+    set_flags(on)
+    tflags.set_flags(on)
+    yield request.param
+    set_flags(saved_jax)
+    tflags.set_flags(saved_port)
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """Calls of the three kernels' forward and backward routes (on the CPU
+    each is the plain version a CUDA tensor's kernel stands in for)."""
+    from paddle_tpu_torch.ops import rms_norm as trn
+    from paddle_tpu_torch.ops import rmsnorm_matmul as trm
+    from paddle_tpu_torch.ops import swiglu as tsw
+    calls = {}
+    for mod, attr, name in ((trn, "_fwd", "rms_norm_fwd"),
+                            (trn, "_bwd", "rms_norm_bwd"),
+                            (tsw, "_fwd", "swiglu_fwd"),
+                            (tsw, "_bwd", "swiglu_bwd"),
+                            (trm, "_fwd", "rmsnorm_matmul")):
+        calls[name] = 0
+
+        def spy(*a, _real=getattr(mod, attr), _name=name):
+            calls[_name] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(mod, attr, spy)
+    return calls
+
+
+def _predicted_routes(flag_set, L, h):
+    """The kernel calls of one forward + backward under remat full, as
+    chip_smoke's train_fused predicts them for the card: K9 only where
+    h % 128 == 0; set B bypasses K9 at ln1 / ln2 and K10 altogether."""
+    k9 = h % 128 == 0
+    if flag_set == "A":
+        return {"rms_norm_fwd": (4 * L + 1) * k9, "rms_norm_bwd": (2 * L + 1) * k9,
+                "swiglu_fwd": 2 * L, "swiglu_bwd": L, "rmsnorm_matmul": 0}
+    return {"rms_norm_fwd": k9, "rms_norm_bwd": k9, "swiglu_fwd": 0,
+            "swiglu_bwd": 0, "rmsnorm_matmul": 10 * L}
+
+
+@pytest.mark.parametrize("flag_set", ["A", "B"], indirect=True)
+@pytest.mark.parametrize("model", ["gqa", "d128"])
+def test_flagged_forward_loss_and_gradients_match_jax(model, flag_set,
+                                                      routes):
+    """gqa (hidden 64) takes no K9, and JAX sends its K11 calls to
+    ``_xla_ref``; d128 (hidden 256) takes all three Pallas kernels."""
+    jcfg, tcfg = _cfgs(model, loss_chunks=2)
+    weights, tokens = _weights(model, 12), _tokens(12)
+    ref, ref_g = jax.value_and_grad(jlp.make_forward(jcfg))(
+        _to_jax(weights), jnp.asarray(tokens))
+    got, got_g = _torch_loss_and_grads(tcfg, weights, tokens)
+    np.testing.assert_allclose(got, float(ref), atol=1e-5, rtol=1e-5)
+    _assert_tree_close(got_g, ref_g, 2e-5, "gradient of")
+    assert routes == _predicted_routes(flag_set, tcfg.num_hidden_layers,
+                                       tcfg.hidden_size)
+
+
+@pytest.mark.parametrize("flag_set", ["B"], indirect=True)
+def test_flagged_packed_forward_loss_and_gradients_match_jax(flag_set,
+                                                             routes):
+    jcfg, tcfg = _cfgs("d128", loss_chunks=1)
+    weights, tokens, seg = _weights("d128", 13), _tokens(13), _packed_ids()
+    ref, ref_g = _jax_packed(jcfg, weights, tokens, seg)
+    got, got_g = _torch_packed(tcfg, weights, tokens, seg)
+    np.testing.assert_allclose(got, float(ref), atol=1e-5, rtol=1e-5)
+    _assert_tree_close(got_g, ref_g, 2e-5, "gradient of")
+    assert routes["rmsnorm_matmul"] == 10 * tcfg.num_hidden_layers
+
+
+@pytest.mark.parametrize("flag_set", ["B"], indirect=True)
+def test_flagged_adamw_train_step_matches_jax(flag_set, routes):
+    """One make_train_step under AdamW with every trunk kernel flag on,
+    against JAX's adamw_update after jax.value_and_grad of its forward.
+    The first AdamW step moves a param by ``lr * g / (|g| + 1e-8)``: where
+    a gradient lies within f32 noise of zero (|g| < 1e-6, the forward
+    test's 2e-5 of a leaf's largest) the two sides may move it anywhere in
+    (-lr, lr), so one whole step is allowed there and 10% elsewhere."""
+    jcfg, tcfg = _cfgs("d128", loss_chunks=2)
+    weights, tokens = _weights("d128", 14), _tokens(14)
+    jloss, jgrads = jax.value_and_grad(jlp.make_forward(jcfg))(
+        _to_jax(weights), jnp.asarray(tokens))
+    jparams = _to_jax(weights)
+    jparams, jstate = jlp.adamw_update(
+        jparams, jgrads, jlp.init_adamw_state(jparams, None), lr=3e-4)
+    tparams = params_from_jax(weights, device="cpu")
+    tstate = tlp.init_adamw_state(tparams, device="cpu")
+    tparams, tstate, tloss = tlp.make_train_step(tcfg, lr=3e-4,
+                                                 device="cpu")(
+        tparams, tstate, torch.from_numpy(tokens))
+    np.testing.assert_allclose(float(tloss), float(jloss), atol=1e-5,
+                               rtol=1e-5)
+    assert tstate["t"] == int(jstate["t"]) == 1
+    ref, grads = dict(_flat(jparams)), dict(_flat(jgrads))
+    for name, p in _flat(tparams):
+        r = np.asarray(ref[name], np.float32)
+        noise = np.abs(np.asarray(grads[name], np.float32)) < 1e-6
+        allowed = (1e-5 * np.abs(r).max()
+                   + np.where(noise, 1.0, 0.1) * 3e-4)
+        assert (np.abs(p.numpy() - r) <= allowed).all(), name
+    assert routes == _predicted_routes("B", tcfg.num_hidden_layers,
+                                       tcfg.hidden_size)

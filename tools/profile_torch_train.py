@@ -7,6 +7,7 @@ Run from the repository root:
     python3 tools/profile_torch_train.py [--layers 24] [--batch 8]
                                          [--seq 2049] [--steps 3]
                                          [--remat-policy full] [--packed]
+                                         [--flags A|B]
 
 Builds the 1.345 B-parameter LLaMA of the JAX package's training bench
 (vocab 32000, hidden 2048, FFN 5504, 24 layers, 16 heads of 128, bf16
@@ -31,6 +32,13 @@ documents of 32-2049 tokens, and each step is
 attention kernels and the plain (masked) loss head, which is then the head
 timed alone.
 
+``--flags A`` turns on the trunk's ``FLAGS_pallas_rms_norm`` and
+``FLAGS_pallas_swiglu`` (``paddle_tpu_torch/flags.py``: the rms_norm and
+swiglu kernels, K9 and K10); ``--flags B`` adds
+``FLAGS_pallas_rmsnorm_matmul`` (K11 for q / k / v and gate / up, with its
+f32 backward in library products; that branch bypasses K9 at ln1 / ln2 and
+K10), the sets of chip_smoke's ``train_fused``.
+
 Prints one JSON line: the card (nvidia-smi name and power limit), the step
 time, tokens per second, peak memory, the device busy share (kernel time
 over step time) and the kernel breakdown.  Exits non-zero without a CUDA
@@ -46,6 +54,12 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tools.torch_profile_common import card_line, device_time  # noqa: E402
+
+
+# chip_smoke's train_fused sets: A = K9 + K10, B = A + K11
+FLAG_SETS = {"A": ("FLAGS_pallas_rms_norm", "FLAGS_pallas_swiglu"),
+             "B": ("FLAGS_pallas_rms_norm", "FLAGS_pallas_swiglu",
+                   "FLAGS_pallas_rmsnorm_matmul")}
 
 
 def _kind(name: str) -> str:
@@ -65,6 +79,16 @@ def _kind(name: str) -> str:
         return "flash_attention bwd dk/dv (K6c)"
     if "adamw_kernel" in name:
         return "fused_adamw (K8)"
+    if "rms_fwd_kernel" in name:
+        return "rms_norm fwd (K9a)"
+    if "rms_bwd_kernel" in name:
+        return "rms_norm bwd (K9b)"
+    if "swiglu_fwd_kernel" in name:
+        return "swiglu fwd (K10a)"
+    if "swiglu_bwd_kernel" in name:
+        return "swiglu bwd (K10b)"
+    if "rmsnorm_matmul_kernel" in name:
+        return "rmsnorm_matmul (K11)"
     low = name.lower()
     if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "cublas",
                               "xmma")):
@@ -83,11 +107,14 @@ def main():
                     choices=["full", "flash"])
     ap.add_argument("--packed", action="store_true",
                     help="rows packed with documents, through segment ids")
+    ap.add_argument("--flags", choices=sorted(FLAG_SETS),
+                    help="turn the trunk's kernel flags of this set on")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         sys.exit(1)
+    from paddle_tpu_torch.flags import set_flags
     from paddle_tpu_torch.models.llama_pretrain import (
         LlamaPretrainConfig, _packed_targets, _plain_loss, init_adamw_state,
         init_params, make_forward, make_train_step)
@@ -97,6 +124,7 @@ def main():
         chunked_softmax_cross_entropy)
 
     card = card_line()
+    set_flags({name: True for name in FLAG_SETS.get(args.flags, ())})
     cfg = LlamaPretrainConfig(
         vocab_size=32000, hidden_size=2048, intermediate_size=5504,
         num_hidden_layers=args.layers, num_attention_heads=16,
@@ -162,6 +190,7 @@ def main():
         "model": f"LLaMA 1.345B bench config, {args.layers} layers",
         "batch": args.batch, "seq": args.seq, "steps": args.steps,
         "remat_policy": args.remat_policy, "packed": args.packed,
+        "flags": list(FLAG_SETS.get(args.flags, ())),
         **packing, "loss": float(loss),
         "step_ms": step_ms,
         "tokens_per_s": args.batch * (args.seq - 1) / step_ms * 1e3,
