@@ -14,6 +14,10 @@ Phases, one JSON line each on stdout:
              prefill wave): max abs error, kernel / plain / library-call
              times (CUDA events, median of 25 runs after warm-up, L2
              flushed before each) and the least time the card could take.
+             k1 and k4 also print the paged kernel's split plan (S splits
+             of P_s pages a row), check that two calls give the same bits
+             and hold one 2,048-token row among short ones in a 128-page
+             table (most splits empty) against the plain version.
    k5, k6a, k6b, k6c, k8 - the training kernels the same way, at the
              trainer's shapes ([8, 2048, 16, 128] bf16, causal; the w_gate
              leaf [24, 2048, 5504]) and at a ragged length, head_dim 64
@@ -172,6 +176,9 @@ TRAIN_SHAPES = [(8, 2048, 16, 128), (2, 2047, 16, 128), (2, 2048, 16, 64)]
 K8_SIZES = [24 * 2048 * 5504, 1_000_003]      # w_gate; no multiple of 4
 
 K1_LENS = [1, 64, 65, 2048, 300, 1000, 1500, 777]
+# one long row among short ones in a table of 128 pages: most of the
+# kernel's splits start past their row's end and exit at once
+K1_SPARSE_LENS, K1_SPARSE_PAGES = [2048, 1, 3, 64, 65, 100, 7, 200], 128
 # (M, K, N): decode w_gate, w_down and lm_head at batch 8, a prefill wave
 K3_SHAPES = [(8, 4096, 11008), (8, 11008, 4096), (8, 4096, 32000),
              (2048, 4096, 11008)]
@@ -272,13 +279,13 @@ def check_close(name, got, ref, tol=None):
 K1_SHAPE = dict(B=8, n=32, d=128, page=64, pages_max=32)
 
 
-def paged_case(torch, nkv, gen):
+def paged_case(torch, nkv, gen, lens=K1_LENS,
+               pages_max=K1_SHAPE["pages_max"]):
     """Random bf16 pools, q, tables and lens at K1's shapes: each row's
     pages at distinct random ids, unused table slots on junk page 0."""
-    B, n, d, page, pages_max = (K1_SHAPE[k] for k in
-                                ("B", "n", "d", "page", "pages_max"))
+    B, n, d, page = (K1_SHAPE[k] for k in ("B", "n", "d", "page"))
     dev = "cuda"
-    used = [-(-L // page) for L in K1_LENS]
+    used = [-(-L // page) for L in lens]
     P = 1 + sum(used) + 16
     kp = torch.randn((P, nkv, page, d), generator=gen, device=dev,
                      dtype=torch.bfloat16)
@@ -292,8 +299,56 @@ def paged_case(torch, nkv, gen):
     for b, u in enumerate(used):          # unused slots stay on junk page 0
         tables[b, :u] = perm[at:at + u]
         at += u
-    lens = torch.tensor(K1_LENS, dtype=torch.int32, device=dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, kp, vp, tables, lens
+
+
+def paged_work(nkv, q8):
+    """(bytes, FLOPs) of K1, or K4 with q8, at K1's shapes: each used K / V
+    slot read once (int8 codes and their two f32 scales for K4), q, the
+    output, the tables and lens once."""
+    B, n, d, pages_max = (K1_SHAPE[k] for k in ("B", "n", "d", "pages_max"))
+    tok = sum(K1_LENS)
+    kv = tok * nkv * d * 2 + tok * nkv * 2 * 4 if q8 else tok * nkv * d * 2 * 2
+    return (kv + 2 * B * n * d * 2 + B * (pages_max + 1) * 4,
+            tok * n * 4 * d)
+
+
+def split_of(torch, pa, nkv, pages_max):
+    """The kernel's split plan at K1's shapes on this card: (S, P_s)."""
+    return pa.split_plan(K1_SHAPE["B"], nkv, K1_SHAPE["n"] // nkv, pages_max,
+                         K1_SHAPE["page"],
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+
+
+def check_paged_kernel(torch, pa, name, nkv, gen, q8):
+    """K1 (or K4 over pools quantized from the same bf16 K/V) beyond the
+    table shape: two calls give the same bits, and a long row among short
+    ones in a 128-page table (most splits empty) matches the plain version.
+    -> the max abs error of the second case."""
+    def run(q, kp, vp, tables, lens):
+        if not q8:
+            return (pa.paged_decode_attention(q, kp, vp, tables, lens),
+                    lambda: pa.paged_decode_attention_plain(
+                        q.float(), kp.float(), vp.float(), tables, lens))
+        kq, ks = pa.quantize_kv_token(kp)
+        vq, vs = pa.quantize_kv_token(vp)
+        return (pa.paged_decode_attention_q8(q, kq, vq, ks, vs, tables, lens),
+                lambda: pa.paged_decode_attention_q8_plain(
+                    q.float(), kq, vq, ks, vs, tables, lens))
+
+    case = paged_case(torch, nkv, gen)
+    first, _ = run(*case)
+    again, _ = run(*case)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        fail(f"{name} nkv={nkv}: two calls on the same inputs differ")
+    out, plain = run(*paged_case(torch, nkv, gen, K1_SPARSE_LENS,
+                                 K1_SPARSE_PAGES))
+    torch.cuda.synchronize()
+    return check_close(f"{name} nkv={nkv} pages_max={K1_SPARSE_PAGES}", out,
+                       plain())
 
 
 def gathered(torch, pool, tables):
@@ -320,6 +375,7 @@ def phase_k1(torch, pa, nkv, gen, flush):
     out0 = pa.paged_decode_attention(q, kp, vp, tables, lens0)
     if not (torch.isfinite(out0.float()).all() and (out0[0] == 0).all()):
         fail(f"K1 nkv={nkv}: a len-0 row did not write zeros")
+    err = max(err, check_paged_kernel(torch, pa, "K1", nkv, gen, q8=False))
     ms = time_ms(torch, lambda: pa.paged_decode_attention(
         q, kp, vp, tables, lens), flush)
     plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_plain(
@@ -329,12 +385,12 @@ def phase_k1(torch, pa, nkv, gen, flush):
     mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None]
     lib_ms = library_ms(torch, flush, q[:, :, None], gathered(torch, kp, tables),
                         gathered(torch, vp, tables), mask, nkv != n)
-    tok = sum(K1_LENS)
-    nbytes = tok * nkv * d * 2 * 2 + 2 * q.numel() * 2 + B * (pages_max + 1) * 4
-    flops = tok * n * 4 * d
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(*paged_work(nkv, q8=False))
+    S, ps = split_of(torch, pa, nkv, pages_max)
     res = dict(nkv=nkv, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               split=dict(S=S, P_s=ps, sparse_table=split_of(
+                   torch, pa, nkv, K1_SPARSE_PAGES)),
                shapes=dict(B=B, n=n, d=d, page=page, pages_max=pages_max,
                            lens=K1_LENS))
     emit("k1", **res)
@@ -360,6 +416,7 @@ def phase_k4(torch, pa, nkv, gen, flush):
     out0 = pa.paged_decode_attention_q8(q, *args, lens0)
     if not (torch.isfinite(out0.float()).all() and (out0[0] == 0).all()):
         fail(f"K4 nkv={nkv}: a len-0 row did not write zeros")
+    err = max(err, check_paged_kernel(torch, pa, "K4", nkv, gen, q8=True))
     ms = time_ms(torch, lambda: pa.paged_decode_attention_q8(
         q, *args, lens), flush)
     plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_q8_plain(
@@ -371,13 +428,12 @@ def phase_k4(torch, pa, nkv, gen, flush):
     vd = (vq.float() * vs[..., None]).to(torch.bfloat16)
     lib_ms = library_ms(torch, flush, q[:, :, None], gathered(torch, kd, tables),
                         gathered(torch, vd, tables), mask, nkv != n)
-    tok = sum(K1_LENS)
-    nbytes = (tok * nkv * d * 2 + tok * nkv * 2 * 4 + 2 * q.numel() * 2
-              + B * (pages_max + 1) * 4)
-    flops = tok * n * 4 * d
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(*paged_work(nkv, q8=True))
+    S, ps = split_of(torch, pa, nkv, pages_max)
     res = dict(nkv=nkv, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               split=dict(S=S, P_s=ps, sparse_table=split_of(
+                   torch, pa, nkv, K1_SPARSE_PAGES)),
                shapes=dict(K1_SHAPE, lens=K1_LENS))
     emit("k4", **res)
     return res

@@ -7,7 +7,11 @@ replace the two Pallas kernels with the hand-written Hopper kernel in
 ``csrc/paged_attention.cu``; :func:`paged_decode_attention_plain` and
 :func:`paged_decode_attention_q8_plain` mirror ``paged_decode_attention_xla``
 and ``paged_decode_attention_q8_xla``; :func:`quantize_kv_token` is a copy
-of the JAX function of that name.
+of the JAX function of that name.  :func:`split_plan` is the kernel's split
+of each row's pages over blocks, from the shapes alone, and
+:func:`paged_decode_attention_split_plain` the kernel's two-pass arithmetic
+(per-split softmax partials, then their log-sum-exp merge) in plain PyTorch,
+so the CPU tests reach both; the wrappers never call the mirror.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor goes to the
 kernel, or the wrapper raises.  There is no quiet fallback from one to the
@@ -27,15 +31,18 @@ from . import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "paged_decode_attention_q8", "paged_decode_attention_q8_plain",
+           "paged_decode_attention_split_plain", "split_plan",
            "quantize_kv_token", "launches", "launches_q8"]
 
-# kernel launches made by paged_decode_attention and by
-# paged_decode_attention_q8 (a run can show that its main path went through
-# the kernels)
+# calls of paged_decode_attention and of paged_decode_attention_q8 that
+# launched the kernel (its split pass, and its combine where the plan has
+# more than one split): one per attention, so a run can show that its main
+# path went through the kernels
 launches = 0
 launches_q8 = 0
 
 _MAX_GROUP = 16            # q heads per kv head the kernel holds
+_NEG = -1e30               # the kernel's masked logit (NEG_INF in JAX)
 _MAX_SMEM = 227 * 1024     # dynamic shared memory a Hopper block may use
 
 
@@ -96,28 +103,144 @@ def paged_decode_attention_q8_plain(q, kpool, vpool, kscale, vscale,
         ident, context_lens, sm_scale)
 
 
+def split_plan(B, nkv, g, pages_max, page, sm_count):
+    """The kernel's split of a row's pages over blocks -> ``(S, P_s)``:
+    ``S`` blocks a (row, kv head), each over ``P_s`` pages, with
+    ``S * P_s >= pages_max > (S - 1) * P_s``.
+
+    ``P_s`` is the whole pages of 256 tokens, or of 128 when a kv head
+    serves ``g > 1`` query heads (a block's work per token grows with its
+    group: on an H100 the table shape of ``chip_smoke.py`` ran fastest at
+    these sizes), halved while the grid would hold fewer than two blocks
+    an SM.  Shapes and the SM count only: a row's length
+    lives on the card, so reading it would be a sync and would keep the
+    call out of a CUDA graph.  ``S == 1`` when one split covers the
+    table."""
+    pages_max = max(int(pages_max), 1)
+    tokens = 256 if g <= 1 else 128
+    ps = min(max(1, tokens // page), pages_max)
+    while ps > 1 and B * nkv * -(-pages_max // ps) < 2 * sm_count:
+        ps = -(-ps // 2)
+    return -(-pages_max // ps), ps
+
+
+def paged_decode_attention_split_plain(q, kpool, vpool, block_tables,
+                                       context_lens, sm_scale=None,
+                                       split_pages=1, kscale=None,
+                                       vscale=None):
+    """The kernel's two passes in fp32 plain PyTorch.
+
+    Each run of ``split_pages`` pages of a row gives its softmax partials
+    ``m`` (max logit), ``l`` (sum of exp) and ``acc`` (exp-weighted V sum);
+    the splits that hold a key merge by the log-sum-exp rule, in split
+    order.  Arguments as :func:`paged_decode_attention`; with ``kscale`` /
+    ``vscale`` [num_pages, nkv, page] the pools are int8 codes and the
+    scales fold into the logits and the probabilities as the kernel's do.
+    A row with ``len == 0`` writes zeros, as the kernel's does."""
+    B, n, d = q.shape
+    _, nkv, page, _ = kpool.shape
+    pages_max = block_tables.shape[1]
+    g = n // nkv
+    scale = sm_scale or (1.0 / math.sqrt(d))
+    span = split_pages * page
+    S = -(-pages_max // split_pages)
+    T = S * span
+    tables = block_tables.long()
+    pad = S * split_pages - pages_max
+    if pad:                      # pages past the table: masked, never used
+        tables = torch.cat([tables, tables.new_zeros(B, pad)], 1)
+
+    def gather(pool):            # -> [B, nkv, T, ...]
+        x = pool[tables].float()                  # [B, S*P_s, nkv, page, ..]
+        x = x.transpose(1, 2)                     # [B, nkv, S*P_s, page, ..]
+        return x.reshape(B, nkv, T, *pool.shape[3:])
+
+    kg, vg = gather(kpool), gather(vpool)
+    qg = q.float().reshape(B, nkv, g, d)
+    s = torch.einsum("bkgd,bktd->bkgt", qg, kg) * scale
+    if kscale is not None:
+        s = s * gather(kscale)[:, :, None]
+    lens = context_lens.to(q.device).long().clamp(0, pages_max * page)
+    valid = (torch.arange(T, device=q.device)[None] < lens[:, None])
+    valid = valid[:, None, None].expand_as(s)
+    # per split: m, l, acc; masked logits at the kernel's -1e30, so a split
+    # with no key gets m = -1e30 and weighs nothing in the merge
+    s = torch.where(valid, s, _NEG).reshape(B, nkv, g, S, span)
+    m = s.amax(-1)
+    p = torch.where(valid.reshape(s.shape), torch.exp(s - m[..., None]), 0.)
+    l = p.sum(-1)
+    if vscale is not None:
+        p = p * gather(vscale).reshape(B, nkv, 1, S, span)
+    acc = torch.einsum("bkgst,bkstd->bkgsd", p,
+                       vg.reshape(B, nkv, S, span, d))
+    # merge: weights 2^(m_s - max m) in the kernel, e^ here
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    L = (l * w).sum(-1, keepdim=True)
+    o = (acc * w[..., None]).sum(-2)
+    o = torch.where(L > 0, o / L.clamp_min(1e-30), 0.)   # len 0: zeros
+    return o.reshape(B, n, d).to(q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(q8: bool = False):
     """The launcher, looked up and typed once per process."""
     lib = _build.library("paged_attention")
     if q8:
         fn = lib.paged_decode_attention_q8
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p]
     else:
         fn = lib.paged_decode_attention_bf16
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_bytes(n, nkv, d, page, q8) -> int:
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B, nkv, g, pages_max, page, index):
+    return split_plan(B, nkv, g, pages_max, page, _sm_count(index))
+
+
+def _launch(q8, q, pools, block_tables, context_lens, sm_scale):
+    """Run the kernel on ``pools`` (kpool, vpool[, kscale, vscale]) on the
+    current stream -> out.  The split partials go to a workspace taken
+    with ``torch.empty`` where the plan has more than one split."""
+    B, n, d = q.shape
+    _, nkv, page, _ = pools[0].shape
+    pages_max = block_tables.shape[1]
+    S, ps = _plan(B, nkv, n // nkv, pages_max, page, q.device.index)
+    if _smem_bytes(n, nkv, d, ps, q8) > _MAX_SMEM:
+        raise ValueError(f"d {d} with a group of {n // nkv} needs more "
+                         f"shared memory than a block has")
+    scale = sm_scale or (1.0 / math.sqrt(d))
+    out = torch.empty_like(q)
+    # held until the launch is queued, so no allocation can take it first
+    part = (torch.empty(B * n * S * (d + 2), dtype=torch.float32,
+                        device=q.device) if S > 1 else None)
+    err = _kernel_fn(q8)(
+        q.data_ptr(), *(t.data_ptr() for t in pools),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), B, n, nkv, d, page,
+        pages_max, S, ps, scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        name = "paged_decode_attention_q8" if q8 else "paged_decode_attention"
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(n, nkv, d, split_pages, q8) -> int:
     fn = _build.library("paged_attention").paged_decode_attention_smem_bytes
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
-    return int(fn(n, nkv, d, page, int(q8)))
+    return int(fn(n, nkv, d, split_pages, int(q8)))
 
 
 def _check(q, kpool, vpool, block_tables, context_lens, scales=None):
@@ -157,9 +280,6 @@ def _check(q, kpool, vpool, block_tables, context_lens, scales=None):
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if _smem_bytes(n, nkv, d, page, q8) > _MAX_SMEM:
-        raise ValueError(f"page {page} x d {d} needs more shared memory "
-                         f"than a block has")
 
 
 def paged_decode_attention(q, kpool, vpool, block_tables, context_lens,
@@ -181,18 +301,8 @@ def paged_decode_attention(q, kpool, vpool, block_tables, context_lens,
         raise ValueError(f"no paged decode attention for {q.device}")
     _check(q, kpool, vpool, block_tables, context_lens)
     global launches
-    B, n, d = q.shape
-    _, nkv, page, _ = kpool.shape
-    scale = sm_scale or (1.0 / math.sqrt(d))
-    out = torch.empty_like(q)
-    err = _kernel_fn()(
-        q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        B, n, nkv, d, page, block_tables.shape[1], scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"cudaError {err}")
+    out = _launch(False, q, (kpool, vpool), block_tables, context_lens,
+                  sm_scale)
     launches += 1
     return out
 
@@ -214,17 +324,7 @@ def paged_decode_attention_q8(q, kpool, vpool, kscale, vscale, block_tables,
         raise ValueError(f"no paged decode attention for {q.device}")
     _check(q, kpool, vpool, block_tables, context_lens, (kscale, vscale))
     global launches_q8
-    B, n, d = q.shape
-    _, nkv, page, _ = kpool.shape
-    scale = sm_scale or (1.0 / math.sqrt(d))
-    out = torch.empty_like(q)
-    err = _kernel_fn(True)(
-        q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), kscale.data_ptr(),
-        vscale.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
-        out.data_ptr(), B, n, nkv, d, page, block_tables.shape[1], scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_decode_attention_q8 kernel launch "
-                           f"failed: cudaError {err}")
+    out = _launch(True, q, (kpool, vpool, kscale, vscale), block_tables,
+                  context_lens, sm_scale)
     launches_q8 += 1
     return out

@@ -1,8 +1,12 @@
 """The port's CUDA kernels against their plain versions on a CUDA card, at
 shapes ``chip_smoke.py`` does not reach: other page sizes and head dims, the
-largest GQA group the paged kernels hold, empty rows, int8 pages with a
-slot quantized from an all-zero token, ragged and batched packed streams,
-non-causal attention, the int8 matmul at ragged M, N and K, the training
+largest GQA group the paged kernels hold (also at head_dim 256), empty rows,
+int8 pages with a slot quantized from an all-zero token, chip_smoke's table
+at nkv 32 and 8, rows that end on either side of a split of the kernel's
+plan, a table far longer than its rows (most splits empty), plans of one
+split (no combine pass), two calls for bit-identical results and one call
+captured in a CUDA graph and replayed with other lengths, ragged and
+batched packed streams, non-causal attention, the int8 matmul at ragged M, N and K, the training
 kernels (fused RoPE, flash attention forward and backward, fused AdamW) at
 one row, one token, ragged lengths, head_dim 64, non-causal and leaves of 1
 and 129 elements, the segmented backward (dq; dk and dv) at one token,
@@ -74,10 +78,15 @@ def _paged_case(gen, n, nkv, d, page, lens, pages_max):
     return q, kp, vp, tables, lens_t
 
 
+K1_LENS = [1, 64, 65, 2048, 300, 1000, 1500, 777]     # chip_smoke's rows
 PAGED_CASES = [
     (32, 2, 64, 16, [0, 1, 15, 16, 17, 100], 8),     # group of 16, empty row
     (8, 8, 128, 32, [33, 64, 1], 3),
     (16, 4, 256, 8, [9, 40], 5),                     # the widest head_dim
+    (32, 32, 128, 64, K1_LENS, 32),                  # chip_smoke's table
+    (32, 8, 128, 64, K1_LENS, 32),                   # ... at nkv 8
+    (8, 8, 128, 16, [1, 5, 40, 0], 256),             # most splits empty
+    (32, 2, 256, 16, [0, 7, 100, 300], 20),          # g = 16 at d = 256
 ]
 
 
@@ -135,6 +144,110 @@ def test_paged_decode_q8_kernel_matches_plain(gen, n, nkv, d, page, lens,
             assert (out[b] == 0).all()          # an empty row writes zeros
         else:
             torch.testing.assert_close(out[b].float(), ref[b], **TOL)
+
+
+def _run_paged(q8, q, kp, vp, tables, lens_t):
+    """K1, or K4 over pools quantized from ``kp`` / ``vp``, and its plain
+    version in fp32."""
+    if not q8:
+        return (pa.paged_decode_attention(q, kp, vp, tables, lens_t),
+                pa.paged_decode_attention_plain(q.float(), kp.float(),
+                                                vp.float(), tables, lens_t))
+    kq, ks = pa.quantize_kv_token(kp)
+    vq, vs = pa.quantize_kv_token(vp)
+    return (pa.paged_decode_attention_q8(q, kq, vq, ks, vs, tables, lens_t),
+            pa.paged_decode_attention_q8_plain(q.float(), kq, vq, ks, vs,
+                                               tables, lens_t))
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["k1", "k4"])
+def test_paged_decode_kernel_rows_on_split_edges(gen, q8):
+    # the card's own plan: rows that end on a split's last slot, one slot
+    # past it, one slot short of it, and in a later split's first page
+    n, nkv, d, page, pages_max = 16, 8, 128, 16, 64
+    S, ps = pa.split_plan(4, nkv, n // nkv, pages_max, page,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    assert S > 1
+    span = ps * page
+    lens = [span, span + 1, span - 1, 2 * span + 3]
+    q, kp, vp, tables, lens_t = _paged_case(gen, n, nkv, d, page, lens,
+                                            pages_max)
+    out, ref = _run_paged(q8, q, kp, vp, tables, lens_t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+# (n, nkv, d, page, lens, pages_max) whose plan on an H100 is one split, so
+# the split pass writes the output and no combine runs: a one-page table
+# with an empty row, and a full grid of short rows (a larger batch over
+# short contexts)
+ONE_SPLIT_CASES = [
+    (8, 2, 128, 64, [0, 1, 64, 30], 1),
+    (32, 32, 128, 64, [0, 1, 63, 64, 65, 128, 200, 255, 256, 3, 17, 99,
+                       150, 190, 230, 256], 4),
+]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["k1", "k4"])
+@pytest.mark.parametrize("n,nkv,d,page,lens,pages_max", ONE_SPLIT_CASES)
+def test_paged_decode_kernel_with_one_split(gen, n, nkv, d, page, lens,
+                                            pages_max, q8):
+    assert pa.split_plan(len(lens), nkv, n // nkv, pages_max, page,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)[0] == 1
+    q, kp, vp, tables, lens_t = _paged_case(gen, n, nkv, d, page, lens,
+                                            pages_max)
+    out, ref = _run_paged(q8, q, kp, vp, tables, lens_t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    for b, L in enumerate(lens):
+        if L == 0:
+            assert (out[b] == 0).all()          # an empty row writes zeros
+        else:
+            torch.testing.assert_close(out[b].float(), ref[b], **TOL)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["k1", "k4"])
+def test_paged_decode_kernel_is_bit_identical_run_to_run(gen, q8):
+    for nkv in (32, 8):
+        q, kp, vp, tables, lens_t = _paged_case(gen, 32, nkv, 128, 64,
+                                                K1_LENS, 32)
+        first, _ = _run_paged(q8, q, kp, vp, tables, lens_t)
+        again, _ = _run_paged(q8, q, kp, vp, tables, lens_t)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["k1", "k4"])
+def test_paged_decode_kernel_replays_in_a_cuda_graph_with_new_lengths(gen,
+                                                                      q8):
+    # the split plan reads shapes only, so a captured call stays right when
+    # the lengths change on the card between replays
+    q, kp, vp, tables, lens_t = _paged_case(gen, 32, 8, 128, 64, K1_LENS, 32)
+    args = (q, kp, vp)
+    if q8:
+        kq, ks = pa.quantize_kv_token(kp)
+        vq, vs = pa.quantize_kv_token(vp)
+        args = (q, kq, vq, ks, vs)
+    fn = pa.paged_decode_attention_q8 if q8 else pa.paged_decode_attention
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args, tables, lens_t)                       # warm-up, built
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args, tables, lens_t)
+    # shorter rows within each row's pages, one row emptied
+    new_lens = [max(0, L - 37) for L in K1_LENS]
+    new_lens[2] = 0
+    lens_t.copy_(torch.tensor(new_lens, dtype=torch.int32, device="cuda"))
+    graph.replay()
+    eager = fn(*args, tables, lens_t)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert (out[2] == 0).all()
 
 
 def test_paged_decode_q8_kernel_refuses_what_it_cannot_take(gen):

@@ -35,8 +35,10 @@ from tools.torch_profile_common import card_line, device_time  # noqa: E402
 
 
 def _kind(name: str) -> str:
-    if "paged_decode_kernel" in name:
-        # the int8-page instantiation's template argument is int8_t
+    # the split pass (paged_decode_split_kernel) and its combine
+    # (paged_decode_combine_kernel)
+    if "paged_decode_" in name:
+        # the int8-page instantiations' template argument is int8_t
         if "char" in name:
             return "paged_decode_attention_q8 (K4)"
         return "paged_decode_attention (K1)"
