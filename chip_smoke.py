@@ -7,7 +7,10 @@ Phases, one JSON line each on stdout:
 
 1. device  - the card's name and power limit (nvidia-smi), TF32 off.
 2. build   - nvcc builds every kernel of the serving and training paths,
-             in parallel.
+             in parallel; then a `ptxas` line maps each kernel function
+             (name<template args>) to its registers, spill stores and
+             loads, stack and static shared memory in bytes (the same,
+             one line a function, and ptxas's warnings go to stderr).
 3. k1..k4  - each kernel against its plain PyTorch version on the card, at
              the main paths' shapes (k1, k2, k4: nkv = 32 as LLaMA-7B and
              nkv = 8 for GQA; k3: decode w_gate, w_down and lm_head and a
@@ -263,6 +266,19 @@ def bound(bytes_moved, flops, peak_flops=PEAK_BF16_FLOPS):
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k6a_work(shape):
+    """(bytes, FLOPs) of K6a at ``shape`` (B, S, H, d), causal: q, k, v read
+    and out written once, lse written; 4 d FLOPs per visible pair."""
+    B, S, H, d = shape
+    pairs = B * H * S * (S + 1) // 2
+    return 4 * B * S * H * d * 2 + B * H * S * 4, pairs * 2 * 2 * d
+
+
+def k11_work(M, H, N, wl_bytes):
+    """(bytes, FLOPs) of K11: x, W and wl read, out written once."""
+    return (M * H + H * N + M * N) * 2 + H * wl_bytes, 2 * M * H * N
 
 
 def check_close(name, got, ref, tol=None):
@@ -544,7 +560,7 @@ def phase_k6(torch, fa, shape, gen, flush, timed):
                 (res[0], time_ms(torch, lambda: fa._fwd_kernel(q, k, v, True),
                                  flush),
                  time_ms(torch, lambda: fa._fwd_plain(q, k, v, True), flush,
-                         reps=5), lib_fwd, 4 * io + stat, 2),
+                         reps=5), lib_fwd, k6a_work(shape)[0], 2),
                 (res[1], time_ms(torch, lambda: fa._bwd_dq_kernel(*args),
                                  flush),
                  time_ms(torch, lambda: fa._bwd_dq_plain(*args), flush,
@@ -810,8 +826,7 @@ def phase_k11(torch, rmm, case, eps, gen, flush):
         del xf
         lib_ms = time_ms(torch, lambda: torch.matmul(y, w), flush)
         del y
-        b_ms, b_by = bound((M * H + H * N + M * N) * 2 + H * wl.element_size(),
-                           2 * M * H * N)
+        b_ms, b_by = bound(*k11_work(M, H, N, wl.element_size()))
         res.update(ms=time_ms(torch, lambda: rmm._fwd(x, wl, w, eps), flush),
                    plain_ms=time_ms(torch, lambda: rmm.rmsnorm_matmul_plain(
                        x, wl, w, eps), flush, reps=5),
@@ -1700,11 +1715,20 @@ def main():
              "swiglu", "rmsnorm_matmul"]
     t0 = time.perf_counter()
     secs = _build.build(names)
-    for name in names:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
     emit("build", seconds=time.perf_counter() - t0, per_source=secs)
+    ptxas = {}
+    for name in names:
+        log = _build.build_logs.get(name, "")
+        for line in log.splitlines():
+            if "warning" in line.lower():
+                print(f"ptxas {name}.cu: {line.strip()}", file=sys.stderr)
+        for label, r in _build.ptxas_report(log).items():
+            print(f"ptxas {name}.cu {label}: {r['registers']} registers, "
+                  f"{r['spill_stores']} / {r['spill_loads']} bytes spill "
+                  f"stores / loads, {r['stack']} stack, {r['smem']} static "
+                  f"smem", file=sys.stderr)
+            ptxas[f"{name}.cu:{label}"] = r
+    print(json.dumps({"ptxas": ptxas}), flush=True)
 
     from paddle_tpu_torch.models.llama_pretrain import LlamaPretrainConfig
     gen = torch.Generator(device="cuda").manual_seed(args.seed)

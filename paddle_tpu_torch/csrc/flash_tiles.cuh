@@ -1,5 +1,5 @@
-// Tiles and tensor-core steps shared by the flash attention kernels
-// (csrc/flash_attention.cu, K6a-c) and the segmented backward
+// Tiles and tensor-core steps shared by the flash attention backward
+// kernels (csrc/flash_attention.cu, K6b-c) and the segmented backward
 // (csrc/flash_varlen_bwd.cu, K7a-b): 64-row bf16 tiles staged in shared
 // memory with padded rows, nvcuda::wmma 16x16x16 products with f32
 // accumulators, four warps of 16 rows a block.
@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper_sm90.cuh"   // hopper::raise_smem
 
 namespace {
 
@@ -95,18 +97,6 @@ __device__ __forceinline__ void mma_pb(FragC (&acc)[D / 16], const bf16* p, cons
   }
 }
 
-// Multiply row r of every accumulator by factor[r]: `tile` [16][16] holds
-// factor[r] in each column of row r.
-template <int NF>
-__device__ __forceinline__ void scale_rows(FragC (&acc)[NF], const float* tile) {
-  FragC fr;
-  wmma::load_matrix_sync(fr, tile, 16, wmma::mem_row_major);
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-#pragma unroll
-    for (int e = 0; e < fr.num_elements; ++e) acc[f].x[e] *= fr.x[e];
-}
-
 // A warp's 16 x D accumulators, rounded to bf16, to rows row0.. of dst (the
 // stream's row 0); `stage` is the warp's [16][D + 4] f32 scratch.
 template <int D>
@@ -131,20 +121,5 @@ __device__ __forceinline__ void store_rows(FragC (&acc)[D / 16], float* stage,
         *reinterpret_cast<const uint4*>(o);
   }
 }
-
-// The dynamic shared memory cap of `kernel`, raised once per device (the
-// call costs about a launch).
-template <typename Kernel>
-cudaError_t raise_smem(Kernel kernel, int bytes, bool* raised, int max_devices) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < max_devices && raised[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < max_devices) raised[dev] = true;
-  return err;
-}
-
-constexpr int kMaxDevices = 64;
 
 }  // namespace

@@ -272,9 +272,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* seg, const void* kmin, const void* kmax,
               const void* lse, const void* delta, void* dq, int B, int T,
               int n, int nkv, int causal, float sm_scale, cudaStream_t stream) {
-  static bool raised[kMaxDevices] = {};
-  cudaError_t err = raise_smem(seg_bwd_dq_kernel<D>, seg_dq_smem<D>(), raised,
-                               kMaxDevices);
+  static bool raised[hopper::kMaxDevices] = {};
+  cudaError_t err =
+      hopper::raise_smem(seg_bwd_dq_kernel<D>, seg_dq_smem<D>(), raised);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + kT - 1) / kT, n, B);
   seg_bwd_dq_kernel<D><<<grid, kThreads, seg_dq_smem<D>(), stream>>>(
@@ -290,9 +290,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int T, int n, int nkv, int causal, float sm_scale,
                cudaStream_t stream) {
-  static bool raised[kMaxDevices] = {};
-  cudaError_t err = raise_smem(seg_bwd_dkv_kernel<D>, seg_dkv_smem<D>(),
-                               raised, kMaxDevices);
+  static bool raised[hopper::kMaxDevices] = {};
+  cudaError_t err =
+      hopper::raise_smem(seg_bwd_dkv_kernel<D>, seg_dkv_smem<D>(), raised);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + kT - 1) / kT, nkv, B);
   seg_bwd_dkv_kernel<D><<<grid, kThreads, seg_dkv_smem<D>(), stream>>>(

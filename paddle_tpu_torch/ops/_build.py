@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,7 +21,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["build", "library", "NVCC_FLAGS"]
+__all__ = ["build", "library", "ptxas_report", "kernel_label", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -97,3 +98,103 @@ def library(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(_target(name)))
         return lib
+
+
+# one-letter builtin types of the Itanium mangling, as template arguments
+_BUILTIN = {"a": "int8_t", "b": "bool", "c": "char", "d": "double",
+            "f": "float", "h": "uint8_t", "i": "int", "j": "unsigned",
+            "l": "long", "m": "unsigned long", "s": "short",
+            "t": "unsigned short"}
+
+
+def _ident(s: str, i: int):
+    """The length-prefixed identifier at ``s[i:]`` -> (name, end) or None."""
+    m = re.match(r"\d+", s[i:])
+    if not m:
+        return None
+    n = int(m.group())
+    start = i + len(m.group())
+    return s[start:start + n], start + n
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's mangled name shortened to ``name<args>``: namespaces
+    dropped, template arguments that are integer or bool literals, builtin
+    types, plain class names or back-references to them (``S_``,
+    ``S0_``, ...) spelled out (anything else as ``?``); a name that is not
+    mangled comes back as it is."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    nested = mangled.startswith("_ZN")
+    i = 3 if nested else 2
+    name, subs = None, []      # subs: the substitutable names so far
+    while i < len(mangled):
+        got = _ident(mangled, i)
+        if got is None:
+            break
+        name, i = got
+        subs.append(name)
+        if not nested:
+            break
+    if name is None:
+        return mangled
+    if i >= len(mangled) or mangled[i] != "I":
+        return name
+    i += 1
+    args = []
+    while i < len(mangled) and mangled[i] != "E":
+        c = mangled[i]
+        if c == "L":                        # literal: L <type> <value> E
+            end = mangled.index("E", i)
+            lit = mangled[i + 2:end]
+            args.append(lit.replace("n", "-", 1) if lit.startswith("n")
+                        else lit)
+            i = end + 1
+        elif c in _BUILTIN:
+            args.append(_BUILTIN[c])
+            i += 1
+        elif c.isdigit():
+            cls, i = _ident(mangled, i)
+            subs.append(cls)
+            args.append(cls)
+        elif c == "S" and re.match(r"S[0-9A-Z]*_", mangled[i:]):
+            ref = re.match(r"S([0-9A-Z]*)_", mangled[i:])
+            k = int(ref.group(1), 36) + 1 if ref.group(1) else 0
+            args.append(subs[k] if k < len(subs) else "?")
+            i += len(ref.group())
+        else:
+            args.append("?")
+            break
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_report(log: str) -> Dict[str, dict]:
+    """The ``-Xptxas=-v`` lines of one build, by kernel: ``{label:
+    {"registers", "spill_stores", "spill_loads", "stack", "smem"}}`` (bytes;
+    ``smem`` is the static shared memory ptxas reports, dynamic shared
+    memory comes at launch).  Each line belongs to the function named by
+    the "Compiling entry function" / "Function properties for" line before
+    it."""
+    out: Dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)), {
+                "registers": 0, "spill_stores": 0, "spill_loads": 0,
+                "stack": 0, "smem": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out

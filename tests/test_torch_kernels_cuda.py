@@ -9,14 +9,18 @@ captured in a CUDA graph and replayed with other lengths, ragged and
 batched packed streams, non-causal attention, the int8 matmul at ragged M, N and K, the training
 kernels (fused RoPE, flash attention forward and backward, fused AdamW) at
 one row, one token, ragged lengths, head_dim 64, non-causal and leaves of 1
-and 129 elements, the segmented backward (dq; dk and dv) at one token,
+and 129 elements, the flash forward on either side of its 128-row tiles,
+at 4,096 tokens, with out and lse views at the head of sentinel-filled
+buffers (nothing past S written) and run twice for bit-identical results, the segmented backward (dq; dk and dv) at one token,
 lengths on either side of a tile, one segment filling a row, all 1-token
 segments, a GQA group of 8, head_dim 64 non-causal and a -1 pad tail, run
 twice for bit-identical results, the trunk's flagged kernels (rms_norm
 forward and backward, swiglu forward and backward, rmsnorm_matmul) at one
 row, rows no multiple of 8 or 128, f32 and mixed types, tensors off a
-16-byte boundary, ragged N, H no multiple of 128, K9b run twice for
-bit-identical results, and the wrappers' refusals.
+16-byte boundary, ragged N, H no multiple of 128, rmsnorm_matmul across its
+128 x 256 tiles (odd N, H of one ragged stage to 64 stages), K9b and
+rmsnorm_matmul run twice for bit-identical results, and the wrappers'
+refusals.
 
 Every test needs a card and skips without one.  The card machine has no JAX,
 so run this file there without the suite's conftest:
@@ -425,6 +429,57 @@ def test_flash_attention_kernels_match_plain(gen, b, s, h, d, causal):
         torch.testing.assert_close(got.float(), want, **TOL, msg=name)
 
 
+# K6a's forward alone at lengths on either side of its 128-row q tiles and
+# 128-key tiles, and one long row; b * h gives more q tiles than one wave
+# of blocks on 132 SMs at S = 4096 (and 2 * 3 * 2 = 12 blocks below)
+@pytest.mark.parametrize("s", [127, 128, 129, 255, 257, 4096])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_kernel_across_its_tiles(gen, s, d, causal):
+    b, h = (1, 8) if s == 4096 else (2, 3)
+    q, k, v = (_randn(gen, b, s, h, d) for _ in range(3))
+    before = fa.launches
+    out, lse = fa._fwd_kernel(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref, ref_lse = fa._fwd_plain(q.float(), k.float(), v.float(), causal)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    torch.testing.assert_close(lse, ref_lse, **TOL)
+
+
+@pytest.mark.parametrize("s,d", [(129, 128), (200, 64), (1, 128)])
+def test_flash_forward_kernel_writes_nothing_past_s(gen, s, d):
+    """out and lse handed to the launcher as views at the head of larger
+    buffers filled with a sentinel: rows of the last (b, h) past S lie in
+    the tail, which must keep the sentinel."""
+    b, h = 2, 2
+    q, k, v = (_randn(gen, b, s, h, d) for _ in range(3))
+    n_out, n_lse = b * s * h * d, b * h * s
+    out_buf = torch.full((n_out + 256 * h * d,), 7.0, device="cuda",
+                         dtype=torch.bfloat16)
+    lse_buf = torch.full((n_lse + 256,), 7.0, device="cuda")
+    out, lse = out_buf[:n_out].view(b, s, h, d), lse_buf[:n_lse].view(b, h, s)
+    err = fa._kernel_fns()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), lse.data_ptr(),
+                              *fa._launch_tail(q, True))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert bool((out_buf[n_out:] == 7.0).all())
+    assert bool((lse_buf[n_lse:] == 7.0).all())
+    ref, ref_lse = fa._fwd_plain(q.float(), k.float(), v.float(), True)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    torch.testing.assert_close(lse, ref_lse, **TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_kernel_is_bit_identical_run_to_run(gen, d):
+    q, k, v = (_randn(gen, 2, 1000, 4, d) for _ in range(3))
+    out_a, lse_a = fa._fwd_kernel(q, k, v, True)
+    out_b, lse_b = fa._fwd_kernel(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, out_b) and torch.equal(lse_a, lse_b)
+
+
 def test_flash_attention_kernel_refuses_what_it_cannot_take(gen):
     q, k = _randn(gen, 1, 8, 2, 128), _randn(gen, 1, 16, 2, 128)
     with pytest.raises(ValueError, match="q_len == kv_len"):
@@ -711,6 +766,13 @@ RMM_CASES = [(1, 2048, 2048, "float32"),
              (100, 48, 70, "float32"),
              (130, 272, 129, "bfloat16"),
              (65, 64, 8, "float32")]
+# and across the kernel's 128 x 256 tiles and 64-deep stages: N = 1001 (W
+# by plain loads: no tensor map takes an odd row stride) and 5504 (the
+# trainer's gate / up, by TMA), M from one row to 32 row tiles, H from
+# one ragged stage (16, 48) to 64 of them
+RMM_CASES += [(m, (16, 48, 272, 4096)[i % 4], n, "float32")
+              for i, (m, n) in enumerate((m, n) for m in (1, 8, 127, 129, 4096)
+                                         for n in (1001, 5504))]
 
 
 @pytest.mark.parametrize("M,H,N,wldt", RMM_CASES)
@@ -726,6 +788,16 @@ def test_rmsnorm_matmul_kernel_matches_plain(gen, M, H, N, wldt):
     assert out.dtype == torch.bfloat16 and out.shape == (M, N)
     torch.testing.assert_close(out.float(), rmm.rmsnorm_matmul_plain(
         x, wl, w, 1e-6).float(), **TOL)
+
+
+@pytest.mark.parametrize("N", [1001, 5504])
+def test_rmsnorm_matmul_kernel_is_bit_identical_run_to_run(gen, N):
+    x = _randn(gen, 300, 2048)
+    wl = 1 + 0.1 * torch.randn(2048, generator=gen, device="cuda")
+    w = _randn(gen, 2048, N) * 2048 ** -0.5
+    a, b = rmm._fwd(x, wl, w, 1e-6), rmm._fwd(x, wl, w, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_rmsnorm_matmul_autograd_runs_the_kernel_and_the_f32_backward(gen):
