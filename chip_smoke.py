@@ -24,7 +24,9 @@ Phases, one JSON line each on stdout:
    k5, k6a, k6b, k6c, k8 - the training kernels the same way, at the
              trainer's shapes ([8, 2048, 16, 128] bf16, causal; the w_gate
              leaf [24, 2048, 5504]) and at a ragged length, head_dim 64
-             and a leaf size no vector divides.
+             and a leaf size no vector divides; k6c also prints delta_ms
+             (the wrapper's sum of dout * out) and bwd_total_ms (K6b +
+             K6c + delta), the whole backward beside SDPA's.
    k7      - the segmented backward, dq (K7a) and dk / dv (K7b), from K2's
              lse, at the packed trainer's shape ([8, 2048, 16, 128], rows
              packed by pack_documents), GQA (32 q heads over 8), T = 2000,
@@ -274,6 +276,19 @@ def k6a_work(shape):
     B, S, H, d = shape
     pairs = B * H * S * (S + 1) // 2
     return 4 * B * S * H * d * 2 + B * H * S * 4, pairs * 2 * 2 * d
+
+
+def k6_bwd_work(shape):
+    """((bytes, FLOPs) of K6b, (bytes, FLOPs) of K6c) at ``shape`` (B, S,
+    H, d), causal.  K6b reads q, k, v, dout, lse and delta and writes dq;
+    K6c reads the same and writes dk and dv.  Per visible pair K6b runs 3
+    products of 2 d FLOPs (s, dp, dq), K6c 4 (s, dp, dv, dk)."""
+    B, S, H, d = shape
+    pairs = B * H * S * (S + 1) // 2
+    io = B * S * H * d * 2                  # one [B, S, H, d] bf16 tensor
+    stat = B * H * S * 4                    # lse or delta
+    return ((5 * io + 2 * stat, pairs * 3 * 2 * d),
+            (6 * io + 2 * stat, pairs * 4 * 2 * d))
 
 
 def k11_work(M, H, N, wl_bytes):
@@ -553,25 +568,28 @@ def phase_k6(torch, fa, shape, gen, flush, timed):
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dot, retain_graph=True), flush)
         del lib_out
-        pairs = B * H * S * (S + 1) // 2
-        io = q.numel() * 2                      # one [B, S, H, d] bf16 tensor
-        stat = B * H * S * 4                    # lse or delta
-        for r, ms, plain, lib, nbytes, mults in (
+        work_b, work_c = k6_bwd_work(shape)
+        for r, ms, plain, lib, work in (
                 (res[0], time_ms(torch, lambda: fa._fwd_kernel(q, k, v, True),
                                  flush),
                  time_ms(torch, lambda: fa._fwd_plain(q, k, v, True), flush,
-                         reps=5), lib_fwd, k6a_work(shape)[0], 2),
+                         reps=5), lib_fwd, k6a_work(shape)),
                 (res[1], time_ms(torch, lambda: fa._bwd_dq_kernel(*args),
                                  flush),
                  time_ms(torch, lambda: fa._bwd_dq_plain(*args), flush,
-                         reps=5), lib_bwd, 5 * io + 2 * stat, 3),
+                         reps=5), lib_bwd, work_b),
                 (res[2], time_ms(torch, lambda: fa._bwd_dkv_kernel(*args),
                                  flush),
                  time_ms(torch, lambda: fa._bwd_dkv_plain(*args), flush,
-                         reps=5), lib_bwd, 6 * io + 2 * stat, 4)):
-            b_ms, b_by = bound(nbytes, pairs * mults * 2 * d)
+                         reps=5), lib_bwd, work_c)):
+            b_ms, b_by = bound(*work)
             r.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                     bound_by=b_by, visible_pairs=pairs)
+                     bound_by=b_by, visible_pairs=B * H * S * (S + 1) // 2)
+        # the whole backward beside SDPA's: delta (the wrapper's sum of
+        # dout * out), K6b and K6c
+        delta_ms = time_ms(torch, lambda: fa._delta(do, out), flush)
+        res[2].update(delta_ms=delta_ms,
+                      bwd_total_ms=res[1]["ms"] + res[2]["ms"] + delta_ms)
         res[1]["library"] = res[2]["library"] = (
             "SDPA's whole backward: dq, dk and dv in one call")
     for phase, r in zip(("k6a", "k6b", "k6c"), res):

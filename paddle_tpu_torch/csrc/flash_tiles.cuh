@@ -1,5 +1,4 @@
-// Tiles and tensor-core steps shared by the flash attention backward
-// kernels (csrc/flash_attention.cu, K6b-c) and the segmented backward
+// Tiles and tensor-core steps of the segmented backward
 // (csrc/flash_varlen_bwd.cu, K7a-b): 64-row bf16 tiles staged in shared
 // memory with padded rows, nvcuda::wmma 16x16x16 products with f32
 // accumulators, four warps of 16 rows a block.
@@ -24,7 +23,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 8;         // bf16 padding of a staged row
 constexpr int kSLD = kT + 4;    // f32 row stride of a warp's score tile
 constexpr int kPLD = kT + 8;    // bf16 row stride of a warp's probability tile
-constexpr float kNegInf = -1e30f;   // NEG_INF of the JAX kernels
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;

@@ -11,7 +11,12 @@ kernels (fused RoPE, flash attention forward and backward, fused AdamW) at
 one row, one token, ragged lengths, head_dim 64, non-causal and leaves of 1
 and 129 elements, the flash forward on either side of its 128-row tiles,
 at 4,096 tokens, with out and lse views at the head of sentinel-filled
-buffers (nothing past S written) and run twice for bit-identical results, the segmented backward (dq; dk and dv) at one token,
+buffers (nothing past S written) and run twice for bit-identical results,
+the flash backward (dq; dk and dv) on either side of its 64- and 128-row
+tiles, at 2,047 and 4,096 tokens, d 64 / 128, causal or not, from the
+forward kernel's own out and lse, with dq, dk and dv views at the head of
+sentinel-filled buffers and run twice for bit-identical results, the
+segmented backward (dq; dk and dv) at one token,
 lengths on either side of a tile, one segment filling a row, all 1-token
 segments, a GQA group of 8, head_dim 64 non-causal and a -1 pad tail, run
 twice for bit-identical results, the trunk's flagged kernels (rms_norm
@@ -478,6 +483,75 @@ def test_flash_forward_kernel_is_bit_identical_run_to_run(gen, d):
     out_b, lse_b = fa._fwd_kernel(q, k, v, True)
     torch.cuda.synchronize()
     assert torch.equal(out_a, out_b) and torch.equal(lse_a, lse_b)
+
+
+def _bwd_case(gen, b, s, h, d, causal):
+    """q, k, v, dout and the forward kernel's own out, lse and delta."""
+    q, k, v, do = (_randn(gen, b, s, h, d) for _ in range(4))
+    out, lse = fa._fwd_kernel(q, k, v, causal)
+    return q, k, v, do, lse, fa._delta(do, out)
+
+
+# K6b and K6c alone at lengths on either side of their 64- and 128-row
+# tiles, 2047 (chip_smoke's ragged length) and one long row
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 255, 257, 2047,
+                               4096])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_kernels_across_their_tiles(gen, s, d, causal):
+    b, h = (1, 8) if s == 4096 else (2, 3)
+    q, k, v, do, lse, delta = _bwd_case(gen, b, s, h, d, causal)
+    before = (fa.launches_dq, fa.launches_dkv)
+    dq = fa._bwd_dq_kernel(q, k, v, do, lse, delta, causal)
+    dk, dv = fa._bwd_dkv_kernel(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1, before[1] + 1)
+    args = (q.float(), k.float(), v.float(), do.float(), lse, delta, causal)
+    ref_dq = fa._bwd_dq_plain(*args)
+    ref_dk, ref_dv = fa._bwd_dkv_plain(*args)
+    for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                            ("dv", dv, ref_dv)):
+        assert torch.isfinite(got.float()).all(), name
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+
+
+@pytest.mark.parametrize("s,d", [(129, 128), (200, 64), (1, 128)])
+def test_flash_backward_kernels_write_nothing_past_s(gen, s, d):
+    """dq, dk and dv handed to the launchers as views at the head of larger
+    buffers filled with a sentinel: rows of the last (b, h) past S lie in
+    the tail, which must keep the sentinel."""
+    b, h = 2, 2
+    q, k, v, do, lse, delta = _bwd_case(gen, b, s, h, d, True)
+    n = b * s * h * d
+    bufs = [torch.full((n + 256 * h * d,), 7.0, device="cuda",
+                       dtype=torch.bfloat16) for _ in range(3)]
+    dq, dk, dv = (buf[:n].view(b, s, h, d) for buf in bufs)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    tail = fa._launch_tail(q, True)
+    assert fa._kernel_fns()[1](*ptrs, dq.data_ptr(), *tail) == 0
+    assert fa._kernel_fns()[2](*ptrs, dk.data_ptr(), dv.data_ptr(),
+                               *tail) == 0
+    torch.cuda.synchronize()
+    for buf in bufs:
+        assert bool((buf[n:] == 7.0).all())
+    args = (q.float(), k.float(), v.float(), do.float(), lse, delta, True)
+    ref_dk, ref_dv = fa._bwd_dkv_plain(*args)
+    for name, got, want in (("dq", dq, fa._bwd_dq_plain(*args)),
+                            ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        torch.testing.assert_close(got.float(), want.float(), **TOL, msg=name)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_kernels_are_bit_identical_run_to_run(gen, d):
+    args = _bwd_case(gen, 2, 1000, 4, d, True) + (True,)
+    dq_a = fa._bwd_dq_kernel(*args)
+    dk_a, dv_a = fa._bwd_dkv_kernel(*args)
+    dq_b = fa._bwd_dq_kernel(*args)
+    dk_b, dv_b = fa._bwd_dkv_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dq_a, dq_b)
+    assert torch.equal(dk_a, dk_b) and torch.equal(dv_a, dv_b)
 
 
 def test_flash_attention_kernel_refuses_what_it_cannot_take(gen):

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time the port's redesigned kernels against an earlier checkout's, in
 turns, in one process on one CUDA card: the paged decode kernels (K1 bf16
-pages, K4 int8 pages), the flash-attention forward (K6a) and the fused
-RMSNorm -> matmul (K11).
+pages, K4 int8 pages), the flash-attention forward (K6a) and backward (K6b
+dq, K6c dk / dv) and the fused RMSNorm -> matmul (K11).
 
 Run from the repository root:
 
     python3 tools/ab_torch_kernels.py --parent DIR [--reps 50]
-                                      [--kernels K1,K4,K6a,K11]
+                                      [--kernels K1,K4,K6a,K6b,K6c,K11]
 
 DIR holds an earlier tree of the repository (``git archive <commit>``
 unpacked into a directory that ``.gitignore`` lists, such as
@@ -15,8 +15,9 @@ unpacked into a directory that ``.gitignore`` lists, such as
 another name, so its own wrappers build its own kernels into DIR's
 ``_build`` directory and both trees are called the way a user calls them.
 Shapes are ``chip_smoke.py``'s: K1 / K4 at its table (B 8, 32 q heads over
-nkv 32 and 8, d 128, page 64, lens ``K1_LENS``); K6a at ``TRAIN_SHAPES[0]``
-causal; K11 at the gate / up, q and decode cases of ``K11_CASES``.  Each
+nkv 32 and 8, d 128, page 64, lens ``K1_LENS``); K6a-c at
+``TRAIN_SHAPES[0]`` causal (K6b and K6c both from this tree's forward
+kernel's out and lse); K11 at the gate / up, q and decode cases of ``K11_CASES``.  Each
 wrapper is timed parent, new, new, parent under two timers:
 
 - ``chip_smoke.time_ms`` as it is (CUDA events, median of ``--reps`` runs
@@ -29,10 +30,12 @@ wrapper is timed parent, new, new, parent under two timers:
 
 The new call is also timed replayed from a CUDA graph (no host work between
 the events), and each wrapper's host time per call is the mean of
-``--reps`` calls queued back to back.  K6a and K11 also time their
+``--reps`` calls queued back to back.  K6a-c and K11 also time their
 yardstick under both timers, as ``chip_smoke.py`` names it (SDPA's
-forward; cuBLAS on the normalised activation).  The two outputs (K6a:
-out and lse) are held against each other at chip_smoke's tolerance.  Prints the card
+forward; SDPA's whole backward, dq, dk and dv in one call, for K6b and
+K6c alike; cuBLAS on the normalised activation).  The two outputs (K6a:
+out and lse; K6c: dk and dv) are held against each other at chip_smoke's
+tolerance.  Prints the card
 and one JSON line per kernel and case; exits non-zero without a CUDA
 device.
 """
@@ -151,7 +154,7 @@ def main():
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="K1,K4,K6a,K11")
+    ap.add_argument("--kernels", default="K1,K4,K6a,K6b,K6c,K11")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -211,6 +214,36 @@ def main():
                                             b[1])),
             library=sdpa, shape=list(shape), causal=True)
         del q, k, v, qt, kt, vt, sdpa
+    if "K6b" in kernels or "K6c" in kernels:
+        old_fa = parent_ops(args.parent, "flash_attention")
+        shape = cs.TRAIN_SHAPES[0]
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(4))
+        out, lse = fa._fwd_kernel(q, k, v, True)
+        delta = fa._delta(do, out)
+        bwd_args = (q, k, v, do, lse, delta, True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        sdpa_bwd = functools.partial(torch.autograd.grad, lib_out,
+                                     (qt, kt, vt), do.transpose(1, 2),
+                                     retain_graph=True)
+        work_b, work_c = cs.k6_bwd_work(shape)
+        if "K6b" in kernels:
+            run("K6b", lambda: old_fa._bwd_dq_kernel(*bwd_args),
+                lambda: fa._bwd_dq_kernel(*bwd_args), work_b,
+                lambda a, b: cs.check_close("K6b dq new vs parent", a, b),
+                library=sdpa_bwd, shape=list(shape), causal=True)
+        if "K6c" in kernels:
+            run("K6c", lambda: old_fa._bwd_dkv_kernel(*bwd_args),
+                lambda: fa._bwd_dkv_kernel(*bwd_args), work_c,
+                lambda a, b: max(cs.check_close("K6c dk new vs parent", a[0],
+                                                b[0]),
+                                 cs.check_close("K6c dv new vs parent", a[1],
+                                                b[1])),
+                library=sdpa_bwd, shape=list(shape), causal=True)
+        del q, k, v, do, out, lse, delta, bwd_args, qt, kt, vt, lib_out
+        del sdpa_bwd
     if "K11" in kernels:
         old_rmm = parent_ops(args.parent, "rmsnorm_matmul")
         eps = 1e-6
