@@ -13,8 +13,11 @@ Phases, one JSON line each on stdout:
              one line a function, and ptxas's warnings go to stderr).
 3. k1..k4  - each kernel against its plain PyTorch version on the card, at
              the main paths' shapes (k1, k2, k4: nkv = 32 as LLaMA-7B and
-             nkv = 8 for GQA; k3: decode w_gate, w_down and lm_head and a
-             prefill wave): max abs error, kernel / plain / library-call
+             nkv = 8 for GQA, and k2's per-tile range kernel against its
+             plain version, bit for bit, at K2's 128-row tiles; k3: decode w_gate, w_down and lm_head on the
+             decode path, w_gate at a 2,048- and a 256-row prefill wave
+             and a ragged M and N on the wave path): max abs error,
+             kernel / plain / library-call
              times (CUDA events, median of 25 runs after warm-up, L2
              flushed before each) and the least time the card could take.
              k1 and k4 also print the paged kernel's split plan (S splits
@@ -31,8 +34,10 @@ Phases, one JSON line each on stdout:
              lse, at the packed trainer's shape ([8, 2048, 16, 128], rows
              packed by pack_documents), GQA (32 q heads over 8), T = 2000,
              head_dim 64, non-causal and many 1-token segments before a -1
-             pad tail; and autograd through flash_attention_segmented
-             against autograd through its plain version.
+             pad tail (and the range kernel at the backward's 64-row
+             tiles, bit for bit); and autograd through
+             flash_attention_segmented against autograd through its plain
+             version.
    k9, k10, k11 - the trunk's flagged kernels the same way: rms_norm
              forward and backward (K9a-b; K9b run twice for bit-identical
              results) at the trainer's [16384, 2048], decode's [8, 4096], a
@@ -51,7 +56,8 @@ Phases, one JSON line each on stdout:
              2 * LOGIT_LIMIT of the plain forward's top logit.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
-             KV pages: every reply complete, K2, K3 and K4 launched, no
+             KV pages: every reply complete, K2 (and its range kernel), K3
+             (both paths) and K4 launched, no
              page left owned.  Each served sequence, teacher-forced,
              through the int8 path twice, with the kernels and with every
              kernel replaced by its plain version: logits within
@@ -77,8 +83,8 @@ Phases, one JSON line each on stdout:
              pack_documents (paddle_tpu_torch/models/packing.py) fills
              with documents of 32-2049 tokens, an unsourced placeholder mix
              (the plain loss head, as JAX takes with segment ids).  Loss checks
-             as in train; K2, K7a, K7b, K5 and K8 launched as often as the
-             code predicts, K6a-c never.
+             as in train; K2, K7a, K7b, their range kernel, K5 and K8
+             launched as often as the code predicts, K6a-c never.
 9. train_packed_grads - 2 layers, batch 2, packed: the gradients through
              the kernels against their plain versions' within GRAD_LIMIT,
              also at 4 kv heads (group 4), where a planted fault (K7b
@@ -100,7 +106,9 @@ Phases, one JSON line each on stdout:
              K9-K11 also replaced by their plain versions in the plain pass
              and a planted fault per set beyond the limit (A: K9b's dx
              without its xhat * c term; B: K11's epilogue without rstd).
-12. kernels - one JSON object with an entry per ported kernel (16).
+12. kernels - one JSON object with an entry per ported kernel (16, and
+             K3's wave path beside its decode path and the segmented
+             kernels' per-tile range kernel: 18).
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before that line.  Without a CUDA device, or without the package
@@ -184,9 +192,12 @@ K1_LENS = [1, 64, 65, 2048, 300, 1000, 1500, 777]
 # one long row among short ones in a table of 128 pages: most of the
 # kernel's splits start past their row's end and exit at once
 K1_SPARSE_LENS, K1_SPARSE_PAGES = [2048, 1, 3, 64, 65, 100, 7, 200], 128
-# (M, K, N): decode w_gate, w_down and lm_head at batch 8, a prefill wave
+# (M, K, N): decode w_gate, w_down and lm_head at batch 8 (the decode
+# path), then the wave path: w_gate at a 2,048-row prefill wave, a 256-row
+# wave (split over K) and a ragged M and N (N % 16 != 0: the plain-load
+# instance)
 K3_SHAPES = [(8, 4096, 11008), (8, 11008, 4096), (8, 4096, 32000),
-             (2048, 4096, 11008)]
+             (2048, 4096, 11008), (256, 4096, 4096), (1000, 4096, 1000)]
 K2_SEGMENTS = [700, 64, 1, 900, 300]   # + sentinel padding up to T
 K2_T = 2048
 # K7 cases (name, B, T, q heads, kv heads, head_dim, causal, layout): the
@@ -296,6 +307,33 @@ def k11_work(M, H, N, wl_bytes):
     return (M * H + H * N + M * N) * 2 + H * wl_bytes, 2 * M * H * N
 
 
+def k2_work(T, n, nkv, d, runs):
+    """(bytes, FLOPs) of causal K2 on one stream of T tokens whose segments
+    are ``runs`` (lengths, in order): q, k, v read and out written once,
+    lse written, the segment ids read; 4 d FLOPs per visible pair and q
+    head."""
+    pairs = sum(L * (L + 1) // 2 for L in runs)
+    return ((2 * T * n * d + 2 * T * nkv * d) * 2 + n * T * 4 + T * 4,
+            pairs * n * 4 * d)
+
+
+def k3_work(M, K, N):
+    """(bytes, FLOPs) of K3: x, the int8 codes and their f32 scales read,
+    the bf16 output written once; 2 FLOPs per multiply-add."""
+    return M * K * 2 + K * N + 4 * N + M * N * 2, 2 * M * K * N
+
+
+def k2_segments():
+    """chip_smoke's K2 stream: the runs ``K2_SEGMENTS``, then a sentinel id
+    up to ``K2_T`` -> (seg [K2_T] int32, run lengths)."""
+    seg = np.full((K2_T,), len(K2_SEGMENTS), np.int32)
+    at = 0
+    for i, L in enumerate(K2_SEGMENTS):
+        seg[at:at + L] = i
+        at += L
+    return seg, K2_SEGMENTS + [K2_T - at]
+
+
 def check_close(name, got, ref, tol=None):
     torch = sys.modules["torch"]
     tol = tol or TOL
@@ -308,6 +346,26 @@ def check_close(name, got, ref, tol=None):
 
 
 K1_SHAPE = dict(B=8, n=32, d=128, page=64, pages_max=32)
+
+
+def check_ranges(torch, fv, name, seg, rows):
+    """The per-tile range kernel on ``seg`` (CUDA) against its plain
+    version on the CPU: equal, or the run fails.  -> max abs error (0)."""
+    got = fv._tile_ranges(seg, rows)
+    want = fv._tile_ranges_plain(seg.cpu(), rows)
+    torch.cuda.synchronize()
+    err = max(int((g.cpu() - w).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    if err:
+        fail(f"{name}: the range kernel's (kmin, kmax) at {rows}-row tiles "
+             f"differ from the plain version's by up to {err} rows")
+    return float(err)
+
+
+def ranges_work(B, T, rows):
+    """(bytes, operations) of the range kernel: the ids read once, kmin and
+    kmax written once; compares and atomics only (0 counted)."""
+    return B * T * 4 + 2 * B * (-(-T // rows)) * 4, 0
 
 
 def paged_case(torch, nkv, gen, lens=K1_LENS,
@@ -490,9 +548,9 @@ def phase_k3(torch, im, shape, gen, flush):
     wd = (q.float() * s).to(torch.bfloat16)
     lib_ms = time_ms(torch, lambda: torch.matmul(x, wd), flush)
     del wd
-    nbytes = M * K * 2 + K * N + 4 * N + M * N * 2
-    b_ms, b_by = bound(nbytes, 2 * M * K * N)
-    res = dict(M=M, K=K, N=N, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    b_ms, b_by = bound(*k3_work(M, K, N))
+    res = dict(M=M, K=K, N=N, path="wave" if M > im.WAVE_MIN_M else "decode",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     emit("k3", **res)
     return res
@@ -625,6 +683,7 @@ def phase_k7(torch, fv, fa, case, seed, gen, flush, timed):
                         dtype=torch.bfloat16) for _ in range(2))
     out, lse = fv._seg_fwd(q, k, v, seg, causal)
     delta = fa._delta(do, out)
+    ranges_err = check_ranges(torch, fv, f"K7 {name}", seg, fv.BLOCK_ROWS)
     ranges = fv._tile_ranges(seg)
     args = (q, k, v, seg, do, lse, delta, ranges, causal)
     dq = fv._seg_bwd_dq_kernel(*args)
@@ -642,7 +701,8 @@ def phase_k7(torch, fv, fa, case, seed, gen, flush, timed):
                 check_close(f"K7b dv {name}", dv, ref_dv))
     del ref_dk, ref_dv, f32
     shape = dict(B=B, T=T, n=n, nkv=nkv, d=d, causal=causal, layout=layout)
-    res = [dict(case=name, max_abs_err=err_a, **shape),
+    res = [dict(case=name, max_abs_err=err_a, **shape,
+                ranges=dict(rows=fv.BLOCK_ROWS, max_abs_err=ranges_err)),
            dict(case=name, max_abs_err=err_b, **shape)]
     if name == "gqa":
         # the autograd path end to end: K2, then K7a and K7b
@@ -864,11 +924,7 @@ def library_ms(torch, flush, q, k, v, mask, gqa):
 def phase_k2(torch, fv, nkv, gen, flush):
     n, d, T = 32, 128, K2_T
     dev = "cuda"
-    seg_np = np.full((T,), len(K2_SEGMENTS), np.int32)     # sentinel tail
-    at = 0
-    for i, L in enumerate(K2_SEGMENTS):
-        seg_np[at:at + L] = i
-        at += L
+    seg_np, runs = k2_segments()                           # sentinel tail
     seg = torch.from_numpy(seg_np)[None].to(dev)
     q = torch.randn((1, T, n, d), generator=gen, device=dev,
                     dtype=torch.bfloat16)
@@ -896,21 +952,31 @@ def phase_k2(torch, fv, nkv, gen, flush):
     ref_r = fv.segmented_sdpa_plain(q[:, :Tr].float(), k[:, :Tr].float(),
                                     v[:, :Tr].float(), seg[:, :Tr], True)
     err_r = check_close(f"K2 ragged T={Tr} nkv={nkv}", out_r, ref_r)
+    # the range kernel K2 launches first, at its 128-row tiles
+    rows = fv.FWD_BLOCK_ROWS
+    r_err = max(check_ranges(torch, fv, f"K2 T={T}", seg, rows),
+                check_ranges(torch, fv, f"K2 ragged T={Tr}",
+                             seg[:, :Tr].contiguous(), rows))
+    r_ms, r_by = bound(*ranges_work(1, T, rows))
+    ranges = dict(rows=rows, T=T, max_abs_err=r_err,
+                  ms=time_ms(torch, lambda: fv._tile_ranges(seg, rows),
+                             flush),
+                  plain_ms=time_ms(torch, lambda: fv._tile_ranges_plain(
+                      seg, rows), flush),
+                  library_ms=None, bound_ms=r_ms, bound_by=r_by)
     ms = time_ms(torch, lambda: fv._seg_fwd(q, k, v, seg, True), flush)
     plain_ms = time_ms(torch, lambda: fv.segmented_sdpa_plain(
         q, k, v, seg, True), flush)
     lib_ms = library_ms(torch, flush, q.transpose(1, 2).contiguous(),
                         k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous(), vis, nkv != n)
-    runs = np.diff(np.flatnonzero(np.r_[1, np.diff(seg_np) != 0, 1]))
     pairs = int(sum(L * (L + 1) // 2 for L in runs))
-    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + n * T * 4 + T * 4
-    flops = pairs * n * 4 * d
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(*k2_work(T, n, nkv, d, runs))
     res = dict(nkv=nkv, max_abs_err=max(err, err_r), lse_max_abs_err=lse_err,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, visible_pairs=pairs,
-               shapes=dict(T=T, n=n, d=d, segments=K2_SEGMENTS))
+               shapes=dict(T=T, n=n, d=d, segments=K2_SEGMENTS),
+               ranges=ranges)
     emit("k2", **res)
     return res
 
@@ -1009,7 +1075,9 @@ def patched(*seams):
 # counter attribute)
 COUNTERS = [("paged_decode_attention", "pa", "launches"),
             ("flash_attention_segmented", "fv", "launches"),
+            ("segment_tile_ranges", "fv", "launches_ranges"),
             ("int8_matmul", "im", "launches"),
+            ("int8_matmul_wave", "im", "launches_wave"),
             ("paged_decode_attention_q8", "pa", "launches_q8"),
             ("fused_rope", "rp", "launches"),
             ("flash_attention_fwd", "fa", "launches"),
@@ -1103,8 +1171,9 @@ def drive(torch, cfg, params, cache, prompts, news, mods):
         path = ["flash_attention_segmented", "paged_decode_attention_q8"]
     else:
         path = ["flash_attention_segmented", "paged_decode_attention"]
+    path.append("segment_tile_ranges")
     if isinstance(params["lm_head"], dict):
-        path.append("int8_matmul")
+        path += ["int8_matmul", "int8_matmul_wave"]
     for name in path:
         if launches[name] <= 0:
             fail(f"{phase}: kernel {name} was not launched")
@@ -1365,10 +1434,12 @@ def phase_train(torch, cfg, seed, mods, card, dev="cuda", flag_set=None):
 def train_packed_launches_per_step(cfg):
     """What the code launches in one packed AdamW step under remat full:
     K2 in every layer's forward and its recompute, K7a and K7b once per
-    layer, K5 and K8 as in the unpacked step, and none of K6a-c (the packed
-    path never takes the unsegmented attention)."""
+    layer, the range kernel before each K2 and once before each layer's
+    K7a / K7b pair, K5 and K8 as in the unpacked step, and none of K6a-c
+    (the packed path never takes the unsegmented attention)."""
     L = cfg.num_hidden_layers
     return {"fused_adamw": 12, "flash_attention_segmented": 2 * L,
+            "segment_tile_ranges": 3 * L,
             "flash_attention_segmented_bwd_dq": L,
             "flash_attention_segmented_bwd_dkv": L, "fused_rope": 2 * L * 3,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
@@ -1799,7 +1870,8 @@ def main():
     launches = {k: sum(r[k] for r in runs) for k in launches}
 
     def entry(name, source, replaces, runs):
-        # nkv = 32 (LLaMA-7B); K3: decode w_gate; K5-K8: the trainer's shape,
+        # nkv = 32 (LLaMA-7B); K3: decode w_gate, its wave path w_gate at a
+        # 2,048-row wave; K5-K8: the trainer's shape,
         # K7 the packed trainer's; K9-K11 the trainer's (K11: gate / up)
         main_shape = runs[0]
         return {"name": name, "route": "cuda", "source": source,
@@ -1817,8 +1889,16 @@ def main():
         entry("flash_attention_segmented",
               "paddle_tpu_torch/csrc/flash_varlen.cu",
               "paddle_tpu/ops/pallas/flash_varlen.py:342", k2),
+        # timed at K2's stream; checked there and at every K7 case
+        entry("segment_tile_ranges", "paddle_tpu_torch/csrc/flash_varlen.cu",
+              "paddle_tpu/ops/pallas/flash_varlen.py:66",
+              [r["ranges"] for r in k2] + [r[0]["ranges"] for r in k7]),
         entry("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
-              "paddle_tpu/ops/pallas/int8_matmul.py:102", k3),
+              "paddle_tpu/ops/pallas/int8_matmul.py:102",
+              [r for r in k3 if r["path"] == "decode"]),
+        entry("int8_matmul_wave", "paddle_tpu_torch/csrc/int8_matmul.cu",
+              "paddle_tpu/ops/pallas/int8_matmul.py:102",
+              [r for r in k3 if r["path"] == "wave"]),
         entry("paged_decode_attention_q8",
               "paddle_tpu_torch/csrc/paged_attention.cu",
               "paddle_tpu/ops/pallas/paged_attention.py:296", k4),

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (csrc/flash_attention.cu's forward and backward, K6a-c;
-// csrc/rmsnorm_matmul.cu, K11):
+// (csrc/flash_fwd_sm90.cuh's forward, K6a and K2; csrc/flash_attention.cu's
+// backward, K6b-c; csrc/rmsnorm_matmul.cu, K11; csrc/int8_matmul.cu's wave
+// path, K3):
 //
 // * host: tiled tensor maps, encoded per call (the pointers change) with
 //   cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
@@ -12,7 +13,8 @@
 //   "empty" barrier; the waiter keeps the phase bit);
 // * wgmma: shared-memory matrix descriptors for the 128-byte swizzle that
 //   the tensor maps write, m64nNk16 bf16 -> f32 products with A from shared
-//   memory or from registers, fence / commit / wait, and setmaxnreg.
+//   memory or from registers, fence / commit / wait, and setmaxnreg;
+// * int8 codes widened to bf16 in registers, four at a time.
 //
 // Shared-memory tiles are rows of 64 bf16 (128 bytes) in the 128-byte
 // swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8), and the
@@ -265,6 +267,16 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
+// the same with each matrix transposed on the way: r[j] holds the 16-bit
+// elements (row 2 (lane % 4), column lane / 4) and (that row + 1, the same
+// column) of matrix j as stored
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
 // 2^x on the special-function unit, subnormal results flushed to zero
 // (exp2f adds a fix-up for them)
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -277,6 +289,30 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Four int8 codes (the bytes of `u`, lowest first) as four bf16 values,
+// exactly: lo holds codes 0 and 1, hi codes 2 and 3 (Pairs: lo codes 0
+// and 2, hi codes 1 and 3, the two columns of a transposed pair of rows).  Each byte, offset by
+// 128, becomes the low mantissa byte of the f32 2^23 + 128 + c (one byte
+// permute), and one subtract leaves the f32 c; an integer of at most 8
+// significant bits has zeros in the low half of its f32, whose high half
+// is then c in bf16 exactly, so one more byte permute packs two of them.
+// Eleven instructions for four codes, against a conversion apiece.
+template <bool Pairs = false>
+__device__ __forceinline__ void widen_s8x4(uint32_t u, uint32_t& lo,
+                                           uint32_t& hi) {
+  const uint32_t x = u ^ 0x80808080u;   // offset binary: c + 128
+  constexpr uint32_t kMagic = 0x4B000000u;   // 2^23
+  constexpr float kBias = 8388736.f;         // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(x, kMagic, 0x7540)) - kBias;
+  const float f1 = __uint_as_float(__byte_perm(x, kMagic, 0x7541)) - kBias;
+  const float f2 = __uint_as_float(__byte_perm(x, kMagic, 0x7542)) - kBias;
+  const float f3 = __uint_as_float(__byte_perm(x, kMagic, 0x7543)) - kBias;
+  const uint32_t b1 = __float_as_uint(Pairs ? f2 : f1);
+  const uint32_t b2 = __float_as_uint(Pairs ? f1 : f2);
+  lo = __byte_perm(__float_as_uint(f0), b1, 0x7632);
+  hi = __byte_perm(b2, __float_as_uint(f3), 0x7632);
 }
 
 // The m64nNk16 products, bf16 operands and f32 accumulators d (N / 2 a

@@ -36,17 +36,23 @@ from .flash_attention import _delta
 __all__ = ["flash_attention_segmented", "segmented_sdpa_plain",
            "segment_ids_from_cu_seqlens", "_segment_block_ranges",
            "_seg_fwd", "_seg_bwd", "launches", "launches_bwd_dq",
-           "launches_bwd_dkv", "BLOCK_ROWS"]
+           "launches_bwd_dkv", "launches_ranges", "BLOCK_ROWS",
+           "FWD_BLOCK_ROWS"]
 
-# q rows (and keys) per tile of the kernel; its per-tile ranges are
-# computed at this height
+# q rows (and keys) per tile of the backward kernels (K7a, K7b): their
+# per-tile ranges are computed at this height
 BLOCK_ROWS = 64
+# q rows per tile of the forward kernel (K2), and keys per tile it visits
+FWD_BLOCK_ROWS = 128
 
 # kernel launches made by flash_attention_segmented: the forward (K2), the
-# backward's dq pass (K7a) and its dk / dv pass (K7b)
+# backward's dq pass (K7a) and its dk / dv pass (K7b); and by
+# _tile_ranges, the per-tile range kernel each of K2 and the backward
+# launches first
 launches = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
+launches_ranges = 0
 
 
 def segment_ids_from_cu_seqlens(cu, total):
@@ -204,18 +210,50 @@ def _check(q, k, v, seg, dout=None):
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _tile_ranges(seg):
-    """The kernel's per-tile key ranges: :func:`_segment_block_ranges` at
-    ``BLOCK_ROWS`` over the stream padded to whole tiles.  The pad is a
-    run of its own (an id differing from the last row's), and the kernel
-    masks every row and key past the real length.  -> (kmin, kmax)
-    [b, ceil(s / BLOCK_ROWS)] int32, contiguous."""
+def _tile_ranges_plain(seg, rows=BLOCK_ROWS):
+    """The kernels' per-tile ranges in plain PyTorch:
+    :func:`_segment_block_ranges` at tiles of ``rows`` (``BLOCK_ROWS`` for
+    the backward, ``FWD_BLOCK_ROWS`` for the forward) over the stream
+    padded to whole tiles.  The pad is a run of its own (an id differing
+    from the last row's), and the kernels mask every row and key past the
+    real length.  -> (kmin, kmax) [b, ceil(s / rows)] int32, contiguous."""
     b, s = seg.shape
-    pad = -s % BLOCK_ROWS
+    pad = -s % rows
     if pad:
         seg = torch.cat([seg, (seg[:, -1:] + 1).expand(b, pad)], dim=1)
-    kmin, kmax = _segment_block_ranges(seg, BLOCK_ROWS)
+    kmin, kmax = _segment_block_ranges(seg, rows)
     return kmin.contiguous(), kmax.contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _ranges_fn():
+    fn = _build.library("flash_varlen").flash_segmented_tile_ranges
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _tile_ranges(seg, rows=BLOCK_ROWS):
+    """:func:`_tile_ranges_plain`'s (kmin, kmax); on a CUDA tensor one
+    launch of the forward library's range kernel computes them."""
+    if seg.device.type != "cuda":
+        return _tile_ranges_plain(seg, rows)
+    if seg.dtype != torch.int32 or not seg.is_contiguous():
+        raise ValueError("segment ids must be contiguous int32")
+    global launches_ranges
+    b, s = seg.shape
+    nt = -(-s // rows)
+    kmin = torch.empty((b, nt), dtype=torch.int32, device=seg.device)
+    kmax = torch.empty_like(kmin)
+    err = _ranges_fn()(seg.data_ptr(), kmin.data_ptr(), kmax.data_ptr(), b,
+                       s, rows, torch.cuda.current_stream(
+                           seg.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"segment tile-range kernel launch failed: "
+                           f"cudaError {err}")
+    launches_ranges += 1
+    return kmin, kmax
 
 
 def _seg_fwd(q, k, v, seg, causal):
@@ -223,7 +261,7 @@ def _seg_fwd(q, k, v, seg, causal):
     _check(q, k, v, seg)
     global launches
     b, s, h, d = q.shape
-    kmin, kmax = _tile_ranges(seg)
+    kmin, kmax = _tile_ranges(seg, FWD_BLOCK_ROWS)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _fwd_fn()(

@@ -24,11 +24,21 @@ import torch
 
 from . import _build
 
-__all__ = ["int8_matmul", "int8_matmul_plain", "quantize_int8", "launches"]
+__all__ = ["int8_matmul", "int8_matmul_plain", "quantize_int8", "launches",
+           "launches_wave", "WAVE_MIN_M"]
 
-# kernel launches made by int8_matmul (a run can show that its main path
-# went through the kernel)
+# kernel launches made by int8_matmul, by the decode path and by the wave
+# path (a run can show that its main path went through each kernel)
 launches = 0
+launches_wave = 0
+
+# The kernel's two paths: up to WAVE_MIN_M rows the decode path (16-row
+# tiles on wmma, bytes-bound), above it the wave path (the transposed
+# product on 128-column tiles, a TMA ring feeding wgmma).  The crossover,
+# measured with tools/ab_torch_kernels.py's K3route at w_gate (K 4096, N
+# 11008) on an H100 SXM at 700 W: decode / wave 0.040 / 0.046 ms at 16
+# rows, 0.072 / 0.047 at 32, 0.099 / 0.048 at 64, 0.175 / 0.054 at 128.
+WAVE_MIN_M = 16
 
 
 def quantize_int8(w):
@@ -53,20 +63,20 @@ def int8_matmul_plain(x, q, s, out_dtype=None):
 def _kernel_fn():
     """The launcher, looked up and typed once per process."""
     fn = _build.library("int8_matmul").int8_matmul_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _splits(M, N, K, sms) -> int:
-    """How many slices of K the kernel splits the product into (1 when
-    the output tiles alone fill the card)."""
+def _splits(M, N, K, sms, wave) -> int:
+    """How many slices of K the kernel's path (``wave`` or decode) splits
+    the product into (1 when the output tiles alone fill the card)."""
     fn = _build.library("int8_matmul").int8_matmul_splits
-    fn.argtypes = [ctypes.c_int] * 4
+    fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
-    return int(fn(M, N, K, sms))
+    return int(fn(M, N, K, sms, int(wave)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,24 +120,34 @@ def int8_matmul(x, q, s, out_dtype=None):
         return int8_matmul_plain(x, q, s, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 matmul for {x.device}")
+    return _kernel(x, q, s, out_dtype)
+
+
+def _kernel(x, q, s, out_dtype=torch.bfloat16):
+    """The kernel on CUDA tensors: its wave path above ``WAVE_MIN_M`` rows,
+    its decode path up to it."""
     _check(x, q, s, out_dtype)
-    global launches
+    global launches, launches_wave
     M, K = x.shape
     N = q.shape[1]
+    wave = M > WAVE_MIN_M
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0 or N == 0:
         return out
-    splits = _splits(M, N, K, _sm_count(x.device.index or 0))
+    splits = _splits(M, N, K, _sm_count(x.device.index or 0), wave)
     # f32 partial sums of each K slice; the kernel's second pass adds
     # them, scales and rounds once
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
     err = _kernel_fn()(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, N, K, splits,
+        None if ws is None else ws.data_ptr(), M, N, K, splits, int(wave),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError "
                            f"{err}")
-    launches += 1
+    if wave:
+        launches_wave += 1
+    else:
+        launches += 1
     return out

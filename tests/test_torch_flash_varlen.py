@@ -100,16 +100,20 @@ def test_heads_must_divide():
         fv.flash_attention_segmented(q, k, k, torch.zeros((1, 8)))
 
 
+TILE_ROWS = [fv.BLOCK_ROWS, fv.FWD_BLOCK_ROWS]     # K7a / K7b, K2
+
+
+@pytest.mark.parametrize("rows", TILE_ROWS)
 @pytest.mark.parametrize("lengths,total", [([70, 1, 40], 130),
                                            ([64, 64], 128),
                                            ([200], 201)])
-def test_tile_ranges_cover_every_visible_key(lengths, total):
-    """The kernel's per-tile ranges over a stream no tile height divides:
+def test_tile_ranges_cover_every_visible_key(lengths, total, rows):
+    """The kernels' per-tile ranges over a stream no tile height divides:
     every key a row of the tile may see lies in [lo, min(hi, tile end)],
     and the range holds no tile that is wholly invisible to the tile."""
     seg = _seg(lengths, total)
-    kmin, kmax = fv._tile_ranges(torch.from_numpy(seg))
-    bq = fv.BLOCK_ROWS
+    kmin, kmax = fv._tile_ranges(torch.from_numpy(seg), rows)
+    bq = rows
     assert kmin.shape == (1, -(-total // bq))
     s = seg[0]
     for t in range(kmin.shape[1]):
@@ -196,13 +200,15 @@ def test_plain_backward_matches_jax_kernels(lengths, causal, nkv):
                                (out, dq, dk, dv), ref):
         np.testing.assert_allclose(got.numpy(), want, **GRAD_TOL,
                                    err_msg=f"plain {name}")
-    before = (fv.launches, fv.launches_bwd_dq, fv.launches_bwd_dkv)
+    counts = lambda: (fv.launches, fv.launches_bwd_dq,  # noqa: E731
+                      fv.launches_bwd_dkv, fv.launches_ranges)
+    before = counts()
     for name, got, want in zip(("out", "dq", "dk", "dv"),
                                _port_autograd(q, k, v, do, seg, causal), ref):
         np.testing.assert_allclose(got, want, **GRAD_TOL,
                                    err_msg=f"autograd {name}")
-    # CPU tensors: no kernel launch
-    assert (fv.launches, fv.launches_bwd_dq, fv.launches_bwd_dkv) == before
+    # CPU tensors: no kernel launch, the range kernel's included
+    assert counts() == before
 
 
 @pytest.mark.parametrize("nkv", [1, 2])
@@ -217,17 +223,19 @@ def test_backward_matches_xla_segmented_sdpa(causal, nkv):
         np.testing.assert_allclose(got, want, atol=5e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("rows", TILE_ROWS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("lengths,total", [([70, 1, 40], 130),
                                            ([64, 64], 128),
                                            ([3] * 50, 150)])
-def test_tile_ranges_cover_every_query_of_a_key_tile(lengths, total, causal):
+def test_tile_ranges_cover_every_query_of_a_key_tile(lengths, total, causal,
+                                                     rows):
     """The dk / dv kernel's q range of each k tile, from the same ranges:
     [max(lo, tile start if causal), min(hi, T - 1)] holds every q row that
     sees a key of the tile, and no q tile wholly blind to it."""
     seg = _seg(lengths, total)
-    qmin, qmax = fv._tile_ranges(torch.from_numpy(seg))
-    bk = fv.BLOCK_ROWS
+    qmin, qmax = fv._tile_ranges(torch.from_numpy(seg), rows)
+    bk = rows
     s = seg[0]
     for t in range(qmin.shape[1]):
         keys = np.arange(t * bk, min((t + 1) * bk, total))
@@ -242,3 +250,23 @@ def test_tile_ranges_cover_every_query_of_a_key_tile(lengths, total, causal):
             rows = range(qt * bk, min((qt + 1) * bk, total))
             assert any(s[r] == s[j] and (not causal or j <= r)
                        for r in rows for j in keys)
+
+
+@pytest.mark.parametrize("rows", TILE_ROWS)
+@pytest.mark.parametrize("lengths,total", [([70, 1, 40], 130),
+                                           ([5, 1, 10], 16),
+                                           ([300, 2, 1, 400], 1000),
+                                           ([128, 128], 256)])
+def test_tile_ranges_equal_jax_on_the_padded_stream(lengths, total, rows):
+    """``_tile_ranges(seg, rows)`` is JAX's ``_segment_block_ranges`` at
+    ``rows`` over the stream padded to whole tiles with an id of its own,
+    the padding JAX's wrapper leaves to its dense fallback."""
+    seg = _seg(lengths, total, batch=2)
+    seg[1] = seg[1][::-1]
+    pad = -total % rows
+    padded = np.concatenate([seg, np.repeat(seg[:, -1:] + 1, pad, axis=1)],
+                            axis=1)
+    lo_j, hi_j = jax_ranges(jnp.asarray(padded, jnp.int32), rows)
+    lo_p, hi_p = fv._tile_ranges(torch.from_numpy(seg), rows)
+    np.testing.assert_array_equal(lo_p.numpy(), np.asarray(lo_j))
+    np.testing.assert_array_equal(hi_p.numpy(), np.asarray(hi_j))

@@ -107,11 +107,24 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     x = torch.from_numpy(rng.standard_normal((3, 32)).astype(np.float32))
     qd = tim.quantize_int8(torch.from_numpy(
         rng.standard_normal((32, 24)).astype(np.float32)))
-    before = tim.launches
+    before = (tim.launches, tim.launches_wave)
     got = tim.int8_matmul(x, qd["q"], qd["s"])
     assert torch.equal(got, tim.int8_matmul_plain(x, qd["q"], qd["s"]))
-    assert tim.launches == before
+    assert (tim.launches, tim.launches_wave) == before
     # out_dtype rounds once, at the end
     bf = tim.int8_matmul(x, qd["q"], qd["s"], out_dtype=torch.bfloat16)
     assert bf.dtype == torch.bfloat16 and torch.equal(bf, got.bfloat16())
 
+
+def test_cpu_tensors_at_a_wave_take_the_plain_version_without_a_launch():
+    """Above WAVE_MIN_M rows (the kernel's wave path on the card) a CPU
+    tensor launches neither path either."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal(
+        (tim.WAVE_MIN_M + 1, 32)).astype(np.float32))
+    qd = tim.quantize_int8(torch.from_numpy(
+        rng.standard_normal((32, 24)).astype(np.float32)))
+    before = (tim.launches, tim.launches_wave)
+    got = tim.int8_matmul(x, qd["q"], qd["s"])
+    assert torch.equal(got, tim.int8_matmul_plain(x, qd["q"], qd["s"]))
+    assert (tim.launches, tim.launches_wave) == before

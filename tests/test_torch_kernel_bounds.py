@@ -1,7 +1,11 @@
-"""``chip_smoke.py``'s work counts of the flash-attention kernels give the
-bounds PERF.md's table states at the trainer's shape ([8, 2048, 16, 128]
+"""``chip_smoke.py``'s work counts give the bounds PERF.md's table states:
+the flash-attention kernels at the trainer's shape ([8, 2048, 16, 128]
 bf16, causal): K6a 0.1390 ms, K6b 0.2086, K6c 0.2781, each bound by the
-bf16 tensor-core rate.  Pure arithmetic on shapes: no card, no kernel.
+bf16 tensor-core rate; K2 at chip_smoke's packed stream (T 2048, 32 heads
+of 128, nkv 32) 0.0201 ms, bound by the bytes; K3 at a 2,048-row prefill
+wave of w_gate (2048, 4096, 11008) 0.1867 ms, bound by the operations, and
+at decode w_gate (8, 4096, 11008) 0.0135, bound by the bytes.  Pure
+arithmetic on shapes: no card, no kernel.
 """
 
 import importlib.util
@@ -48,3 +52,41 @@ def test_backward_work_counts_products_and_tensors(cs, shape_index):
     assert cs.k6a_work(shape) == (4 * io + stat, pairs * 2 * 2 * d)
     assert cs.k6_bwd_work(shape) == ((5 * io + 2 * stat, pairs * 3 * 2 * d),
                                      (6 * io + 2 * stat, pairs * 4 * 2 * d))
+
+
+def test_k2_work_gives_perf_md_bound_at_chip_smoke_shape(cs):
+    seg, runs = cs.k2_segments()
+    assert sum(runs) == cs.K2_T == len(seg)
+    ms, by = cs.bound(*cs.k2_work(cs.K2_T, 32, 32, 128, runs))
+    assert by == "bytes"
+    assert round(ms, 4) == 0.0201
+
+
+def test_k2_work_counts_visible_pairs_and_tensors(cs):
+    """4 d FLOPs a visible pair and q head (causal within each run); q, out
+    at n heads, k, v at nkv, the lse row of each q head and the segment
+    ids."""
+    T, n, nkv, d, runs = 10, 4, 2, 8, [3, 1, 6]
+    io = (2 * T * n * d + 2 * T * nkv * d) * 2 + n * T * 4 + T * 4
+    assert cs.k2_work(T, n, nkv, d, runs) == (io, (6 + 1 + 21) * n * 4 * d)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_ranges_work_counts_ids_read_and_ranges_written(cs, rows):
+    """The range kernel reads each id once and writes kmin and kmax of each
+    tile of the padded stream once; no operation is counted, so its bound
+    is the bytes'."""
+    B, T = 2, 300
+    tiles = -(-T // rows)
+    assert cs.ranges_work(B, T, rows) == (B * T * 4 + 2 * B * tiles * 4, 0)
+    assert cs.bound(*cs.ranges_work(B, T, rows))[1] == "bytes"
+
+
+@pytest.mark.parametrize("shape,bound_ms,by", [
+    ((2048, 4096, 11008), 0.1867, "operations"),
+    ((8, 4096, 11008), 0.0135, "bytes")])
+def test_k3_work_gives_perf_md_bounds(cs, shape, bound_ms, by):
+    assert shape in cs.K3_SHAPES
+    ms, got = cs.bound(*cs.k3_work(*shape))
+    assert got == by
+    assert round(ms, 4) == bound_ms

@@ -279,18 +279,72 @@ def test_paged_decode_q8_kernel_refuses_what_it_cannot_take(gen):
     (8, 4096, 4096),        # decode: split over K
     (200, 512, 1000),       # several 64-row tiles, ragged M and N
     (8, 48, 64),            # K shorter than one 64-deep tile
+    (300, 4096, 1001),      # the wave path at an odd N: byte loads
 ])
 def test_int8_matmul_kernel_matches_plain(gen, M, K, N):
     x = _randn(gen, M, K)
     w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
     qd = im.quantize_int8(w)
-    before = im.launches
+    before = im.launches + im.launches_wave
     out = im.int8_matmul(x, qd["q"], qd["s"])
     torch.cuda.synchronize()
-    assert im.launches == before + 1
+    assert im.launches + im.launches_wave == before + 1
     assert out.dtype == torch.bfloat16 and out.shape == (M, N)
     ref = im.int8_matmul_plain(x, qd["q"], qd["s"], torch.float32)
     torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+def _int8_case(gen, M, K, N):
+    x = _randn(gen, M, K)
+    qd = im.quantize_int8(torch.randn((K, N), generator=gen, device="cuda")
+                          * K ** -0.5)
+    return x, qd["q"], qd["s"]
+
+
+@pytest.mark.parametrize("K", [48, 4096, 11008])
+@pytest.mark.parametrize("N", [1000, 4096, 11008])
+@pytest.mark.parametrize("M", [17, 64, 128, 200, 2048])
+def test_int8_matmul_wave_path_matches_plain(gen, M, K, N):
+    """The wave path (above WAVE_MIN_M rows) across its 128 x 256 tiles:
+    ragged M, N no multiple of 16 (the plain-load instance), K shorter than
+    one 64-deep stage or no multiple of it, splits over K (small M) and
+    none (M = 2048)."""
+    x, q, s = _int8_case(gen, M, K, N)
+    before = (im.launches, im.launches_wave)
+    out = im.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert (im.launches, im.launches_wave) == (before[0], before[1] + 1)
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    ref = im.int8_matmul_plain(x, q, s, torch.float32)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+@pytest.mark.parametrize("M", [16, 32, 64, 128])
+@pytest.mark.parametrize("wave", [False, True], ids=["decode", "wave"])
+def test_int8_matmul_paths_agree_at_the_crossover(gen, M, wave,
+                                                 monkeypatch):
+    """Either path at the Ms where one takes over from the other, at
+    decode w_gate's K and N (the crossover moved to force the path)."""
+    x, q, s = _int8_case(gen, M, 4096, 11008)
+    monkeypatch.setattr(im, "WAVE_MIN_M", 0 if wave else M)
+    before = (im.launches, im.launches_wave)
+    out = im._kernel(x, q, s)
+    assert (im.launches, im.launches_wave) == (before[0] + (not wave),
+                                               before[1] + wave)
+    torch.cuda.synchronize()
+    ref = im.int8_matmul_plain(x, q, s, torch.float32)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+@pytest.mark.parametrize("M,K,N", [(2048, 4096, 11008), (128, 11008, 4096),
+                                   (200, 512, 1000)])
+def test_int8_matmul_wave_path_is_bit_identical_run_to_run(gen, M, K, N):
+    """No atomics: the wave path (without and with a split over K, and its
+    plain-load instance) gives the same bits twice."""
+    x, q, s = _int8_case(gen, M, K, N)
+    a, b = im.int8_matmul(x, q, s), im.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_int8_matmul_kernel_refuses_what_it_cannot_take(gen):
@@ -352,6 +406,64 @@ def test_segmented_kernel_matches_plain(gen, T, n, nkv, d, rows, causal):
                                   causal)
     torch.testing.assert_close(out.float(), ref, **TOL)
     torch.testing.assert_close(lse, _ref_lse(q, k, seg, causal), **TOL)
+
+
+SEG_FWD_CASES = [
+    (64, 4, 4, 128, [[20, 30]], True, None),             # T less than a tile
+    (300, 4, 4, 128, [[100, 10, 190]], True, None),      # tile 0 spans 3 runs
+    (256, 8, 2, 128, [[128, 128]], True, None),          # GQA g = 4, free tiles
+    (384, 16, 2, 128, [[130, 126, 128]], True, None),    # GQA g = 8
+    (520, 8, 8, 64, [[300, 220]], True, None),           # d = 64
+    (400, 4, 2, 128, [[200, 55, 145]], False, None),     # non-causal
+    (260, 4, 4, 128, [[1] * 130], True, -1),             # 1-token runs, -1 pad
+]
+
+
+@pytest.mark.parametrize("T,n,nkv,d,rows,causal,pad", SEG_FWD_CASES)
+def test_segmented_forward_kernel_across_its_tiles(gen, T, n, nkv, d, rows,
+                                                   causal, pad):
+    """K2 on either side of its 128-row tiles: tiles that need no mask
+    (one segment, below the diagonal) beside masked ones, GQA, d 64,
+    non-causal and a -1 pad tail that attends only to itself."""
+    B = len(rows)
+    q, k, v = _randn(gen, B, T, n, d), _randn(gen, B, T, nkv, d), \
+        _randn(gen, B, T, nkv, d)
+    seg = _segments(rows, T, pad)
+    out, lse = fv._seg_fwd(q, k, v, seg, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    ref = fv.segmented_sdpa_plain(q.float(), k.float(), v.float(), seg,
+                                  causal)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    torch.testing.assert_close(lse, _ref_lse(q, k, seg, causal), **TOL)
+
+
+@pytest.mark.parametrize("rows", [fv.BLOCK_ROWS, fv.FWD_BLOCK_ROWS])
+@pytest.mark.parametrize("T,layout,pad", [
+    (1, [[1]], None), (64, [[20, 30]], None), (300, [[100, 10, 190]], None),
+    (2048, [[700, 64, 1, 900, 300]], None), (256, [[128, 128]], None),
+    (260, [[1] * 130, [259]], -1), (4097, [[4097], [1] * 4000], None)])
+def test_tile_range_kernel_matches_plain(gen, T, layout, pad, rows):
+    """The range kernel (one launch) against the plain version's scans on
+    the padded stream, rows on either side of a tile, 1-token runs, a -1
+    pad tail and a row whose run reversed."""
+    seg = _segments(layout, T, pad)
+    if len(layout) > 1:
+        seg[1] = seg[1].flip(0)
+    kmin, kmax = fv._tile_ranges(seg, rows)
+    want = fv._tile_ranges_plain(seg.cpu(), rows)
+    torch.cuda.synchronize()
+    assert torch.equal(kmin.cpu(), want[0]) and torch.equal(kmax.cpu(),
+                                                            want[1])
+
+
+def test_segmented_forward_kernel_is_bit_identical_run_to_run(gen):
+    q, k, v = _randn(gen, 2, 700, 16, 128), _randn(gen, 2, 700, 4, 128), \
+        _randn(gen, 2, 700, 4, 128)
+    seg = _segments([[300, 1, 399], [64, 636]], 700)
+    a, b = fv._seg_fwd(q, k, v, seg, True), fv._seg_fwd(q, k, v, seg, True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_segmented_kernel_refuses_what_it_cannot_take(gen):

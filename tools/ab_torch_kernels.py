@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Time the port's redesigned kernels against an earlier checkout's, in
 turns, in one process on one CUDA card: the paged decode kernels (K1 bf16
-pages, K4 int8 pages), the flash-attention forward (K6a) and backward (K6b
-dq, K6c dk / dv) and the fused RMSNorm -> matmul (K11).
+pages, K4 int8 pages), the segmented flash forward (K2), the int8 matmul
+(K3) at a prefill wave and at decode, the flash-attention forward (K6a)
+and backward (K6b dq, K6c dk / dv) and the fused RMSNorm -> matmul (K11);
+and, for this tree alone, K3's two paths (decode and wave) at the row
+counts where one takes over from the other (K3route).
 
 Run from the repository root:
 
     python3 tools/ab_torch_kernels.py --parent DIR [--reps 50]
-                                      [--kernels K1,K4,K6a,K6b,K6c,K11]
+        [--kernels K1,K4,K2,K3,K3route,K6a,K6b,K6c,K11]
 
 DIR holds an earlier tree of the repository (``git archive <commit>``
 unpacked into a directory that ``.gitignore`` lists, such as
@@ -15,7 +18,12 @@ unpacked into a directory that ``.gitignore`` lists, such as
 another name, so its own wrappers build its own kernels into DIR's
 ``_build`` directory and both trees are called the way a user calls them.
 Shapes are ``chip_smoke.py``'s: K1 / K4 at its table (B 8, 32 q heads over
-nkv 32 and 8, d 128, page 64, lens ``K1_LENS``); K6a-c at
+nkv 32 and 8, d 128, page 64, lens ``K1_LENS``); K2 at its packed stream
+(T 2048, 32 q heads over nkv 32 and 8, d 128, causal, runs
+``K2_SEGMENTS`` and a sentinel tail); K3 at w_gate (K 4096, N 11008) on a
+2,048-row wave and at decode (M 8), and at chip_smoke's ragged wave
+(1000, 4096, 1000: N % 16 != 0), K3route at M 16, 32, 64 and 128 of the
+same weight; K6a-c at
 ``TRAIN_SHAPES[0]`` causal (K6b and K6c both from this tree's forward
 kernel's out and lse); K11 at the gate / up, q and decode cases of ``K11_CASES``.  Each
 wrapper is timed parent, new, new, parent under two timers:
@@ -33,9 +41,10 @@ the events), and each wrapper's host time per call is the mean of
 ``--reps`` calls queued back to back.  K6a-c and K11 also time their
 yardstick under both timers, as ``chip_smoke.py`` names it (SDPA's
 forward; SDPA's whole backward, dq, dk and dv in one call, for K6b and
-K6c alike; cuBLAS on the normalised activation).  The two outputs (K6a:
-out and lse; K6c: dk and dv) are held against each other at chip_smoke's
-tolerance.  Prints the card
+K6c alike; cuBLAS on the normalised activation); so do K2 (SDPA with the
+block-diagonal mask) and K3 (cuBLAS on the weight dequantized
+beforehand).  The two outputs (K2, K6a: out and lse; K6c: dk and dv) are
+held against each other at chip_smoke's tolerance.  Prints the card
 and one JSON line per kernel and case; exits non-zero without a CUDA
 device.
 """
@@ -105,6 +114,17 @@ def host_us(torch, fn, reps):
     return (t1 - t0) / reps * 1e6
 
 
+def on_path(im, x, q8, s8, wave):
+    """K3 on its wave path (``wave``) or its decode path, whatever M is: the
+    crossover ``WAVE_MIN_M`` moved for the call and put back after it."""
+    saved = im.WAVE_MIN_M
+    im.WAVE_MIN_M = 0 if wave else x.shape[0]
+    try:
+        return im._kernel(x, q8, s8)
+    finally:
+        im.WAVE_MIN_M = saved
+
+
 def compare(torch, cs, flush, reps, card, label, old, new, work, check,
             library=None, **fields):
     """Time ``old`` and ``new`` (calls of no arguments) in turns under both
@@ -154,7 +174,8 @@ def main():
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="K1,K4,K6a,K6b,K6c,K11")
+    ap.add_argument("--kernels",
+                    default="K1,K4,K2,K3,K3route,K6a,K6b,K6c,K11")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -164,6 +185,8 @@ def main():
 
     import chip_smoke as cs
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    from paddle_tpu_torch.ops import int8_matmul as im
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rmsnorm_matmul as rmm
 
@@ -198,6 +221,72 @@ def main():
                 nkv=nkv, split=cs.split_of(torch, pa, nkv,
                                            cs.K1_SHAPE["pages_max"]))
             del q, kp, vp, pools
+    if "K2" in kernels:
+        old_fv = parent_ops(args.parent, "flash_varlen")
+        n, d, T = 32, 128, cs.K2_T
+        seg_np, runs = cs.k2_segments()
+        seg = torch.from_numpy(seg_np)[None].cuda()
+        pos = torch.arange(T, device="cuda")
+        vis = ((seg[0][:, None] == seg[0][None])
+               & (pos[:, None] >= pos[None]))
+        for nkv in (32, 8):
+            q = torch.randn((1, T, n, d), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            k, v = (torch.randn((1, T, nkv, d), generator=gen, device="cuda",
+                                dtype=torch.bfloat16) for _ in range(2))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt,
+                                     vt, attn_mask=vis, enable_gqa=nkv != n)
+            run("K2", lambda: old_fv._seg_fwd(q, k, v, seg, True),
+                lambda: fv._seg_fwd(q, k, v, seg, True),
+                cs.k2_work(T, n, nkv, d, runs),
+                lambda a, b: max(cs.check_close("K2 out new vs parent", a[0],
+                                                b[0]),
+                                 cs.check_close("K2 lse new vs parent", a[1],
+                                                b[1])),
+                library=sdpa, T=T, n=n, nkv=nkv, d=d, segments=runs)
+            del q, k, v, qt, kt, vt, sdpa
+    if "K3" in kernels or "K3route" in kernels:
+        old_im = parent_ops(args.parent, "int8_matmul")
+        K = 4096
+        weights = {}
+
+        def weight(N):
+            # the int8 codes, their scales and cuBLAS's dequantized copy
+            if N not in weights:
+                w = torch.randn((K, N), generator=gen,
+                                device="cuda") * K ** -0.5
+                qd = im.quantize_int8(w)
+                weights[N] = (qd["q"], qd["s"],
+                              (qd["q"].float() * qd["s"]).to(torch.bfloat16))
+            return weights[N]
+
+        for M, N in (((2048, 11008), (8, 11008), (1000, 1000))
+                     if "K3" in kernels else ()):
+            q8, s8, wd = weight(N)
+            x = torch.randn((M, K), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            run("K3", lambda: old_im.int8_matmul(x, q8, s8),
+                lambda: im.int8_matmul(x, q8, s8), cs.k3_work(M, K, N),
+                lambda a, b: cs.check_close(f"K3 M={M} N={N} new vs parent",
+                                            a, b),
+                library=functools.partial(torch.matmul, x, wd),
+                M=M, K=K, N=N, path="wave" if M > im.WAVE_MIN_M else "decode")
+        for M in ((16, 32, 64, 128) if "K3route" in kernels else ()):
+            # this tree's decode path against its wave path, in turns, each
+            # forced by moving the crossover for the call
+            q8, s8, wd = weight(11008)
+            x = torch.randn((M, K), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            run("K3route", functools.partial(on_path, im, x, q8, s8, False),
+                functools.partial(on_path, im, x, q8, s8, True),
+                cs.k3_work(M, K, 11008),
+                lambda a, b: cs.check_close(f"K3 M={M} wave vs decode", a, b),
+                library=functools.partial(torch.matmul, x, wd),
+                M=M, K=K, N=11008, parent_is="the decode path",
+                new_is="the wave path", routed_to="wave"
+                if M > im.WAVE_MIN_M else "decode")
+        del weights
     if "K6a" in kernels:
         old_fa = parent_ops(args.parent, "flash_attention")
         shape = cs.TRAIN_SHAPES[0]

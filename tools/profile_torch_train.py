@@ -65,8 +65,15 @@ FLAG_SETS = {"A": ("FLAGS_pallas_rms_norm", "FLAGS_pallas_swiglu"),
 def _kind(name: str) -> str:
     if "rope_kernel" in name:
         return "fused_rope (K5)"
-    if "seg_fwd_kernel" in name:
+    # K2: seg_fwd_kernel before the Hopper redesign, then the forward
+    # template's segmented instance, flash_fwd_kernel<d, true>
+    if "seg_fwd_kernel" in name or ("flash_fwd_kernel" in name
+                                    and "true" in name):
         return "flash_attention_segmented fwd (K2)"
+    # the per-tile range kernel, launched before K2 and before each
+    # layer's K7a / K7b pair (one kernel name for both)
+    if "seg_tile_ranges_kernel" in name:
+        return "flash_attention_segmented tile ranges (K2, K7)"
     if "seg_bwd_dq_kernel" in name:
         return "flash_attention_segmented bwd dq (K7a)"
     if "seg_bwd_dkv_kernel" in name:
