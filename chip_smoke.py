@@ -10,7 +10,8 @@ Phases, one JSON line each on stdout:
              in parallel; then a `ptxas` line maps each kernel function
              (name<template args>) to its registers, spill stores and
              loads, stack and static shared memory in bytes (the same,
-             one line a function, and ptxas's warnings go to stderr).
+             one line a function, and ptxas's warnings go to stderr);
+             K7a's and K7b's four instances must spill nothing.
 3. k1..k4  - each kernel against its plain PyTorch version on the card, at
              the main paths' shapes (k1, k2, k4: nkv = 32 as LLaMA-7B and
              nkv = 8 for GQA, and k2's per-tile range kernel against its
@@ -31,13 +32,15 @@ Phases, one JSON line each on stdout:
              (the wrapper's sum of dout * out) and bwd_total_ms (K6b +
              K6c + delta), the whole backward beside SDPA's.
    k7      - the segmented backward, dq (K7a) and dk / dv (K7b), from K2's
-             lse, at the packed trainer's shape ([8, 2048, 16, 128], rows
-             packed by pack_documents), GQA (32 q heads over 8), T = 2000,
-             head_dim 64, non-causal and many 1-token segments before a -1
-             pad tail (and the range kernel at the backward's 64-row
-             tiles, bit for bit); and autograd through
+             lse and ranges, at the packed trainer's shape ([8, 2048, 16,
+             128], rows packed by pack_documents), GQA (32 q heads over 8),
+             T = 2000, head_dim 64, non-causal, many 1-token segments
+             before a -1 pad tail and one document a row (the range kernel
+             at the kernels' 128-row blocks, bit for bit); autograd through
              flash_attention_segmented against autograd through its plain
-             version.
+             version; the timed cases also print the tiles each pass
+             visits and masks (ops.flash_varlen._bwd_tile_walk), and one
+             document a row K6b's and K6c's times on the same inputs.
    k9, k10, k11 - the trunk's flagged kernels the same way: rms_norm
              forward and backward (K9a-b; K9b run twice for bit-identical
              results) at the trainer's [16384, 2048], decode's [8, 4096], a
@@ -202,14 +205,21 @@ K2_SEGMENTS = [700, 64, 1, 900, 300]   # + sentinel padding up to T
 K2_T = 2048
 # K7 cases (name, B, T, q heads, kv heads, head_dim, causal, layout): the
 # packed trainer's attention, GQA, a ragged length, head_dim 64, non-causal,
-# and 1,000 one-token segments + a 600-token document + a -1 pad tail.  The
-# first two are timed.
+# 1,000 one-token segments + a 600-token document + a -1 pad tail, and one
+# document a row at the trainer's shape, where K7a and K7b do K6b's and
+# K6c's work.  K7_TIMED are timed.
 K7_CASES = [("trainer", 8, 2048, 16, 16, 128, True, "packed"),
             ("gqa", 2, 2048, 32, 8, 128, True, "packed"),
             ("ragged", 2, 2000, 16, 16, 128, True, "packed"),
             ("d64", 2, 2048, 16, 16, 64, True, "packed"),
             ("noncausal", 2, 2048, 16, 16, 128, False, "packed"),
-            ("ones_pad", 2, 2048, 16, 16, 128, True, "ones_pad")]
+            ("ones_pad", 2, 2048, 16, 16, 128, True, "ones_pad"),
+            ("onedoc", 8, 2048, 16, 16, 128, True, "onedoc")]
+K7_TIMED = ("trainer", "gqa", "onedoc")
+# K7a and K7b, the segmented instances of csrc/flash_bwd_sm90.cuh's
+# templates: the build must report each with no spill bytes
+K7_PTXAS = [f"flash_varlen_bwd.cu:flash_bwd_{p}_kernel<{d}, 1>"
+            for p in ("dq", "dkv") for d in (128, 64)]
 # JAX's packed-pretraining invariant: each target's loss in the packed rows
 # equals its loss in its document run alone, so the packed loss is the
 # token-weighted mean of the documents' losses.  Both sides compute in bf16
@@ -321,6 +331,21 @@ def k3_work(M, K, N):
     """(bytes, FLOPs) of K3: x, the int8 codes and their f32 scales read,
     the bf16 output written once; 2 FLOPs per multiply-add."""
     return M * K * 2 + K * N + 4 * N + M * N * 2, 2 * M * K * N
+
+
+def k7_work(seg_np, n, nkv, d, causal):
+    """((bytes, FLOPs) of K7a, (bytes, FLOPs) of K7b) on the packed rows
+    ``seg_np`` [B, T] with n q heads over nkv kv heads.  K7a reads q, dout,
+    k, v, lse, delta and the ids and writes dq; K7b reads the same and
+    writes dk and dv.  Per visible pair and q head K7a runs 3 products of
+    2 d FLOPs (s, dp, dq), K7b 4 (s, dp, dv, dk)."""
+    B, T = seg_np.shape
+    runs = segment_runs(seg_np)
+    pairs = int(sum(L * (L + 1) // 2 if causal else L * L for L in runs))
+    io_q, io_k = B * T * n * d * 2, B * T * nkv * d * 2
+    rest = 2 * B * n * T * 4 + B * T * 4           # lse, delta; seg
+    return ((3 * io_q + 2 * io_k + rest, pairs * n * 6 * d),
+            (2 * io_q + 4 * io_k + rest, pairs * n * 8 * d))
 
 
 def k2_segments():
@@ -658,10 +683,12 @@ def phase_k6(torch, fa, shape, gen, flush, timed):
 def k7_segments(layout, B, T, seed):
     """Segment ids [B, T] of a K7 case: the trunk's ids of packed rows
     (``pack_documents`` over T + 1 tokens, the last column dropped as
-    forward_loss drops it), or 1,000 one-token segments, a 600-token
-    document and a -1 pad tail."""
+    forward_loss drops it), one document a row, or 1,000 one-token
+    segments, a 600-token document and a -1 pad tail."""
     if layout == "packed":
         return pack_documents(seed, B, T + 1)[:, :-1].copy()
+    if layout == "onedoc":
+        return np.zeros((B, T), np.int32)
     seg = np.full((B, T), -1, np.int32)
     seg[:, :1000] = np.arange(1000, dtype=np.int32)
     seg[:, 1000:1600] = 1000
@@ -670,7 +697,7 @@ def k7_segments(layout, B, T, seed):
 
 def phase_k7(torch, fv, fa, case, seed, gen, flush, timed):
     """K7a and K7b against their plain versions on the same bf16 q, k, v,
-    dout and K2's lse; for the GQA case also autograd through
+    dout and K2's lse and ranges; for the GQA case also autograd through
     flash_attention_segmented against autograd through its plain version.
     -> (dq result, dk / dv result)."""
     import torch.nn.functional as F
@@ -681,10 +708,10 @@ def phase_k7(torch, fv, fa, case, seed, gen, flush, timed):
                          dtype=torch.bfloat16) for _ in range(2))
     k, v = (torch.randn((B, T, nkv, d), generator=gen, device="cuda",
                         dtype=torch.bfloat16) for _ in range(2))
-    out, lse = fv._seg_fwd(q, k, v, seg, causal)
+    ranges = fv._tile_ranges(seg)
+    out, lse = fv._seg_fwd(q, k, v, seg, causal, ranges)
     delta = fa._delta(do, out)
     ranges_err = check_ranges(torch, fv, f"K7 {name}", seg, fv.BLOCK_ROWS)
-    ranges = fv._tile_ranges(seg)
     args = (q, k, v, seg, do, lse, delta, ranges, causal)
     dq = fv._seg_bwd_dq_kernel(*args)
     dk, dv = fv._seg_bwd_dkv_kernel(*args)
@@ -729,20 +756,29 @@ def phase_k7(torch, fv, fa, case, seed, gen, flush, timed):
         del lib_out, qt, kt, vt
         runs = segment_runs(seg_np)
         pairs = int(sum(L * (L + 1) // 2 if causal else L * L for L in runs))
-        io_q, io_k = q.numel() * 2, k.numel() * 2
-        rest = 2 * B * n * T * 4 + B * T * 4           # lse, delta; seg
-        for r, fn, pfn, nbytes, mults in (
+        # one document a row: K6b and K6c on the same inputs (K2's lse is
+        # the dense forward's there)
+        dense = (fa._bwd_dq_kernel, fa._bwd_dkv_kernel) \
+            if layout == "onedoc" else (None, None)
+        works = k7_work(seg_np, n, nkv, d, causal)
+        for r, fn, pfn, work, dfn, dkv in (
                 (res[0], fv._seg_bwd_dq_kernel, fv._seg_bwd_dq_plain,
-                 3 * io_q + 2 * io_k + rest, 6),
+                 works[0], dense[0], False),
                 (res[1], fv._seg_bwd_dkv_kernel, fv._seg_bwd_dkv_plain,
-                 2 * io_q + 4 * io_k + rest, 8)):
-            b_ms, b_by = bound(nbytes, pairs * n * mults * d)
+                 works[1], dense[1], True)):
+            b_ms, b_by = bound(*work)
+            tiles = fv._bwd_tile_walk(seg, causal, d, dkv)
             r.update(ms=time_ms(torch, lambda: fn(*args), flush),
                      plain_ms=time_ms(torch, lambda: pfn(*plain), flush,
                                       reps=5),
                      library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by,
                      visible_pairs=pairs, documents=documents(seg_np),
-                     library="SDPA's whole backward: dq, dk, dv in one call")
+                     library="SDPA's whole backward: dq, dk, dv in one call",
+                     tiles_visited=len(tiles) * n,
+                     tiles_masked=sum(t[-1] for t in tiles) * n)
+            if dfn is not None:
+                r["dense_ms"] = time_ms(torch, lambda: dfn(
+                    q, k, v, do, lse, delta, causal), flush)
     emit("k7", dq=res[0], dkv=res[1])
     return res
 
@@ -944,7 +980,7 @@ def phase_k2(torch, fv, nkv, gen, flush):
     torch.cuda.synchronize()
     err = check_close(f"K2 nkv={nkv}", out, ref)
     lse_err = check_close(f"K2 lse nkv={nkv}", lse[0], ref_lse)
-    # a ragged stream (no 64-row tile divides it) runs the same kernel
+    # a ragged stream (no 128-row tile divides it) runs the same kernel
     Tr = 2000
     out_r = fv.flash_attention_segmented(
         q[:, :Tr].contiguous(), k[:, :Tr].contiguous(),
@@ -953,7 +989,7 @@ def phase_k2(torch, fv, nkv, gen, flush):
                                     v[:, :Tr].float(), seg[:, :Tr], True)
     err_r = check_close(f"K2 ragged T={Tr} nkv={nkv}", out_r, ref_r)
     # the range kernel K2 launches first, at its 128-row tiles
-    rows = fv.FWD_BLOCK_ROWS
+    rows = fv.BLOCK_ROWS
     r_err = max(check_ranges(torch, fv, f"K2 T={T}", seg, rows),
                 check_ranges(torch, fv, f"K2 ragged T={Tr}",
                              seg[:, :Tr].contiguous(), rows))
@@ -1434,12 +1470,12 @@ def phase_train(torch, cfg, seed, mods, card, dev="cuda", flag_set=None):
 def train_packed_launches_per_step(cfg):
     """What the code launches in one packed AdamW step under remat full:
     K2 in every layer's forward and its recompute, K7a and K7b once per
-    layer, the range kernel before each K2 and once before each layer's
-    K7a / K7b pair, K5 and K8 as in the unpacked step, and none of K6a-c
-    (the packed path never takes the unsegmented attention)."""
+    layer, the range kernel before each K2 (the backward takes the
+    recompute's ranges), K5 and K8 as in the unpacked step, and none of
+    K6a-c (the packed path never takes the unsegmented attention)."""
     L = cfg.num_hidden_layers
     return {"fused_adamw": 12, "flash_attention_segmented": 2 * L,
-            "segment_tile_ranges": 3 * L,
+            "segment_tile_ranges": 2 * L,
             "flash_attention_segmented_bwd_dq": L,
             "flash_attention_segmented_bwd_dkv": L, "fused_rope": 2 * L * 3,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
@@ -1818,6 +1854,13 @@ def main():
                   f"smem", file=sys.stderr)
             ptxas[f"{name}.cu:{label}"] = r
     print(json.dumps({"ptxas": ptxas}), flush=True)
+    for label in K7_PTXAS:
+        r = ptxas.get(label)
+        if r is None:
+            fail(f"ptxas reported no {label}")
+        if r["spill_stores"] or r["spill_loads"]:
+            fail(f"{label} spills {r['spill_stores']} / {r['spill_loads']} "
+                 f"bytes (stores / loads)")
 
     from paddle_tpu_torch.models.llama_pretrain import LlamaPretrainConfig
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1832,8 +1875,8 @@ def main():
           for i, shape in enumerate(TRAIN_SHAPES)]
     k8 = [phase_k8(torch, aw, n, gen, flush, timed=i == 0)
           for i, n in enumerate(K8_SIZES)]
-    k7 = [phase_k7(torch, fv, fa, case, args.seed, gen, flush, timed=i < 2)
-          for i, case in enumerate(K7_CASES)]
+    k7 = [phase_k7(torch, fv, fa, case, args.seed, gen, flush,
+                   timed=case[0] in K7_TIMED) for case in K7_CASES]
     eps = LlamaPretrainConfig.rms_norm_eps
     k9 = [phase_k9(torch, rn, case, eps, gen, flush, timed=i == 0)
           for i, case in enumerate(K9_CASES)]

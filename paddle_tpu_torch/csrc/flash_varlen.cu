@@ -43,7 +43,8 @@
 //
 // The per-tile ranges come from seg_tile_ranges_kernel, one launch (the
 // plain version's dozen PyTorch scans and copies cost more host time than
-// the attention itself); the backward (K7a, K7b) takes them at 64 rows.
+// the attention itself); the backward (K7a, K7b) takes the same ranges,
+// kept from the forward.
 
 #include <limits.h>
 

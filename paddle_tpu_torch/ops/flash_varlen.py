@@ -6,11 +6,15 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_varlen.py``:
 K2, in ``csrc/flash_varlen.cu``) and its two backward passes (dq, K7a; dk and
 dv, K7b, in ``csrc/flash_varlen_bwd.cu``) with hand-written Hopper kernels
 behind one ``torch.autograd.Function``, as ``_flash_seg``'s custom_vjp does;
+all three take the per-128-row-tile ranges that one range-kernel launch
+computes in the forward;
 :func:`segmented_sdpa_plain` mirrors ``xla_segmented_sdpa``;
 :func:`_segment_block_ranges` and :func:`segment_ids_from_cu_seqlens` are
 copies of the JAX functions of those names; :func:`_seg_bwd_dq_plain` and
 :func:`_seg_bwd_dkv_plain` are the backward kernels' arithmetic in plain f32
-PyTorch (dense masks; dk and dv summed over each GQA group's q heads).
+PyTorch (dense masks; dk and dv summed over each GQA group's q heads);
+:func:`_bwd_tile_walk` lists the stages the backward kernels visit and which
+of them they mask.
 
 A tensor on the CPU goes to the plain version, which autograd
 differentiates; a CUDA tensor goes to the kernels, or the wrapper raises.
@@ -36,19 +40,16 @@ from .flash_attention import _delta
 __all__ = ["flash_attention_segmented", "segmented_sdpa_plain",
            "segment_ids_from_cu_seqlens", "_segment_block_ranges",
            "_seg_fwd", "_seg_bwd", "launches", "launches_bwd_dq",
-           "launches_bwd_dkv", "launches_ranges", "BLOCK_ROWS",
-           "FWD_BLOCK_ROWS"]
+           "launches_bwd_dkv", "launches_ranges", "BLOCK_ROWS"]
 
-# q rows (and keys) per tile of the backward kernels (K7a, K7b): their
-# per-tile ranges are computed at this height
-BLOCK_ROWS = 64
-# q rows per tile of the forward kernel (K2), and keys per tile it visits
-FWD_BLOCK_ROWS = 128
+# rows of a kernel block: q rows of a K2 or K7a block, keys of a K7b block.
+# The per-tile ranges all three read are computed at this height.
+BLOCK_ROWS = 128
 
 # kernel launches made by flash_attention_segmented: the forward (K2), the
 # backward's dq pass (K7a) and its dk / dv pass (K7b); and by
-# _tile_ranges, the per-tile range kernel each of K2 and the backward
-# launches first
+# _tile_ranges, the per-tile range kernel the forward launches first (the
+# backward takes the forward's ranges)
 launches = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
@@ -212,8 +213,8 @@ def _check(q, k, v, seg, dout=None):
 
 def _tile_ranges_plain(seg, rows=BLOCK_ROWS):
     """The kernels' per-tile ranges in plain PyTorch:
-    :func:`_segment_block_ranges` at tiles of ``rows`` (``BLOCK_ROWS`` for
-    the backward, ``FWD_BLOCK_ROWS`` for the forward) over the stream
+    :func:`_segment_block_ranges` at tiles of ``rows`` (the kernels'
+    ``BLOCK_ROWS``) over the stream
     padded to whole tiles.  The pad is a run of its own (an id differing
     from the last row's), and the kernels mask every row and key past the
     real length.  -> (kmin, kmax) [b, ceil(s / rows)] int32, contiguous."""
@@ -223,6 +224,52 @@ def _tile_ranges_plain(seg, rows=BLOCK_ROWS):
         seg = torch.cat([seg, (seg[:, -1:] + 1).expand(b, pad)], dim=1)
     kmin, kmax = _segment_block_ranges(seg, rows)
     return kmin.contiguous(), kmax.contiguous()
+
+
+def _bwd_tile_walk(seg, causal, d, dkv=False):
+    """The backward kernels' walk in plain Python, a mirror of
+    ``csrc/flash_bwd_sm90.cuh``'s ranges and mask rule: every tile of one
+    head that the dq pass (K7a) or, with ``dkv``, the dk / dv pass (K7b)
+    visits, one a consumer warpgroup and stage, as (row, q0, q1, k0, k1,
+    masked): the q rows [q0, q1) against the keys [k0, k1) of batch row
+    ``row``, and whether the kernel runs its mask loop there.  K7a's stages
+    are 64 keys at d = 128 and 128 at d = 64, K7b's 64 q rows; every q head
+    (K7a) or every q head of a kv head's group (K7b) walks the same
+    tiles."""
+    seg = seg.cpu()
+    b, s = seg.shape
+    kmin, kmax = (x.tolist() for x in _tile_ranges_plain(seg))
+    bm, bq, bn = BLOCK_ROWS, 64, 64 if d == 128 else 128
+    tiles = []
+    for r in range(b):
+        ids = seg[r].tolist()
+        for t, (lo, top) in enumerate(zip(kmin[r], kmax[r])):
+            x0 = t * bm
+            # the block's 128 rows (q rows, or keys) lie in one segment
+            one = x0 + bm <= s and ids[x0] == ids[x0 + bm - 1]
+            if dkv:
+                first = max(lo, x0) if causal else lo
+                last = min(top, s - 1)
+                stages = (range(first // bq, last // bq + 1) if last >= first
+                          else ())
+                for j in stages:
+                    q0 = j * bq
+                    for kw0 in (x0, x0 + 64):
+                        masked = (q0 + bq > s or (causal and q0 < kw0 + 64)
+                                  or not (one and lo <= q0
+                                          and q0 + bq - 1 <= top))
+                        tiles.append((r, q0, q0 + bq, kw0, kw0 + 64, masked))
+            else:
+                last = min(min(top, x0 + bm - 1) if causal else top, s - 1)
+                free = (range((lo + bn - 1) // bn, (top + 1) // bn) if one
+                        else range(0))
+                for kt in range(last // bn, lo // bn - 1, -1):
+                    k0 = kt * bn
+                    for qw0 in (x0, x0 + 64):
+                        masked = (k0 + bn > s or (causal and k0 + bn - 1 > qw0)
+                                  or kt not in free)
+                        tiles.append((r, qw0, qw0 + 64, k0, k0 + bn, masked))
+    return tiles
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,12 +303,13 @@ def _tile_ranges(seg, rows=BLOCK_ROWS):
     return kmin, kmax
 
 
-def _seg_fwd(q, k, v, seg, causal):
-    """K2 on CUDA tensors -> (out [b, s, h, d], lse [b, h, s] fp32)."""
+def _seg_fwd(q, k, v, seg, causal, ranges=None):
+    """K2 on CUDA tensors -> (out [b, s, h, d], lse [b, h, s] fp32).
+    ``ranges``: :func:`_tile_ranges` of ``seg``, computed here if None."""
     _check(q, k, v, seg)
     global launches
     b, s, h, d = q.shape
-    kmin, kmax = _tile_ranges(seg, FWD_BLOCK_ROWS)
+    kmin, kmax = _tile_ranges(seg) if ranges is None else ranges
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _fwd_fn()(
@@ -294,7 +342,7 @@ def _bwd_tail(q, k, causal):
 
 def _seg_bwd_dq_kernel(q, k, v, seg, dout, lse, delta, ranges, causal):
     """K7a on CUDA tensors -> dq.  ``ranges``: :func:`_tile_ranges` of
-    ``seg``, the k range of each q tile."""
+    ``seg``, the k range of each 128-row q tile."""
     _check(q, k, v, seg, dout)
     _check_stats(q, lse, delta)
     global launches_bwd_dq
@@ -313,8 +361,9 @@ def _seg_bwd_dq_kernel(q, k, v, seg, dout, lse, delta, ranges, causal):
 
 def _seg_bwd_dkv_kernel(q, k, v, seg, dout, lse, delta, ranges, causal):
     """K7b on CUDA tensors -> (dk, dv) at k's kv heads.  ``ranges``:
-    :func:`_tile_ranges` of ``seg``, the q range of each k tile (the same
-    function as the dq pass's k ranges: both tiles are 64 rows)."""
+    :func:`_tile_ranges` of ``seg``, the q range of each 128-key tile (the
+    same function as the dq pass's k ranges and K2's: all three blocks are
+    ``BLOCK_ROWS`` high)."""
     _check(q, k, v, seg, dout)
     _check_stats(q, lse, delta)
     global launches_bwd_dkv
@@ -332,12 +381,12 @@ def _seg_bwd_dkv_kernel(q, k, v, seg, dout, lse, delta, ranges, causal):
     return dk, dv
 
 
-def _seg_bwd(q, k, v, seg, out, lse, dout, causal):
-    """The backward on CUDA tensors (``_seg_bwd_vjp``): delta, the per-tile
-    ranges, K7a and K7b -> (dq, dk, dv).  The dk / dv kernel sums a GQA
-    group's q heads in f32 and rounds to k's and v's type once."""
+def _seg_bwd(q, k, v, seg, out, lse, dout, causal, ranges):
+    """The backward on CUDA tensors (``_seg_bwd_vjp``): delta, K7a and K7b
+    -> (dq, dk, dv).  ``ranges``: the forward's :func:`_tile_ranges`.  The
+    dk / dv kernel sums a GQA group's q heads in f32 and rounds to k's and
+    v's type once."""
     delta = _delta(dout, out)
-    ranges = _tile_ranges(seg)
     dq = _seg_bwd_dq_kernel(q, k, v, seg, dout, lse, delta, ranges, causal)
     dk, dv = _seg_bwd_dkv_kernel(q, k, v, seg, dout, lse, delta, ranges,
                                  causal)
@@ -345,20 +394,22 @@ def _seg_bwd(q, k, v, seg, out, lse, dout, causal):
 
 
 class _FlashSeg(torch.autograd.Function):
-    """K2 forward, K7a / K7b backward (``_flash_seg``'s custom_vjp)."""
+    """K2 forward, K7a / K7b backward (``_flash_seg``'s custom_vjp); the
+    per-tile ranges are computed once, for all three."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, causal):
-        out, lse = _seg_fwd(q, k, v, seg, causal)
-        ctx.save_for_backward(q, k, v, seg, out, lse)
+        ranges = _tile_ranges(seg)
+        out, lse = _seg_fwd(q, k, v, seg, causal, ranges)
+        ctx.save_for_backward(q, k, v, seg, out, lse, *ranges)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, seg, out, lse = ctx.saved_tensors
+        q, k, v, seg, out, lse, kmin, kmax = ctx.saved_tensors
         dq, dk, dv = _seg_bwd(q, k, v, seg, out, lse, dout.contiguous(),
-                              ctx.causal)
+                              ctx.causal, (kmin, kmax))
         return dq, dk, dv, None, None
 
 

@@ -100,7 +100,7 @@ def test_heads_must_divide():
         fv.flash_attention_segmented(q, k, k, torch.zeros((1, 8)))
 
 
-TILE_ROWS = [fv.BLOCK_ROWS, fv.FWD_BLOCK_ROWS]     # K7a / K7b, K2
+TILE_ROWS = [64, fv.BLOCK_ROWS]     # any height; the kernels' blocks
 
 
 @pytest.mark.parametrize("rows", TILE_ROWS)
@@ -270,3 +270,48 @@ def test_tile_ranges_equal_jax_on_the_padded_stream(lengths, total, rows):
     lo_p, hi_p = fv._tile_ranges(torch.from_numpy(seg), rows)
     np.testing.assert_array_equal(lo_p.numpy(), np.asarray(lo_j))
     np.testing.assert_array_equal(hi_p.numpy(), np.asarray(hi_j))
+
+
+def _random_rows(seed, batch=2):
+    """Packed rows of random layouts: documents of 1 to 400 tokens (some
+    of one token; the first row opens with one of 400, which spans four
+    128-row blocks), an optional -1 pad tail, a length no block divides."""
+    rng = np.random.default_rng(seed)
+    total = int(rng.integers(500, 900))
+    seg = np.full((batch, total), -1, np.int32)
+    for row in range(batch):
+        at, i = (400, 1) if row == 0 else (0, 0)
+        seg[row, :at] = 0
+        end = total - int(rng.integers(0, 100)) * int(rng.integers(0, 2))
+        while at < end:
+            L = int(rng.choice([1, rng.integers(2, 64), rng.integers(64, 400)]))
+            seg[row, at:min(at + L, end)] = i
+            at, i = at + L, i + 1
+    return seg
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dkv", [False, True], ids=["dq", "dkv"])
+def test_backward_tile_walk_covers_the_visible_pairs(seed, causal, d, dkv):
+    """The mirror of the backward kernels' walk: every visible pair lies in
+    a tile the pass visits, and every tile it leaves unmasked is visible
+    throughout (so the kernels' mask-free exp loop sees no pair of another
+    segment, of the wrong side of the diagonal or past the stream)."""
+    seg = _random_rows(seed)
+    s = seg.shape[1]
+    vis = fv._seg_vis(torch.from_numpy(seg), causal)[:, 0].numpy()
+    covered = np.zeros_like(vis)
+    tiles = fv._bwd_tile_walk(torch.from_numpy(seg), causal, d, dkv)
+    free = 0
+    for r, q0, q1, k0, k1, masked in tiles:
+        assert q1 - q0 == 64 and k1 - k0 == (64 if dkv or d == 128 else 128)
+        covered[r, q0:q1, k0:k1] = True
+        if not masked:
+            free += 1
+            assert q1 <= s and k1 <= s
+            assert vis[r, q0:q1, k0:k1].all(), (r, q0, k0)
+    assert not (vis & ~covered).any()
+    assert len(set(tiles)) == len(tiles)       # no tile visited twice
+    assert 0 < free < len(tiles)

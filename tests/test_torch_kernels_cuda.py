@@ -17,9 +17,12 @@ tiles, at 2,047 and 4,096 tokens, d 64 / 128, causal or not, from the
 forward kernel's own out and lse, with dq, dk and dv views at the head of
 sentinel-filled buffers and run twice for bit-identical results, the
 segmented backward (dq; dk and dv) at one token,
-lengths on either side of a tile, one segment filling a row, all 1-token
-segments, a GQA group of 8, head_dim 64 non-causal and a -1 pad tail, run
-twice for bit-identical results, the trunk's flagged kernels (rms_norm
+lengths on either side of its 64-row stages and 128-row blocks, segment
+boundaries inside a stage and on its edge, a document spanning three blocks
+(stages that need no mask), one segment filling a row, all 1-token
+segments, GQA groups of 4 and 8 over several q tiles, head_dim 64 causal or
+not, key tiles wholly in a -1 pad tail, run twice for bit-identical
+results, the trunk's flagged kernels (rms_norm
 forward and backward, swiglu forward and backward, rmsnorm_matmul) at one
 row, rows no multiple of 8 or 128, f32 and mixed types, tensors off a
 16-byte boundary, ragged N, H no multiple of 128, rmsnorm_matmul across its
@@ -438,7 +441,7 @@ def test_segmented_forward_kernel_across_its_tiles(gen, T, n, nkv, d, rows,
     torch.testing.assert_close(lse, _ref_lse(q, k, seg, causal), **TOL)
 
 
-@pytest.mark.parametrize("rows", [fv.BLOCK_ROWS, fv.FWD_BLOCK_ROWS])
+@pytest.mark.parametrize("rows", [64, fv.BLOCK_ROWS])
 @pytest.mark.parametrize("T,layout,pad", [
     (1, [[1]], None), (64, [[20, 30]], None), (300, [[100, 10, 190]], None),
     (2048, [[700, 64, 1, 900, 300]], None), (256, [[128, 128]], None),
@@ -733,6 +736,21 @@ SEG_BWD_CASES = [
     (200, 16, 2, 128, [[50, 1, 149], [77, 60]], True, None),   # group of 8
     (150, 4, 2, 64, [[40, 60, 50]], False, None),        # d=64, non-causal
     (160, 4, 2, 128, [[30, 50], [1] * 40], True, -1),    # -1 pad tails
+    # around the 128-row blocks
+    (127, 4, 2, 128, [[60, 67]], True, None),
+    (128, 4, 4, 128, [[128]], True, None),
+    (129, 4, 4, 128, [[100, 29]], True, None),
+    (257, 8, 2, 128, [[257]], True, None),
+    (256, 4, 4, 128, [[100, 156]], True, None),          # boundary in a stage
+    (256, 4, 4, 128, [[64, 192]], True, None),           # on a stage edge
+    (400, 4, 2, 128, [[10, 384, 6]], True, None),        # spans 3 blocks:
+    (400, 4, 2, 128, [[10, 384, 6]], False, None),       # mask-free tiles
+    (512, 16, 4, 128, [[300, 212], [130, 382]], True, None),   # group of 4
+    (512, 16, 2, 128, [[130, 382]], True, None),         # group of 8
+    (384, 4, 2, 64, [[200, 184]], True, None),           # 128-key stages
+    (384, 4, 2, 64, [[200, 1, 183]], False, None),
+    (384, 4, 2, 128, [[100, 20]], True, -1),             # key tiles in a pad
+    (384, 4, 4, 128, [[50]], False, -1),
 ]
 
 

@@ -3,14 +3,15 @@
 turns, in one process on one CUDA card: the paged decode kernels (K1 bf16
 pages, K4 int8 pages), the segmented flash forward (K2), the int8 matmul
 (K3) at a prefill wave and at decode, the flash-attention forward (K6a)
-and backward (K6b dq, K6c dk / dv) and the fused RMSNorm -> matmul (K11);
+and backward (K6b dq, K6c dk / dv), the segmented backward (K7a dq, K7b dk /
+dv) and the fused RMSNorm -> matmul (K11);
 and, for this tree alone, K3's two paths (decode and wave) at the row
 counts where one takes over from the other (K3route).
 
 Run from the repository root:
 
     python3 tools/ab_torch_kernels.py --parent DIR [--reps 50]
-        [--kernels K1,K4,K2,K3,K3route,K6a,K6b,K6c,K11]
+        [--kernels K1,K4,K2,K3,K3route,K6a,K6b,K6c,K7a,K7b,K11]
 
 DIR holds an earlier tree of the repository (``git archive <commit>``
 unpacked into a directory that ``.gitignore`` lists, such as
@@ -25,7 +26,11 @@ nkv 32 and 8, d 128, page 64, lens ``K1_LENS``); K2 at its packed stream
 (1000, 4096, 1000: N % 16 != 0), K3route at M 16, 32, 64 and 128 of the
 same weight; K6a-c at
 ``TRAIN_SHAPES[0]`` causal (K6b and K6c both from this tree's forward
-kernel's out and lse); K11 at the gate / up, q and decode cases of ``K11_CASES``.  Each
+kernel's out and lse); K7a / K7b at ``K7_TIMED`` of ``K7_CASES`` (the
+packed trainer's rows, GQA 32 over 8, one document a row), from this tree's
+K2 out, lse and ranges, each tree's kernels on the per-tile ranges of its
+own block height; K11 at the gate / up, q and decode cases of
+``K11_CASES``.  Each
 wrapper is timed parent, new, new, parent under two timers:
 
 - ``chip_smoke.time_ms`` as it is (CUDA events, median of ``--reps`` runs
@@ -41,7 +46,9 @@ the events), and each wrapper's host time per call is the mean of
 ``--reps`` calls queued back to back.  K6a-c and K11 also time their
 yardstick under both timers, as ``chip_smoke.py`` names it (SDPA's
 forward; SDPA's whole backward, dq, dk and dv in one call, for K6b and
-K6c alike; cuBLAS on the normalised activation); so do K2 (SDPA with the
+K6c alike, and with the block-diagonal mask for K7a and K7b; cuBLAS on the
+normalised activation); one document a row, K7a and K7b also time K6b and
+K6c on the same inputs under both timers; so do K2 (SDPA with the
 block-diagonal mask) and K3 (cuBLAS on the weight dequantized
 beforehand).  The two outputs (K2, K6a: out and lse; K6c: dk and dv) are
 held against each other at chip_smoke's tolerance.  Prints the card
@@ -175,7 +182,7 @@ def main():
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels",
-                    default="K1,K4,K2,K3,K3route,K6a,K6b,K6c,K11")
+                    default="K1,K4,K2,K3,K3route,K6a,K6b,K6c,K7a,K7b,K11")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -333,6 +340,61 @@ def main():
                 library=sdpa_bwd, shape=list(shape), causal=True)
         del q, k, v, do, out, lse, delta, bwd_args, qt, kt, vt, lib_out
         del sdpa_bwd
+    if "K7a" in kernels or "K7b" in kernels:
+        old_fv = parent_ops(args.parent, "flash_varlen")
+        for name, B, T, n, nkv, d, causal, layout in cs.K7_CASES:
+            if name not in cs.K7_TIMED:
+                continue
+            seg_np = cs.k7_segments(layout, B, T, args.seed)
+            seg = torch.from_numpy(seg_np).cuda()
+            q, do = (torch.randn((B, T, n, d), generator=gen, device="cuda",
+                                 dtype=torch.bfloat16) for _ in range(2))
+            k, v = (torch.randn((B, T, nkv, d), generator=gen, device="cuda",
+                                dtype=torch.bfloat16) for _ in range(2))
+            ranges = fv._tile_ranges(seg)
+            out, lse = fv._seg_fwd(q, k, v, seg, causal, ranges)
+            delta = fa._delta(do, out)
+            new_args = (q, k, v, seg, do, lse, delta, ranges, causal)
+            old_args = (q, k, v, seg, do, lse, delta,
+                        old_fv._tile_ranges(seg), causal)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=fv._seg_vis(seg, causal),
+                enable_gqa=nkv != n)
+            sdpa_bwd = functools.partial(torch.autograd.grad, lib_out,
+                                         (qt, kt, vt), do.transpose(1, 2),
+                                         retain_graph=True)
+            works = cs.k7_work(seg_np, n, nkv, d, causal)
+            shape = dict(case=name, B=B, T=T, n=n, nkv=nkv, d=d,
+                         causal=causal, layout=layout)
+            for label, old, new, dense, work, check in (
+                    ("K7a", old_fv._seg_bwd_dq_kernel, fv._seg_bwd_dq_kernel,
+                     fa._bwd_dq_kernel, works[0],
+                     lambda a, b: cs.check_close("K7a dq new vs parent", a,
+                                                 b)),
+                    ("K7b", old_fv._seg_bwd_dkv_kernel,
+                     fv._seg_bwd_dkv_kernel, fa._bwd_dkv_kernel, works[1],
+                     lambda a, b: max(
+                         cs.check_close("K7b dk new vs parent", a[0], b[0]),
+                         cs.check_close("K7b dv new vs parent", a[1],
+                                        b[1])))):
+                if label not in kernels:
+                    continue
+                extra = {}
+                if layout == "onedoc":
+                    # K6b / K6c on the same inputs: the same work, dense
+                    call = functools.partial(dense, q, k, v, do, lse, delta,
+                                             causal)
+                    extra = {"dense_ms": cs.time_ms(torch, call, flush,
+                                                    args.reps),
+                             "dense_card_alone_ms": card_alone_ms(
+                                 torch, call, flush, args.reps)}
+                run(label, functools.partial(old, *old_args),
+                    functools.partial(new, *new_args), work, check,
+                    library=sdpa_bwd, **shape, **extra)
+            del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out, sdpa_bwd
+            del new_args, old_args, ranges
     if "K11" in kernels:
         old_rmm = parent_ops(args.parent, "rmsnorm_matmul")
         eps = 1e-6

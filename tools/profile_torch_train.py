@@ -70,13 +70,18 @@ def _kind(name: str) -> str:
     if "seg_fwd_kernel" in name or ("flash_fwd_kernel" in name
                                     and "true" in name):
         return "flash_attention_segmented fwd (K2)"
-    # the per-tile range kernel, launched before K2 and before each
-    # layer's K7a / K7b pair (one kernel name for both)
+    # the per-tile range kernel, launched before K2 (and, in trees whose
+    # backward kept ranges of its own height, before each layer's K7a /
+    # K7b pair: one kernel name for both)
     if "seg_tile_ranges_kernel" in name:
         return "flash_attention_segmented tile ranges (K2, K7)"
-    if "seg_bwd_dq_kernel" in name:
+    # K7a / K7b: seg_bwd_*_kernel before the Hopper redesign, then the
+    # backward templates' segmented instances, flash_bwd_*_kernel<d, true>
+    if "seg_bwd_dq_kernel" in name or ("flash_bwd_dq_kernel" in name
+                                       and "true" in name):
         return "flash_attention_segmented bwd dq (K7a)"
-    if "seg_bwd_dkv_kernel" in name:
+    if "seg_bwd_dkv_kernel" in name or ("flash_bwd_dkv_kernel" in name
+                                        and "true" in name):
         return "flash_attention_segmented bwd dk/dv (K7b)"
     if "flash_fwd_kernel" in name:
         return "flash_attention fwd (K6a)"
