@@ -11,12 +11,15 @@ Phases, one JSON line each on stdout:
              (name<template args>) to its registers, spill stores and
              loads, stack and static shared memory in bytes (the same,
              one line a function, and ptxas's warnings go to stderr);
-             K7a's and K7b's four instances must spill nothing.
+             K7a's and K7b's four instances, K3's decode instances and
+             K9a's register-held instances must spill nothing.
 3. k1..k4  - each kernel against its plain PyTorch version on the card, at
              the main paths' shapes (k1, k2, k4: nkv = 32 as LLaMA-7B and
              nkv = 8 for GQA, and k2's per-tile range kernel against its
-             plain version, bit for bit, at K2's 128-row tiles; k3: decode w_gate, w_down and lm_head on the
-             decode path, w_gate at a 2,048- and a 256-row prefill wave
+             plain version, bit for bit, at K2's 128-row tiles; k3:
+             decode w_gate, w_down, lm_head and wq at batch 8 and w_gate
+             at batch 1 on the decode path, w_gate at a 2,048- and a
+             256-row prefill wave
              and a ragged M and N on the wave path): max abs error,
              kernel / plain / library-call
              times (CUDA events, median of 25 runs after warm-up, L2
@@ -43,7 +46,8 @@ Phases, one JSON line each on stdout:
              document a row K6b's and K6c's times on the same inputs.
    k9, k10, k11 - the trunk's flagged kernels the same way: rms_norm
              forward and backward (K9a-b; K9b run twice for bit-identical
-             results) at the trainer's [16384, 2048], decode's [8, 4096], a
+             results) at the trainer's [16384, 2048], decode's [8, 4096],
+             the serving wave's [2048, 4096] (timed with the trainer's), a
              ragged row count and an f32 weight; swiglu forward and backward
              (K10a-b) at [16384, 5504], [8, 11008] and a ragged row count;
              rmsnorm_matmul (K11) at the trainer's gate / up and q products,
@@ -195,11 +199,12 @@ K1_LENS = [1, 64, 65, 2048, 300, 1000, 1500, 777]
 # one long row among short ones in a table of 128 pages: most of the
 # kernel's splits start past their row's end and exit at once
 K1_SPARSE_LENS, K1_SPARSE_PAGES = [2048, 1, 3, 64, 65, 100, 7, 200], 128
-# (M, K, N): decode w_gate, w_down and lm_head at batch 8 (the decode
-# path), then the wave path: w_gate at a 2,048-row prefill wave, a 256-row
-# wave (split over K) and a ragged M and N (N % 16 != 0: the plain-load
-# instance)
+# (M, K, N): decode w_gate, w_down and lm_head at batch 8, wq / wk / wv /
+# wo at batch 8 and w_gate at batch 1 (the decode path), then the wave path:
+# w_gate at a 2,048-row prefill wave, a 256-row wave (split over K) and a
+# ragged M and N (N % 16 != 0: the plain-load instance)
 K3_SHAPES = [(8, 4096, 11008), (8, 11008, 4096), (8, 4096, 32000),
+             (8, 4096, 4096), (1, 4096, 11008),
              (2048, 4096, 11008), (256, 4096, 4096), (1000, 4096, 1000)]
 K2_SEGMENTS = [700, 64, 1, 900, 300]   # + sentinel padding up to T
 K2_T = 2048
@@ -216,10 +221,16 @@ K7_CASES = [("trainer", 8, 2048, 16, 16, 128, True, "packed"),
             ("ones_pad", 2, 2048, 16, 16, 128, True, "ones_pad"),
             ("onedoc", 8, 2048, 16, 16, 128, True, "onedoc")]
 K7_TIMED = ("trainer", "gqa", "onedoc")
-# K7a and K7b, the segmented instances of csrc/flash_bwd_sm90.cuh's
-# templates: the build must report each with no spill bytes
-K7_PTXAS = [f"flash_varlen_bwd.cu:flash_bwd_{p}_kernel<{d}, 1>"
-            for p in ("dq", "dkv") for d in (128, 64)]
+# Kernel functions that must spill nothing, by label prefix, with the
+# number of functions the build must report under each: K7a and K7b, the
+# segmented instances of csrc/flash_bwd_sm90.cuh's templates; K3's decode
+# path (int8_decode_kernel<MT, kTmaW>: 8 or 16 rows, TMA or plain-load
+# weight); K9a's register-held rows (rms_fwd_rows_kernel<NV, WPR, types>)
+SPILL_FREE = {
+    **{f"flash_varlen_bwd.cu:flash_bwd_{p}_kernel<{d}, 1>": 1
+       for p in ("dq", "dkv") for d in (128, 64)},
+    "int8_matmul.cu:int8_decode_kernel<": 4,
+    "rms_norm.cu:rms_fwd_rows_kernel<": 24}
 # JAX's packed-pretraining invariant: each target's loss in the packed rows
 # equals its loss in its document run alone, so the packed loss is the
 # token-weighted mean of the documents' losses.  Both sides compute in bf16
@@ -235,8 +246,9 @@ K7_PTXAS = [f"flash_varlen_bwd.cu:flash_bwd_{p}_kernel<{d}, 1>"
 # fall (sound 2.7e-4, 1.0e-4, 1.9e-4; fault 0.0120, 0.0132, 0.0063).
 PACKED_TOKEN_LIMIT = 0.05
 # The trunk's flagged kernels.  K9 (rms_norm): the trainer's [16384, 2048]
-# bf16 (timed), decode's [8, 4096], a ragged row count, and bf16 x with an
-# f32 weight (the output promotes to f32).  K10 (swiglu): the trainer's FFN
+# bf16 (timed), decode's [8, 4096], the serving admission wave's [2048,
+# 4096] (timed), a ragged row count, and bf16 x with an f32 weight (the
+# output promotes to f32).  K10 (swiglu): the trainer's FFN
 # [16384, 5504] (timed), decode's [8, 11008], a ragged row count.  K11
 # (rmsnorm_matmul): the trainer's gate / up and q products over the f32 ln
 # master (timed), decode's [8, 4096] x [4096, 11008] over a bf16 ln, and a
@@ -244,8 +256,10 @@ PACKED_TOKEN_LIMIT = 0.05
 # another summation order.
 K9_CASES = [("trainer", 16384, 2048, "bfloat16"),
             ("decode", 8, 4096, "bfloat16"),
+            ("wave", 2048, 4096, "bfloat16"),
             ("ragged", 4095, 2048, "bfloat16"),
             ("promote", 4095, 2048, "float32")]
+K9_TIMED = ("trainer", "wave")
 K10_SHAPES = [(16384, 5504), (8, 11008), (4095, 5504)]
 K11_CASES = [("gate_up", 16384, 2048, 5504, "float32"),
              ("q", 16384, 2048, 2048, "float32"),
@@ -331,6 +345,16 @@ def k3_work(M, K, N):
     """(bytes, FLOPs) of K3: x, the int8 codes and their f32 scales read,
     the bf16 output written once; 2 FLOPs per multiply-add."""
     return M * K * 2 + K * N + 4 * N + M * N * 2, 2 * M * K * N
+
+
+def k9_work(n, h, x_bytes, w_bytes, out_bytes):
+    """((bytes, FLOPs) of K9a, (bytes, FLOPs) of K9b) on rows [n, h].  K9a
+    reads x and w and writes out and rstd; K9b reads x, w, rstd and dout and
+    writes dx and its f32 dw partials' row (one row counted).  4 and 9
+    FLOPs an element."""
+    return ((n * h * (x_bytes + out_bytes) + h * w_bytes + n * 4, 4 * n * h),
+            (n * h * (2 * x_bytes + out_bytes) + h * (w_bytes + 4) + n * 4,
+             9 * n * h))
 
 
 def k7_work(seg_np, n, nkv, d, causal):
@@ -862,17 +886,15 @@ def phase_k9(torch, rn, case, eps, gen, flush, timed):
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (xr, wr), do, retain_graph=True), flush)
         del lib_out
-        for r, ms, plain, lib, nbytes, flops in (
-                (res[0], time_ms(torch, lambda: rn._fwd(x, w, eps), flush),
-                 time_ms(torch, lambda: rn.rms_norm_plain(x, w, eps), flush),
-                 lib_fwd, n * h * (xs + os_) + h * ws + n * 4, 4 * n * h),
-                (res[1], time_ms(torch, lambda: rn._bwd(x, w, rstd, do),
-                                 flush),
+        for r, ms, plain, lib, work in zip(
+                res,
+                (time_ms(torch, lambda: rn._fwd(x, w, eps), flush),
+                 time_ms(torch, lambda: rn._bwd(x, w, rstd, do), flush)),
+                (time_ms(torch, lambda: rn.rms_norm_plain(x, w, eps), flush),
                  time_ms(torch, lambda: rn.rms_norm_bwd_plain(x, w, rstd, do),
-                         flush),
-                 lib_bwd, n * h * (2 * xs + os_) + h * (ws + 4) + n * 4,
-                 9 * n * h)):
-            b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+                         flush)),
+                (lib_fwd, lib_bwd), k9_work(n, h, xs, ws, os_)):
+            b_ms, b_by = bound(*work, PEAK_F32_FLOPS)
             r.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                      bound_by=b_by)
         res[0]["library"] = "torch.nn.functional.rms_norm"
@@ -1854,13 +1876,16 @@ def main():
                   f"smem", file=sys.stderr)
             ptxas[f"{name}.cu:{label}"] = r
     print(json.dumps({"ptxas": ptxas}), flush=True)
-    for label in K7_PTXAS:
-        r = ptxas.get(label)
-        if r is None:
-            fail(f"ptxas reported no {label}")
-        if r["spill_stores"] or r["spill_loads"]:
-            fail(f"{label} spills {r['spill_stores']} / {r['spill_loads']} "
-                 f"bytes (stores / loads)")
+    for prefix, least in SPILL_FREE.items():
+        found = [k for k in ptxas if k.startswith(prefix)]
+        if len(found) < least:
+            fail(f"ptxas reported {len(found)} functions {prefix}..., want "
+                 f"{least}")
+        for label in found:
+            r = ptxas[label]
+            if r["spill_stores"] or r["spill_loads"]:
+                fail(f"{label} spills {r['spill_stores']} / "
+                     f"{r['spill_loads']} bytes (stores / loads)")
 
     from paddle_tpu_torch.models.llama_pretrain import LlamaPretrainConfig
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1878,8 +1903,8 @@ def main():
     k7 = [phase_k7(torch, fv, fa, case, args.seed, gen, flush,
                    timed=case[0] in K7_TIMED) for case in K7_CASES]
     eps = LlamaPretrainConfig.rms_norm_eps
-    k9 = [phase_k9(torch, rn, case, eps, gen, flush, timed=i == 0)
-          for i, case in enumerate(K9_CASES)]
+    k9 = [phase_k9(torch, rn, case, eps, gen, flush,
+                   timed=case[0] in K9_TIMED) for case in K9_CASES]
     k10 = [phase_k10(torch, sw, shape, gen, flush, timed=i == 0)
            for i, shape in enumerate(K10_SHAPES)]
     k11 = [phase_k11(torch, rmm, case, eps, gen, flush) for case in K11_CASES]

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (csrc/flash_fwd_sm90.cuh's forward, K6a and K2; csrc/flash_attention.cu's
 // backward, K6b-c; csrc/rmsnorm_matmul.cu, K11; csrc/int8_matmul.cu's wave
-// path, K3):
+// and decode paths, K3):
 //
 // * host: tiled tensor maps, encoded per call (the pointers change) with
 //   cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
@@ -13,7 +13,8 @@
 //   "empty" barrier; the waiter keeps the phase bit);
 // * wgmma: shared-memory matrix descriptors for the 128-byte swizzle that
 //   the tensor maps write, m64nNk16 bf16 -> f32 products with A from shared
-//   memory or from registers, fence / commit / wait, and setmaxnreg;
+//   memory or from registers, fence / commit / wait, and setmaxnreg; the
+//   warp-level mma.sync m16n8k16 on the same register fragments;
 // * int8 codes widened to bf16 in registers, four at a time.
 //
 // Shared-memory tiles are rows of 64 bf16 (128 bytes) in the 128-byte
@@ -150,6 +151,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// brings a tensor map into the TMA unit's cache ahead of its first load
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // TMA: one box of `map` at element coordinates (c0 innermost, ...) into
@@ -356,6 +363,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(1), "n"(1), "n"(0), "n"(TransB));
+}
+
+// The warp-level product d += a b of one 16 x 8 x 16 step, bf16 operands
+// and f32 accumulators: a in the same fragment layout as the _rs forms'
+// (a warp's 16 rows), b0 / b1 the thread's column lane / 4 at rows 2 (lane
+// % 4) + {0, 1} and + 8, d[e] row lane / 4 (+ 8 for e >= 2), column
+// 2 (lane % 4) + (e & 1): the layout of one warp's slice of an m64n8
+// accumulator.
+__device__ __forceinline__ void mma_m16n8k16(float* d, const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int TransB>

@@ -11,26 +11,41 @@
 // order; the scale multiplies the f32 accumulator and the result is rounded
 // once, as the TPU kernel does.  The bf16 copy of the weight never exists
 // in device memory, which is the point of the TPU kernel: each int8 tile is
-// widened on its way into shared memory.
+// widened in registers on its way into the products.
 //
 // Two paths, chosen by the wrapper from M (ops/int8_matmul.py):
 //
-// Decode (a batch of a few rows; the wrapper's crossover, WAVE_MIN_M).
-// Bytes bound it: the weight is read once, K*N bytes (w_gate's 45 MB takes
-// >= 13.5 us at 3.35 TB/s), against 2*M*K*N FLOPs, 16 FLOPs a byte at M =
-// 8, far below the ~295 where the bf16 tensor cores would be the limit.
-// * A block owns 16 rows x 64 columns (at M = 8 half its rows are zero
-//   padding, a waste the bytes bound absorbs).  The int8 tile goes from
-//   device memory to registers as 16-byte loads along N and is widened to
-//   bf16 on its way into a shared-memory tile; 16x16x16 wmma products
-//   (bf16 -> f32) from tiles padded against bank conflicts; the next K
-//   tile's loads are issued before the current tile's products.
-// * N / 64 tiles alone do not fill 132 SMs (N = 4096 gives 64 blocks), so
-//   the product is split over K: each block of a split writes f32 partial
-//   sums, and a second, small kernel adds the splits, scales and rounds
-//   once.  int8_matmul_splits picks the split so that about four blocks
-//   run per SM.  The partial sums cost 2 * splits * M * N * 4 bytes, under
-//   2% of the weight bytes at M = 8.
+// Decode (M <= 16: a batch of a few rows; the wrapper's crossover,
+// WAVE_MIN_M).  Bytes bound it: the weight is read once, K*N bytes (w_gate's
+// 45 MB takes >= 13.5 us at 3.35 TB/s), against 2*M*K*N FLOPs, 16 FLOPs a
+// byte at M = 8, far below the ~295 where the bf16 tensor cores would be
+// the limit.  So the design keeps as many weight bytes in flight as the SMs
+// can hold and spends nothing on the way from device memory to the
+// products:
+// * The transposed product out^T = W^T x^T, as on the wave path: the
+//   widened int8 codes are the A operand, in registers (a transposing
+//   ldmatrix on pairs of codes, then hopper::widen_s8x4), and x^T is the B
+//   operand with the product's N = 8 (M <= 8) or 16 (M <= 16), so no zero
+//   row is multiplied at M = 8 and no widened weight goes to shared memory.
+//   A block owns 128 output columns: eight consumer warps of 16 columns,
+//   each running mma.sync m16n8k16 on its own (wgmma m64n8k16 over two
+//   warpgroups timed the same: bytes bind, not the product), B fragments
+//   by plain ldmatrix from the x stage.
+// * One producer warp keeps an eight-stage TMA ring full: each stage the
+//   int8 codes' [64, 128] box (8 KB, 128-byte swizzle) and x's [64, MT]
+//   box beside it (TMA zero-fills rows past M and K and columns past N).
+//   Two blocks fit an SM, so up to 128 KB of weight is in flight an SM.
+// * Work over the 132 SMs whatever N is: the wrapper's plan
+//   (decode_splits) splits K so that the column tiles times the splits
+//   make about two blocks an SM, in one wave.
+// * The split's sum in the same launch: each block writes f32 partials,
+//   and the last block to arrive at a column tile (an atomic count per
+//   tile, in a scratch buffer the wrapper keeps zeroed per stream) adds the
+//   partials in split order, scales and rounds once, and puts the count
+//   back to 0.  Only the count is atomic, so the result is the same bits
+//   on every run, and a CUDA-graph replay finds the count at 0.
+// * N % 16 != 0: no tensor map describes the int8 rows, and the producer
+//   warp reads them with plain loads into the same swizzled layout.
 //
 // Wave (a packed prefill wave: M in the hundreds or thousands).  The
 // operations bound it (2*M*K*N FLOPs over 989 TFLOP/s bf16).  Wgmma has no
@@ -60,8 +75,9 @@
 //   built while this stage's products run, as in K11.  The epilogue undoes
 //   the column order: each thread holds two neighbouring output columns.
 // * Small waves do not fill the card (a tile gives 32 blocks at M = 256,
-//   N = 4096), so the product is split over K as at decode, with the same
-//   f32 partial sums and reduce pass.
+//   N = 4096), so the product is split over K into f32 partial sums, and a
+//   second, small kernel (int8_matmul_reduce) adds the splits, scales and
+//   rounds once.
 // * Ragged shapes: TMA zero-fills rows past M and K and columns past N
 //   (zeros add nothing); the epilogue stores masked at M and N.  When N %
 //   16 != 0 the weight's rows are no multiple of 16 bytes and no tensor map
@@ -71,14 +87,12 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper_sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxSplits = 16;
@@ -86,138 +100,276 @@ constexpr int kMaxSplits = 16;
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------------------
-// decode: 16 x 64 tiles, wmma, 128 threads
+// decode: the transposed product on 128-column tiles, a TMA ring of int8
+// weight boxes feeding mma.sync, the split's sum closed in the same launch
 // ---------------------------------------------------------------------------
 namespace decode {
-constexpr int kThreads = 128;  // 4 warps, each a 16 x 16 quarter of the tile
-constexpr int kBM = 16;        // rows per block
-constexpr int kBN = 64;        // output columns per block
-constexpr int kBK = 64;        // K depth of one shared-memory tile
-constexpr int kAPad = 8;       // bf16 padding of an x row in shared memory
-constexpr int kBPad = 8;       // bf16 padding of a widened weight row
-constexpr int kCPad = 4;       // f32 padding of an accumulator row
-
-struct __align__(32) Smem {
-  bf16 a[kBM][kBK + kAPad];   // x tile
-  bf16 b[kBK][kBN + kBPad];   // weight tile, widened to bf16
-  float c[kBM][kBN + kCPad];  // accumulators for the epilogue
-};
+constexpr int kBN = 128;                 // output columns (n) per block
+constexpr int kBK = 64;                  // K depth of one stage
+constexpr int kStages = 8;
+constexpr int kConsumers = kBN / 16;     // warps of 16 columns each
+constexpr int kThreads = 32 * (kConsumers + 1);   // + one producer warp
+constexpr int kWTile = kBK * kBN;        // int8 codes of a stage's W box
+// MT rows of x per stage (8 or 16): the product's N
+template <int MT> __host__ __device__ constexpr int smem_bytes() {
+  return kStages * (kWTile + MT * kBK * 2) + 2 * kStages * 8 + 1024;
+}
 }  // namespace decode
 
-// The 16 int8 codes of one 16-byte chunk as 16 bf16 values (32 bytes).
-__device__ __forceinline__ void widen16(const uint4& raw, uint4* dst) {
-  uint4 lo, hi;
-  hopper::widen_s8x4(raw.x, lo.x, lo.y);
-  hopper::widen_s8x4(raw.y, lo.z, lo.w);
-  hopper::widen_s8x4(raw.z, hi.x, hi.y);
-  hopper::widen_s8x4(raw.w, hi.z, hi.w);
-  dst[0] = lo;
-  dst[1] = hi;
-}
-
-// grid (ceil(N / kBN), ceil(M / kBM), splits).  Split z covers the K tiles
-// [z * per, min((z + 1) * per, ceil(K / kBK))).  With splits == 1 the block
-// writes bf16 output; otherwise f32 partial sums into ws [splits, M, N].
-__global__ void __launch_bounds__(decode::kThreads)
-int8_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                   const float* __restrict__ scale, bf16* __restrict__ out,
-                   float* __restrict__ ws, int M, int N, int K, int splits) {
+// grid (ceil(N / kBN), splits, ceil(M / MT)); split z covers the K steps
+// [z * per, min((z + 1) * per, ceil(K / kBK))), and blockIdx.z the rows
+// MT blockIdx.z .. + MT - 1 of x (one block of rows at decode; more only
+// when a caller forces the path above WAVE_MIN_M).  splits == 1: the block
+// scales and writes bf16 out.  Otherwise each block writes its f32 partial
+// sums into ws [splits, M, N] and counts itself in its tile's arrival count
+// (arrivals[blockIdx.z * gridDim.x + blockIdx.x]); the block that arrives
+// last adds the splits' partials in split order, scales, rounds once and
+// sets the count back to 0, so the next call on the stream finds it so.
+// kTmaW: the int8 weight arrives by TMA (N % 16 == 0); else the producer
+// warp reads it with plain loads into the same swizzled layout.
+template <int MT, bool kTmaW>
+__global__ void __launch_bounds__(decode::kThreads, 2)
+int8_decode_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_q,
+                   const int8_t* __restrict__ q, const float* __restrict__ scale,
+                   bf16* __restrict__ out, float* __restrict__ ws,
+                   unsigned* __restrict__ arrivals, int M, int N, int K,
+                   int splits) {
+  using namespace hopper;
   using namespace decode;
-  constexpr int A_CHUNKS = kBM * kBK / 8 / kThreads;      // 16-byte x chunks
-  constexpr int B_CHUNKS = kBK * kBN / 16 / kThreads;     // 16-byte q chunks
-  static_assert(A_CHUNKS >= 1 && B_CHUNKS >= 1, "tile too small");
-
-  __shared__ Smem sm;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  constexpr int kXTile = MT * kBK;       // bf16 elements of a stage's x box
+  constexpr uint32_t kTx = kXTile * 2 + (kTmaW ? kWTile : 0);
   const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int ktiles = ceil_div(K, kBK);
-  const int per = ceil_div(ktiles, splits);
-  const int t_begin = blockIdx.z * per;
-  const int t_end = min(ktiles, t_begin + per);
-  const bool vec_n = (N % 16) == 0;   // q rows start on 16-byte boundaries
+  const int m0 = blockIdx.z * MT;
+  const int ksteps = ceil_div(K, kBK);
+  const int per = ceil_div(ksteps, splits);
+  const int kt0 = blockIdx.y * per;
+  const int nk = max(0, min(ksteps, kt0 + per) - kt0);
 
-  uint4 ra[A_CHUNKS];
-  uint4 rb[B_CHUNKS];
+  extern __shared__ unsigned char smem_raw[];
+  uint8_t* Ws = reinterpret_cast<uint8_t*>(align_1k(smem_raw));
+  bf16* Xs = reinterpret_cast<bf16*>(Ws + kStages * kWTile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Xs + kStages * kXTile);
+  uint64_t* empty = full + kStages;
+  __shared__ bool closes;   // this block arrived last at its tile
 
-  auto load = [&](int t) {
-    const int k0 = t * kBK;
-#pragma unroll
-    for (int j = 0; j < A_CHUNKS; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (kBK / 8), c = i % (kBK / 8);
-      const int m = m0 + r, k = k0 + c * 8;
-      ra[j] = (m < M && k < K)
-          ? *reinterpret_cast<const uint4*>(x + (size_t)m * K + k)
-          : make_uint4(0, 0, 0, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the producer warp's lane 0 sets up the ring and, when TMA brings the
+  // weight, fills its first round before the block's barrier: the first
+  // bytes are on their way while the other warps start
+  const int first = kTmaW ? min(nk, kStages) : 0;
+  if (warp == kConsumers && lane == 0) {
+    prefetch_tensormap(&tm_x);
+    if (kTmaW) prefetch_tensormap(&tm_q);
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA issuer's arrival, and each producer lane's in the
+      // plain-load instance
+      mbar_init(full + s, kTmaW ? 1 : 1 + 32);
+      mbar_init(empty + s, kConsumers);   // one arrival per consumer warp
     }
-#pragma unroll
-    for (int j = 0; j < B_CHUNKS; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (kBN / 16), c = i % (kBN / 16);
-      const int k = k0 + r, n = n0 + c * 16;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k < K) {
-        const int8_t* src = q + (size_t)k * N + n;
-        if (vec_n && n + 16 <= N) {
-          v = *reinterpret_cast<const uint4*>(src);
-        } else {   // ragged N: byte loads, masked at N
-          int8_t* vb = reinterpret_cast<int8_t*>(&v);
-          for (int e = 0; e < 16; ++e) vb[e] = n + e < N ? src[e] : 0;
-        }
-      }
-      rb[j] = v;
-    }
-  };
-
-  auto store = [&]() {
-#pragma unroll
-    for (int j = 0; j < A_CHUNKS; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (kBK / 8), c = i % (kBK / 8);
-      *reinterpret_cast<uint4*>(&sm.a[r][c * 8]) = ra[j];
-    }
-#pragma unroll
-    for (int j = 0; j < B_CHUNKS; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (kBN / 16), c = i % (kBN / 16);
-      widen16(rb[j], reinterpret_cast<uint4*>(&sm.b[r][c * 16]));
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-
-  const int wn = warp * 16;
-  if (t_begin < t_end) load(t_begin);
-  for (int t = t_begin; t < t_end; ++t) {
-    __syncthreads();   // the previous tile's products are done with sm
-    store();
-    __syncthreads();
-    if (t + 1 < t_end) load(t + 1);   // in flight during the products
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, &sm.a[0][kk], kBK + kAPad);
-      wmma::load_matrix_sync(fb, &sm.b[kk][wn], kBN + kBPad);
-      wmma::mma_sync(acc, fa, fb, acc);
+    mbar_fence_init();
+    for (int i = 0; i < first; ++i) {
+      const int k0 = (kt0 + i) * kBK;
+      mbar_expect_tx(full + i, kTx);
+      tma_load_2d(Xs + i * kXTile, &tm_x, full + i, k0, m0);
+      tma_load_2d(Ws + i * kWTile, &tm_q, full + i, n0, k0);
     }
   }
-
-  // epilogue: accumulators through shared memory, so that each thread
-  // writes consecutive columns and masks the ragged M and N edges
-  wmma::store_matrix_sync(&sm.c[0][wn], acc, kBN + kCPad, wmma::mem_row_major);
   __syncthreads();
-  for (int i = tid; i < kBM * kBN; i += kThreads) {
-    const int r = i / kBN, c = i % kBN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    if (splits == 1)
-      out[(size_t)m * N + n] = __float2bfloat16(sm.c[r][c] * scale[n]);
-    else
-      ws[((size_t)blockIdx.z * M + m) * N + n] = sm.c[r][c];
+
+  if (warp == kConsumers) {
+    // ---- producer warp: the whole CTA's K range is at most kStages
+    // ahead of the consumers
+    for (int i = first; i < nk; ++i) {
+      const int s = i % kStages;
+      const uint32_t ph = ((i / kStages) & 1) ^ 1;
+      const int k0 = (kt0 + i) * kBK;
+      uint8_t* Wt = Ws + s * kWTile;
+      if (kTmaW) {
+        if (lane == 0) {
+          mbar_wait(empty + s, ph);
+          mbar_expect_tx(full + s, kTx);
+          tma_load_2d(Xs + s * kXTile, &tm_x, full + s, k0, m0);
+          tma_load_2d(Wt, &tm_q, full + s, n0, k0);
+        }
+      } else {
+        mbar_wait(empty + s, ph);
+        if (lane == 0) {
+          mbar_expect_tx(full + s, kTx);
+          tma_load_2d(Xs + s * kXTile, &tm_x, full + s, k0, m0);
+        }
+        // 8-code groups, 8-byte loads when the rows allow (N % 8 == 0),
+        // masked at K and N; code (k, n) at row k, 16-byte chunk
+        // n / 16 ^ (k % 8): the 128-byte swizzle TMA writes
+        for (int e = lane; e < kWTile / 8; e += 32) {
+          const int r = e / (kBN / 8), c8 = e % (kBN / 8);
+          const int k = k0 + r, n = n0 + 8 * c8;
+          uint2 v = make_uint2(0, 0);
+          if (k < K) {
+            const int8_t* src = q + (size_t)k * N + n;
+            if ((N & 7) == 0 && n + 8 <= N) {
+              v = *reinterpret_cast<const uint2*>(src);
+            } else {
+              int8_t* vb = reinterpret_cast<int8_t*>(&v);
+              for (int j = 0; j < 8; ++j) vb[j] = n + j < N ? src[j] : 0;
+            }
+          }
+          *reinterpret_cast<uint2*>(Wt + r * kBN + (((c8 / 2) ^ (r & 7)) * 16) +
+                                    (c8 & 1) * 8) = v;
+        }
+        mbar_arrive(full + s);
+      }
+    }
+  } else {
+    // ---- consumer warp `warp` owns the output columns n0 + 16 warp ..
+    // + 15 as the rows of out^T.  Its A fragments come from the W stage's
+    // 16 columns by transposing ldmatrix on pairs of codes (the wave
+    // path's): fragment rows g and g + 8 are columns 2 g and 2 g + 1.  Its
+    // B fragments, x^T, come from the x stage by plain ldmatrix: matrix j
+    // of a 32-deep half h holds x's rows 0..7 at k 32 h + 8 j .. + 7, so
+    // the thread's register is row lane / 4 at k 32 h + 8 j + 2 (lane % 4),
+    // the B fragment of a 16-deep step.
+    const int g = lane / 4, t = lane % 4;
+    float acc[MT / 2];
+#pragma unroll
+    for (int i = 0; i < MT / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % kStages;
+      mbar_wait(full + s, (i / kStages) & 1);
+      const uint8_t* Wt = Ws + s * kWTile;
+      const bf16* Xt = Xs + s * kXTile;
+      uint32_t a[kBK / 16][4];
+      uint32_t b[MT / 8][kBK / 16][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // lanes 8j .. 8j + 7 address rows 32 h + 8 j .. of matrix j
+        const int k = 32 * h + lane;
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, Wt + k * kBN + ((warp ^ (k & 7)) * 16));
+        widen_s8x4<true>(r[0], a[2 * h][0], a[2 * h][1]);
+        widen_s8x4<true>(r[1], a[2 * h][2], a[2 * h][3]);
+        widen_s8x4<true>(r[2], a[2 * h + 1][0], a[2 * h + 1][1]);
+        widen_s8x4<true>(r[3], a[2 * h + 1][2], a[2 * h + 1][3]);
+#pragma unroll
+        for (int mb = 0; mb < MT / 8; ++mb) {
+          // lane addresses row 8 mb + lane % 8, 16-byte chunk 4 h + lane / 8
+          // of the swizzled x stage
+          const int row = 8 * mb + (lane & 7), c = 4 * h + lane / 8;
+          uint32_t x4[4];
+          ldmatrix_x4(x4, reinterpret_cast<const uint8_t*>(Xt) + row * 128 +
+                              ((c ^ (row & 7)) * 16));
+          b[mb][2 * h][0] = x4[0];
+          b[mb][2 * h][1] = x4[1];
+          b[mb][2 * h + 1][0] = x4[2];
+          b[mb][2 * h + 1][1] = x4[3];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int mb = 0; mb < MT / 8; ++mb)
+          mma_m16n8k16(acc + 4 * mb, a[kk], b[mb][kk][0], b[mb][kk][1]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+
+    // epilogue: acc[4 i + e] is out^T at row 2 g + (e >= 2) of the warp's
+    // 16 columns and column 8 i + 2 t + (e & 1) of x's rows: each thread
+    // holds two neighbouring output columns of its rows
+    const int n = n0 + 16 * warp + 2 * g;
+    if (n < N) {
+      const bool two = n + 1 < N;
+      const bool pairs = two && (N & 1) == 0;   // 4- / 8-byte boundaries
+      float s0 = 1.f, s1 = 1.f;
+      if (splits == 1) {
+        s0 = scale[n];
+        if (two) s1 = scale[n + 1];
+      }
+#pragma unroll
+      for (int i = 0; i < MT / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * i + 2 * t + e;
+          if (m >= M) continue;
+          const float v0 = acc[4 * i + e] * s0;
+          const float v1 = acc[4 * i + 2 + e] * s1;
+          if (splits == 1) {
+            bf16* dst = out + (size_t)m * N + n;
+            if (pairs) {
+              *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+            } else {
+              dst[0] = __float2bfloat16_rn(v0);
+              if (two) dst[1] = __float2bfloat16_rn(v1);
+            }
+          } else {
+            float* dst = ws + ((size_t)blockIdx.y * M + m) * N + n;
+            if (pairs) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (two) dst[1] = v1;
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();   // the producer warp's lanes meet again
+  if (splits == 1) return;
+
+  // ---- the split's sum.  The block's barrier orders its threads'
+  // partials before thread 0's count, whose release at device scope makes
+  // them visible with it (the acquire half makes the other blocks'
+  // partials visible to the block that counts last; the barrier after it
+  // hands them to its threads).  The closing block reads every split's
+  // partials through L2 (none of them was ever in its L1).
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* count = arrivals + blockIdx.z * gridDim.x + blockIdx.x;
+    unsigned prev;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(count) : "memory");
+    closes = prev == (unsigned)splits - 1;
+    if (closes) *count = 0;   // every split of the tile has arrived
+  }
+  __syncthreads();
+  if (!closes) return;
+  const int cols = min(kBN, N - n0), rows = min(MT, M - m0);
+  if ((N & 3) == 0) {
+    // four neighbouring columns a thread: 16-byte loads, eight splits'
+    // issued at a time before they are added in split order, then an
+    // 8-byte store
+    for (int e = threadIdx.x; e < rows * (cols / 4); e += kThreads) {
+      const int m = m0 + e / (cols / 4), n = n0 + 4 * (e % (cols / 4));
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int z0 = 0; z0 < splits; z0 += 8) {
+        float4 v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (z0 + j < splits)
+            v[j] = __ldcg(reinterpret_cast<const float4*>(
+                ws + ((size_t)(z0 + j) * M + m) * N + n));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (z0 + j < splits) {
+            sum.x += v[j].x; sum.y += v[j].y; sum.z += v[j].z; sum.w += v[j].w;
+          }
+        }
+      }
+      const float4 sc = *reinterpret_cast<const float4*>(scale + n);
+      uint2 o;
+      o.x = pack_bf16(sum.x * sc.x, sum.y * sc.y);
+      o.y = pack_bf16(sum.z * sc.z, sum.w * sc.w);
+      *reinterpret_cast<uint2*>(out + (size_t)m * N + n) = o;
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+      const int m = m0 + e / cols, n = n0 + e % cols;
+      float sum = 0.f;
+      for (int z = 0; z < splits; ++z)
+        sum += __ldcg(ws + ((size_t)z * M + m) * N + n);
+      out[(size_t)m * N + n] = __float2bfloat16_rn(sum * scale[n]);
+    }
   }
 }
 
@@ -459,6 +611,63 @@ int8_matmul_reduce(const float* __restrict__ ws,
   }
 }
 
+template <int MT, bool kTmaW>
+cudaError_t launch_decode(const CUtensorMap& mx, const CUtensorMap& mq,
+                          const void* q, const void* s, void* out, void* ws,
+                          unsigned* arrivals, int M, int N, int K, int splits,
+                          cudaStream_t stream) {
+  static bool raised[hopper::kMaxDevices] = {};
+  cudaError_t err = hopper::raise_smem(int8_decode_kernel<MT, kTmaW>,
+                                       decode::smem_bytes<MT>(), raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(N, decode::kBN), splits, ceil_div(M, MT));
+  int8_decode_kernel<MT, kTmaW>
+      <<<grid, decode::kThreads, decode::smem_bytes<MT>(), stream>>>(
+      mx, mq, (const int8_t*)q, (const float*)s, (bf16*)out, (float*)ws,
+      arrivals, M, N, K, splits);
+  return cudaGetLastError();
+}
+
+// the weight's tensor map: [K, N] int8, boxes of kBK rows x 128 columns in
+// the 128-byte swizzle (both paths' tiles are 128 columns x 64 deep)
+cudaError_t make_q_map(CUtensorMap* mq, const void* q, int N, int K) {
+  static_assert(wave::kBN == decode::kBN && wave::kBK == decode::kBK,
+                "the two paths share the weight's boxes");
+  const uint64_t q_dims[2] = {(uint64_t)N, (uint64_t)K};
+  const uint64_t q_stride[1] = {(uint64_t)N};
+  const uint32_t q_box[2] = {wave::kBN, wave::kBK};
+  return hopper::make_map(mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, q_dims,
+                          q_stride, q_box, true);
+}
+
+// x [M, K] bf16 in boxes of 64 deep x `rows`, 128-byte swizzle
+cudaError_t make_x_map(CUtensorMap* mx, const void* x, int M, int K,
+                       int rows) {
+  const uint64_t x_dims[2] = {(uint64_t)K, (uint64_t)M};
+  const uint64_t x_stride[1] = {(uint64_t)K * 2};
+  const uint32_t x_box[2] = {64, (uint32_t)rows};
+  return hopper::make_map(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims,
+                          x_stride, x_box, true);
+}
+
+template <int MT>
+cudaError_t run_decode(const void* x, const void* q, const void* s, void* out,
+                       void* ws, unsigned* arrivals, int M, int N, int K,
+                       int splits, cudaStream_t stream) {
+  if (splits > 65535 || ceil_div(M, MT) > 65535) return cudaErrorInvalidValue;
+  CUtensorMap mx, mq = {};
+  cudaError_t err = make_x_map(&mx, x, M, K, MT);
+  if (err != cudaSuccess) return err;
+  if (N % 16 == 0) {
+    err = make_q_map(&mq, q, N, K);
+    if (err != cudaSuccess) return err;
+    return launch_decode<MT, true>(mx, mq, q, s, out, ws, arrivals, M, N, K,
+                                   splits, stream);
+  }
+  return launch_decode<MT, false>(mx, mq, q, s, out, ws, arrivals, M, N, K,
+                                  splits, stream);
+}
+
 template <int BM, bool kTmaW>
 cudaError_t launch_wave(const CUtensorMap& mx, const CUtensorMap& mq,
                         const void* q, const void* s, void* out, void* ws,
@@ -481,18 +690,10 @@ cudaError_t run_wave(const void* x, const void* q, const void* s, void* out,
                      cudaStream_t stream) {
   if (ceil_div(N, wave::kBN) > 65535) return cudaErrorInvalidValue;
   CUtensorMap mx, mq = {};
-  const uint64_t x_dims[2] = {(uint64_t)K, (uint64_t)M};
-  const uint64_t x_stride[1] = {(uint64_t)K * 2};
-  const uint32_t x_box[2] = {wave::kBK, BM};
-  cudaError_t err = hopper::make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                                     x, x_dims, x_stride, x_box, true);
+  cudaError_t err = make_x_map(&mx, x, M, K, BM);
   if (err != cudaSuccess) return err;
   if (N % 16 == 0) {
-    const uint64_t q_dims[2] = {(uint64_t)N, (uint64_t)K};
-    const uint64_t q_stride[1] = {(uint64_t)N};
-    const uint32_t q_box[2] = {wave::kBN, wave::kBK};
-    err = hopper::make_map(&mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, q_dims,
-                           q_stride, q_box, true);
+    err = make_q_map(&mq, q, N, K);
     if (err != cudaSuccess) return err;
     return launch_wave<BM, true>(mx, mq, q, s, out, ws, M, N, K, splits, stream);
   }
@@ -501,22 +702,18 @@ cudaError_t run_wave(const void* x, const void* q, const void* s, void* out,
 
 }  // namespace
 
-// How many K slices the product is split into on the decode path (wave 0)
-// or the wave path (wave 1): 1 when the output tiles alone fill the card
-// (two 128-thread blocks per SM at decode, one 384-thread block per SM on
-// the wave path), else enough for about four blocks per SM at decode and
-// one per SM on the wave path, at most kMaxSplits, at decode one slice per
-// K tile and on the wave path four K tiles a slice at least, with no empty
-// slice.
-extern "C" int int8_matmul_splits(int M, int N, int K, int sms, int wave_path) {
+// How many K slices the wave path splits the product into: 1 when its
+// output tiles alone fill the card (one 384-thread block per SM), else
+// enough for about one block per SM, at most kMaxSplits, four K tiles a
+// slice at least, with no empty slice.  (The decode path's plan is the
+// wrapper's, ops/int8_matmul.py:decode_splits.)
+extern "C" int int8_matmul_splits(int M, int N, int K, int sms) {
   const long long tiles =
-      wave_path ? (long long)ceil_div(M, wave::rows_for(M)) * ceil_div(N, wave::kBN)
-                : (long long)ceil_div(M, decode::kBM) * ceil_div(N, decode::kBN);
-  const int ktiles = ceil_div(K, wave_path ? wave::kBK : decode::kBK);
-  const long long fill = wave_path ? sms : 2LL * sms;
-  const int max_s = wave_path ? ktiles / 4 : ktiles;
-  if (tiles >= fill || max_s <= 1) return 1;
-  const long long want = ((wave_path ? 1LL : 4LL) * sms + tiles - 1) / tiles;
+      (long long)ceil_div(M, wave::rows_for(M)) * ceil_div(N, wave::kBN);
+  const int ktiles = ceil_div(K, wave::kBK);
+  const int max_s = ktiles / 4;
+  if (tiles >= sms || max_s <= 1) return 1;
+  const long long want = (sms + tiles - 1) / tiles;
   int s = (int)(want < kMaxSplits ? want : kMaxSplits);
   if (s > max_s) s = max_s;
   const int per = ceil_div(ktiles, s);
@@ -524,34 +721,50 @@ extern "C" int int8_matmul_splits(int M, int N, int K, int sms, int wave_path) {
 }
 
 // x [M, K] bf16, q [K, N] int8, s [N] f32 -> out [M, N] bf16 by the decode
-// path (wave 0) or the wave path (wave 1); ws is f32 [splits, M, N]
-// scratch when splits > 1 (else unused).  All contiguous, x and q on
+// path (wave 0) or the wave path (wave 1).  splits > 1 needs ws, f32
+// [splits, M, N] scratch, and on the decode path arrivals, a zeroed uint32
+// count per 128-column tile and 16-row block of x (8 rows at M <= 8) that
+// the launch leaves zeroed (the caller keeps one set per stream: two
+// launches in flight at once on one set would close each other's tiles).  All contiguous, x and q on
 // 16-byte boundaries, K % 16 == 0 (the caller checks).  Returns the
 // launches' cudaError_t (0 on success).
 extern "C" int int8_matmul_bf16(const void* x, const void* q, const void* s,
-                                void* out, void* ws, int M, int N, int K,
-                                int splits, int wave_path, void* stream) {
+                                void* out, void* ws, void* arrivals, int M,
+                                int N, int K, int splits, int wave_path,
+                                void* stream) {
   if (M == 0 || N == 0) return (int)cudaSuccess;
   if (splits < 1 || splits > kMaxSplits || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (wave_path) {
-    const int bm = wave::rows_for(M);
-    err = bm == 256 ? run_wave<256>(x, q, s, out, ws, M, N, K, splits, st)
-        : bm == 128 ? run_wave<128>(x, q, s, out, ws, M, N, K, splits, st)
-                    : run_wave<64>(x, q, s, out, ws, M, N, K, splits, st);
-  } else {
-    const dim3 grid(ceil_div(N, decode::kBN), ceil_div(M, decode::kBM), splits);
-    int8_matmul_kernel<<<grid, decode::kThreads, 0, st>>>(
-        (const bf16*)x, (const int8_t*)q, (const float*)s, (bf16*)out,
-        (float*)ws, M, N, K, splits);
-    err = cudaGetLastError();
+  if (!wave_path) {
+    if (splits > 1 && arrivals == nullptr) return (int)cudaErrorInvalidValue;
+    unsigned* arr = (unsigned*)arrivals;
+    return (int)(M <= 8
+        ? run_decode<8>(x, q, s, out, ws, arr, M, N, K, splits, st)
+        : run_decode<16>(x, q, s, out, ws, arr, M, N, K, splits, st));
   }
+  const int bm = wave::rows_for(M);
+  cudaError_t err =
+      bm == 256 ? run_wave<256>(x, q, s, out, ws, M, N, K, splits, st)
+      : bm == 128 ? run_wave<128>(x, q, s, out, ws, M, N, K, splits, st)
+                  : run_wave<64>(x, q, s, out, ws, M, N, K, splits, st);
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long total = (long long)M * N;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
   int8_matmul_reduce<<<blocks, 256, 0, st>>>((const float*)ws, (const float*)s,
                                              (bf16*)out, M, N, splits);
   return (int)cudaGetLastError();
+}
+
+// The id of the capture `stream` is in (a CUDA graph being recorded), 0
+// when it is in none: the wrapper keeps the arrival counts of each capture
+// apart from the stream's own.
+extern "C" unsigned long long int8_matmul_capture_id(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  if (cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, &id) !=
+          cudaSuccess ||
+      status != cudaStreamCaptureStatusActive)
+    return 0;
+  return id;
 }

@@ -17,10 +17,19 @@
 // writes dx.
 //
 // What the design does about it:
-// * Forward: one warp per row, 8 rows a block.  The warp reads its row in
-//   16-byte vectors for the sum of squares (shuffle reduction in f32), then
-//   again for the scaled store; the second read hits the L1 / L2 caches, so
-//   device memory sees x once.
+// * Forward: each row is read from device memory once, into registers.  A
+//   row of h = 8 * NV * 32 * WPR elements at most is held by WPR warps,
+//   NV vectors of 8 elements a lane, NV <= 4 (h = 1024: one warp; 2048:
+//   two; 4096: four; 8192: eight), with a compile-time trip count, so
+//   every load of the row is issued before the sum of squares; the WPR
+//   warps of a row add their sums through shared memory.  x is loaded past
+//   L1 (no L1 allocation: nothing reads it twice) and out stored
+//   evict-first.  The weight's vectors stay in registers while a block
+//   walks its rows (grid sized to the resident blocks of the SMs, each
+//   block the same number of row groups).  A row no multiple of 8, a
+//   tensor off a 16-byte boundary or h beyond 8192 takes the generic
+//   kernel: one warp per row, a loop over the row for the sum and another
+//   for the store (scalar accesses when not aligned).
 // * Backward: the TPU kernel carries dw in one grid-resident (8, h) f32
 //   block across a sequential grid.  Hopper's blocks run in no order, so
 //   each block owns a contiguous run of rows and sums their xhat * do into
@@ -36,6 +45,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "vec_io.cuh"
 
@@ -51,7 +61,139 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// one warp per row
+// eight elements of T, as they are in memory, in registers
+template <typename T> struct Raw8 { uint4 u[sizeof(T) / 2]; };
+
+template <typename T>
+__device__ __forceinline__ void load_stream(Raw8<T>& r, const T* p) {
+#pragma unroll
+  for (int i = 0; i < (int)sizeof(T) / 2; ++i)
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r.u[i].x), "=r"(r.u[i].y), "=r"(r.u[i].z), "=r"(r.u[i].w)
+        : "l"(reinterpret_cast<const uint4*>(p) + i));
+}
+template <typename T>
+__device__ __forceinline__ void load_cached(Raw8<T>& r, const T* p) {
+#pragma unroll
+  for (int i = 0; i < (int)sizeof(T) / 2; ++i)
+    r.u[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+}
+template <typename T>
+__device__ __forceinline__ void zero(Raw8<T>& r) {
+#pragma unroll
+  for (int i = 0; i < (int)sizeof(T) / 2; ++i) r.u[i] = make_uint4(0, 0, 0, 0);
+}
+
+// the eight elements as f32
+__device__ __forceinline__ void to_f32(const Raw8<__nv_bfloat16>& r, float* f) {
+  const uint32_t w[4] = {r.u[0].x, r.u[0].y, r.u[0].z, r.u[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void to_f32(const Raw8<float>& r, float* f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    f[4 * i] = __uint_as_float(r.u[i].x);
+    f[4 * i + 1] = __uint_as_float(r.u[i].y);
+    f[4 * i + 2] = __uint_as_float(r.u[i].z);
+    f[4 * i + 3] = __uint_as_float(r.u[i].w);
+  }
+}
+
+// eight f32 rounded once to T and stored evict-first
+__device__ __forceinline__ void store_stream(__nv_bfloat16* p, const float* f) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+}
+__device__ __forceinline__ void store_stream(float* p, const float* f) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(f[0], f[1], f[2], f[3]));
+  __stcs(reinterpret_cast<float4*>(p) + 1,
+         make_float4(f[4], f[5], f[6], f[7]));
+}
+
+// Rows held in registers: WPR warps a row, NV vectors of 8 elements a lane
+// (vector c of the row at lane c % (32 WPR) of the row's warps, slot
+// c / (32 WPR)), kThreads / (32 WPR) rows a block pass; the block walks row
+// groups blockIdx.x, + gridDim.x, ...  h % 8 == 0, every tensor on a
+// 16-byte boundary, h <= 8 * NV * 32 * WPR.
+template <int NV, int WPR, typename TX, typename TW, typename TO>
+__global__ void __launch_bounds__(kThreads)
+rms_fwd_rows_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                    TO* __restrict__ out, float* __restrict__ rstd,
+                    long long n, int h, float eps) {
+  constexpr int kTPR = 32 * WPR;            // threads a row
+  constexpr int kRows = kThreads / kTPR;    // rows a block pass
+  __shared__ float red[2][kWarps];          // the row's warp sums, by parity
+  const int rt = threadIdx.x % kTPR, rr = threadIdx.x / kTPR;
+  const int chunks = h / 8;
+  Raw8<TW> wv[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = rt + j * kTPR;
+    if (c < chunks) load_cached(wv[j], w + c * 8);
+    else zero(wv[j]);
+  }
+  const long long groups = (n + kRows - 1) / kRows;
+  int parity = 0;
+  for (long long gi = blockIdx.x; gi < groups; gi += gridDim.x) {
+    const long long row = gi * kRows + rr;
+    const bool live = row < n;
+    const TX* xr = x + row * h;
+    Raw8<TX> xv[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = rt + j * kTPR;
+      if (live && c < chunks) load_stream(xv[j], xr + c * 8);
+      else zero(xv[j]);
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float f[8];
+      to_f32(xv[j], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ss += f[e] * f[e];
+    }
+    ss = warp_sum(ss);
+    if constexpr (WPR > 1) {
+      // one barrier a pass: a warp writes this pass's half only after
+      // every warp has read the other half in the pass before
+      if (threadIdx.x % 32 == 0) red[parity][threadIdx.x / 32] = ss;
+      __syncthreads();
+      ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < WPR; ++i) ss += red[parity][rr * WPR + i];
+      parity ^= 1;
+    }
+    const float r = rsqrtf(ss / (float)h + eps);
+    if (live) {
+      TO* orow = out + row * h;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int c = rt + j * kTPR;
+        if (c >= chunks) continue;
+        float xf[8], wf[8], of[8];
+        to_f32(xv[j], xf);
+        to_f32(wv[j], wf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) of[e] = xf[e] * r * wf[e];
+        store_stream(orow + c * 8, of);
+      }
+      if (rt == 0) rstd[row] = r;
+    }
+  }
+}
+
+// generic: one warp per row, a loop over the row for the sum and another
+// for the scaled store (V elements an access: 8, or 1 when unaligned)
 template <int V, typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kThreads)
 rms_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
@@ -147,9 +289,62 @@ rms_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
     for (int e = 0; e < V; ++e) prow[c * V + e] = dw[c * V + e];
 }
 
+// the SMs of the current device, looked up once per device
+int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev >= 64) {
+    int v = 0;
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+template <int NV, int WPR, typename TX, typename TW, typename TO>
+int fwd_rows(const void* x, const void* w, void* out, void* rstd,
+             long long n, int h, float eps, cudaStream_t st) {
+  auto kernel = rms_fwd_rows_kernel<NV, WPR, TX, TW, TO>;
+  static int per_sm = 0;    // resident blocks an SM, asked once
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) per_sm = 1;
+  }
+  constexpr int kRows = kThreads / (32 * WPR);
+  const long long groups = (n + kRows - 1) / kRows;
+  // as many blocks as the SMs hold, each walking the same number of row
+  // groups (the last block fewer)
+  const long long most = (long long)per_sm * (sm_count() > 0 ? sm_count() : 1);
+  const long long passes = (groups + most - 1) / most;
+  const long long blocks = (groups + passes - 1) / passes;
+  kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+      (const TX*)x, (const TW*)w, (TO*)out, (float*)rstd, n, h, eps);
+  return (int)cudaGetLastError();
+}
+
 template <typename TX, typename TW, typename TO>
 int fwd(const void* x, const void* w, void* out, void* rstd, long long n,
         int h, float eps, cudaStream_t st) {
+  if (h % 8 == 0 && vec_io::aligned16(x, w, out)) {
+    // the register-held instances: at most 4 vectors a lane, more warps a
+    // row beyond (8 a lane ran 2-6% slower at [16384, 2048], [2048, 4096]
+    // and [8, 4096] in bf16: fewer resident warps)
+    const int chunks = h / 8;
+#define ROWS(NV, WPR) \
+  return fwd_rows<NV, WPR, TX, TW, TO>(x, w, out, rstd, n, h, eps, st)
+    if (chunks <= 32) ROWS(1, 1);
+    if (chunks <= 64) ROWS(2, 1);
+    if (chunks <= 128) ROWS(4, 1);
+    if (chunks <= 256) ROWS(4, 2);
+    if (chunks <= 512) ROWS(4, 4);
+    if (chunks <= 1024) ROWS(4, 8);
+#undef ROWS
+  }
   const long long blocks = (n + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (h % 8 == 0 && vec_io::aligned16(x, w, out))

@@ -25,20 +25,46 @@ import torch
 from . import _build
 
 __all__ = ["int8_matmul", "int8_matmul_plain", "quantize_int8", "launches",
-           "launches_wave", "WAVE_MIN_M"]
+           "launches_wave", "WAVE_MIN_M", "decode_splits", "decode_tiles"]
 
 # kernel launches made by int8_matmul, by the decode path and by the wave
 # path (a run can show that its main path went through each kernel)
 launches = 0
 launches_wave = 0
 
-# The kernel's two paths: up to WAVE_MIN_M rows the decode path (16-row
-# tiles on wmma, bytes-bound), above it the wave path (the transposed
-# product on 128-column tiles, a TMA ring feeding wgmma).  The crossover,
-# measured with tools/ab_torch_kernels.py's K3route at w_gate (K 4096, N
-# 11008) on an H100 SXM at 700 W: decode / wave 0.040 / 0.046 ms at 16
-# rows, 0.072 / 0.047 at 32, 0.099 / 0.048 at 64, 0.175 / 0.054 at 128.
+# The kernel's two paths: up to WAVE_MIN_M rows the decode path (the
+# transposed product on 128-column tiles, a TMA ring of int8 weight boxes
+# feeding mma.sync, bytes-bound), above it the wave path (the same product
+# on 128 x 256 tiles feeding wgmma).  The crossover, measured with
+# tools/ab_torch_kernels.py's K3route at w_gate (K 4096, N 11008) on an H100
+# SXM at 700 W before the decode path's redesign: decode / wave 0.040 /
+# 0.046 ms at 16 rows, 0.072 / 0.047 at 32, 0.099 / 0.048 at 64, 0.175 /
+# 0.054 at 128.
 WAVE_MIN_M = 16
+
+# The decode path's tiles: 128 output columns a block, K in 64-deep steps;
+# at most 16 splits of K (the kernel's kMaxSplits)
+DECODE_BN, DECODE_BK, MAX_SPLITS = 128, 64, 16
+
+
+def decode_tiles(M, N) -> int:
+    """The decode path's output tiles: 128 columns by a block of x's rows
+    (8 at M <= 8, else 16; more than one block only where a caller forces
+    the path above ``WAVE_MIN_M``)."""
+    return -(-N // DECODE_BN) * (1 if M <= 8 else -(-M // 16))
+
+
+def decode_splits(M, N, K, sms) -> int:
+    """How many slices of K the decode path splits the product into: as
+    many as keep the output tiles times the splits within two blocks an SM
+    (one wave of resident blocks), at most ``MAX_SPLITS`` and one K step a
+    slice, with no empty slice (split z takes the steps ``[z * per, (z + 1)
+    * per)`` of ``ceil(K / DECODE_BK)``, ``per = ceil(steps / splits)``)."""
+    tiles = decode_tiles(M, N)
+    steps = -(-K // DECODE_BK)
+    s = max(1, min(2 * sms // tiles, steps, MAX_SPLITS))
+    per = -(-steps // s)
+    return -(-steps // per)
 
 
 def quantize_int8(w):
@@ -63,7 +89,7 @@ def int8_matmul_plain(x, q, s, out_dtype=None):
 def _kernel_fn():
     """The launcher, looked up and typed once per process."""
     fn = _build.library("int8_matmul").int8_matmul_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -73,10 +99,44 @@ def _kernel_fn():
 def _splits(M, N, K, sms, wave) -> int:
     """How many slices of K the kernel's path (``wave`` or decode) splits
     the product into (1 when the output tiles alone fill the card)."""
+    if not wave:
+        return decode_splits(M, N, K, sms)
     fn = _build.library("int8_matmul").int8_matmul_splits
-    fn.argtypes = [ctypes.c_int] * 5
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    return int(fn(M, N, K, sms, int(wave)))
+    return int(fn(M, N, K, sms))
+
+
+# The decode path's arrival counts, one uint32 per output tile, by
+# (device, stream).  A launch that splits K leaves them at 0, so they are
+# zeroed once, when made.  Each stream has its own: two launches in flight
+# at once on one set of counts (two streams) would each count the other's
+# blocks and close tiles whose partials are not all written.  Counts first
+# needed while a stream is captured into a CUDA graph are made by a fill
+# that the graph records (it runs at each replay, never at capture), so
+# they belong to that capture alone: their key also holds the capture's id.
+_arrivals = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_id_fn():
+    fn = _build.library("int8_matmul").int8_matmul_capture_id
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_ulonglong
+    return fn
+
+
+def _arrival_counts(device, stream, tiles):
+    key = (device.index, stream)
+    if torch.cuda.is_current_stream_capturing():
+        key += (int(_capture_id_fn()(stream)),)
+        for old in [k for k in _arrivals if len(k) == 3 and k != key]:
+            del _arrivals[old]         # an ended capture's: its graph keeps them
+    counts = _arrivals.get(key)
+    if counts is None or counts.numel() < tiles:
+        counts = _arrivals[key] = torch.zeros(
+            (max(tiles, 1024),), dtype=torch.int32, device=device)
+    return counts
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,7 +174,7 @@ def int8_matmul(x, q, s, out_dtype=None):
 
     On the card ``x`` is bf16, K a multiple of 16 and the output bf16; M
     and N may be anything.  The bf16 copy of the weight never exists in
-    device memory: the kernel widens each int8 tile in shared memory."""
+    device memory: the kernel widens each int8 tile in registers."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, s, out_dtype)
@@ -135,14 +195,20 @@ def _kernel(x, q, s, out_dtype=torch.bfloat16):
     if M == 0 or N == 0:
         return out
     splits = _splits(M, N, K, _sm_count(x.device.index or 0), wave)
-    # f32 partial sums of each K slice; the kernel's second pass adds
-    # them, scales and rounds once
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # f32 partial sums of each K slice, added, scaled and rounded once by
+    # the wave path's second pass or by the decode path's last block of
+    # each column tile, counted in the stream's arrival counts
+    ws = arrivals = None
+    if splits > 1:
+        ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+        if not wave:
+            arrivals = _arrival_counts(x.device, stream,
+                                       decode_tiles(M, N)).data_ptr()
     err = _kernel_fn()(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, N, K, splits, int(wave),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        None if ws is None else ws.data_ptr(), arrivals, M, N, K, splits,
+        int(wave), stream)
     if err:
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError "
                            f"{err}")

@@ -6,8 +6,10 @@ trainer's seed-0 rows, bound by the bytes; K2 at chip_smoke's packed stream
 (T 2048, 32 heads of 128, nkv 32) 0.0201 ms, bound by the bytes; K3 at a
 2,048-row prefill
 wave of w_gate (2048, 4096, 11008) 0.1867 ms, bound by the operations, and
-at decode w_gate (8, 4096, 11008) 0.0135, bound by the bytes.  Pure
-arithmetic on shapes: no card, no kernel.
+at decode w_gate (8, 4096, 11008) 0.0135 and wq (8, 4096, 4096) 0.0051,
+bound by the bytes; K9a at the trainer's rows [16384, 2048] bf16 0.0401 ms
+and the serving wave's [2048, 4096] 0.0100, K9b at the trainer's 0.0601,
+bound by the bytes.  Pure arithmetic on shapes: no card, no kernel.
 """
 
 import importlib.util
@@ -123,9 +125,31 @@ def test_ranges_work_counts_ids_read_and_ranges_written(cs, rows):
 
 @pytest.mark.parametrize("shape,bound_ms,by", [
     ((2048, 4096, 11008), 0.1867, "operations"),
-    ((8, 4096, 11008), 0.0135, "bytes")])
+    ((8, 4096, 11008), 0.0135, "bytes"),
+    ((8, 4096, 4096), 0.0051, "bytes")])
 def test_k3_work_gives_perf_md_bounds(cs, shape, bound_ms, by):
     assert shape in cs.K3_SHAPES
     ms, got = cs.bound(*cs.k3_work(*shape))
     assert got == by
     assert round(ms, 4) == bound_ms
+
+
+@pytest.mark.parametrize("name,n,h,index,bound_ms", [
+    ("trainer", 16384, 2048, 0, 0.0401), ("wave", 2048, 4096, 0, 0.0100),
+    ("trainer", 16384, 2048, 1, 0.0601)], ids=["K9a-trainer", "K9a-wave",
+                                             "K9b-trainer"])
+def test_k9_work_gives_perf_md_bounds(cs, name, n, h, index, bound_ms):
+    assert (name, n, h, "bfloat16") in cs.K9_CASES and name in cs.K9_TIMED
+    ms, by = cs.bound(*cs.k9_work(n, h, 2, 2, 2)[index], cs.PEAK_F32_FLOPS)
+    assert by == "bytes"
+    assert round(ms, 4) == bound_ms
+
+
+def test_k9_work_counts_each_tensor_once(cs):
+    """K9a: x read and out written (promote(x, w) bytes), w read, the f32
+    rstd row written; K9b: x and dout read, dx written, w, rstd and one f32
+    dw row."""
+    n, h = 3, 16
+    assert cs.k9_work(n, h, 2, 4, 4) == (
+        (n * h * (2 + 4) + h * 4 + n * 4, 4 * n * h),
+        (n * h * (2 * 2 + 4) + h * (4 + 4) + n * 4, 9 * n * h))

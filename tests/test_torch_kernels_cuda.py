@@ -6,7 +6,9 @@ at nkv 32 and 8, rows that end on either side of a split of the kernel's
 plan, a table far longer than its rows (most splits empty), plans of one
 split (no combine pass), two calls for bit-identical results and one call
 captured in a CUDA graph and replayed with other lengths, ragged and
-batched packed streams, non-causal attention, the int8 matmul at ragged M, N and K, the training
+batched packed streams, non-causal attention, the int8 matmul at ragged M, N and K, its decode
+path at 1 to 16 rows over LLaMA-7B's decode projections (bit-identical at
+every split, replayed from a CUDA graph with new x), the training
 kernels (fused RoPE, flash attention forward and backward, fused AdamW) at
 one row, one token, ragged lengths, head_dim 64, non-causal and leaves of 1
 and 129 elements, the flash forward on either side of its 128-row tiles,
@@ -24,7 +26,7 @@ segments, GQA groups of 4 and 8 over several q tiles, head_dim 64 causal or
 not, key tiles wholly in a -1 pad tail, run twice for bit-identical
 results, the trunk's flagged kernels (rms_norm
 forward and backward, swiglu forward and backward, rmsnorm_matmul) at one
-row, rows no multiple of 8 or 128, f32 and mixed types, tensors off a
+row, the rms_norm forward's instances at h 64 to 8192, rows no multiple of 8 or 128, f32 and mixed types, tensors off a
 16-byte boundary, ragged N, H no multiple of 128, rmsnorm_matmul across its
 128 x 256 tiles (odd N, H of one ragged stage to 64 stages), K9b and
 rmsnorm_matmul run twice for bit-identical results, and the wrappers'
@@ -41,6 +43,7 @@ from the same bf16 inputs: one bf16 rounding of the output plus another
 summation order.
 """
 
+import functools
 import math
 
 import pytest
@@ -348,6 +351,79 @@ def test_int8_matmul_wave_path_is_bit_identical_run_to_run(gen, M, K, N):
     a, b = im.int8_matmul(x, q, s), im.int8_matmul(x, q, s)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# (K, N) of the decode path's cases: K shorter than one 64-deep stage,
+# wq / wk / wv / wo, w_gate / w_up, w_down (each split over K), and ragged N
+# (1000: plain 8-byte loads; 200 at the widest K: a plain-load instance
+# split over K)
+DECODE_KN = [(48, 64), (4096, 4096), (4096, 11008), (11008, 4096),
+             (4096, 1000), (11008, 200)]
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_weight(K, N):
+    """The int8 codes and scales of a seeded [K, N] weight, made once."""
+    g = torch.Generator(device="cuda").manual_seed(K * 100003 + N)
+    qd = im.quantize_int8(torch.randn((K, N), generator=g, device="cuda")
+                          * K ** -0.5)
+    return qd["q"], qd["s"]
+
+
+@pytest.mark.parametrize("K,N", DECODE_KN)
+@pytest.mark.parametrize("M", [1, 2, 7, 8, 9, 15, 16])
+def test_int8_matmul_decode_path_matches_plain(gen, M, K, N):
+    """The decode path (up to WAVE_MIN_M rows) on either side of its 8-row
+    product (MT 8 and 16), at every decode projection of LLaMA-7B and
+    ragged N, one launch a call."""
+    q, s = _decode_weight(K, N)
+    x = _randn(gen, M, K)
+    before = (im.launches, im.launches_wave)
+    out = im.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert (im.launches, im.launches_wave) == (before[0] + 1, before[1])
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    ref = im.int8_matmul_plain(x, q, s, torch.float32)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+@pytest.mark.parametrize("K,N", DECODE_KN)
+@pytest.mark.parametrize("M", [8, 16])
+def test_int8_matmul_decode_path_is_bit_identical_run_to_run(gen, M, K, N):
+    """Only the arrival counts are atomic: the last block of a tile adds the
+    splits in split order, so every split shape gives the same bits."""
+    q, s = _decode_weight(K, N)
+    x = _randn(gen, M, K)
+    a, b, c = (im.int8_matmul(x, q, s) for _ in range(3))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 4096), (4096, 1000)])
+def test_int8_matmul_decode_path_replays_in_a_cuda_graph_with_new_x(gen, K,
+                                                                    N):
+    """A decode-path call captured in a CUDA graph (its arrival counts made
+    inside the capture) and replayed with new x gives the eager call's bits,
+    replay after replay and after eager calls on the stream."""
+    q, s = _decode_weight(K, N)
+    static_x = _randn(gen, 8, K)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        im.int8_matmul(static_x, q, s)          # build and warm up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = im.int8_matmul(static_x, q, s)
+    for _ in range(3):
+        x = _randn(gen, 8, K)
+        static_x.copy_(x)
+        graph.replay()
+        eager = im.int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, eager)
+    ref = im.int8_matmul_plain(static_x, q, s, torch.float32)
+    torch.testing.assert_close(static_out.float(), ref, **TOL)
 
 
 def test_int8_matmul_kernel_refuses_what_it_cannot_take(gen):
@@ -870,6 +946,32 @@ def test_rms_norm_kernels_match_plain(gen, n, h, xdt, wdt):
     for name, got, ref in (("out", out, want), ("dx", dx, want_dx),
                            ("dw", dw, want_dw)):
         torch.testing.assert_close(got.float(), ref, **TOL, msg=name)
+
+
+@pytest.mark.parametrize("xdt,wdt", [("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32"),
+                                     ("float32", "bfloat16"),
+                                     ("float32", "float32")])
+@pytest.mark.parametrize("n", [1, 7, 4095])
+@pytest.mark.parametrize("h", [64, 100, 136, 200, 2048, 4096, 8192])
+def test_rms_norm_forward_instances_match_plain(gen, h, n, xdt, wdt):
+    """K9a's register-held instances for each type pair: one vector a lane
+    at h 64, 136 and 200 (8, 17 and 25 of a warp's lanes), four vectors a
+    lane over two, four and eight warps a row at h 2048, 4096 and 8192;
+    h 100 (no multiple of 8) takes the generic kernel's scalar accesses.
+    Row counts under, at and far over a block pass."""
+    x = torch.randn((n, h), generator=gen, device="cuda").to(
+        getattr(torch, xdt))
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(
+        getattr(torch, wdt))
+    before = rn.launches
+    out, rstd = rn._fwd(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert rn.launches == before + 1
+    assert out.dtype == torch.promote_types(x.dtype, w.dtype)
+    want, want_rstd = rn.rms_norm_plain(x.float(), w.float(), 1e-6)
+    torch.testing.assert_close(rstd, want_rstd, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out.float(), want, **TOL)
 
 
 def test_rms_norm_kernels_take_misaligned_views_and_are_deterministic(gen):

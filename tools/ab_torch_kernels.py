@@ -2,16 +2,18 @@
 """Time the port's redesigned kernels against an earlier checkout's, in
 turns, in one process on one CUDA card: the paged decode kernels (K1 bf16
 pages, K4 int8 pages), the segmented flash forward (K2), the int8 matmul
-(K3) at a prefill wave and at decode, the flash-attention forward (K6a)
+(K3) at a prefill wave and at decode, its decode path at every decode
+shape of LLaMA-7B (K3dec), the flash-attention forward (K6a)
 and backward (K6b dq, K6c dk / dv), the segmented backward (K7a dq, K7b dk /
-dv) and the fused RMSNorm -> matmul (K11);
+dv), the RMSNorm forward and backward (K9a, K9b) and the fused RMSNorm ->
+matmul (K11);
 and, for this tree alone, K3's two paths (decode and wave) at the row
 counts where one takes over from the other (K3route).
 
 Run from the repository root:
 
     python3 tools/ab_torch_kernels.py --parent DIR [--reps 50]
-        [--kernels K1,K4,K2,K3,K3route,K6a,K6b,K6c,K7a,K7b,K11]
+        [--kernels K1,K4,K2,K3,K3dec,K3route,K6a,K6b,K6c,K7a,K7b,K9a,K9b,K11]
 
 DIR holds an earlier tree of the repository (``git archive <commit>``
 unpacked into a directory that ``.gitignore`` lists, such as
@@ -23,14 +25,17 @@ nkv 32 and 8, d 128, page 64, lens ``K1_LENS``); K2 at its packed stream
 (T 2048, 32 q heads over nkv 32 and 8, d 128, causal, runs
 ``K2_SEGMENTS`` and a sentinel tail); K3 at w_gate (K 4096, N 11008) on a
 2,048-row wave and at decode (M 8), and at chip_smoke's ragged wave
-(1000, 4096, 1000: N % 16 != 0), K3route at M 16, 32, 64 and 128 of the
+(1000, 4096, 1000: N % 16 != 0), K3dec at ``K3DEC_SHAPES`` (batch 8:
+wq / wk / wv / wo, w_gate / w_up, w_down, lm_head; w_gate at batch 1 and
+16), K3route at M 16, 32, 64 and 128 of the
 same weight; K6a-c at
 ``TRAIN_SHAPES[0]`` causal (K6b and K6c both from this tree's forward
 kernel's out and lse); K7a / K7b at ``K7_TIMED`` of ``K7_CASES`` (the
 packed trainer's rows, GQA 32 over 8, one document a row), from this tree's
 K2 out, lse and ranges, each tree's kernels on the per-tile ranges of its
-own block height; K11 at the gate / up, q and decode cases of
-``K11_CASES``.  Each
+own block height; K9a / K9b at ``K9_SHAPES`` bf16 (the trainer's rows, the
+serving admission wave's and a decode step's); K11 at the gate / up, q and
+decode cases of ``K11_CASES``.  Each
 wrapper is timed parent, new, new, parent under two timers:
 
 - ``chip_smoke.time_ms`` as it is (CUDA events, median of ``--reps`` runs
@@ -49,11 +54,13 @@ forward; SDPA's whole backward, dq, dk and dv in one call, for K6b and
 K6c alike, and with the block-diagonal mask for K7a and K7b; cuBLAS on the
 normalised activation); one document a row, K7a and K7b also time K6b and
 K6c on the same inputs under both timers; so do K2 (SDPA with the
-block-diagonal mask) and K3 (cuBLAS on the weight dequantized
-beforehand).  The two outputs (K2, K6a: out and lse; K6c: dk and dv) are
-held against each other at chip_smoke's tolerance.  Prints the card
-and one JSON line per kernel and case; exits non-zero without a CUDA
-device.
+block-diagonal mask), K3 and K3dec (cuBLAS on the weight dequantized
+beforehand), K9a (``F.rms_norm``) and K9b (the autograd backward of
+``F.rms_norm``).  The two outputs (K2, K6a: out and lse; K6c: dk and dv;
+K9a: out and rstd; K9b: dx and dw) are held against each other at
+chip_smoke's tolerance.  Prints the card, the floor of both timers (one
+one-element fill), and one JSON line per kernel and case; exits non-zero
+without a CUDA device.
 """
 
 import argparse
@@ -73,6 +80,13 @@ from tools.torch_profile_common import card_line  # noqa: E402
 # cycles of the spin kernel queued before a run of the card-alone timer
 # (about half a millisecond, longer than the wrapper's host time)
 SPIN_CYCLES = 1_000_000
+# (M, K, N) of K3dec: LLaMA-7B's decode projections at batch 8 (wq / wk /
+# wv / wo, w_gate / w_up, w_down, lm_head), then w_gate at batch 1 and 16
+K3DEC_SHAPES = [(8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096),
+                (8, 4096, 32000), (1, 4096, 11008), (16, 4096, 11008)]
+# [n, h] of K9a / K9b: the trainer's rows, the serving admission wave's
+# (8 prompts of 256 at LLaMA-7B's width) and a decode step's at batch 8
+K9_SHAPES = [(16384, 2048), (2048, 4096), (8, 4096)]
 
 
 def parent_ops(root: Path, name: str):
@@ -181,8 +195,9 @@ def main():
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels",
-                    default="K1,K4,K2,K3,K3route,K6a,K6b,K6c,K7a,K7b,K11")
+    ap.add_argument(
+        "--kernels",
+        default="K1,K4,K2,K3,K3dec,K3route,K6a,K6b,K6c,K7a,K7b,K9a,K9b,K11")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -195,14 +210,23 @@ def main():
     from paddle_tpu_torch.ops import flash_varlen as fv
     from paddle_tpu_torch.ops import int8_matmul as im
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import rms_norm as rn
     from paddle_tpu_torch.ops import rmsnorm_matmul as rmm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
+    # what either timer reads for a kernel that does next to nothing: the
+    # floor under every small call's time
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    tiny = torch.empty(1, device="cuda")
+    print(json.dumps({"timer_floor": {
+        "ms": cs.time_ms(torch, tiny.zero_, flush, args.reps),
+        "card_alone_ms": card_alone_ms(torch, tiny.zero_, flush, args.reps),
+        "card": card}}), flush=True)
+    del tiny
     kernels = args.kernels.split(",")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     run = functools.partial(compare, torch, cs, flush, args.reps, card)
     for q8 in (False, True):
         if ("K4" if q8 else "K1") not in kernels:
@@ -253,20 +277,21 @@ def main():
                                                 b[1])),
                 library=sdpa, T=T, n=n, nkv=nkv, d=d, segments=runs)
             del q, k, v, qt, kt, vt, sdpa
-    if "K3" in kernels or "K3route" in kernels:
+    if {"K3", "K3dec", "K3route"} & set(kernels):
         old_im = parent_ops(args.parent, "int8_matmul")
         K = 4096
         weights = {}
 
-        def weight(N):
+        def weight(N, K=K):
             # the int8 codes, their scales and cuBLAS's dequantized copy
-            if N not in weights:
+            if (K, N) not in weights:
                 w = torch.randn((K, N), generator=gen,
                                 device="cuda") * K ** -0.5
                 qd = im.quantize_int8(w)
-                weights[N] = (qd["q"], qd["s"],
-                              (qd["q"].float() * qd["s"]).to(torch.bfloat16))
-            return weights[N]
+                weights[K, N] = (qd["q"], qd["s"], (qd["q"].float()
+                                                    * qd["s"]).to(
+                                                        torch.bfloat16))
+            return weights[K, N]
 
         for M, N in (((2048, 11008), (8, 11008), (1000, 1000))
                      if "K3" in kernels else ()):
@@ -279,6 +304,18 @@ def main():
                                             a, b),
                 library=functools.partial(torch.matmul, x, wd),
                 M=M, K=K, N=N, path="wave" if M > im.WAVE_MIN_M else "decode")
+        for M, Kd, N in (K3DEC_SHAPES if "K3dec" in kernels else ()):
+            q8, s8, wd = weight(N, Kd)
+            x = torch.randn((M, Kd), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            run("K3dec", lambda: old_im.int8_matmul(x, q8, s8),
+                lambda: im.int8_matmul(x, q8, s8), cs.k3_work(M, Kd, N),
+                lambda a, b: cs.check_close(
+                    f"K3dec M={M} K={Kd} N={N} new vs parent", a, b),
+                library=functools.partial(torch.matmul, x, wd),
+                M=M, K=Kd, N=N, splits=im._splits(
+                    M, N, Kd, torch.cuda.get_device_properties(
+                        0).multi_processor_count, False))
         for M in ((16, 32, 64, 128) if "K3route" in kernels else ()):
             # this tree's decode path against its wave path, in turns, each
             # forced by moving the crossover for the call
@@ -395,6 +432,43 @@ def main():
                     library=sdpa_bwd, **shape, **extra)
             del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out, sdpa_bwd
             del new_args, old_args, ranges
+    if "K9a" in kernels or "K9b" in kernels:
+        old_rn = parent_ops(args.parent, "rms_norm")
+        eps = 1e-6
+        for n, h in K9_SHAPES:
+            x, do = (torch.randn((n, h), generator=gen, device="cuda",
+                                 dtype=torch.bfloat16) for _ in range(2))
+            w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(
+                torch.bfloat16)
+            rstd = rn._fwd(x, w, eps)[1]
+            work_a, work_b = cs.k9_work(n, h, 2, 2, 2)
+            if "K9a" in kernels:
+                run("K9a", lambda: old_rn._fwd(x, w, eps),
+                    lambda: rn._fwd(x, w, eps),
+                    (*work_a, cs.PEAK_F32_FLOPS),
+                    lambda a, b: max(
+                        cs.check_close(f"K9a [{n}, {h}] new vs parent", a[0],
+                                       b[0]),
+                        cs.check_close(f"K9a rstd [{n}, {h}] new vs parent",
+                                       a[1], b[1])),
+                    library=functools.partial(F.rms_norm, x, (h,), w, eps),
+                    rows=n, h=h)
+            if "K9b" in kernels:
+                xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
+                lib_out = F.rms_norm(xr, (h,), wr, eps)
+                run("K9b", lambda: old_rn._bwd(x, w, rstd, do),
+                    lambda: rn._bwd(x, w, rstd, do),
+                    (*work_b, cs.PEAK_F32_FLOPS),
+                    lambda a, b: max(
+                        cs.check_close(f"K9b dx [{n}, {h}] new vs parent",
+                                       a[0], b[0]),
+                        cs.check_close(f"K9b dw [{n}, {h}] new vs parent",
+                                       a[1], b[1])),
+                    library=functools.partial(
+                        torch.autograd.grad, lib_out, (xr, wr), do,
+                        retain_graph=True), rows=n, h=h)
+                del xr, wr, lib_out
+            del x, do, w, rstd
     if "K11" in kernels:
         old_rmm = parent_ops(args.parent, "rmsnorm_matmul")
         eps = 1e-6

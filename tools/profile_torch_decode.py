@@ -29,8 +29,9 @@ repository (an earlier tree unpacked into a gitignored directory), so one
 command can profile the parent's kernels and this tree's in turn.
 
 Prints one JSON line: the card (nvidia-smi name and power limit), the wave
-and step times, the device busy share (kernel time over host time) and the
-kernel breakdowns.  Exits non-zero without a CUDA device.
+and step times, the device busy share (kernel time over host time), the
+kernel breakdowns and K3's kernels by name (device ms and launches a decode
+step).  Exits non-zero without a CUDA device.
 """
 
 import argparse
@@ -61,9 +62,10 @@ def _kind(name: str) -> str:
     if ("seg_fwd_kernel" in name or "seg_tile_ranges_kernel" in name
             or ("flash_fwd_kernel" in name and "true" in name)):
         return "flash_attention_segmented (K2)"
-    # K3: int8_matmul_kernel (decode; before the redesign also the wave),
-    # int8_wave_kernel and the split's int8_matmul_reduce
-    if "int8_matmul" in name or "int8_wave" in name:
+    # K3: int8_matmul_kernel (the decode path before its redesign; before
+    # the wave path's also the wave), int8_decode_kernel, int8_wave_kernel
+    # and the split's int8_matmul_reduce
+    if "int8_matmul" in name or "int8_wave" in name or "int8_decode" in name:
         return "int8_matmul (K3)"
     low = name.lower()
     if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "cublas",
@@ -159,6 +161,13 @@ def main():
             eng.step()
         torch.cuda.synchronize()
     busy_ms, by_kind, top = device_time(torch, prof, _kind, args.steps, 12)
+    # K3's kernels by name: its paths and the wave path's reduce pass
+    k3 = {}
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and _kind(evt.name) == "int8_matmul (K3)"):
+            ms, n = k3.get(evt.name[:120], (0.0, 0))
+            k3[evt.name[:120]] = (ms + evt.time_range.elapsed_us() / 1e3, n + 1)
     print(json.dumps({
         "card": card, "model": "LLaMA-7B (LlamaPretrainConfig defaults)",
         "tree": os.path.dirname(os.path.dirname(
@@ -173,6 +182,9 @@ def main():
         "step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
         "device_busy_share": busy_ms / step_ms if step_ms else None,
         "per_step_ms_by_kind": by_kind,
+        "k3_kernels_per_step": {
+            name: {"ms": ms / args.steps, "launches": n / args.steps}
+            for name, (ms, n) in k3.items()},
         "top_kernels": top,
     }), flush=True)
 

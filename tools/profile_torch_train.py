@@ -91,7 +91,9 @@ def _kind(name: str) -> str:
         return "flash_attention bwd dk/dv (K6c)"
     if "adamw_kernel" in name:
         return "fused_adamw (K8)"
-    if "rms_fwd_kernel" in name:
+    # K9a: rms_fwd_rows_kernel (rows held in registers) or the generic
+    # rms_fwd_kernel
+    if "rms_fwd_kernel" in name or "rms_fwd_rows_kernel" in name:
         return "rms_norm fwd (K9a)"
     if "rms_bwd_kernel" in name:
         return "rms_norm bwd (K9b)"
