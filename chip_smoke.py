@@ -61,6 +61,24 @@ Phases, one JSON line each on stdout:
              dense forward (no kernel): their logits within LOGIT_LIMIT,
              a planted fault beyond it, and every served token within
              2 * LOGIT_LIMIT of the plain forward's top logit.
+4b. serve_overlap - the same weights and requests (one admission wave,
+             256 pages of 64, batch 8, greedy) through four engine lanes on
+             one cache: the eager synchronous lane (the reference),
+             overlap=True (lookahead 1), decode_horizon=4 and overlap=True
+             with decode_horizon=4, each run twice (the second under a
+             CUDA-only torch.profiler): a line a lane with tokens/s, host
+             and device ms per token (a micro-step of the batch), the busy
+             share (the profiled device time over the unprofiled host
+             time), host_syncs, pipeline_flushes, horizon_trimmed_tokens,
+             graph replays and the launches each replay makes.  Every
+             graph lane must serve the synchronous lane's tokens, token for
+             token (else the first diverging request and position and the
+             plain forward's logits of both tokens are printed), and must
+             launch K1 from graph replays; then the last lane once more
+             behind GenerationServer, the requests queued in order into
+             one wave, the same tokens.  Launch counts there: the
+             wrappers' counts, less the launches they recorded into a graph
+             at capture, plus launches per replay x replays.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -70,6 +88,8 @@ Phases, one JSON line each on stdout:
              kernel replaced by its plain version: logits within
              INT8_LOGIT_LIMIT, a planted fault beyond it; the int8 path's
              distance from the bf16 path is printed, not gated.
+5b. serve_int8_overlap - serve_overlap on the int8 weights over int8
+             pages: K4 and K3's decode path launched from graph replays.
 6. train   - the 1.345 B-parameter LLaMA of the JAX package's training
              bench (vocab 32000, hidden 2048, FFN 5504, 24 layers, 16 heads
              of 128; bf16 compute over f32 masters, remat full, chunked
@@ -1172,14 +1192,60 @@ def serve_prompts(cfg, seed):
     return [rng.integers(0, cfg.vocab_size, L).tolist() for L in SERVE_LENS]
 
 
-def drive(torch, cfg, params, cache, prompts, news, mods):
+def graph_state():
+    """Every decode graph's (graph, replays, captured) by id."""
+    from paddle_tpu_torch.models import graphed_step as gs
+    return {id(g): (g, g.replays, g.graph is not None) for g in gs.graphs()}
+
+
+def graph_launches(before):
+    """Kernel launches the decode graphs ran since ``before`` (a
+    graph_state()): each replay launches its capture's kernels again
+    without passing through the wrappers; a capture made since then
+    recorded launches (counted by the wrappers) that ran only at replay.
+    -> ({kernel: launches replayed}, {kernel: launches captured})."""
+    replayed, captured = {}, {}
+    for key, (g, n, was) in graph_state().items():
+        n0, was0 = (before[key][1], before[key][2]) if key in before \
+            else (0, False)
+        for name, c in g.capture_launches.items():
+            replayed[name] = replayed.get(name, 0) + (n - n0) * c
+            if was and not was0:
+                captured[name] = captured.get(name, 0) + c
+    return replayed, captured
+
+
+def ran_launches(wrapper, before):
+    """The launches that ran: the wrappers' counts, less the launches they
+    recorded into a graph at capture, plus every replay's."""
+    replayed, captured = graph_launches(before)
+    return {k: v - captured.get(k, 0) + replayed.get(k, 0)
+            for k, v in wrapper.items()}
+
+
+def drive(torch, cfg, params, cache, prompts, news, mods, in_order=False,
+          **engine_kw):
     """Serve ``prompts`` concurrently through a GenerationServer (the last
     one streamed), the launch counts set to 0 just before and read just
-    after.  Fails on any error, short reply, unlaunched kernel of the
-    cache's path or owned page.  -> (tokens per request, stats)."""
+    after (with the launches of decode graph replays).  With ``in_order``
+    the requests queue in their order and the engine holds its first step
+    until all are queued, so they admit in one wave laid out as a direct
+    submit lays it out.  Fails on any error, short reply, unlaunched
+    kernel of the cache's path or owned page.  -> (tokens per request,
+    stats)."""
     from paddle_tpu_torch.inference.serving import (
         GenerationServer, generate_http, generate_http_stream)
-    srv = GenerationServer(cfg, params, cache)
+    srv = GenerationServer(cfg, params, cache, **engine_kw)
+    if in_order:
+        eng, has_work = srv.engine, srv.engine.has_work
+
+        def gated():
+            if len(eng._queue) < len(prompts):
+                return False
+            eng.has_work = has_work
+            return has_work()
+
+        eng.has_work = gated
     port = srv.start()
     url = f"http://127.0.0.1:{port}"
     results, errors = {}, []
@@ -1201,6 +1267,7 @@ def drive(torch, cfg, params, cache, prompts, news, mods):
         except Exception as e:           # reported below, fails the run
             errors.append(f"request {i}: {type(e).__name__}: {e}")
 
+    graphs0 = graph_state()
     zero_counts(mods)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1208,17 +1275,22 @@ def drive(torch, cfg, params, cache, prompts, news, mods):
     # the failed run from exiting
     threads = [threading.Thread(target=client, args=(i,), daemon=True)
                for i in range(len(prompts))]
-    for t in threads:
+    for i, t in enumerate(threads):
         t.start()
+        while in_order and srv.engine._next_rid <= i and not errors \
+                and time.perf_counter() - t0 < 600:
+            time.sleep(0.001)
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
-    launches = read_counts(mods)
+    launches = ran_launches(read_counts(mods), graphs0)
     eng = srv.engine
     health = srv.health_snapshot()
     srv.stop()
     peak = torch.cuda.max_memory_allocated()
     phase = "serve_int8" if cache.kv_quant == "int8" else "serve"
+    if engine_kw:
+        phase += "_overlap"
     if errors or len(results) != len(prompts):
         fail(f"{phase}: {errors or 'a request did not return'}")
     for i in range(len(prompts)):
@@ -1247,7 +1319,7 @@ def drive(torch, cfg, params, cache, prompts, news, mods):
                       if eng.decode_wall_s else None),
         decode_steps=health["decode_steps"],
         prefill_waves=health["prefill_calls"], peak_mem_gb=peak / 2**30,
-        launches=launches)
+        launches=launches, health=health)
     return [results[i][0] for i in range(len(prompts))], stats
 
 
@@ -1384,7 +1456,153 @@ def phase_serve_int8(torch, cfg, seed, params, mods, dev="cuda"):
         fail(f"serve_int8: the planted fault moved the logits by only "
              f"{fault_diff}, within the limit {INT8_LOGIT_LIMIT}: the logit "
              f"check cannot see it")
-    return stats["launches"]
+    return stats["launches"], qparams
+
+
+# the serve_overlap lanes: the eager synchronous lane (the reference) and
+# the three graph lanes, each of which must serve its tokens
+OVERLAP_LANES = [("sync", {}),
+                 ("overlap", {"overlap": True, "lookahead": 1}),
+                 ("horizon4", {"decode_horizon": 4}),
+                 ("overlap_horizon4", {"overlap": True, "decode_horizon": 4})]
+
+
+def run_lane(torch, cfg, params, cache, prompts, news, mods, engine_kw,
+             profiled):
+    """Serve ``prompts`` on an engine of ``engine_kw`` over ``cache``:
+    the first step (the admission wave and the first dispatch, its capture
+    if new) untimed, the rest (pure decode: every request fits the first
+    wave) timed on the host clock to a synchronize; with ``profiled`` the
+    same window under a CUDA-only torch.profiler.  -> (tokens per request,
+    the window's numbers)."""
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    eng = ContinuousBatchingEngine(cfg, params, cache, **engine_kw)
+    rids = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    graphs0 = graph_state()
+    zero_counts(mods)
+    eng.step()
+    torch.cuda.synchronize()
+    if eng.prefill_calls != 1:
+        fail(f"serve_overlap: the requests took {eng.prefill_calls} waves")
+    tok0, steps0 = eng.tokens_generated, eng.decode_steps
+    prof = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if profiled
+        else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        while eng.has_work():
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ran_launches(read_counts(mods), graphs0)
+    replayed, _ = graph_launches(graphs0)
+    done = {r.rid: r for r in eng.finished()}
+    if sorted(done) != rids or eng._inflight:
+        fail(f"serve_overlap: {engine_kw} left requests or dispatches")
+    if cache.audit()["owned"]:
+        fail(f"serve_overlap: {engine_kw} left pages owned")
+    H = eng.decode_horizon
+    micro = (eng.decode_steps - steps0) * H
+    now = graph_state()
+    used = [g for key, (g, n, _) in now.items()
+            if n > (graphs0[key][1] if key in graphs0 else 0)]
+    stats = dict(
+        tokens=eng.tokens_generated - tok0, window_s=wall,
+        micro_steps=micro,
+        tokens_per_s=(eng.tokens_generated - tok0) / wall,
+        host_ms_per_token=wall * 1e3 / micro, host_syncs=eng.host_syncs,
+        pipeline_flushes=eng.pipeline_flushes,
+        horizon_trimmed_tokens=eng.horizon_trimmed_tokens,
+        decode_steps=eng.decode_steps,
+        replays=sum(now[id(g)][1] - (graphs0[id(g)][1]
+                                     if id(g) in graphs0 else 0)
+                    for g in used),
+        launches_per_replay=[g.capture_launches for g in used],
+        launches=launches, launches_from_replays=replayed)
+    if profiled:
+        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        stats["device_ms_per_token"] = busy_us / 1e3 / micro
+    return [done[r].generated for r in rids], stats
+
+
+def phase_serve_overlap(torch, cfg, seed, params, mods, kv_quant=None,
+                        dev="cuda"):
+    """The serve's requests through the four OVERLAP_LANES on one cache
+    (so the lanes that share a step key share its graph): every graph lane
+    token for token equal to the eager synchronous lane, K1 (K4) and, with
+    int8 weights, K3's decode path launched from graph replays; then the
+    overlap + horizon lane once more through GenerationServer.  Each lane
+    runs twice, unprofiled for its host times and under a CUDA-only
+    profiler for its device time; the busy share is the second's device
+    time over the first's host time."""
+    from paddle_tpu_torch.models import graphed_step as gs
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    phase = "serve_int8_overlap" if kv_quant else "serve_overlap"
+    cache = PagedKVCache(cfg, num_pages=256, pages_max=32, batch=8, page=64,
+                         kv_quant=kv_quant, device=dev)
+    prompts = serve_prompts(cfg, seed)
+    attn = ("paged_decode_attention_q8" if kv_quant
+            else "paged_decode_attention")
+    path = [attn] + (["int8_matmul"] if isinstance(params["lm_head"], dict)
+                     else [])
+    total = {}
+    ref = None
+    for lane, kw in OVERLAP_LANES:
+        gens, st = run_lane(torch, cfg, params, cache, prompts, SERVE_NEWS,
+                            mods, kw, profiled=False)
+        again, st_p = run_lane(torch, cfg, params, cache, prompts,
+                               SERVE_NEWS, mods, kw, profiled=True)
+        st["device_ms_per_token"] = st_p["device_ms_per_token"]
+        st["busy_share"] = st_p["device_ms_per_token"] / \
+            st["host_ms_per_token"]
+        for k, v in st["launches"].items():
+            total[k] = total.get(k, 0) + v + st_p["launches"][k]
+        emit(phase, lane=lane, engine_kw=kw, **st,
+             launches_note="the wrappers' counts less what they recorded "
+             "into a graph at capture, plus each replay's launches "
+             "(launches_per_replay x replays)")
+        if again != gens:
+            fail(f"{phase}: lane {lane} served other tokens on its rerun")
+        if ref is None:
+            ref = gens
+            continue
+        for name in path:
+            if st["launches_from_replays"].get(name, 0) <= 0:
+                fail(f"{phase}: lane {lane} launched {name} from no graph "
+                     f"replay")
+        if gens != ref:
+            i = next(i for i in range(len(ref)) if gens[i] != ref[i])
+            j = next(j for j in range(min(len(ref[i]), len(gens[i])))
+                     if gens[i][j] != ref[i][j])
+            logits = plain_logits(torch, cfg, params,
+                                  prompts[i] + ref[i][:j], dev)[-1]
+            emit(phase, lane=lane, first_divergence=[i, j],
+                 sync_token=ref[i][j], lane_token=gens[i][j],
+                 plain_logit_sync=float(logits[ref[i][j]]),
+                 plain_logit_lane=float(logits[gens[i][j]]))
+            fail(f"{phase}: lane {lane} diverged from the synchronous lane "
+                 f"at request {i}, token {j}")
+    # the same lane behind the HTTP front, the requests queued in order
+    # into one wave as above (a wave of another layout tiles K2's stream
+    # differently: other bits, and other tokens at near-ties)
+    kw = dict(OVERLAP_LANES[-1][1])
+    gens, stats = drive(torch, cfg, params, cache, prompts, SERVE_NEWS, mods,
+                        in_order=True, **kw)
+    for k, v in stats["launches"].items():
+        total[k] = total.get(k, 0) + v
+    emit(phase, lane="http_" + OVERLAP_LANES[-1][0], engine_kw=kw,
+         health=stats["health"], launches=stats["launches"])
+    if gens != ref:
+        fail(f"{phase}: GenerationServer(overlap=True, decode_horizon=4) "
+             f"served other tokens than the synchronous lane")
+    for name in path:
+        if stats["launches"][name] <= 0:
+            fail(f"{phase}: the HTTP lane did not launch {name}")
+    del cache
+    gs.clear()
+    return total
 
 
 def train_launches_per_step(cfg, flag_set=None):
@@ -1913,8 +2131,16 @@ def main():
     cfg = LlamaPretrainConfig()
     launches, params = phase_serve(torch, cfg, args.seed, mods)
     torch.cuda.empty_cache()             # the bf16 serve's cache is gone
-    launches_int8 = phase_serve_int8(torch, cfg, args.seed, params, mods)
+    launches_overlap = phase_serve_overlap(torch, cfg, args.seed, params,
+                                           mods)
+    torch.cuda.empty_cache()
+    launches_int8, qparams = phase_serve_int8(torch, cfg, args.seed, params,
+                                              mods)
     del params
+    torch.cuda.empty_cache()
+    launches_int8_overlap = phase_serve_overlap(
+        torch, cfg, args.seed, qparams, mods, kv_quant="int8")
+    del qparams
     torch.cuda.empty_cache()             # the serves' weights are gone
     train_cfg = LlamaPretrainConfig(**TRAIN_CFG)
     launches_train = phase_train(torch, train_cfg, args.seed, mods, card)
@@ -1933,8 +2159,8 @@ def main():
         phase_train_grads(torch, train_cfg, args.seed, mods, flag_set=flag_set)
     # each kernel's launches in the serve, train, train_packed and
     # train_fused phases
-    runs = [launches, launches_int8, launches_train, launches_packed,
-            *launches_fused]
+    runs = [launches, launches_overlap, launches_int8, launches_int8_overlap,
+            launches_train, launches_packed, *launches_fused]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 
     def entry(name, source, replaces, runs):

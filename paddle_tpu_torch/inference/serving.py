@@ -224,7 +224,11 @@ class GenerationServer:
                     "requests_finished": eng.requests_finished,
                     "requests_cancelled": eng.requests_cancelled,
                     "requests_expired": eng.requests_expired,
-                    "requests_rejected": eng.requests_rejected}
+                    "requests_rejected": eng.requests_rejected,
+                    "decode_horizon": eng.decode_horizon,
+                    "horizon_trimmed_tokens": eng.horizon_trimmed_tokens,
+                    "host_syncs": eng.host_syncs,
+                    "pipeline_flushes": eng.pipeline_flushes}
 
     def submit(self, prompt, max_new_tokens, deadline_s=None):
         with self._lock:

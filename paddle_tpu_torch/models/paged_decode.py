@@ -6,13 +6,18 @@ on one device, with bf16 / fp32 pages or int8 pages (``kv_quant="int8"``):
 :class:`PagedKVCache` (free list, row alloc / growth / release, the batched
 page write, ``audit``), :func:`_rope_rows`, :func:`_rope_at`,
 :func:`_pick_token`, :func:`_decode_layer`, :func:`make_paged_decode_step`
-(``step`` and ``step_q8``, optionally returning the logits) and
-:func:`_packed_prefill_body` (fp and ``q8`` forms, without history).
+(``step`` and ``step_q8``, optionally returning the logits),
+:func:`_advance_loop_state`, :func:`make_paged_decode_step_async` (the
+dispatch-ahead step), :func:`make_paged_decode_step_multi` (the decode
+horizon) and :func:`_packed_prefill_body` (fp and ``q8`` forms, without
+history).
 
-PyTorch runs eagerly, so the JAX jit wrappers and their memo caches have no
-counterpart, and the pools update in place instead of being donated.  The
-prefix index, the host page tier, swap and export and TP meshes are later
-slices; asking for them raises ``NotImplementedError``.
+PyTorch runs eagerly and the pools update in place instead of being
+donated.  The counterpart of JAX's jit of the async and horizon steps, with
+its ``_step_async_cache`` / ``_step_multi_cache``, is a CUDA graph captured
+once per key (``models/graphed_step.py``); the synchronous step stays
+eager.  The prefix index, the host page tier, swap and export and TP meshes
+are later slices; asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from ..ops.paged_attention import (paged_decode_attention,
 from .llama_pretrain import (LlamaPretrainConfig, _block_post_attn, _mm,
                              _rms_norm, layer_params)
 
-__all__ = ["PagedKVCache", "make_paged_decode_step"]
+__all__ = ["PagedKVCache", "make_paged_decode_step",
+           "make_paged_decode_step_async", "make_paged_decode_step_multi"]
 
 
 class PagedKVCache:
@@ -80,6 +86,10 @@ class PagedKVCache:
         self.tables = np.zeros((batch, pages_max), np.int32)
         self.lens = np.zeros((batch,), np.int32)
         self._owned = [[] for _ in range(batch)]
+        # bumped on every host-side ``tables`` mutation, so the
+        # dispatch-ahead loop's device copy re-uploads only when the block
+        # tables changed
+        self.tables_version = 0
         self.refs = np.zeros(num_pages, np.int64)
         self.scatter_dispatches = 0       # page writes, one per wave
 
@@ -114,6 +124,7 @@ class PagedKVCache:
         except RuntimeError:
             self.release_row(b)
             raise
+        self.tables_version += 1
         self.lens[b] = length
 
     def ensure_capacity(self, b: int, new_tokens: int = 1) -> None:
@@ -121,20 +132,29 @@ class PagedKVCache:
         self.ensure_capacity_batch([(b, new_tokens)])
 
     def ensure_capacity_batch(self, needs) -> None:
-        """Grow every ``(row, new_tokens)`` in ``needs`` as one claim.  On
+        """Grow every ``(row, new_tokens)`` in ``needs`` as one claim:
+        however many rows grow, ``tables_version`` bumps at most once.  On
         pool exhaustion the rows already grown keep their pages and
-        ``RuntimeError`` propagates (the engine preempts and retries)."""
-        for b, new_tokens in needs:
-            need = (int(self.lens[b]) + new_tokens - 1) // self.page + 1
-            if need > self.pages_max:
-                raise ValueError(
-                    f"row {b}: {int(self.lens[b])} + {new_tokens} tokens "
-                    f"needs {need} pages > pages_max {self.pages_max}")
-            while len(self._owned[b]) < need:
-                pid = self._page_alloc()
-                self.refs[pid] += 1
-                self.tables[b, len(self._owned[b])] = pid
-                self._owned[b].append(pid)
+        ``RuntimeError`` propagates (the engine preempts and retries); the
+        version still bumps for the partial growth."""
+        grew = False
+        try:
+            for b, new_tokens in needs:
+                need = (int(self.lens[b]) + new_tokens - 1) // self.page + 1
+                if need > self.pages_max:
+                    raise ValueError(
+                        f"row {b}: {int(self.lens[b])} + {new_tokens} "
+                        f"tokens needs {need} pages > pages_max "
+                        f"{self.pages_max}")
+                while len(self._owned[b]) < need:
+                    pid = self._page_alloc()
+                    self.refs[pid] += 1
+                    self.tables[b, len(self._owned[b])] = pid
+                    self._owned[b].append(pid)
+                    grew = True
+        finally:
+            if grew:
+                self.tables_version += 1
 
     def write_pages_batch(self, entries) -> None:
         """Write a whole admission wave: every entry's
@@ -188,6 +208,7 @@ class PagedKVCache:
         self._owned[b] = []
         self.tables[b] = 0
         self.lens[b] = 0
+        self.tables_version += 1
 
     def audit(self) -> dict:
         """Check every page-accounting invariant and return pool stats;
@@ -329,7 +350,10 @@ def _build_step_fns(cfg: LlamaPretrainConfig, temperature: float,
         page = kpool.shape[3]
         x = params["embed"][tok[:, None].long()].to(dt)
         rows = torch.arange(B, device=tok.device)
-        page_ids = tables[rows, (lens // page).long()].long()    # [B]
+        # JAX's gather clamps an index past the table; a CUDA index would
+        # assert instead, so clamp as it does
+        col = (lens // page).long().clamp(max=tables.shape[1] - 1)
+        page_ids = tables[rows, col].long()                      # [B]
         slots = (lens % page).long()                             # [B]
         # the JAX step scans the layers with the pools as scan xs/ys; here
         # a Python loop writes each layer's pool slice in place
@@ -379,6 +403,106 @@ def make_paged_decode_step(cfg: LlamaPretrainConfig,
     step, step_q8 = _build_step_fns(cfg, temperature, with_logits, top_k,
                                     top_p)
     return step_q8 if kv_quant == "int8" else step
+
+
+def _advance_loop_state(nxt, tok, lens, active, remaining, eos):
+    """The on-device serving-loop state advance, shared by the async and
+    horizon steps: inactive rows keep their token, ``lens`` / ``remaining``
+    move only under ``active``, and ``done`` marks rows that just hit
+    ``eos`` (-1 for none) or exhausted their budget.  Plain tensor code:
+    no host read."""
+    nxt = torch.where(active, nxt, tok)
+    lens2 = lens + active.to(lens.dtype)
+    rem2 = remaining - active.to(remaining.dtype)
+    done = active & ((nxt == eos) | (rem2 <= 0))
+    return nxt, lens2, rem2, active & ~done, done
+
+
+def _loop_base(cfg, temperature, kv_quant, top_k, top_p, mesh):
+    if kv_quant not in (None, "int8"):
+        raise ValueError("kv_quant must be None or 'int8'")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the TP decode step (mp > 1 meshes) is not ported yet")
+    step, step_q8 = _build_step_fns(cfg, temperature, False, top_k, top_p)
+    return step_q8 if kv_quant == "int8" else step
+
+
+def make_paged_decode_step_async(cfg: LlamaPretrainConfig,
+                                 temperature: float = 0.0,
+                                 kv_quant: Optional[str] = None,
+                                 top_k: int = 0, top_p: float = 1.0,
+                                 mesh=None, tp_allreduce: str = "fp32"):
+    """The dispatch-ahead decode step: the per-token step plus the
+    functional advance of the serving-loop state, so step k's outputs on
+    the device feed step k+1 with no host round-trip.
+
+    ``step(params, kpool, vpool, [kscale, vscale,] tables, lens, tok,
+    active, remaining, eos, generator=None) -> (kpool, vpool, [kscale,
+    vscale,] nxt, lens', remaining', active', done)``
+
+    Rows advance only under ``active`` (bool [B]); ``done`` marks active
+    rows that just hit ``eos`` or their budget, and ``active' = active &
+    ~done`` feeds the next dispatch.  The pools are written in place.
+    Multi-token stop sequences stay on the host (the engine flushes its
+    pipeline when one fires).  The engine replays this body from a CUDA
+    graph on the card (``models/graphed_step.py``)."""
+    base = _loop_base(cfg, temperature, kv_quant, top_k, top_p, mesh)
+    npools = 4 if kv_quant == "int8" else 2
+
+    def step(params, *args, generator=None):
+        if len(args) == npools + 7:           # the generator by position
+            *args, generator = args
+        pools = args[:npools]
+        tables, lens, tok, active, remaining, eos = args[npools:]
+        *pools, nxt = base(params, *pools, tables, lens, tok, generator)
+        return (*pools, *_advance_loop_state(nxt, tok, lens, active,
+                                             remaining, eos))
+
+    return step
+
+
+def make_paged_decode_step_multi(cfg: LlamaPretrainConfig, horizon: int,
+                                 temperature: float = 0.0,
+                                 kv_quant: Optional[str] = None,
+                                 top_k: int = 0, top_p: float = 1.0,
+                                 mesh=None, tp_allreduce: str = "fp32"):
+    """The decode horizon: ``horizon`` micro-steps of the async body over
+    constant block tables (the engine pre-claims the pages), the done mask
+    folded on the device each micro-step, one generator draw per
+    micro-step when sampling.
+
+    ``step(params, kpool, vpool, [kscale, vscale,] tables, lens, tok,
+    active, remaining, eos, generator=None) -> (kpool, vpool, [kscale,
+    vscale,] toks [H, B], dones [H, B], tok', lens', remaining', active')``
+
+    ``toks[h]`` is micro-step h's next token and ``dones[h]`` the rows that
+    stopped there (at most once a row; after it the row repeats its last
+    token); the trailing four are the chained loop state after the block.
+    JAX scans the micro-steps; here a Python loop runs them, and the
+    engine captures the whole block in one CUDA graph on the card."""
+    H = int(horizon)
+    if H < 1:
+        raise ValueError(f"horizon must be >= 1, got {horizon}")
+    base = _loop_base(cfg, temperature, kv_quant, top_k, top_p, mesh)
+    npools = 4 if kv_quant == "int8" else 2
+
+    def step(params, *args, generator=None):
+        if len(args) == npools + 7:           # the generator by position
+            *args, generator = args
+        pools = list(args[:npools])
+        tables, lens, tok, active, remaining, eos = args[npools:]
+        toks, dones = [], []
+        for _ in range(H):
+            *pools, nxt = base(params, *pools, tables, lens, tok, generator)
+            tok, lens, remaining, active, done = _advance_loop_state(
+                nxt, tok, lens, active, remaining, eos)
+            toks.append(tok)
+            dones.append(done)
+        return (*pools, torch.stack(toks), torch.stack(dones), tok, lens,
+                remaining, active)
+
+    return step
 
 
 def _packed_prefill_body(cfg: LlamaPretrainConfig, q8: bool = False,

@@ -1,19 +1,33 @@
 """Continuous-batching LLM serving engine over the paged KV cache.
 
-Counterpart of ``paddle_tpu/models/serving_engine.py``, synchronous lane
-with packed admission (the JAX engine's defaults: ``packed=True``,
-``overlap=False``, ``mixed=False``, ``decode_horizon=1``): ``submit``,
-``cancel`` (and deadlines), ``step``, ``finished``, ``drain_stream``,
-``run_to_completion``; admission waves pack every waiting context into one
-segmented-attention prefill; decode ticks run one paged decode step for the
-whole fixed-size batch; on pool exhaustion the youngest request is
-preempted recompute-style and resumes through the packed lane.  Weights may
-be int8 (``quantize_params_int8``) and the cache's pages int8
-(``PagedKVCache(kv_quant="int8")``), each independently of the other.
+Counterpart of ``paddle_tpu/models/serving_engine.py`` with packed
+admission: ``submit``, ``cancel`` (and deadlines), ``step``, ``finished``,
+``drain_stream``, ``run_to_completion``; admission waves pack every waiting
+context into one segmented-attention prefill; on pool exhaustion the
+youngest request is preempted recompute-style and resumes through the
+packed lane.  Weights may be int8 (``quantize_params_int8``) and the
+cache's pages int8 (``PagedKVCache(kv_quant="int8")``), each independently
+of the other.
 
-Not ported yet, and refused at construction when asked for: the overlap,
-mixed, horizon and speculative lanes, TP meshes, prefix caching, scheduler
-policies and tenant quotas.  The fault plane and wave quarantine (a step
+Three decode lanes, as in JAX:
+
+* the synchronous lane (the default): one eager paged decode step for the
+  whole batch, then a blocking fetch;
+* ``overlap=True``, the dispatch-ahead pipeline: the loop state lives on
+  the device and step k+1 is issued from step k's outputs before the host
+  reads step k; the host drains one step (``lookahead`` steps) behind;
+* ``decode_horizon=H``: one dispatch and one fetch cover H tokens, on
+  either of the other two lanes.
+
+On a CUDA device every async and horizon step replays from a CUDA graph
+captured for its key (``models/graphed_step.py``); its outputs reach the
+host through a ring of ``lookahead + 1`` pinned slots, each copy queued
+behind its step and guarded by a CUDA event, and ``_fetch`` (waiting on
+that event) is the only blocking host sync of the steady state.
+
+Not ported yet, and refused at construction when asked for: the mixed and
+speculative lanes, TP meshes, prefix caching, scheduler policies, tenant
+quotas and ``packed=False``.  The fault plane and wave quarantine (a step
 exception propagates to the caller), metrics and tracing also wait for
 later slices.
 """
@@ -28,6 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .graphed_step import decode_graph
 from .llama_pretrain import LlamaPretrainConfig, _mm, _rms_norm
 from .paged_decode import (PagedKVCache, _packed_prefill_body, _pick_token,
                            make_paged_decode_step)
@@ -77,21 +92,49 @@ class ContinuousBatchingEngine:
     ``eos_id``: generation stops at this token (or at the request's
     ``max_new_tokens``).  The decode batch is the cache's batch size;
     packed admission streams are padded to a power-of-two number of
-    ``prefill_bucket`` tokens.  Runs on the cache's device."""
+    ``prefill_bucket`` tokens.  Runs on the cache's device.
+
+    ``overlap=True`` runs the dispatch-ahead pipeline: greedy output is
+    token-exact against the synchronous lane, and the pipeline flushes at
+    every scheduler mutation point (admission, preemption, a stop-sequence
+    retirement, a cancel or deadline sweep).  ``lookahead`` is the number
+    of dispatches the device may run ahead of the host.
+    ``decode_horizon=H`` (H > 1) advances every active row by up to H
+    tokens a dispatch over tables pre-claimed for the block; rows stop on
+    the device at eos or budget, and a host-detected stop sequence trims
+    the device's over-generated tail (at most H - 1 tokens, counted in
+    ``horizon_trimmed_tokens``)."""
 
     def __init__(self, cfg: LlamaPretrainConfig, params,
                  cache: PagedKVCache, eos_id: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0,
                  prefill_bucket: int = 64, mesh=None, top_k: int = 0,
                  top_p: float = 1.0, enable_prefix_caching: bool = False,
-                 overlap: bool = False, packed: bool = True,
+                 overlap: bool = False, lookahead: int = 1,
+                 packed: bool = True,
                  max_queue_len: Optional[int] = None,
                  max_queued_tokens: Optional[int] = None,
                  tp_allreduce: str = "fp32", mixed: bool = False,
                  decode_horizon: int = 1, spec=None, policy=None,
                  tenant_quotas=None):
-        later = {"overlap": overlap, "mixed": mixed,
-                 "decode_horizon": decode_horizon != 1,
+        if int(decode_horizon) < 1:
+            raise ValueError(
+                f"decode_horizon must be >= 1, got {decode_horizon}")
+        if int(decode_horizon) > 1 and mixed:
+            raise ValueError(
+                "decode_horizon > 1 does not compose with mixed=True: the "
+                "mixed tick re-plans its prefill stream on the host "
+                "between consecutive dispatches, which an on-device "
+                "multi-step program cannot replay -- use mixed=True "
+                "(fused admission) OR decode_horizon (fused decode "
+                "cadence), not both")
+        if int(decode_horizon) > 1 and spec is not None:
+            raise ValueError(
+                "decode_horizon > 1 does not compose with spec: a "
+                "speculative round IS the multi-token fused program (up "
+                "to gamma+1 committed tokens per dispatch) -- tune "
+                "spec.gamma instead of stacking a second horizon on top")
+        later = {"mixed": mixed,
                  "spec": spec is not None, "mesh": mesh is not None,
                  "enable_prefix_caching": enable_prefix_caching,
                  "tp_allreduce": tp_allreduce != "fp32",
@@ -101,8 +144,9 @@ class ContinuousBatchingEngine:
         asked = [k for k, on in later.items() if on]
         if asked:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(asked)} (this engine is the "
-                f"synchronous lane with packed admission; see ROADMAP.md)")
+                f"not ported yet: {', '.join(asked)} (this engine has the "
+                f"synchronous, overlap and horizon lanes with packed "
+                f"admission; see ROADMAP.md)")
         self.cfg = cfg
         self.params = params
         self.cache = cache
@@ -146,7 +190,56 @@ class ContinuousBatchingEngine:
         self._prefill = _packed_prefill_body(cfg)
         self._next_tok = np.zeros((self.B,), np.int64)
         self._remaining = np.zeros((self.B,), np.int64)
+        # the active slots, kept at admit / retire / preempt (the decode
+        # loop never rebuilds it per token)
         self._active_mask = np.zeros((self.B,), np.int32)
+        # -- the decode horizon and the dispatch-ahead pipeline ----------
+        self.decode_horizon = int(decode_horizon)
+        self.overlap = bool(overlap)
+        self.lookahead = max(1, int(lookahead))
+        graphed = self.overlap or self.decode_horizon > 1
+        if (graphed and temperature > 0.0
+                and self.device.type == "cuda"
+                and not hasattr(torch.cuda.CUDAGraph,
+                                "register_generator_state")):
+            raise NotImplementedError(
+                "sampling in a captured decode step needs "
+                "CUDAGraph.register_generator_state, which this PyTorch "
+                "lacks; use overlap=False, decode_horizon=1 to sample")
+        # tokens a host-detected stop sequence discarded from a block
+        self.horizon_trimmed_tokens = 0
+        self._inflight: List[Dict] = []   # oldest-first undrained steps
+        # the device-active mask at the dispatch of the oldest undrained
+        # step (the drain reads tokens against it, then chains done masks)
+        self._drain_active = np.zeros((self.B,), bool)
+        self._dev = None                  # the seeded DecodeGraph
+        self._dev_tables_version = -1
+        self._needs_flush = False
+        self._eos_dev = torch.tensor(-1 if eos_id is None else int(eos_id),
+                                     dtype=torch.int64, device=self.device)
+        # pinned host slots, one per step that may be in flight: each
+        # holds the step's [2, H, B] outputs and the host copies of the
+        # state a dispatch uploads, and is reused only after its step
+        # drained (its event waited)
+        self._ring: List[Dict] = []
+        if graphed:
+            pin = self.device.type == "cuda"
+            pm = cache.pages_max
+
+            def host(shape, dt):
+                return torch.zeros(shape, dtype=dt, pin_memory=pin)
+
+            self._ring = [{
+                "out": host((2, self.decode_horizon, self.B), torch.int64),
+                "tables": host((self.B, pm), torch.int32),
+                "lens": host((self.B,), torch.int32),
+                "tok": host((self.B,), torch.int64),
+                "active": host((self.B,), torch.bool),
+                "remaining": host((self.B,), torch.int64)}
+                for _ in range(self.lookahead + 1)]
+        self._ring_i = 0
+        self.pipeline_flushes = 0         # mutation-point drains
+        self.host_syncs = 0               # blocking device->host fetches
 
     # -- client side ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 64,
@@ -345,7 +438,9 @@ class ContinuousBatchingEngine:
 
     def _sweep_cancelled_expired(self) -> None:
         """Retire cancelled / deadline-expired requests, queued or
-        active, at the start of a step."""
+        active, at the start of a step.  Active ones release their slot
+        only after the pipeline drains: an in-flight dispatch still writes
+        their pages."""
         if not self._cancelled and not self._has_deadlines:
             return
         now = self._now()
@@ -366,9 +461,15 @@ class ContinuousBatchingEngine:
                 self._count_abnormal(status)
                 self._finish_queued(req, status)
         self._queue = keep
-        for slot, req in list(self._active.items()):
-            status = _hit(req)
-            if status is not None:
+        victims = [(slot, req, status)
+                   for slot, req in list(self._active.items())
+                   for status in (_hit(req),) if status is not None]
+        if victims and self.overlap:
+            self._pipeline_flush()
+        for slot, req, status in victims:
+            # the flush may have retired the victim normally (eos or
+            # budget landed on the device first): that stands
+            if self._active.get(slot) is req:
                 self._count_abnormal(status)
                 self._retire(slot, status)
         self._cancelled.clear()
@@ -381,7 +482,7 @@ class ContinuousBatchingEngine:
         if not self._active:
             return 0
         t0 = time.perf_counter()
-        self._decode_sync()
+        self._decode_once()
         self.decode_wall_s += time.perf_counter() - t0
         return len(self._active)
 
@@ -403,6 +504,10 @@ class ContinuousBatchingEngine:
     def _admit_wave(self) -> None:
         admits = self._collect_admissions()
         if admits:
+            if self.overlap:
+                # admission is a scheduler mutation: drain the pipeline
+                # before slots and pages move under it
+                self._pipeline_flush()
             self._admit_packed(admits)
 
     def _packed_bucket(self, T: int) -> int:
@@ -483,12 +588,41 @@ class ContinuousBatchingEngine:
         self.preemptions += 1
         self._free_slot(slot)
         self._queue.appendleft(req)
+        if self.overlap:
+            # the device's active chain still carries the victim: re-seed
+            # the loop state before the next dispatch
+            self._needs_flush = True
         return True
 
-    def _ensure_or_preempt(self) -> None:
-        """Grow every active row by one token of pages, preempting the
-        youngest other request on pool exhaustion."""
-        needs = [(slot, 1) for slot in self._active]
+    def _grow_tokens(self, slot: int, new_tokens: int) -> int:
+        """How many tokens of pages this dispatch must claim for ``slot``.
+        A horizon claim is clamped to the row's remaining budget (the
+        block stops advancing at 0) and to its table capacity (the lens
+        mirror of a row that retired on the device but is not drained yet
+        over-advances).  A single-step claim passes through, except for
+        such a row past its table.  ``<= 0``: nothing to claim."""
+        lens_m = int(self.cache.lens[slot])
+        if self.decode_horizon == 1:
+            if self._inflight and \
+                    lens_m // self.cache.page >= self.cache.pages_max:
+                return 0
+            return new_tokens
+        cap = self.cache.pages_max * self.cache.page - lens_m
+        return min(new_tokens, max(int(self._remaining[slot]), 1), cap)
+
+    def _ensure_or_preempt(self, new_tokens: int = 1) -> None:
+        """Grow every active row by ``new_tokens`` of pages as one
+        coalesced claim (at most one ``tables_version`` bump, so at most
+        one device tables re-upload), falling back under pool pressure to
+        a per-slot loop that flushes the pipeline first while dispatches
+        are in flight and then preempts the youngest other request."""
+        needs = []
+        for slot in self._active:
+            n = self._grow_tokens(slot, new_tokens)
+            if n > 0:
+                needs.append((slot, n))
+        if not needs:
+            return
         try:
             self.cache.ensure_capacity_batch(needs)
             return
@@ -497,19 +631,55 @@ class ContinuousBatchingEngine:
         for slot in list(self._active):
             if slot not in self._active:     # evicted by an earlier turn
                 continue
+            n = self._grow_tokens(slot, new_tokens)
+            if n <= 0:
+                continue
             while True:
                 try:
-                    self.cache.ensure_capacity(slot, 1)
+                    self.cache.ensure_capacity(slot, n)
                     break
                 except RuntimeError:
+                    if self._inflight:
+                        # drain first: a pending retirement on the device
+                        # may free pages without preempting anyone, and a
+                        # victim's pages must not move under in-flight
+                        # writes
+                        self._pipeline_flush()
+                        if slot not in self._active:
+                            break
+                        n = self._grow_tokens(slot, new_tokens)
+                        if n <= 0:
+                            break
+                        continue
                     if not self._preempt(keep=slot):
                         raise RuntimeError(
                             "KV page pool exhausted and no preemption "
                             "victim remains; the pool is too small for a "
                             "single request of this length")
 
+    def _deliver_token(self, slot: int, req: Request, t: int) -> None:
+        """The per-token emission core every lane shares: append, count,
+        stream, next input.  The budget and the retire decision stay with
+        the callers."""
+        req.generated.append(t)
+        self.tokens_generated += 1
+        self._stream.append((req.rid, t))
+        self._next_tok[slot] = t
+
+    def _decode_once(self) -> None:
+        """One decode round for every active slot: the synchronous lane,
+        one turn of the dispatch-ahead pipeline (``overlap=True``) or, with
+        ``decode_horizon > 1`` and no overlap, one synchronous H-token
+        block."""
+        if self.overlap:
+            self._decode_overlap()
+        elif self.decode_horizon > 1:
+            self._decode_sync_multi()
+        else:
+            self._decode_sync()
+
     def _decode_sync(self) -> None:
-        """One decode step for the whole batch + a blocking fetch."""
+        """One eager decode step for the whole batch + a blocking fetch."""
         cache = self.cache
         dev = self.device
         self._ensure_or_preempt()
@@ -527,13 +697,224 @@ class ContinuousBatchingEngine:
                 self._gen)
         cache.lens = cache.lens + self._active_mask
         self.decode_steps += 1
-        nxt = nxt.cpu().numpy()
+        (nxt,) = self._fetch(None, nxt)
         for slot, req in list(self._active.items()):
             t = int(nxt[slot])
-            req.generated.append(t)
-            self.tokens_generated += 1
-            self._stream.append((req.rid, t))
-            self._next_tok[slot] = t
+            self._deliver_token(slot, req, t)
             self._remaining[slot] -= 1
             if self._hit_stop(req, t) or self._remaining[slot] <= 0:
                 self._retire(slot)
+
+    # -- the dispatch-ahead pipeline and the horizon ----------------------
+    def _pools(self):
+        c = self.cache
+        if c.kv_quant == "int8":
+            return (c.kpool, c.vpool, c.kscale, c.vscale)
+        return (c.kpool, c.vpool)
+
+    def _graph(self):
+        """The async (H = 1) or horizon step of the current key."""
+        return decode_graph(
+            self.cfg, self.decode_horizon, self.decode_horizon > 1,
+            self.temperature, self.cache.kv_quant, self.top_k, self.top_p,
+            self.params, self._pools(), self.B, self.cache.pages_max,
+            self.device, self._gen)
+
+    def _decode_overlap(self) -> None:
+        """One turn of the pipeline: dispatch step k chained off step
+        k-1's outputs on the device (no host sync), then drain the oldest
+        step while k runs."""
+        if self._dev is not None and self._dev is not self._graph():
+            # a flag flip changed the key: the new graph starts from host
+            # truth
+            self._needs_flush = True
+        if self._needs_flush:
+            self._pipeline_flush()
+        if self._active:
+            # claim pages for the next write positions, the whole
+            # horizon's worth, so the tables stay constant across a block
+            self._ensure_or_preempt(self.decode_horizon)
+            if self._needs_flush:          # a preemption landed
+                self._pipeline_flush()
+            if self._active:
+                self._dispatch_async()
+        if self._active and len(self._inflight) > self.lookahead:
+            self._drain_one()
+        if not self._active and self._inflight:
+            # the batch went idle: drain the lookahead dispatches (they
+            # carry no live row) so the engine parks with nothing in flight
+            while self._inflight:
+                self._drain_one()
+            self._dev = None
+
+    def _seed_or_refresh_dev(self, slot: Dict):
+        """(Re)seed the graph's device-resident loop state from host truth
+        after a flush, or re-upload only the tables when page allocations
+        bumped ``tables_version``.  Every upload goes from the pinned
+        ``slot`` with ``non_blocking=True``."""
+        cache = self.cache
+        g = self._graph()
+        if self._dev is None:
+            for name, src in (("lens", cache.lens),
+                              ("tok", self._next_tok),
+                              ("active", self._active_mask.astype(bool)),
+                              ("remaining", self._remaining)):
+                slot[name].numpy()[...] = src
+                getattr(g, name).copy_(slot[name], non_blocking=True)
+            g.eos.copy_(self._eos_dev)
+            self._dev = g
+            self._dev_tables_version = -1
+            self._drain_active = self._active_mask.astype(bool)
+        if self._dev_tables_version != cache.tables_version:
+            slot["tables"].numpy()[...] = cache.tables
+            g.tables.copy_(slot["tables"], non_blocking=True)
+            self._dev_tables_version = cache.tables_version
+        return g
+
+    def _launch(self) -> Dict:
+        """Seed or refresh the state, replay the graph (one step, or one
+        H-token block) and queue its outputs' copy into the next pinned
+        slot behind it, with an event -> the in-flight entry."""
+        slot = self._ring[self._ring_i % len(self._ring)]
+        self._ring_i += 1
+        g = self._seed_or_refresh_dev(slot)
+        out = g(self.params, self._pools(), self._gen)
+        slot["out"].copy_(out, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self.decode_steps += 1
+        return {"out": slot["out"], "event": event}
+
+    def _dispatch_async(self) -> None:
+        """Issue one step, or one H-micro-step block, chained off the
+        device-resident loop state.  No blocking host work: uploads happen
+        only after a flush or when the tables grew."""
+        self._inflight.append(self._launch())
+        # the host lens mirror, for the next dispatch's capacity claim:
+        # exact for live rows, over for rows that stop inside the step
+        # (their release zeroes it)
+        self.cache.lens = self.cache.lens + (self.decode_horizon
+                                             * self._active_mask)
+
+    def _fetch(self, event, *arrs):
+        """Blocking device->host fetch, the pipeline's one sync point: one
+        call per drained step (tests count calls through this seam).
+        ``arrs`` are pinned host slots whose copies ``event`` follows, or
+        (the synchronous lane) device tensors."""
+        self.host_syncs += 1
+        if event is not None:
+            event.synchronize()
+        return [a.numpy() if a.device.type == "cpu" else a.cpu().numpy()
+                for a in arrs]
+
+    def _drain_one(self) -> None:
+        """Sync on the oldest in-flight step (the next one already runs)
+        and do its host bookkeeping: streaming and retirement.  A stop
+        sequence is visible only here: it retires the request and
+        schedules a flush, since the device's active chain cannot know."""
+        e = self._inflight.pop(0)
+        toks, dones = self._fetch(e["event"], e["out"][0], e["out"][1])
+        if self.decode_horizon > 1:
+            self._drain_active = self._drain_horizon_block(
+                toks, dones, self._drain_active)
+            return
+        nxt, done = toks[0], dones[0].astype(bool)
+        mask = self._drain_active
+        for slot in np.nonzero(mask)[0]:
+            slot = int(slot)
+            req = self._active.get(slot)
+            if req is None:
+                # retired on the host (stop sequence) after this step was
+                # dispatched: its token is dead, and the scheduled flush
+                # keeps the slot from being reused under it
+                continue
+            t = int(nxt[slot])
+            self._deliver_token(slot, req, t)
+            self._remaining[slot] -= 1
+            if done[slot]:
+                self._retire(slot)          # eos / budget (on the device)
+            elif self._hit_stop(req, t):
+                self._retire(slot)          # stop sequence (host only)
+                self._needs_flush = True
+        # follow the device's active chain: the next undrained step ran
+        # with active & ~done
+        self._drain_active = mask & ~done
+
+    def _drain_horizon_block(self, toks, dones, mask):
+        """Host bookkeeping of one fetched ``[H, B]`` block, shared by the
+        overlap drain and the synchronous horizon lane.  ``mask`` is the
+        device-active mask at the block's dispatch; returns the mask after
+        it (rows drop at their done on the device; rows retired on the
+        host stay until the scheduled flush).  A stop sequence retires its
+        row where the H = 1 lane would and discards, and counts, the
+        tokens the device generated past it."""
+        H = toks.shape[0]
+        trimmed = 0
+        out_mask = mask.copy()
+        for slot in np.nonzero(mask)[0]:
+            slot = int(slot)
+            nd = np.nonzero(dones[:, slot])[0]
+            # the row generated up to and including its first done; after
+            # it the column repeats its last token
+            n_gen = int(nd[0]) + 1 if nd.size else H
+            device_done = nd.size > 0
+            if device_done:
+                out_mask[slot] = False
+            req = self._active.get(slot)
+            if req is None:
+                continue            # retired on the host: tokens are dead
+            col = toks[:, slot]
+            if req.stop_sequences:
+                for h in range(n_gen):
+                    t = int(col[h])
+                    self._deliver_token(slot, req, t)
+                    self._remaining[slot] -= 1
+                    if h == n_gen - 1 and device_done:
+                        self._retire(slot)
+                    elif self._hit_stop(req, t):
+                        self._retire(slot)
+                        if self.overlap:
+                            self._needs_flush = True
+                        trimmed += n_gen - 1 - h
+                        break
+                continue
+            # no stop sequence: the column lands as one bulk extend
+            got = col[:n_gen].tolist()
+            req.generated.extend(got)
+            self.tokens_generated += n_gen
+            self._stream.extend((req.rid, t) for t in got)
+            self._next_tok[slot] = got[-1]
+            self._remaining[slot] -= n_gen
+            if device_done:
+                self._retire(slot)
+        self.horizon_trimmed_tokens += trimmed
+        return out_mask
+
+    def _decode_sync_multi(self) -> None:
+        """The synchronous horizon lane: one H-micro-step block seeded
+        from host truth, then one blocking fetch."""
+        self._ensure_or_preempt(self.decode_horizon)
+        self._dev = None             # seed from host truth every block
+        e = self._launch()
+        self._dev = None
+        mask = self._active_mask.astype(bool)
+        self.cache.lens = self.cache.lens + (self.decode_horizon
+                                             * self._active_mask)
+        toks, dones = self._fetch(e["event"], e["out"][0], e["out"][1])
+        self._drain_horizon_block(toks, dones, mask)
+
+    def _pipeline_flush(self) -> None:
+        """Drain every in-flight dispatch and drop the device-resident
+        loop state.  Called at every scheduler mutation point; afterwards
+        the host arrays are authoritative and the next dispatch re-seeds
+        the device from them."""
+        if not self._inflight and self._dev is None \
+                and not self._needs_flush:
+            return
+        while self._inflight:
+            self._drain_one()
+        self._dev = None
+        self._needs_flush = False
+        self.pipeline_flushes += 1

@@ -435,8 +435,11 @@ def test_recompute_preemption_is_token_exact_and_audit_clean(models):
 
 def test_engine_refuses_lanes_not_ported(models):
     _, tcfg, _, tparams = models
-    for kw in ({"overlap": True}, {"mixed": True}, {"decode_horizon": 4},
-               {"enable_prefix_caching": True}, {"packed": False}):
+    # overlap and decode_horizon are ported (test_torch_serving_overlap.py)
+    for kw in ({"mixed": True}, {"spec": object()}, {"mesh": object()},
+               {"enable_prefix_caching": True}, {"packed": False},
+               {"policy": object()}, {"tenant_quotas": object()},
+               {"tp_allreduce": "int8"}):
         with pytest.raises(NotImplementedError):
             _engine(tcfg, tparams, **kw)
     # int8 is the one page quantization, as in JAX
