@@ -31,7 +31,8 @@ Phases, one JSON line each on stdout:
    k5, k6a, k6b, k6c, k8 - the training kernels the same way, at the
              trainer's shapes ([8, 2048, 16, 128] bf16, causal; the w_gate
              leaf [24, 2048, 5504]) and at a ragged length, head_dim 64
-             and a leaf size no vector divides; k6c also prints delta_ms
+             and a leaf size no vector divides; k5 also at the serving
+             shape [8, 256, 32, 128] (serve_dense's batched lane, timed); k6c also prints delta_ms
              (the wrapper's sum of dout * out) and bwd_total_ms (K6b +
              K6c + delta), the whole backward beside SDPA's.
    k7      - the segmented backward, dq (K7a) and dk / dv (K7b), from K2's
@@ -79,6 +80,30 @@ Phases, one JSON line each on stdout:
              one wave, the same tokens.  Launch counts there: the
              wrappers' counts, less the launches they recorded into a graph
              at capture, plus launches per replay x replays.
+4c. serve_prefix - prefix caching (enable_prefix_caching=True, the packed
+             lane): 8 requests behind one 448-token system prompt (7 pages
+             of 64) with tails of 16-200 tokens, in two waves of four: wave
+             1 shares the prefix within the wave (history from the stream),
+             wave 2 hits the pool (history from the pages); the prefix hits
+             by wave (21, 28) and fewer fresh tokens in the pool-hit wave.
+             Each wave's admission ms, dispatches, stream slots, hit pages
+             and fresh tokens, and the same waves with prefix caching off
+             and on the packed lane and on the chunked lane (packed=False,
+             prefill_chunk 256, where a hit skips the shared pages' work).
+             The served sequences teacher-forced through the prefix lane's
+             own admission (the waves again, their prefill's hidden states
+             captured): logits within LOGIT_LIMIT of the plain forward's, a
+             planted fault (pool history read from the next page) beyond
+             it, every served token within 2 * LOGIT_LIMIT of the plain top
+             logit.
+4d. serve_dense - the packed=False lanes: 8 prompts of 242-256 tokens as
+             one batched dense dispatch ([8, 256]: K5 on q and k of every
+             layer, 64 launches from serving, counted against the code's),
+             then a 1,000-token prompt through the chunked lane (4 chunks of
+             256 over the row's cached pages); each wave's admission ms;
+             the served sequences teacher-forced through each lane's own
+             admission within LOGIT_LIMIT of the plain forward's, a planted
+             fault (K5 rotating by -sin) beyond it.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -90,6 +115,10 @@ Phases, one JSON line each on stdout:
              distance from the bf16 path is printed, not gated.
 5b. serve_int8_overlap - serve_overlap on the int8 weights over int8
              pages: K4 and K3's decode path launched from graph replays.
+5c. serve_prefix_int8 - serve_prefix on the int8 weights over int8 pages
+             (pool history dequantized by its scales): logits within
+             INT8_LOGIT_LIMIT of the same lane with every kernel replaced
+             by its plain version, the planted fault beyond it.
 6. train   - the 1.345 B-parameter LLaMA of the JAX package's training
              bench (vocab 32000, hidden 2048, FFN 5504, 24 layers, 16 heads
              of 128; bf16 compute over f32 masters, remat full, chunked
@@ -213,6 +242,9 @@ TRAIN_CFG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
 TRAIN_BATCH, TRAIN_TOKENS, TRAIN_STEPS = 8, 2049, 4
 # (B, S, H, d) of K5 and K6: the trainer's shape, a ragged length, head_dim 64
 TRAIN_SHAPES = [(8, 2048, 16, 128), (2, 2047, 16, 128), (2, 2048, 16, 64)]
+# K5 also at the serving shape: the dense batched lane's q / k at 8 prompts
+# of a 256-token bucket, LLaMA-7B's 32 heads of 128
+K5_SHAPES = TRAIN_SHAPES + [(8, 256, 32, 128)]
 K8_SIZES = [24 * 2048 * 5504, 1_000_003]      # w_gate; no multiple of 4
 
 K1_LENS = [1, 64, 65, 2048, 300, 1000, 1500, 777]
@@ -1605,6 +1637,402 @@ def phase_serve_overlap(torch, cfg, seed, params, mods, kv_quant=None,
     return total
 
 
+# serve_prefix: 8 requests behind one shared system prompt of PREFIX_LEN
+# tokens (7 pages of 64) with tails of 16-200 tokens, admitted in two waves
+# of four: wave 1 shares the prefix within the wave (the stream), wave 2
+# hits the pool
+PREFIX_LEN = 448
+PREFIX_TAILS = [16, 200, 64, 130, 40, 180, 100, 150]
+PREFIX_WAVES = [[0, 1, 2, 3], [4, 5, 6, 7]]
+PREFIX_NEW = 16
+# serve_dense (packed=False): the batched lane takes 8 prompts of 242-256
+# tokens as one dense [8, 256] dispatch (prefill_bucket 256: K5 at
+# [8, 256, 32, 128], 2 launches a layer); the chunked lane one prompt of
+# 1,000 tokens at prefill_chunk 256 (4 chunk dispatches)
+DENSE_LENS = [256, 250, 243, 255, 242, 248, 253, 246]
+DENSE_BUCKET = 256
+DENSE_NEW = 16
+CHUNK_LEN, CHUNK = 1000, 256
+
+
+def timed_waves(torch, eng):
+    """Time every admission wave of ``eng`` on the host clock between two
+    synchronizes (the wave's prefill dispatches, page write and first
+    tokens), with its dispatches, stream slots, prefix-hit pages, context
+    tokens and fresh tokens (context tokens less the reused pages' tokens).
+    -> the list each wave appends to."""
+    waves = []
+    real = eng._admit_wave
+
+    def wave():
+        ctx = [len(eng._ctx_of(r)) for r in eng._queue]
+        c0 = (eng.prefill_calls, eng.prefill_token_slots,
+              eng.cache.prefix_hits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = len(ctx) - len(eng._queue)
+        if n:
+            hits = eng.cache.prefix_hits - c0[2]
+            waves.append(dict(
+                requests=n, ms=ms, dispatches=eng.prefill_calls - c0[0],
+                stream_slots=eng.prefill_token_slots - c0[1],
+                prefix_hit_pages=hits, context_tokens=sum(ctx[:n]),
+                fresh_tokens=sum(ctx[:n]) - eng.cache.page * hits))
+
+    eng._admit_wave = wave
+    return waves
+
+
+def lane_hidden(torch, cfg, params, cache, seqs, waves, wrap=None,
+                **engine_kw):
+    """Teacher-forced hidden states of ``seqs`` through an engine's own
+    admission lane: each wave (a list of indices) is submitted with
+    max_new_tokens 1, so it admits as one wave and retires at once; every
+    prefill call's hidden states are captured and placed by sequence and
+    position (packed: by segment id and position; dense: by row; chunked:
+    by the chunk's offset, the requests in order).  ``wrap`` rewrites the
+    packed prefill's arguments (a planted fault).  -> one [len, H] tensor
+    per sequence (rows of reused prefix pages are not computed)."""
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    eng = ContinuousBatchingEngine(cfg, params, cache, **engine_kw)
+    calls = []
+    for name in ("_prefill_packed", "_prefill_dense", "_prefill_chunked"):
+        def rec(params, toks, *args, _real=getattr(eng, name), _name=name):
+            if wrap is not None and _name == "_prefill_packed" and args[2:]:
+                args = wrap(args)
+            out = _real(params, toks, *args)
+            calls.append((_name, out[0], args))
+            return out
+
+        setattr(eng, name, rec)
+    hidden = [None] * len(seqs)
+    for wave in waves:
+        calls.clear()
+        for i in wave:
+            eng.submit(seqs[i], max_new_tokens=1)
+            hidden[i] = torch.zeros((len(seqs[i]), cfg.hidden_size),
+                                    dtype=cfg.dtype, device=cache.device)
+        eng.step()
+        eng.finished()
+        if eng.has_work():
+            fail(f"lane_hidden: wave {wave} did not admit whole")
+        k = 0
+        for name, x, args in calls:
+            if name == "_prefill_packed":
+                seg, pos = args[0][0], args[1][0]
+                for j, i in enumerate(wave):
+                    idx = (seg == j).nonzero()[:, 0]
+                    p = pos[idx].long()
+                    ok = p < len(seqs[i])
+                    hidden[i][p[ok]] = x[0, idx[ok]]
+            elif name == "_prefill_dense":
+                for j, i in enumerate(wave):
+                    hidden[i] = x[j, :len(seqs[i])]
+            else:
+                i = wave[k]
+                at = int(args[-1])
+                n = min(x.shape[1], len(seqs[i]) - at)
+                hidden[i][at:at + n] = x[0, :n]
+                k += at + n >= len(seqs[i])
+    if cache.audit()["owned"]:
+        fail("lane_hidden: pages left owned")
+    return hidden
+
+
+def head_logits(cfg, params, h):
+    from paddle_tpu_torch.models.llama_pretrain import _mm, _rms_norm
+    return _mm(_rms_norm(h, params["final_norm"], cfg.rms_norm_eps),
+               params["lm_head"], cfg.dtype).float()
+
+
+def served_gap(torch, gens, plain):
+    """The largest distance of a served token's plain logit below the
+    plain top logit."""
+    gap = 0.0
+    for toks, logits in zip(gens, plain):
+        top = logits.max(dim=-1).values
+        got = logits[torch.arange(len(toks)), torch.tensor(toks)]
+        gap = max(gap, float((top - got).max()))
+    return gap
+
+
+def phase_serve_prefix(torch, cfg, seed, params, mods, kv_quant=None,
+                       dev="cuda"):
+    """Prefix caching on LLaMA-7B: 8 requests share a PREFIX_LEN-token
+    system prompt (7 pages) with tails of 16-200 tokens, served in two
+    waves of four on the packed lane with ``enable_prefix_caching``:
+    wave 1 shares the prefix within the wave (history from the stream),
+    wave 2 hits the pool.  Then each lane's admission time with and
+    without prefix caching (the packed lane; the chunked lane, packed=False
+    at prefill_chunk 256, where a hit skips computing the shared pages),
+    and the served sequences teacher-forced through the prefix lane's own
+    admission: their logits within LOGIT_LIMIT of the plain forward's (bf16
+    pages), or within INT8_LOGIT_LIMIT of the same lane with every kernel
+    replaced by its plain version (int8 weights over int8 pages), and a
+    planted fault (pool history read from the next page) beyond it."""
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    import paddle_tpu_torch.models.paged_decode as pd
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    fv, im = mods["fv"], mods["im"]
+    phase = "serve_prefix_int8" if kv_quant else "serve_prefix"
+    int8w = isinstance(params["lm_head"], dict)
+    limit = INT8_LOGIT_LIMIT if kv_quant else LOGIT_LIMIT
+    rng = np.random.default_rng(seed + 7)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PREFIX_TAILS]
+    page = 64
+    shared = PREFIX_LEN // page
+
+    def new_cache():
+        return PagedKVCache(cfg, num_pages=256, pages_max=32, batch=8,
+                            page=page, kv_quant=kv_quant, device=dev)
+
+    cache = new_cache()
+    eng = ContinuousBatchingEngine(cfg, params, cache,
+                                   enable_prefix_caching=True)
+    served_waves = timed_waves(torch, eng)
+    gens = [None] * len(prompts)
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    for wave in PREFIX_WAVES:
+        rids = {eng.submit(prompts[i], max_new_tokens=PREFIX_NEW): i
+                for i in wave}
+        for r in eng.run_to_completion():
+            gens[rids[r.rid]] = r.generated
+        cache.audit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    attn = ("paged_decode_attention_q8" if kv_quant
+            else "paged_decode_attention")
+    path = ["flash_attention_segmented", "segment_tile_ranges", attn]
+    if int8w:
+        path += ["int8_matmul", "int8_matmul_wave"]
+    for name in path:
+        if launches[name] <= 0:
+            fail(f"{phase}: kernel {name} was not launched")
+    for name in FLAGGED:
+        if launches[name]:
+            fail(f"{phase}: kernel {name} was launched with its flag off")
+    stats = cache.audit()
+    if stats["owned"]:
+        fail(f"{phase}: pages still owned after every request finished")
+    if any(len(g) != PREFIX_NEW for g in gens):
+        fail(f"{phase}: a request got other than {PREFIX_NEW} tokens")
+    want_hits = [shared * (len(w) - 1) for w in PREFIX_WAVES[:1]] + [
+        shared * len(w) for w in PREFIX_WAVES[1:]]
+    got_hits = [w["prefix_hit_pages"] for w in served_waves]
+    if got_hits != want_hits:
+        fail(f"{phase}: prefix hits by wave {got_hits}, want {want_hits}")
+    if not served_waves[1]["fresh_tokens"] < served_waves[0]["fresh_tokens"]:
+        fail(f"{phase}: the pool-hit wave prefilled "
+             f"{served_waves[1]['fresh_tokens']} fresh tokens, the first "
+             f"{served_waves[0]['fresh_tokens']}")
+    del eng, cache
+    torch.cuda.empty_cache()
+
+    # each lane's admission with and without prefix caching (max_new 1:
+    # admission only); wave 2 is the pool-hit wave
+    lanes = {}
+    for lane, kw in (("packed", {}),
+                     ("chunked", {"packed": False, "prefill_chunk": 256})):
+        for on in (False, True):
+            cache = new_cache()
+            e = ContinuousBatchingEngine(cfg, params, cache,
+                                         enable_prefix_caching=on, **kw)
+            tw = timed_waves(torch, e)
+            for wave in PREFIX_WAVES:
+                for i in wave:
+                    e.submit(prompts[i], max_new_tokens=1)
+                e.run_to_completion()
+            lanes[f"{lane}_{'prefix' if on else 'no_prefix'}"] = tw
+            del e, cache
+            torch.cuda.empty_cache()
+    if not lanes["chunked_prefix"][1]["stream_slots"] < \
+            lanes["chunked_no_prefix"][1]["stream_slots"]:
+        fail(f"{phase}: the chunked lane's pool-hit wave dispatched no "
+             f"fewer token slots with prefix caching")
+
+    seqs = [p + g[:-1] for p, g in zip(prompts, gens)]
+
+    def teacher_forced(wrap=None):
+        cache = new_cache()
+        hid = lane_hidden(torch, cfg, params, cache, seqs, PREFIX_WAVES,
+                          wrap=wrap, enable_prefix_caching=True)
+        out = [head_logits(cfg, params, h[len(p) - 1:])
+               for h, p in zip(hid, prompts)]
+        if cache.prefix_hits != sum(want_hits):
+            fail(f"{phase}: the teacher-forced waves hit "
+                 f"{cache.prefix_hits} pages, want {sum(want_hits)}")
+        del cache, hid
+        torch.cuda.empty_cache()
+        return out
+
+    def wrong_page(args):
+        # pool history read from the next page id
+        args = list(args)
+        hp, pool_hist = args[6], args[8]
+        args[6] = torch.where(pool_hist, (hp + 1) % args[2].shape[1], hp)
+        return tuple(args)
+
+    t0 = time.perf_counter()
+    sound = teacher_forced()
+    if kv_quant:
+        with patched((tlp, "int8_matmul", im.int8_matmul_plain),
+                     (pd, "flash_attention_segmented",
+                      lambda q, k, v, seg, causal=False:
+                      fv.segmented_sdpa_plain(q, k, v, seg, causal))):
+            plain = teacher_forced()
+    else:
+        plain = [plain_logits(torch, cfg, params, s, dev)[len(p) - 1:]
+                 for s, p in zip(seqs, prompts)]
+    logit_diff = max_diff(sound, plain)
+    fault = teacher_forced(wrap=wrong_page)
+    fault_diff = max_diff(fault, plain)
+    gap = None if kv_quant else served_gap(torch, gens, plain)
+    check_s = time.perf_counter() - t0
+    del sound, fault, plain
+    emit(phase, model="LLaMA-7B (LlamaPretrainConfig defaults)",
+         weights="int8 (quantize_params_int8)" if int8w else "bf16",
+         kv_pages=kv_quant or "bf16", prefix_tokens=PREFIX_LEN,
+         tails=PREFIX_TAILS, waves=PREFIX_WAVES, new_tokens=PREFIX_NEW,
+         wall_s=wall, served_waves=served_waves, prefix_hits=got_hits,
+         lanes=lanes, launches=launches, logit_check_s=check_s,
+         logit_max_abs_diff=logit_diff, logit_limit=limit,
+         logit_reference=("the same lane, plain kernels" if kv_quant
+                          else "plain forward"),
+         planted_fault="pool history read from the next page",
+         planted_fault_max_abs_diff=fault_diff, served_token_max_gap=gap)
+    if logit_diff > limit:
+        fail(f"{phase}: the prefix lane's teacher-forced logits differ by "
+             f"{logit_diff} (limit {limit})")
+    if fault_diff <= limit:
+        fail(f"{phase}: the planted fault moved the logits by only "
+             f"{fault_diff}, within the limit {limit}")
+    if gap is not None and gap > 2 * limit:
+        fail(f"{phase}: a greedy token sits {gap} below the plain "
+             f"teacher-forced top logit (limit {2 * limit})")
+    return launches
+
+
+def phase_serve_dense(torch, cfg, seed, params, mods, dev="cuda"):
+    """The packed=False lanes on LLaMA-7B: 8 prompts of 242-256 tokens in
+    one batched wave (one dense [8, 256] dispatch of ``_prefill``, K5 on q
+    and k in every layer), then one prompt of CHUNK_LEN tokens through the
+    chunked lane (prefill_chunk CHUNK).  K5's launches from serving counted
+    against the code's (2 a layer a batched dispatch); the served sequences
+    teacher-forced through each lane's own admission within LOGIT_LIMIT of
+    the plain forward's logits, and a planted fault (K5 rotating by -sin in
+    the batched lane) beyond it."""
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    rp = mods["rp"]
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in DENSE_LENS]
+    prompts.append(rng.integers(0, cfg.vocab_size, CHUNK_LEN).tolist())
+    batched, chunked = list(range(len(DENSE_LENS))), [len(DENSE_LENS)]
+
+    def new_cache():
+        return PagedKVCache(cfg, num_pages=256, pages_max=32, batch=8,
+                            page=64, device=dev)
+
+    cache = new_cache()
+    eng = ContinuousBatchingEngine(cfg, params, cache, packed=False,
+                                   prefill_bucket=DENSE_BUCKET,
+                                   prefill_chunk=CHUNK)
+    waves = timed_waves(torch, eng)
+    gens = [None] * len(prompts)
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    for wave in (batched, chunked):
+        rids = {eng.submit(prompts[i], max_new_tokens=DENSE_NEW): i
+                for i in wave}
+        for r in eng.run_to_completion():
+            gens[rids[r.rid]] = r.generated
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    stats = cache.audit()
+    del eng, cache
+    torch.cuda.empty_cache()
+    want_rope = 2 * cfg.num_hidden_layers          # one batched dispatch
+    if launches["fused_rope"] != want_rope:
+        fail(f"serve_dense: K5 was launched {launches['fused_rope']} times "
+             f"from serving, the code predicts {want_rope}")
+    if launches["paged_decode_attention"] <= 0:
+        fail("serve_dense: kernel paged_decode_attention was not launched")
+    for name in ("flash_attention_segmented", "segment_tile_ranges",
+                 *FLAGGED):
+        if launches[name]:
+            fail(f"serve_dense: kernel {name} ran on the dense lanes")
+    if stats["owned"] or any(len(g) != DENSE_NEW for g in gens):
+        fail(f"serve_dense: pages left owned ({stats}) or a short reply")
+    if [w["dispatches"] for w in waves] != [1, -(-CHUNK_LEN // CHUNK)]:
+        fail(f"serve_dense: admission dispatches "
+             f"{[w['dispatches'] for w in waves]}")
+
+    seqs = [p + g[:-1] for p, g in zip(prompts, gens)]
+
+    def teacher_forced():
+        out = [None] * len(seqs)
+        for wave, kw in ((batched, dict(prefill_bucket=DENSE_BUCKET)),
+                         (chunked, dict(prefill_chunk=CHUNK))):
+            cache = new_cache()
+            hid = lane_hidden(torch, cfg, params, cache, seqs, [wave],
+                              packed=False, **kw)
+            for i in wave:
+                out[i] = head_logits(cfg, params,
+                                     hid[i][len(prompts[i]) - 1:])
+            del cache, hid
+            torch.cuda.empty_cache()
+        return out
+
+    t0 = time.perf_counter()
+    sound = teacher_forced()
+    plain = [plain_logits(torch, cfg, params, s, dev)[len(p) - 1:]
+             for s, p in zip(seqs, prompts)]
+    logit_diff = max_diff(sound, plain)
+    with patched((tlp, "fused_rope",
+                  lambda x, cos, sin: rp._apply(x.contiguous(), cos, sin,
+                                                True))):
+        fault = teacher_forced()
+    fault_diff = max_diff(fault, plain)
+    gap = served_gap(torch, gens, plain)
+    check_s = time.perf_counter() - t0
+    del sound, fault, plain
+    emit("serve_dense", model="LLaMA-7B (LlamaPretrainConfig defaults)",
+         packed=False, prefill_bucket=DENSE_BUCKET, prefill_chunk=CHUNK,
+         batched_prompt_lens=DENSE_LENS, chunked_prompt_len=CHUNK_LEN,
+         new_tokens=DENSE_NEW, wall_s=wall, waves=waves,
+         k5_launches_from_serving=launches["fused_rope"],
+         k5_launches_predicted=want_rope, launches=launches,
+         logit_check_s=check_s, logit_max_abs_diff=logit_diff,
+         logit_limit=LOGIT_LIMIT,
+         planted_fault="K5 rotating by -sin in the batched lane",
+         planted_fault_max_abs_diff=fault_diff, served_token_max_gap=gap)
+    if logit_diff > LOGIT_LIMIT:
+        fail(f"serve_dense: the dense lanes' teacher-forced logits differ "
+             f"from the plain forward's by {logit_diff} (limit "
+             f"{LOGIT_LIMIT})")
+    if fault_diff <= LOGIT_LIMIT:
+        fail(f"serve_dense: the planted fault moved the logits by only "
+             f"{fault_diff}, within the limit {LOGIT_LIMIT}")
+    if gap > 2 * LOGIT_LIMIT:
+        fail(f"serve_dense: a greedy token sits {gap} below the plain "
+             f"teacher-forced top logit (limit {2 * LOGIT_LIMIT})")
+    return launches
+
+
 def train_launches_per_step(cfg, flag_set=None):
     """What the code launches in one AdamW step under remat full: K8 once
     per leaf (9 stacked block leaves, embed, final_norm, lm_head); K6a in
@@ -2112,8 +2540,8 @@ def main():
     k2 = [phase_k2(torch, fv, nkv, gen, flush) for nkv in (32, 8)]
     k3 = [phase_k3(torch, im, shape, gen, flush) for shape in K3_SHAPES]
     k4 = [phase_k4(torch, pa, nkv, gen, flush) for nkv in (32, 8)]
-    k5 = [phase_k5(torch, rp, shape, gen, flush, timed=i == 0)
-          for i, shape in enumerate(TRAIN_SHAPES)]
+    k5 = [phase_k5(torch, rp, shape, gen, flush, timed=i in (0, 3))
+          for i, shape in enumerate(K5_SHAPES)]
     k6 = [phase_k6(torch, fa, shape, gen, flush, timed=i == 0)
           for i, shape in enumerate(TRAIN_SHAPES)]
     k8 = [phase_k8(torch, aw, n, gen, flush, timed=i == 0)
@@ -2134,12 +2562,19 @@ def main():
     launches_overlap = phase_serve_overlap(torch, cfg, args.seed, params,
                                            mods)
     torch.cuda.empty_cache()
+    launches_prefix = phase_serve_prefix(torch, cfg, args.seed, params, mods)
+    torch.cuda.empty_cache()
+    launches_dense = phase_serve_dense(torch, cfg, args.seed, params, mods)
+    torch.cuda.empty_cache()
     launches_int8, qparams = phase_serve_int8(torch, cfg, args.seed, params,
                                               mods)
     del params
     torch.cuda.empty_cache()
     launches_int8_overlap = phase_serve_overlap(
         torch, cfg, args.seed, qparams, mods, kv_quant="int8")
+    torch.cuda.empty_cache()
+    launches_prefix_int8 = phase_serve_prefix(torch, cfg, args.seed, qparams,
+                                              mods, kv_quant="int8")
     del qparams
     torch.cuda.empty_cache()             # the serves' weights are gone
     train_cfg = LlamaPretrainConfig(**TRAIN_CFG)
@@ -2159,7 +2594,8 @@ def main():
         phase_train_grads(torch, train_cfg, args.seed, mods, flag_set=flag_set)
     # each kernel's launches in the serve, train, train_packed and
     # train_fused phases
-    runs = [launches, launches_overlap, launches_int8, launches_int8_overlap,
+    runs = [launches, launches_overlap, launches_prefix, launches_dense,
+            launches_int8, launches_int8_overlap, launches_prefix_int8,
             launches_train, launches_packed, *launches_fused]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 

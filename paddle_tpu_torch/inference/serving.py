@@ -221,6 +221,7 @@ class GenerationServer:
                     "tokens_generated": eng.tokens_generated,
                     "prefill_calls": eng.prefill_calls,
                     "preemptions": eng.preemptions,
+                    "prefix_hits": eng.cache.prefix_hits,
                     "requests_finished": eng.requests_finished,
                     "requests_cancelled": eng.requests_cancelled,
                     "requests_expired": eng.requests_expired,

@@ -1,29 +1,36 @@
-"""Paged-KV-cache decoding: the page allocator, the per-token decode step and
-the packed varlen prefill.
+"""Paged-KV-cache decoding: the page allocator with its prefix index, the
+per-token decode step, the admission prefills and paged generation.
 
 Counterpart of ``paddle_tpu/models/paged_decode.py`` for the serving lane
 on one device, with bf16 / fp32 pages or int8 pages (``kv_quant="int8"``):
-:class:`PagedKVCache` (free list, row alloc / growth / release, the batched
-page write, ``audit``), :func:`_rope_rows`, :func:`_rope_at`,
-:func:`_pick_token`, :func:`_decode_layer`, :func:`make_paged_decode_step`
-(``step`` and ``step_q8``, optionally returning the logits),
-:func:`_advance_loop_state`, :func:`make_paged_decode_step_async` (the
-dispatch-ahead step), :func:`make_paged_decode_step_multi` (the decode
-horizon) and :func:`_packed_prefill_body` (fp and ``q8`` forms, without
-history).
+:class:`PagedKVCache` (free list, row alloc / growth / release, the prefix
+index of the device tier -- chain keys, leaf-first eviction,
+``alloc_row_prefix``, ``register_prefix`` --, the batched page write,
+``audit``), :func:`_rope_rows`, :func:`_rope_at`, :func:`_pick_token`,
+:func:`_decode_layer`, :func:`make_paged_decode_step` (``step`` and
+``step_q8``, optionally returning the logits), :func:`_advance_loop_state`,
+:func:`make_paged_decode_step_async` (the dispatch-ahead step),
+:func:`make_paged_decode_step_multi` (the decode horizon), the admission
+bodies :func:`_prefill` (dense, causal; RoPE through ``_rope``, the fused
+RoPE kernel at ``head_dim % 128 == 0``), :func:`_prefill_chunk` (a chunk
+over the row's cached pages) and :func:`_packed_prefill_body` (fp and
+``q8`` forms, with or without prefix history), and
+:func:`make_paged_generate_fused` / :func:`generate_paged`.
 
 PyTorch runs eagerly and the pools update in place instead of being
 donated.  The counterpart of JAX's jit of the async and horizon steps, with
 its ``_step_async_cache`` / ``_step_multi_cache``, is a CUDA graph captured
-once per key (``models/graphed_step.py``); the synchronous step stays
-eager.  The prefix index, the host page tier, swap and export and TP meshes
-are later slices; asking for them raises ``NotImplementedError``.
+once per key (``models/graphed_step.py``); the other bodies stay eager.
+The host page tier (swap, prefix demotion), export and TP meshes are later
+slices, as is ``generate_auto`` (it waits for the dense ``make_generate``);
+asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
-from collections import Counter
+from collections import Counter, OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -34,11 +41,13 @@ from ..ops.flash_varlen import flash_attention_segmented
 from ..ops.paged_attention import (paged_decode_attention,
                                    paged_decode_attention_q8,
                                    quantize_kv_token)
+from .decode import _grouped_attn
 from .llama_pretrain import (LlamaPretrainConfig, _block_post_attn, _mm,
-                             _rms_norm, layer_params)
+                             _rms_norm, _rope, layer_params)
 
 __all__ = ["PagedKVCache", "make_paged_decode_step",
-           "make_paged_decode_step_async", "make_paged_decode_step_multi"]
+           "make_paged_decode_step_async", "make_paged_decode_step_multi",
+           "generate_paged", "generate_auto"]
 
 
 class PagedKVCache:
@@ -90,22 +99,157 @@ class PagedKVCache:
         # dispatch-ahead loop's device copy re-uploads only when the block
         # tables changed
         self.tables_version = 0
+        # prefix caching: refcounted pages and an LRU index from a full
+        # page's chain key to its page id.  Only full pages are shared, so
+        # shared pages are never written again (decode writes land past
+        # them, in private pages).  The index holds one ref per cached
+        # page; every row holding it adds its own.
         self.refs = np.zeros(num_pages, np.int64)
+        self._prefix_index: "OrderedDict[bytes, int]" = OrderedDict()
+        # the chain structure, for leaf-first eviction: a key's parent
+        # and its live children
+        self._prefix_parent: dict = {}
+        self._prefix_children: dict = {}
+        self.prefix_hits = 0              # pages reused through the index
         self.scatter_dispatches = 0       # page writes, one per wave
 
     def free_pages(self) -> int:
         return len(self._free)
 
     def available_pages(self) -> int:
-        """Pages an admission may claim.  Equal to :meth:`free_pages`
-        until the prefix index (whose evictable pages count here too) is
-        ported."""
-        return len(self._free)
+        """Free pages plus evictable cached-prefix pages (``refs == 1``:
+        held by the index alone).  Admission budgets against this:
+        registered prompt pages leave the free list for good, and a gate
+        on the free list alone livelocks once the index holds enough of
+        the pool."""
+        evictable = sum(1 for pid in self._prefix_index.values()
+                        if self.refs[pid] == 1)
+        return len(self._free) + evictable
+
+    # -- prefix caching ---------------------------------------------------
+    @staticmethod
+    def _chain_keys(ctx: np.ndarray, page: int):
+        """One key per full page: key i is the sha1 of tokens
+        ``[0, (i + 1) * page)``, so a key names its whole prefix and its
+        position."""
+        keys = []
+        h = hashlib.sha1()
+        for i in range(len(ctx) // page):
+            h.update(np.ascontiguousarray(
+                ctx[i * page:(i + 1) * page]).tobytes())
+            keys.append(h.digest())
+        return keys
+
+    def _link_chain(self, key, parent) -> None:
+        """(Re)link ``key`` under ``parent`` (``None`` for a chain's head).
+        Idempotent: a parent evicted and registered again starts with an
+        empty children set and must learn its surviving children, or
+        leaf-first eviction would take it from under them."""
+        self._prefix_parent[key] = parent
+        self._prefix_children.setdefault(key, set())
+        if parent is not None:
+            self._prefix_children.setdefault(parent, set()).add(key)
+
+    def _drop_chain_entry(self, key) -> None:
+        """Take ``key`` out of the chain structure (it left the index)."""
+        parent = self._prefix_parent.pop(key, None)
+        if parent is not None and parent in self._prefix_children:
+            self._prefix_children[parent].discard(key)
+        self._prefix_children.pop(key, None)
+
+    def _evict_one_prefix(self) -> bool:
+        """Free the oldest leaf cached-prefix page held by the index alone
+        (``refs == 1``, no child in the index).  Leaf first keeps every
+        chain usable for lookup: evicting a head would orphan its tail.
+        There is no host tier, so nothing is demoted.  -> whether a page
+        was freed."""
+        for key in list(self._prefix_index):
+            pid = self._prefix_index[key]
+            if self.refs[pid] != 1:
+                continue
+            if any(c in self._prefix_index
+                   for c in self._prefix_children.get(key, ())):
+                continue
+            del self._prefix_index[key]
+            self._drop_chain_entry(key)
+            self.refs[pid] = 0
+            self._free.append(pid)
+            return True
+        return False
 
     def _page_alloc(self) -> int:
+        """Pop a free page, evicting a cached prefix page (oldest leaf
+        first) when the free list is empty."""
+        if not self._free:
+            self._evict_one_prefix()
         if not self._free:
             raise RuntimeError("KV page pool exhausted")
         return self._free.pop()
+
+    def alloc_row_prefix(self, b: int, ctx: np.ndarray) -> int:
+        """:meth:`alloc_row` that shares cached prefix pages: the longest
+        run of ``ctx``'s chain keys found in the index is shared (a ref
+        each), fresh pages take the rest.  A whole context that is cached
+        and page-aligned keeps its last page private (the engine computes
+        that page's K/V for the next-token logits).  On pool exhaustion
+        the claim rolls back, the row is left empty and ``RuntimeError``
+        propagates.  ``prefix_hits`` counts only a committed claim.
+        -> the tokens reused (a page multiple); the caller prefills from
+        there."""
+        page = self.page
+        L = len(ctx)
+        need = (L + page - 1) // page
+        if need > self.pages_max:
+            raise ValueError(f"length {L} exceeds pages_max")
+        self.release_row(b)
+        keys = self._chain_keys(ctx, page)
+        plan = []                          # shared page ids, chain order
+        for key in keys:
+            pid = self._prefix_index.get(key)
+            if pid is None:
+                break
+            self._prefix_index.move_to_end(key)          # LRU touch
+            plan.append(pid)
+        if L % page == 0 and len(plan) == len(keys) and plan:
+            plan.pop()
+        row = [None] * need
+        # the shared pages first: their ref lifts them above eviction
+        for j, pid in enumerate(plan):
+            self.refs[pid] += 1
+            row[j] = pid
+        try:
+            for j in range(len(plan), need):
+                pid = self._page_alloc()
+                self.refs[pid] += 1
+                row[j] = pid
+        except RuntimeError:
+            for pid in row:
+                if pid is None:
+                    continue
+                self.refs[pid] -= 1
+                if self.refs[pid] == 0:
+                    self._free.append(pid)
+            raise
+        self._owned[b] = row
+        for j, pid in enumerate(row):
+            self.tables[b, j] = pid
+        self.tables_version += 1
+        self.lens[b] = L
+        self.prefix_hits += len(plan)
+        return len(plan) * page
+
+    def register_prefix(self, b: int, ctx: np.ndarray) -> None:
+        """Enter row ``b``'s full pages of ``ctx`` into the prefix index,
+        one index ref each, so later admissions sharing the prefix reuse
+        them.  Keys already cached keep their page."""
+        keys = self._chain_keys(ctx, self.page)
+        for j, key in enumerate(keys):
+            if key in self._prefix_index:
+                continue
+            pid = int(self.tables[b, j])
+            self._prefix_index[key] = pid
+            self._link_chain(key, keys[j - 1] if j else None)
+            self.refs[pid] += 1
 
     def alloc_row(self, b: int, length: int) -> None:
         """Claim pages for ``length`` tokens on row ``b`` (prefill).  On
@@ -156,6 +300,14 @@ class PagedKVCache:
             if grew:
                 self.tables_version += 1
 
+    def write_row_pages(self, slot: int, ks, vs, L: int,
+                        first_page: int = 0) -> None:
+        """Write one row's ``ks`` / ``vs [Lyr, S >= L, nkv, d]`` into its
+        pages from table position ``first_page`` on (a chunk c of the
+        chunked lane starts at page ``c * chunk / page``): one entry of
+        :meth:`write_pages_batch`."""
+        self.write_pages_batch([(slot, ks, vs, L, first_page)])
+
     def write_pages_batch(self, entries) -> None:
         """Write a whole admission wave: every entry's
         ``(slot, ks [Lyr, S >= L, nkv, d], vs, L, first_page)`` K/V lands
@@ -203,7 +355,7 @@ class PagedKVCache:
     def release_row(self, b: int) -> None:
         for pid in self._owned[b]:
             self.refs[pid] -= 1
-            if self.refs[pid] == 0:
+            if self.refs[pid] == 0:     # cached / shared pages stay put
                 self._free.append(pid)
         self._owned[b] = []
         self.tables[b] = 0
@@ -214,12 +366,16 @@ class PagedKVCache:
         """Check every page-accounting invariant and return pool stats;
         raises ``AssertionError`` on the first violation:
 
-        * ``refs[pid]`` equals the number of rows owning the page;
+        * ``refs[pid]`` equals the rows owning the page plus its index
+          entries;
         * the free list is duplicate-free, never holds page 0 and holds
-          no owned page;
-        * no page is owned twice (sharing needs the prefix index);
+          no referenced page;
+        * a page owned by two rows is an index page (sharing goes through
+          the index only);
         * ``tables[b]`` mirrors ``_owned[b]`` positionally;
-        * free + owned pages cover the pool except page 0.
+        * free + referenced pages cover the pool except page 0;
+        * every live key whose parent is live sits in its parent's
+          children set (else leaf-first eviction could take the parent).
         """
         free = self._free
         assert len(set(free)) == len(free), "free list has duplicates"
@@ -231,16 +387,30 @@ class PagedKVCache:
                 assert int(self.tables[b, j]) == pid, \
                     f"tables[{b},{j}]={self.tables[b, j]} != owned {pid}"
             owned.update(row)
+        index: Counter = Counter(self._prefix_index.values())
         free_set = set(free)
         for pid in range(self.num_pages):
-            assert int(self.refs[pid]) == owned[pid], \
-                f"page {pid}: refs {int(self.refs[pid])} != owned {owned[pid]}"
-            assert owned[pid] <= 1, f"page {pid} owned by {owned[pid]} rows"
-            assert not (pid in free_set and owned[pid]), \
-                f"page {pid} free while owned"
-        assert len(free) + sum(owned.values()) == self.num_pages - 1, \
-            "pages leaked"
-        return {"free": len(free), "owned": sum(owned.values())}
+            want = owned[pid] + index[pid]
+            assert int(self.refs[pid]) == want, \
+                (f"page {pid}: refs {int(self.refs[pid])} != owned "
+                 f"{owned[pid]} + index {index[pid]}")
+            if pid in free_set:
+                assert want == 0, f"page {pid} free while referenced"
+        for pid, c in owned.items():
+            if c > 1:
+                assert index[pid] > 0, \
+                    (f"page {pid} owned by {c} rows but not a prefix-index "
+                     f"page (sharing goes through the index only)")
+        held = set(owned) | set(index)
+        assert len(free) + len(held) == self.num_pages - 1, "pages leaked"
+        live = set(self._prefix_index)
+        for key in live:
+            parent = self._prefix_parent.get(key)
+            if parent is not None and parent in live:
+                assert key in self._prefix_children.get(parent, ()), \
+                    "prefix chain edge missing (parent unaware of live child)"
+        return {"free": len(free), "owned": sum(owned.values()),
+                "indexed": len(self._prefix_index)}
 
 
 def _rope_rows(x, theta, pos):
@@ -505,35 +675,193 @@ def make_paged_decode_step_multi(cfg: LlamaPretrainConfig, horizon: int,
     return step
 
 
-def _packed_prefill_body(cfg: LlamaPretrainConfig, q8: bool = False,
-                         with_hist: bool = False):
-    """Packed varlen prefill: ``run(params, toks [1, T], seg [1, T],
-    pos [1, T]) -> (x [1, T, H], ks, vs [Lyr, T, nkv, d])``.
+def make_paged_generate_fused(cfg: LlamaPretrainConfig,
+                              max_new_tokens: int,
+                              temperature: float = 0.0,
+                              kv_quant: Optional[str] = None,
+                              top_k: int = 0, top_p: float = 1.0):
+    """The whole paged generation tail as one call with no host read:
+    ``generate(params, kpool, vpool, kscale, vscale, tables, lens0, tok0,
+    generator=None) -> (kpool, vpool, kscale, vscale, toks
+    [max_new_tokens, B])``.
 
-    Every waiting context packs into one token stream with segment ids
-    (bucket-tail padding rides a sentinel id and attends only itself);
-    ``pos`` holds within-segment RoPE positions; attention is the
-    segment-masked causal kernel (its plain version on the CPU).
+    The caller pre-claims pages for ``lens0 + max_new_tokens`` tokens, so
+    the tables stay constant and every row advances at its own position.
+    ``toks[0]`` is ``tok0``; each later row is one decode step's pick.
+    JAX scans the steps in one jitted program; here a loop of the eager
+    step runs them on the device and the host reads nothing until the
+    caller reads ``toks``.  ``kscale`` / ``vscale`` are ignored (and
+    returned) for fp pages."""
+    if kv_quant not in (None, "int8"):
+        raise ValueError("kv_quant must be None or 'int8'")
+    step, step_q8 = _build_step_fns(cfg, temperature, False, top_k, top_p)
+    q8 = kv_quant == "int8"
 
-    ``q8`` (int8 pools): without history the JAX form only threads the
-    scale pools through its scan, and the stream attends over its own
-    unquantized K/V; the port's form is the same ``run``, and the pages
-    are quantized when :meth:`PagedKVCache.write_pages_batch` writes them.
-    The prefix-cache history form (``with_hist``) is a later slice."""
-    if with_hist:
-        raise NotImplementedError(
-            "the packed prefill's prefix-history form is not ported yet")
+    def generate(params, kpool, vpool, kscale, vscale, tables, lens0, tok0,
+                 generator=None):
+        lens = lens0.to(torch.int32)
+        tok = tok0
+        out = [tok0]
+        for _ in range(max_new_tokens - 1):
+            if q8:
+                kpool, vpool, kscale, vscale, tok = step_q8(
+                    params, kpool, vpool, kscale, vscale, tables, lens, tok,
+                    generator)
+            else:
+                kpool, vpool, tok = step(params, kpool, vpool, tables, lens,
+                                         tok, generator)
+            lens = lens + 1
+            out.append(tok)
+        return kpool, vpool, kscale, vscale, torch.stack(out)
+
+    return generate
+
+
+def _prefill(cfg: LlamaPretrainConfig):
+    """The dense causal prefill: ``prefill(params, prompt [B, S]) ->
+    (x [B, S, H], ks, vs [Lyr, B, S, nkv, d])``.
+
+    RoPE goes through the training trunk's ``_rope`` (the fused RoPE
+    kernel at ``head_dim % 128 == 0``, else the inline rotate-half), as
+    JAX's does; attention is the plain ``_grouped_attn`` under a causal
+    mask (JAX computes it in XLA, outside any Pallas kernel)."""
     n, d = cfg.num_attention_heads, cfg.head_dim
     nkv = cfg.num_key_value_heads
     dt = cfg.dtype
 
-    def run(params, toks, seg, pos):
+    def prefill(params, prompt):
+        B, S = prompt.shape
+        x = params["embed"][prompt.long()].to(dt)
+        causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                       device=x.device))
+        L = cfg.num_hidden_layers
+        ks = torch.empty((L, B, S, nkv, d), dtype=dt, device=x.device)
+        vs = torch.empty((L, B, S, nkv, d), dtype=dt, device=x.device)
+        for layer in range(L):
+            bp = layer_params(params, layer)
+            y = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
+            q = _mm(y, bp["wq"], dt).reshape(B, S, n, d)
+            k = _mm(y, bp["wk"], dt).reshape(B, S, nkv, d)
+            v = _mm(y, bp["wv"], dt).reshape(B, S, nkv, d)
+            q, k = _rope(q, k, cfg.rope_theta)
+            attn = _grouped_attn(q, k, v, causal[None, None, None])
+            x = _block_post_attn(bp, x, attn, cfg)
+            ks[layer] = k
+            vs[layer] = v
+        return x, ks, vs
+
+    return prefill
+
+
+def _prefill_chunk(cfg: LlamaPretrainConfig, q8: bool):
+    """Chunked prefill with history: advance one row's prefill by a chunk,
+    attending over the row's cached pages and causally within the chunk.
+
+    ``run(params, toks [1, C], kpool, vpool, kscale, vscale,
+    table [pages_max], ctx_len) -> (x [1, C, H], ks, vs [Lyr, C, nkv, d])``
+
+    The row's pages are gathered (and, with ``q8``, dequantized by their
+    scales) into a ``[1, pages_max * page, nkv, d]`` context; slots at or
+    past ``ctx_len`` are masked.  Chunk tokens sit at ``ctx_len +
+    arange(C)`` (inline RoPE, the form the decode step writes).  The
+    chunk's K/V come back unquantized; the page write quantizes.
+    ``kscale`` / ``vscale`` are ignored for fp pages."""
+    n, d = cfg.num_attention_heads, cfg.head_dim
+    nkv = cfg.num_key_value_heads
+    dt = cfg.dtype
+
+    def run(params, toks, kpool, vpool, kscale, vscale, table, ctx_len):
+        B, C = toks.shape                      # B == 1
+        P = table.shape[0]
+        page = kpool.shape[3]
+        S_ctx = P * page
+        dev = kpool.device
+        x = params["embed"][toks.long()].to(dt)
+        ctx_len = torch.as_tensor(ctx_len, dtype=torch.int32, device=dev)
+        pos = ctx_len + torch.arange(C, dtype=torch.int32, device=dev)
+        # visibility: cached slots below ctx_len, then causal in the chunk
+        ctx_vis = torch.arange(S_ctx, dtype=torch.int32, device=dev) < ctx_len
+        mask = torch.cat(
+            [ctx_vis[None].expand(C, S_ctx),
+             torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev))],
+            dim=1)[None, None, None]           # [1, 1, 1, C, S_ctx + C]
+        tbl = table.long()
+
+        def gather_ctx(pool, scale):
+            pages = pool[tbl]                  # [P, nkv, page, d]
+            if q8:
+                pages = pages.float() * scale[tbl][..., None]
+            return pages.permute(0, 2, 1, 3).reshape(
+                1, S_ctx, nkv, d).to(dt)
+
+        L = cfg.num_hidden_layers
+        ks = torch.empty((L, C, nkv, d), dtype=dt, device=dev)
+        vs = torch.empty((L, C, nkv, d), dtype=dt, device=dev)
+        for layer in range(L):
+            bp = layer_params(params, layer)
+            y = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
+            q = _mm(y, bp["wq"], dt).reshape(B, C, n, d)
+            k = _mm(y, bp["wk"], dt).reshape(B, C, nkv, d)
+            v = _mm(y, bp["wv"], dt).reshape(B, C, nkv, d)
+            q = _rope_at(q, cfg.rope_theta, pos)
+            k = _rope_at(k, cfg.rope_theta, pos)
+            ksl = kscale[layer] if q8 else None
+            vsl = vscale[layer] if q8 else None
+            ck = torch.cat([gather_ctx(kpool[layer], ksl), k], dim=1)
+            cv = torch.cat([gather_ctx(vpool[layer], vsl), v], dim=1)
+            attn = _grouped_attn(q, ck, cv, mask)
+            x = _block_post_attn(bp, x, attn, cfg)
+            ks[layer] = k[0]
+            vs[layer] = v[0]
+        return x, ks, vs
+
+    return run
+
+
+def _packed_prefill_body(cfg: LlamaPretrainConfig, q8: bool = False,
+                         with_hist: bool = False):
+    """Packed varlen prefill: ``run(params, toks [1, T], seg [1, T],
+    pos [1, T], kpool, vpool, kscale, vscale, hist_page [T],
+    hist_slot [T], pool_hist [T], stream_src [T], stream_hist [T]) ->
+    (x [1, T, H], ks, vs [Lyr, T, nkv, d])``.
+
+    Every waiting context packs into one token stream with segment ids
+    (bucket-tail padding rides a sentinel id and attends only itself);
+    ``pos`` holds within-segment RoPE positions (a prefix-cache suffix
+    starts at its reused offset); attention is the segment-masked causal
+    kernel (its plain version on the CPU).
+
+    Without ``with_hist`` the nine arguments after ``pos`` are ignored and
+    may be left out, and ``q8`` changes nothing: JAX's q8 form only
+    threads the scale pools through its scan, the stream attends over its
+    own unquantized K/V, and the page write quantizes.
+
+    ``with_hist`` is the prefix-cache form: ``pool_hist`` slots take their
+    K/V from the cached pages ``kpool[:, hist_page, :, hist_slot]``
+    (already rotated when written; with ``q8`` dequantized by the gathered
+    scales), ``stream_hist`` slots from the stream itself at
+    ``stream_src`` (a page an earlier segment of the same wave writes,
+    whose pool copy lands only after this call).  History slots give K/V
+    only; their q rows are dead weight nobody reads.  Then the segmented
+    kernel runs over the whole stream, as without history."""
+    n, d = cfg.num_attention_heads, cfg.head_dim
+    nkv = cfg.num_key_value_heads
+    dt = cfg.dtype
+
+    def run(params, toks, seg, pos, kpool=None, vpool=None, kscale=None,
+            vscale=None, hist_page=None, hist_slot=None, pool_hist=None,
+            stream_src=None, stream_hist=None):
         B, T = toks.shape                      # B == 1
         x = params["embed"][toks.long()].to(dt)
         seg = seg.to(torch.int32).contiguous()
         L = cfg.num_hidden_layers
         ks = torch.empty((L, T, nkv, d), dtype=dt, device=x.device)
         vs = torch.empty((L, T, nkv, d), dtype=dt, device=x.device)
+        if with_hist:
+            hp, hs = hist_page.long(), hist_slot.long()
+            sel = pool_hist.to(torch.bool)[None, :, None, None]
+            sel2 = stream_hist.to(torch.bool)[None, :, None, None]
+            src = stream_src.long()
         for layer in range(L):
             bp = layer_params(params, layer)
             y = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
@@ -542,6 +870,16 @@ def _packed_prefill_body(cfg: LlamaPretrainConfig, q8: bool = False,
             v = _mm(y, bp["wv"], dt).reshape(B, T, nkv, d)
             q = _rope_at(q, cfg.rope_theta, pos)
             k = _rope_at(k, cfg.rope_theta, pos)
+            if with_hist:
+                kh = kpool[layer][hp, :, hs]             # [T, nkv, d]
+                vh = vpool[layer][hp, :, hs]
+                if q8:
+                    kh = kh.float() * kscale[layer][hp, :, hs][..., None]
+                    vh = vh.float() * vscale[layer][hp, :, hs][..., None]
+                k = torch.where(sel, kh.to(dt)[None], k)
+                v = torch.where(sel, vh.to(dt)[None], v)
+                k = torch.where(sel2, k[:, src], k)
+                v = torch.where(sel2, v[:, src], v)
             attn = flash_attention_segmented(q, k, v, seg, causal=True)
             x = _block_post_attn(bp, x, attn, cfg)
             ks[layer] = k[0]
@@ -549,3 +887,79 @@ def _packed_prefill_body(cfg: LlamaPretrainConfig, q8: bool = False,
         return x, ks, vs
 
     return run
+
+
+def generate_paged(cfg: LlamaPretrainConfig, params, prompt,
+                   max_new_tokens: int, cache: PagedKVCache,
+                   temperature: float = 0.0, seed: int = 0,
+                   fused: bool = True, top_k: int = 0, top_p: float = 1.0):
+    """Generate with the paged cache: the dense prefill (:func:`_prefill`)
+    of ``prompt [B, S]``, each row's K/V written into the pages the caller
+    claimed (``cache.alloc_row(b, len_b)``; rows keep their own lengths,
+    the prompt is right-padded), then the paged decode tail.
+    ``fused=True`` pre-claims every page the tail touches and runs it
+    through :func:`make_paged_generate_fused` with no host read until the
+    end; ``fused=False`` drives the per-token step from the host (the
+    serving loop's form).  Sampling draws from a generator seeded with
+    ``seed`` (JAX draws from ``PRNGKey(seed)``: equal in distribution, not
+    bit for bit).  -> ``[B, max_new_tokens]`` int64 tokens."""
+    dev = cache.device
+    dt = cfg.dtype
+    prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(
+        prompt) else prompt).to(dev)
+    B, S = prompt.shape
+    page = cache.page
+    lens_np = cache.lens.copy()      # the caller claimed via alloc_row
+    x, ks, vs = _prefill(cfg)(params, prompt)
+    S_pad = -(-S // page) * page
+    if S_pad > S:
+        pad = (0, 0, 0, 0, 0, S_pad - S)       # the slots past the prompt
+        ks = torch.nn.functional.pad(ks, pad)
+        vs = torch.nn.functional.pad(vs, pad)
+    cache.write_pages_batch([(b, ks[:, b], vs[:, b], int(lens_np[b]), 0)
+                             for b in range(B)])
+    del ks, vs
+    q8 = cache.kv_quant == "int8"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    last = torch.as_tensor(lens_np - 1, dtype=torch.long, device=dev)
+    h = _rms_norm(x[torch.arange(B, device=dev), last],
+                  params["final_norm"], cfg.rms_norm_eps)
+    logits = _mm(h, params["lm_head"], dt).float()
+    tok = _pick_token(logits, temperature, gen, top_k, top_p)
+    pools = ((cache.kpool, cache.vpool, cache.kscale, cache.vscale) if q8
+             else (cache.kpool, cache.vpool))
+    if fused:
+        saved_lens = cache.lens.copy()
+        cache.ensure_capacity_batch([(b, max_new_tokens) for b in range(B)])
+        run = make_paged_generate_fused(cfg, max_new_tokens, temperature,
+                                        kv_quant=cache.kv_quant,
+                                        top_k=top_k, top_p=top_p)
+        scales = pools[2:] if q8 else (None, None)
+        *_, toks = run(params, cache.kpool, cache.vpool, *scales,
+                       torch.from_numpy(cache.tables.copy()).to(dev),
+                       torch.from_numpy(saved_lens).to(dev), tok, gen)
+        cache.lens = saved_lens + max_new_tokens - 1
+        return toks.t()
+    step = make_paged_decode_step(cfg, temperature, kv_quant=cache.kv_quant,
+                                  top_k=top_k, top_p=top_p)
+    out = [tok]
+    for _ in range(max_new_tokens - 1):
+        cache.ensure_capacity_batch([(b, 1) for b in range(B)])
+        tables = torch.from_numpy(cache.tables.copy()).to(dev)
+        lens = torch.from_numpy(cache.lens.copy()).to(dev)
+        *_, tok = step(params, *pools, tables, lens, tok, gen)
+        cache.lens = cache.lens + 1
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def generate_auto(cfg: LlamaPretrainConfig, params, prompts,
+                  max_new_tokens: int, temperature: float = 0.0,
+                  seed: int = 0, page: int = 64, cache=None):
+    """JAX's adaptive router between the dense single-program cache and
+    :func:`generate_paged`; its dense half (``make_generate``) is not
+    ported yet, so this raises ``NotImplementedError``."""
+    raise NotImplementedError(
+        "generate_auto routes equal-length batches to the dense "
+        "make_generate, which is not ported yet; call generate_paged "
+        "(see ROADMAP.md)")

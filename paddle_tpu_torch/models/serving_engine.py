@@ -1,13 +1,26 @@
 """Continuous-batching LLM serving engine over the paged KV cache.
 
-Counterpart of ``paddle_tpu/models/serving_engine.py`` with packed
-admission: ``submit``, ``cancel`` (and deadlines), ``step``, ``finished``,
-``drain_stream``, ``run_to_completion``; admission waves pack every waiting
-context into one segmented-attention prefill; on pool exhaustion the
-youngest request is preempted recompute-style and resumes through the
-packed lane.  Weights may be int8 (``quantize_params_int8``) and the
-cache's pages int8 (``PagedKVCache(kv_quant="int8")``), each independently
-of the other.
+Counterpart of ``paddle_tpu/models/serving_engine.py``: ``submit``,
+``cancel`` (and deadlines), ``step``, ``finished``, ``drain_stream``,
+``run_to_completion``; on pool exhaustion the youngest request is
+preempted recompute-style and resumes through the admission lanes.
+Weights may be int8 (``quantize_params_int8``) and the cache's pages int8
+(``PagedKVCache(kv_quant="int8")``), each independently of the other.
+
+Three admission lanes, as in JAX:
+
+* packed (the default): a wave packs every waiting context into one
+  segmented-attention prefill;
+* ``packed=False``: same-bucket contexts prefill as one dense batch
+  (``_prefill``, RoPE through the fused RoPE kernel at head_dim 128), and
+  a context longer than ``prefill_chunk`` advances chunk by chunk over
+  its cached pages (``_prefill_chunk``);
+* ``enable_prefix_caching=True``: each admission shares the cached full
+  pages of its prompt's longest cached prefix (``alloc_row_prefix``) and
+  registers its prompt's pages for later ones; on the packed lane the
+  shared pages ride the stream as history slots (pool pages, or the
+  stream itself for pages the same wave writes), on ``packed=False``
+  every admission takes the chunked lane from its reused offset.
 
 Three decode lanes, as in JAX:
 
@@ -26,8 +39,9 @@ behind its step and guarded by a CUDA event, and ``_fetch`` (waiting on
 that event) is the only blocking host sync of the steady state.
 
 Not ported yet, and refused at construction when asked for: the mixed and
-speculative lanes, TP meshes, prefix caching, scheduler policies, tenant
-quotas and ``packed=False``.  The fault plane and wave quarantine (a step
+speculative lanes, TP meshes, scheduler policies, tenant quotas and the
+quantized TP all-reduce (the host page tier is refused by
+``PagedKVCache``).  The fault plane and wave quarantine (a step
 exception propagates to the caller), metrics and tracing also wait for
 later slices.
 """
@@ -45,7 +59,7 @@ import torch
 from .graphed_step import decode_graph
 from .llama_pretrain import LlamaPretrainConfig, _mm, _rms_norm
 from .paged_decode import (PagedKVCache, _packed_prefill_body, _pick_token,
-                           make_paged_decode_step)
+                           _prefill, _prefill_chunk, make_paged_decode_step)
 
 __all__ = ["ContinuousBatchingEngine", "QueueFullError", "Request"]
 
@@ -94,6 +108,15 @@ class ContinuousBatchingEngine:
     packed admission streams are padded to a power-of-two number of
     ``prefill_bucket`` tokens.  Runs on the cache's device.
 
+    ``packed=False`` admits through the batched lane (contexts of one
+    ``prefill_bucket`` bucket prefill as one dense batch, padded to a
+    power-of-two rows) and the chunked lane (a context longer than
+    ``prefill_chunk``, rounded up to whole pages, prefills chunk by chunk
+    over its cached pages); the packed lane ignores ``prefill_chunk``.
+    ``enable_prefix_caching=True`` shares cached full prompt pages between
+    requests; with ``packed=False`` every admission takes the chunked
+    lane.
+
     ``overlap=True`` runs the dispatch-ahead pipeline: greedy output is
     token-exact against the synchronous lane, and the pipeline flushes at
     every scheduler mutation point (admission, preemption, a stop-sequence
@@ -108,7 +131,9 @@ class ContinuousBatchingEngine:
     def __init__(self, cfg: LlamaPretrainConfig, params,
                  cache: PagedKVCache, eos_id: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0,
-                 prefill_bucket: int = 64, mesh=None, top_k: int = 0,
+                 prefill_bucket: int = 64,
+                 prefill_chunk: Optional[int] = None,
+                 mesh=None, top_k: int = 0,
                  top_p: float = 1.0, enable_prefix_caching: bool = False,
                  overlap: bool = False, lookahead: int = 1,
                  packed: bool = True,
@@ -136,17 +161,16 @@ class ContinuousBatchingEngine:
                 "spec.gamma instead of stacking a second horizon on top")
         later = {"mixed": mixed,
                  "spec": spec is not None, "mesh": mesh is not None,
-                 "enable_prefix_caching": enable_prefix_caching,
                  "tp_allreduce": tp_allreduce != "fp32",
                  "policy": policy is not None,
-                 "tenant_quotas": tenant_quotas is not None,
-                 "packed": not packed}
+                 "tenant_quotas": tenant_quotas is not None}
         asked = [k for k, on in later.items() if on]
         if asked:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(asked)} (this engine has the "
-                f"synchronous, overlap and horizon lanes with packed "
-                f"admission; see ROADMAP.md)")
+                f"synchronous, overlap and horizon lanes, packed, batched "
+                f"and chunked admission and prefix caching; see "
+                f"ROADMAP.md)")
         self.cfg = cfg
         self.params = params
         self.cache = cache
@@ -158,7 +182,15 @@ class ContinuousBatchingEngine:
         page = cache.page
         self.prefill_bucket = ((max(prefill_bucket, page) + page - 1)
                                // page) * page
-        self.prefill_calls = 0            # admission waves dispatched
+        # contexts longer than prefill_chunk (whole pages) prefill chunk by
+        # chunk on the packed=False lanes
+        if prefill_chunk is not None:
+            prefill_chunk = ((max(prefill_chunk, page) + page - 1)
+                             // page) * page
+        self.prefill_chunk = prefill_chunk
+        self.enable_prefix_caching = bool(enable_prefix_caching)
+        self._packed = bool(packed)
+        self.prefill_calls = 0            # admission dispatches
         self.prefill_token_slots = 0
         self.prefill_padded_tokens = 0
         self.decode_steps = 0
@@ -186,8 +218,14 @@ class ContinuousBatchingEngine:
         self._step = make_paged_decode_step(cfg, temperature,
                                             kv_quant=cache.kv_quant,
                                             top_k=top_k, top_p=top_p)
-        # int8 pages need no other prefill: write_pages_batch quantizes
-        self._prefill = _packed_prefill_body(cfg)
+        # int8 pages without history need no other packed prefill:
+        # write_pages_batch quantizes; with history the q8 form
+        # dequantizes the pool pages it gathers
+        q8 = cache.kv_quant == "int8"
+        self._prefill_packed = _packed_prefill_body(
+            cfg, q8, self.enable_prefix_caching)
+        self._prefill_dense = _prefill(cfg)
+        self._prefill_chunked = _prefill_chunk(cfg, q8)
         self._next_tok = np.zeros((self.B,), np.int64)
         self._remaining = np.zeros((self.B,), np.int64)
         # the active slots, kept at admit / retire / preempt (the decode
@@ -508,7 +546,136 @@ class ContinuousBatchingEngine:
                 # admission is a scheduler mutation: drain the pipeline
                 # before slots and pages move under it
                 self._pipeline_flush()
+            self._admit_sequential(admits)
+
+    def _admit_sequential(self, admits: List) -> None:
+        """The lane of one popped admission wave: the packed lane (any
+        length mix is one dispatch; ``prefill_chunk`` is moot there), or
+        with ``packed=False`` the chunked lane for prefix caching and for
+        contexts longer than ``prefill_chunk`` and one batched dispatch
+        per bucket for the rest."""
+        if self._packed:
             self._admit_packed(admits)
+            return
+        buckets: Dict[int, List] = {}
+        for req, ctx in admits:
+            L = len(ctx)
+            if self.enable_prefix_caching or (
+                    self.prefill_chunk is not None
+                    and L > self.prefill_chunk):
+                self._admit_chunked(req, ctx)
+                continue
+            Lp = -(-L // self.prefill_bucket) * self.prefill_bucket
+            buckets.setdefault(Lp, []).append((req, ctx))
+        for group in buckets.values():
+            self._admit_batch(group)
+
+    def _first_tokens(self, x, rows, last):
+        """Sample the first token of each admitted context from ``x``'s
+        hidden state at (``rows``, ``last``): one shared logits tail and
+        one host read for the wave."""
+        dev = self.device
+        h = _rms_norm(x[torch.as_tensor(rows, device=dev),
+                        torch.as_tensor(last, device=dev)],
+                      self.params["final_norm"], self.cfg.rms_norm_eps)
+        logits = _mm(h, self.params["lm_head"], self.cfg.dtype).float()
+        return _pick_token(logits, self.temperature, self._gen, self.top_k,
+                           self.top_p).cpu().numpy()
+
+    def _emit_first(self, plan_reqs, slots, toks_out) -> None:
+        """Bookkeeping of an admitted wave: a fresh request takes its
+        sampled first token, a resumed one its saved next input."""
+        for i, (req, slot) in enumerate(zip(plan_reqs, slots)):
+            if req.generated:                    # resume after preempt
+                tok = req.generated[-1]
+            else:
+                tok = int(toks_out[i])
+                req.generated.append(tok)
+                self._stream.append((req.rid, tok))
+            self._finish_admit(req, slot, tok)
+
+    def _admit_batch(self, group: List) -> None:
+        """Batched admission: K same-bucket contexts prefill as one dense
+        ``[K_pow2, bucket]`` dispatch of :func:`_prefill` and one batched
+        page write.  A fresh request samples its first token from its
+        last real position; a preempted one resumes at its saved token."""
+        reqs = [r for r, _ in group]
+        ctxs = [c for _, c in group]
+        K = len(reqs)
+        Ls = [len(c) for c in ctxs]
+        Lp = -(-max(Ls) // self.prefill_bucket) * self.prefill_bucket
+        # a power-of-two batch: padding rows are ignored
+        Kp = 1 << (K - 1).bit_length()
+        slots = []
+        for L in Ls:
+            slot = self._free_slots.pop()
+            self.cache.alloc_row(slot, L)
+            slots.append(slot)
+        padded = np.zeros((Kp, Lp), np.int64)
+        for i, ctx in enumerate(ctxs):
+            padded[i, :Ls[i]] = ctx
+        x, ks, vs = self._prefill_dense(
+            self.params, torch.from_numpy(padded).to(self.device))
+        self.prefill_calls += 1
+        self.prefill_token_slots += Kp * Lp
+        self.prefill_padded_tokens += Kp * Lp - sum(Ls)
+        self.cache.write_pages_batch(
+            [(slot, ks[:, i], vs[:, i], L, 0)
+             for i, (slot, L) in enumerate(zip(slots, Ls))])
+        toks_out = None
+        if any(not r.generated for r in reqs):
+            # skipped for an all-resume group: their tokens are saved
+            toks_out = self._first_tokens(
+                x, list(range(K)), [L - 1 for L in Ls])
+        self._emit_first(reqs, slots, toks_out)
+
+    def _admit_chunked(self, req: Request, ctx: np.ndarray) -> None:
+        """Chunked admission, for a context longer than ``prefill_chunk``
+        and, with prefix caching, for every admission (a reused prefix
+        starts the row mid-context): the context advances chunk by chunk
+        through :func:`_prefill_chunk` over the row's cached pages, so a
+        dispatch costs one chunk, and cached prefix pages are never
+        computed again.  With prefix caching the prompt's full pages are
+        registered afterwards (generated tokens stay private)."""
+        L = len(ctx)
+        chunk = self.prefill_chunk or self.prefill_bucket
+        cache = self.cache
+        page = cache.page
+        dev = self.device
+        slot = self._free_slots.pop()
+        if self.enable_prefix_caching:
+            start = cache.alloc_row_prefix(slot, ctx)
+        else:
+            cache.alloc_row(slot, L)
+            start = 0
+        q8 = cache.kv_quant == "int8"
+        x = None
+        pos = start
+        nchunks = 0
+        last_real = 0
+        while pos < L:
+            C_real = min(chunk, L - pos)
+            toks = np.zeros((1, chunk), np.int64)
+            toks[0, :C_real] = ctx[pos:pos + C_real]
+            table = torch.from_numpy(cache.tables[slot].copy()).to(dev)
+            x, ks, vs = self._prefill_chunked(
+                self.params, torch.from_numpy(toks).to(dev), cache.kpool,
+                cache.vpool, cache.kscale if q8 else None,
+                cache.vscale if q8 else None, table, pos)
+            self.prefill_calls += 1
+            nchunks += 1
+            cache.write_row_pages(slot, ks, vs, C_real,
+                                  first_page=pos // page)
+            last_real = C_real
+            pos += C_real
+        self.prefill_token_slots += nchunks * chunk
+        self.prefill_padded_tokens += nchunks * chunk - (L - start)
+        toks_out = None
+        if not req.generated:
+            toks_out = self._first_tokens(x, [0], [last_real - 1])
+        if self.enable_prefix_caching:
+            cache.register_prefix(slot, req.prompt)
+        self._emit_first([req], [slot], toks_out)
 
     def _packed_bucket(self, T: int) -> int:
         """Round a packed-stream length up to a power-of-two number of
@@ -518,60 +685,92 @@ class ContinuousBatchingEngine:
 
     def _admit_packed(self, group: List) -> None:
         """Packed varlen admission: every context of the wave (fresh
-        prompts and preemption resumes) packs into one ``[T_bucket]``
-        token stream with segment ids and prefills as one pass; each
-        segment's K/V lands in its row's pages through one batched page
-        write, and each fresh segment's last real position feeds one
-        shared logits tail for its first token."""
-        page = self.cache.page
+        prompts, prefix-cache suffixes and preemption resumes) packs into
+        one ``[T_bucket]`` token stream with segment ids and prefills as
+        one pass; each segment's K/V lands in its row's pages through one
+        batched page write, and each fresh segment's last real position
+        feeds one shared logits tail for its first token.
+
+        With prefix caching each row shares its cached prefix pages
+        (``alloc_row_prefix``) and registers its prompt's pages before the
+        next segment allocates, so equal prefixes share within one wave;
+        a shared page's slots carry history: from the pool, or from the
+        stream where this wave itself writes the page (``wave_src``)."""
+        cache = self.cache
+        page = cache.page
         dev = self.device
+        prefix = self.enable_prefix_caching
         K = len(group)
-        plan = []                  # (req, slot, s_real, Wp, off)
+        plan = []           # (req, ctx, slot, start, s_real, Wp, off)
+        # page id -> stream index of its first token, for pages this wave
+        # writes (a same-wave sharer reads them from the stream: their pool
+        # copy lands only after the pass)
+        wave_src: Dict[int, int] = {}
         T = 0
         for req, ctx in group:
             slot = self._free_slots.pop()
-            s_real = len(ctx)
-            self.cache.alloc_row(slot, s_real)
-            Wp = -(-s_real // page) * page   # page-pad the segment
-            plan.append((req, ctx, slot, s_real, Wp, T))
-            T += Wp
+            L = len(ctx)
+            if prefix:
+                start = cache.alloc_row_prefix(slot, ctx)
+            else:
+                cache.alloc_row(slot, L)
+                start = 0
+            s_real = L - start
+            Wp = -(-s_real // page) * page   # page-pad the suffix
+            plan.append((req, ctx, slot, start, s_real, Wp, T))
+            for j in range(start // page, (start + Wp) // page):
+                wave_src[int(cache.tables[slot, j])] = T + j * page
+            T += start + Wp
+            if prefix:
+                cache.register_prefix(slot, req.prompt)
         Tb = self._packed_bucket(T)
         toks = np.zeros((1, Tb), np.int64)
         seg = np.full((1, Tb), K, np.int32)      # sentinel tail id
         pos = np.zeros((1, Tb), np.int32)
-        for i, (req, ctx, slot, s_real, Wp, off) in enumerate(plan):
-            seg[0, off:off + Wp] = i
-            pos[0, off:off + Wp] = np.arange(Wp)
-            toks[0, off:off + s_real] = ctx
-        x, ks, vs = self._prefill(
+        hist = [np.zeros((Tb,), np.int32), np.zeros((Tb,), np.int32),
+                np.zeros((Tb,), bool), np.zeros((Tb,), np.int32),
+                np.zeros((Tb,), bool)]
+        hist_page, hist_slot, pool_hist, stream_src, stream_hist = hist
+        for i, (req, ctx, slot, start, s_real, Wp, off) in enumerate(plan):
+            W = start + Wp
+            seg[0, off:off + W] = i
+            pos[0, off:off + W] = np.arange(W)
+            toks[0, off + start:off + start + s_real] = ctx[start:]
+            for j in range(start // page):       # reused prefix pages
+                pid = int(cache.tables[slot, j])
+                a = off + j * page
+                src = wave_src.get(pid)
+                if src is not None and src < off:
+                    stream_src[a:a + page] = src + np.arange(page)
+                    stream_hist[a:a + page] = True
+                else:
+                    hist_page[a:a + page] = pid
+                    hist_slot[a:a + page] = np.arange(page)
+                    pool_hist[a:a + page] = True
+        extra = ()
+        if prefix:
+            pools = (cache.kpool, cache.vpool, cache.kscale, cache.vscale)
+            extra = pools + tuple(torch.from_numpy(a).to(dev) for a in hist)
+        x, ks, vs = self._prefill_packed(
             self.params, torch.from_numpy(toks).to(dev),
-            torch.from_numpy(seg).to(dev), torch.from_numpy(pos).to(dev))
+            torch.from_numpy(seg).to(dev), torch.from_numpy(pos).to(dev),
+            *extra)
         self.prefill_calls += 1
         self.prefill_token_slots += Tb
-        self.prefill_padded_tokens += Tb - sum(p[3] for p in plan)
-        self.cache.write_pages_batch(
-            [(slot, ks[:, off:off + Wp], vs[:, off:off + Wp], s_real, 0)
-             for _, _, slot, s_real, Wp, off in plan])
+        self.prefill_padded_tokens += Tb - sum(p[3] + p[4] for p in plan)
+        cache.write_pages_batch(
+            [(slot, ks[:, off + start:off + start + Wp],
+              vs[:, off + start:off + start + Wp], s_real, start // page)
+             for _, _, slot, start, s_real, Wp, off in plan])
         toks_out = None
         if any(not p[0].generated for p in plan):
             # first tokens from each segment's LAST real position
             # (skipped for an all-resume wave: their tokens are saved)
-            last = torch.tensor([off + s_real - 1
-                                 for _, _, _, s_real, _, off in plan],
-                                device=dev)
-            h = _rms_norm(x[0, last], self.params["final_norm"],
-                          self.cfg.rms_norm_eps)
-            logits = _mm(h, self.params["lm_head"], self.cfg.dtype).float()
-            toks_out = _pick_token(logits, self.temperature, self._gen,
-                                   self.top_k, self.top_p).cpu().numpy()
-        for i, (req, ctx, slot, s_real, Wp, off) in enumerate(plan):
-            if req.generated:                    # resume after preempt
-                tok = req.generated[-1]
-            else:
-                tok = int(toks_out[i])
-                req.generated.append(tok)
-                self._stream.append((req.rid, tok))
-            self._finish_admit(req, slot, tok)
+            toks_out = self._first_tokens(
+                x, [0] * K, [off + start + s_real - 1
+                             for _, _, _, start, s_real, _, off in plan])
+        self._emit_first([p[0] for p in plan], [p[2] for p in plan],
+                         toks_out)
 
     def _preempt(self, keep: Optional[int]) -> bool:
         """Evict the most recently admitted active request (except slot

@@ -23,11 +23,13 @@ per-token blocking fetch in the steady state (counted through the
 ``_dispatch_async`` / ``_fetch`` seams), a row exactly at capacity, one
 dispatch and one fetch per block, one ``tables_version`` bump per claim,
 the pre-claim clamped by the budget, cancel and deadline audit-clean, the
-knob's validation, and the HTTP front.
+knob's validation, the HTTP front, and chunked and prefix-cached admission
+under the pipeline and the horizon (``alloc_row_prefix`` bumps
+``tables_version``, so the graph lanes upload the new tables).
 
-Kept out, with their lanes (not ported): chunked prefill and prefix
-caching, speculative rounds, TP meshes, the metrics registry, wave
-quarantine (the fault plane) and the host page tier (swap resumes).  On
+Kept out, with their lanes (not ported): speculative rounds, TP meshes,
+the metrics registry, wave quarantine (the fault plane) and the host page
+tier (swap resumes).  On
 the CPU the steps run eagerly, through the same body the card replays from
 a CUDA graph (``tests/test_torch_serving_overlap_cuda.py`` holds the
 graphs there).
@@ -220,7 +222,8 @@ def _run(tcfg, tparams, specs, batch=2, num_pages=64, kv_quant=None,
     for p, n in specs:
         eng.submit(p, max_new_tokens=n, stop_sequences=stops)
     done = eng.run_to_completion()
-    assert cache.audit() == {"free": cache.num_pages - 1, "owned": 0}
+    assert cache.audit() == {"free": cache.num_pages - 1, "owned": 0,
+                             "indexed": 0}
     assert not eng._inflight
     return {r.rid: list(r.generated) for r in done}, eng
 
@@ -362,7 +365,7 @@ def test_overlap_preemption_midflight_token_exact(models, H):
     for req, p in zip(done, prompts):
         solo, _ = _run(tcfg, tparams, [(p, 20)], batch=1)
         assert list(req.generated) == solo[0]
-    assert cache.audit() == {"free": 4, "owned": 0}
+    assert cache.audit() == {"free": 4, "owned": 0, "indexed": 0}
 
 
 def test_overlap_steady_state_no_per_token_blocking_sync(models):
@@ -416,6 +419,62 @@ def test_overlap_exactly_sized_request_at_row_capacity(models, lookahead):
     eng.submit(prompt, max_new_tokens=48)          # 16 + 48 == 64
     assert list(eng.run_to_completion()[0].generated) == solo[0]
     assert cache.free_pages() == cache.num_pages - 1
+
+
+def test_overlap_chunked_prefill_and_prefix_caching(models):
+    """Chunked and prefix-cached admission compose with the pipeline
+    (admission flushes it): a long prompt over a 32-token chunk and two
+    requests sharing a 3-page prefix stay token-exact against the
+    synchronous lane, and the cached pages are still reused."""
+    _, tcfg, _, tparams = models
+    rng = np.random.RandomState(5)
+    p80 = rng.randint(1, 128, (80,))
+    want, _ = _run(tcfg, tparams, [(p80, 6)], batch=1)
+    eng, cache = _engine(tcfg, tparams, num_pages=32, prefill_chunk=32,
+                         packed=False, overlap=True)
+    eng.submit(p80, max_new_tokens=6)
+    assert eng.run_to_completion()[0].generated == want[0]
+    assert eng.prefill_calls == 3
+    prefix = rng.randint(1, 128, (48,))
+    specs = [(np.concatenate([prefix, rng.randint(1, 128, (L,))]), 5)
+             for L in (5, 9)]
+    want, _ = _run(tcfg, tparams, specs)
+    for packed in (True, False):
+        eng, cache = _engine(tcfg, tparams, enable_prefix_caching=True,
+                             packed=packed, overlap=True)
+        for p, n in specs:
+            eng.submit(p, max_new_tokens=n)
+        done = {r.rid: list(r.generated) for r in eng.run_to_completion()}
+        assert done == want, packed
+        assert cache.prefix_hits == 3
+        assert cache.audit() == {"free": 63 - 3, "owned": 0, "indexed": 3}
+        assert not eng._inflight
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_horizon_prefix_cache_token_exact(models, kv_quant):
+    """Prefix-cache admissions (shared pages + suffix prefill) compose with
+    the horizon and the pipeline: the shared pages stay shared across the
+    pre-claimed block, and H = 4 gives H = 1's tokens."""
+    _, tcfg, _, tparams = models
+
+    def run(H):
+        eng, cache = _engine(tcfg, tparams, decode_horizon=H, overlap=True,
+                             enable_prefix_caching=True, prefill_chunk=32,
+                             kv_quant=kv_quant)
+        rng = np.random.RandomState(5)
+        base = rng.randint(1, 128, (34,))
+        eng.submit(base, max_new_tokens=6)
+        eng.submit(np.concatenate([base[:32], rng.randint(1, 128, (4,))]),
+                   max_new_tokens=6)
+        got = {r.rid: list(r.generated) for r in eng.run_to_completion()}
+        cache.audit()
+        return got, cache
+
+    ref, _ = run(1)
+    got, cache = run(4)
+    assert got == ref
+    assert cache.prefix_hits > 0
 
 
 # -- the invariants of tests/test_serving_horizon.py --------------------------
@@ -560,7 +619,8 @@ def test_horizon_cancel_and_deadline_audit_clean(models):
     assert by[r1].status == "cancelled" and by[r2].status == "expired"
     assert len(by[r1].generated) < 40 and len(by[r2].generated) < 40
     assert eng.pipeline_flushes >= 1
-    assert cache.audit() == {"free": cache.num_pages - 1, "owned": 0}
+    assert cache.audit() == {"free": cache.num_pages - 1, "owned": 0,
+                             "indexed": 0}
 
 
 def test_horizon_invalid_value_and_lanes_rejected(models):

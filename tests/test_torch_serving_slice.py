@@ -430,26 +430,32 @@ def test_recompute_preemption_is_token_exact_and_audit_clean(models):
     for rid, p in zip(rids, prompts):
         assert done[rid].generated == _solo(tcfg, tparams, p, 20)
     stats = cache.audit()
-    assert stats == {"free": 8, "owned": 0}
+    assert stats == {"free": 8, "owned": 0, "indexed": 0}
 
 
 def test_engine_refuses_lanes_not_ported(models):
     _, tcfg, _, tparams = models
-    # overlap and decode_horizon are ported (test_torch_serving_overlap.py)
+    # overlap and decode_horizon are ported (test_torch_serving_overlap.py),
+    # prefix caching and packed=False too (test_torch_prefix_cache.py,
+    # test_torch_prefill_lanes.py)
     for kw in ({"mixed": True}, {"spec": object()}, {"mesh": object()},
-               {"enable_prefix_caching": True}, {"packed": False},
                {"policy": object()}, {"tenant_quotas": object()},
                {"tp_allreduce": "int8"}):
         with pytest.raises(NotImplementedError):
             _engine(tcfg, tparams, **kw)
+    # the host page tier (swap, prefix demotion) is refused by the cache
+    with pytest.raises(NotImplementedError, match="host page tier"):
+        tpd.PagedKVCache(tcfg, 8, 2, 1, page=PAGE, host_pages=4,
+                         device="cpu")
     # int8 is the one page quantization, as in JAX
     with pytest.raises(ValueError, match="kv_quant"):
         tpd.PagedKVCache(tcfg, 8, 2, 1, page=PAGE, kv_quant="fp8",
                          device="cpu")
     with pytest.raises(ValueError, match="kv_quant"):
         tpd.make_paged_decode_step(tcfg, kv_quant="int4")
-    with pytest.raises(NotImplementedError, match="history"):
-        tpd._packed_prefill_body(tcfg, q8=True, with_hist=True)
+    # generate_auto waits for the dense make_generate
+    with pytest.raises(NotImplementedError, match="make_generate"):
+        tpd.generate_auto(tcfg, tparams, [[1, 2]], 2)
 
 
 def test_submit_validation_and_cancel(models):
