@@ -1256,13 +1256,15 @@ def ran_launches(wrapper, before):
 
 
 def drive(torch, cfg, params, cache, prompts, news, mods, in_order=False,
-          **engine_kw):
+          observe=None, **engine_kw):
     """Serve ``prompts`` concurrently through a GenerationServer (the last
     one streamed), the launch counts set to 0 just before and read just
     after (with the launches of decode graph replays).  With ``in_order``
     the requests queue in their order and the engine holds its first step
     until all are queued, so they admit in one wave laid out as a direct
-    submit lays it out.  Fails on any error, short reply, unlaunched
+    submit lays it out.  ``observe(srv, url)``, when given, runs after
+    every reply is in and before the server stops; its result is
+    ``stats["observed"]``.  Fails on any error, short reply, unlaunched
     kernel of the cache's path or owned page.  -> (tokens per request,
     stats)."""
     from paddle_tpu_torch.inference.serving import (
@@ -1318,6 +1320,7 @@ def drive(torch, cfg, params, cache, prompts, news, mods, in_order=False,
     launches = ran_launches(read_counts(mods), graphs0)
     eng = srv.engine
     health = srv.health_snapshot()
+    observed = observe(srv, url) if observe and not errors else None
     srv.stop()
     peak = torch.cuda.max_memory_allocated()
     phase = "serve_int8" if cache.kv_quant == "int8" else "serve"
@@ -1351,7 +1354,7 @@ def drive(torch, cfg, params, cache, prompts, news, mods, in_order=False,
                       if eng.decode_wall_s else None),
         decode_steps=health["decode_steps"],
         prefill_waves=health["prefill_calls"], peak_mem_gb=peak / 2**30,
-        launches=launches, health=health)
+        launches=launches, health=health, observed=observed)
     return [results[i][0] for i in range(len(prompts))], stats
 
 
@@ -1632,6 +1635,305 @@ def phase_serve_overlap(torch, cfg, seed, params, mods, kv_quant=None,
     for name in path:
         if stats["launches"][name] <= 0:
             fail(f"{phase}: the HTTP lane did not launch {name}")
+    del cache
+    gs.clear()
+    return total
+
+
+# serve_observe: the serve's requests behind GenerationServer(overlap=True)
+# with the observability the server turns on by default (the engine's own
+# registry, the tracer); the names it reads are docs/OBSERVABILITY.md's
+OBS_COUNTERS = {
+    "paddle_tpu_engine_decode_steps_total": "decode_steps",
+    "paddle_tpu_engine_tokens_generated_total": "tokens_generated",
+    "paddle_tpu_engine_prefill_dispatches_total": "prefill_calls",
+    "paddle_tpu_engine_requests_finished_total": "requests_finished"}
+# the spans every served request's trace must hold
+OBS_SPANS = ("request", "http_ingress", "queued", "prefill",
+             "decode_active", "stream")
+OBS_PHASES = ("queued", "prefill", "decode_active", "preempted", "stream")
+OBS_TIMED_RUNS = 3
+
+
+def prom_samples(text):
+    """Prometheus text exposition -> {sample name with labels: value}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def hist_quantile(h, q):
+    """Prometheus histogram_quantile over a /stats histogram: linear
+    inside the bucket that holds the rank (seconds)."""
+    n = h["count"]
+    if not n:
+        return None
+    rank, lo, below = q * n, 0.0, 0
+    for le, c in h["buckets"].items():
+        hi = math.inf if le == "+Inf" else float(le)
+        if c >= rank:
+            if math.isinf(hi):
+                return lo
+            return lo + (hi - lo) * (rank - below) / max(c - below, 1)
+        lo, below = hi, c
+    return lo
+
+
+def engine_counts(srv, url=None):
+    """The served engine's own bookkeeping (idle: every reply is in)."""
+    return {attr: getattr(srv.engine, attr) for attr in
+            list(OBS_COUNTERS.values()) + ["preemptions", "host_syncs",
+                                           "pipeline_flushes"]}
+
+
+def scrape_observability(srv, url):
+    """Everything the observability endpoints serve, and the engine's own
+    bookkeeping beside it."""
+    import urllib.request
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return r.read()
+
+    index = json.loads(get("/traces?limit=100"))["traces"]
+    return {
+        "metrics": get("/metrics").decode(),
+        "stats": json.loads(get("/stats")),
+        "events": json.loads(get("/events?n=4096"))["events"],
+        "traces": index,
+        "docs": {t["trace_id"]: json.loads(get(f"/trace/{t['trace_id']}"))
+                 for t in index},
+        "perfetto": {t["trace_id"]: get(
+            f"/trace/{t['trace_id']}?format=perfetto") for t in index},
+        "engine": engine_counts(srv)}
+
+
+def observe_problems(obs, gens):
+    """The serve_observe checks -> a list of problems (empty when sound).
+    Counters against the engine's bookkeeping, histogram counts, /stats
+    against /metrics with trace-id exemplars, each request's trace (phase
+    spans gapless, summing to its wall, the boundary spans, a Perfetto
+    export with the ring's submissions) and the ring's events."""
+    bad = []
+    n = len(gens)
+    m = prom_samples(obs["metrics"])
+    eng = obs["engine"]
+    snap = obs["stats"]["metrics"]
+
+    def expect(what, got, want):
+        if got != want:
+            bad.append(f"{what}: {got} != {want}")
+
+    expect("requests submitted",
+           m.get("paddle_tpu_engine_requests_submitted_total"), n)
+    expect("requests finished",
+           m.get("paddle_tpu_engine_requests_finished_total"), n)
+    for name, attr in OBS_COUNTERS.items():
+        expect(name, m.get(name), eng[attr])
+    # the first token of each request comes from its admission wave and,
+    # as in JAX, is not counted in tokens_generated
+    expect("tokens_generated_total against the replies",
+           m.get("paddle_tpu_engine_tokens_generated_total"),
+           sum(len(g) for g in gens) - n)
+    expect("preemptions", eng["preemptions"], 0)
+    hist = {"paddle_tpu_request_ttft_seconds": n,
+            "paddle_tpu_request_queue_wait_seconds": n,
+            "paddle_tpu_request_tpot_seconds":
+                sum(len(g) > 1 for g in gens),
+            "paddle_tpu_engine_decode_step_seconds": eng["decode_steps"]}
+    rids = {str(i) for i in range(n)}
+    for name, want in hist.items():
+        expect(f"{name}_count", m.get(f"{name}_count"), want)
+        h = snap.get(name, {})
+        expect(f"/stats {name} count", h.get("count"), want)
+    for name in list(hist)[:3]:
+        ex = snap.get(name, {}).get("exemplars", {})
+        for k in ("max", "last"):
+            if ex.get(k, {}).get("trace_id") not in rids:
+                bad.append(f"{name} exemplar {k} names no served trace: "
+                           f"{ex.get(k)}")
+    for name in OBS_COUNTERS:
+        expect(f"/stats {name}", snap.get(name, {}).get("value"),
+               m.get(name))
+    ids = sorted(t["trace_id"] for t in obs["traces"])
+    expect("/traces ids", ids, sorted(rids))
+    for rid, doc in obs["docs"].items():
+        names = [s["name"] for s in doc["spans"]]
+        for must in OBS_SPANS:
+            if must not in names:
+                bad.append(f"trace {rid} lacks a {must} span: {names}")
+        if doc["status"] != "ok":
+            bad.append(f"trace {rid} status {doc['status']}")
+        phases = sorted((s for s in doc["spans"] if s["name"] in OBS_PHASES),
+                        key=lambda s: s["t0"])
+        if not phases:
+            continue
+        wall = phases[-1]["t0"] + phases[-1]["dur_s"] - phases[0]["t0"]
+        total = sum(s["dur_s"] for s in phases)
+        if abs(total - wall) > 1e-6 * wall:
+            bad.append(f"trace {rid}: phase spans sum to {total} s, wall "
+                       f"{wall} s")
+        for a, b in zip(phases, phases[1:]):
+            if abs(a["t0"] + a["dur_s"] - b["t0"]) > 1e-6 * wall:
+                bad.append(f"trace {rid}: gap between {a['name']} and "
+                           f"{b['name']}")
+        try:
+            perf = json.loads(obs["perfetto"][rid])
+            if "request_submitted" not in {e["name"]
+                                           for e in perf["traceEvents"]}:
+                bad.append(f"trace {rid}: the Perfetto export holds no "
+                           f"request_submitted")
+        except (ValueError, KeyError) as e:
+            bad.append(f"trace {rid}: the Perfetto export does not parse: "
+                       f"{e}")
+    evs = [e["name"] for e in obs["events"]]
+    expect("request_submitted events", evs.count("request_submitted"), n)
+    expect("request_finished events", evs.count("request_finished"), n)
+    return bad
+
+
+def phase_serve_observe(torch, cfg, seed, params, mods, dev="cuda"):
+    """The serve's 7 requests (one streamed) through GenerationServer(
+    overlap=True) with metrics_registry=False and tracer=False first (it
+    captures the decode graph of this cache, so the runs after it are
+    warm); then the same requests with the default registry and tracer
+    (all traces kept, so each is checked): observe_problems must find
+    nothing, and the tokens, host_syncs and pipeline_flushes must equal
+    the uninstrumented run's.  Then a planted fault, the overlap drain's
+    tokens_generated hook skipped once, which the counter check must
+    catch.  Last, the overlap lane's host ms per token with the
+    instrumentation on and off (the least of OBS_TIMED_RUNS runs each,
+    taken in turns), and TTFT and TPOT p50 / p99 from the histograms
+    beside the client's TTFT."""
+    from paddle_tpu_torch.models import graphed_step as gs
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    from paddle_tpu_torch.observability import Tracer
+    phase = "serve_observe"
+    cache = PagedKVCache(cfg, num_pages=256, pages_max=32, batch=8, page=64,
+                         device=dev)
+    prompts = serve_prompts(cfg, seed)
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def server(observe=scrape_observability, **kw):
+        return drive(torch, cfg, params, cache, prompts, SERVE_NEWS, mods,
+                     in_order=True, observe=observe, overlap=True, **kw)
+
+    # the server's default tracer, made to keep every trace (its store
+    # samples fast ok traces 1 in 10), so that each request is checked
+    from paddle_tpu_torch.inference import serving as srv_mod
+    real_server_init = srv_mod.GenerationServer.__init__
+
+    def init_keep_all(self, *a, **kw):
+        real_server_init(self, *a, **kw)
+        if self.tracer is not None:
+            self.tracer.store.keep_slower_than_ms = 0.0
+
+    ogens, ost = server(observe=engine_counts, metrics_registry=False,
+                        tracer=False)
+    add(ost["launches"])
+    off = ost["observed"]
+    with patched((srv_mod.GenerationServer, "__init__", init_keep_all)):
+        gens, st = server()
+        obs = st["observed"]
+        problems = observe_problems(obs, gens)
+        add(st["launches"])
+
+        # planted fault: the overlap drain records its tokens once too few
+        real_drain = ContinuousBatchingEngine._drain_one
+        skipped = []
+
+        class Null:
+            def inc(self, amount=1.0):
+                pass
+
+        def drain_skipping_once(self):
+            if skipped or self.metrics is None:
+                return real_drain(self)
+            skipped.append(1)
+            counter = self.metrics.tokens_generated
+            self.metrics.tokens_generated = Null()
+            try:
+                return real_drain(self)
+            finally:
+                self.metrics.tokens_generated = counter
+
+        with patched((ContinuousBatchingEngine, "_drain_one",
+                      drain_skipping_once)):
+            fgens, fst = server()
+        add(fst["launches"])
+        fault = observe_problems(fst["observed"], fgens)
+    on = obs["engine"]
+    # the overlap lane's host time a token, instrumentation on and off
+    timed = {"on": [], "off": []}
+    for _ in range(OBS_TIMED_RUNS):
+        for mode in ("off", "on"):
+            kw = ({"overlap": True, "tracer": Tracer()} if mode == "on"
+                  else {"overlap": True, "metrics_registry": False})
+            tgens, tst = run_lane(torch, cfg, params, cache, prompts,
+                                  SERVE_NEWS, mods, kw, profiled=False)
+            add(tst["launches"])
+            timed[mode].append(tst["host_ms_per_token"])
+            if tgens != gens:
+                fail(f"{phase}: the direct overlap lane ({mode}) served "
+                     f"other tokens than the HTTP run")
+    ms_on, ms_off = min(timed["on"]), min(timed["off"])
+    snap = obs["stats"]["metrics"]
+    ttft = snap["paddle_tpu_request_ttft_seconds"]
+    tpot = snap["paddle_tpu_request_tpot_seconds"]
+    m = prom_samples(obs["metrics"])
+    emit(phase, model="LLaMA-7B (LlamaPretrainConfig defaults)",
+         layers=cfg.num_hidden_layers, requests=len(prompts),
+         prompt_lens=SERVE_LENS, new_tokens=SERVE_NEWS,
+         engine=obs["engine"],
+         counters={k: m.get(k) for k in OBS_COUNTERS},
+         histogram_counts={k: snap[k]["count"] for k in (
+             "paddle_tpu_request_ttft_seconds",
+             "paddle_tpu_request_queue_wait_seconds",
+             "paddle_tpu_request_tpot_seconds",
+             "paddle_tpu_engine_decode_step_seconds")},
+         traces=len(obs["docs"]), events=len(obs["events"]),
+         problems=problems, planted_fault_problems=fault,
+         ttft_mean_s=ttft["sum"] / ttft["count"],
+         ttft_p50_s=hist_quantile(ttft, 0.5),
+         ttft_p99_s=hist_quantile(ttft, 0.99),
+         ttft_max_s=ttft["exemplars"]["max"]["value"],
+         tpot_mean_s=tpot["sum"] / tpot["count"],
+         tpot_p50_s=hist_quantile(tpot, 0.5),
+         tpot_p99_s=hist_quantile(tpot, 0.99),
+         tpot_max_s=tpot["exemplars"]["max"]["value"],
+         client_stream_ttft_s=st["stream_ttft_s"],
+         quantile_note="Prometheus histogram_quantile over the buckets "
+         "(linear inside a bucket); mean = sum / count; max from the max "
+         "exemplar; a warm run (the graph captured by the run before)",
+         host_syncs=[on["host_syncs"], off["host_syncs"]],
+         pipeline_flushes=[on["pipeline_flushes"],
+                           off["pipeline_flushes"]],
+         host_ms_per_token_on=ms_on, host_ms_per_token_off=ms_off,
+         host_ms_ratio=ms_on / ms_off, host_ms_runs=timed,
+         launches=total)
+    if problems:
+        fail(f"{phase}: {problems}")
+    if not skipped or not any("tokens_generated_total" in p for p in fault):
+        fail(f"{phase}: the planted fault (one overlap drain's "
+             f"tokens_generated hook skipped) was not caught: {fault}")
+    if ogens != gens:
+        fail(f"{phase}: instrumentation off served other tokens")
+    if (on["host_syncs"], on["pipeline_flushes"]) != \
+            (off["host_syncs"], off["pipeline_flushes"]):
+        fail(f"{phase}: host_syncs / pipeline_flushes on {on} vs off {off}")
+    for name in ("flash_attention_segmented", "paged_decode_attention",
+                 "segment_tile_ranges"):
+        if st["launches"][name] <= 0:
+            fail(f"{phase}: kernel {name} was not launched")
     del cache
     gs.clear()
     return total
@@ -2562,6 +2864,9 @@ def main():
     launches_overlap = phase_serve_overlap(torch, cfg, args.seed, params,
                                            mods)
     torch.cuda.empty_cache()
+    launches_observe = phase_serve_observe(torch, cfg, args.seed, params,
+                                           mods)
+    torch.cuda.empty_cache()
     launches_prefix = phase_serve_prefix(torch, cfg, args.seed, params, mods)
     torch.cuda.empty_cache()
     launches_dense = phase_serve_dense(torch, cfg, args.seed, params, mods)
@@ -2594,7 +2899,8 @@ def main():
         phase_train_grads(torch, train_cfg, args.seed, mods, flag_set=flag_set)
     # each kernel's launches in the serve, train, train_packed and
     # train_fused phases
-    runs = [launches, launches_overlap, launches_prefix, launches_dense,
+    runs = [launches, launches_overlap, launches_observe, launches_prefix,
+            launches_dense,
             launches_int8, launches_int8_overlap, launches_prefix_int8,
             launches_train, launches_packed, *launches_fused]
     launches = {k: sum(r[k] for r in runs) for k in launches}

@@ -7,15 +7,21 @@ Counterpart of ``paddle_tpu/inference/serving.py``'s ``GenerationServer`` /
 * ``POST /generate`` blocks for the whole completion, ``POST
   /generate_stream`` streams one JSON line per token (HTTP/1.1 chunked
   NDJSON), ``POST /cancel`` retires a request;
-* ``GET /health/live``, ``/health/ready`` and a minimal ``/health``;
+* ``GET /health/live``, ``/health/ready`` and ``/health``, a view over
+  the engine's metrics registry;
+* ``GET /metrics`` (Prometheus text exposition), ``/stats`` (the
+  registry's JSON snapshot), ``/events`` (the event ring's tail,
+  ``?n=&since=``), ``/traces`` (``?min_ms=&status=&limit=``) and
+  ``/trace/<rid>`` (a request's span tree; ``?format=perfetto`` for a
+  chrome trace merged with the ring), as docs/OBSERVABILITY.md describes
+  them, so ``tools/metrics_dump.py`` reads this server unchanged;
 * 400 for a bad or oversized request, 429 with ``Retry-After`` when the
   admission queue is full, 503 once the engine died, 504 for an expired
   deadline.
 
-``/metrics``, ``/stats``, ``/events`` and ``/trace*`` wait for the port's
-observability slice; priority classes and tenants (the QoS slice) are
-refused with 400.  Nothing here imports beyond the standard library, numpy
-and the port's engine.
+Priority classes and tenants (the QoS slice) are refused with 400.
+Nothing here imports beyond the standard library, numpy and the port's
+engine and observability package.
 """
 
 from __future__ import annotations
@@ -30,8 +36,95 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
 from ..models.serving_engine import ContinuousBatchingEngine, QueueFullError
+from ..observability import (MetricsRegistry, TraceStore, Tracer,
+                             default_ring)
 
 __all__ = ["GenerationServer", "generate_http", "generate_http_stream"]
+
+
+def _http_metrics(registry):
+    """HTTP-front counters (single registration site, JAX's two names;
+    the port has no ``/predict`` front, so its counter reads 0)."""
+    return {
+        "predict": registry.counter(
+            "paddle_tpu_http_predict_requests_total",
+            "Successful POST /predict calls"),
+        "generate": registry.counter(
+            "paddle_tpu_http_generate_requests_total",
+            "Accepted POST /generate[_stream] submissions"),
+    }
+
+
+def _snap_val(snap: dict, name: str, default=0):
+    """Read one scalar out of a registry snapshot (gauges may be None
+    when a scrape callback failed)."""
+    m = snap.get(name)
+    if m is None:
+        return default
+    v = m.get("value")
+    return default if v is None else v
+
+
+def _serve_observability(handler, path: str, registry, ring,
+                         tracer=None) -> bool:
+    """The observability GET endpoints: ``/metrics``, ``/stats``,
+    ``/events`` (ring tail; ``?n=`` limit, ``?since=<seq>`` for followers,
+    with the ``gap`` of events the ring dropped past the cursor) and, with
+    a tracer, ``/traces`` and ``/trace/<rid>``.  None takes the server
+    lock: the registry's instruments lock themselves and the callback
+    gauges read host state only.  Returns True when the path was
+    handled."""
+    if path == "/metrics":
+        handler._reply(200, registry.render_prometheus().encode(),
+                       "text/plain; version=0.0.4")
+        return True
+    if path == "/stats":
+        body = {"metrics": registry.snapshot(),
+                "events_buffered": len(ring),
+                "events_dropped": ring.dropped}
+        handler._reply(200, json.dumps(body).encode())
+        return True
+    if path == "/events":
+        q = urllib.parse.parse_qs(urllib.parse.urlsplit(handler.path).query)
+        try:
+            since = int(q["since"][0]) if "since" in q else 0
+            # a since-follower gets everything new by default: an implicit
+            # cap would advance its cursor past dropped burst events
+            n = int(q["n"][0]) if "n" in q else (None if since else 100)
+        except ValueError:
+            handler._reply(400, b"bad query", "text/plain")
+            return True
+        evs, gap = ring.recent_with_gap(n=n, since=since)
+        body = {"events": evs, "gap": gap, "dropped": ring.dropped}
+        handler._reply(200, json.dumps(body).encode())
+        return True
+    if tracer is not None and path == "/traces":
+        q = urllib.parse.parse_qs(urllib.parse.urlsplit(handler.path).query)
+        try:
+            min_ms = float(q["min_ms"][0]) if "min_ms" in q else 0.0
+            limit = int(q["limit"][0]) if "limit" in q else 50
+            status = q["status"][0] if "status" in q else None
+        except ValueError:
+            handler._reply(400, b"bad query", "text/plain")
+            return True
+        body = {"traces": tracer.index(min_ms=min_ms, status=status,
+                                       limit=limit)}
+        handler._reply(200, json.dumps(body).encode())
+        return True
+    if tracer is not None and path.startswith("/trace/"):
+        rid = path[len("/trace/"):]
+        q = urllib.parse.parse_qs(urllib.parse.urlsplit(handler.path).query)
+        if q.get("format", ["json"])[0] == "perfetto":
+            doc = tracer.export_chrome_trace(rid, ring=ring)
+        else:
+            doc = tracer.get(rid)
+        if doc is None:
+            handler._reply(404, b"no such trace (dropped by tail "
+                                b"sampling, or never begun)", "text/plain")
+        else:
+            handler._reply(200, json.dumps(doc).encode())
+        return True
+    return False
 
 
 class _GenHandler(BaseHTTPRequestHandler):
@@ -68,7 +161,8 @@ class _GenHandler(BaseHTTPRequestHandler):
                         b'{"ready": true}' if ok else b'{"ready": false}')
         elif path in ("", "/health"):
             self._reply(200, json.dumps(srv.health_snapshot()).encode())
-        else:
+        elif not _serve_observability(self, path, srv.registry, srv.ring,
+                                      srv.tracer):
             self._reply(404, b"not found", "text/plain")
 
     def do_POST(self):
@@ -175,11 +269,27 @@ class GenerationServer:
     Build it from ``(cfg, params, cache, **engine_kw)`` or pass a built
     ``engine=``.  ``start()`` returns the bound port (``port=0`` picks a
     free one) and starts two daemon threads: the HTTP listener and the
-    drive loop, which owns every engine step."""
+    drive loop, which owns every engine step.
+
+    ``/metrics``, ``/stats``, ``/events`` and ``/health`` read the
+    engine's registry and ring (``metrics_registry`` rides in
+    ``engine_kw``, as in JAX: a registry private to the engine by
+    default; an engine built with ``metrics_registry=False`` leaves an
+    empty registry here).  ``tracer`` is on by default: a
+    ``Tracer(TraceStore(...))`` publishing its store's counters to the
+    same registry, handed to the engine unless the engine brought its
+    own (then the server adopts that one); ``tracer=False`` turns it
+    off."""
+
+    # how long a readiness probe or /health scrape waits for the server
+    # lock before serving the last verdict built under it (a step, a
+    # first capture, can hold the lock for a while)
+    _READY_PROBE_WAIT_S = 0.05
 
     def __init__(self, cfg=None, params=None, cache=None, mesh=None,
                  host: str = "127.0.0.1", port: int = 0,
-                 poll_s: float = 0.002, engine=None, **engine_kw):
+                 poll_s: float = 0.002, engine=None, tracer=None,
+                 **engine_kw):
         if engine is None:
             engine = ContinuousBatchingEngine(cfg, params, cache, mesh=mesh,
                                               **engine_kw)
@@ -193,6 +303,29 @@ class GenerationServer:
         self._drive_thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._fatal: Optional[str] = None
+        # the last readiness verdict and /health document built under the
+        # lock (the second with the monotonic instant it was built),
+        # served when a probe cannot get the lock promptly
+        self._ready_last = False
+        self._health_last: Optional[tuple] = None
+        m = engine.metrics
+        if m is not None:
+            self.registry, self.ring = m.registry, m.ring
+        else:
+            self.registry, self.ring = MetricsRegistry(), default_ring()
+        self._http_counters = _http_metrics(self.registry)
+        # one tracer for the server and its engine: hand the server's down
+        # when the engine has none, adopt the engine's when it brought one
+        if tracer is False:
+            self.tracer = None
+        elif engine.tracer is not None:
+            self.tracer = engine.tracer
+            if self.tracer.store.m_retained is None:
+                self.tracer.store.bind_metrics(self.registry)
+        else:
+            self.tracer = tracer if tracer is not None else Tracer(
+                TraceStore(metrics_registry=self.registry))
+            engine.tracer = self.tracer
 
     def is_live(self) -> bool:
         """The drive loop thread is running."""
@@ -201,37 +334,136 @@ class GenerationServer:
 
     def is_ready(self) -> bool:
         """Live, engine healthy, and the admission queue below its bound
-        (the same predicate ``submit()`` refuses by)."""
-        with self._lock:
-            return (self.is_live() and self._fatal is None
-                    and self.engine.queue_capacity_reason() is None)
+        (the same predicate ``submit()`` refuses by).  Waits at most
+        ``_READY_PROBE_WAIT_S`` for the server lock, else serves the last
+        verdict computed under it."""
+        if not self._lock.acquire(timeout=self._READY_PROBE_WAIT_S):
+            return self._ready_last
+        try:
+            r = self._is_ready_locked()
+            self._ready_last = r
+            return r
+        finally:
+            self._lock.release()
+
+    def _is_ready_locked(self) -> bool:
+        return (self.is_live() and self._fatal is None
+                and self.engine.queue_capacity_reason() is None)
 
     def health_snapshot(self) -> dict:
-        """The ``/health`` document, read under the server lock."""
-        with self._lock:
+        """The ``/health`` document: JAX's keys as a view over the metrics
+        registry, plus the engine's ``host_syncs`` and
+        ``pipeline_flushes``.  The handful of engine reads the registry
+        does not carry happen under the server lock; the registry
+        snapshot runs after it is released.  When the drive thread holds
+        the lock past ``_READY_PROBE_WAIT_S`` the last document is served
+        with ``stale_s``, its age in seconds (the very first scrape
+        waits).  With ``metrics_registry=False`` the same keys are read
+        from the engine's attributes under the lock."""
+        if not self._lock.acquire(timeout=self._READY_PROBE_WAIT_S):
+            last = self._health_last
+            if last is not None:
+                doc, built_t = last
+                stale = dict(doc)
+                stale["stale_s"] = round(time.monotonic() - built_t, 3)
+                return stale
+            self._lock.acquire()
+        try:
             eng = self.engine
-            return {"status": "ok" if self._fatal is None else "failed",
-                    "error": self._fatal,
-                    "live": self.is_live(),
-                    "active": len(eng._active),
-                    "queued": len(eng._queue),
-                    "queued_tokens": eng.queued_tokens(),
-                    "free_pages": eng.cache.free_pages(),
-                    "decode_steps": eng.decode_steps,
-                    "tokens_generated": eng.tokens_generated,
-                    "prefill_calls": eng.prefill_calls,
-                    "preemptions": eng.preemptions,
-                    "prefix_hits": eng.cache.prefix_hits,
-                    "requests_finished": eng.requests_finished,
-                    "requests_cancelled": eng.requests_cancelled,
-                    "requests_expired": eng.requests_expired,
-                    "requests_rejected": eng.requests_rejected,
-                    "decode_horizon": eng.decode_horizon,
-                    "horizon_trimmed_tokens": eng.horizon_trimmed_tokens,
-                    "host_syncs": eng.host_syncs,
-                    "pipeline_flushes": eng.pipeline_flushes}
+            fixed = {"status": "ok" if self._fatal is None else "failed",
+                     "error": self._fatal,
+                     "live": self.is_live(),
+                     "ready": self._is_ready_locked(),
+                     "restarts": 0,
+                     "step_faults": 0}
+            extra = {"host_syncs": eng.host_syncs,
+                     "pipeline_flushes": eng.pipeline_flushes}
+            h = None if eng.metrics is not None else \
+                self._health_from_engine(eng)
+        finally:
+            self._lock.release()
+        if h is None:
+            h = self._health_from_registry(self.registry.snapshot(),
+                                           eng.decode_horizon)
+        h = {**fixed, **h, **extra}
+        self._health_last = (h, time.monotonic())
+        return h
+
+    @staticmethod
+    def _health_from_engine(eng) -> dict:
+        """The registry view's counts read from the engine's attributes
+        (no registry to view); caller holds the server lock.  The lanes
+        the port lacks read 0."""
+        return {"requests_cancelled": eng.requests_cancelled,
+                "requests_expired": eng.requests_expired,
+                "requests_rejected": eng.requests_rejected,
+                "requests_faulted": 0,
+                "queued_tokens": eng.queued_tokens(),
+                "active": len(eng._active),
+                "queued": len(eng._queue),
+                "free_pages": eng.cache.free_pages(),
+                "decode_steps": eng.decode_steps,
+                "tokens_generated": eng.tokens_generated,
+                "prefill_calls": eng.prefill_calls,
+                "preemptions": eng.preemptions,
+                "prefix_hits": eng.cache.prefix_hits,
+                "swap_out_pages": 0,
+                "swap_in_pages": 0,
+                "prefill_tokens_avoided": 0,
+                "mixed_ticks": 0,
+                "mixed_prefill_tokens": 0,
+                "mixed_budget_utilization": 0.0,
+                "decode_horizon": eng.decode_horizon,
+                "horizon_trimmed_tokens": eng.horizon_trimmed_tokens,
+                "requests_finished": eng.requests_finished}
+
+    @staticmethod
+    def _health_from_registry(snap: dict, decode_horizon: int) -> dict:
+        """JAX's registry view (``_health_from_registry``) over one
+        snapshot: every count is read from the instrumentation, none
+        from engine attributes."""
+        def v(name):
+            return int(_snap_val(snap, name))
+
+        return {
+            "requests_cancelled": v(
+                "paddle_tpu_engine_requests_cancelled_total"),
+            "requests_expired": v(
+                "paddle_tpu_engine_requests_expired_total"),
+            "requests_rejected": v(
+                "paddle_tpu_engine_requests_rejected_total"),
+            "requests_faulted": v(
+                "paddle_tpu_engine_requests_faulted_total"),
+            "queued_tokens": v("paddle_tpu_engine_queued_tokens_count"),
+            "active": v("paddle_tpu_engine_active_requests_count"),
+            "queued": v("paddle_tpu_engine_queued_requests_count"),
+            "free_pages": v("paddle_tpu_kvcache_free_pages_count"),
+            "occupancy": _snap_val(
+                snap, "paddle_tpu_engine_batch_occupancy_ratio"),
+            "decode_steps": v("paddle_tpu_engine_decode_steps_total"),
+            "tokens_generated": v(
+                "paddle_tpu_engine_tokens_generated_total"),
+            "prefill_calls": v(
+                "paddle_tpu_engine_prefill_dispatches_total"),
+            "preemptions": v("paddle_tpu_engine_preemptions_total"),
+            "prefix_hits": v("paddle_tpu_kvcache_prefix_hit_pages_total"),
+            "swap_out_pages": v("paddle_tpu_kvcache_swap_out_pages_total"),
+            "swap_in_pages": v("paddle_tpu_kvcache_swap_in_pages_total"),
+            "prefill_tokens_avoided": v(
+                "paddle_tpu_engine_prefill_tokens_avoided_total"),
+            "mixed_ticks": v("paddle_tpu_engine_mixed_ticks_total"),
+            "mixed_prefill_tokens": v(
+                "paddle_tpu_engine_mixed_piggybacked_prefill_tokens_total"),
+            # no mixed lane, no budget: JAX's view of such an engine
+            "mixed_budget_utilization": 0.0,
+            "decode_horizon": decode_horizon,
+            "horizon_trimmed_tokens": v(
+                "paddle_tpu_engine_horizon_trimmed_tokens_total"),
+            "requests_finished": v(
+                "paddle_tpu_engine_requests_finished_total")}
 
     def submit(self, prompt, max_new_tokens, deadline_s=None):
+        t0 = time.monotonic()
         with self._lock:
             if self._fatal is not None:
                 raise RuntimeError(f"engine died: {self._fatal}")
@@ -239,6 +471,12 @@ class GenerationServer:
             rid = self.engine.submit(prompt, max_new_tokens=max_new_tokens,
                                      deadline_s=deadline_s)
             self._queues[rid] = q
+        self._http_counters["generate"].inc()
+        if self.tracer is not None:
+            # the handler-side wall of the accepted submission (the engine
+            # began the trace under the same rid)
+            self.tracer.add_span(str(rid), "http_ingress", t0,
+                                 time.monotonic())
         return rid, q
 
     def cancel(self, rid: int) -> bool:
@@ -266,6 +504,15 @@ class GenerationServer:
                                 q.put(("tok", tok))
                         for req in eng.finished():
                             q = self._queues.pop(req.rid, None)
+                            if self.tracer is not None and req.t_finish:
+                                # terminal delivery, retirement -> waiter
+                                # fan-out: a late span, kept iff tail
+                                # retention kept the trace
+                                self.tracer.add_span(
+                                    str(req.rid), "stream", req.t_finish,
+                                    time.monotonic(),
+                                    attrs={"phase": "stream",
+                                           "status": req.status})
                             if q is None:
                                 continue
                             if req.status == "ok":

@@ -112,6 +112,9 @@ class PagedKVCache:
         self._prefix_children: dict = {}
         self.prefix_hits = 0              # pages reused through the index
         self.scatter_dispatches = 0       # page writes, one per wave
+        # the engine's EngineMetrics (the engine sets it; None records
+        # nothing)
+        self.metrics = None
 
     def free_pages(self) -> int:
         return len(self._free)
@@ -236,6 +239,9 @@ class PagedKVCache:
         self.tables_version += 1
         self.lens[b] = L
         self.prefix_hits += len(plan)
+        if self.metrics is not None:
+            self.metrics.prefix_hit_pages.inc(len(plan))
+            self.metrics.prefix_miss_pages.inc(need - len(plan))
         return len(plan) * page
 
     def register_prefix(self, b: int, ctx: np.ndarray) -> None:

@@ -38,12 +38,21 @@ host through a ring of ``lookahead + 1`` pinned slots, each copy queued
 behind its step and guarded by a CUDA event, and ``_fetch`` (waiting on
 that event) is the only blocking host sync of the steady state.
 
+Observability, as in JAX: the engine records into an
+:class:`~paddle_tpu_torch.observability.EngineMetrics` bundle on a
+registry of its own (``metrics_registry=None``), a shared one, or none
+(``metrics_registry=False``), and emits its lifecycle events into a ring
+(``metrics_ring``).  With a ``tracer`` each request carries a trace whose
+phase clocks (queued, prefill, decode_active, preempted) advance at the
+scheduler mutation points only and become spans once, at retirement.
+Every instrument records a number the host already holds: no kernel
+launch and no device sync is added on any lane.
+
 Not ported yet, and refused at construction when asked for: the mixed and
 speculative lanes, TP meshes, scheduler policies, tenant quotas and the
 quantized TP all-reduce (the host page tier is refused by
 ``PagedKVCache``).  The fault plane and wave quarantine (a step
-exception propagates to the caller), metrics and tracing also wait for
-later slices.
+exception propagates to the caller) also wait for a later slice.
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..observability import (EngineMetrics, MetricsRegistry, advance_phase,
+                             bind_engine_gauges, finalize_request_trace)
 from .graphed_step import decode_graph
 from .llama_pretrain import LlamaPretrainConfig, _mm, _rms_norm
 from .paged_decode import (PagedKVCache, _packed_prefill_body, _pick_token,
@@ -73,6 +84,36 @@ class QueueFullError(RuntimeError):
     def __init__(self, why: str, retry_after: float = 1.0):
         super().__init__(why)
         self.retry_after = float(retry_after)
+
+
+def _tid(req: "Request") -> Optional[str]:
+    """Exemplar handle: the trace id behind a histogram observation
+    (None with tracing off)."""
+    return req.trace.trace_id if req.trace is not None else None
+
+
+def _finalize_trace(req: "Request") -> None:
+    """Retirement-time trace materialization: close the request's open
+    phase interval at ``t_finish`` and report the accrued intervals as
+    spans — the one place phase clocks become spans (never per decode
+    step).  An engine-owned trace is closed here with the request's
+    final status.  Never raises: tracing must not be able to break
+    retirement."""
+    try:
+        ctx = req.trace
+        if ctx is None:
+            # the clocks close even with tracing off: the span-accounting
+            # contract is on the Request
+            if req.t_phase and req.phase != "done":
+                advance_phase(req, "done",
+                              now=req.t_finish if req.t_finish else None)
+            return
+        req.trace = None              # report + close exactly once
+        finalize_request_trace(ctx, req, close=not ctx.managed,
+                               tokens=len(req.generated),
+                               preemptions=req.preempted)
+    except Exception:
+        pass
 
 
 @dataclass
@@ -93,9 +134,19 @@ class Request:
     t_first_token: float = 0.0
     t_finish: float = 0.0
     # absolute monotonic deadline (0.0 = none) and how the request ended:
-    # "ok" (eos / stop / budget), "cancelled" or "expired"
+    # "ok" (eos / stop / budget), "cancelled" or "expired"; ``error`` is
+    # the fault text of an errored ending (none on the port's lanes)
     deadline: float = 0.0
     status: str = "ok"
+    error: Optional[str] = None
+    # tracing: the current lifecycle phase and the monotonic instant it
+    # began; each transition appends one closed (phase, t0, t1) interval
+    # to phase_log, at scheduler mutation points only, never per token.
+    # ``trace`` is the request's TraceContext (None with tracing off).
+    phase: str = "queued"
+    t_phase: float = 0.0
+    phase_log: List = field(default_factory=list)
+    trace: Optional[object] = None
 
 
 class ContinuousBatchingEngine:
@@ -126,7 +177,13 @@ class ContinuousBatchingEngine:
     tokens a dispatch over tables pre-claimed for the block; rows stop on
     the device at eos or budget, and a host-detected stop sequence trims
     the device's over-generated tail (at most H - 1 tokens, counted in
-    ``horizon_trimmed_tokens``)."""
+    ``horizon_trimmed_tokens``).
+
+    ``metrics_registry``: ``None`` records into a registry private to this
+    engine, a :class:`MetricsRegistry` into that one, ``False`` records
+    nothing; ``metrics_ring`` is the event ring (a private one by
+    default); ``tracer`` (a :class:`~paddle_tpu_torch.observability.Tracer`)
+    gives every submitted request a trace under its rid."""
 
     def __init__(self, cfg: LlamaPretrainConfig, params,
                  cache: PagedKVCache, eos_id: Optional[int] = None,
@@ -135,13 +192,14 @@ class ContinuousBatchingEngine:
                  prefill_chunk: Optional[int] = None,
                  mesh=None, top_k: int = 0,
                  top_p: float = 1.0, enable_prefix_caching: bool = False,
+                 metrics_registry=None, metrics_ring=None,
                  overlap: bool = False, lookahead: int = 1,
                  packed: bool = True,
                  max_queue_len: Optional[int] = None,
                  max_queued_tokens: Optional[int] = None,
                  tp_allreduce: str = "fp32", mixed: bool = False,
                  decode_horizon: int = 1, spec=None, policy=None,
-                 tenant_quotas=None):
+                 tenant_quotas=None, tracer=None):
         if int(decode_horizon) < 1:
             raise ValueError(
                 f"decode_horizon must be >= 1, got {decode_horizon}")
@@ -200,6 +258,9 @@ class ContinuousBatchingEngine:
         self.requests_cancelled = 0
         self.requests_expired = 0
         self.requests_rejected = 0
+        self.resumes_recompute = 0        # preempted requests re-admitted
+        self.resume_wall_s = 0.0          # all-resume admission waves' wall
+        self.resume_events = 0
         self.decode_wall_s = 0.0
         self.max_queue_len = max_queue_len
         self.max_queued_tokens = max_queued_tokens
@@ -215,6 +276,21 @@ class ContinuousBatchingEngine:
         self._admit_seq = 0
         self._stream: List = []     # (rid, token) in emission order
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # observability: host-side instruments only, recorded from values
+        # the host already holds.  A registry private to this engine by
+        # default (exact per-engine /metrics), a shared one to aggregate,
+        # or metrics_registry=False for none
+        self.tracer = tracer
+        if metrics_registry is False:
+            self.metrics = None
+            cache.metrics = None     # a reused cache must not keep feeding
+            #                          a prior engine's counters
+        else:
+            self.metrics = EngineMetrics(
+                metrics_registry if metrics_registry is not None
+                else MetricsRegistry(), ring=metrics_ring)
+            bind_engine_gauges(self.metrics, self)
+            cache.metrics = self.metrics
         self._step = make_paged_decode_step(cfg, temperature,
                                             kv_quant=cache.kv_quant,
                                             top_k=top_k, top_p=top_p)
@@ -325,19 +401,37 @@ class ContinuousBatchingEngine:
                 stops.append([int(t) for t in q])
         why = self.queue_capacity_reason(len(prompt))
         if why is not None:
-            self.requests_rejected += 1
-            raise QueueFullError(why, retry_after=self.retry_after_s())
+            self._reject(why)
         deadline = 0.0
         if deadline_s is not None:
             deadline = self._now() + float(deadline_s)
             self._has_deadlines = True
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(Request(rid, prompt, max_new_tokens,
-                                   stop_sequences=stops,
-                                   t_submit=time.monotonic(),
-                                   deadline=deadline))
+        req = Request(rid, prompt, max_new_tokens, stop_sequences=stops,
+                      t_submit=time.monotonic(), deadline=deadline)
+        # phase accounting starts at the queue
+        req.t_phase = req.t_submit
+        if self.tracer is not None:
+            req.trace = self.tracer.begin_trace(
+                str(rid), prompt_len=len(prompt),
+                max_new_tokens=int(max_new_tokens))
+        self._queue.append(req)
+        if self.metrics is not None:
+            self.metrics.requests_submitted.inc()
+            # priority and tenant as JAX records a request without them
+            self.metrics.ring.emit("request_submitted", rid=rid,
+                                   prompt_len=len(prompt),
+                                   max_new_tokens=max_new_tokens,
+                                   priority="normal", tenant=None)
         return rid
+
+    def _reject(self, why: str) -> None:
+        self.requests_rejected += 1
+        if self.metrics is not None:
+            self.metrics.requests_rejected.inc()
+            self.metrics.ring.emit("request_rejected", reason=why)
+        raise QueueFullError(why, retry_after=self.retry_after_s())
 
     def cancel(self, rid: int) -> bool:
         """Mark a queued or active request for cancellation; it retires at
@@ -354,6 +448,13 @@ class ContinuousBatchingEngine:
         counts its regenerated context too)."""
         return sum(len(r.prompt) + len(r.generated)
                    for r in tuple(self._queue))
+
+    def queued_by_class(self) -> Dict[str, int]:
+        """Waiting requests per priority class.  The port has no priority
+        classes yet, so every queued request counts as ``"normal"``, as
+        JAX counts a request submitted without a priority.  Reads only
+        ``len`` of the host queue, so scrape threads call it lock-free."""
+        return {"high": 0, "normal": len(self._queue), "low": 0}
 
     def queue_capacity_reason(self, prompt_len: int = 0) -> Optional[str]:
         """Why the bounded admission queue would refuse a submission now,
@@ -429,13 +530,26 @@ class ContinuousBatchingEngine:
                 return True
         return False
 
+    def _note_first_token(self, req: Request) -> None:
+        """TTFT sample, once per request (the first token lands at
+        admission; a preemption resume must not observe again)."""
+        if req.t_first_token == 0.0 and req.generated:
+            req.t_first_token = time.monotonic()
+            if self.metrics is not None:
+                self.metrics.ttft.observe(
+                    req.t_first_token - req.t_submit, exemplar=_tid(req))
+
     def _finish_admit(self, req: Request, slot: int, tok: int) -> None:
         """Shared bookkeeping tail of an admission."""
-        now = time.monotonic()
         if req.t_admit == 0.0:
-            req.t_admit = now
-        if req.t_first_token == 0.0:
-            req.t_first_token = now
+            req.t_admit = time.monotonic()
+            if self.metrics is not None:
+                self.metrics.queue_wait.observe(
+                    req.t_admit - req.t_submit, exemplar=_tid(req))
+        # phase-clock transition: the queue / prefill wave closes here and
+        # decoding begins
+        advance_phase(req, "decode_active")
+        self._note_first_token(req)
         req.slot = slot
         req.admit_seq = self._admit_seq
         self._admit_seq += 1
@@ -460,19 +574,42 @@ class ContinuousBatchingEngine:
         self._free_slot(slot)
         if status == "ok":
             self.requests_finished += 1
+            if self.metrics is not None:
+                m = self.metrics
+                m.requests_finished.inc()
+                n = len(req.generated)
+                if n > 1 and req.t_first_token and not req.preempted:
+                    # mean inter-token time over the decode phase (TTFT
+                    # has its own histogram); a preempted request's window
+                    # spans its requeue wait, so it is left out
+                    m.tpot.observe(
+                        (req.t_finish - req.t_first_token) / (n - 1),
+                        exemplar=_tid(req))
+                m.ring.emit("request_finished", rid=req.rid, tokens=n,
+                            preempted=req.preempted)
+        _finalize_trace(req)
         self._finished.append(req)
 
     def _finish_queued(self, req: Request, status: str) -> None:
         req.done = True
         req.status = status
         req.t_finish = time.monotonic()
+        _finalize_trace(req)
         self._finished.append(req)
 
-    def _count_abnormal(self, status: str) -> None:
+    def _count_abnormal(self, req: Request, status: str) -> None:
+        """The one bookkeeping site of a cancelled or expired ending
+        (the plain counters and the registry's stay in lockstep)."""
         if status == "cancelled":
             self.requests_cancelled += 1
         else:
             self.requests_expired += 1
+        if self.metrics is not None:
+            m = self.metrics
+            (m.requests_cancelled if status == "cancelled"
+             else m.requests_expired).inc()
+            m.ring.emit("request_aborted", rid=req.rid, status=status,
+                        generated=len(req.generated))
 
     def _sweep_cancelled_expired(self) -> None:
         """Retire cancelled / deadline-expired requests, queued or
@@ -496,7 +633,7 @@ class ContinuousBatchingEngine:
             if status is None:
                 keep.append(req)
             else:
-                self._count_abnormal(status)
+                self._count_abnormal(req, status)
                 self._finish_queued(req, status)
         self._queue = keep
         victims = [(slot, req, status)
@@ -508,7 +645,7 @@ class ContinuousBatchingEngine:
             # the flush may have retired the victim normally (eos or
             # budget landed on the device first): that stands
             if self._active.get(slot) is req:
-                self._count_abnormal(status)
+                self._count_abnormal(req, status)
                 self._retire(slot, status)
         self._cancelled.clear()
 
@@ -521,7 +658,12 @@ class ContinuousBatchingEngine:
             return 0
         t0 = time.perf_counter()
         self._decode_once()
-        self.decode_wall_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.decode_wall_s += dt
+        if self.metrics is not None:
+            # the host wall of the tick: on the graph lanes the dispatch
+            # plus the drain, not device time
+            self.metrics.decode_seconds.observe(dt)
         return len(self._active)
 
     def _collect_admissions(self):
@@ -536,6 +678,10 @@ class ContinuousBatchingEngine:
             if reserved + need > self.cache.available_pages():
                 break
             reserved += need
+            if head.generated:               # recompute-style resume
+                self.resumes_recompute += 1
+                if self.metrics is not None:
+                    self.metrics.preempt_resume_recompute.inc()
             admits.append((self._queue.popleft(), ctx))
         return admits
 
@@ -546,7 +692,18 @@ class ContinuousBatchingEngine:
                 # admission is a scheduler mutation: drain the pipeline
                 # before slots and pages move under it
                 self._pipeline_flush()
+            all_resumes = all(r.generated for r, _ in admits)
+            t_adm = time.perf_counter()
             self._admit_sequential(admits)
+            if all_resumes:
+                # an all-resume wave's admission wall is the resume
+                # latency, attributed per request
+                dt = time.perf_counter() - t_adm
+                self.resume_wall_s += dt
+                self.resume_events += len(admits)
+                if self.metrics is not None:
+                    self.metrics.preempt_resume_seconds.observe(
+                        dt / len(admits))
 
     def _admit_sequential(self, admits: List) -> None:
         """The lane of one popped admission wave: the packed lane (any
@@ -554,6 +711,9 @@ class ContinuousBatchingEngine:
         with ``packed=False`` the chunked lane for prefix caching and for
         contexts longer than ``prefill_chunk`` and one batched dispatch
         per bucket for the rest."""
+        for req, _ in admits:
+            # the wave's wall lands in each rider's "prefill" clock
+            advance_phase(req, "prefill")
         if self._packed:
             self._admit_packed(admits)
             return
@@ -617,8 +777,12 @@ class ContinuousBatchingEngine:
         x, ks, vs = self._prefill_dense(
             self.params, torch.from_numpy(padded).to(self.device))
         self.prefill_calls += 1
+        waste = Kp * Lp - sum(Ls)
         self.prefill_token_slots += Kp * Lp
-        self.prefill_padded_tokens += Kp * Lp - sum(Ls)
+        self.prefill_padded_tokens += waste
+        if self.metrics is not None:
+            self.metrics.prefill_dispatches.inc()
+            self.metrics.prefill_padded_tokens.inc(waste)
         self.cache.write_pages_batch(
             [(slot, ks[:, i], vs[:, i], L, 0)
              for i, (slot, L) in enumerate(zip(slots, Ls))])
@@ -668,8 +832,13 @@ class ContinuousBatchingEngine:
                                   first_page=pos // page)
             last_real = C_real
             pos += C_real
+        waste = nchunks * chunk - (L - start)
         self.prefill_token_slots += nchunks * chunk
-        self.prefill_padded_tokens += nchunks * chunk - (L - start)
+        self.prefill_padded_tokens += waste
+        if self.metrics is not None and nchunks:
+            self.metrics.prefill_dispatches.inc(nchunks)
+            self.metrics.prefill_chunks.inc(nchunks)
+            self.metrics.prefill_padded_tokens.inc(waste)
         toks_out = None
         if not req.generated:
             toks_out = self._first_tokens(x, [0], [last_real - 1])
@@ -756,8 +925,13 @@ class ContinuousBatchingEngine:
             torch.from_numpy(seg).to(dev), torch.from_numpy(pos).to(dev),
             *extra)
         self.prefill_calls += 1
+        real = sum(p[3] + p[4] for p in plan)
         self.prefill_token_slots += Tb
-        self.prefill_padded_tokens += Tb - sum(p[3] + p[4] for p in plan)
+        self.prefill_padded_tokens += Tb - real
+        if self.metrics is not None:
+            self.metrics.prefill_dispatches.inc()
+            self.metrics.prefill_padded_tokens.inc(Tb - real)
+            self.metrics.prefill_packed_tokens.observe(Tb)
         cache.write_pages_batch(
             [(slot, ks[:, off + start:off + start + Wp],
               vs[:, off + start:off + start + Wp], s_real, start // page)
@@ -786,6 +960,17 @@ class ContinuousBatchingEngine:
         req.preempted += 1
         self.preemptions += 1
         self._free_slot(slot)
+        # a scheduler mutation point: the decode loop never touches the
+        # phase clocks
+        advance_phase(req, "preempted")
+        if req.trace is not None:
+            req.trace.event("preempt", mode="recompute", slot=slot,
+                            generated=len(req.generated))
+        if self.metrics is not None:
+            self.metrics.preemptions.inc()
+            self.metrics.ring.emit("preemption", rid=req.rid, slot=slot,
+                                   mode="recompute",
+                                   generated=len(req.generated))
         self._queue.appendleft(req)
         if self.overlap:
             # the device's active chain still carries the victim: re-seed
@@ -862,6 +1047,7 @@ class ContinuousBatchingEngine:
         the callers."""
         req.generated.append(t)
         self.tokens_generated += 1
+        self._note_first_token(req)
         self._stream.append((req.rid, t))
         self._next_tok[slot] = t
 
@@ -897,12 +1083,19 @@ class ContinuousBatchingEngine:
         cache.lens = cache.lens + self._active_mask
         self.decode_steps += 1
         (nxt,) = self._fetch(None, nxt)
+        t0 = time.perf_counter() if self.metrics is not None else 0.0
+        advanced = 0
         for slot, req in list(self._active.items()):
             t = int(nxt[slot])
             self._deliver_token(slot, req, t)
+            advanced += 1
             self._remaining[slot] -= 1
             if self._hit_stop(req, t) or self._remaining[slot] <= 0:
                 self._retire(slot)
+        if self.metrics is not None:
+            self.metrics.decode_steps.inc()
+            self.metrics.tokens_generated.inc(advanced)
+            self.metrics.host_bookkeeping.observe(time.perf_counter() - t0)
 
     # -- the dispatch-ahead pipeline and the horizon ----------------------
     def _pools(self):
@@ -984,6 +1177,8 @@ class ContinuousBatchingEngine:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         self.decode_steps += 1
+        if self.metrics is not None:
+            self.metrics.decode_steps.inc()
         return {"out": slot["out"], "event": event}
 
     def _dispatch_async(self) -> None:
@@ -1020,7 +1215,9 @@ class ContinuousBatchingEngine:
                 toks, dones, self._drain_active)
             return
         nxt, done = toks[0], dones[0].astype(bool)
+        t0 = time.perf_counter() if self.metrics is not None else 0.0
         mask = self._drain_active
+        advanced = 0
         for slot in np.nonzero(mask)[0]:
             slot = int(slot)
             req = self._active.get(slot)
@@ -1031,6 +1228,7 @@ class ContinuousBatchingEngine:
                 continue
             t = int(nxt[slot])
             self._deliver_token(slot, req, t)
+            advanced += 1
             self._remaining[slot] -= 1
             if done[slot]:
                 self._retire(slot)          # eos / budget (on the device)
@@ -1040,6 +1238,9 @@ class ContinuousBatchingEngine:
         # follow the device's active chain: the next undrained step ran
         # with active & ~done
         self._drain_active = mask & ~done
+        if self.metrics is not None:
+            self.metrics.tokens_generated.inc(advanced)
+            self.metrics.host_bookkeeping.observe(time.perf_counter() - t0)
 
     def _drain_horizon_block(self, toks, dones, mask):
         """Host bookkeeping of one fetched ``[H, B]`` block, shared by the
@@ -1049,7 +1250,9 @@ class ContinuousBatchingEngine:
         host stay until the scheduled flush).  A stop sequence retires its
         row where the H = 1 lane would and discards, and counts, the
         tokens the device generated past it."""
+        t0 = time.perf_counter() if self.metrics is not None else 0.0
         H = toks.shape[0]
+        advanced = 0
         trimmed = 0
         out_mask = mask.copy()
         for slot in np.nonzero(mask)[0]:
@@ -1069,6 +1272,7 @@ class ContinuousBatchingEngine:
                 for h in range(n_gen):
                     t = int(col[h])
                     self._deliver_token(slot, req, t)
+                    advanced += 1
                     self._remaining[slot] -= 1
                     if h == n_gen - 1 and device_done:
                         self._retire(slot)
@@ -1083,12 +1287,21 @@ class ContinuousBatchingEngine:
             got = col[:n_gen].tolist()
             req.generated.extend(got)
             self.tokens_generated += n_gen
+            advanced += n_gen
+            self._note_first_token(req)
             self._stream.extend((req.rid, t) for t in got)
             self._next_tok[slot] = got[-1]
             self._remaining[slot] -= n_gen
             if device_done:
                 self._retire(slot)
-        self.horizon_trimmed_tokens += trimmed
+        if trimmed:
+            self.horizon_trimmed_tokens += trimmed
+            if self.metrics is not None:
+                self.metrics.horizon_trimmed_tokens.inc(trimmed)
+        if self.metrics is not None:
+            self.metrics.tokens_generated.inc(advanced)
+            self.metrics.decode_horizon_tokens.observe(advanced)
+            self.metrics.host_bookkeeping.observe(time.perf_counter() - t0)
         return out_mask
 
     def _decode_sync_multi(self) -> None:

@@ -43,10 +43,12 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.ops.swiglu\n"
         "import paddle_tpu_torch.ops.rmsnorm_matmul\n"
         "import paddle_tpu_torch.flags\n"
+        "import paddle_tpu_torch.observability\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.ab_torch_kernels\n"
         "import tools.profile_torch_train\n"
+        "import tools.profile_torch_admission\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
@@ -62,6 +64,7 @@ def _sources():
     yield ROOT / "tools" / "profile_torch_decode.py"
     yield ROOT / "tools" / "ab_torch_kernels.py"
     yield ROOT / "tools" / "profile_torch_train.py"
+    yield ROOT / "tools" / "profile_torch_admission.py"
     yield ROOT / "tools" / "torch_profile_common.py"
     yield from sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
 

@@ -128,7 +128,11 @@ def test_packed_prefill_with_history_matches_plain(card, q8, monkeypatch):
 
 def test_dense_prefill_launches_k5_and_matches_plain(card, monkeypatch):
     cfg, params = _model()
-    prompt = torch.randint(0, KW["vocab_size"], (4, 96), device="cuda")
+    # a generator of its own: the process's default CUDA generator is left
+    # mid-capture by an aborted graph capture in another card test
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, KW["vocab_size"], (4, 96), generator=gen,
+                           device="cuda")
     n0 = rp.launches
     x, ks, vs = pd._prefill(cfg)(params, prompt)
     torch.cuda.synchronize()
