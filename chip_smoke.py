@@ -104,6 +104,25 @@ Phases, one JSON line each on stdout:
              the served sequences teacher-forced through each lane's own
              admission within LOGIT_LIMIT of the plain forward's, a planted
              fault (K5 rotating by -sin) beyond it.
+4e. serve_faults - fault containment (paddle_tpu_torch/testing/faults.py):
+             the serve's 7 requests through an engine of batch 4 (waves of
+             4 and 3) with a fault injected at the 3rd decode dispatch on
+             the sync, overlap and overlap + horizon-4 lanes and at the
+             1st prefill dispatch on the packed, batched and chunked
+             lanes: exactly the poisoned wave ends "error" with the text,
+             step_faults 1 and requests_faulted 4 (engine and registry),
+             nothing in flight after the quarantine, the pool clean, the
+             graph captured before the fault replayed after it, the
+             survivors' teacher-forced logits within LOGIT_LIMIT.  Then
+             EngineSupervisor over a factory reusing params and cache: the
+             queue moves over with its rids, three restarts capture
+             nothing and hold memory_allocated within 256 MB, the fourth
+             escalation is EngineDeadError; GenerationServer(
+             engine_factory=...): 500 with the text to the faulted wave,
+             200 to the rest, /health and /metrics counts, a stream_write
+             disconnect cancelling its request, 503 after the supervisor
+             died; a planted fault (the quarantine skipping one row's
+             release) caught.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -2335,6 +2354,552 @@ def phase_serve_dense(torch, cfg, seed, params, mods, dev="cuda"):
     return launches
 
 
+# serve_faults: the serve's 7 requests through an engine of batch 4 (two
+# admission waves, 4 + 3) under faults the port's plane injects
+# (paddle_tpu_torch/testing/faults.py); FAULT_FILLER requests keep a
+# persistent fault fed where a supervisor must escalate
+FAULT_BATCH = 4
+FAULT_TEXT = "injected fault"
+FAULT_FILLER = (16, 4)              # prompt tokens, new tokens
+FAULT_MEM_LIMIT = 256 * 2**20       # bytes, across three restarts
+
+
+def fault_cache(cfg, dev):
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    return PagedKVCache(cfg, num_pages=256, pages_max=32, batch=FAULT_BATCH,
+                        page=64, device=dev)
+
+
+def quarantine_problems(eng):
+    """What a quarantine must leave, read right after the faulting step:
+    nothing in flight, no device loop state, nothing mid-admission, and no
+    free slot holding a page."""
+    bad = []
+    if eng._inflight or eng._dev is not None:
+        bad.append(f"in flight {len(eng._inflight)}, device state "
+                   f"{eng._dev is not None} after the quarantine")
+    if eng._admitting:
+        bad.append(f"{len(eng._admitting)} requests left mid-admission")
+    held = [s for s in eng._free_slots if eng.cache._owned[s]]
+    if held:
+        bad.append(f"free slots {held} still own pages")
+    return bad
+
+
+def drain_problems(eng, cache):
+    """The pool after every request finished: audit clean, every page but
+    the reserved one free, every slot free."""
+    bad = []
+    try:
+        stats = cache.audit()
+    except AssertionError as e:
+        return [f"audit: {e}"]
+    if stats["owned"] or cache.free_pages() != cache.num_pages - 1:
+        bad.append(f"pages not back: {stats}, free {cache.free_pages()}")
+    if len(eng._free_slots) != eng.B:
+        bad.append(f"{eng.B - len(eng._free_slots)} slots not free")
+    return bad
+
+
+def fault_drive(eng, prompts, news, on_fault=None):
+    """Submit ``prompts`` and step ``eng`` until idle, calling
+    ``on_fault(eng)`` right after each step that quarantined.
+    -> (the requests by submission index, on_fault's results)."""
+    rids = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    seen = []
+    while eng.has_work():
+        f0 = eng.step_faults
+        eng.step()
+        if eng.step_faults > f0 and on_fault is not None:
+            seen.append(on_fault(eng))
+    done = {r.rid: r for r in eng.finished()}
+    return [done.get(r) for r in rids], seen
+
+
+def outcome_problems(reqs, news, faulted, text=FAULT_TEXT):
+    """Every request has a record; the ``faulted`` indices ended "error"
+    with the injected text, the rest "ok" with their whole budget."""
+    bad = []
+    for i, r in enumerate(reqs):
+        if r is None:
+            bad.append(f"request {i} has no finished record")
+        elif i in faulted:
+            if r.status != "error" or text not in (r.error or ""):
+                bad.append(f"request {i}: {r.status} {r.error!r}, want "
+                           f"error with {text!r}")
+        elif r.status != "ok" or len(r.generated) != news[i]:
+            bad.append(f"request {i}: {r.status}, {len(r.generated)} of "
+                       f"{news[i]} tokens")
+    return bad
+
+
+def counter_problems(eng, step_faults, faulted):
+    bad = []
+    want = (step_faults, faulted)
+    for where, got in (("engine", (eng.step_faults, eng.requests_faulted)),
+                       ("registry", (eng.step_faults,
+                                     int(eng.metrics.requests_faulted.value)
+                                     if eng.metrics else faulted))):
+        if got != want:
+            bad.append(f"{where}: step_faults, requests_faulted {got}, "
+                       f"want {want}")
+    return bad
+
+
+def phase_serve_faults(torch, cfg, seed, params, mods, dev="cuda"):
+    """Fault containment on LLaMA-7B (bf16, the serve's weights): the
+    serve's 7 requests through an engine of batch 4, so they admit in two
+    waves (4 + 3), under faults injected by the port's plane.
+
+    1. sync lane, the 3rd step_dispatch raises: exactly the first wave
+       ends "error" with the text, step_faults 1 and requests_faulted 4 in
+       the engine and the registry, the other 3 "ok", the pool clean;
+    2. overlap and overlap + decode_horizon 4, the 3rd dispatch raises with
+       a dispatch in flight: the same, nothing in flight and no device
+       state after the quarantine, and the graph captured before the fault
+       replays after it (no new capture; K1 from replays after it);
+    3. the 1st prefill_dispatch raises on the packed, batched and chunked
+       lanes: every request has a record, the popped wave ends "error",
+       the rest serve (K2 on the packed lane, K5 on the others);
+    4. EngineSupervisor over a factory reusing params and cache
+       (overlap, max_consecutive_faults 2) and a fault on every dispatch:
+       a restart moves the queue over with its rids, which serve once the
+       rule is cleared; three restarts capture nothing new and hold
+       memory_allocated within FAULT_MEM_LIMIT; the fourth escalation is
+       EngineDeadError;
+    5. GenerationServer(engine_factory=..., overlap=True): the faulted
+       wave's clients get 500 with the text, the rest 200; /health
+       step_faults 1, /metrics requests_faulted 4; an armed stream_write
+       cancels its stream (requests_cancelled + 1, the pages back); a
+       DEAD supervisor makes a new submit 503;
+    6. a planted defect (the quarantine skipping one row's release) must be
+       caught.
+
+    The survivors of 1-5 are teacher-forced through the port's path
+    (port_logits) against the plain forward: within LOGIT_LIMIT, each
+    served token within 2 * LOGIT_LIMIT of the plain top logit.
+    -> the launches of the serving runs."""
+    import gc
+    import urllib.error
+    import urllib.request
+
+    from paddle_tpu_torch.inference.serving import (
+        GenerationServer, generate_http, generate_http_stream)
+    from paddle_tpu_torch.models import graphed_step as gs
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine, EngineDeadError, EngineSupervisor,
+        _release_engine_claims)
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.testing import faults
+    phase = "serve_faults"
+    t_phase = time.perf_counter()
+    cache = fault_cache(cfg, dev)
+    prompts, news = serve_prompts(cfg, seed), SERVE_NEWS
+    wave1 = set(range(FAULT_BATCH))
+    rng = np.random.default_rng(seed + 13)
+    filler = [rng.integers(0, cfg.vocab_size, FAULT_FILLER[0]).tolist()
+              for _ in range(16)]
+    problems = {}
+    total = {}
+    checked = {}
+
+    def count(fn):
+        """Run ``fn`` with the launch counts from 0; its launches (graph
+        replays included) join the phase's."""
+        graphs0 = graph_state()
+        zero_counts(mods)
+        out = fn()
+        torch.cuda.synchronize()
+        ran = ran_launches(read_counts(mods), graphs0)
+        for k, v in ran.items():
+            total[k] = total.get(k, 0) + v
+        return out, ran
+
+    def survivors(idx, gens):
+        """The logit bar on served sequences, once per distinct set."""
+        key = tuple((i, tuple(g)) for i, g in zip(idx, gens))
+        if key not in checked:
+            ps = [prompts[i] for i in idx]
+            sound = port_logits(torch, cfg, params, cache, ps, gens, dev)
+            plain = [plain_logits(torch, cfg, params, p + g[:-1],
+                                  dev)[len(p) - 1:]
+                     for p, g in zip(ps, gens)]
+            checked[key] = (max_diff(sound, plain),
+                            served_gap(torch, gens, plain))
+            del sound, plain
+        diff, gap = checked[key]
+        bad = []
+        if diff > LOGIT_LIMIT:
+            bad.append(f"survivors' logits {diff} from the plain forward "
+                       f"(limit {LOGIT_LIMIT})")
+        if gap > 2 * LOGIT_LIMIT:
+            bad.append(f"a survivor's token {gap} below the plain top "
+                       f"logit (limit {2 * LOGIT_LIMIT})")
+        return bad, diff, gap
+
+    def lane_run(name, engine_kw, site, nth, faulted, path):
+        eng = ContinuousBatchingEngine(cfg, params, cache, **engine_kw)
+        at_fault = {}
+
+        def on_fault(e):
+            at_fault["graphs"] = graph_state()
+            return quarantine_problems(e)
+
+        with faults.plane() as fp:
+            fp.inject(site, RuntimeError(FAULT_TEXT), nth=nth)
+            (reqs, seen), ran = count(
+                lambda: fault_drive(eng, prompts, news, on_fault))
+        bad = [p for s in seen for p in s]
+        bad += outcome_problems(reqs, news, faulted)
+        bad += counter_problems(eng, 1, len(faulted))
+        bad += drain_problems(eng, cache)
+        for k in path:
+            if ran.get(k, 0) <= 0:
+                bad.append(f"kernel {k} was not launched")
+        res = {"engine_kw": engine_kw, "site": site, "nth": nth,
+               "statuses": [r.status if r else None for r in reqs],
+               "step_faults": eng.step_faults,
+               "requests_faulted": eng.requests_faulted,
+               "requests_faulted_registry":
+                   eng.metrics.requests_faulted.value,
+               "launches": {k: v for k, v in ran.items() if v}}
+        if "graphs" in at_fault:
+            before = at_fault["graphs"]
+            now = graph_state()
+            new_captures = sum(c and not (key in before and before[key][2])
+                               for key, (_, _, c) in now.items())
+            replayed, _ = graph_launches(before)
+            res.update(captures_after_fault=new_captures,
+                       k1_from_replays_after_fault=replayed.get(
+                           "paged_decode_attention", 0))
+            if engine_kw.get("overlap") or \
+                    engine_kw.get("decode_horizon", 1) > 1:
+                if new_captures:
+                    bad.append(f"{new_captures} graphs captured after the "
+                               f"fault")
+                if replayed.get("paged_decode_attention", 0) <= 0:
+                    bad.append("K1 launched from no replay after the fault")
+        idx = [i for i in range(len(prompts)) if i not in faulted]
+        if not bad:
+            more, res["logit_max_abs_diff"], res["served_token_max_gap"] = \
+                survivors(idx, [reqs[i].generated for i in idx])
+            bad += more
+        emit(phase, sub=name, **res, problems=bad)
+        problems[name] = bad
+        return eng
+
+    # 1-3: one engine a lane over one cache
+    lane_run("sync", {}, "step_dispatch", 3, wave1,
+             ["paged_decode_attention", "flash_attention_segmented"])
+    for name, kw in (("overlap", {"overlap": True}),
+                     ("overlap_horizon4", {"overlap": True,
+                                           "decode_horizon": 4})):
+        lane_run(name, kw, "step_dispatch", 3, wave1,
+                 ["paged_decode_attention"])
+    for name, kw, path in (
+            ("admit_packed", {}, ["flash_attention_segmented"]),
+            ("admit_batched", {"packed": False}, ["fused_rope"]),
+            ("admit_chunked", {"packed": False, "prefill_chunk": 256},
+             ["fused_rope"])):
+        lane_run(name, kw, "prefill_dispatch", 1, wave1,
+                 path + ["paged_decode_attention"])
+
+    # 4: the supervisor, over the same params and cache
+    reg = MetricsRegistry()
+
+    def factory():
+        return ContinuousBatchingEngine(cfg, params, cache, overlap=True,
+                                        max_consecutive_faults=2,
+                                        metrics_registry=reg)
+
+    sup = EngineSupervisor(factory, max_restarts=3, window_s=3600.0,
+                           backoff_s=0.0)
+    bad = []
+    fill_new = [FAULT_FILLER[1]] * len(filler)
+
+    def until_restart(subs, new):
+        """Arm a fault on every dispatch, submit, step until the next
+        restart (or the budget's end) -> (rids, the EngineDeadError)."""
+        r0 = sup.restarts
+        with faults.plane() as fp:
+            fp.inject("step_dispatch", RuntimeError(FAULT_TEXT))
+            rids = [sup.submit(p, max_new_tokens=n)
+                    for p, n in zip(subs, new)]
+            for _ in range(3 * (sup.engine.max_consecutive_faults + 1)):
+                try:
+                    sup.step()
+                except EngineDeadError as e:
+                    return rids, e
+                if sup.restarts > r0:
+                    return rids, None
+        bad.append(f"no restart after {len(subs)} submissions")
+        return rids, None
+
+    sup.submit(filler[0], max_new_tokens=FAULT_FILLER[1])
+    count(sup.run_to_completion)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    g0 = {k: (n, c) for k, (_, n, c) in graph_state().items()}
+    sup_res = {}
+    # restart 1: 8 fillers feed two quarantines, the serve's first wave the
+    # escalation; its last 3 requests are still queued
+    rids, _ = until_restart(filler[:8] + prompts, fill_new[:8] + news)
+    serve_rids = rids[8:]
+    moved = [r.rid for r in sup.engine._queue]
+    sup_res["transplanted_rids"] = moved
+    if sup.restarts != 1 or moved != serve_rids[FAULT_BATCH:]:
+        bad.append(f"restart 1: restarts {sup.restarts}, queue {moved}, "
+                   f"want {serve_rids[FAULT_BATCH:]}")
+    done, _ = count(sup.run_to_completion)
+    by = {r.rid: r for r in done}
+    reqs = [by.get(r) for r in serve_rids]
+    bad += outcome_problems(reqs, news, wave1)
+    bad += [f"filler {i}: {by[r].status}" for i, r in enumerate(rids[:8])
+            if r not in by or by[r].status != "error"]
+    for k in (2, 3):
+        until_restart(filler[:12], fill_new[:12])
+        sup.submit(filler[12], max_new_tokens=FAULT_FILLER[1])
+        done, _ = count(sup.run_to_completion)
+        if sup.restarts != k or done[-1].status != "ok":
+            bad.append(f"restart {k}: restarts {sup.restarts}, the next "
+                       f"request {done[-1].status}")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    g1 = {k: (n, c) for k, (_, n, c) in graph_state().items()}
+    captures = sum(c and not g0.get(k, (0, False))[1]
+                   for k, (_, c) in g1.items())
+    replays = sum(n - g0.get(k, (0, False))[0] for k, (n, _) in g1.items())
+    bad += drain_problems(sup.engine, cache)
+    _, dead = until_restart(filler[:12], fill_new[:12])
+    sup_res.update(restarts=sup.restarts, state=sup.state,
+                   engine_restarts_registry=sup.engine.metrics
+                   .engine_restarts.value,
+                   memory_allocated_before=mem0, memory_allocated_after=mem1,
+                   memory_delta=mem1 - mem0, captures_over_restarts=captures,
+                   replays_over_restarts=replays,
+                   dead_error=str(dead) if dead else None)
+    if abs(mem1 - mem0) > FAULT_MEM_LIMIT:
+        bad.append(f"memory_allocated moved {mem1 - mem0} bytes over three "
+                   f"restarts (limit {FAULT_MEM_LIMIT})")
+    if captures or replays <= 0:
+        bad.append(f"restarts captured {captures} graphs, replayed "
+                   f"{replays}")
+    if dead is None or sup.state != "DEAD" or FAULT_TEXT not in str(dead):
+        bad.append(f"the budget's end gave {dead!r}, state {sup.state}")
+    if sup_res["engine_restarts_registry"] != 3:
+        bad.append(f"registry restarts {sup_res['engine_restarts_registry']}")
+    _release_engine_claims(sup.engine)
+    if not bad:
+        more, sup_res["logit_max_abs_diff"], \
+            sup_res["served_token_max_gap"] = survivors(
+                list(range(FAULT_BATCH, len(prompts))),
+                [r.generated for r in reqs[FAULT_BATCH:]])
+        bad += more
+    emit(phase, sub="supervisor", **sup_res, problems=bad)
+    problems["supervisor"] = bad
+    del sup
+
+    # 5: the HTTP front over a supervisor
+    bad = []
+    reg = MetricsRegistry()
+
+    def http_factory():
+        return ContinuousBatchingEngine(cfg, params, cache, overlap=True,
+                                        max_consecutive_faults=1,
+                                        metrics_registry=reg)
+
+    srv = GenerationServer(engine_factory=http_factory, max_restarts=1,
+                           restart_backoff_s=0.0)
+    eng, has_work = srv.engine, srv.engine.has_work
+
+    def gated():                     # the first wave is the first 4
+        if len(eng._queue) < len(prompts):
+            return False
+        eng.has_work = has_work
+        return has_work()
+
+    eng.has_work = gated
+    url = f"http://127.0.0.1:{srv.start()}"
+    replies = {}
+
+    def client(i):
+        try:
+            replies[i] = (200, generate_http(url, prompts[i], news[i],
+                                             timeout=600))
+        except urllib.error.HTTPError as e:
+            replies[i] = (e.code, e.read().decode())
+        except Exception as e:
+            replies[i] = (None, f"{type(e).__name__}: {e}")
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return r.read()
+
+    def post(prompt, new):
+        try:
+            generate_http(url, prompt, new, timeout=60)
+            return 200, ""
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    http_res = {}
+    try:
+        with faults.plane() as fp:
+            fp.inject("step_dispatch", RuntimeError(FAULT_TEXT), nth=3)
+
+            def serve_all():
+                threads = []
+                for i in range(len(prompts)):
+                    t = threading.Thread(target=client, args=(i,),
+                                         daemon=True)
+                    t.start()
+                    threads.append(t)
+                    t0 = time.perf_counter()
+                    while srv.engine._next_rid <= i and \
+                            time.perf_counter() - t0 < 60:
+                        time.sleep(0.001)
+                for t in threads:
+                    t.join(timeout=600)
+
+            count(serve_all)
+        health = json.loads(get("/health"))
+        m = prom_samples(get("/metrics").decode())
+        codes = [replies.get(i, (None,))[0] for i in range(len(prompts))]
+        http_res.update(codes=codes, health_step_faults=health["step_faults"],
+                        metrics_requests_faulted=m.get(
+                            "paddle_tpu_engine_requests_faulted_total"),
+                        engine_requests_faulted=srv.engine.requests_faulted)
+        want = [500] * FAULT_BATCH + [200] * (len(prompts) - FAULT_BATCH)
+        if codes != want:
+            bad.append(f"codes {codes}, want {want}")
+        for i in range(FAULT_BATCH):
+            if FAULT_TEXT not in str(replies.get(i, (0, ""))[1]):
+                bad.append(f"reply {i} lacks the fault's text: "
+                           f"{replies.get(i)}")
+        if health["step_faults"] != 1 or \
+                http_res["metrics_requests_faulted"] != \
+                srv.engine.requests_faulted or \
+                srv.engine.requests_faulted != FAULT_BATCH:
+            bad.append(f"health / metrics: {http_res}")
+        # an armed stream_write: the client vanishes mid-stream
+        c0 = srv.engine.requests_cancelled
+        with faults.plane() as fp:
+            fp.inject("stream_write", BrokenPipeError(FAULT_TEXT), nth=3)
+            try:
+                got = list(generate_http_stream(url, prompts[0], 128,
+                                                timeout=120))
+                if len(got) >= 128:
+                    bad.append("the cut stream delivered every token")
+            except Exception:
+                pass                       # a cut on the client side
+            t0 = time.perf_counter()
+            while srv.engine.requests_cancelled < c0 + 1 and \
+                    time.perf_counter() - t0 < 60:
+                time.sleep(0.01)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 60:
+            with srv._lock:
+                if not srv.engine.has_work():
+                    break
+            time.sleep(0.01)
+        with srv._lock:
+            http_res["cancelled"] = srv.engine.requests_cancelled - c0
+            http_res["free_pages_after_cancel"] = cache.free_pages()
+            if http_res["cancelled"] != 1:
+                bad.append(f"stream_write cancelled "
+                           f"{http_res['cancelled']} requests")
+            bad += drain_problems(srv.engine, cache)
+        # a fault on every dispatch: quarantine, restart, quarantine, dead
+        with faults.plane() as fp:
+            fp.inject("step_dispatch", RuntimeError(FAULT_TEXT))
+            queues = [srv.submit(p, FAULT_FILLER[1])[1] for p in filler]
+            outs = []
+            for q in queues:
+                while True:
+                    kind, payload = q.get(timeout=120)
+                    if kind != "tok":
+                        outs.append((kind, payload))
+                        break
+            t0 = time.perf_counter()
+            while srv._fatal is None and time.perf_counter() - t0 < 60:
+                time.sleep(0.01)
+        late = post(prompts[0], 4)
+        http_res.update(fillers=sorted({str(o) for o in outs})[:3],
+                        restarts=srv.restarts, fatal=srv._fatal,
+                        late_submit=list(late))
+        if not all(k == "err" and p[0] == 500 and FAULT_TEXT in p[1]
+                   for k, p in outs):
+            bad.append(f"fillers: {outs[:3]}")
+        if srv.restarts != 1 or srv._fatal is None or late[0] != 503 or \
+                FAULT_TEXT not in late[1]:
+            bad.append(f"dead supervisor: restarts {srv.restarts}, fatal "
+                       f"{srv._fatal!r}, late submit {late}")
+    finally:
+        srv.stop()
+    _release_engine_claims(srv.engine)
+    if not bad:
+        idx = list(range(FAULT_BATCH, len(prompts)))
+        more, http_res["logit_max_abs_diff"], \
+            http_res["served_token_max_gap"] = survivors(
+                idx, [replies[i][1] for i in idx])
+        bad += more
+    emit(phase, sub="http", **http_res, problems=bad)
+    problems["http"] = bad
+
+    # 6: the planted defect, a quarantine that skips one row's release
+    real_quarantine = ContinuousBatchingEngine._quarantine
+    skipped = []
+
+    def leaky_quarantine(self, exc):
+        release = self.cache.release_row
+
+        def skip_once(b):
+            if skipped:
+                return release(b)
+            skipped.append(b)
+
+        self.cache.release_row = skip_once
+        try:
+            return real_quarantine(self, exc)
+        finally:
+            del self.cache.release_row
+
+    eng = ContinuousBatchingEngine(cfg, params, cache)
+    with patched((ContinuousBatchingEngine, "_quarantine", leaky_quarantine)):
+        with faults.plane() as fp:
+            fp.inject("step_dispatch", RuntimeError(FAULT_TEXT), nth=1)
+            reqs, seen = fault_drive(eng, prompts[:FAULT_BATCH],
+                                     [4] * FAULT_BATCH, quarantine_problems)
+    planted = [p for s in seen for p in s] + drain_problems(eng, cache)
+    for b in skipped:
+        cache.release_row(b)
+    emit(phase, sub="planted_fault",
+         planted_fault="the quarantine skips one row's release",
+         skipped_rows=skipped, planted_fault_problems=planted)
+    del eng, cache
+    gs.clear()
+    failed = {k: v for k, v in problems.items() if v}
+    emit(phase, model="LLaMA-7B (LlamaPretrainConfig defaults)",
+         layers=cfg.num_hidden_layers, batch=FAULT_BATCH,
+         requests=len(prompts), prompt_lens=SERVE_LENS, new_tokens=news,
+         wall_s=time.perf_counter() - t_phase, launches=total,
+         failed=sorted(failed))
+    if failed:
+        fail(f"{phase}: {failed}")
+    if not skipped or not planted:
+        fail(f"{phase}: the planted fault (a quarantine that skips one "
+             f"row's release) was not caught: {planted}")
+    print(f"{phase}: the planted fault was caught: {planted[0]}",
+          flush=True)
+    for name in ("paged_decode_attention", "flash_attention_segmented",
+                 "fused_rope"):
+        if total.get(name, 0) <= 0:
+            fail(f"{phase}: kernel {name} was not launched")
+    return total
+
+
 def train_launches_per_step(cfg, flag_set=None):
     """What the code launches in one AdamW step under remat full: K8 once
     per leaf (9 stacked block leaves, embed, final_norm, lm_head); K6a in
@@ -2871,6 +3436,8 @@ def main():
     torch.cuda.empty_cache()
     launches_dense = phase_serve_dense(torch, cfg, args.seed, params, mods)
     torch.cuda.empty_cache()
+    launches_faults = phase_serve_faults(torch, cfg, args.seed, params, mods)
+    torch.cuda.empty_cache()
     launches_int8, qparams = phase_serve_int8(torch, cfg, args.seed, params,
                                               mods)
     del params
@@ -2900,7 +3467,7 @@ def main():
     # each kernel's launches in the serve, train, train_packed and
     # train_fused phases
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
-            launches_dense,
+            launches_dense, launches_faults,
             launches_int8, launches_int8_overlap, launches_prefix_int8,
             launches_train, launches_packed, *launches_fused]
     launches = {k: sum(r[k] for r in runs) for k in launches}

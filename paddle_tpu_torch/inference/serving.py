@@ -16,8 +16,12 @@ Counterpart of ``paddle_tpu/inference/serving.py``'s ``GenerationServer`` /
   chrome trace merged with the ring), as docs/OBSERVABILITY.md describes
   them, so ``tools/metrics_dump.py`` reads this server unchanged;
 * 400 for a bad or oversized request, 429 with ``Retry-After`` when the
-  admission queue is full, 503 once the engine died, 504 for an expired
-  deadline.
+  admission queue is full, 500 with the fault's text for a request whose
+  wave faulted, 503 once the engine died, 504 for an expired deadline.
+
+With ``engine_factory`` the drive loop steps an ``EngineSupervisor``: an
+exception that escapes the engine's own quarantine rebuilds the engine
+and only the requests whose pages died fail.
 
 Priority classes and tenants (the QoS slice) are refused with 400.
 Nothing here imports beyond the standard library, numpy and the port's
@@ -26,6 +30,7 @@ engine and observability package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import queue as _queue
 import threading
@@ -35,9 +40,11 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
-from ..models.serving_engine import ContinuousBatchingEngine, QueueFullError
+from ..models.serving_engine import (ContinuousBatchingEngine,
+                                     EngineSupervisor, QueueFullError)
 from ..observability import (MetricsRegistry, TraceStore, Tracer,
                              default_ring)
+from ..testing import faults
 
 __all__ = ["GenerationServer", "generate_http", "generate_http_stream"]
 
@@ -229,6 +236,7 @@ class _GenHandler(BaseHTTPRequestHandler):
 
         # STREAMING: one JSON line per token as the engine produces it
         def chunk(data: bytes):
+            faults.fire("stream_write")   # an injected client disconnect
             self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
             self.wfile.flush()
 
@@ -279,7 +287,16 @@ class GenerationServer:
     ``Tracer(TraceStore(...))`` publishing its store's counters to the
     same registry, handed to the engine unless the engine brought its
     own (then the server adopts that one); ``tracer=False`` turns it
-    off."""
+    off.
+
+    ``engine_factory`` (a callable returning a fresh engine) turns on
+    crash recovery: the drive loop steps an :class:`EngineSupervisor`
+    (``max_restarts`` per ``restart_window_s``, exponential
+    ``restart_backoff_s``), and ``engine`` follows its restarts.  The
+    factory should share one ``metrics_registry`` across builds so
+    ``/metrics`` survives restarts.  Without a factory the first escaped
+    exception is fatal: pending requests get 500 with its text, new
+    submits 503."""
 
     # how long a readiness probe or /health scrape waits for the server
     # lock before serving the last verdict built under it (a step, a
@@ -288,15 +305,28 @@ class GenerationServer:
 
     def __init__(self, cfg=None, params=None, cache=None, mesh=None,
                  host: str = "127.0.0.1", port: int = 0,
-                 poll_s: float = 0.002, engine=None, tracer=None,
+                 poll_s: float = 0.002, engine=None,
+                 engine_factory=None, max_restarts: int = 3,
+                 restart_window_s: float = 60.0,
+                 restart_backoff_s: float = 0.05, tracer=None,
                  **engine_kw):
-        if engine is None:
-            engine = ContinuousBatchingEngine(cfg, params, cache, mesh=mesh,
-                                              **engine_kw)
-        self.engine = engine
+        self._supervisor = None
+        self._engine = None
+        if engine_factory is not None:
+            self._supervisor = EngineSupervisor(
+                engine_factory, max_restarts=max_restarts,
+                window_s=restart_window_s, backoff_s=restart_backoff_s)
+        elif engine is not None:
+            self._engine = engine
+        else:
+            self._engine = ContinuousBatchingEngine(cfg, params, cache,
+                                                    mesh=mesh, **engine_kw)
+        engine = self.engine
         self._host, self._port = host, port
         self._poll_s = poll_s
         self._lock = threading.Lock()
+        # handler threads blocked on the lock (see _turn)
+        self._waiting: list = []
         self._queues = {}
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._threads: List[threading.Thread] = []
@@ -316,16 +346,75 @@ class GenerationServer:
         self._http_counters = _http_metrics(self.registry)
         # one tracer for the server and its engine: hand the server's down
         # when the engine has none, adopt the engine's when it brought one
+        self._tracing = tracer is not False
         if tracer is False:
             self.tracer = None
-        elif engine.tracer is not None:
-            self.tracer = engine.tracer
+        elif tracer is not None or engine.tracer is not None:
+            self.tracer = tracer
+        else:
+            self.tracer = Tracer(TraceStore(metrics_registry=self.registry))
+        self._attach_tracer()
+
+    @property
+    def engine(self):
+        """The current engine (after a supervisor restart, the rebuilt
+        one: rids and lifecycle state carry over)."""
+        return self._supervisor.engine if self._supervisor is not None \
+            else self._engine
+
+    @property
+    def _driver(self):
+        """What the drive loop steps: the supervisor or the bare
+        engine."""
+        return self._supervisor if self._supervisor is not None \
+            else self._engine
+
+    @property
+    def restarts(self) -> int:
+        return self._supervisor.restarts \
+            if self._supervisor is not None else 0
+
+    def _rebind_observability(self) -> None:
+        """After a supervisor restart, follow the current engine's
+        registry and ring, so ``/metrics``, ``/stats`` and ``/health``
+        read the engine that serves (a no-op when the factory shares one
+        registry across builds), and keep one tracer.  Caller holds the
+        lock."""
+        m = self.engine.metrics
+        if m is not None and m.registry is not self.registry:
+            self.registry, self.ring = m.registry, m.ring
+            self._http_counters = _http_metrics(self.registry)
+        self._attach_tracer()
+
+    def _attach_tracer(self) -> None:
+        """Keep the server and its engine on one tracer: hand the
+        server's down when the engine has none, adopt the engine's when it
+        brought its own.  Caller holds the lock (or is the
+        constructor)."""
+        if not self._tracing:
+            return                    # tracer=False: the surface is off
+        eng = self.engine
+        if eng.tracer is None:
+            if self.tracer is not None:
+                eng.tracer = self.tracer
+        elif eng.tracer is not self.tracer:
+            self.tracer = eng.tracer
             if self.tracer.store.m_retained is None:
                 self.tracer.store.bind_metrics(self.registry)
-        else:
-            self.tracer = tracer if tracer is not None else Tracer(
-                TraceStore(metrics_registry=self.registry))
-            engine.tracer = self.tracer
+
+    @contextlib.contextmanager
+    def _turn(self):
+        """The server lock for a handler thread (a submit, a cancel).  The
+        drive loop takes the lock again right after a step, sooner than a
+        blocked thread wakes, so a busy engine could starve a cancel: the
+        waiter shows itself in ``_waiting`` and the loop leaves it a
+        turn."""
+        self._waiting.append(None)
+        try:
+            with self._lock:
+                yield
+        finally:
+            self._waiting.pop()
 
     def is_live(self) -> bool:
         """The drive loop thread is running."""
@@ -347,8 +436,13 @@ class GenerationServer:
             self._lock.release()
 
     def _is_ready_locked(self) -> bool:
-        return (self.is_live() and self._fatal is None
-                and self.engine.queue_capacity_reason() is None)
+        if not self.is_live() or self._fatal is not None:
+            return False
+        if self._supervisor is not None and \
+                self._supervisor.state != "READY":
+            # draining or dead: probes pull the node out of rotation
+            return False
+        return self.engine.queue_capacity_reason() is None
 
     def health_snapshot(self) -> dict:
         """The ``/health`` document: JAX's keys as a view over the metrics
@@ -374,8 +468,8 @@ class GenerationServer:
                      "error": self._fatal,
                      "live": self.is_live(),
                      "ready": self._is_ready_locked(),
-                     "restarts": 0,
-                     "step_faults": 0}
+                     "restarts": self.restarts,
+                     "step_faults": eng.step_faults}
             extra = {"host_syncs": eng.host_syncs,
                      "pipeline_flushes": eng.pipeline_flushes}
             h = None if eng.metrics is not None else \
@@ -397,7 +491,7 @@ class GenerationServer:
         return {"requests_cancelled": eng.requests_cancelled,
                 "requests_expired": eng.requests_expired,
                 "requests_rejected": eng.requests_rejected,
-                "requests_faulted": 0,
+                "requests_faulted": eng.requests_faulted,
                 "queued_tokens": eng.queued_tokens(),
                 "active": len(eng._active),
                 "queued": len(eng._queue),
@@ -464,12 +558,12 @@ class GenerationServer:
 
     def submit(self, prompt, max_new_tokens, deadline_s=None):
         t0 = time.monotonic()
-        with self._lock:
+        with self._turn():
             if self._fatal is not None:
                 raise RuntimeError(f"engine died: {self._fatal}")
             q = _queue.Queue()
-            rid = self.engine.submit(prompt, max_new_tokens=max_new_tokens,
-                                     deadline_s=deadline_s)
+            rid = self._driver.submit(prompt, max_new_tokens=max_new_tokens,
+                                      deadline_s=deadline_s)
             self._queues[rid] = q
         self._http_counters["generate"].inc()
         if self.tracer is not None:
@@ -482,22 +576,26 @@ class GenerationServer:
     def cancel(self, rid: int) -> bool:
         """Cancel a request (HTTP disconnects and POST /cancel land here);
         a still-attached waiter gets 499.  No-op on finished rids."""
-        with self._lock:
-            return self.engine.cancel(rid)
+        with self._turn():
+            return self._driver.cancel(rid)
 
     def _drive(self):
         """Engine thread: step while there is work and fan tokens out to
         each request's queue, all under the lock.  Finished requests fan
-        out by status (ok -> tokens, expired -> 504, cancelled -> 499).
-        A step exception fails every pending request loudly with its
-        text and ends the loop (new submits then get 503)."""
+        out by status (ok -> tokens, expired -> 504, cancelled -> 499,
+        error -> 500 with the fault's text).  A step exception the
+        supervisor cannot absorb (or any, without one) fails every
+        pending request loudly with its text and ends the loop (new
+        submits then get 503)."""
         while not self._stop.is_set():
             try:
                 with self._lock:
-                    eng = self.engine
+                    eng = self._driver
                     worked = eng.has_work()
                     if worked:
                         eng.step()
+                        if self._supervisor is not None:
+                            self._rebind_observability()
                         for rid, tok in eng.drain_stream():
                             q = self._queues.get(rid)
                             if q is not None:
@@ -519,8 +617,12 @@ class GenerationServer:
                                 q.put(("done", list(req.generated)))
                             elif req.status == "expired":
                                 q.put(("err", (504, "deadline exceeded")))
-                            else:
+                            elif req.status == "cancelled":
                                 q.put(("err", (499, "cancelled")))
+                            else:
+                                q.put(("err", (
+                                    500, "generation failed: "
+                                    f"{req.error or 'engine fault'}")))
             except Exception as e:                # engine wedged
                 text = f"{type(e).__name__}: {e}"
                 with self._lock:
@@ -529,7 +631,7 @@ class GenerationServer:
                 for q in dead.values():
                     q.put(("err", (500, f"generation failed: {text}")))
                 return
-            if not worked:
+            if not worked or self._waiting:
                 time.sleep(self._poll_s)
 
     def start(self) -> int:

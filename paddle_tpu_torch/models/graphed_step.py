@@ -22,7 +22,8 @@ pool tensor's address, dtype and shape, the port's flags (read at each
 call, as the model code reads them, so a flag flip captures anew; JAX fixes
 its flags when it traces) and, when sampling, the generator the graph
 registered.  :func:`clear` drops every graph (and the device memory of
-their private pools).
+their private pools), :func:`forget` the graphs of one params and pools
+(an engine rebuilt over another cache).
 """
 
 from __future__ import annotations
@@ -41,10 +42,15 @@ from ..ops import swiglu as _sw
 from .paged_decode import (make_paged_decode_step_async,
                            make_paged_decode_step_multi)
 
-__all__ = ["DecodeGraph", "decode_graph", "graphs", "clear"]
+__all__ = ["DecodeGraph", "decode_graph", "graphs", "clear", "forget"]
 
 _step_async_cache: Dict[tuple, "DecodeGraph"] = {}
 _step_multi_cache: Dict[tuple, "DecodeGraph"] = {}
+# one warm-up stream per device: cuBLAS keeps a workspace for every stream
+# it has run on (32 MiB on Hopper), so a fresh stream per capture would hold
+# one more workspace after every capture (an engine rebuilt over a new
+# cache captures anew)
+_warmup_streams: Dict[str, "torch.cuda.Stream"] = {}
 
 # the launch counters a decode step can bump: (name, module, attribute)
 _COUNTERS = (("paged_decode_attention", _pa, "launches"),
@@ -117,7 +123,10 @@ class DecodeGraph:
 
     def _capture(self, params, pools, generator):
         cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _warmup_streams.get(str(self.device))
+        if side is None:
+            side = _warmup_streams[str(self.device)] = torch.cuda.Stream(
+                self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             # warm-up: builds the kernels and fills the wrappers' plan
@@ -130,8 +139,15 @@ class DecodeGraph:
         if self.sampling:
             graph.register_generator_state(generator)
         before = _counts()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._body(params, pools, generator)
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._body(params, pools, generator)
+        except BaseException:
+            # an aborted capture's context exit raises before it restores
+            # the caller's stream: put it back, so that the next step (a
+            # quarantined engine goes on serving) runs where it should
+            torch.cuda.set_stream(cur)
+            raise
         after = _counts()
         self.capture_launches = {k: after[k] - before[k] for k in after
                                  if after[k] != before[k]}
@@ -171,6 +187,23 @@ def decode_graph(cfg, horizon: int, multi: bool, temperature: float,
         g = cache[key] = DecodeGraph(fn, horizon, multi, B, pages_max,
                                      device, sampling)
     return g
+
+
+# the positions of the params and pools in a graph's key
+_PARAMS, _POOLS = 9, 10
+
+
+def forget(params, pools) -> int:
+    """Drop the graphs keyed by ``params`` and ``pools`` (those of an
+    engine whose cache nothing reads again, with their private memory
+    pools) -> how many."""
+    pk, qk = _tensors_key(params), _tensors_key(pools)
+    n = 0
+    for cache in (_step_async_cache, _step_multi_cache):
+        for key in [k for k in cache if k[_PARAMS] == pk and k[_POOLS] == qk]:
+            del cache[key]
+            n += 1
+    return n
 
 
 def graphs():

@@ -48,11 +48,22 @@ scheduler mutation points only and become spans once, at retirement.
 Every instrument records a number the host already holds: no kernel
 launch and no device sync is added on any lane.
 
+Fault tolerance, as in JAX: a step exception quarantines the wave it
+poisoned (``quarantine_faults=True``): every request the wave carried,
+active or popped mid-admission, retires with ``status == "error"`` and the
+exception's text, the in-flight dispatches drop (their copies waited on,
+their tokens discarded), stranded slots and pages are reclaimed, and the
+next ``step()`` admits from the queue.  ``max_consecutive_faults`` faults
+in a row re-raise; :class:`EngineSupervisor` then rebuilds the engine from
+a factory, carries the queue over and fails the requests whose pages died.
+The fault plane (``paddle_tpu_torch/testing/faults.py``) fires its
+``step_dispatch`` and ``prefill_dispatch`` sites at JAX's points, so one
+rule poisons the same dispatch in both engines.
+
 Not ported yet, and refused at construction when asked for: the mixed and
 speculative lanes, TP meshes, scheduler policies, tenant quotas and the
 quantized TP all-reduce (the host page tier is refused by
-``PagedKVCache``).  The fault plane and wave quarantine (a step
-exception propagates to the caller) also wait for a later slice.
+``PagedKVCache``).
 """
 
 from __future__ import annotations
@@ -67,12 +78,14 @@ import torch
 
 from ..observability import (EngineMetrics, MetricsRegistry, advance_phase,
                              bind_engine_gauges, finalize_request_trace)
-from .graphed_step import decode_graph
+from ..testing import faults
+from . import graphed_step
 from .llama_pretrain import LlamaPretrainConfig, _mm, _rms_norm
 from .paged_decode import (PagedKVCache, _packed_prefill_body, _pick_token,
                            _prefill, _prefill_chunk, make_paged_decode_step)
 
-__all__ = ["ContinuousBatchingEngine", "QueueFullError", "Request"]
+__all__ = ["ContinuousBatchingEngine", "EngineDeadError", "EngineSupervisor",
+           "QueueFullError", "Request"]
 
 
 class QueueFullError(RuntimeError):
@@ -84,6 +97,40 @@ class QueueFullError(RuntimeError):
     def __init__(self, why: str, retry_after: float = 1.0):
         super().__init__(why)
         self.retry_after = float(retry_after)
+
+
+class EngineDeadError(RuntimeError):
+    """:class:`EngineSupervisor`'s restart budget is exhausted: the engine
+    is unrecoverable and the serving front fails pending requests loudly
+    instead of retrying forever."""
+
+
+def _release_engine_claims(engine) -> None:
+    """Best-effort release of every page claim a dead engine holds: each
+    slot off the free list (active rows and rows stranded mid-admission by
+    a fatal step), so a cache that outlives the engine starts from clean
+    page accounting (``PagedKVCache.audit()``)."""
+    for slot in range(engine.B):
+        if slot in engine._free_slots:
+            continue
+        try:
+            engine.cache.release_row(slot)
+        except Exception:
+            pass
+
+
+def _drive_to_completion(driver, max_steps: int):
+    """Step ``driver`` (an engine or a supervisor) until its queue drains;
+    returns all finished requests in completion order."""
+    out = []
+    steps = 0
+    while driver.has_work():
+        driver.step()
+        out.extend(driver.finished())
+        steps += 1
+        if steps > max_steps:
+            raise RuntimeError("serving loop exceeded max_steps")
+    return out
 
 
 def _tid(req: "Request") -> Optional[str]:
@@ -134,8 +181,8 @@ class Request:
     t_first_token: float = 0.0
     t_finish: float = 0.0
     # absolute monotonic deadline (0.0 = none) and how the request ended:
-    # "ok" (eos / stop / budget), "cancelled" or "expired"; ``error`` is
-    # the fault text of an errored ending (none on the port's lanes)
+    # "ok" (eos / stop / budget), "cancelled", "expired" or "error" (its
+    # wave faulted); ``error`` carries the fault text of an errored ending
     deadline: float = 0.0
     status: str = "ok"
     error: Optional[str] = None
@@ -183,7 +230,11 @@ class ContinuousBatchingEngine:
     engine, a :class:`MetricsRegistry` into that one, ``False`` records
     nothing; ``metrics_ring`` is the event ring (a private one by
     default); ``tracer`` (a :class:`~paddle_tpu_torch.observability.Tracer`)
-    gives every submitted request a trace under its rid."""
+    gives every submitted request a trace under its rid.
+
+    ``quarantine_faults`` (default on) contains a step exception in the
+    wave it poisoned; ``max_consecutive_faults`` faults in a row re-raise
+    it (see :meth:`step`)."""
 
     def __init__(self, cfg: LlamaPretrainConfig, params,
                  cache: PagedKVCache, eos_id: Optional[int] = None,
@@ -197,6 +248,8 @@ class ContinuousBatchingEngine:
                  packed: bool = True,
                  max_queue_len: Optional[int] = None,
                  max_queued_tokens: Optional[int] = None,
+                 quarantine_faults: bool = True,
+                 max_consecutive_faults: int = 3,
                  tp_allreduce: str = "fp32", mixed: bool = False,
                  decode_horizon: int = 1, spec=None, policy=None,
                  tenant_quotas=None, tracer=None):
@@ -264,6 +317,16 @@ class ContinuousBatchingEngine:
         self.decode_wall_s = 0.0
         self.max_queue_len = max_queue_len
         self.max_queued_tokens = max_queued_tokens
+        # per-step exception handling: quarantine the poisoned wave up to
+        # max_consecutive_faults faults in a row, then re-raise (only a
+        # supervisor rebuild can help an engine that faults every step)
+        self.quarantine_faults = bool(quarantine_faults)
+        self.max_consecutive_faults = int(max_consecutive_faults)
+        self._consecutive_faults = 0
+        self._admitting: List[Request] = []   # popped, not yet active
+        self.requests_faulted = 0
+        self.step_faults = 0              # quarantined wave faults
+        self.last_fault: Optional[str] = None
         self._cancelled: set = set()
         self._has_deadlines = False
         self._now = time.monotonic        # seam: tests pin the clock
@@ -499,15 +562,7 @@ class ContinuousBatchingEngine:
     def run_to_completion(self, max_steps: int = 10_000):
         """Drive until the queue drains; returns all finished requests
         in completion order."""
-        out = []
-        for _ in range(max_steps):
-            if not self.has_work():
-                return out
-            self.step()
-            out.extend(self.finished())
-        if self.has_work():
-            raise RuntimeError("serving loop exceeded max_steps")
-        return out
+        return _drive_to_completion(self, max_steps)
 
     # -- engine side ------------------------------------------------------
     @staticmethod
@@ -566,50 +621,83 @@ class ContinuousBatchingEngine:
         self._remaining[slot] = 0
         self._active_mask[slot] = 0
 
-    def _retire(self, slot: int, status: str = "ok") -> None:
+    def _retire(self, slot: int) -> None:
+        """Retire an active request that ended normally (eos, stop
+        sequence or budget)."""
+        req = self._active.pop(slot)
+        req.done = True
+        req.status = "ok"
+        req.t_finish = time.monotonic()
+        self._free_slot(slot)
+        self.requests_finished += 1
+        if self.metrics is not None:
+            m = self.metrics
+            m.requests_finished.inc()
+            n = len(req.generated)
+            if n > 1 and req.t_first_token and not req.preempted:
+                # mean inter-token time over the decode phase (TTFT has
+                # its own histogram); a preempted request's window spans
+                # its requeue wait, so it is left out
+                m.tpot.observe(
+                    (req.t_finish - req.t_first_token) / (n - 1),
+                    exemplar=_tid(req))
+            m.ring.emit("request_finished", rid=req.rid, tokens=n,
+                        preempted=req.preempted)
+        _finalize_trace(req)
+        self._finished.append(req)
+
+    # -- fault tolerance: abnormal retirement -----------------------------
+    def _count_abnormal(self, req: Request, status: str) -> None:
+        """The one bookkeeping site of every ending but "ok" (the plain
+        counters and the registry's stay in lockstep)."""
+        if status == "cancelled":
+            self.requests_cancelled += 1
+        elif status == "expired":
+            self.requests_expired += 1
+        else:
+            self.requests_faulted += 1
+        if self.metrics is not None:
+            m = self.metrics
+            {"cancelled": m.requests_cancelled,
+             "expired": m.requests_expired}.get(
+                 status, m.requests_faulted).inc()
+            m.ring.emit("request_aborted", rid=req.rid, status=status,
+                        generated=len(req.generated))
+
+    def _retire_abnormal(self, slot: int, status: str,
+                         error: Optional[str] = None) -> None:
+        """Retire an active request outside the normal path (cancelled,
+        expired, or its wave faulted): its pages free through
+        ``release_row`` and it lands in ``finished()`` with ``status``
+        and ``error``.  No TPOT sample.  The request is failed and
+        finished even when the release raises: a client always gets a
+        terminal message, whatever the cache's state."""
         req = self._active.pop(slot)
         req.done = True
         req.status = status
+        req.error = error
         req.t_finish = time.monotonic()
-        self._free_slot(slot)
-        if status == "ok":
-            self.requests_finished += 1
-            if self.metrics is not None:
-                m = self.metrics
-                m.requests_finished.inc()
-                n = len(req.generated)
-                if n > 1 and req.t_first_token and not req.preempted:
-                    # mean inter-token time over the decode phase (TTFT
-                    # has its own histogram); a preempted request's window
-                    # spans its requeue wait, so it is left out
-                    m.tpot.observe(
-                        (req.t_finish - req.t_first_token) / (n - 1),
-                        exemplar=_tid(req))
-                m.ring.emit("request_finished", rid=req.rid, tokens=n,
-                            preempted=req.preempted)
-        _finalize_trace(req)
-        self._finished.append(req)
+        try:
+            self.cache.release_row(slot)
+        finally:
+            self._free_slots.append(slot)
+            self._remaining[slot] = 0
+            self._active_mask[slot] = 0
+            self._count_abnormal(req, status)
+            _finalize_trace(req)
+            self._finished.append(req)
 
-    def _finish_queued(self, req: Request, status: str) -> None:
+    def _finish_queued_abnormal(self, req: Request, status: str,
+                                error: Optional[str] = None) -> None:
+        """Retire a request that holds no slot (queued, or popped by an
+        admission that faulted) with ``status`` and ``error``."""
         req.done = True
         req.status = status
+        req.error = error
         req.t_finish = time.monotonic()
+        self._count_abnormal(req, status)
         _finalize_trace(req)
         self._finished.append(req)
-
-    def _count_abnormal(self, req: Request, status: str) -> None:
-        """The one bookkeeping site of a cancelled or expired ending
-        (the plain counters and the registry's stay in lockstep)."""
-        if status == "cancelled":
-            self.requests_cancelled += 1
-        else:
-            self.requests_expired += 1
-        if self.metrics is not None:
-            m = self.metrics
-            (m.requests_cancelled if status == "cancelled"
-             else m.requests_expired).inc()
-            m.ring.emit("request_aborted", rid=req.rid, status=status,
-                        generated=len(req.generated))
 
     def _sweep_cancelled_expired(self) -> None:
         """Retire cancelled / deadline-expired requests, queued or
@@ -633,8 +721,7 @@ class ContinuousBatchingEngine:
             if status is None:
                 keep.append(req)
             else:
-                self._count_abnormal(req, status)
-                self._finish_queued(req, status)
+                self._finish_queued_abnormal(req, status)
         self._queue = keep
         victims = [(slot, req, status)
                    for slot, req in list(self._active.items())
@@ -645,13 +732,86 @@ class ContinuousBatchingEngine:
             # the flush may have retired the victim normally (eos or
             # budget landed on the device first): that stands
             if self._active.get(slot) is req:
-                self._count_abnormal(req, status)
-                self._retire(slot, status)
+                self._retire_abnormal(slot, status)
         self._cancelled.clear()
 
     def step(self) -> int:
         """Admit + one decode token for every active slot.  Returns the
-        number of active requests after the step."""
+        number of active requests after the step.
+
+        With ``quarantine_faults`` (default) a step exception does not
+        kill the engine: the poisoned wave quarantines (every request it
+        carried retires with ``status == "error"``, the in-flight
+        dispatches drop) and the next ``step()`` admits from the queue.
+        ``max_consecutive_faults`` faults in a row re-raise: a fault on
+        every step means the engine itself is broken, and only a
+        supervisor rebuild (:class:`EngineSupervisor`) can help."""
+        try:
+            n = self._step_inner()
+        except Exception as exc:
+            if not self.quarantine_faults:
+                raise
+            self._consecutive_faults += 1
+            if self._consecutive_faults > self.max_consecutive_faults:
+                raise
+            self._quarantine(exc)
+            return len(self._active)
+        self._consecutive_faults = 0
+        return n
+
+    def _quarantine(self, exc: BaseException) -> None:
+        """Contain a step fault: drop the poisoned in-flight dispatches
+        (after their copies land, so no pinned ring slot is rewritten
+        under a queued copy; their tokens die with the wave), retire every
+        request the wave carried with an error, and leave the queue and
+        the allocator ready for the next step.  The waits are the only
+        ones off ``_fetch``, and on this path only."""
+        text = f"{type(exc).__name__}: {exc}"
+        self.last_fault = text
+        self.step_faults += 1
+        for e in self._inflight:
+            if e["event"] is not None:
+                try:
+                    e["event"].synchronize()
+                except Exception:
+                    pass               # a poisoned context: nothing to save
+        self._inflight.clear()
+        self._dev = None
+        self._needs_flush = False
+        self._drain_active = np.zeros((self.B,), bool)
+        for slot in list(self._active):
+            try:
+                self._retire_abnormal(slot, "error", text)
+            except Exception:
+                # the allocator refused the release: the request is failed
+                # and finished already (_retire_abnormal's finally); a
+                # recurrence escalates to the supervisor
+                pass
+        # requests the faulted step popped off the queue but did not yet
+        # commit to _active (an admission-phase fault) fail loudly too
+        for req in self._admitting:
+            if req.done or (req.slot is not None
+                            and self._active.get(req.slot) is req):
+                continue
+            self._finish_queued_abnormal(req, "error", text)
+        self._admitting = []
+        # reclaim slots stranded mid-admission: off the free list (their
+        # rows may hold freshly claimed pages) but never made active
+        for slot in range(self.B):
+            if slot in self._active or slot in self._free_slots:
+                continue
+            try:
+                self.cache.release_row(slot)
+            except Exception:
+                pass
+            self._free_slots.append(slot)
+            self._remaining[slot] = 0
+            self._active_mask[slot] = 0
+        if self.metrics is not None:
+            self.metrics.ring.emit("engine_quarantine", error=text,
+                                   consecutive=self._consecutive_faults)
+
+    def _step_inner(self) -> int:
         self._sweep_cancelled_expired()
         self._admit_wave()
         if not self._active:
@@ -688,6 +848,10 @@ class ContinuousBatchingEngine:
     def _admit_wave(self) -> None:
         admits = self._collect_admissions()
         if admits:
+            # requests popped off the queue but not yet active: a fault
+            # from here on (the flush's drains included) fails them loudly
+            # in _quarantine, never drops them with the stack
+            self._admitting = [req for req, _ in admits]
             if self.overlap:
                 # admission is a scheduler mutation: drain the pipeline
                 # before slots and pages move under it
@@ -695,6 +859,7 @@ class ContinuousBatchingEngine:
             all_resumes = all(r.generated for r, _ in admits)
             t_adm = time.perf_counter()
             self._admit_sequential(admits)
+            self._admitting = []      # every admit committed to _active
             if all_resumes:
                 # an all-resume wave's admission wall is the resume
                 # latency, attributed per request
@@ -774,6 +939,7 @@ class ContinuousBatchingEngine:
         padded = np.zeros((Kp, Lp), np.int64)
         for i, ctx in enumerate(ctxs):
             padded[i, :Ls[i]] = ctx
+        faults.fire("prefill_dispatch")
         x, ks, vs = self._prefill_dense(
             self.params, torch.from_numpy(padded).to(self.device))
         self.prefill_calls += 1
@@ -822,6 +988,7 @@ class ContinuousBatchingEngine:
             toks = np.zeros((1, chunk), np.int64)
             toks[0, :C_real] = ctx[pos:pos + C_real]
             table = torch.from_numpy(cache.tables[slot].copy()).to(dev)
+            faults.fire("prefill_dispatch")
             x, ks, vs = self._prefill_chunked(
                 self.params, torch.from_numpy(toks).to(dev), cache.kpool,
                 cache.vpool, cache.kscale if q8 else None,
@@ -920,6 +1087,7 @@ class ContinuousBatchingEngine:
         if prefix:
             pools = (cache.kpool, cache.vpool, cache.kscale, cache.vscale)
             extra = pools + tuple(torch.from_numpy(a).to(dev) for a in hist)
+        faults.fire("prefill_dispatch")
         x, ks, vs = self._prefill_packed(
             self.params, torch.from_numpy(toks).to(dev),
             torch.from_numpy(seg).to(dev), torch.from_numpy(pos).to(dev),
@@ -1071,6 +1239,9 @@ class ContinuousBatchingEngine:
         tables = torch.from_numpy(cache.tables.copy()).to(dev)
         lens = torch.from_numpy(cache.lens.copy()).to(dev)
         tok = torch.from_numpy(self._next_tok.copy()).to(dev)
+        # before the pools are reassigned: a fault never leaves the cache
+        # holding half a step's pools
+        faults.fire("step_dispatch")
         if cache.kv_quant == "int8":
             (cache.kpool, cache.vpool, cache.kscale, cache.vscale,
              nxt) = self._step(self.params, cache.kpool, cache.vpool,
@@ -1106,7 +1277,7 @@ class ContinuousBatchingEngine:
 
     def _graph(self):
         """The async (H = 1) or horizon step of the current key."""
-        return decode_graph(
+        return graphed_step.decode_graph(
             self.cfg, self.decode_horizon, self.decode_horizon > 1,
             self.temperature, self.cache.kv_quant, self.top_k, self.top_p,
             self.params, self._pools(), self.B, self.cache.pages_max,
@@ -1166,7 +1337,10 @@ class ContinuousBatchingEngine:
     def _launch(self) -> Dict:
         """Seed or refresh the state, replay the graph (one step, or one
         H-token block) and queue its outputs' copy into the next pinned
-        slot behind it, with an event -> the in-flight entry."""
+        slot behind it, with an event -> the in-flight entry.  The fault
+        site comes first: before the ring slot is taken, any state upload,
+        and any graph capture or replay."""
+        faults.fire("step_dispatch")
         slot = self._ring[self._ring_i % len(self._ring)]
         self._ring_i += 1
         g = self._seed_or_refresh_dev(slot)
@@ -1330,3 +1504,171 @@ class ContinuousBatchingEngine:
         self._dev = None
         self._needs_flush = False
         self.pipeline_flushes += 1
+
+
+class EngineSupervisor:
+    """Crash recovery over :class:`ContinuousBatchingEngine`: drive it
+    through :meth:`step` and, when a step exception escapes the engine's
+    own quarantine (consecutive-fault escalation, a poisoned allocator, an
+    out-of-memory error), rebuild the engine from ``factory`` and carry
+    the live work over: queued requests move with their rids, deadlines
+    and timestamps; active requests and those popped mid-admission retire
+    with ``status == "error"`` (their pages died with the engine); the
+    results ``finished()`` has not handed out yet, and the tracer, survive.
+
+    Restart budget: ``max_restarts`` within a sliding ``window_s``, each
+    after an exponential ``backoff_s * 2**k`` sleep (``backoff_s=0``
+    sleeps never).  Past it :class:`EngineDeadError` raises and the
+    serving front fails pending requests loudly.
+
+    Lifecycle: ``state`` is ``READY``, ``DRAINING`` or ``DEAD``;
+    :meth:`drain` stops admission while the work in flight finishes
+    (``drained`` turns True) and :meth:`resume` opens it again.
+
+    ``factory()`` returns a fresh engine.  Reusing the dead engine's
+    params and cache is the cheap rebuild (LLaMA-7B's weights are 13.5 GB):
+    the dead engine's rows are released first, so the page accounting
+    starts clean, and the decode graphs keyed by those params and pools
+    replay with no new capture.  A rebuild over another cache drops the
+    dead engine's graphs (nothing reaches them again) with their private
+    memory pools."""
+
+    def __init__(self, factory, max_restarts: int = 3,
+                 window_s: float = 60.0, backoff_s: float = 0.05):
+        self._factory = factory
+        self.engine: ContinuousBatchingEngine = factory()
+        self.max_restarts = int(max_restarts)
+        self.window_s = float(window_s)
+        self.backoff_s = float(backoff_s)
+        self.restarts = 0
+        self._restart_times: deque = deque()
+        self._draining = False
+        self._dead = False
+
+    # -- lifecycle ---------------------------------------------------------
+    @property
+    def state(self) -> str:
+        """``READY`` (serving), ``DRAINING`` (finishing the work in
+        flight, refusing new submissions) or ``DEAD`` (restart budget
+        exhausted)."""
+        if self._dead:
+            return "DEAD"
+        if self._draining:
+            return "DRAINING"
+        return "READY"
+
+    def drain(self) -> None:
+        """Stop admitting: ``submit()`` raises while ``step()`` finishes
+        the queued and active work; ``drained`` turns True when none is
+        left."""
+        self._draining = True
+
+    def resume(self) -> None:
+        """Open admission again after a :meth:`drain`."""
+        self._draining = False
+
+    @property
+    def drained(self) -> bool:
+        """True once a drain has finished its work in flight."""
+        return self._draining and not self.engine.has_work()
+
+    # -- the engine's API, passed through ------------------------------------
+    def submit(self, *a, **kw) -> int:
+        if self._dead:
+            raise EngineDeadError("engine dead: restart budget exhausted")
+        if self._draining:
+            raise RuntimeError(
+                "engine draining: not admitting new requests (the work in "
+                "flight is finishing; restart, replace or resume() follows)")
+        return self.engine.submit(*a, **kw)
+
+    def cancel(self, rid: int) -> bool:
+        return self.engine.cancel(rid)
+
+    def finished(self) -> List[Request]:
+        return self.engine.finished()
+
+    def drain_stream(self) -> List:
+        return self.engine.drain_stream()
+
+    def has_work(self) -> bool:
+        return self.engine.has_work()
+
+    def step(self) -> int:
+        try:
+            return self.engine.step()
+        except Exception as exc:
+            self._restart(exc)
+            return len(self.engine._active)
+
+    def run_to_completion(self, max_steps: int = 10_000):
+        return _drive_to_completion(self, max_steps)
+
+    def _restart(self, exc: BaseException) -> None:
+        now = time.monotonic()
+        while self._restart_times and \
+                now - self._restart_times[0] > self.window_s:
+            self._restart_times.popleft()
+        if len(self._restart_times) >= self.max_restarts:
+            self._dead = True
+            raise EngineDeadError(
+                f"engine unrecoverable after {self.restarts} restart(s) "
+                f"({len(self._restart_times)} in the last "
+                f"{self.window_s:.0f}s): {type(exc).__name__}: {exc}"
+            ) from exc
+        if self.backoff_s > 0:
+            time.sleep(self.backoff_s * (2 ** len(self._restart_times)))
+        old = self.engine
+        text = f"{type(exc).__name__}: {exc}"
+        _release_engine_claims(old)
+        new = self._factory()
+        if new.tracer is None:
+            # factory-built engines rarely carry a tracer: keep the
+            # serving front's tracing alive across restarts
+            new.tracer = old.tracer
+        if new.params is not old.params or new.cache is not old.cache:
+            # nothing reaches the dead engine's decode graphs again
+            graphed_step.forget(old.params, old._pools())
+        # results the serving front has not drained yet survive
+        new._finished.extend(old._finished)
+        old._finished = []
+
+        def fail(req):
+            req.done, req.status, req.error = True, "error", text
+            req.t_finish = time.monotonic()
+            new._count_abnormal(req, "error")
+            _finalize_trace(req)
+            new._finished.append(req)
+
+        # active requests died with their pages
+        for req in old._active.values():
+            fail(req)
+        old._active.clear()
+        # requests the fatal step popped off the queue but did not commit
+        # to _active (an admission-phase death) fail loudly too
+        for req in old._admitting:
+            if not req.done and not any(q is req for q in old._queue):
+                fail(req)
+        old._admitting = []
+        # the live queue moves over with its rids; cancelled and expired
+        # requests retire on the way
+        for req in old._queue:
+            req.slot = None
+            if req.rid in old._cancelled:
+                new._finish_queued_abnormal(req, "cancelled")
+            elif req.deadline and new._now() >= req.deadline:
+                new._finish_queued_abnormal(req, "expired")
+            else:
+                new._queue.append(req)
+                if req.deadline:
+                    new._has_deadlines = True
+        old._queue.clear()
+        new._next_rid = max(new._next_rid, old._next_rid)
+        new.last_fault = text
+        self.engine = new
+        self._restart_times.append(now)
+        self.restarts += 1
+        if new.metrics is not None:
+            new.metrics.engine_restarts.inc()
+            new.metrics.ring.emit("engine_restart", error=text,
+                                  restarts=self.restarts)

@@ -18,8 +18,11 @@ the same weights (``params_from_jax``).
   the adoption of an engine's own tracer, and ``tools/metrics_dump.py``'s
   trace renderers on a port trace.
 
-JAX's mixed-lane, swap, disaggregation, fleet failover, supervisor and
-remote-replica cases wait for their lanes (ROADMAP.md).
+* Requests a supervisor restart kills close their traces with status
+  ``error``, keeping their phase spans, as in JAX.
+
+JAX's mixed-lane, swap, disaggregation, fleet failover and remote-replica
+cases wait for their lanes (ROADMAP.md).
 """
 
 import importlib
@@ -43,13 +46,16 @@ import paddle_tpu_torch.observability as tobs  # noqa: E402
 from paddle_tpu.models import llama_pretrain as jlp  # noqa: E402
 from paddle_tpu.models import paged_decode as jpd  # noqa: E402
 from paddle_tpu.models import serving_engine as jse  # noqa: E402
+from paddle_tpu.testing import faults as jfaults  # noqa: E402
 from paddle_tpu_torch.inference.serving import (  # noqa: E402
     GenerationServer, generate_http)
 from paddle_tpu_torch.models import llama_pretrain as tlp  # noqa: E402
 from paddle_tpu_torch.models import paged_decode as tpd  # noqa: E402
+from paddle_tpu_torch.models import serving_engine as tse  # noqa: E402
 from paddle_tpu_torch.models.serving_engine import (  # noqa: E402
     ContinuousBatchingEngine)
 from paddle_tpu_torch.models.weights import params_from_jax  # noqa: E402
+from paddle_tpu_torch.testing import faults as tfaults  # noqa: E402
 
 KW = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
           num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
@@ -456,3 +462,36 @@ def test_metrics_dump_trace_renderers(models, capsys):
         md._get = md_get
     out = capsys.readouterr().out
     assert str(rid) in out and "duration_ms" in out
+
+
+def test_supervisor_restart_faults_close_traces(models):
+    """Requests killed by an engine rebuild still close their traces
+    (status error, their phase spans kept): retirement is not the only
+    trace exit.  The same span names and status as JAX's supervisor."""
+    docs = {}
+    for side, obs, mod, fmod, build in (
+            ("jax", jobs, jse, jfaults, _jax_engine),
+            ("port", tobs, tse, tfaults, _engine)):
+        tr = _keep_all(obs)
+        sup = mod.EngineSupervisor(
+            lambda build=build, tr=tr: build(models, tracer=tr,
+                                             quarantine_faults=False),
+            backoff_s=0.0)
+        rid = sup.submit(PROMPTS[0], max_new_tokens=30)
+        sup.step()                            # admit + decode once
+        with fmod.plane() as fp:
+            fp.inject("step_dispatch", RuntimeError("boom"), nth=1,
+                      times=1)
+            sup.step()                        # escapes -> restart
+        done = {r.rid: r for r in sup.finished()}
+        assert done[rid].status == "error"
+        assert done[rid].error == "RuntimeError: boom"
+        assert sup.restarts == 1
+        doc = tr.get(str(rid))
+        assert doc is not None and doc["status"] == "error"
+        assert tr.index(status="live") == []
+        docs[side] = doc
+    names = [s["name"] for s in docs["port"]["spans"]]
+    assert "decode_active" in names
+    assert names == [s["name"] for s in docs["jax"]["spans"]]
+    assert docs["port"]["error"] == docs["jax"]["error"]
