@@ -123,6 +123,24 @@ Phases, one JSON line each on stdout:
              disconnect cancelling its request, 503 after the supervisor
              died; a planted fault (the quarantine skipping one row's
              release) caught.
+4f. serve_mixed - the mixed prefill + decode tick (mixed=True,
+             mixed_token_budget 128) against the sequential packed lane, on
+             the sync and overlap lanes, under bench.py's
+             _serving_mixed_line TPU traffic (a resident batch decoding
+             while waves of five prompts of 192-448 tokens and one of 16 or
+             32 arrive every 6 ticks, 48 new tokens + 3 a place in the
+             wave; batch 8, pages of 64): a line an arm with the decode-step
+             host wall p50 / p99 during admission and when quiet (printed,
+             not gated), mixed ticks, piggybacked tokens, budget
+             utilization, K2 launches (once a layer in every mixed tick),
+             fresh tokens a tick (at most the budget), the pool clean; the
+             device ms of one mixed tick and each lane's busy share; the
+             first two waves served on the sync mixed lane with every
+             token's logits recorded where the engine computes it, within
+             LOGIT_LIMIT of the plain forward, a planted fault (fresh stream
+             K/V one slot late) beyond it; the share of tokens equal to the
+             sequential lane's (printed).  The earlier serves build their
+             engines with mixed=False and read as before.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -138,6 +156,10 @@ Phases, one JSON line each on stdout:
              (pool history dequantized by its scales): logits within
              INT8_LOGIT_LIMIT of the same lane with every kernel replaced
              by its plain version, the planted fault beyond it.
+5d. serve_mixed_int8 - serve_mixed on the int8 weights over int8 pages
+             (K4 in the decode half, K3 on both paths): the recorded logits
+             within INT8_LOGIT_LIMIT of the same run replayed teacher-forced
+             with every kernel replaced by its plain version.
 6. train   - the 1.345 B-parameter LLaMA of the JAX package's training
              bench (vocab 32000, hidden 2048, FFN 5504, 24 layers, 16 heads
              of 128; bf16 compute over f32 masters, remat full, chunked
@@ -2900,6 +2922,402 @@ def phase_serve_faults(torch, cfg, seed, params, mods, dev="cuda"):
     return total
 
 
+# serve_mixed: the mixed prefill + decode tick (mixed=True) on LLaMA-7B,
+# under the TPU traffic of bench.py's _serving_mixed_line (:1945-1957): a
+# resident batch decodes while a wave of MIXED_PER_WAVE prompts arrives
+# every MIXED_WAVE_GAP ticks (five long ones cycling through MIXED_LONG and
+# one of MIXED_SHORT), MIXED_NEW new tokens plus MIXED_STAGGER for each
+# place in the wave; batch 8, pages of 64, 160 pages of which a row holds 8,
+# a budget of two pages.  The prompts come from np.random.RandomState(seed)
+# as in bench.py (its warm-up twin from seed + 1).
+MIXED_LONG, MIXED_SHORT = (192, 256, 320, 448), (16, 32)
+MIXED_WAVES, MIXED_PER_WAVE, MIXED_WAVE_GAP = 4, 6, 6
+MIXED_NEW, MIXED_STAGGER, MIXED_BUDGET = 48, 3, 128
+MIXED_CACHE = dict(num_pages=160, pages_max=8, batch=8, page=64)
+# the warm-up: two waves of the twin schedule with 8 new tokens (the second
+# arrives while the first decodes, so the mixed arms tick before the timing)
+MIXED_WARM_WAVES, MIXED_WARM_NEW = 2, 8
+# the teacher-forced check serves the first two waves of the schedule
+MIXED_CHECK_WAVES = 2
+MIXED_DEVICE_REPS = 5
+
+
+def mixed_schedule(cfg, seed, waves=MIXED_WAVES):
+    """bench.py's make_sched: each wave MIXED_PER_WAVE - 1 long prompts,
+    cycling through MIXED_LONG, then one short one."""
+    r = np.random.RandomState(seed)
+    out = []
+    for w in range(waves):
+        ps = [r.randint(1, cfg.vocab_size, (
+            MIXED_LONG[(w * MIXED_PER_WAVE + j) % len(MIXED_LONG)],)).tolist()
+            for j in range(MIXED_PER_WAVE - 1)]
+        ps.append(r.randint(1, cfg.vocab_size,
+                            (MIXED_SHORT[w % len(MIXED_SHORT)],)).tolist())
+        out.append(ps)
+    return out
+
+
+def mixed_news(sched):
+    return [MIXED_NEW + MIXED_STAGGER * j for wave in sched
+            for j in range(len(wave))]
+
+
+def mixed_drive(eng, sched, new=MIXED_NEW):
+    """bench.py's _ab_drive: the waves submitted on schedule, one step a
+    tick, each tick's host wall filed under admission (a sequential wave
+    ran, or a mixed tick took fresh tokens) or quiet.  -> (admission ms,
+    quiet ms, the finished requests in submission order, fresh tokens of
+    each mixed tick)."""
+    adm, quiet, fresh = [], [], []
+    pend = list(enumerate(sched))
+    rids, done = [], {}
+    tick = 0
+    while pend or eng.has_work():
+        if pend and tick >= pend[0][0] * MIXED_WAVE_GAP:
+            for j, p in enumerate(pend.pop(0)[1]):
+                rids.append(eng.submit(p, max_new_tokens=new
+                                       + MIXED_STAGGER * j))
+        pf, mx, mt = (eng.prefill_calls, eng.mixed_prefill_tokens,
+                      eng.mixed_ticks)
+        t0 = time.perf_counter()
+        eng.step()
+        ms = (time.perf_counter() - t0) * 1e3
+        if eng.mixed_ticks > mt:
+            fresh.append(eng.mixed_prefill_tokens - mx)
+        hit = eng.prefill_calls > pf or eng.mixed_prefill_tokens > mx
+        (adm if hit else quiet).append(ms)
+        done.update((r.rid, r) for r in eng.finished())
+        tick += 1
+        if tick > 5000:
+            fail("serve_mixed: the traffic did not drain")
+    return adm, quiet, [done[r] for r in rids], fresh
+
+
+def pctl(xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def mixed_arm(torch, cfg, params, cache, mods, sched, warm, lane, mixed):
+    """One arm of the A/B: an engine of ``lane`` with (``mixed``) or
+    without the mixed lane over ``cache``, warmed on ``warm``, then timed
+    on ``sched`` with the launch counts set to 0 just before.  On the mixed
+    arm every mixed tick's host wall and K2 launches are taken, and the
+    arguments of one tick of the most frequent stream bucket kept for the
+    device timing.  -> (tokens per request, stats, kept arguments)."""
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    kw = {"overlap": lane == "overlap"}
+    if mixed:
+        kw.update(mixed=True, mixed_token_budget=MIXED_BUDGET)
+    eng = ContinuousBatchingEngine(cfg, params, cache, **kw)
+    mixed_drive(eng, warm, new=MIXED_WARM_NEW)
+    torch.cuda.synchronize()
+    k2, tick_ms, kept = [], [], {}
+    if mixed:
+        step, tick = eng._step_mixed, eng._decode_mixed
+        fv = mods["fv"]
+
+        def counted(*a):
+            n = fv.launches
+            out = step(*a)
+            k2.append(fv.launches - n)
+            Tb = a[-14].shape[1]                 # p_toks [1, Tb]
+            if Tb not in kept:
+                kept[Tb] = [t.clone() if torch.is_tensor(t)
+                            and t.numel() < 2**20 else t for t in a]
+            kept.setdefault("count", {}).setdefault(Tb, 0)
+            kept["count"][Tb] += 1
+            return out
+
+        def timed():
+            t = time.perf_counter()
+            tick()
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+
+        eng._step_mixed, eng._decode_mixed = counted, timed
+    c0 = dict(ticks=eng.mixed_ticks, tokens=eng.mixed_prefill_tokens,
+              degraded=eng.mixed_degraded, prefill=eng.prefill_calls,
+              steps=eng.decode_steps, syncs=eng.host_syncs,
+              gen=eng.tokens_generated)
+    graphs0 = graph_state()
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    adm, quiet, done, fresh = mixed_drive(eng, sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran_launches(read_counts(mods), graphs0)
+    news = mixed_news(sched)
+    name = f"{lane}_{'mixed' if mixed else 'sequential'}"
+    for r, n in zip(done, news):
+        if r.status != "ok" or len(r.generated) != n:
+            fail(f"serve_mixed: {name} request {r.rid} ended {r.status} "
+                 f"with {len(r.generated)} of {n} tokens")
+    if eng._inflight or eng._mixed_pref or cache.audit()["owned"]:
+        fail(f"serve_mixed: {name} left dispatches, parked rows or pages")
+    ticks = eng.mixed_ticks - c0["ticks"]
+    piggy = eng.mixed_prefill_tokens - c0["tokens"]
+    stats = dict(
+        wall_s=wall, tokens=eng.tokens_generated - c0["gen"],
+        decode_steps=eng.decode_steps - c0["steps"],
+        host_syncs=eng.host_syncs - c0["syncs"],
+        prefill_waves=eng.prefill_calls - c0["prefill"],
+        admission_ticks=len(adm), quiet_ticks=len(quiet),
+        decode_step_p50_during_admission_ms=pctl(adm, 50),
+        decode_step_p99_during_admission_ms=pctl(adm, 99),
+        decode_step_p50_quiet_ms=pctl(quiet, 50),
+        decode_step_p99_quiet_ms=pctl(quiet, 99),
+        launches=launches)
+    if mixed:
+        stats.update(
+            mixed_ticks=ticks, piggybacked_prefill_tokens=piggy,
+            mixed_token_budget=eng.mixed_token_budget,
+            budget_utilization=round(piggy / max(ticks * MIXED_BUDGET, 1),
+                                     4),
+            max_fresh_tokens_a_tick=max(fresh) if fresh else 0,
+            mixed_degraded_waves=eng.mixed_degraded - c0["degraded"],
+            k2_launches_in_mixed_ticks=sum(k2),
+            host_ms_a_mixed_tick=statistics.mean(tick_ms) if tick_ms
+            else None,
+            stream_buckets=kept.get("count", {}))
+        if ticks <= 0 or not tick_ms:
+            fail(f"serve_mixed: {name} ran no mixed tick")
+        if max(fresh) > MIXED_BUDGET:
+            fail(f"serve_mixed: {name} took {max(fresh)} fresh tokens in "
+                 f"a tick, over the budget {MIXED_BUDGET}")
+        if k2 != [cfg.num_hidden_layers] * len(k2):
+            fail(f"serve_mixed: {name} launched K2 {sorted(set(k2))} times "
+                 f"a mixed tick, not once a layer")
+    return [r.generated for r in done], stats, kept
+
+
+def mixed_tick_device_ms(torch, kept, step):
+    """The device time of one mixed tick: the kept arguments of the most
+    frequent stream bucket replayed MIXED_DEVICE_REPS times under a
+    CUDA-only profiler (the kernels' summed durations, every kind)."""
+    counts = kept.pop("count")
+    Tb = max(counts, key=counts.get)
+    args = kept[Tb]
+    step(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(MIXED_DEVICE_REPS):
+            step(*args)
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return Tb, busy_us / 1e3 / MIXED_DEVICE_REPS
+
+
+def mixed_recorded(torch, cfg, params, cache, sched, forced=None, wrap=None):
+    """Serve ``sched`` on the synchronous mixed lane and record the logits
+    of every token where the engine computes it: the cold waves' first
+    tokens, each decode step's (the mixed ticks' decode half included) and
+    each mixed tick's first tokens.  ``forced`` ({rid: tokens}) makes the
+    engine emit those tokens instead of its picks: with eos None the
+    schedule depends on lengths alone, so this replays the same ticks over
+    the same inputs (teacher forcing).  ``wrap`` rewrites the mixed step's
+    arguments (a planted fault).  -> (tokens per request, logits per
+    request, [tokens, V] fp32)."""
+    import paddle_tpu_torch.models.paged_decode as pd
+    import paddle_tpu_torch.models.serving_engine as se
+    eng = se.ContinuousBatchingEngine(cfg, params, cache, mixed=True,
+                                      mixed_token_budget=MIXED_BUDGET)
+    rec, ctx = {}, {"first": None, "wave": None}
+
+    def pick(logits, temperature, generator=None, top_k=0, top_p=1.0):
+        tok = torch.argmax(logits, dim=-1)
+        if ctx["first"] is not None and ctx["calls"] == 1:
+            rows = ctx["first"]          # the mixed tick's first tokens
+        else:
+            rows = [(s, r, len(r.generated)) for s, r in eng._active.items()]
+        if ctx["first"] is not None:
+            ctx["calls"] += 1
+        for s, r, j in rows:
+            rec.setdefault(r.rid, {})[j] = logits[s].float().clone()
+            if forced is not None:
+                tok[s] = forced[r.rid][j]
+        return tok
+
+    def pick_wave(logits, *a, **k):
+        ctx["wave"] = logits.float().clone()
+        return torch.argmax(logits, dim=-1)
+
+    step, emit_first = eng._step_mixed, eng._emit_first
+
+    def stepper(*a):
+        a = list(a)
+        if wrap is not None:
+            a = wrap(a)
+        slots = a[-3].nonzero()[:, 0].tolist()          # p_sample
+        ctx["first"] = [(s, eng._mixed_pref[s]["req"], 0) for s in slots]
+        ctx["calls"] = 0
+        try:
+            return step(*a)
+        finally:
+            ctx["first"] = None
+
+    def emit(reqs, slots, toks):
+        for i, r in enumerate(reqs):
+            if not r.generated:
+                rec.setdefault(r.rid, {})[0] = ctx["wave"][i]
+                if forced is not None:
+                    toks[i] = forced[r.rid][0]
+        return emit_first(reqs, slots, toks)
+
+    eng._step_mixed, eng._emit_first = stepper, emit
+    with patched((pd, "_pick_token", pick), (se, "_pick_token", pick_wave)):
+        _, _, done, _ = mixed_drive(eng, sched)
+    if cache.audit()["owned"]:
+        fail("serve_mixed: the recorded run left pages owned")
+    gens = [r.generated for r in done]
+    logits = [torch.stack([rec[r.rid][j] for j in range(len(r.generated))])
+              for r in done]
+    return gens, logits
+
+
+def phase_serve_mixed(torch, cfg, seed, params, mods, kv_quant=None,
+                      dev="cuda"):
+    """The mixed lane against the sequential packed lane on LLaMA-7B, on the
+    synchronous and overlap lanes (bf16, or int8 weights over int8 pages:
+    ``params`` are then the quantized ones), under the traffic above:
+
+    1. four timed arms over one cache, each warmed first: the decode-step
+       host wall p50 / p99 while the waves arrive and when quiet (the stall
+       the mixed lane exists to remove: printed, not gated), the mixed
+       ticks, piggybacked tokens, budget utilization, fresh tokens a tick
+       (at most the budget), K2 once a layer in every mixed tick, host ms a
+       mixed tick, every request complete, the pool clean, the path's
+       kernels launched;
+    2. the device ms of one mixed tick (its most frequent stream bucket)
+       and each lane's busy share over its mixed ticks;
+    3. the first MIXED_CHECK_WAVES waves served on the synchronous mixed
+       lane with every token's logits recorded where the engine computes
+       it, against a plain forward of the served sequences (bf16: the
+       plain dense forward, LOGIT_LIMIT, each served token within
+       2 * LOGIT_LIMIT of its top logit) or against the same run replayed
+       teacher-forced with every kernel replaced by its plain version
+       (int8: INT8_LOGIT_LIMIT), and a planted fault (every fresh stream
+       token written one slot late) beyond the limit;
+    4. the share of tokens each lane serves equal to the synchronous
+       sequential lane's (printed, not gated: another stream layout tiles
+       K2 otherwise, so bf16 near-ties may fall the other way).
+    -> the launches of the timed arms."""
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    import paddle_tpu_torch.models.paged_decode as pd
+    from paddle_tpu_torch.models import graphed_step as gs
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    pa, fv, im = mods["pa"], mods["fv"], mods["im"]
+    phase = "serve_mixed_int8" if kv_quant else "serve_mixed"
+    t_phase = time.perf_counter()
+    cache = PagedKVCache(cfg, kv_quant=kv_quant, device=dev, **MIXED_CACHE)
+    sched = mixed_schedule(cfg, seed)
+    warm = mixed_schedule(cfg, seed + 1, MIXED_WARM_WAVES)
+    attn = ("paged_decode_attention_q8" if kv_quant
+            else "paged_decode_attention")
+    path = [attn, "flash_attention_segmented", "segment_tile_ranges"] + (
+        ["int8_matmul", "int8_matmul_wave"]
+        if isinstance(params["lm_head"], dict) else [])
+    total, gens, arms, kept = {}, {}, {}, None
+    for lane in ("sync", "overlap"):
+        for mixed in (False, True):
+            name = f"{lane}_{'mixed' if mixed else 'sequential'}"
+            gens[name], st, k = mixed_arm(torch, cfg, params, cache, mods,
+                                          sched, warm, lane, mixed)
+            if mixed and kept is None:
+                kept = k                  # the synchronous lane's ticks
+            for key, v in st["launches"].items():
+                total[key] = total.get(key, 0) + v
+            for kname in path:
+                if st["launches"][kname] <= 0:
+                    fail(f"{phase}: {name} did not launch {kname}")
+            for kname in FLAGGED:
+                if st["launches"][kname]:
+                    fail(f"{phase}: {name} launched {kname} with its flag "
+                         f"off")
+            emit(phase, arm=name, **st)
+            arms[name] = st
+    Tb, device_ms = mixed_tick_device_ms(
+        torch, kept, pd.make_mixed_step(cfg, kv_quant=kv_quant))
+    del kept
+    host_ms = {lane: arms[f"{lane}_mixed"]["host_ms_a_mixed_tick"]
+               for lane in ("sync", "overlap")}
+    busy = {lane: device_ms / ms for lane, ms in host_ms.items()}
+
+    check = sched[:MIXED_CHECK_WAVES]
+    prompts = [p for wave in check for p in wave]
+    t0 = time.perf_counter()
+    served, sound = mixed_recorded(torch, cfg, params, cache, check)
+    forced = dict(enumerate(served))
+
+    def late(a):                 # fresh stream K/V written one slot late
+        a[-7] = (a[-7] + 1) % cache.page
+        return a
+
+    if kv_quant is None:
+        limit = LOGIT_LIMIT
+        plain = [plain_logits(torch, cfg, params, p + g[:-1], dev)[
+            len(p) - 1:] for p, g in zip(prompts, served)]
+        gap = served_gap(torch, served, plain)
+    else:
+        limit = INT8_LOGIT_LIMIT
+        with patched((tlp, "int8_matmul", im.int8_matmul_plain),
+                     (pd, "paged_decode_attention_q8",
+                      pa.paged_decode_attention_q8_plain),
+                     (pd, "flash_attention_segmented",
+                      lambda q, k, v, seg, causal=False:
+                      fv.segmented_sdpa_plain(q, k, v, seg, causal))):
+            _, plain = mixed_recorded(torch, cfg, params, cache, check,
+                                      forced=forced)
+        gap = None
+    _, fault = mixed_recorded(torch, cfg, params, cache, check,
+                              forced=forced, wrap=late)
+    logit_diff = max_diff(sound, plain)
+    fault_diff = max_diff(fault, plain)
+    del sound, plain, fault
+    check_s = time.perf_counter() - t0
+
+    ref = gens["sync_sequential"]
+    n_tok = sum(len(g) for g in ref)
+    agree = {name: sum(a == b for g, r in zip(got, ref)
+                       for a, b in zip(g, r)) / n_tok
+             for name, got in gens.items() if name != "sync_sequential"}
+    same = {name: sum(g == r for g, r in zip(got, ref))
+            for name, got in gens.items() if name != "sync_sequential"}
+    emit(phase, model="LLaMA-7B (LlamaPretrainConfig defaults)",
+         weights="int8 (quantize_params_int8)" if kv_quant else "bf16",
+         kv_pages=kv_quant or "bf16", requests=len(ref),
+         traffic=dict(waves=MIXED_WAVES, per_wave=MIXED_PER_WAVE,
+                      wave_gap_ticks=MIXED_WAVE_GAP, long=MIXED_LONG,
+                      short=MIXED_SHORT, new=MIXED_NEW,
+                      stagger=MIXED_STAGGER),
+         mixed_token_budget=MIXED_BUDGET, cache=MIXED_CACHE,
+         mixed_tick=dict(stream_bucket=Tb, device_ms=device_ms,
+                         host_ms=host_ms, busy_share=busy),
+         stall_p99_ms={name: arms[name][
+             "decode_step_p99_during_admission_ms"] for name in arms},
+         token_share_equal_to_sync_sequential=agree,
+         requests_equal_to_sync_sequential=same,
+         checked_requests=len(prompts), logit_check_s=check_s,
+         logit_max_abs_diff=logit_diff, logit_limit=limit,
+         planted_fault_max_abs_diff=fault_diff,
+         served_token_max_gap=gap,
+         phase_s=time.perf_counter() - t_phase)
+    if logit_diff > limit:
+        fail(f"{phase}: the mixed lane's logits differ from the reference's "
+             f"by {logit_diff} (limit {limit})")
+    if fault_diff <= limit:
+        fail(f"{phase}: the planted fault moved the logits by only "
+             f"{fault_diff}, within the limit {limit}: the check cannot "
+             f"see it")
+    if gap is not None and gap > 2 * LOGIT_LIMIT:
+        fail(f"{phase}: a served token sits {gap} below the plain top "
+             f"logit (limit {2 * LOGIT_LIMIT})")
+    del cache
+    gs.clear()
+    return total
+
+
 def train_launches_per_step(cfg, flag_set=None):
     """What the code launches in one AdamW step under remat full: K8 once
     per leaf (9 stacked block leaves, embed, final_norm, lm_head); K6a in
@@ -3438,6 +3856,8 @@ def main():
     torch.cuda.empty_cache()
     launches_faults = phase_serve_faults(torch, cfg, args.seed, params, mods)
     torch.cuda.empty_cache()
+    launches_mixed = phase_serve_mixed(torch, cfg, args.seed, params, mods)
+    torch.cuda.empty_cache()
     launches_int8, qparams = phase_serve_int8(torch, cfg, args.seed, params,
                                               mods)
     del params
@@ -3447,6 +3867,9 @@ def main():
     torch.cuda.empty_cache()
     launches_prefix_int8 = phase_serve_prefix(torch, cfg, args.seed, qparams,
                                               mods, kv_quant="int8")
+    torch.cuda.empty_cache()
+    launches_mixed_int8 = phase_serve_mixed(torch, cfg, args.seed, qparams,
+                                            mods, kv_quant="int8")
     del qparams
     torch.cuda.empty_cache()             # the serves' weights are gone
     train_cfg = LlamaPretrainConfig(**TRAIN_CFG)
@@ -3467,8 +3890,9 @@ def main():
     # each kernel's launches in the serve, train, train_packed and
     # train_fused phases
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
-            launches_dense, launches_faults,
+            launches_dense, launches_faults, launches_mixed,
             launches_int8, launches_int8_overlap, launches_prefix_int8,
+            launches_mixed_int8,
             launches_train, launches_packed, *launches_fused]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 

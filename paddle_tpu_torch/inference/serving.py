@@ -478,7 +478,8 @@ class GenerationServer:
             self._lock.release()
         if h is None:
             h = self._health_from_registry(self.registry.snapshot(),
-                                           eng.decode_horizon)
+                                           eng.decode_horizon,
+                                           eng.mixed_token_budget)
         h = {**fixed, **h, **extra}
         self._health_last = (h, time.monotonic())
         return h
@@ -493,7 +494,7 @@ class GenerationServer:
                 "requests_rejected": eng.requests_rejected,
                 "requests_faulted": eng.requests_faulted,
                 "queued_tokens": eng.queued_tokens(),
-                "active": len(eng._active),
+                "active": len(eng._active) + len(eng._mixed_pref),
                 "queued": len(eng._queue),
                 "free_pages": eng.cache.free_pages(),
                 "decode_steps": eng.decode_steps,
@@ -504,18 +505,22 @@ class GenerationServer:
                 "swap_out_pages": 0,
                 "swap_in_pages": 0,
                 "prefill_tokens_avoided": 0,
-                "mixed_ticks": 0,
-                "mixed_prefill_tokens": 0,
-                "mixed_budget_utilization": 0.0,
+                "mixed_ticks": eng.mixed_ticks,
+                "mixed_prefill_tokens": eng.mixed_prefill_tokens,
+                "mixed_budget_utilization": round(
+                    eng.mixed_prefill_tokens
+                    / max(eng.mixed_ticks * eng.mixed_token_budget, 1), 4),
                 "decode_horizon": eng.decode_horizon,
                 "horizon_trimmed_tokens": eng.horizon_trimmed_tokens,
                 "requests_finished": eng.requests_finished}
 
     @staticmethod
-    def _health_from_registry(snap: dict, decode_horizon: int) -> dict:
+    def _health_from_registry(snap: dict, decode_horizon: int,
+                              mixed_budget: int = 0) -> dict:
         """JAX's registry view (``_health_from_registry``) over one
         snapshot: every count is read from the instrumentation, none
-        from engine attributes."""
+        from engine attributes (``mixed_budget``, the engine's
+        ``mixed_token_budget``, is configuration)."""
         def v(name):
             return int(_snap_val(snap, name))
 
@@ -548,8 +553,10 @@ class GenerationServer:
             "mixed_ticks": v("paddle_tpu_engine_mixed_ticks_total"),
             "mixed_prefill_tokens": v(
                 "paddle_tpu_engine_mixed_piggybacked_prefill_tokens_total"),
-            # no mixed lane, no budget: JAX's view of such an engine
-            "mixed_budget_utilization": 0.0,
+            "mixed_budget_utilization": round(
+                v("paddle_tpu_engine_mixed_piggybacked_prefill_tokens_total")
+                / max(v("paddle_tpu_engine_mixed_ticks_total")
+                      * mixed_budget, 1), 4),
             "decode_horizon": decode_horizon,
             "horizon_trimmed_tokens": v(
                 "paddle_tpu_engine_horizon_trimmed_tokens_total"),

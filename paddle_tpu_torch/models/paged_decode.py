@@ -14,13 +14,15 @@ index of the device tier -- chain keys, leaf-first eviction,
 bodies :func:`_prefill` (dense, causal; RoPE through ``_rope``, the fused
 RoPE kernel at ``head_dim % 128 == 0``), :func:`_prefill_chunk` (a chunk
 over the row's cached pages) and :func:`_packed_prefill_body` (fp and
-``q8`` forms, with or without prefix history), and
+``q8`` forms, with or without prefix history), the mixed prefill +
+decode tick :func:`make_mixed_step`, and
 :func:`make_paged_generate_fused` / :func:`generate_paged`.
 
 PyTorch runs eagerly and the pools update in place instead of being
 donated.  The counterpart of JAX's jit of the async and horizon steps, with
 its ``_step_async_cache`` / ``_step_multi_cache``, is a CUDA graph captured
-once per key (``models/graphed_step.py``); the other bodies stay eager.
+once per key (``models/graphed_step.py``); the other bodies, the mixed
+tick's included, stay eager.
 The host page tier (swap, prefix demotion), export and TP meshes are later
 slices, as is ``generate_auto`` (it waits for the dense ``make_generate``);
 asking for them raises ``NotImplementedError``.
@@ -28,6 +30,7 @@ asking for them raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import math
 from collections import Counter, OrderedDict
@@ -47,7 +50,7 @@ from .llama_pretrain import (LlamaPretrainConfig, _block_post_attn, _mm,
 
 __all__ = ["PagedKVCache", "make_paged_decode_step",
            "make_paged_decode_step_async", "make_paged_decode_step_multi",
-           "generate_paged", "generate_auto"]
+           "make_mixed_step", "generate_paged", "generate_auto"]
 
 
 class PagedKVCache:
@@ -893,6 +896,122 @@ def _packed_prefill_body(cfg: LlamaPretrainConfig, q8: bool = False,
         return x, ks, vs
 
     return run
+
+
+_mixed_step_cache: dict = {}
+
+
+def make_mixed_step(cfg: LlamaPretrainConfig, temperature: float = 0.0,
+                    kv_quant: Optional[str] = None, top_k: int = 0,
+                    top_p: float = 1.0, mesh=None,
+                    tp_allreduce: str = "fp32", with_hist: bool = True):
+    """One call per mixed serving tick (Sarathi-style chunked-prefill
+    piggybacking): advance every active decode row exactly as
+    :func:`make_paged_decode_step_async` does AND prefill a budget of
+    packed varlen stream tokens in the same call, so a colocated engine
+    never stops decoding to admit.
+
+    ``fn(params, kpool, vpool, [kscale, vscale,] tables, lens, tok,
+    active, remaining, eos, generator, p_toks [1, T], p_seg [1, T],
+    p_pos [1, T], hist_page [T], hist_slot [T], pool_hist [T],
+    dest_page [T], dest_slot [T], sample_idx [B], activate [B],
+    p_first [B], p_sample [B], p_len [B], p_rem [B]) -> (kpool, vpool,
+    [kscale, vscale,] nxt, lens', remaining', active', done, ftok)``
+
+    * prefill half: :func:`_packed_prefill_body` (K2 over the stream) with
+      history gathered from the pool (``pool_hist`` slots; the stream never
+      shares with itself: the engine registers a prefix page only after
+      the tick that wrote it); each stream token's K/V then lands at
+      ``dest_page`` / ``dest_slot`` (quantized per token with int8
+      pages); history and padding slots land on junk page 0;
+    * decode half: the per-token step over ``tables`` masked by
+      ``active`` (inactive rows, parked ones included, write page 0), then
+      :func:`_advance_loop_state`;
+    * first tokens: each completing segment's last real position
+      (``sample_idx``) through the shared logits tail; ``p_sample`` rows
+      take the sampled token, the others ``p_first`` (a resume's saved
+      next input); ``activate`` rows enter the chained state with
+      ``lens = p_len`` and ``remaining = p_rem``.
+
+    The pools update in place.  When sampling, the decode half draws from
+    ``generator`` first, then the first tokens (JAX splits its key into
+    ``k_dec`` and ``k_smp`` in that order).  Memoised per key, as JAX's
+    ``_mixed_step_cache``; TP meshes raise ``NotImplementedError``."""
+    if kv_quant not in (None, "int8"):
+        raise ValueError("kv_quant must be None or 'int8'")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the TP mixed step (mp > 1 meshes) is not ported yet")
+    q8 = kv_quant == "int8"
+    ckey = (dataclasses.astuple(cfg), temperature, kv_quant, top_k, top_p,
+            with_hist)
+    hit = _mixed_step_cache.get(ckey)
+    if hit is not None:
+        return hit
+    dt = cfg.dtype
+    step, step_q8 = _build_step_fns(cfg, temperature, False, top_k, top_p)
+    pre_body = _packed_prefill_body(cfg, q8, with_hist)
+
+    def scatter(kpool, vpool, kscale, vscale, ks, vs, dest_page, dest_slot):
+        # [L, T, nkv, d] -> [T, L, nkv, d]: the advanced indices at dims 1
+        # and 3 of the pool put T first, as in JAX
+        if q8:
+            ks, ksc = quantize_kv_token(ks)
+            vs, vsc = quantize_kv_token(vs)
+            kscale[:, dest_page, :, dest_slot] = ksc.permute(1, 0, 2)
+            vscale[:, dest_page, :, dest_slot] = vsc.permute(1, 0, 2)
+        kpool[:, dest_page, :, dest_slot] = ks.permute(1, 0, 2, 3).to(
+            kpool.dtype)
+        vpool[:, dest_page, :, dest_slot] = vs.permute(1, 0, 2, 3).to(
+            vpool.dtype)
+
+    npools = 4 if q8 else 2
+
+    def fn(params, *args):
+        pools = args[:npools]
+        (tables, lens, tok, active, remaining, eos, generator, p_toks, p_seg,
+         p_pos, hist_page, hist_slot, pool_hist, dest_page, dest_slot,
+         sample_idx, activate, p_first, p_sample, p_len,
+         p_rem) = args[npools:]
+        kpool, vpool = pools[:2]
+        kscale, vscale = pools[2:] if q8 else (None, None)
+        T = p_toks.shape[1]
+        dev = p_toks.device
+        x, ks, vs = pre_body(
+            params, p_toks, p_seg, p_pos, kpool, vpool, kscale, vscale,
+            hist_page, hist_slot, pool_hist,
+            torch.zeros((T,), dtype=torch.int32, device=dev),
+            torch.zeros((T,), dtype=torch.bool, device=dev))
+        scatter(kpool, vpool, kscale, vscale, ks, vs, dest_page.long(),
+                dest_slot.long())
+        del ks, vs
+        active = active.to(torch.bool)
+        activate = activate.to(torch.bool)
+        tables_d = torch.where(active[:, None], tables,
+                               torch.zeros_like(tables))
+        if q8:
+            *_, nxt = step_q8(params, kpool, vpool, kscale, vscale, tables_d,
+                              lens, tok, generator)
+        else:
+            *_, nxt = step(params, kpool, vpool, tables_d, lens, tok,
+                           generator)
+        nxt, lens2, rem2, act2, done = _advance_loop_state(
+            nxt, tok, lens, active, remaining, eos)
+        # the first tokens, drawn after the decode half's
+        h = _rms_norm(x[0, sample_idx.long()], params["final_norm"],
+                      cfg.rms_norm_eps)
+        logits = _mm(h, params["lm_head"], dt).float()
+        sampled = _pick_token(logits, temperature, generator, top_k, top_p)
+        ftok = torch.where(p_sample.to(torch.bool),
+                           sampled.to(p_first.dtype), p_first)
+        nxt = torch.where(activate, ftok.to(nxt.dtype), nxt)
+        lens2 = torch.where(activate, p_len.to(lens2.dtype), lens2)
+        rem2 = torch.where(activate, p_rem.to(rem2.dtype), rem2)
+        act2 = act2 | activate
+        return (*pools, nxt, lens2, rem2, act2, done, ftok)
+
+    _mixed_step_cache[ckey] = fn
+    return fn
 
 
 def generate_paged(cfg: LlamaPretrainConfig, params, prompt,

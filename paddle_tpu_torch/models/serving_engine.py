@@ -32,6 +32,15 @@ Three decode lanes, as in JAX:
 * ``decode_horizon=H``: one dispatch and one fetch cover H tokens, on
   either of the other two lanes.
 
+``mixed=True`` (Sarathi-style piggybacking, as in JAX): once rows decode,
+waiting prompts park as chunk state (their slot and pages claimed, no
+prefill dispatch) and their context rides, ``mixed_token_budget`` tokens a
+tick, inside the decode dispatches (:func:`make_mixed_step`), on the
+synchronous and the ``overlap=True`` lanes; a completing segment samples
+its first token in the same call and joins the decode batch on the device.
+An idle engine, a zero budget and a context over ``mixed_ctx_cap`` admit
+through the sequential packed wave.
+
 On a CUDA device every async and horizon step replays from a CUDA graph
 captured for its key (``models/graphed_step.py``); its outputs reach the
 host through a ring of ``lookahead + 1`` pinned slots, each copy queued
@@ -60,8 +69,8 @@ The fault plane (``paddle_tpu_torch/testing/faults.py``) fires its
 ``step_dispatch`` and ``prefill_dispatch`` sites at JAX's points, so one
 rule poisons the same dispatch in both engines.
 
-Not ported yet, and refused at construction when asked for: the mixed and
-speculative lanes, TP meshes, scheduler policies, tenant quotas and the
+Not ported yet, and refused at construction when asked for: the
+speculative lane, TP meshes, scheduler policies, tenant quotas and the
 quantized TP all-reduce (the host page tier is refused by
 ``PagedKVCache``).
 """
@@ -82,7 +91,8 @@ from ..testing import faults
 from . import graphed_step
 from .llama_pretrain import LlamaPretrainConfig, _mm, _rms_norm
 from .paged_decode import (PagedKVCache, _packed_prefill_body, _pick_token,
-                           _prefill, _prefill_chunk, make_paged_decode_step)
+                           _prefill, _prefill_chunk, make_mixed_step,
+                           make_paged_decode_step)
 
 __all__ = ["ContinuousBatchingEngine", "EngineDeadError", "EngineSupervisor",
            "QueueFullError", "Request"]
@@ -226,6 +236,14 @@ class ContinuousBatchingEngine:
     the device's over-generated tail (at most H - 1 tokens, counted in
     ``horizon_trimmed_tokens``).
 
+    ``mixed=True`` fuses up to ``mixed_token_budget`` prefill tokens
+    (rounded up to whole pages) into every decode dispatch while rows
+    decode; a context longer than ``mixed_ctx_cap`` (default 4 x the
+    larger of the budget and ``prefill_bucket``, rounded down to pages)
+    admits through one sequential packed wave (counted in
+    ``mixed_degraded``).  It does not compose with
+    ``decode_horizon > 1`` (``ValueError``).
+
     ``metrics_registry``: ``None`` records into a registry private to this
     engine, a :class:`MetricsRegistry` into that one, ``False`` records
     nothing; ``metrics_ring`` is the event ring (a private one by
@@ -251,6 +269,8 @@ class ContinuousBatchingEngine:
                  quarantine_faults: bool = True,
                  max_consecutive_faults: int = 3,
                  tp_allreduce: str = "fp32", mixed: bool = False,
+                 mixed_token_budget: int = 256,
+                 mixed_ctx_cap: Optional[int] = None,
                  decode_horizon: int = 1, spec=None, policy=None,
                  tenant_quotas=None, tracer=None):
         if int(decode_horizon) < 1:
@@ -270,8 +290,7 @@ class ContinuousBatchingEngine:
                 "speculative round IS the multi-token fused program (up "
                 "to gamma+1 committed tokens per dispatch) -- tune "
                 "spec.gamma instead of stacking a second horizon on top")
-        later = {"mixed": mixed,
-                 "spec": spec is not None, "mesh": mesh is not None,
+        later = {"spec": spec is not None, "mesh": mesh is not None,
                  "tp_allreduce": tp_allreduce != "fp32",
                  "policy": policy is not None,
                  "tenant_quotas": tenant_quotas is not None}
@@ -279,8 +298,8 @@ class ContinuousBatchingEngine:
         if asked:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(asked)} (this engine has the "
-                f"synchronous, overlap and horizon lanes, packed, batched "
-                f"and chunked admission and prefix caching; see "
+                f"synchronous, overlap, horizon and mixed lanes, packed, "
+                f"batched and chunked admission and prefix caching; see "
                 f"ROADMAP.md)")
         self.cfg = cfg
         self.params = params
@@ -365,6 +384,25 @@ class ContinuousBatchingEngine:
             cfg, q8, self.enable_prefix_caching)
         self._prefill_dense = _prefill(cfg)
         self._prefill_chunked = _prefill_chunk(cfg, q8)
+        # -- the mixed prefill + decode tick: the budget is page-aligned;
+        # budget 0 leaves the sequential lanes alone
+        budget_pages = 0
+        if mixed and int(mixed_token_budget) > 0:
+            budget_pages = -(-int(mixed_token_budget) // page)
+        self.mixed_token_budget = budget_pages * page
+        self._mixed = bool(mixed) and budget_pages > 0
+        cap = (mixed_ctx_cap if mixed_ctx_cap is not None
+               else 4 * max(self.mixed_token_budget, self.prefill_bucket))
+        self.mixed_ctx_cap = max(int(cap) // page, 1) * page
+        self._mixed_pref: Dict[int, dict] = {}    # slot -> chunk state
+        self.mixed_ticks = 0              # dispatches that piggybacked
+        self.mixed_prefill_tokens = 0     # fresh tokens piggybacked
+        self.mixed_degraded = 0           # shape-forced sequential waves
+        self._step_mixed = None
+        if self._mixed:
+            self._step_mixed = make_mixed_step(
+                cfg, temperature, kv_quant=cache.kv_quant, top_k=top_k,
+                top_p=top_p)
         self._next_tok = np.zeros((self.B,), np.int64)
         self._remaining = np.zeros((self.B,), np.int64)
         # the active slots, kept at admit / retire / preempt (the decode
@@ -395,25 +433,42 @@ class ContinuousBatchingEngine:
         self._eos_dev = torch.tensor(-1 if eos_id is None else int(eos_id),
                                      dtype=torch.int64, device=self.device)
         # pinned host slots, one per step that may be in flight: each
-        # holds the step's [2, H, B] outputs and the host copies of the
-        # state a dispatch uploads, and is reused only after its step
-        # drained (its event waited)
+        # holds the step's [3, H, B] outputs (tokens, done flags and a mixed
+        # tick's first tokens), the host copies of the state a dispatch
+        # uploads and a mixed tick's staging buffer, and is reused only
+        # after its step drained (its event waited)
         self._ring: List[Dict] = []
+        pin = self.device.type == "cuda"
+        pm = cache.pages_max
+
+        def host(shape, dt):
+            return torch.zeros(shape, dtype=dt, pin_memory=pin)
+
+        # a mixed tick's host arrays go up as one int32 buffer: the
+        # stream's eight, the six per row and, on the synchronous lane,
+        # the loop state
+        stage_len = 0
+        if self._mixed:
+            stage_len = (8 * self._packed_bucket(self.mixed_ctx_cap)
+                         + self.B * (pm + 10))
+
+        def stage():
+            return {"buf": host((stage_len,), torch.int32), "event": None}
+
         if graphed:
-            pin = self.device.type == "cuda"
-            pm = cache.pages_max
-
-            def host(shape, dt):
-                return torch.zeros(shape, dtype=dt, pin_memory=pin)
-
             self._ring = [{
-                "out": host((2, self.decode_horizon, self.B), torch.int64),
+                "out": host((3, self.decode_horizon, self.B), torch.int64),
                 "tables": host((self.B, pm), torch.int32),
                 "lens": host((self.B,), torch.int32),
                 "tok": host((self.B,), torch.int64),
                 "active": host((self.B,), torch.bool),
-                "remaining": host((self.B,), torch.int64)}
+                "remaining": host((self.B,), torch.int64),
+                "stage": stage() if self._mixed else None}
                 for _ in range(self.lookahead + 1)]
+        # the synchronous lane's one staging buffer: each tick's fetch
+        # waits for the step that read it
+        self._mixed_stage = (stage() if self._mixed and not graphed
+                             else None)
         self._ring_i = 0
         self.pipeline_flushes = 0         # mutation-point drains
         self.host_syncs = 0               # blocking device->host fetches
@@ -501,23 +556,33 @@ class ContinuousBatchingEngine:
         the start of the next ``step()`` with ``status == "cancelled"``.
         Returns False when the rid is unknown or already finished."""
         if any(r.rid == rid for r in self._queue) or \
-                any(r.rid == rid for r in self._active.values()):
+                any(r.rid == rid for r in self._active.values()) or \
+                any(e["req"].rid == rid
+                    for e in tuple(self._mixed_pref.values())):
             self._cancelled.add(rid)
             return True
         return False
 
     def queued_tokens(self) -> int:
-        """Context tokens of queued prefill work (a preempted request
-        counts its regenerated context too)."""
-        return sum(len(r.prompt) + len(r.generated)
-                   for r in tuple(self._queue))
+        """Context tokens of pending prefill work: the queue (a preempted
+        request counts its regenerated context too) plus the remainder of
+        rows parked mid-prefill on the mixed lane (they left the queue,
+        but their prefill is still owed).  Sums over ``tuple()`` copies,
+        so scrape threads call it lock-free."""
+        owed = sum(len(e["ctx"]) - e["pos"]
+                   for e in tuple(self._mixed_pref.values()))
+        return owed + sum(len(r.prompt) + len(r.generated)
+                          for r in tuple(self._queue))
 
     def queued_by_class(self) -> Dict[str, int]:
-        """Waiting requests per priority class.  The port has no priority
-        classes yet, so every queued request counts as ``"normal"``, as
-        JAX counts a request submitted without a priority.  Reads only
-        ``len`` of the host queue, so scrape threads call it lock-free."""
-        return {"high": 0, "normal": len(self._queue), "low": 0}
+        """Waiting requests per priority class, rows parked mid-prefill
+        included.  The port has no priority classes yet, so every waiting
+        request counts as ``"normal"``, as JAX counts a request submitted
+        without a priority.  Reads only ``len`` of the host containers, so
+        scrape threads call it lock-free."""
+        return {"high": 0,
+                "normal": len(self._queue) + len(self._mixed_pref),
+                "low": 0}
 
     def queue_capacity_reason(self, prompt_len: int = 0) -> Optional[str]:
         """Why the bounded admission queue would refuse a submission now,
@@ -557,7 +622,7 @@ class ContinuousBatchingEngine:
         return out
 
     def has_work(self) -> bool:
-        return bool(self._queue or self._active)
+        return bool(self._queue or self._active or self._mixed_pref)
 
     def run_to_completion(self, max_steps: int = 10_000):
         """Drive until the queue drains; returns all finished requests
@@ -726,13 +791,31 @@ class ContinuousBatchingEngine:
         victims = [(slot, req, status)
                    for slot, req in list(self._active.items())
                    for status in (_hit(req),) if status is not None]
-        if victims and self.overlap:
+        # rows parked mid-prefill hold a slot and pages: they release
+        # after the same flush (an in-flight mixed tick still writes them)
+        parked = [(slot, ent, status)
+                  for slot, ent in list(self._mixed_pref.items())
+                  for status in (_hit(ent["req"]),) if status is not None]
+        if (victims or parked) and self.overlap:
             self._pipeline_flush()
         for slot, req, status in victims:
             # the flush may have retired the victim normally (eos or
             # budget landed on the device first): that stands
             if self._active.get(slot) is req:
                 self._retire_abnormal(slot, status)
+        for slot, ent, status in parked:
+            if self._mixed_pref.get(slot) is not ent:
+                continue
+            del self._mixed_pref[slot]
+            try:
+                self.cache.release_row(slot)
+            finally:
+                # the terminal message even when the release raises, as
+                # _retire_abnormal gives it
+                self._free_slots.append(slot)
+                self._remaining[slot] = 0
+                self._active_mask[slot] = 0
+                self._finish_queued_abnormal(ent["req"], status)
         self._cancelled.clear()
 
     def step(self) -> int:
@@ -769,10 +852,14 @@ class ContinuousBatchingEngine:
         text = f"{type(exc).__name__}: {exc}"
         self.last_fault = text
         self.step_faults += 1
-        for e in self._inflight:
-            if e["event"] is not None:
+        stages = [s["stage"] for s in self._ring] + [self._mixed_stage]
+        for ev in [e["event"] for e in self._inflight] + [
+                s["event"] for s in stages if s is not None]:
+            # a mixed tick that raised after its staging upload leaves
+            # the copy queued: wait for it too, before the buffer is reused
+            if ev is not None:
                 try:
-                    e["event"].synchronize()
+                    ev.synchronize()
                 except Exception:
                     pass               # a poisoned context: nothing to save
         self._inflight.clear()
@@ -795,6 +882,13 @@ class ContinuousBatchingEngine:
                 continue
             self._finish_queued_abnormal(req, "error", text)
         self._admitting = []
+        # rows parked mid-prefill die with the wave: the dispatches that
+        # carried their context dropped; the sweep below reclaims their
+        # slots and pages
+        for ent in self._mixed_pref.values():
+            if not ent["req"].done:
+                self._finish_queued_abnormal(ent["req"], "error", text)
+        self._mixed_pref.clear()
         # reclaim slots stranded mid-admission: off the free list (their
         # rows may hold freshly claimed pages) but never made active
         for slot in range(self.B):
@@ -813,11 +907,21 @@ class ContinuousBatchingEngine:
 
     def _step_inner(self) -> int:
         self._sweep_cancelled_expired()
-        self._admit_wave()
-        if not self._active:
+        if self._mixed and (self._active or self._mixed_pref):
+            # the mixed lane: decode never pauses to admit; waiting prompts
+            # park and ride inside the decode dispatches.  An idle mixed
+            # engine admits through the sequential wave: no decode latency
+            # to protect, and one wave admits a cold batch faster
+            self._mixed_carve()
+        else:
+            self._admit_wave()
+        if not self._active and not self._mixed_pref:
             return 0
         t0 = time.perf_counter()
-        self._decode_once()
+        if self._mixed_pref:
+            self._decode_mixed()
+        else:
+            self._decode_once()
         dt = time.perf_counter() - t0
         self.decode_wall_s += dt
         if self.metrics is not None:
@@ -1114,11 +1218,345 @@ class ContinuousBatchingEngine:
         self._emit_first([p[0] for p in plan], [p[2] for p in plan],
                          toks_out)
 
+    # -- the mixed prefill + decode lane ----------------------------------
+    def _mixed_carve(self) -> None:
+        """Mixed-lane admission: claim a slot and the row's pages for each
+        waiting request that fits and park it as chunk state in
+        ``_mixed_pref`` (no prefill dispatch here; its context rides inside
+        the next mixed ticks).  A context longer than ``mixed_ctx_cap`` does
+        not fit the mixed stream and admits through one sequential packed
+        wave (counted in ``mixed_degraded``).  JAX's swap-resume branch
+        waits for the host page tier (ROADMAP.md queue 1 item 6(e))."""
+        cache = self.cache
+        degrades: List = []
+        res_pages = 0
+        while self._queue:
+            if len(self._free_slots) <= len(degrades):
+                break                 # keep a slot per pending degrade
+            head = self._queue[0]
+            ctx = self._ctx_of(head)
+            need = -(-len(ctx) // cache.page)
+            if need + res_pages > cache.available_pages():
+                break
+            if len(ctx) > self.mixed_ctx_cap:
+                degrades.append((self._queue.popleft(), ctx))
+                res_pages += need
+                continue
+            slot = self._free_slots.pop()
+            try:
+                if self.enable_prefix_caching:
+                    start = cache.alloc_row_prefix(slot, ctx)
+                else:
+                    cache.alloc_row(slot, len(ctx))
+                    start = 0
+            except RuntimeError:
+                # out of pages (eviction could not cover): the request
+                # stays queued for a later tick
+                self._free_slots.append(slot)
+                break
+            req = self._queue.popleft()
+            if req.generated:             # recompute-style resume
+                self.resumes_recompute += 1
+                if self.metrics is not None:
+                    self.metrics.preempt_resume_recompute.inc()
+            # parked mid-prefill: "prefill" until activation
+            advance_phase(req, "prefill")
+            self._mixed_pref[slot] = {"req": req, "ctx": ctx, "pos": start,
+                                      "start": start}
+        if degrades:
+            self.mixed_degraded += len(degrades)
+            if self.overlap:
+                self._pipeline_flush()
+            self._admitting = [r for r, _ in degrades]
+            self._admit_sequential(degrades)
+            self._admitting = []
+
+    def _mixed_plan(self) -> List:
+        """This tick's prefill budget carved across the parked rows (FIFO by
+        carve order): each takes up to the budget pages left, bounded by
+        the stream room left after its history slots (a resumed chunk
+        gathers its written context into the stream).  -> ``(slot, pos,
+        take, npg)`` tuples, page-aligned.  The budget bounds only the
+        piggybacked prefill; decode rows are never throttled."""
+        page = self.cache.page
+        budget_pg = self.mixed_token_budget // page
+        stream_pg = self.mixed_ctx_cap // page
+        plan: List = []
+        for slot, ent in self._mixed_pref.items():
+            if budget_pg <= 0 or stream_pg <= 0:
+                break
+            pos = ent["pos"]
+            rem = len(ent["ctx"]) - pos
+            hist_pg = pos // page
+            fit = stream_pg - hist_pg
+            if fit <= 0:
+                continue          # waits for a roomier tick
+            npg = min(-(-rem // page), budget_pg, fit)
+            if npg <= 0:
+                continue
+            take = min(rem, npg * page)
+            plan.append((slot, pos, take, npg))
+            budget_pg -= npg
+            stream_pg -= hist_pg + npg
+        return plan
+
+    def _stage_upload(self, stage: Dict, arrays):
+        """Pack ``arrays`` (host ints and bools) into ``stage``'s pinned
+        int32 buffer and send them up as one non-blocking copy, an event
+        behind it -> int32 device views, in order.  The buffer is rewritten
+        only after the step that read it drained."""
+        buf = stage["buf"]
+        n = sum(a.size for a in arrays)
+        host = buf.numpy()
+        off = 0
+        for a in arrays:
+            host[off:off + a.size] = a.reshape(-1)
+            off += a.size
+        dev = buf[:n].to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            stage["event"] = torch.cuda.Event()
+            stage["event"].record(torch.cuda.current_stream(self.device))
+        views, off = [], 0
+        for a in arrays:
+            views.append(dev[off:off + a.size].view(a.shape))
+            off += a.size
+        return views
+
+    def _decode_mixed(self) -> None:
+        """One mixed tick: a single call of :func:`make_mixed_step`
+        advances every active decode row and prefills up to
+        ``mixed_token_budget`` tokens of the parked rows.  Completing
+        segments sample their first token in the call and activate on the
+        device; the overlap lane chains the next dispatch off the graph's
+        state tensors (the tick writes its outputs there) and learns the
+        first tokens at the ordinary drain, in the same ``_fetch`` as the
+        decode outputs; the synchronous lane fetches once a tick.  The
+        stream's host arrays go up as one pinned non-blocking copy."""
+        cache = self.cache
+        page = cache.page
+        B = self.B
+        if self.overlap:
+            if self._dev is not None and self._dev is not self._graph():
+                # a flag flip changed the key: start from host truth
+                self._needs_flush = True
+            if self._needs_flush:
+                self._pipeline_flush()
+        if self._active:
+            self._ensure_or_preempt()
+            if self.overlap and self._needs_flush:   # a preemption landed
+                self._pipeline_flush()
+        plan = self._mixed_plan()
+        if not plan:
+            # the growth pass preempted every parked row: nothing to
+            # piggyback, so the plain decode tick runs
+            self._decode_once()
+            return
+        # the packed lane's layout: each segment is [history slots][fresh
+        # chunk, page-padded], then the sentinel tail
+        T = sum((pos // page + npg) * page for _, pos, _, npg in plan)
+        Tb = self._packed_bucket(max(T, page))
+        nseg = len(plan)
+        toks = np.zeros((1, Tb), np.int32)
+        seg = np.full((1, Tb), nseg, np.int32)
+        posa = np.zeros((1, Tb), np.int32)
+        hist_page = np.zeros((Tb,), np.int32)
+        hist_slot = np.zeros((Tb,), np.int32)
+        pool_hist = np.zeros((Tb,), np.int32)
+        dest_page = np.zeros((Tb,), np.int32)
+        dest_slot = np.zeros((Tb,), np.int32)
+        sample_idx = np.zeros((B,), np.int32)
+        activate = np.zeros((B,), bool)
+        p_first = np.zeros((B,), np.int32)
+        p_sample = np.zeros((B,), np.int32)
+        p_len = np.zeros((B,), np.int32)
+        p_rem = np.zeros((B,), np.int32)
+        off = 0
+        fresh = 0
+        hist_total = 0
+        completing: List = []
+        for i, (slot, pos, take, npg) in enumerate(plan):
+            ent = self._mixed_pref[slot]
+            W = pos + npg * page
+            seg[0, off:off + W] = i
+            posa[0, off:off + W] = np.arange(W)
+            toks[0, off + pos:off + pos + take] = ent["ctx"][pos:pos + take]
+            for j in range(pos // page):
+                a = off + j * page
+                hist_page[a:a + page] = cache.tables[slot, j]
+                hist_slot[a:a + page] = np.arange(page)
+                pool_hist[a:a + page] = 1
+            for j in range(npg):
+                a = off + pos + j * page
+                dest_page[a:a + page] = cache.tables[slot, pos // page + j]
+                dest_slot[a:a + page] = np.arange(page)
+            fresh += take
+            hist_total += pos
+            if pos + take == len(ent["ctx"]):
+                req = ent["req"]
+                activate[slot] = True
+                p_len[slot] = len(ent["ctx"])
+                if req.generated:        # resume: its saved next input
+                    p_first[slot] = req.generated[-1]
+                    p_rem[slot] = req.max_new_tokens - len(req.generated)
+                else:                    # fresh: sampled in the call
+                    p_sample[slot] = 1
+                    sample_idx[slot] = off + pos + take - 1
+                    p_rem[slot] = req.max_new_tokens - 1
+                completing.append((slot, req))
+            off += W
+        stream = [toks, seg, posa, hist_page, hist_slot, pool_hist,
+                  dest_page, dest_slot, sample_idx, activate.astype(np.int32),
+                  p_first, p_sample, p_len, p_rem]
+        # before any ring slot, staging buffer, upload or call
+        faults.fire("step_dispatch")
+        if self.overlap:
+            slot_h = self._ring[self._ring_i % len(self._ring)]
+            self._ring_i += 1
+            g = self._seed_or_refresh_dev(slot_h)
+            views = self._stage_upload(slot_h["stage"], stream)
+            state = (g.tables, g.lens, g.tok, g.active, g.remaining, g.eos)
+        else:
+            views = self._stage_upload(self._mixed_stage, stream + [
+                cache.tables, cache.lens, self._next_tok.astype(np.int32),
+                self._active_mask, self._remaining.astype(np.int32)])
+            state = (*views[len(stream):], self._eos_dev)
+            views = views[:len(stream)]
+        *_, nxt, lens2, rem2, act2, done, ftok = self._step_mixed(
+            self.params, *self._pools(), *state, self._gen, *views)
+        self.decode_steps += 1
+        self.mixed_ticks += 1
+        self.mixed_prefill_tokens += fresh
+        self.prefill_token_slots += Tb
+        padded = Tb - hist_total - fresh
+        self.prefill_padded_tokens += padded
+        if self.metrics is not None:
+            m = self.metrics
+            m.decode_steps.inc()
+            m.mixed_ticks.inc()
+            m.mixed_prefill_tokens.inc(fresh)
+            m.mixed_budget_tokens.observe(fresh)
+            m.prefill_padded_tokens.inc(padded)
+        # the host lens mirror before activation: an activated row's first
+        # decode write lands next dispatch at p_len (its alloc set lens)
+        cache.lens = cache.lens + self._active_mask
+        if self.overlap:
+            # the next dispatch (a replay or a mixed tick) chains off the
+            # graph's state tensors
+            g.tok.copy_(nxt)
+            g.lens.copy_(lens2)
+            g.remaining.copy_(rem2)
+            g.active.copy_(act2)
+            slot_h["out"][:, 0].copy_(
+                torch.stack([nxt, done.to(nxt.dtype), ftok.to(nxt.dtype)]),
+                non_blocking=True)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            entry: Dict = {"out": slot_h["out"], "event": event}
+            if completing:
+                entry["activate"] = activate.copy()
+                entry["mixed_first"] = {s: r for s, r in completing
+                                        if not r.generated}
+            self._inflight.append(entry)
+        # the chunk state advances; a prefix page registers only after the
+        # dispatch that wrote it (later sharers gather it from the pool)
+        for slot, pos, take, npg in plan:
+            ent = self._mixed_pref.get(slot)
+            if ent is None:
+                continue
+            req = ent["req"]
+            ent["pos"] = pos + take if pos + take == len(ent["ctx"]) \
+                else pos + npg * page
+            if self.enable_prefix_caching:
+                written = min(pos + take, len(req.prompt))
+                if written >= page:
+                    cache.register_prefix(slot,
+                                          np.asarray(req.prompt[:written]))
+        # activation: completing rows join the decode batch for the next
+        # dispatch (the device state already carries them); a fresh row's
+        # first token surfaces at the fetch
+        for slot, req in completing:
+            if self._mixed_pref.pop(slot, None) is None:
+                continue
+            if req.t_admit == 0.0:
+                req.t_admit = time.monotonic()
+                if self.metrics is not None:
+                    self.metrics.queue_wait.observe(
+                        req.t_admit - req.t_submit, exemplar=_tid(req))
+            advance_phase(req, "decode_active")
+            req.slot = slot
+            req.admit_seq = self._admit_seq
+            self._admit_seq += 1
+            self._active[slot] = req
+            self._active_mask[slot] = 1
+            self._remaining[slot] = int(p_rem[slot])
+            if req.generated:            # resume: its token is known
+                self._next_tok[slot] = req.generated[-1]
+                if self._hit_stop(req, req.generated[-1]) or \
+                        self._remaining[slot] <= 0:
+                    # a host-only retirement under an in-flight dispatch,
+                    # as a stop sequence
+                    self._retire(slot)
+                    if self.overlap:
+                        self._needs_flush = True
+        if self.overlap:
+            if len(self._inflight) > self.lookahead:
+                self._drain_one()
+            return
+        # the synchronous lane: one fetch a tick
+        (out_h,) = self._fetch(None, torch.stack([nxt, ftok.to(nxt.dtype)]))
+        nxt_h, ftok_h = out_h
+        t0 = time.perf_counter() if self.metrics is not None else 0.0
+        advanced = 0
+        for slot, req in list(self._active.items()):
+            if activate[slot]:
+                continue       # its first decode token comes next tick
+            t = int(nxt_h[slot])
+            self._deliver_token(slot, req, t)
+            advanced += 1
+            self._remaining[slot] -= 1
+            if self._hit_stop(req, t) or self._remaining[slot] <= 0:
+                self._retire(slot)
+        for slot, req in completing:
+            if req.generated or self._active.get(slot) is not req:
+                continue
+            t = int(ftok_h[slot])
+            self._deliver_token(slot, req, t, count=False)
+            if self._hit_stop(req, t) or self._remaining[slot] <= 0:
+                self._retire(slot)
+        if self.metrics is not None:
+            self.metrics.tokens_generated.inc(advanced)
+            self.metrics.host_bookkeeping.observe(time.perf_counter() - t0)
+
     def _preempt(self, keep: Optional[int]) -> bool:
         """Evict the most recently admitted active request (except slot
         ``keep``) and requeue it at the FRONT of the queue, its pages
         released (recompute-style: the resume re-prefills prompt +
-        generated).  Returns False when there is no other request."""
+        generated).  Returns False when there is no other request.
+
+        Rows parked mid-prefill on the mixed lane go first (the youngest
+        carve first): they are the youngest page holders and have produced
+        nothing, and without this a carve could leave an active row's
+        growth with no victim.  The pipeline is drained when this runs, so
+        a parked row's half-written pages are safe to free."""
+        if self._mixed_pref:
+            slot = next(reversed(self._mixed_pref))
+            req = self._mixed_pref.pop(slot)["req"]
+            req.slot = None
+            req.preempted += 1
+            self.preemptions += 1
+            advance_phase(req, "preempted")
+            if req.trace is not None:
+                req.trace.event("preempt", mode="mixed-parked", slot=slot)
+            self._free_slot(slot)
+            self._queue.appendleft(req)
+            if self.metrics is not None:
+                self.metrics.preemptions.inc()
+                self.metrics.ring.emit("preemption", rid=req.rid, slot=slot,
+                                       mode="mixed-parked",
+                                       generated=len(req.generated))
+            return True
         victims = [s for s in self._active if s != keep]
         if not victims:
             return False
@@ -1209,12 +1647,16 @@ class ContinuousBatchingEngine:
                             "victim remains; the pool is too small for a "
                             "single request of this length")
 
-    def _deliver_token(self, slot: int, req: Request, t: int) -> None:
+    def _deliver_token(self, slot: int, req: Request, t: int,
+                       count: bool = True) -> None:
         """The per-token emission core every lane shares: append, count,
-        stream, next input.  The budget and the retire decision stay with
-        the callers."""
+        stream, next input.  ``count=False`` for a mixed tick's first
+        tokens (no lane counts an admission's first token in
+        ``tokens_generated``).  The budget and the retire decision stay
+        with the callers."""
         req.generated.append(t)
-        self.tokens_generated += 1
+        if count:
+            self.tokens_generated += 1
         self._note_first_token(req)
         self._stream.append((req.rid, t))
         self._next_tok[slot] = t
@@ -1345,7 +1787,7 @@ class ContinuousBatchingEngine:
         self._ring_i += 1
         g = self._seed_or_refresh_dev(slot)
         out = g(self.params, self._pools(), self._gen)
-        slot["out"].copy_(out, non_blocking=True)
+        slot["out"][:2].copy_(out, non_blocking=True)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -1383,7 +1825,10 @@ class ContinuousBatchingEngine:
         sequence is visible only here: it retires the request and
         schedules a flush, since the device's active chain cannot know."""
         e = self._inflight.pop(0)
-        toks, dones = self._fetch(e["event"], e["out"][0], e["out"][1])
+        # a mixed tick's first tokens ride the same fetch
+        first = e.get("mixed_first")
+        toks, dones, *ftok = self._fetch(
+            e["event"], *e["out"][:3 if first is not None else 2])
         if self.decode_horizon > 1:
             self._drain_active = self._drain_horizon_block(
                 toks, dones, self._drain_active)
@@ -1412,6 +1857,23 @@ class ContinuousBatchingEngine:
         # follow the device's active chain: the next undrained step ran
         # with active & ~done
         self._drain_active = mask & ~done
+        for slot, req in (first or {}).items():
+            # the first tokens of the segments the mixed tick completed
+            # (skipped if a cancel or preemption took the row since: its
+            # re-prefill samples again)
+            if self._active.get(slot) is not req or req.generated:
+                continue
+            t = int(ftok[0][0, slot])
+            self._deliver_token(slot, req, t, count=False)
+            if self._hit_stop(req, t) or self._remaining[slot] <= 0:
+                # the first token ended the request: a host-only
+                # retirement; the chained dispatch's token dies undelivered
+                self._retire(slot)
+                self._needs_flush = True
+        if "activate" in e:
+            # the rows the mixed tick activated are live in every later
+            # undrained step
+            self._drain_active = self._drain_active | e["activate"]
         if self.metrics is not None:
             self.metrics.tokens_generated.inc(advanced)
             self.metrics.host_bookkeeping.observe(time.perf_counter() - t0)
@@ -1650,6 +2112,11 @@ class EngineSupervisor:
             if not req.done and not any(q is req for q in old._queue):
                 fail(req)
         old._admitting = []
+        # rows parked mid-prefill on the mixed lane died with their pages
+        for ent in old._mixed_pref.values():
+            if not ent["req"].done:
+                fail(ent["req"])
+        old._mixed_pref.clear()
         # the live queue moves over with its rids; cancelled and expired
         # requests retire on the way
         for req in old._queue:

@@ -6,8 +6,8 @@ Counter/Gauge/Histogram the continuous-batching stack publishes, created
 against one registry (the process-wide default for servers; a fresh
 registry in tests that assert exact counts).  The catalogue is JAX's
 whole catalogue, name for name and type for type: the instruments of
-lanes the port does not have yet (speculative, mixed, host-tier swap, TP,
-quotas, restarts) are registered and read 0, as they do on a JAX engine
+lanes the port does not have yet (speculative, host-tier swap, TP,
+quotas) are registered and read 0, as they do on a JAX engine
 with those lanes off.
 
 Gauges derivable from engine/cache state use scrape-time callbacks
@@ -348,8 +348,11 @@ def bind_engine_gauges(m: EngineMetrics, engine) -> None:
     tier's two page gauges keep no callback: the port's cache has no
     host tier, so they read 0."""
     cache = engine.cache
+    # rows parked mid-prefill on the mixed lane hold a slot: they count as
+    # active and occupying, as in JAX
     m.active_requests.set_function(
-        _weak_fn(engine, lambda e: float(len(e._active))))
+        _weak_fn(engine,
+                 lambda e: float(len(e._active) + len(e._mixed_pref))))
     m.queued_requests.set_function(
         _weak_fn(engine, lambda e: float(len(e._queue))))
     m.queued_tokens.set_function(
@@ -364,7 +367,8 @@ def bind_engine_gauges(m: EngineMetrics, engine) -> None:
         _weak_fn(engine,
                  lambda e: float(e.queued_by_class()["low"])))
     m.batch_occupancy.set_function(
-        _weak_fn(engine, lambda e: len(e._active) / e.B))
+        _weak_fn(engine,
+                 lambda e: (len(e._active) + len(e._mixed_pref)) / e.B))
     m.inflight_dispatches.set_function(
         _weak_fn(engine, lambda e: float(len(e._inflight))))
     m.kv_free_pages.set_function(

@@ -13,7 +13,10 @@ site                   consulted by
                        before the eager step (before the pools are
                        reassigned), ``_launch`` (the overlap and horizon
                        lanes) before the ring slot, the state upload and
-                       any graph capture or replay
+                       any graph capture or replay, ``_decode_mixed``
+                       (the mixed tick) after its host stream assembly,
+                       before the ring slot, the staging upload and the
+                       call
 ``prefill_dispatch``   the admission lanes before each prefill dispatch
                        (packed, batched, and once per chunk on the
                        chunked lane): slots and pages are already
@@ -26,8 +29,8 @@ site                   consulted by
 
 JAX's other sites wait for the subsystems that consult them (ROADMAP.md
 queue 1): ``swap_in``, ``swap_out`` and ``host_pool_full`` with the host
-page tier (item 6(e)); the mixed-tick and speculative dispatches with
-items 6(c) and 6(d); ``route_dispatch``, ``replica_death``,
+page tier (item 6(e)); the speculative dispatches with item 6(d);
+``route_dispatch``, ``replica_death``,
 ``replica_slow``, ``conn_drop``, ``frame_truncate``, ``net_delay``,
 ``agent_kill`` and ``kv_handoff`` with the fleet and disaggregation
 (item 8).

@@ -32,6 +32,9 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.models.serving_engine\n"
+        "import paddle_tpu_torch.models.paged_decode\n"
+        "import paddle_tpu_torch.models.graphed_step\n"
+        "import paddle_tpu_torch.observability.engine_metrics\n"
         "import paddle_tpu_torch.models.weights\n"
         "import paddle_tpu_torch.models.packing\n"
         "import paddle_tpu_torch.ops.int8_matmul\n"

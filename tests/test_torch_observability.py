@@ -24,8 +24,13 @@ its wiring through the port's engine, held against paddle_tpu's.
 * ``tools/metrics_dump.py`` reads a port server's ``/metrics``,
   ``/stats``, ``/events``, ``/traces`` and ``/trace/<rid>`` unchanged.
 
-JAX's mixed, speculative, swap, TP, quota, restart, fleet, disaggregation
-and comm-watchdog cases wait for their lanes (ROADMAP.md).
+* The mixed lane (``mixed=True``, sync and overlap): its instruments
+  (``mixed_ticks``, piggybacked prefill tokens, the budget histogram)
+  equal JAX's, and ``/health``'s ``mixed_budget_utilization`` follows
+  JAX's formula.
+
+JAX's speculative, swap, TP, quota, restart, fleet, disaggregation and
+comm-watchdog cases wait for their lanes (ROADMAP.md).
 """
 
 import importlib
@@ -364,6 +369,14 @@ def _plan_prefix():
     return [[(prefix, 3)], [(prefix + tail, 3), (prefix + tail[:2], 4)]]
 
 
+def _plan_mixed():
+    """Four requests at batch 2: the second ends early, so the third parks
+    while the first still decodes, and the fourth after it."""
+    rng = np.random.RandomState(3)
+    return [[([int(t) for t in rng.randint(1, 128, (L,))], n)
+             for L, n in ((40, 14), (10, 3), (33, 5), (70, 5))]]
+
+
 def _plan_preempt():
     rng = np.random.RandomState(7)
     return [[([int(t) for t in rng.randint(1, 128, (16,))], 20)
@@ -386,6 +399,11 @@ LANES = {
     "preemption": ({}, {"num_pages": 5, "pages_max": 4}, _plan_preempt),
     "preemption_overlap": ({"overlap": True},
                            {"num_pages": 5, "pages_max": 4}, _plan_preempt),
+    # two requests admit in the cold wave; the others park and ride the
+    # mixed ticks, 16 tokens a tick
+    "mixed": ({"mixed": True, "mixed_token_budget": 16}, {}, _plan_mixed),
+    "mixed_overlap": ({"mixed": True, "mixed_token_budget": 16,
+                       "overlap": True}, {}, _plan_mixed),
 }
 
 
@@ -457,6 +475,14 @@ def test_engine_instruments_equal_jax(models, lane):
             teng.metrics.ring)]
     if lane.startswith("prefix"):
         assert teng.cache.prefix_hits >= 2
+    if lane.startswith("mixed"):
+        assert v["paddle_tpu_engine_mixed_ticks_total"]["value"] == \
+            teng.mixed_ticks > 0
+        assert v["paddle_tpu_engine_mixed_piggybacked_prefill_tokens_total"][
+            "value"] == teng.mixed_prefill_tokens > 0
+        h = v["paddle_tpu_engine_mixed_budget_tokens"]
+        assert h["count"] == teng.mixed_ticks
+        assert h["sum"] == teng.mixed_prefill_tokens
     assert v["paddle_tpu_engine_inflight_dispatches_count"]["value"] == 0
     teng.cache.audit()
 
@@ -516,7 +542,7 @@ class _TorchCalls(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("lane", ["overlap", "horizon4"])
+@pytest.mark.parametrize("lane", ["overlap", "horizon4", "mixed_overlap"])
 def test_callback_gauges_call_no_torch_function(models, lane):
     """A scrape runs every callback gauge on the scraping thread; none may
     touch a tensor (mid-step, with dispatches in flight)."""
@@ -533,14 +559,16 @@ def test_callback_gauges_call_no_torch_function(models, lane):
             text = reg.render_prometheus()
         assert mode.calls == [], mode.calls
         scraped += 1
+        # rows parked mid-prefill on the mixed lane hold a slot: active
         assert snap["paddle_tpu_engine_active_requests_count"]["value"] == \
-            len(eng._active)
+            len(eng._active) + len(eng._mixed_pref)
         assert "paddle_tpu_engine_inflight_dispatches_count" in text
     assert scraped > 2
 
 
 @pytest.mark.parametrize("lane", ["packed", "overlap", "horizon4",
-                                  "overlap_horizon4", "preemption_overlap"])
+                                  "overlap_horizon4", "preemption_overlap",
+                                  "mixed_overlap"])
 def test_instrumentation_changes_no_token_nor_sync(models, lane):
     kw, ck, plan_fn = LANES[lane]
     plan = plan_fn()
@@ -638,6 +666,50 @@ def test_http_observability_endpoints_and_metrics_dump(models, capsys):
         assert "http_ingress" in out and "stream" in out
     finally:
         srv.stop()
+
+
+@pytest.mark.mixed
+def test_mixed_health_view_equals_jax(models):
+    """``/health``'s mixed keys (``mixed_budget_utilization`` by JAX's
+    formula, parked rows counted active) from the registry view equal
+    JAX's server's view of JAX's mixed engine, and the engine-attribute
+    view agrees."""
+    import paddle_tpu.inference.serving as jsrv
+    kw, ck, plan_fn = LANES["mixed_overlap"]
+    plan = plan_fn()
+    jreg, treg = jobs.MetricsRegistry(), tobs.MetricsRegistry()
+    jeng = _jax_engine(models, jreg, ck, **kw)
+    teng = _port_engine(models, treg, ck, **kw)
+    # a parked row mid-service, then the drain
+    for eng in (jeng, teng):
+        for p, n in plan[0]:
+            eng.submit(p, max_new_tokens=n)
+        while not eng._mixed_pref:
+            eng.step()
+    assert teng.mixed_ticks == jeng.mixed_ticks
+    views = []
+    for _ in range(2):
+        th = GenerationServer._health_from_registry(
+            treg.snapshot(), 1, teng.mixed_token_budget)
+        jh = jsrv.GenerationServer._health_from_registry(
+            True, True, None, 0, jreg, 0, None, jeng.mixed_token_budget, 1)
+        for key in ("mixed_ticks", "mixed_prefill_tokens",
+                    "mixed_budget_utilization", "active", "queued",
+                    "queued_tokens", "decode_steps", "prefill_calls"):
+            assert th[key] == jh[key], key
+        te = GenerationServer._health_from_engine(teng)
+        for key in ("mixed_ticks", "mixed_prefill_tokens",
+                    "mixed_budget_utilization", "active", "queued_tokens"):
+            assert te[key] == th[key], key
+        views.append(th)
+        jeng.run_to_completion()
+        teng.run_to_completion()
+    mid, end = views
+    assert mid["active"] == 2                # one decoding, one parked
+    assert 0 < end["mixed_budget_utilization"] <= 1
+    assert end["mixed_budget_utilization"] == round(
+        teng.mixed_prefill_tokens
+        / (teng.mixed_ticks * teng.mixed_token_budget), 4)
 
 
 def test_health_without_a_registry_reads_the_engine(models):

@@ -26,8 +26,11 @@ the clocks) and ``cache.audit()`` must be equal, and the pool clean:
   server recovers, ``/health``'s ``step_faults`` / ``restarts`` equal JAX's
   server's, and a ``stream_write`` disconnect cancels the request.
 
-The swap, mixed, speculative, fleet and transport sites wait for their
-lanes (ROADMAP.md).
+* a fault at a mixed tick (``mixed=True``, sync and overlap) quarantines
+  the rows parked mid-prefill with the decode rows.
+
+The swap, speculative, fleet and transport sites wait for their lanes
+(ROADMAP.md).
 """
 
 import json
@@ -224,6 +227,39 @@ def test_step_fault_quarantines_its_wave_as_jax(models, lane):
     assert ev == [{"name": "engine_quarantine", "seq": ev[0]["seq"],
                    "error": "RuntimeError: injected step fault",
                    "consecutive": 1}]
+
+
+@pytest.mark.mixed
+@pytest.mark.parametrize("overlap", [False, True])
+def test_mixed_tick_fault_quarantines_parked_rows_as_jax(models, overlap):
+    """The mixed lane's ``step_dispatch`` site: a resident request decodes,
+    a 40-token prompt parks (``mixed_token_budget=16``: three ticks) and a
+    third waits for a slot; the first mixed tick raises.  The decode row
+    and the parked row retire with the text, the third then serves, the
+    pool comes back clean, as in JAX's mixed engine."""
+    rng = np.random.RandomState(9)
+    first, long_, last = (rng.randint(1, 128, n) for n in (10, 40, 10))
+    res = {}
+    for side in SIDES:
+        eng = _engine(models, side, mixed=True, mixed_token_budget=16,
+                      overlap=overlap)
+        with SIDES[side][2].plane() as fp:
+            fp.inject("step_dispatch", RuntimeError("injected mixed fault"),
+                      nth=2)
+            eng.submit(first, max_new_tokens=12)
+            eng.step()                        # the cold wave, dispatch 1
+            eng.submit(long_, max_new_tokens=6)
+            eng.submit(last, max_new_tokens=6)
+            eng.step()                        # parks long_; tick raises
+            assert not eng._mixed_pref and eng.step_faults == 1
+            res[side] = (eng, _by_rid(eng.run_to_completion()))
+    (j, jout), (t, tout) = res["jax"], res["port"]
+    assert tout == jout
+    assert [tout[r][0] for r in range(3)] == ["error", "error", "ok"]
+    assert tout[1][1] == "RuntimeError: injected mixed fault"
+    assert t.requests_faulted == 2 and t.mixed_ticks == j.mixed_ticks
+    assert not t._inflight and t._dev is None
+    _assert_same_engines(j, t)
 
 
 @pytest.mark.parametrize("lane", list(ADMIT_LANES) + ["packed_prefix_hit"])

@@ -631,8 +631,13 @@ def test_horizon_invalid_value_and_lanes_rejected(models):
         _engine(tcfg, tparams, mixed=True, decode_horizon=4)
     with pytest.raises(ValueError, match="tune spec.gamma instead"):
         _engine(tcfg, tparams, spec=object(), decode_horizon=4)
-    with pytest.raises(NotImplementedError, match="mixed"):
-        _engine(tcfg, tparams, mixed=True, overlap=True)
+    # mixed=True with overlap=True is ported: it builds and serves
+    # (tests/test_torch_serving_mixed.py holds the lane)
+    specs = [(p, 6) for p in _prompts([9, 21, 40], seed=4)]
+    want, _ = _run(tcfg, tparams, specs)
+    got, eng = _run(tcfg, tparams, specs, mixed=True, mixed_token_budget=16,
+                    overlap=True)
+    assert got == want and eng.overlap and eng._mixed
     with pytest.raises(ValueError, match="horizon"):
         tpd.make_paged_decode_step_multi(tcfg, 0)
     with pytest.raises(NotImplementedError, match="TP"):

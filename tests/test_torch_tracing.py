@@ -21,8 +21,12 @@ the same weights (``params_from_jax``).
 * Requests a supervisor restart kills close their traces with status
   ``error``, keeping their phase spans, as in JAX.
 
-JAX's mixed-lane, swap, disaggregation, fleet failover and remote-replica
-cases wait for their lanes (ROADMAP.md).
+* The mixed lane (``mixed=True``): span names equal to JAX's mixed
+  engine's, tracing token-exact, and the phase clocks of rows parked
+  mid-prefill chaining gaplessly.
+
+JAX's swap, disaggregation, fleet failover and remote-replica cases wait
+for their lanes (ROADMAP.md).
 """
 
 import importlib
@@ -259,7 +263,10 @@ LANES = {"packed": ({}, {}),
          "batched": ({"packed": False}, {}),
          "overlap": ({"overlap": True}, {"batch": 4}),
          "horizon4": ({"decode_horizon": 4}, {"batch": 4}),
-         "preemption": ({}, {"num_pages": 5, "pages_max": 4})}
+         "preemption": ({}, {"num_pages": 5, "pages_max": 4}),
+         # batch 2: two prompts admit in the cold wave, two park and ride
+         # the mixed ticks
+         "mixed": ({"mixed": True, "mixed_token_budget": 16}, {})}
 
 
 def _lane_prompts(lane):
@@ -297,7 +304,7 @@ def test_span_names_equal_jax(models, lane):
         assert set(t["attrs"]["clocks"]) == set(j["attrs"]["clocks"])
 
 
-@pytest.mark.parametrize("lane", ["packed", "overlap", "horizon4"])
+@pytest.mark.parametrize("lane", ["packed", "overlap", "horizon4", "mixed"])
 def test_tracing_is_token_exact(models, lane):
     kw, ck = LANES[lane]
 
@@ -309,6 +316,28 @@ def test_tracing_is_token_exact(models, lane):
         return [done[r] for r in rids], eng.host_syncs
 
     assert run(None) == run(_keep_all())
+
+
+@pytest.mark.mixed
+@pytest.mark.parametrize("overlap", [False, True])
+def test_mixed_lane_phase_accounting(models, overlap):
+    """JAX's case: rows parked mid-prefill on the mixed lane keep phase
+    clocks that chain submit -> finish and sum to the wall.  One request
+    decodes first, so the others park and ride mixed ticks."""
+    tr = _keep_all()
+    eng = _engine(models, tracer=tr, cache_kw={"batch": 4}, mixed=True,
+                  mixed_token_budget=16, overlap=overlap)
+    rids = [eng.submit(PROMPTS[0], max_new_tokens=6)]
+    eng.step()
+    rids += [eng.submit(p, max_new_tokens=6) for p in PROMPTS[1:]]
+    done = {r.rid: r for r in eng.run_to_completion()}
+    assert eng.mixed_ticks > 0
+    for rid in rids:
+        clocks = _assert_gapless(done[rid])
+        assert clocks.get("decode_active", 0) > 0
+        assert clocks.get("prefill", 0) > 0
+        assert tr.get(str(rid))["status"] == "ok"
+    eng.cache.audit()
 
 
 @pytest.mark.parametrize("overlap", [False, True])
