@@ -141,6 +141,29 @@ Phases, one JSON line each on stdout:
              K/V one slot late) beyond it; the share of tokens equal to the
              sequential lane's (printed).  The earlier serves build their
              engines with mixed=False and read as before.
+4g. serve_spec - speculative decoding (spec=SpecConfig(...)) under
+             bench.py's _spec_ab_line workload: stems from
+             np.random.RandomState(7), each extended with the target's own
+             greedy continuation up to its cycle (the scan served batched
+             through the plain engine; without two early cycles the random
+             stems serve, and the line says which ran); 8 requests of 64
+             tokens, batch 8, pages of 64, through five arms in one
+             process: the plain synchronous lane (h1), the target drafting
+             for itself at gamma 4 on the synchronous lane and on the
+             overlap lane (each round replayed from a CUDA graph, the
+             steady state under set_sync_debug_mode("error")), a 2-layer
+             draft at LLaMA-7B's widths (seed 1, acceptance near 0: the
+             partial accept and catch-up paths) and prompt lookup at gamma
+             7.  A line an arm (printed, not gated): decode tok/s, TTFT and
+             TPOT p50 / p99, dispatches a token, acceptance, host ms a
+             round, device ms of one round and the busy share.  Checks: the
+             overlap arm serves the synchronous spec arm's tokens, K1
+             (gamma + 1) x draft layers a synchronous round, K5 2 x draft
+             layers a spec-on admission, one graph capture (one gamma) and
+             none after warm-up, both caches clean; the verify's logits of
+             the served sequences, teacher-forced, within LOGIT_LIMIT of
+             the plain forward and a planted fault (fresh K/V scattered one
+             slot late) beyond it.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -160,6 +183,12 @@ Phases, one JSON line each on stdout:
              (K4 in the decode half, K3 on both paths): the recorded logits
              within INT8_LOGIT_LIMIT of the same run replayed teacher-forced
              with every kernel replaced by its plain version.
+5e. serve_spec_int8 - serve_spec on the int8 weights over int8 target and
+             draft pages (K4 and K3's decode path in the draft's
+             micro-steps, K3's wave path in the verify at M = 40): the
+             recorded logits within INT8_LOGIT_LIMIT of the same run
+             replayed teacher-forced with every kernel replaced by its plain
+             version, the planted fault beyond it.
 6. train   - the 1.345 B-parameter LLaMA of the JAX package's training
              bench (vocab 32000, hidden 2048, FFN 5504, 24 layers, 16 heads
              of 128; bf16 compute over f32 masters, remat full, chunked
@@ -214,6 +243,7 @@ beside this script, it exits non-zero and prints no result.
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -3318,6 +3348,475 @@ def phase_serve_mixed(torch, cfg, seed, params, mods, kv_quant=None,
     return total
 
 
+# The speculative phases (serve_spec, serve_spec_int8): bench.py's
+# _spec_ab_line recipe on LLaMA-7B at full width and depth.  Stems of
+# SPEC_STEM tokens from np.random.RandomState(7); each is extended with the
+# target's own greedy continuation up to where it enters a cycle (a period
+# of at most 24 tokens seen three times at the end of SPEC_SCAN_NEW tokens,
+# entered by position SPEC_MAX_START), so the timed decode repeats itself:
+# prompt lookup's design case.  Without SPEC_MIN_CYCLES such stems the
+# random stems serve instead, as bench.py falls back.  SPEC_REQUESTS
+# requests (the prompts in turn) of SPEC_NEW tokens in one wave of batch 8,
+# pages of 64.  The verify's logits are held to LOGIT_LIMIT (int8:
+# INT8_LOGIT_LIMIT): on an H100 at seeds 0, 1 and 2 the sound difference
+# was 0.240, 0.234 and 0.227 (int8 0.197, 0.180, 0.176) and the planted
+# fault's 4.71, 4.04 and 4.03 (int8 3.93, 4.30, 4.50).
+SPEC_BANK, SPEC_STEM, SPEC_SCAN_NEW, SPEC_MAX_START = 16, 12, 150, 70
+SPEC_MAX_PROMPTS, SPEC_MIN_CYCLES = 5, 2
+SPEC_REQUESTS, SPEC_NEW, SPEC_WARM_NEW = 8, 64, 8
+SPEC_GAMMA, SPEC_LOOKUP_GAMMA = 4, 7
+SPEC_DRAFT_LAYERS, SPEC_DRAFT_SEED = 2, 1
+SPEC_CACHE = dict(num_pages=72, pages_max=8, batch=8, page=64)
+SPEC_SCAN_CACHE = dict(num_pages=48, pages_max=3, batch=8, page=64)
+SPEC_DEVICE_REPS = 5
+
+
+def spec_workload(cfg, params, dev):
+    """bench.py's repetitive-continuation prompts: the stem bank's greedy
+    continuations, served batched through the plain engine on the overlap
+    lane.  -> (prompts, cycle periods, whether the random stems serve)."""
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    rng = np.random.RandomState(7)
+    bank = [rng.randint(1, cfg.vocab_size, (SPEC_STEM,))
+            for _ in range(SPEC_BANK)]
+    cache = PagedKVCache(cfg, device=dev, **SPEC_SCAN_CACHE)
+    eng = ContinuousBatchingEngine(cfg, params, cache, overlap=True)
+    rids = [eng.submit(s, max_new_tokens=SPEC_SCAN_NEW) for s in bank]
+    outs = {r.rid: [int(t) for t in r.generated]
+            for r in eng.run_to_completion()}
+    prompts, periods = [], []
+    for rid, stem in zip(rids, bank):
+        out = outs[rid]
+        per = next((T for T in range(1, 25)
+                    if out[-3 * T:-2 * T] == out[-2 * T:-T] == out[-T:]),
+                   None)
+        if per is None:
+            continue
+        s = len(out) - per
+        while s > 0 and out[s - 1] == out[s - 1 + per]:
+            s -= 1
+        if s > SPEC_MAX_START:
+            continue                     # the cycle starts too late
+        prompts.append(np.concatenate([stem, np.asarray(
+            out[:s + 2 * per], np.int64)]))
+        periods.append(per)
+        if len(prompts) >= SPEC_MAX_PROMPTS:
+            break
+    degenerate = len(prompts) < SPEC_MIN_CYCLES
+    if degenerate:
+        prompts = bank[:SPEC_MAX_PROMPTS]
+    return [p.tolist() for p in prompts], periods, degenerate
+
+
+def spec_serve(torch, eng, reqs, new, spec_on, no_sync=False):
+    """Submit ``reqs`` and step to the end (with ``no_sync``, every step
+    after the first, the admission's, under set_sync_debug_mode("error"),
+    ``_fetch`` excepted) -> the finished requests in submission order."""
+    rids = [eng.submit(p, max_new_tokens=new, spec=True if spec_on else None)
+            for p in reqs]
+    done = {}
+    eng.step()
+    done.update((r.rid, r) for r in eng.finished())
+    fetch = eng._fetch
+    if no_sync:
+        def fetch_allowed(*a):          # the one sanctioned sync point
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fetch(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        eng._fetch = fetch_allowed
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps = 0
+        while eng.has_work():
+            eng.step()
+            done.update((r.rid, r) for r in eng.finished())
+            steps += 1
+            if steps > 10_000:
+                fail("serve_spec: the requests did not drain")
+    finally:
+        if no_sync:
+            torch.cuda.set_sync_debug_mode(0)
+            eng._fetch = fetch
+    return [done[r] for r in rids]
+
+
+def spec_arm(torch, cfg, params, cache, mods, reqs, name, spec=None,
+             overlap=False):
+    """One timed arm: an engine over ``cache`` (``spec`` None: the plain
+    synchronous lane), warmed on the same requests at SPEC_WARM_NEW tokens,
+    then timed on SPEC_NEW with the launch counts set to 0 just before.
+    The rounds' host walls are taken; on the synchronous spec lane each
+    round's K1 / K4 launches and each spec-on admission's K5 launches too,
+    and one steady round's arguments are kept for the device timing.
+    -> (tokens per request, stats, kept arguments)."""
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    pa, rp = mods["pa"], mods["rp"]
+    eng = ContinuousBatchingEngine(cfg, params, cache, spec=spec,
+                                   overlap=overlap)
+    spec_on = spec is not None
+    spec_serve(torch, eng, reqs, SPEC_WARM_NEW, spec_on)
+    torch.cuda.synchronize()
+    attr = "launches_q8" if cache.kv_quant else "launches"
+    round_ms, k1, k5, kept = [], [], [], []
+    decode = eng._decode_once
+
+    def timed():
+        t = time.perf_counter()
+        decode()
+        round_ms.append((time.perf_counter() - t) * 1e3)
+
+    eng._decode_once = timed
+    if spec_on and not overlap:          # gamma is fixed: one step fn
+        step, admit = eng._spec_fused(), eng._spec_admit
+
+        def counted(*a):
+            n = getattr(pa, attr)
+            out = step(*a)
+            k1.append(getattr(pa, attr) - n)
+            if len(k1) == 3:           # a steady round, for the device
+                kept.extend(t.clone() if torch.is_tensor(t)
+                            and t.numel() < 2**20 else t for t in a)
+            return out
+
+        def admit_counted(*a):
+            n = rp.launches
+            admit(*a)
+            k5.append(rp.launches - n)
+
+        eng._spec_fused = lambda: counted
+        eng._spec_admit = admit_counted
+    c0 = dict(steps=eng.decode_steps, syncs=eng.host_syncs,
+              flushes=eng.pipeline_flushes,
+              rounds=getattr(eng, "spec_rounds", 0),
+              drafted=getattr(eng, "spec_drafted", 0),
+              accepted=getattr(eng, "spec_accepted", 0))
+    graphs0 = graph_state()
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    done = spec_serve(torch, eng, reqs, SPEC_NEW, spec_on,
+                      no_sync=overlap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran_launches(read_counts(mods), graphs0)
+    captured = sum(1 for key, (g, _, was) in graph_state().items()
+                   if g.graph is not None and not (key in graphs0
+                                                   and graphs0[key][2]))
+    for r in done:
+        if r.status != "ok" or len(r.generated) != SPEC_NEW:
+            fail(f"serve_spec: {name} request {r.rid} ended {r.status} with "
+                 f"{len(r.generated)} of {SPEC_NEW} tokens")
+    if eng._inflight:
+        fail(f"serve_spec: {name} left dispatches in flight")
+    steps = eng.decode_steps - c0["steps"]
+    dec = sum(len(r.generated) - 1 for r in done)
+    ttft = [(r.t_first_token - r.t_submit) * 1e3 for r in done]
+    tpot = [(r.t_finish - r.t_first_token) * 1e3 / (len(r.generated) - 1)
+            for r in done]
+    stats = dict(
+        lane="overlap" if overlap else "sync", wall_s=wall,
+        decode_tok_per_s=sum(len(r.generated) for r in done) / wall,
+        ttft_p50_ms=pctl(ttft, 50), ttft_p99_ms=pctl(ttft, 99),
+        tpot_p50_ms=pctl(tpot, 50), tpot_p99_ms=pctl(tpot, 99),
+        decode_dispatches=steps, dispatches_per_token=steps / max(dec, 1),
+        host_syncs=eng.host_syncs - c0["syncs"],
+        pipeline_flushes=eng.pipeline_flushes - c0["flushes"],
+        host_ms_a_round=statistics.mean(round_ms),
+        host_ms_a_round_p50=pctl(round_ms, 50), launches=launches,
+        captures_in_timed_run=captured)
+    if spec_on:
+        drafted = eng.spec_drafted - c0["drafted"]
+        accepted = eng.spec_accepted - c0["accepted"]
+        stats.update(gamma=eng.gamma,
+                     spec_rounds=eng.spec_rounds - c0["rounds"],
+                     drafted_tokens=drafted, accepted_tokens=accepted,
+                     acceptance_rate=accepted / max(drafted, 1),
+                     tokens_a_round_a_request=dec / max(steps * len(done),
+                                                        1))
+    if k1:
+        stats.update(k1_launches_a_round=sorted(set(k1)),
+                     k5_launches_an_admission=sorted(set(k5)))
+    return [r.generated for r in done], stats, kept, eng
+
+
+def spec_recorded(torch, cfg, params, cache, dcache, reqs, forced=None,
+                  late=False):
+    """Serve ``reqs`` on the synchronous spec lane (draft == target, gamma
+    SPEC_GAMMA) and record the verify's logits of every committed token
+    where the round computes them: a row's candidate j predicts its
+    generated token len + j, and the round that commits a token writes its
+    entry last.  ``forced`` ({rid: tokens}) makes the verify pick those
+    tokens instead of its argmax (the accept fold then commits them): with
+    eos None the served sequences replay over the same contexts (teacher
+    forcing).  ``late`` scatters every fresh K/V one slot late (a planted
+    fault).  -> (tokens per request, [len - 1, V] fp32 logits per request
+    of its tokens 1.., recorded)."""
+    import paddle_tpu_torch.models.paged_decode as pd
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine, SpecConfig)
+    spec = SpecConfig(gamma=SPEC_GAMMA, draft_cfg=cfg, draft_params=params,
+                      draft_cache=dcache)
+    eng = ContinuousBatchingEngine(cfg, params, cache, spec=spec)
+    real_pick, real_dest = pd._pick_token, pd._spec_dest
+    rec = {}
+    first_of = eng._emit_first
+
+    def pick(logits, temperature, generator=None, top_k=0, top_p=1.0):
+        tok = real_pick(logits, temperature, generator, top_k, top_p)
+        if logits.dim() != 3:            # a draft micro-step
+            return tok
+        for s, r in eng._active.items():
+            n = len(r.generated)
+            for j in range(logits.shape[1]):
+                if n + j < SPEC_NEW:
+                    rec.setdefault(r.rid, {})[n + j] = logits[s, j].clone()
+                    if forced is not None:
+                        tok[s, j] = forced[r.rid][n + j]
+        return tok
+
+    def emit_first(rs, slots, toks):
+        if forced is not None:
+            for i, r in enumerate(rs):
+                toks[i] = forced[r.rid][0]
+        return first_of(rs, slots, toks)
+
+    def dest(*a):
+        page, slot = real_dest(*a)
+        return page, (slot + 1) % a[-1]
+
+    eng._emit_first = emit_first
+    seams = [(pd, "_pick_token", pick)] + ([(pd, "_spec_dest", dest)]
+                                           if late else [])
+    with patched(*seams):
+        done = spec_serve(torch, eng, reqs, SPEC_NEW, True)
+    if cache.audit()["owned"] or dcache.audit()["owned"]:
+        fail("serve_spec: the recorded run left pages owned")
+    gens = [r.generated for r in done]
+    logits = [torch.stack([rec[r.rid][j] for j in range(1, SPEC_NEW)])
+              for r in done]
+    return gens, logits
+
+
+def spec_round_device_ms(torch, launch):
+    """The device time of one round: ``launch()`` run SPEC_DEVICE_REPS
+    times under a CUDA-only profiler (the kernels' summed durations, every
+    kind)."""
+    launch()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPEC_DEVICE_REPS):
+            launch()
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3 / SPEC_DEVICE_REPS
+
+
+def phase_serve_spec(torch, cfg, seed, params, mods, kv_quant=None,
+                     dev="cuda"):
+    """Speculative decoding (``spec=SpecConfig(...)``) on LLaMA-7B against
+    the plain synchronous lane (H = 1), bf16, or int8 weights over int8
+    target and draft pages (``params`` are then the quantized ones), on
+    bench.py's repetitive-continuation workload above, five arms over the
+    same requests in one process:
+
+    1. ``h1``: the plain synchronous lane;
+    2. ``spec_same_sync``: the target drafting for itself (acceptance near
+       1: the ceiling), gamma SPEC_GAMMA, synchronous (eager rounds);
+    3. ``spec_same_overlap``: the same on the overlap lane (rounds replayed
+       from a CUDA graph), its steady state under
+       set_sync_debug_mode("error") (``_fetch`` excepted);
+    4. ``spec_draft2_sync``: a SPEC_DRAFT_LAYERS-layer draft at LLaMA-7B's
+       widths from seed SPEC_DRAFT_SEED (acceptance near 0: the partial
+       accept and catch-up paths), synchronous;
+    5. ``spec_lookup_sync``: prompt lookup, gamma SPEC_LOOKUP_GAMMA.
+
+    A line an arm (printed, not gated): decode tok/s, TTFT and TPOT p50 /
+    p99, dispatches a token, acceptance, host ms a round, and on the spec
+    arms the device ms of one round and the busy share.  Checks: every
+    request complete, the overlap arm's tokens equal to the synchronous
+    spec arm's, K1 (K4) (gamma + 1) x draft layers a synchronous round and
+    K5 2 x draft layers a spec-on admission, one capture in the phase (one
+    gamma) and none in a timed run, both caches clean; then the verify's
+    logits recorded along the served schedule, teacher-forced (bf16:
+    within LOGIT_LIMIT of the plain dense forward, every served token
+    within 2 * LOGIT_LIMIT of its top logit; int8: within INT8_LOGIT_LIMIT
+    of the same run with every kernel replaced by its plain version), and
+    a planted fault (every fresh K/V scattered one slot late) beyond the
+    limit.  -> the launches of the timed arms."""
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    import paddle_tpu_torch.models.paged_decode as pd
+    from paddle_tpu_torch.models import graphed_step as gs
+    from paddle_tpu_torch.models.decode import quantize_params_int8
+    from paddle_tpu_torch.models.llama_pretrain import init_params
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import SpecConfig
+    pa, fv, im = mods["pa"], mods["fv"], mods["im"]
+    phase = "serve_spec_int8" if kv_quant else "serve_spec"
+    t_phase = time.perf_counter()
+    prompts, periods, degenerate = spec_workload(cfg, params, dev)
+    reqs = [prompts[i % len(prompts)] for i in range(SPEC_REQUESTS)]
+    emit(phase, workload=("random stems (no early greedy cycle: bench.py's "
+                          "fallback)" if degenerate else
+                          f"repetitive continuation x{len(prompts)}"),
+         cycle_periods=periods, prompt_lens=[len(p) for p in prompts],
+         scan_s=time.perf_counter() - t_phase)
+    gs.clear()
+    cache = PagedKVCache(cfg, kv_quant=kv_quant, device=dev, **SPEC_CACHE)
+    dcache = PagedKVCache(cfg, kv_quant=kv_quant, device=dev, **SPEC_CACHE)
+    dcfg = dataclasses.replace(cfg, num_hidden_layers=SPEC_DRAFT_LAYERS)
+    dparams = init_params(dcfg, SPEC_DRAFT_SEED, dev)
+    if kv_quant:
+        dparams = quantize_params_int8(dparams)
+    dcache2 = PagedKVCache(dcfg, kv_quant=kv_quant, device=dev, **SPEC_CACHE)
+    same = SpecConfig(gamma=SPEC_GAMMA, draft_cfg=cfg, draft_params=params,
+                      draft_cache=dcache)
+    arms_cfg = [
+        ("h1", None, False, None),
+        ("spec_same_sync", same, False, cfg),
+        ("spec_same_overlap", same, True, cfg),
+        ("spec_draft2_sync", SpecConfig(
+            gamma=SPEC_GAMMA, draft_cfg=dcfg, draft_params=dparams,
+            draft_cache=dcache2), False, dcfg),
+        ("spec_lookup_sync", SpecConfig(gamma=SPEC_LOOKUP_GAMMA,
+                                        source="prompt_lookup"), False,
+         None)]
+    attn = ("paged_decode_attention_q8" if kv_quant
+            else "paged_decode_attention")
+    path = {"h1": [attn], "spec_draft2_sync": [attn, "fused_rope"],
+            "spec_same_sync": [attn, "fused_rope"],
+            "spec_same_overlap": [attn, "fused_rope"],
+            "spec_lookup_sync": []}
+    if isinstance(params["lm_head"], dict):
+        for k in path:
+            path[k] += ["int8_matmul", "int8_matmul_wave"]
+    total, gens, arms, kept = {}, {}, {}, {}
+    for name, spec, overlap, draft_cfg in arms_cfg:
+        gens[name], st, kept[name], eng = spec_arm(
+            torch, cfg, params, cache, mods, reqs, name, spec, overlap)
+        for key, v in st["launches"].items():
+            total[key] = total.get(key, 0) + v
+        for kname in path[name]:
+            if st["launches"][kname] <= 0:
+                fail(f"{phase}: {name} did not launch {kname}")
+        for kname in FLAGGED:
+            if st["launches"][kname]:
+                fail(f"{phase}: {name} launched {kname} with its flag off")
+        if st["captures_in_timed_run"]:
+            fail(f"{phase}: {name} captured {st['captures_in_timed_run']} "
+                 f"graphs after its warm-up")
+        if draft_cfg is not None and not overlap:
+            L = draft_cfg.num_hidden_layers
+            if st["k1_launches_a_round"] != [(SPEC_GAMMA + 1) * L]:
+                fail(f"{phase}: {name} launched {attn} "
+                     f"{st['k1_launches_a_round']} times a round, not "
+                     f"(gamma + 1) x {L}")
+            if st["k5_launches_an_admission"] != [2 * L]:
+                fail(f"{phase}: {name} launched fused_rope "
+                     f"{st['k5_launches_an_admission']} times a spec-on "
+                     f"admission, not 2 x {L}")
+        if spec is not None and not overlap:
+            fused = eng._spec_fused()
+            args = kept[name]
+            st["device_ms_a_round"] = spec_round_device_ms(
+                torch, lambda: fused(*args))
+            st["busy_share"] = st["device_ms_a_round"] / st[
+                "host_ms_a_round"]
+        if name == "spec_same_overlap":
+            # the captured round replayed from the synchronous arm's kept
+            # state (chained from there)
+            g = eng._spec_graph()
+            names = ("tables", "dtables", "lens", "tok", "prev", "active",
+                     "remaining", "spec_on", "eos")
+            for nm, t in zip(names, kept["spec_same_sync"][-9:]):
+                getattr(g.state, nm).copy_(t)
+            st["device_ms_a_round"] = spec_round_device_ms(
+                torch, lambda: g(eng.params, eng._spec_dparams, eng._pools(),
+                                 eng._dpools()))
+            st["busy_share"] = st["device_ms_a_round"] / st[
+                "host_ms_a_round"]
+            st["captured_gammas"] = sorted(
+                g.gamma for g in gs.graphs()
+                if isinstance(g, gs.SpecGraph) and g.graph is not None)
+        st.pop("launches")
+        emit(phase, arm=name, **st)
+        arms[name] = st
+    for c in (cache, dcache, dcache2):
+        if c.audit()["owned"]:
+            fail(f"{phase}: an arm left pages owned")
+    captured = arms["spec_same_overlap"]["captured_gammas"]
+    if captured != [SPEC_GAMMA]:
+        fail(f"{phase}: the overlap arm captured gammas {captured}, not one "
+             f"graph for gamma {SPEC_GAMMA}")
+    if gens["spec_same_overlap"] != gens["spec_same_sync"]:
+        i = next(i for i, (a, b) in enumerate(zip(
+            gens["spec_same_overlap"], gens["spec_same_sync"])) if a != b)
+        fail(f"{phase}: the overlap spec lane served request {i} "
+             f"differently from the synchronous spec lane")
+    kept.clear()
+
+    t0 = time.perf_counter()
+    served, sound = spec_recorded(torch, cfg, params, cache, dcache, reqs)
+    forced = dict(enumerate(served))
+    if kv_quant is None:
+        limit = LOGIT_LIMIT
+        plain = [plain_logits(torch, cfg, params, p + g[:-1], dev)[len(p):]
+                 for p, g in zip(reqs, served)]
+        gap = served_gap(torch, [g[1:] for g in served], plain)
+    else:
+        limit = INT8_LOGIT_LIMIT
+        with patched((tlp, "int8_matmul", im.int8_matmul_plain),
+                     (pd, "paged_decode_attention_q8",
+                      pa.paged_decode_attention_q8_plain),
+                     (pd, "flash_attention_segmented",
+                      lambda q, k, v, seg, causal=False:
+                      fv.segmented_sdpa_plain(q, k, v, seg, causal))):
+            _, plain = spec_recorded(torch, cfg, params, cache, dcache, reqs,
+                                     forced=forced)
+        gap = None
+    _, fault = spec_recorded(torch, cfg, params, cache, dcache, reqs,
+                             forced=forced, late=True)
+    logit_diff = max_diff(sound, plain)
+    fault_diff = max_diff(fault, plain)
+    del sound, plain, fault
+    check_s = time.perf_counter() - t0
+
+    ref = gens["h1"]
+    n_tok = sum(len(g) for g in ref)
+    agree = {name: sum(a == b for g, r in zip(got, ref)
+                       for a, b in zip(g, r)) / n_tok
+             for name, got in gens.items() if name != "h1"}
+    emit(phase, model="LLaMA-7B (LlamaPretrainConfig defaults)",
+         weights="int8 (quantize_params_int8)" if kv_quant else "bf16",
+         kv_pages=kv_quant or "bf16", requests=len(reqs), new=SPEC_NEW,
+         gamma=SPEC_GAMMA, lookup_gamma=SPEC_LOOKUP_GAMMA,
+         draft2=dict(layers=SPEC_DRAFT_LAYERS, seed=SPEC_DRAFT_SEED),
+         cache=SPEC_CACHE,
+         token_share_equal_to_h1=agree,
+         overlap_equal_to_sync_spec=True,
+         logit_check_s=check_s, logit_max_abs_diff=logit_diff,
+         logit_limit=limit, planted_fault_max_abs_diff=fault_diff,
+         served_token_max_gap=gap, phase_s=time.perf_counter() - t_phase)
+    if logit_diff > limit:
+        fail(f"{phase}: the verify's logits differ from the reference's by "
+             f"{logit_diff} (limit {limit})")
+    if fault_diff <= limit:
+        fail(f"{phase}: the planted fault moved the logits by only "
+             f"{fault_diff}, within the limit {limit}: the check cannot see "
+             f"it")
+    if gap is not None and gap > 2 * LOGIT_LIMIT:
+        fail(f"{phase}: a served token sits {gap} below the plain top logit "
+             f"(limit {2 * LOGIT_LIMIT})")
+    del cache, dcache, dcache2, dparams
+    gs.clear()
+    return total
+
+
 def train_launches_per_step(cfg, flag_set=None):
     """What the code launches in one AdamW step under remat full: K8 once
     per leaf (9 stacked block leaves, embed, final_norm, lm_head); K6a in
@@ -3858,6 +4357,8 @@ def main():
     torch.cuda.empty_cache()
     launches_mixed = phase_serve_mixed(torch, cfg, args.seed, params, mods)
     torch.cuda.empty_cache()
+    launches_spec = phase_serve_spec(torch, cfg, args.seed, params, mods)
+    torch.cuda.empty_cache()
     launches_int8, qparams = phase_serve_int8(torch, cfg, args.seed, params,
                                               mods)
     del params
@@ -3870,6 +4371,9 @@ def main():
     torch.cuda.empty_cache()
     launches_mixed_int8 = phase_serve_mixed(torch, cfg, args.seed, qparams,
                                             mods, kv_quant="int8")
+    torch.cuda.empty_cache()
+    launches_spec_int8 = phase_serve_spec(torch, cfg, args.seed, qparams,
+                                          mods, kv_quant="int8")
     del qparams
     torch.cuda.empty_cache()             # the serves' weights are gone
     train_cfg = LlamaPretrainConfig(**TRAIN_CFG)
@@ -3890,9 +4394,9 @@ def main():
     # each kernel's launches in the serve, train, train_packed and
     # train_fused phases
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
-            launches_dense, launches_faults, launches_mixed,
+            launches_dense, launches_faults, launches_mixed, launches_spec,
             launches_int8, launches_int8_overlap, launches_prefix_int8,
-            launches_mixed_int8,
+            launches_mixed_int8, launches_spec_int8,
             launches_train, launches_packed, *launches_fused]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 

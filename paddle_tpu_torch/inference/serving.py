@@ -8,7 +8,9 @@ Counterpart of ``paddle_tpu/inference/serving.py``'s ``GenerationServer`` /
   /generate_stream`` streams one JSON line per token (HTTP/1.1 chunked
   NDJSON), ``POST /cancel`` retires a request;
 * ``GET /health/live``, ``/health/ready`` and ``/health``, a view over
-  the engine's metrics registry;
+  the engine's metrics registry (over a speculative engine, as JAX's,
+  with ``spec_rounds``, ``spec_drafted``, ``spec_accepted``,
+  ``spec_acceptance`` and ``gamma``);
 * ``GET /metrics`` (Prometheus text exposition), ``/stats`` (the
   registry's JSON snapshot), ``/events`` (the event ring's tail,
   ``?n=&since=``), ``/traces`` (``?min_ms=&status=&limit=``) and
@@ -472,6 +474,9 @@ class GenerationServer:
                      "step_faults": eng.step_faults}
             extra = {"host_syncs": eng.host_syncs,
                      "pipeline_flushes": eng.pipeline_flushes}
+            # a speculative engine's gamma (configuration, moved by an
+            # adaptive retune); None on the other lanes
+            gamma = eng.gamma if hasattr(eng, "spec_rounds") else None
             h = None if eng.metrics is not None else \
                 self._health_from_engine(eng)
         finally:
@@ -479,7 +484,7 @@ class GenerationServer:
         if h is None:
             h = self._health_from_registry(self.registry.snapshot(),
                                            eng.decode_horizon,
-                                           eng.mixed_token_budget)
+                                           eng.mixed_token_budget, gamma)
         h = {**fixed, **h, **extra}
         self._health_last = (h, time.monotonic())
         return h
@@ -488,8 +493,9 @@ class GenerationServer:
     def _health_from_engine(eng) -> dict:
         """The registry view's counts read from the engine's attributes
         (no registry to view); caller holds the server lock.  The lanes
-        the port lacks read 0."""
-        return {"requests_cancelled": eng.requests_cancelled,
+        the port lacks read 0; a speculative engine adds its round and
+        acceptance counts and gamma."""
+        h = {"requests_cancelled": eng.requests_cancelled,
                 "requests_expired": eng.requests_expired,
                 "requests_rejected": eng.requests_rejected,
                 "requests_faulted": eng.requests_faulted,
@@ -513,18 +519,28 @@ class GenerationServer:
                 "decode_horizon": eng.decode_horizon,
                 "horizon_trimmed_tokens": eng.horizon_trimmed_tokens,
                 "requests_finished": eng.requests_finished}
+        if hasattr(eng, "spec_rounds"):
+            h["spec_rounds"] = eng.spec_rounds
+            h["spec_drafted"] = eng.spec_drafted
+            h["spec_accepted"] = eng.spec_accepted
+            h["spec_acceptance"] = round(
+                eng.spec_accepted / max(eng.spec_drafted, 1), 4)
+            h["gamma"] = eng.gamma
+        return h
 
     @staticmethod
     def _health_from_registry(snap: dict, decode_horizon: int,
-                              mixed_budget: int = 0) -> dict:
+                              mixed_budget: int = 0,
+                              gamma: Optional[int] = None) -> dict:
         """JAX's registry view (``_health_from_registry``) over one
         snapshot: every count is read from the instrumentation, none
         from engine attributes (``mixed_budget``, the engine's
-        ``mixed_token_budget``, is configuration)."""
+        ``mixed_token_budget``, and ``gamma``, a speculative engine's, are
+        configuration; with ``gamma`` the spec fields join)."""
         def v(name):
             return int(_snap_val(snap, name))
 
-        return {
+        h = {
             "requests_cancelled": v(
                 "paddle_tpu_engine_requests_cancelled_total"),
             "requests_expired": v(
@@ -562,6 +578,16 @@ class GenerationServer:
                 "paddle_tpu_engine_horizon_trimmed_tokens_total"),
             "requests_finished": v(
                 "paddle_tpu_engine_requests_finished_total")}
+        if gamma is not None:                       # speculative
+            h["spec_rounds"] = v("paddle_tpu_engine_spec_rounds_total")
+            h["spec_drafted"] = v(
+                "paddle_tpu_engine_spec_drafted_tokens_total")
+            h["spec_accepted"] = v(
+                "paddle_tpu_engine_spec_accepted_tokens_total")
+            h["spec_acceptance"] = round(
+                h["spec_accepted"] / max(h["spec_drafted"], 1), 4)
+            h["gamma"] = gamma
+        return h
 
     def submit(self, prompt, max_new_tokens, deadline_s=None):
         t0 = time.monotonic()

@@ -24,6 +24,16 @@ its flags when it traces) and, when sampling, the generator the graph
 registered.  :func:`clear` drops every graph (and the device memory of
 their private pools), :func:`forget` the graphs of one params and pools
 (an engine rebuilt over another cache).
+
+The speculative round of the overlap lane (:func:`make_spec_step`, JAX's
+``_spec_step_cache``) replays the same way from a :class:`SpecGraph`, one
+per gamma.  Its chained state (:class:`SpecState`: ``tables``, ``dtables``,
+``lens``, ``tok``, ``prev``, ``active``, ``remaining``, ``spec_on``,
+``eos``) is keyed without gamma, so the graphs of every gamma an adaptive
+engine tries read and write the same buffers and a retune needs no new
+seeding; each graph writes ``out [3, C, B]`` (tokens, done flags, emit
+flags) and ``accepts [B]``.  The round is greedy: no generator is
+registered and nothing draws from the default CUDA generator.
 """
 
 from __future__ import annotations
@@ -40,12 +50,15 @@ from ..ops import rms_norm as _rn
 from ..ops import rmsnorm_matmul as _rmm
 from ..ops import swiglu as _sw
 from .paged_decode import (make_paged_decode_step_async,
-                           make_paged_decode_step_multi)
+                           make_paged_decode_step_multi, make_spec_step)
 
-__all__ = ["DecodeGraph", "decode_graph", "graphs", "clear", "forget"]
+__all__ = ["DecodeGraph", "SpecGraph", "SpecState", "decode_graph",
+           "spec_graph", "graphs", "clear", "forget"]
 
 _step_async_cache: Dict[tuple, "DecodeGraph"] = {}
 _step_multi_cache: Dict[tuple, "DecodeGraph"] = {}
+_spec_state_cache: Dict[tuple, "SpecState"] = {}
+_spec_graph_cache: Dict[tuple, "SpecGraph"] = {}
 # one warm-up stream per device: cuBLAS keeps a workspace for every stream
 # it has run on (32 MiB on Hopper), so a fresh stream per capture would hold
 # one more workspace after every capture (an engine rebuilt over a new
@@ -74,6 +87,37 @@ def _tensors_key(tree) -> tuple:
     if isinstance(tree, (tuple, list)):
         return tuple(_tensors_key(t) for t in tree)
     return (tree.data_ptr(), tree.dtype, tuple(tree.shape))
+
+
+def _capture(device, warm, body, generator=None):
+    """Capture ``body`` into a CUDA graph after one run of ``warm`` on the
+    warm-up stream (it builds the kernels and fills the wrappers' plan
+    caches) -> (graph, {kernel: launches recorded at capture}).  A failed
+    capture raises, with the caller's stream put back."""
+    cur = torch.cuda.current_stream(device)
+    side = _warmup_streams.get(str(device))
+    if side is None:
+        side = _warmup_streams[str(device)] = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        warm()
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    before = _counts()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            body()
+    except BaseException:
+        # an aborted capture's context exit raises before it restores the
+        # caller's stream: put it back, so that the next step (a quarantined
+        # engine goes on serving) runs where it should
+        torch.cuda.set_stream(cur)
+        raise
+    after = _counts()
+    return graph, {k: after[k] - before[k] for k in after
+                   if after[k] != before[k]}
 
 
 class DecodeGraph:
@@ -122,36 +166,15 @@ class DecodeGraph:
         self.active.copy_(act)
 
     def _capture(self, params, pools, generator):
-        cur = torch.cuda.current_stream(self.device)
-        side = _warmup_streams.get(str(self.device))
-        if side is None:
-            side = _warmup_streams[str(self.device)] = torch.cuda.Stream(
-                self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            # warm-up: builds the kernels and fills the wrappers' plan
-            # caches.  The functional step only: the chained state stays as
-            # seeded, and the pool slots it writes are written again, with
-            # the same values, by the first replay
-            self.fn(params, *pools, *self._state(), generator=generator)
-        cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        if self.sampling:
-            graph.register_generator_state(generator)
-        before = _counts()
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._body(params, pools, generator)
-        except BaseException:
-            # an aborted capture's context exit raises before it restores
-            # the caller's stream: put it back, so that the next step (a
-            # quarantined engine goes on serving) runs where it should
-            torch.cuda.set_stream(cur)
-            raise
-        after = _counts()
-        self.capture_launches = {k: after[k] - before[k] for k in after
-                                 if after[k] != before[k]}
-        self.graph = graph
+        # warm-up: the functional step only; the chained state stays as
+        # seeded, and the pool slots it writes are written again, with the
+        # same values, by the first replay
+        self.graph, self.capture_launches = _capture(
+            self.device,
+            lambda: self.fn(params, *pools, *self._state(),
+                            generator=generator),
+            lambda: self._body(params, pools, generator),
+            generator if self.sampling else None)
 
     def __call__(self, params, pools, generator=None) -> torch.Tensor:
         """Advance the state one step (H micro-steps) -> ``out``."""
@@ -189,30 +212,146 @@ def decode_graph(cfg, horizon: int, multi: bool, temperature: float,
     return g
 
 
-# the positions of the params and pools in a graph's key
+class SpecState:
+    """The chained state of the speculative overlap lane, shared by the
+    :class:`SpecGraph` of every gamma of one key: the target's and the
+    draft's block tables, ``lens``, ``tok``, ``prev`` (the draft catch-up
+    feed), ``active``, ``remaining``, ``spec_on`` and ``eos``."""
+
+    def __init__(self, B: int, pages_max: int, dpages_max: int, device):
+        z = dict(device=device)
+        self.device = device
+        self.tables = torch.zeros((B, pages_max), dtype=torch.int32, **z)
+        self.dtables = torch.zeros((B, dpages_max), dtype=torch.int32, **z)
+        self.lens = torch.zeros((B,), dtype=torch.int32, **z)
+        self.tok = torch.zeros((B,), dtype=torch.int64, **z)
+        self.prev = torch.zeros((B,), dtype=torch.int64, **z)
+        self.active = torch.zeros((B,), dtype=torch.bool, **z)
+        self.remaining = torch.zeros((B,), dtype=torch.int64, **z)
+        self.spec_on = torch.zeros((B,), dtype=torch.bool, **z)
+        self.eos = torch.full((), -1, dtype=torch.int64, **z)
+
+
+class SpecGraph:
+    """One draft-model speculative round of one gamma over a
+    :class:`SpecState`; see the module docstring.  ``replays`` and
+    ``capture_launches`` as on :class:`DecodeGraph`."""
+
+    def __init__(self, fn, gamma: int, state: SpecState):
+        self.fn = fn
+        self.gamma = gamma
+        self.state = state
+        self.device = state.device
+        B = state.tok.shape[0]
+        self.out = torch.zeros((3, gamma + 1, B), dtype=torch.int64,
+                               device=self.device)
+        self.accepts = torch.zeros((B,), dtype=torch.int64,
+                                   device=self.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.replays = 0
+        self.capture_launches: Dict[str, int] = {}
+
+    def _run(self, params, dparams, pools, dpools):
+        s = self.state
+        return self.fn(params, dparams, *pools, *dpools, s.tables, s.dtables,
+                       s.lens, s.tok, s.prev, s.active, s.remaining,
+                       s.spec_on, s.eos)
+
+    def _body(self, params, dparams, pools, dpools):
+        res = self._run(params, dparams, pools, dpools)
+        toks, dones, emits, acc, tok, prev, lens, rem, act = \
+            res[len(pools) + len(dpools):]
+        s = self.state
+        self.out[0].copy_(toks)
+        self.out[1].copy_(dones)
+        self.out[2].copy_(emits)
+        self.accepts.copy_(acc)
+        s.tok.copy_(tok)
+        s.prev.copy_(prev)
+        s.lens.copy_(lens)
+        s.remaining.copy_(rem)
+        s.active.copy_(act)
+
+    def __call__(self, params, dparams, pools, dpools):
+        """Advance the state one round -> (``out``, ``accepts``)."""
+        if self.device.type != "cuda":
+            self._body(params, dparams, pools, dpools)
+            return self.out, self.accepts
+        if self.graph is None:
+            # the warm-up writes the same pool slots the first replay
+            # writes again, with the same values
+            self.graph, self.capture_launches = _capture(
+                self.device,
+                lambda: self._run(params, dparams, pools, dpools),
+                lambda: self._body(params, dparams, pools, dpools))
+        self.graph.replay()
+        self.replays += 1
+        return self.out, self.accepts
+
+
+def _spec_key(cfg, draft_cfg, kv_quant, draft_kv_quant, params, dparams,
+              pools, dpools, B, pages_max, dpages_max, device) -> tuple:
+    return (dataclasses.astuple(cfg), dataclasses.astuple(draft_cfg),
+            kv_quant, draft_kv_quant, B, pages_max, dpages_max, str(device),
+            _tensors_key(params), _tensors_key(pools), _tensors_key(dparams),
+            _tensors_key(dpools), tuple(sorted(flags.get_flags().items())))
+
+
+def spec_graph(cfg, draft_cfg, gamma: int, kv_quant, draft_kv_quant, params,
+               dparams, pools, dpools, B: int, pages_max: int,
+               dpages_max: int, device) -> SpecGraph:
+    """The :class:`SpecGraph` of this key and gamma, made at its first use
+    over the key's :class:`SpecState` (keyed without gamma)."""
+    key = _spec_key(cfg, draft_cfg, kv_quant, draft_kv_quant, params,
+                    dparams, pools, dpools, B, pages_max, dpages_max, device)
+    g = _spec_graph_cache.get(key + (gamma,))
+    if g is None:
+        st = _spec_state_cache.get(key)
+        if st is None:
+            st = _spec_state_cache[key] = SpecState(B, pages_max,
+                                                    dpages_max, device)
+        fn = make_spec_step(cfg, gamma, draft_cfg=draft_cfg,
+                            kv_quant=kv_quant, draft_kv_quant=draft_kv_quant)
+        g = _spec_graph_cache[key + (gamma,)] = SpecGraph(fn, gamma, st)
+    return g
+
+
+# the positions of the params and pools in a graph's key, and in a spec
+# key (the target's; the draft's follow them)
 _PARAMS, _POOLS = 9, 10
+_SPEC_PARAMS, _SPEC_POOLS = 8, 9
 
 
 def forget(params, pools) -> int:
     """Drop the graphs keyed by ``params`` and ``pools`` (those of an
     engine whose cache nothing reads again, with their private memory
-    pools) -> how many."""
+    pools), the speculative ones and their states included -> how many
+    graphs."""
     pk, qk = _tensors_key(params), _tensors_key(pools)
     n = 0
     for cache in (_step_async_cache, _step_multi_cache):
         for key in [k for k in cache if k[_PARAMS] == pk and k[_POOLS] == qk]:
             del cache[key]
             n += 1
+    for cache in (_spec_graph_cache, _spec_state_cache):
+        for key in [k for k in cache
+                    if k[_SPEC_PARAMS] == pk and k[_SPEC_POOLS] == qk]:
+            del cache[key]
+            n += cache is _spec_graph_cache
     return n
 
 
 def graphs():
-    """Every :class:`DecodeGraph` made so far."""
-    return list(_step_async_cache.values()) + list(_step_multi_cache.values())
+    """Every :class:`DecodeGraph` and :class:`SpecGraph` made so far."""
+    return (list(_step_async_cache.values())
+            + list(_step_multi_cache.values())
+            + list(_spec_graph_cache.values()))
 
 
 def clear() -> None:
-    """Drop every :class:`DecodeGraph` (and, on the card, the device
-    memory of its graph's private pool once nothing else holds it)."""
+    """Drop every graph and spec state (and, on the card, the device memory
+    of each graph's private pool once nothing else holds it)."""
     _step_async_cache.clear()
     _step_multi_cache.clear()
+    _spec_graph_cache.clear()
+    _spec_state_cache.clear()

@@ -15,14 +15,16 @@ bodies :func:`_prefill` (dense, causal; RoPE through ``_rope``, the fused
 RoPE kernel at ``head_dim % 128 == 0``), :func:`_prefill_chunk` (a chunk
 over the row's cached pages) and :func:`_packed_prefill_body` (fp and
 ``q8`` forms, with or without prefix history), the mixed prefill +
-decode tick :func:`make_mixed_step`, and
+decode tick :func:`make_mixed_step`, the speculative round
+:func:`make_spec_step` with its batched verify (:func:`_spec_verify_body`,
+:func:`_prefill_chunk_batched`), and
 :func:`make_paged_generate_fused` / :func:`generate_paged`.
 
 PyTorch runs eagerly and the pools update in place instead of being
 donated.  The counterpart of JAX's jit of the async and horizon steps, with
 its ``_step_async_cache`` / ``_step_multi_cache``, is a CUDA graph captured
-once per key (``models/graphed_step.py``); the other bodies, the mixed
-tick's included, stay eager.
+once per key (``models/graphed_step.py``), as is the speculative round on
+the overlap lane; the other bodies, the mixed tick's included, stay eager.
 The host page tier (swap, prefix demotion), export and TP meshes are later
 slices, as is ``generate_auto`` (it waits for the dense ``make_generate``);
 asking for them raises ``NotImplementedError``.
@@ -50,7 +52,8 @@ from .llama_pretrain import (LlamaPretrainConfig, _block_post_attn, _mm,
 
 __all__ = ["PagedKVCache", "make_paged_decode_step",
            "make_paged_decode_step_async", "make_paged_decode_step_multi",
-           "make_mixed_step", "generate_paged", "generate_auto"]
+           "make_mixed_step", "make_spec_step", "generate_paged",
+           "generate_auto"]
 
 
 class PagedKVCache:
@@ -1011,6 +1014,311 @@ def make_mixed_step(cfg: LlamaPretrainConfig, temperature: float = 0.0,
         return (*pools, nxt, lens2, rem2, act2, done, ftok)
 
     _mixed_step_cache[ckey] = fn
+    return fn
+
+
+_spec_verify_cache: dict = {}
+
+
+def _spec_verify_body(cfg: LlamaPretrainConfig, q8: bool):
+    """The batched verify-with-history body of a speculative round:
+    ``run(params, toks [B, C], kpool, vpool, kscale, vscale, tables
+    [B, P], ctx_len [B]) -> (x [B, C, H], ks, vs [Lyr, B, C, nkv, d])``.
+
+    Every row scores its C candidates at its own offset over its own
+    cached pages: the row's pages are gathered (with ``q8`` dequantized by
+    the scale planes gathered through the same tables) into a ``[B, P *
+    page, nkv, d]`` context, slots at or past the row's ``ctx_len`` are
+    masked, and the candidates attend causally among themselves at
+    positions ``ctx_len + arange(C)`` (inline RoPE, the form the decode
+    step writes).  With ``q8`` the fresh K/V the candidates attend to are
+    round-tripped through ``quantize_kv_token`` first, as the per-token q8
+    step reads its own token back from the pool (without it a multi-token
+    round drifts off that step); the returned ``ks`` / ``vs`` stay
+    unquantized (the scatter quantizes).  ``kscale`` / ``vscale`` are
+    ignored for fp pages.  Attention is the plain ``_grouped_attn`` (JAX
+    computes it in XLA, outside any Pallas kernel).  Memoised per (cfg,
+    q8)."""
+    ckey = (dataclasses.astuple(cfg), q8)
+    hit = _spec_verify_cache.get(ckey)
+    if hit is not None:
+        return hit
+    n, d = cfg.num_attention_heads, cfg.head_dim
+    nkv = cfg.num_key_value_heads
+    dt = cfg.dtype
+
+    def qdq(t):
+        tq, sc = quantize_kv_token(t)
+        return (tq.float() * sc[..., None]).to(dt)
+
+    def run(params, toks, kpool, vpool, kscale, vscale, tables, ctx_len):
+        B, C = toks.shape
+        P = tables.shape[1]
+        page = kpool.shape[3]
+        S_ctx = P * page
+        dev = kpool.device
+        x = params["embed"][toks.long()].to(dt)
+        ctx_len = ctx_len.to(torch.int32)
+        pos = ctx_len[:, None] + torch.arange(C, dtype=torch.int32,
+                                              device=dev)       # [B, C]
+        ctx_vis = (torch.arange(S_ctx, dtype=torch.int32, device=dev)[None]
+                   < ctx_len[:, None])                           # [B, S_ctx]
+        tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev))
+        mask = torch.cat([ctx_vis[:, None].expand(B, C, S_ctx),
+                          tri[None].expand(B, C, C)], dim=2)
+        mask = mask[:, None, None]               # [B, 1, 1, C, S_ctx + C]
+        tbl = tables.long()
+
+        def gather_ctx(pool, scale):
+            pages = pool[tbl]                    # [B, P, nkv, page, d]
+            if q8:
+                pages = pages.float() * scale[tbl][..., None]
+            return pages.permute(0, 1, 3, 2, 4).reshape(
+                B, S_ctx, nkv, d).to(dt)
+
+        L = cfg.num_hidden_layers
+        ks = torch.empty((L, B, C, nkv, d), dtype=dt, device=dev)
+        vs = torch.empty((L, B, C, nkv, d), dtype=dt, device=dev)
+        for layer in range(L):
+            bp = layer_params(params, layer)
+            y = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
+            q = _mm(y, bp["wq"], dt).reshape(B, C, n, d)
+            k = _mm(y, bp["wk"], dt).reshape(B, C, nkv, d)
+            v = _mm(y, bp["wv"], dt).reshape(B, C, nkv, d)
+            q = _rope_at(q, cfg.rope_theta, pos)
+            k = _rope_at(k, cfg.rope_theta, pos)
+            ku, vu = (qdq(k), qdq(v)) if q8 else (k, v)
+            ksl = kscale[layer] if q8 else None
+            vsl = vscale[layer] if q8 else None
+            ck = torch.cat([gather_ctx(kpool[layer], ksl), ku], dim=1)
+            cv = torch.cat([gather_ctx(vpool[layer], vsl), vu], dim=1)
+            attn = _grouped_attn(q, ck, cv, mask)
+            x = _block_post_attn(bp, x, attn, cfg)
+            ks[layer] = k
+            vs[layer] = v
+        return x, ks, vs
+
+    _spec_verify_cache[ckey] = run
+    return run
+
+
+def _prefill_chunk_batched(cfg: LlamaPretrainConfig):
+    """The batched prefill-with-history: advance every row's context by a
+    chunk at its own offset, ``run(params, toks [B, C], kpool, vpool,
+    tables [B, P], ctx_len [B]) -> (x [B, C, H], ks, vs [Lyr, B, C, nkv,
+    d])``, over fp pages.  It is :func:`_spec_verify_body` without the
+    scale planes: one target forward scores all rows' candidate blocks
+    (per-row tables, positions and visibility)."""
+    body = _spec_verify_body(cfg, False)
+
+    def run(params, toks, kpool, vpool, tables, ctx_len):
+        return body(params, toks, kpool, vpool, None, None, tables, ctx_len)
+
+    return run
+
+
+def _spec_dest(tables, lens, active, C: int, page: int):
+    """Where a round's C fresh K/V per row land: ``(dest_page, dest_slot)``
+    ``[B * C]`` long, row-major.  Position ``lens + j`` goes to its table
+    page and slot; inactive rows and positions at or past the table's
+    capacity go to junk page 0."""
+    S_ctx = tables.shape[1] * page
+    pos = lens[:, None].long() + torch.arange(C, device=lens.device)
+    ok = active[:, None] & (pos < S_ctx)
+    pidx = torch.where(ok, pos // page, torch.zeros_like(pos))
+    dest = torch.where(ok, torch.gather(tables.long(), 1, pidx),
+                       torch.zeros_like(pos))
+    return dest.reshape(-1), (pos % page).reshape(-1)
+
+
+_spec_step_cache: dict = {}
+
+
+def make_spec_step(cfg: LlamaPretrainConfig, gamma: int,
+                   draft_cfg: Optional[LlamaPretrainConfig] = None,
+                   kv_quant: Optional[str] = None,
+                   draft_kv_quant: Optional[str] = None,
+                   mesh=None, tp_allreduce: str = "fp32"):
+    """One call per speculative serving round: the draft (a draft model's
+    gamma + 1 decode micro-steps, or proposals from the host), the batched
+    target verify over the cached pages, the scatter of the fresh K/V into
+    the target pages and the accept fold, with no host read between them.
+    The engine pays one dispatch and one fetch a round of up to gamma + 1
+    committed tokens a row, and the chained loop state feeds the next round.
+    Greedy only: the round commits the longest prefix of drafts that match
+    the target's argmax, then the target's own token, so the output is the
+    target's plain greedy sequence token for token.
+
+    With ``draft_cfg`` (draft-model drafting), ``C = gamma + 1``:
+
+    ``fn(params, dparams, kpool, vpool, [kscale, vscale,] dkpool, dvpool,
+    [dkscale, dvscale,] tables, dtables, lens, tok, prev, active,
+    remaining, spec_on, eos) -> (pools..., dpools..., toks [C, B], dones
+    [C, B], emits [C, B], accepts [B], tok', prev', lens', remaining',
+    active')``
+
+    * draft: C micro-steps of the draft's decode body.  Micro-step 0 feeds
+      ``prev`` (the second-to-last committed token) at draft position
+      ``lens - 1``: a rewrite of the same value when the draft cache is
+      caught up, and the write that realigns it after a full accept left
+      it one position behind; micro-steps 1..gamma feed ``tok``, d1, ...
+      and produce the drafts.  Inactive and spec-off rows write draft page
+      0 through a masked view of ``dtables``;
+    * verify: every candidate ``[tok, d1..dgamma]`` scored at its row's
+      offset (:func:`_spec_verify_body`), greedy ``argmax`` of the logits,
+      and the C fresh K/V scattered into the target pages
+      (:func:`_spec_dest`: inactive rows and positions past the table go
+      to junk page 0; int8 pools quantize on the way in).  The engine
+      claims gamma + 1 tokens of pages a row, so real writes land in
+      claimed pages; K/V past the committed length are masked stale until
+      a later round writes them again;
+    * accept fold: C steps mirroring :func:`_advance_loop_state` under the
+      window ``j < accepts + 1``: ``toks[j]`` / ``dones[j]`` / ``emits[j]``
+      are step j's committed token, just-retired rows and validity.
+      Spec-off rows commit exactly their plain greedy token (their window
+      is 1), so per-request on / off mixes in one round;
+    * ``accepts`` is the raw accepted-draft count a row (before eos and
+      budget truncation), for the acceptance counters.
+
+    Without ``draft_cfg`` (prompt lookup, or any host draft source) the
+    draft half, the draft pools, ``dtables`` and ``prev`` drop out and the
+    candidates arrive as ``drafts [B, gamma]``:
+
+    ``fn(params, kpool, vpool, [kscale, vscale,] tables, lens, tok,
+    drafts, active, remaining, spec_on, eos) -> (pools..., toks, dones,
+    emits, accepts, tok', lens', remaining', active')``
+
+    The outputs keep JAX's layout.  JAX's trailing PRNG key has no
+    counterpart (the round is greedy).  The pools update in place and are
+    returned; ``kv_quant`` / ``draft_kv_quant`` select the int8 pool forms
+    of each cache.  Memoised per (cfg, draft cfg, gamma, kv_quant,
+    draft_kv_quant), as JAX's ``_spec_step_cache``.  TP meshes raise
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 7)."""
+    G = int(gamma)
+    if G < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+    if kv_quant not in (None, "int8") or draft_kv_quant not in (None, "int8"):
+        raise ValueError("kv_quant must be None or 'int8'")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the TP speculative round (mp > 1 meshes) is not ported yet "
+            "(ROADMAP.md queue 1 item 7)")
+    C = G + 1
+    q8 = kv_quant == "int8"
+    dq8 = draft_kv_quant == "int8"
+    draft = draft_cfg is not None
+    ckey = (dataclasses.astuple(cfg),
+            dataclasses.astuple(draft_cfg) if draft else None, G, kv_quant,
+            draft_kv_quant if draft else None)
+    hit = _spec_step_cache.get(ckey)
+    if hit is not None:
+        return hit
+    dt = cfg.dtype
+    verify = _spec_verify_body(cfg, q8)
+    dbase = None
+    if draft:
+        dstep, dstep_q8 = _build_step_fns(draft_cfg, 0.0, False, 0, 1.0)
+        dbase = dstep_q8 if dq8 else dstep
+
+    def core(params, dparams, kpool, vpool, kscale, vscale, dpools, tables,
+             dtables, lens, tok, prev, drafts_in, active, remaining, spec_on,
+             eos):
+        page = kpool.shape[3]
+        active = active.to(torch.bool)
+        spec_on = spec_on.to(torch.bool)
+        if draft:
+            # the draft half: C chained micro-steps (catch-up, tok, then the
+            # drafts feeding themselves); inactive / spec-off rows write
+            # draft page 0
+            dtab = torch.where((active & spec_on)[:, None], dtables,
+                               torch.zeros_like(dtables))
+            feed = prev
+            outs = []
+            for i in range(C):
+                f = prev if i == 0 else (tok if i == 1 else feed)
+                dl = torch.clamp(lens - 1 + i, min=0)
+                *_, out = dbase(dparams, *dpools, dtab, dl, f)
+                feed = out.to(tok.dtype)
+                outs.append(feed)
+            d = torch.stack(outs[1:], dim=1)                     # [B, G]
+        else:
+            d = drafts_in.to(tok.dtype)
+
+        # the verify half: every candidate at its row's offset, then the
+        # shared logits tail (greedy)
+        cand = torch.cat([tok[:, None], d], dim=1)               # [B, C]
+        x, ks, vs = verify(params, cand, kpool, vpool, kscale, vscale,
+                           tables, lens)
+        h = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        logits = _mm(h, params["lm_head"], dt).float()           # [B, C, V]
+        g = _pick_token(logits, 0.0).to(tok.dtype)               # [B, C]
+        del x, h, logits
+
+        # the C fresh K/V a row into the target pages: [Lyr, B, C, nkv, d]
+        # -> [B * C, Lyr, nkv, d] (the advanced indices at dims 1 and 3 of
+        # the pool put B * C first)
+        dp, ds = _spec_dest(tables, lens, active, C, page)
+        Lyr = ks.shape[0]
+        ksf = ks.reshape(Lyr, -1, *ks.shape[3:])
+        vsf = vs.reshape(Lyr, -1, *vs.shape[3:])
+        if q8:
+            ksf, ksc = quantize_kv_token(ksf)
+            vsf, vsc = quantize_kv_token(vsf)
+            kscale[:, dp, :, ds] = ksc.permute(1, 0, 2)
+            vscale[:, dp, :, ds] = vsc.permute(1, 0, 2)
+        kpool[:, dp, :, ds] = ksf.permute(1, 0, 2, 3).to(kpool.dtype)
+        vpool[:, dp, :, ds] = vsf.permute(1, 0, 2, 3).to(vpool.dtype)
+        del ks, vs, ksf, vsf
+
+        # the accept fold: the longest matching prefix plus the correction
+        # token commits g[:, :k + 1]; spec-off rows collapse to 1 token
+        match = (d == g[:, :G]) & spec_on[:, None] & active[:, None]
+        k_acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        n_acc = k_acc + 1
+        tok_c, prev_c, lens_c, rem_c, alive = tok, prev, lens, remaining, \
+            active
+        toks, dones, emits = [], [], []
+        for j in range(C):
+            em = alive & (j < n_acc)
+            nxt = torch.where(em, g[:, j], tok_c)
+            prev_c = torch.where(em, tok_c, prev_c)
+            lens_c = lens_c + em.to(lens_c.dtype)
+            rem_c = rem_c - em.to(rem_c.dtype)
+            done = em & ((nxt == eos) | (rem_c <= 0))
+            alive = alive & ~done
+            tok_c = nxt
+            toks.append(nxt)
+            dones.append(done)
+            emits.append(em)
+        return (torch.stack(toks), torch.stack(dones), torch.stack(emits),
+                k_acc, tok_c, prev_c, lens_c, rem_c, alive)
+
+    npools = 4 if q8 else 2
+    ndpools = (4 if dq8 else 2) if draft else 0
+
+    def fn(*args):
+        it = iter(args)
+        params = next(it)
+        dparams = next(it) if draft else None
+        pools = [next(it) for _ in range(npools)]
+        dpools = [next(it) for _ in range(ndpools)]
+        tables = next(it)
+        dtables = next(it) if draft else None
+        lens, tok = next(it), next(it)
+        prev = next(it) if draft else tok
+        drafts_in = None if draft else next(it)
+        active, remaining, spec_on, eos = next(it), next(it), next(it), \
+            next(it)
+        kscale, vscale = pools[2:] if q8 else (None, None)
+        (toks, dones, emits, k_acc, tok_f, prev_f, lens_f, rem_f,
+         act_f) = core(params, dparams, pools[0], pools[1], kscale, vscale,
+                       dpools, tables, dtables, lens, tok, prev, drafts_in,
+                       active, remaining, spec_on, eos)
+        chain = ((tok_f, prev_f) if draft else (tok_f,)) + (lens_f, rem_f,
+                                                            act_f)
+        return (*pools, *dpools, toks, dones, emits, k_acc, *chain)
+
+    _spec_step_cache[ckey] = fn
     return fn
 
 

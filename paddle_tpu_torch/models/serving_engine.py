@@ -41,11 +41,22 @@ its first token in the same call and joins the decode batch on the device.
 An idle engine, a zero budget and a context over ``mixed_ctx_cap`` admit
 through the sequential packed wave.
 
-On a CUDA device every async and horizon step replays from a CUDA graph
-captured for its key (``models/graphed_step.py``); its outputs reach the
-host through a ring of ``lookahead + 1`` pinned slots, each copy queued
-behind its step and guarded by a CUDA event, and ``_fetch`` (waiting on
-that event) is the only blocking host sync of the steady state.
+``spec=SpecConfig(...)`` (speculative decoding, as in JAX): every decode
+round is one call of :func:`make_spec_step` (a draft model's gamma + 1
+micro-steps, or the host's prompt-lookup proposals, then the batched target
+verify, the page scatter and the accept fold) committing up to gamma + 1
+tokens a row, token-exact against plain greedy decoding, with one fetch a
+round.  On the synchronous lane the round runs eagerly; with
+``overlap=True`` a draft-model round replays from a CUDA graph chained off
+the previous round's device state (prompt lookup keeps the synchronous
+cadence: the host proposes from the committed tokens).
+
+On a CUDA device every async, horizon and speculative overlap step replays
+from a CUDA graph captured for its key (``models/graphed_step.py``); its
+outputs reach the host through a ring of ``lookahead + 1`` pinned slots,
+each copy queued behind its step and guarded by a CUDA event, and
+``_fetch`` (waiting on that event) is the only blocking host sync of the
+steady state.
 
 Observability, as in JAX: the engine records into an
 :class:`~paddle_tpu_torch.observability.EngineMetrics` bundle on a
@@ -69,10 +80,9 @@ The fault plane (``paddle_tpu_torch/testing/faults.py``) fires its
 ``step_dispatch`` and ``prefill_dispatch`` sites at JAX's points, so one
 rule poisons the same dispatch in both engines.
 
-Not ported yet, and refused at construction when asked for: the
-speculative lane, TP meshes, scheduler policies, tenant quotas and the
-quantized TP all-reduce (the host page tier is refused by
-``PagedKVCache``).
+Not ported yet, and refused at construction when asked for: TP meshes,
+scheduler policies, tenant quotas and the quantized TP all-reduce (the host
+page tier is refused by ``PagedKVCache``).
 """
 
 from __future__ import annotations
@@ -92,10 +102,10 @@ from . import graphed_step
 from .llama_pretrain import LlamaPretrainConfig, _mm, _rms_norm
 from .paged_decode import (PagedKVCache, _packed_prefill_body, _pick_token,
                            _prefill, _prefill_chunk, make_mixed_step,
-                           make_paged_decode_step)
+                           make_paged_decode_step, make_spec_step)
 
 __all__ = ["ContinuousBatchingEngine", "EngineDeadError", "EngineSupervisor",
-           "QueueFullError", "Request"]
+           "QueueFullError", "Request", "SpecConfig"]
 
 
 class QueueFullError(RuntimeError):
@@ -124,7 +134,7 @@ def _release_engine_claims(engine) -> None:
         if slot in engine._free_slots:
             continue
         try:
-            engine.cache.release_row(slot)
+            engine._release_slot(slot)
         except Exception:
             pass
 
@@ -204,6 +214,41 @@ class Request:
     t_phase: float = 0.0
     phase_log: List = field(default_factory=list)
     trace: Optional[object] = None
+    # the speculative toggle: None takes the engine's SpecConfig.default_on
+    spec: Optional[bool] = None
+
+
+@dataclass
+class SpecConfig:
+    """Speculative decoding as an engine lane:
+    ``ContinuousBatchingEngine(spec=SpecConfig(...))`` makes every decode
+    round one call of :func:`make_spec_step` committing up to ``gamma + 1``
+    tokens a row, token-exact against plain greedy decoding.
+
+    ``source``:
+
+    * ``"draft"``: a draft model proposes; ``draft_cfg``, ``draft_params``
+      and ``draft_cache`` (a :class:`PagedKVCache` of the engine's batch)
+      are required, and its gamma + 1 micro-steps run in the same call as
+      the verify;
+    * ``"prompt_lookup"``: model-free n-gram drafting; the host matches the
+      last ``ngram`` committed tokens against the request's own history and
+      proposes the continuation of its earliest occurrence.  A miss costs
+      acceptance, never content.
+
+    ``adaptive_gamma`` retunes gamma each round from the acceptance EMA in
+    ``[1, max_gamma]`` (one step function, and on the overlap lane one
+    graph capture, per distinct gamma).  ``default_on`` is the per-request
+    default; ``submit(spec=...)`` overrides it."""
+    gamma: int = 4
+    source: str = "draft"
+    draft_cfg: Optional[LlamaPretrainConfig] = None
+    draft_params: object = None
+    draft_cache: Optional[PagedKVCache] = None
+    adaptive_gamma: bool = False
+    max_gamma: int = 8
+    ngram: int = 3
+    default_on: bool = True
 
 
 class ContinuousBatchingEngine:
@@ -250,6 +295,11 @@ class ContinuousBatchingEngine:
     default); ``tracer`` (a :class:`~paddle_tpu_torch.observability.Tracer`)
     gives every submitted request a trace under its rid.
 
+    ``spec=SpecConfig(...)`` decodes speculatively (greedy only; it does
+    not compose with ``mixed=True`` or ``decode_horizon > 1``); each round
+    commits up to ``gamma + 1`` tokens a row, on the synchronous lane or,
+    for a draft model, on the overlap lane.
+
     ``quarantine_faults`` (default on) contains a step exception in the
     wave it poisoned; ``max_consecutive_faults`` faults in a row re-raise
     it (see :meth:`step`)."""
@@ -290,7 +340,7 @@ class ContinuousBatchingEngine:
                 "speculative round IS the multi-token fused program (up "
                 "to gamma+1 committed tokens per dispatch) -- tune "
                 "spec.gamma instead of stacking a second horizon on top")
-        later = {"spec": spec is not None, "mesh": mesh is not None,
+        later = {"mesh": mesh is not None,
                  "tp_allreduce": tp_allreduce != "fp32",
                  "policy": policy is not None,
                  "tenant_quotas": tenant_quotas is not None}
@@ -298,9 +348,9 @@ class ContinuousBatchingEngine:
         if asked:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(asked)} (this engine has the "
-                f"synchronous, overlap, horizon and mixed lanes, packed, "
-                f"batched and chunked admission and prefix caching; see "
-                f"ROADMAP.md)")
+                f"synchronous, overlap, horizon, mixed and speculative "
+                f"lanes, packed, batched and chunked admission and prefix "
+                f"caching; see ROADMAP.md)")
         self.cfg = cfg
         self.params = params
         self.cache = cache
@@ -403,6 +453,10 @@ class ContinuousBatchingEngine:
             self._step_mixed = make_mixed_step(
                 cfg, temperature, kv_quant=cache.kv_quant, top_k=top_k,
                 top_p=top_p)
+        # -- the speculative lane: one make_spec_step call a round
+        self._spec = spec
+        if spec is not None:
+            self._init_spec(spec, temperature)
         self._next_tok = np.zeros((self.B,), np.int64)
         self._remaining = np.zeros((self.B,), np.int64)
         # the active slots, kept at admit / retire / preempt (the decode
@@ -455,6 +509,20 @@ class ContinuousBatchingEngine:
         def stage():
             return {"buf": host((stage_len,), torch.int32), "event": None}
 
+        def spec_host():
+            # a draft-model round on the overlap lane: its [3, C, B] out
+            # (toks, dones, emits; flat, so that every gamma's view is
+            # contiguous) and accepts, and the uploads of its extra state
+            if spec is None or spec.source != "draft":
+                return {}
+            dpm = self._spec_dcache.pages_max
+            return {"spec_out": host((3 * (self.max_gamma + 1) * self.B,),
+                                     torch.int64),
+                    "accepts": host((self.B,), torch.int64),
+                    "prev": host((self.B,), torch.int64),
+                    "spec_on": host((self.B,), torch.bool),
+                    "dtables": host((self.B, dpm), torch.int32)}
+
         if graphed:
             self._ring = [{
                 "out": host((3, self.decode_horizon, self.B), torch.int64),
@@ -463,7 +531,7 @@ class ContinuousBatchingEngine:
                 "tok": host((self.B,), torch.int64),
                 "active": host((self.B,), torch.bool),
                 "remaining": host((self.B,), torch.int64),
-                "stage": stage() if self._mixed else None}
+                "stage": stage() if self._mixed else None, **spec_host()}
                 for _ in range(self.lookahead + 1)]
         # the synchronous lane's one staging buffer: each tick's fetch
         # waits for the step that read it
@@ -473,10 +541,63 @@ class ContinuousBatchingEngine:
         self.pipeline_flushes = 0         # mutation-point drains
         self.host_syncs = 0               # blocking device->host fetches
 
+    def _init_spec(self, spec: SpecConfig, temperature: float) -> None:
+        """Validate ``spec`` with JAX's texts and set up the speculative
+        lane's state."""
+        if temperature != 0.0:
+            raise ValueError(
+                "speculative serving is greedy-only (exact verification); "
+                "temperature must be 0")
+        if self._mixed:
+            raise ValueError(
+                "spec does not compose with mixed=True: the mixed tick "
+                "re-plans its prefill stream on the host between "
+                "consecutive dispatches, which the fused draft+verify "
+                "program cannot replay -- use mixed=True (fused admission) "
+                "OR spec (fused speculative decode), not both")
+        if spec.source not in ("draft", "prompt_lookup"):
+            raise ValueError(
+                "SpecConfig.source must be 'draft' or 'prompt_lookup', got "
+                f"{spec.source!r}")
+        if int(spec.gamma) < 1:
+            raise ValueError(f"spec.gamma must be >= 1, got {spec.gamma}")
+        if spec.source == "draft":
+            if spec.draft_cfg is None or spec.draft_params is None \
+                    or spec.draft_cache is None:
+                raise ValueError(
+                    "SpecConfig(source='draft') needs draft_cfg, "
+                    "draft_params and draft_cache (use "
+                    "source='prompt_lookup' for model-free n-gram "
+                    "drafting)")
+            if spec.draft_cache.tables.shape[0] != self.B:
+                raise ValueError(
+                    f"draft_cache batch {spec.draft_cache.tables.shape[0]} "
+                    f"!= target cache batch {self.B}")
+        self.gamma = int(spec.gamma)
+        self.adaptive_gamma = bool(spec.adaptive_gamma)
+        self.max_gamma = max(int(spec.max_gamma), self.gamma)
+        self._accept_ema = float(self.gamma)
+        self.spec_rounds = 0
+        self.spec_accepted = 0
+        self.spec_drafted = 0             # draft tokens proposed
+        draft = spec.source == "draft"
+        self._spec_dcfg = spec.draft_cfg if draft else None
+        self._spec_dparams = spec.draft_params if draft else None
+        self._spec_dcache = spec.draft_cache if draft else None
+        self._spec_prefill = _prefill(spec.draft_cfg) if draft else None
+        self._spec_on = np.zeros((self.B,), bool)
+        self._prev_tok = np.zeros((self.B,), np.int64)
+        self._spec_seq: Dict[int, list] = {}      # prompt-lookup history
+        self._spec_ngrams: Dict[int, dict] = {}
+        self._dev_dtables_version = -1
+        if self.metrics is not None:
+            self.metrics.spec_gamma.set(self.gamma)
+
     # -- client side ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 64,
                stop_sequences=None,
-               deadline_s: Optional[float] = None) -> int:
+               deadline_s: Optional[float] = None,
+               spec: Optional[bool] = None) -> int:
         """Queue a request.  An empty or oversized request fails HERE
         with ``ValueError`` (never mid ``step()``); a full admission
         queue fails with :class:`QueueFullError`.
@@ -484,7 +605,10 @@ class ContinuousBatchingEngine:
         ``stop_sequences``: token-id lists; generation retires as soon as
         the generated tail equals one of them.  ``deadline_s``: seconds
         from now after which the request is retired (queued or active)
-        with ``status == "expired"``."""
+        with ``status == "expired"``.  ``spec``: the request's speculative
+        toggle (``None`` takes ``SpecConfig.default_on``); spec-off rows
+        ride the same round with one plain greedy token.  ``spec=True`` on
+        an engine built without ``spec=SpecConfig(...)`` raises."""
         prompt = np.asarray(prompt, np.int64)
         if prompt.size == 0:
             raise ValueError(
@@ -517,6 +641,11 @@ class ContinuousBatchingEngine:
                         "each stop sequence must be a NON-EMPTY list of "
                         f"token ids, got {q!r}")
                 stops.append([int(t) for t in q])
+        if spec and self._spec is None:
+            raise ValueError(
+                "spec=True needs an engine built with spec=SpecConfig(...): "
+                "the fused draft+verify program is built at engine "
+                "construction")
         why = self.queue_capacity_reason(len(prompt))
         if why is not None:
             self._reject(why)
@@ -527,7 +656,8 @@ class ContinuousBatchingEngine:
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid, prompt, max_new_tokens, stop_sequences=stops,
-                      t_submit=time.monotonic(), deadline=deadline)
+                      t_submit=time.monotonic(), deadline=deadline,
+                      spec=spec)
         # phase accounting starts at the queue
         req.t_phase = req.t_submit
         if self.tracer is not None:
@@ -659,8 +789,44 @@ class ContinuousBatchingEngine:
                 self.metrics.ttft.observe(
                     req.t_first_token - req.t_submit, exemplar=_tid(req))
 
+    def _spec_admit(self, req: Request, slot: int, tok: int) -> None:
+        """The speculative admission tail: the row's on / off toggle, the
+        ``prev`` mirror and its draft source -- a dense draft-model prefill
+        of the committed context into the draft cache (``source="draft"``;
+        the fused RoPE kernel at head_dim 128) or the request's n-gram
+        table (``source="prompt_lookup"``).  Runs for fresh admissions and
+        recompute resumes alike."""
+        on = req.spec if req.spec is not None else self._spec.default_on
+        self._spec_on[slot] = bool(on)
+        ctx = self._ctx_of(req)
+        self._prev_tok[slot] = int(ctx[-1])
+        if not on:
+            return
+        if self._spec.source == "draft":
+            dcache = self._spec_dcache
+            L = len(ctx)
+            dcache.alloc_row(slot, L)
+            Lp = -(-L // dcache.page) * dcache.page
+            padded = np.zeros((1, Lp), np.int64)
+            padded[0, :L] = ctx
+            _, ks, vs = self._spec_prefill(
+                self._spec_dparams, torch.from_numpy(padded).to(self.device))
+            dcache.write_row_pages(slot, ks[:, 0], vs[:, 0], L)
+        else:
+            seq = [int(t) for t in ctx] + [int(tok)]
+            self._spec_seq[slot] = seq
+            n = self._spec.ngram
+            tab: dict = {}
+            # the first occurrence wins: a proposal continues the earliest
+            # prior match, not the tail itself
+            for i in range(n, len(seq)):
+                tab.setdefault(tuple(seq[i - n:i]), i)
+            self._spec_ngrams[slot] = tab
+
     def _finish_admit(self, req: Request, slot: int, tok: int) -> None:
         """Shared bookkeeping tail of an admission."""
+        if self._spec is not None:
+            self._spec_admit(req, slot, tok)
         if req.t_admit == 0.0:
             req.t_admit = time.monotonic()
             if self.metrics is not None:
@@ -680,8 +846,27 @@ class ContinuousBatchingEngine:
         if self._hit_stop(req, tok) or self._remaining[slot] <= 0:
             self._retire(slot)
 
+    def _release_slot(self, slot: int) -> None:
+        """Free a slot's cache rows, the main one and the speculative
+        lane's (the second even when the first raises)."""
+        try:
+            self.cache.release_row(slot)
+        finally:
+            self._release_aux(slot)
+
+    def _release_aux(self, slot: int) -> None:
+        """Release a slot's speculative state: its draft-cache row and its
+        prompt-lookup history."""
+        if self._spec is None:
+            return
+        if self._spec_dcache is not None and self._spec_on[slot]:
+            self._spec_dcache.release_row(slot)
+        self._spec_on[slot] = False
+        self._spec_seq.pop(slot, None)
+        self._spec_ngrams.pop(slot, None)
+
     def _free_slot(self, slot: int) -> None:
-        self.cache.release_row(slot)
+        self._release_slot(slot)
         self._free_slots.append(slot)
         self._remaining[slot] = 0
         self._active_mask[slot] = 0
@@ -743,7 +928,7 @@ class ContinuousBatchingEngine:
         req.error = error
         req.t_finish = time.monotonic()
         try:
-            self.cache.release_row(slot)
+            self._release_slot(slot)
         finally:
             self._free_slots.append(slot)
             self._remaining[slot] = 0
@@ -808,7 +993,7 @@ class ContinuousBatchingEngine:
                 continue
             del self._mixed_pref[slot]
             try:
-                self.cache.release_row(slot)
+                self._release_slot(slot)
             finally:
                 # the terminal message even when the release raises, as
                 # _retire_abnormal gives it
@@ -895,7 +1080,7 @@ class ContinuousBatchingEngine:
             if slot in self._active or slot in self._free_slots:
                 continue
             try:
-                self.cache.release_row(slot)
+                self._release_slot(slot)
             except Exception:
                 pass
             self._free_slots.append(slot)
@@ -1590,8 +1775,15 @@ class ContinuousBatchingEngine:
         block stops advancing at 0) and to its table capacity (the lens
         mirror of a row that retired on the device but is not drained yet
         over-advances).  A single-step claim passes through, except for
-        such a row past its table.  ``<= 0``: nothing to claim."""
+        such a row past its table.  A speculative claim (gamma + 1) has no
+        budget clamp: the round scatters every candidate's K/V, past the
+        budget too, and clamping it would push real verify writes onto the
+        junk page; only the table's capacity clamps it.  ``<= 0``: nothing
+        to claim."""
         lens_m = int(self.cache.lens[slot])
+        if self._spec is not None:
+            return min(new_tokens,
+                       self.cache.pages_max * self.cache.page - lens_m)
         if self.decode_horizon == 1:
             if self._inflight and \
                     lens_m // self.cache.page >= self.cache.pages_max:
@@ -1600,12 +1792,18 @@ class ContinuousBatchingEngine:
         cap = self.cache.pages_max * self.cache.page - lens_m
         return min(new_tokens, max(int(self._remaining[slot]), 1), cap)
 
-    def _ensure_or_preempt(self, new_tokens: int = 1) -> None:
+    def _ensure_or_preempt(self, new_tokens: int = 1, aux_cache=None,
+                           aux_new: int = 0, aux_rows=None) -> None:
         """Grow every active row by ``new_tokens`` of pages as one
         coalesced claim (at most one ``tables_version`` bump, so at most
         one device tables re-upload), falling back under pool pressure to
         a per-slot loop that flushes the pipeline first while dispatches
-        are in flight and then preempts the youngest other request."""
+        are in flight and then preempts the youngest other request.
+
+        ``aux_cache`` (the draft cache) grows by ``aux_new`` tokens on the
+        same rows, restricted to ``aux_rows`` (the spec-on rows: a spec-off
+        row owns no draft row, and a claim for it would leak draft
+        pages)."""
         needs = []
         for slot in self._active:
             n = self._grow_tokens(slot, new_tokens)
@@ -1615,6 +1813,11 @@ class ContinuousBatchingEngine:
             return
         try:
             self.cache.ensure_capacity_batch(needs)
+            if aux_cache is not None:
+                aux_needs = [(slot, aux_new) for slot, _ in needs
+                             if aux_rows is None or aux_rows[slot]]
+                if aux_needs:
+                    aux_cache.ensure_capacity_batch(aux_needs)
             return
         except RuntimeError:
             pass                   # pool pressure: per-slot fallback
@@ -1627,6 +1830,9 @@ class ContinuousBatchingEngine:
             while True:
                 try:
                     self.cache.ensure_capacity(slot, n)
+                    if aux_cache is not None and \
+                            (aux_rows is None or aux_rows[slot]):
+                        aux_cache.ensure_capacity(slot, aux_new)
                     break
                 except RuntimeError:
                     if self._inflight:
@@ -1665,8 +1871,16 @@ class ContinuousBatchingEngine:
         """One decode round for every active slot: the synchronous lane,
         one turn of the dispatch-ahead pipeline (``overlap=True``) or, with
         ``decode_horizon > 1`` and no overlap, one synchronous H-token
-        block."""
-        if self.overlap:
+        block.  With ``spec=SpecConfig(...)`` every round is one
+        speculative call: on the overlap lane for a draft model, else
+        synchronous (a prompt-lookup proposal needs the round's committed
+        tokens first, so it cannot run ahead of the drain)."""
+        if self._spec is not None:
+            if self.overlap and self._spec.source == "draft":
+                self._decode_spec_overlap()
+            else:
+                self._decode_spec_sync()
+        elif self.overlap:
             self._decode_overlap()
         elif self.decode_horizon > 1:
             self._decode_sync_multi()
@@ -1755,15 +1969,23 @@ class ContinuousBatchingEngine:
     def _seed_or_refresh_dev(self, slot: Dict):
         """(Re)seed the graph's device-resident loop state from host truth
         after a flush, or re-upload only the tables when page allocations
-        bumped ``tables_version``.  Every upload goes from the pinned
-        ``slot`` with ``non_blocking=True``."""
+        bumped ``tables_version`` (on the speculative lane also the draft
+        cache's tables when its ``tables_version`` moved).  Every upload
+        goes from the pinned ``slot`` with ``non_blocking=True``."""
         cache = self.cache
-        g = self._graph()
+        spec = self._spec is not None
+        g = self._spec_graph().state if spec else self._graph()
         if self._dev is None:
-            for name, src in (("lens", cache.lens),
-                              ("tok", self._next_tok),
-                              ("active", self._active_mask.astype(bool)),
-                              ("remaining", self._remaining)):
+            srcs = [("lens", cache.lens), ("tok", self._next_tok),
+                    ("active", self._active_mask.astype(bool)),
+                    ("remaining", self._remaining)]
+            if spec:
+                # the speculative chain also carries the draft catch-up
+                # feed and the on / off mask (constant between flushes:
+                # admission and retirement both flush)
+                srcs += [("prev", self._prev_tok), ("spec_on", self._spec_on)]
+                self._dev_dtables_version = -1
+            for name, src in srcs:
                 slot[name].numpy()[...] = src
                 getattr(g, name).copy_(slot[name], non_blocking=True)
             g.eos.copy_(self._eos_dev)
@@ -1774,6 +1996,11 @@ class ContinuousBatchingEngine:
             slot["tables"].numpy()[...] = cache.tables
             g.tables.copy_(slot["tables"], non_blocking=True)
             self._dev_tables_version = cache.tables_version
+        if spec and self._dev_dtables_version != \
+                self._spec_dcache.tables_version:
+            slot["dtables"].numpy()[...] = self._spec_dcache.tables
+            g.dtables.copy_(slot["dtables"], non_blocking=True)
+            self._dev_dtables_version = self._spec_dcache.tables_version
         return g
 
     def _launch(self) -> Dict:
@@ -1825,6 +2052,9 @@ class ContinuousBatchingEngine:
         sequence is visible only here: it retires the request and
         schedules a flush, since the device's active chain cannot know."""
         e = self._inflight.pop(0)
+        if "spec_out" in e:                  # a speculative round
+            self._drain_spec_entry(e)
+            return
         # a mixed tick's first tokens ride the same fetch
         first = e.get("mixed_first")
         toks, dones, *ftok = self._fetch(
@@ -1952,6 +2182,317 @@ class ContinuousBatchingEngine:
                                              * self._active_mask)
         toks, dones = self._fetch(e["event"], e["out"][0], e["out"][1])
         self._drain_horizon_block(toks, dones, mask)
+
+    # -- the speculative lane (spec=SpecConfig(...)) -----------------------
+    def _dpools(self):
+        c = self._spec_dcache
+        if c.kv_quant == "int8":
+            return (c.kpool, c.vpool, c.kscale, c.vscale)
+        return (c.kpool, c.vpool)
+
+    def _spec_fused(self):
+        """The speculative round for the current gamma
+        (:func:`make_spec_step` memoises: an adaptive retune builds one
+        function per distinct gamma)."""
+        dcache = self._spec_dcache
+        return make_spec_step(
+            self.cfg, self.gamma, draft_cfg=self._spec_dcfg,
+            kv_quant=self.cache.kv_quant,
+            draft_kv_quant=dcache.kv_quant if dcache is not None else None)
+
+    def _spec_graph(self):
+        """The overlap lane's draft-model round of the current gamma: a
+        :class:`~paddle_tpu_torch.models.graphed_step.SpecGraph` over the
+        key's shared state."""
+        c, dc = self.cache, self._spec_dcache
+        return graphed_step.spec_graph(
+            self.cfg, self._spec_dcfg, self.gamma, c.kv_quant, dc.kv_quant,
+            self.params, self._spec_dparams, self._pools(), self._dpools(),
+            self.B, c.pages_max, dc.pages_max, self.device)
+
+    def _propose_lookup(self) -> np.ndarray:
+        """Prompt-lookup drafting: match each spec-on row's last ``ngram``
+        committed tokens against its own history and propose the
+        continuation of the earliest prior occurrence.  A miss proposes
+        zeros: the verify rejects them and the row still commits its one
+        greedy token."""
+        G = self.gamma
+        n = self._spec.ngram
+        out = np.zeros((self.B, G), np.int64)
+        for slot in self._active:
+            if not self._spec_on[slot]:
+                continue
+            seq = self._spec_seq.get(slot)
+            if seq is None or len(seq) <= n:
+                continue
+            idx = self._spec_ngrams[slot].get(tuple(seq[-n:]))
+            if idx is None:
+                continue
+            cand = seq[idx:idx + G]
+            out[slot, :len(cand)] = cand
+        return out
+
+    def _spec_note_tokens(self, slot: int, toks_list) -> None:
+        """Extend a prompt-lookup row's history and n-gram table with the
+        round's committed tokens (the first occurrence wins, as at
+        admission)."""
+        seq = self._spec_seq.get(slot)
+        if seq is None:
+            return
+        tab = self._spec_ngrams[slot]
+        n = self._spec.ngram
+        start = max(len(seq), n)
+        seq.extend(int(t) for t in toks_list)
+        for i in range(start, len(seq)):
+            tab.setdefault(tuple(seq[i - n:i]), i)
+
+    def _spec_dispatch_args(self, inputs: Dict):
+        """The round's positional arguments from a dict of device inputs:
+        the one owner of the (draft, q8, draft q8) layout."""
+        draft = self._spec.source == "draft"
+        args = [self.params]
+        if draft:
+            args.append(self._spec_dparams)
+        args += self._pools()
+        if draft:
+            args += self._dpools()
+        args.append(inputs["tables"])
+        if draft:
+            args.append(inputs["dtables"])
+        args += [inputs["lens"], inputs["tok"],
+                 inputs["prev"] if draft else inputs["drafts"],
+                 inputs["active"], inputs["remaining"], inputs["spec_on"],
+                 self._eos_dev]
+        return args
+
+    def _spec_unpack(self, rets):
+        """-> (toks, dones, emits, accepts, chain): the pools (updated in
+        place) dropped, ``chain`` the round's loop state."""
+        n = len(self._pools())
+        if self._spec.source == "draft":
+            n += len(self._dpools())
+        return (*rets[n:n + 4], rets[n + 4:])
+
+    def _decode_spec_sync(self) -> None:
+        """One speculative round, synchronous cadence: one eager call (the
+        draft model's micro-steps, or the host's prompt-lookup proposals,
+        then the verify) and one blocking fetch of up to gamma + 1
+        committed tokens a row.  Also an overlap engine's prompt-lookup
+        cadence."""
+        if self._needs_flush:    # prompt lookup on an overlap engine
+            self._pipeline_flush()
+        cache, dcache = self.cache, self._spec_dcache
+        dev = self.device
+        C = self.gamma + 1
+        self._ensure_or_preempt(C, aux_cache=dcache, aux_new=C,
+                                aux_rows=self._spec_on)
+        fused = self._spec_fused()
+        mask = self._active_mask.astype(bool)
+        spec_rows = mask & self._spec_on
+        host = {"tables": cache.tables, "lens": cache.lens,
+                "tok": self._next_tok, "active": mask,
+                "remaining": self._remaining, "spec_on": self._spec_on}
+        if dcache is not None:
+            host["dtables"] = dcache.tables
+            host["prev"] = self._prev_tok
+        else:
+            host["drafts"] = self._propose_lookup()
+        # before any upload or call
+        faults.fire("step_dispatch")
+        inputs = {k: torch.from_numpy(a.copy()).to(dev)
+                  for k, a in host.items()}
+        toks, dones, emits, accs, _ = self._spec_unpack(
+            fused(*self._spec_dispatch_args(inputs)))
+        # the worst case (C a live row, draft rows too); the drain corrects
+        # each row to its commit
+        cache.lens = cache.lens + C * self._active_mask
+        if dcache is not None:
+            dcache.lens = dcache.lens + C * spec_rows.astype(
+                dcache.lens.dtype)
+        self.decode_steps += 1
+        if self.metrics is not None:
+            self.metrics.decode_steps.inc()
+        toks, dones, emits, accs = self._fetch(None, toks, dones, emits,
+                                               accs)
+        self._drain_spec_block(toks, dones, emits, accs, mask)
+
+    def _decode_spec_overlap(self) -> None:
+        """One turn of the pipeline in speculative form (a draft model):
+        round k+1 replays chained off round k's device state (tok', prev',
+        lens', remaining', active') and the host drains round k while k+1
+        runs."""
+        if self._dev is not None and self._dev is not \
+                self._spec_graph().state:
+            # a flag flip changed the key: start from host truth
+            self._needs_flush = True
+        if self._needs_flush:
+            self._pipeline_flush()
+        if self._active:
+            self._ensure_or_preempt(self.gamma + 1,
+                                    aux_cache=self._spec_dcache,
+                                    aux_new=self.gamma + 1,
+                                    aux_rows=self._spec_on)
+            if self._needs_flush:          # a preemption landed
+                self._pipeline_flush()
+            if self._active:
+                self._dispatch_spec_async()
+        if self._active and len(self._inflight) > self.lookahead:
+            self._drain_one()
+        if not self._active and self._inflight:
+            while self._inflight:
+                self._drain_one()
+            self._dev = None
+
+    def _dispatch_spec_async(self) -> None:
+        """Replay one round chained off the device state and queue its
+        outputs' copy into the next pinned slot behind it, with an event.
+        The fault site comes first: before the ring slot is taken, any
+        state upload, and any graph capture or replay."""
+        faults.fire("step_dispatch")
+        cache, dcache = self.cache, self._spec_dcache
+        C = self.gamma + 1
+        slot = self._ring[self._ring_i % len(self._ring)]
+        self._ring_i += 1
+        self._seed_or_refresh_dev(slot)
+        out, acc = self._spec_graph()(self.params, self._spec_dparams,
+                                      self._pools(), self._dpools())
+        host_out = slot["spec_out"][:3 * C * self.B].view(3, C, self.B)
+        host_out.copy_(out, non_blocking=True)
+        slot["accepts"].copy_(acc, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._inflight.append({"spec_out": host_out,
+                               "accepts": slot["accepts"], "event": event})
+        # the worst case; each drain corrects its round's rows
+        spec_rows = self._active_mask.astype(bool) & self._spec_on
+        cache.lens = cache.lens + C * self._active_mask
+        dcache.lens = dcache.lens + C * spec_rows.astype(dcache.lens.dtype)
+        self.decode_steps += 1
+        if self.metrics is not None:
+            self.metrics.decode_steps.inc()
+
+    def _drain_spec_entry(self, e: Dict) -> None:
+        """Drain one in-flight round: one blocking fetch of its four
+        arrays."""
+        out = e["spec_out"]
+        toks, dones, emits, accs = self._fetch(e["event"], out[0], out[1],
+                                               out[2], e["accepts"])
+        self._drain_active = self._drain_spec_block(
+            toks, dones, emits, accs, self._drain_active)
+
+    def _drain_spec_block(self, toks, dones, emits, accs, mask):
+        """Host bookkeeping of one fetched round, shared by the synchronous
+        lane and the overlap drain.  ``toks`` / ``dones`` / ``emits`` are
+        ``[C, B]`` (committed token, just-retired rows, validity) and
+        ``accs`` the raw accepted-draft counts; ``mask`` is the
+        device-active mask at the round's dispatch; returns the mask after
+        it.  A row committed ``n_emit`` tokens: the worst-case lens mirror
+        (C at dispatch) is corrected to it, the draft cache's lens follows
+        the target's, and ``prev`` takes the second-to-last committed token
+        before ``_next_tok`` moves.  A stop sequence delivers token by token
+        and retires where the plain lane would, the over-committed tail
+        discarded and counted in ``horizon_trimmed_tokens``.  Drafted
+        counts come from the device-chain mask, so the overlap lane's
+        phantom rounds past a row's done never count."""
+        t0 = time.perf_counter() if self.metrics is not None else 0.0
+        cache, dcache = self.cache, self._spec_dcache
+        C = toks.shape[0]
+        G = C - 1
+        lookup = self._spec.source == "prompt_lookup"
+        n_spec = int((mask & self._spec_on).sum())
+        advanced = 0
+        trimmed = 0
+        acc_round = 0
+        out_mask = mask.copy()
+        for slot in np.nonzero(mask)[0]:
+            slot = int(slot)
+            n_emit = int(emits[:, slot].sum())
+            device_done = bool(dones[:n_emit, slot].any())
+            if device_done:
+                out_mask[slot] = False     # the device chain dropped it
+            req = self._active.get(slot)
+            if req is not None and n_emit > 0:
+                cache.lens[slot] -= C - n_emit
+                if dcache is not None and self._spec_on[slot]:
+                    dcache.lens[slot] = cache.lens[slot]
+            if req is None or n_emit == 0:
+                # retired on the host (stop sequence, cancel) before this
+                # round drained: its tokens are dead
+                continue
+            if self._spec_on[slot]:
+                k = int(accs[slot])
+                acc_round += k
+                self._accept_ema = 0.8 * self._accept_ema + 0.2 * k
+                if self.metrics is not None:
+                    self.metrics.spec_accept_len.observe(k)
+            col = toks[:, slot]
+            if n_emit >= 2:
+                self._prev_tok[slot] = int(col[n_emit - 2])
+            else:
+                self._prev_tok[slot] = int(self._next_tok[slot])
+            if lookup:
+                self._spec_note_tokens(slot, col[:n_emit])
+            if req.stop_sequences:
+                for h in range(n_emit):
+                    t = int(col[h])
+                    self._deliver_token(slot, req, t)
+                    advanced += 1
+                    self._remaining[slot] -= 1
+                    if h == n_emit - 1 and device_done:
+                        self._retire(slot)   # eos / budget (on the device)
+                    elif self._hit_stop(req, t):
+                        self._retire(slot)   # stop sequence (host only)
+                        if self._inflight or self._dev is not None:
+                            self._needs_flush = True
+                        trimmed += n_emit - 1 - h
+                        break
+                continue
+            # no stop sequence: the column lands as one bulk extend
+            got = col[:n_emit].tolist()
+            req.generated.extend(got)
+            self.tokens_generated += n_emit
+            advanced += n_emit
+            self._note_first_token(req)
+            self._stream.extend((req.rid, t) for t in got)
+            self._next_tok[slot] = got[-1]
+            self._remaining[slot] -= n_emit
+            if device_done:
+                self._retire(slot)
+        if n_spec:
+            self.spec_rounds += 1
+            self.spec_drafted += G * n_spec
+            self.spec_accepted += acc_round
+            if self.adaptive_gamma:
+                self._spec_retune()
+            if self.metrics is not None:
+                m = self.metrics
+                m.spec_rounds.inc()
+                m.spec_drafted_tokens.inc(G * n_spec)
+                m.spec_accepted_tokens.inc(acc_round)
+                m.spec_gamma.set(self.gamma)     # after a retune: the next
+                m.spec_acceptance.set(
+                    self.spec_accepted / max(self.spec_drafted, 1))
+        if trimmed:
+            self.horizon_trimmed_tokens += trimmed
+            if self.metrics is not None:
+                self.metrics.horizon_trimmed_tokens.inc(trimmed)
+        if self.metrics is not None:
+            self.metrics.tokens_generated.inc(advanced)
+            self.metrics.host_bookkeeping.observe(time.perf_counter() - t0)
+        return out_mask
+
+    def _spec_retune(self) -> None:
+        """Adaptive gamma for the next round from the acceptance EMA: down
+        when drafts keep missing, up when they keep landing (each distinct
+        gamma builds one step function, and on the overlap lane captures
+        one graph, once)."""
+        if self._accept_ema < 0.4 * self.gamma and self.gamma > 1:
+            self.gamma -= 1
+        elif self._accept_ema > 0.85 * self.gamma and \
+                self.gamma < self.max_gamma:
+            self.gamma += 1
 
     def _pipeline_flush(self) -> None:
         """Drain every in-flight dispatch and drop the device-resident

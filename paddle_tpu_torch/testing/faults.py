@@ -16,7 +16,10 @@ site                   consulted by
                        any graph capture or replay, ``_decode_mixed``
                        (the mixed tick) after its host stream assembly,
                        before the ring slot, the staging upload and the
-                       call
+                       call, and every speculative round
+                       (``_decode_spec_sync`` before its uploads and call,
+                       ``_dispatch_spec_async`` before the ring slot, the
+                       state upload and any graph capture or replay)
 ``prefill_dispatch``   the admission lanes before each prefill dispatch
                        (packed, batched, and once per chunk on the
                        chunked lane): slots and pages are already
@@ -29,7 +32,7 @@ site                   consulted by
 
 JAX's other sites wait for the subsystems that consult them (ROADMAP.md
 queue 1): ``swap_in``, ``swap_out`` and ``host_pool_full`` with the host
-page tier (item 6(e)); the speculative dispatches with item 6(d);
+page tier (item 6(e));
 ``route_dispatch``, ``replica_death``,
 ``replica_slow``, ``conn_drop``, ``frame_truncate``, ``net_delay``,
 ``agent_kill`` and ``kv_handoff`` with the fleet and disaggregation

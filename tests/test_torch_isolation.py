@@ -14,6 +14,8 @@ torch = pytest.importorskip("torch")
 
 from paddle_tpu_torch.models import llama_pretrain as tlp  # noqa: E402
 from paddle_tpu_torch.models.paged_decode import PagedKVCache  # noqa: E402
+from paddle_tpu_torch.models.speculative import (  # noqa: E402
+    generate_speculative)
 from paddle_tpu_torch.models.weights import (  # noqa: E402
     opt_state_from_jax, params_from_jax)
 from paddle_tpu_torch.ops.rope import rope_tables  # noqa: E402
@@ -34,6 +36,7 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.models.serving_engine\n"
         "import paddle_tpu_torch.models.paged_decode\n"
         "import paddle_tpu_torch.models.graphed_step\n"
+        "import paddle_tpu_torch.models.speculative\n"
         "import paddle_tpu_torch.observability.engine_metrics\n"
         "import paddle_tpu_torch.models.weights\n"
         "import paddle_tpu_torch.models.packing\n"
@@ -111,6 +114,9 @@ def test_entry_points_without_a_device_and_without_cuda_raise(monkeypatch):
         tlp.make_train_step(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         rope_tables(4, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_speculative(cfg, params, cfg, params, [1, 2], 2, gamma=1,
+                             page=8)
     state = tlp.init_adamw_state(params, device="cpu")
     assert state["moments"]["embed"]["m"].device.type == "cpu"
     step = tlp.make_train_step(cfg, device="cpu")

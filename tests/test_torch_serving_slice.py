@@ -437,8 +437,9 @@ def test_engine_refuses_lanes_not_ported(models):
     _, tcfg, _, tparams = models
     # overlap and decode_horizon are ported (test_torch_serving_overlap.py),
     # prefix caching and packed=False too (test_torch_prefix_cache.py,
-    # test_torch_prefill_lanes.py), and mixed (test_torch_serving_mixed.py)
-    for kw in ({"spec": object()}, {"mesh": object()},
+    # test_torch_prefill_lanes.py), mixed (test_torch_serving_mixed.py) and
+    # spec (test_torch_serving_spec.py)
+    for kw in ({"mesh": object()},
                {"policy": object()}, {"tenant_quotas": object()},
                {"tp_allreduce": "int8"}):
         with pytest.raises(NotImplementedError):
