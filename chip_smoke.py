@@ -164,6 +164,50 @@ Phases, one JSON line each on stdout:
              the served sequences, teacher-forced, within LOGIT_LIMIT of
              the plain forward and a planted fault (fresh K/V scattered one
              slot late) beyond it.
+4h. serve_swap - the two-tier KV cache (PagedKVCache(host_pages=64), the
+             host tier pinned, its copies on a side stream) under bench.py's
+             _preemption_line TPU recipe (bench.py:680-690): 6 requests of
+             256 prompt tokens from np.random.RandomState(seed) (bench.py's
+             RandomState(0) at seed 0), 192 new tokens, greedy, batch 4,
+             18 pages of 64 (7 a request at its end: preemption is forced),
+             pages_max 8, each arm after a warm-up of 5 requests of 72 new
+             tokens (bench.py warms 192, for its jit; the port compiles
+             nothing at run time).  Arms, in one process: (a) no host tier
+             (recompute resumes), (b) the host tier with the swap forced
+             (offload_swap_gbps 1e9) on the synchronous lane, (c) as (b) on
+             the overlap lane (every step after the first under
+             set_sync_debug_mode("error") outside the flush points:
+             _fetch, the admission wave, the pipeline flush), all three on
+             the batched packed=False lane (K5 in the dense prefill);
+             (e) promotion: serve_prefix's 448-token prompt registered, its
+             seven pages demoted by filler traffic (17 pages) and hit again
+             on the packed lane; then swap_out, swap_in and host_pool_full
+             faults on the overlap lane.  Printed: resume ms per arm and
+             their ratio (bench.py's value), swap-out staging and swap-in
+             walls, pinned D2H / H2D and pageable D2H GB/s for one
+             victim's 6 pages, the device busy share while a victim
+             stages under decode-graph replays, decode tok/s and K1 / K2 /
+             K5 launches per arm, the pinned bytes and what _preempt_mode
+             picks at its defaults (10 GB/s, 989 TFLOP/s).  Checks: every
+             swapped page bit for bit after its restore against a snapshot
+             taken before the swap-out; the promoted prefix pages against
+             theirs; resumes_swapped > 0, prefill_tokens_avoided > 0 and
+             no prefill dispatch (and no K2 / K5 launch) in a swap resume;
+             (c) serves (b)'s tokens, no capture after its warm-up; each
+             fault degrades to recompute with every request served; after
+             every arm audit() clean, the host tier empty and the device
+             pool back to num_pages - 1 (the promotion arm: its cached
+             prefixes aside); the resumed rows' logits, teacher-forced
+             (the first 72 served tokens forced into a swapping run on the
+             synchronous lane), within LOGIT_LIMIT of the plain forward,
+             a planted fault (the pages restored one slot late) beyond it.
+4i. serve_swap_int8 - serve_swap's recipe on int8 weights over int8 pages
+             (the host tier int8 with its scale planes), the swap forced
+             on the overlap lane (d): the scales round-trip bit for bit
+             too, K2, K3 (both paths) and K4 launched, the resumed rows'
+             logits within INT8_LOGIT_LIMIT of the plain forward over the
+             same quantized K / V (every token's K and V through
+             quantize_kv_token), the planted fault beyond it.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -1162,13 +1206,23 @@ def phase_k2(torch, fv, nkv, gen, flush):
     return res
 
 
-def plain_logits(torch, cfg, params, tokens, dev):
+def plain_logits(torch, cfg, params, tokens, dev, kv_q8=False):
     """Teacher-forced logits [S, V] of one sequence through the plain
-    segmented attention (no kernel), computed in ``cfg.dtype``."""
+    segmented attention (no kernel), computed in ``cfg.dtype``.  With
+    ``kv_q8`` every token's K and V go through int8 pages' per-(token,
+    head) quantization and back first, as the paged cache holds them."""
     from paddle_tpu_torch.models.llama_pretrain import (
         _block_post_attn, _mm, _rms_norm, layer_params)
     from paddle_tpu_torch.models.paged_decode import _rope_at
     from paddle_tpu_torch.ops.flash_varlen import segmented_sdpa_plain
+    from paddle_tpu_torch.ops.paged_attention import quantize_kv_token
+
+    def q8(t):
+        if not kv_q8:
+            return t
+        q, s = quantize_kv_token(t)
+        return (q.float() * s[..., None]).to(t.dtype)
+
     dt = cfg.dtype
     n, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     toks = torch.tensor(tokens, device=dev)[None]
@@ -1181,9 +1235,9 @@ def plain_logits(torch, cfg, params, tokens, dev):
         y = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
         q = _rope_at(_mm(y, bp["wq"], dt).reshape(1, S, n, d),
                      cfg.rope_theta, pos)
-        k = _rope_at(_mm(y, bp["wk"], dt).reshape(1, S, nkv, d),
-                     cfg.rope_theta, pos)
-        v = _mm(y, bp["wv"], dt).reshape(1, S, nkv, d)
+        k = q8(_rope_at(_mm(y, bp["wk"], dt).reshape(1, S, nkv, d),
+                        cfg.rope_theta, pos))
+        v = q8(_mm(y, bp["wv"], dt).reshape(1, S, nkv, d))
         x = _block_post_attn(bp, x, segmented_sdpa_plain(q, k, v, seg, True),
                              cfg)
     h = _rms_norm(x[0], params["final_norm"], cfg.rms_norm_eps)
@@ -3817,6 +3871,692 @@ def phase_serve_spec(torch, cfg, seed, params, mods, kv_quant=None,
     return total
 
 
+# serve_swap: bench.py's _preemption_line TPU recipe (bench.py:680-690) at
+# LLaMA-7B: 6 requests of 256 prompt tokens, 192 new, batch 4, 18 pages of
+# 64 (a request ends at 7 pages: the pool holds two at their end),
+# pages_max 8, a host tier of 64 pages
+SWAP_REQUESTS, SWAP_PROMPT, SWAP_NEW = 6, 256, 192
+SWAP_CACHE = dict(num_pages=18, pages_max=8, batch=4, page=64)
+SWAP_HOST_PAGES = 64
+# the warm-up (5 requests) and the teacher-forced check runs: 72 new tokens
+# still preempt at the first page of growth and resume swapped rows with
+# tokens left to decode
+SWAP_SHORT_NEW = 72
+# the promotion arm: the filler's (prompt, new) requests, one wave of 17
+# pages that never grows, so the whole 7-page prefix demotes at its
+# admission
+SWAP_FILLER = [(300, 20), (300, 20), (300, 20), (100, 20)]
+SWAP_PREFIX_TAILS = (16, 40)
+SWAP_VICTIM_PAGES = 6               # the micro measurements' victim
+SWAP_BUSY_REPLAYS = 8
+SWAP_KERNELS = ("paged_decode_attention", "paged_decode_attention_q8",
+                "flash_attention_segmented", "fused_rope", "int8_matmul",
+                "int8_matmul_wave")
+
+
+def bits(torch, t):
+    """``t`` as integers of its width, for bit-for-bit comparisons."""
+    return t.view({torch.bfloat16: torch.int16, torch.float16: torch.int16,
+                   torch.float32: torch.int32}.get(t.dtype, t.dtype))
+
+
+def page_blocks(torch, cache, pids):
+    """The pool tensors' pages ``pids``, page-major (K, V and, on int8
+    pools, their scales), gathered with no host sync (the overlap arm
+    snapshots its victims under set_sync_debug_mode("error"))."""
+    idx = cache._ids(pids)
+    return [p.transpose(0, 1).index_select(0, idx)
+            for p in (cache.kpool, cache.vpool, cache.kscale, cache.vscale)
+            if p is not None]
+
+
+def swap_watch(torch, eng, cache, mods):
+    """Wrap ``cache``'s swap_out_row / swap_in_row and ``eng``'s
+    _admit_swapped: each swap-out snapshots the victim's private pages
+    before it runs; each swap-in compares the restored pages with the
+    snapshot, bit for bit, on the device (no host sync: the flags are read
+    at the end); each swapped resume must dispatch no prefill and launch
+    no K2 or K5.  -> the state the checks read."""
+    st = {"equal": [], "pages": 0, "snap": {}, "prefill": [], "refused": []}
+    out_row, in_row, admit = (cache.swap_out_row, cache.swap_in_row,
+                              eng._admit_swapped)
+
+    def swap_out_row(b):
+        npg = -(-int(cache.lens[b]) // cache.page)
+        private = [pid for pid in cache._owned[b][:npg]
+                   if cache.refs[pid] == 1]
+        try:
+            snap = page_blocks(torch, cache, private) if private else []
+            handle = out_row(b)
+        except RuntimeError as e:
+            # the engine degrades a refused swap-out to recompute; with the
+            # swap forced and the tier roomy, a refusal is a fault
+            st["refused"].append(f"{type(e).__name__}: {e}")
+            raise
+        st["snap"][handle] = snap
+        return handle
+
+    def swap_in_row(b, handle):
+        rec = cache._swapped[handle]["entries"]
+        n = in_row(b, handle)
+        snap = st["snap"].pop(handle)
+        js = [j for j, (kind, _) in enumerate(rec) if kind == "host"]
+        if js:
+            got = page_blocks(torch, cache,
+                              [int(cache.tables[b, j]) for j in js])
+            for a, g in zip(snap, got):
+                st["equal"].append((bits(torch, a) == bits(torch, g)).all())
+            st["pages"] += len(js)
+        return n
+
+    def admit_swapped(req):
+        c = (eng.prefill_calls, eng.prefill_token_slots,
+             mods["fv"].launches, mods["rp"].launches)
+        ok = admit(req)
+        if ok and c != (eng.prefill_calls, eng.prefill_token_slots,
+                        mods["fv"].launches, mods["rp"].launches):
+            st["prefill"].append(req.rid)
+        return ok
+
+    cache.swap_out_row, cache.swap_in_row = swap_out_row, swap_in_row
+    eng._admit_swapped = admit_swapped
+    return st
+
+
+def swap_clean(phase, arm, cache, indexed_ok=False):
+    """After an arm: audit() clean, no swap record, the host tier empty
+    (but for demoted prefixes with ``indexed_ok``), the device pool back to
+    num_pages - 1 (but for cached prefix pages)."""
+    stats = cache.audit()
+    if stats["owned"] or stats.get("swap_records"):
+        fail(f"{phase}: {arm} left {stats['owned']} pages owned and "
+             f"{stats.get('swap_records')} swap records")
+    cached = stats["indexed"] if indexed_ok else 0
+    if cache.free_pages() != cache.num_pages - 1 - cached:
+        fail(f"{phase}: {arm} left {cache.free_pages()} pages free of "
+             f"{cache.num_pages - 1} ({cached} cached)")
+    if cache.host is not None:
+        held = cache.host.used_pages()
+        if held != (stats["host_indexed"] if indexed_ok else 0):
+            fail(f"{phase}: {arm} left {held} host pages in use")
+
+
+def swap_arm(torch, cfg, params, mods, prompts, phase, arm, kv_quant, dev,
+             host=True, overlap=False, lane_kw=None, no_sync=False):
+    """One timed arm: an engine (its own registry) over a fresh cache,
+    warmed on the first batch + 1 prompts at SWAP_SHORT_NEW tokens, then
+    timed on every prompt at SWAP_NEW with the launch counts set to 0 just
+    before.  -> (tokens per request, stats, launches, engine, cache, the
+    swap watch)."""
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    from paddle_tpu_torch.observability import MetricsRegistry
+    cache = PagedKVCache(cfg, kv_quant=kv_quant, device=dev,
+                         host_pages=SWAP_HOST_PAGES if host else 0,
+                         **SWAP_CACHE)
+    eng = ContinuousBatchingEngine(cfg, params, cache, overlap=overlap,
+                                   metrics_registry=MetricsRegistry(),
+                                   **(lane_kw or {}))
+    if host:
+        eng.offload_swap_gbps = 1e9          # the swap always wins
+    watch = swap_watch(torch, eng, cache, mods)
+    warm = swap_serve(torch, eng, prompts[:cache.tables.shape[0] + 1],
+                      SWAP_SHORT_NEW)
+    swap_clean(phase, f"{arm} (warm-up)", cache)
+    torch.cuda.synchronize()
+    m = eng.metrics
+    base = dict(pre=eng.preemptions, rec=eng.resumes_recompute,
+                swp=eng.resumes_swapped, wall=eng.resume_wall_s,
+                ev=eng.resume_events, avoided=eng.prefill_tokens_avoided,
+                out=cache.swap_out_pages, inn=cache.swap_in_pages,
+                byt=cache.swap_bytes, slots=eng.prefill_token_slots,
+                calls=eng.prefill_calls, stage_s=m.swap_seconds.sum,
+                stage_n=m.swap_seconds.count, steps=eng.decode_steps)
+    graphs0 = graph_state()
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    done = swap_serve(torch, eng, prompts, SWAP_NEW, no_sync=no_sync)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran_launches(read_counts(mods), graphs0)
+    captured = sum(1 for key, (g, _, was) in graph_state().items()
+                   if g.graph is not None and not (key in graphs0
+                                                   and graphs0[key][2]))
+    for r in done + warm:
+        want = SWAP_NEW if r in done else SWAP_SHORT_NEW
+        if r.status != "ok" or len(r.generated) != want:
+            fail(f"{phase}: {arm} request {r.rid} ended {r.status} "
+                 f"({r.error}) with {len(r.generated)} of {want} tokens")
+    swap_clean(phase, arm, cache)
+    # the timed run's preemptions and swapped resumes: (request index,
+    # tokens generated, mode)
+    index = {r.rid: i for i, r in enumerate(done)}
+    log = [(index[e["rid"]], e.get("generated", e.get("tokens")),
+            e.get("mode", "swap-in"))
+           for e in m.ring.recent()
+           if e["name"] in ("preemption", "swap_resume")
+           and e.get("rid") in index]
+    events = eng.resume_events - base["ev"]
+    stage_n = m.swap_seconds.count - base["stage_n"]
+    swapped = eng.resumes_swapped - base["swp"]
+    stats = dict(
+        lane="overlap" if overlap else "sync",
+        admission="batched (packed=False)" if lane_kw else "packed",
+        host_pages=SWAP_HOST_PAGES if host else 0, wall_s=wall,
+        decode_tok_per_s=sum(len(r.generated) for r in done) / wall,
+        decode_steps=eng.decode_steps - base["steps"],
+        preemptions=eng.preemptions - base["pre"],
+        resumes_recompute=eng.resumes_recompute - base["rec"],
+        resumes_swapped=swapped,
+        resume_ms_mean=(eng.resume_wall_s - base["wall"])
+        / max(events, 1) * 1e3,
+        swap_in_ms_mean=((eng.resume_wall_s - base["wall"]) / swapped * 1e3
+                         if swapped and events == swapped else None),
+        swap_out_staging_ms_mean=(
+            (m.swap_seconds.sum - base["stage_s"]) / stage_n * 1e3
+            if stage_n else None),
+        prefill_tokens_avoided=eng.prefill_tokens_avoided
+        - base["avoided"],
+        swap_out_pages=cache.swap_out_pages - base["out"],
+        swap_in_pages=cache.swap_in_pages - base["inn"],
+        swap_bytes=cache.swap_bytes - base["byt"],
+        prefill_token_slots=eng.prefill_token_slots - base["slots"],
+        prefill_dispatches=eng.prefill_calls - base["calls"],
+        captures_in_timed_run=captured, preemption_log=log,
+        launches={k: launches[k] for k in SWAP_KERNELS})
+    return [r.generated for r in done], stats, launches, eng, cache, watch
+
+
+def swap_serve(torch, eng, prompts, new, no_sync=False):
+    """Submit ``prompts`` and step to the end (with ``no_sync``, every step
+    after the first under set_sync_debug_mode("error"), the flush points
+    excepted: ``_fetch``, the admission wave, the pipeline flush).
+    -> the finished requests in submission order."""
+    rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    done = {}
+    eng.step()
+    done.update((r.rid, r) for r in eng.finished())
+    saved, depth = {}, [0]
+    if no_sync:
+        for name in ("_fetch", "_admit_wave", "_pipeline_flush"):
+            def allowed(*a, _real=getattr(eng, name)):
+                # flush points nest (an admission flushes the pipeline):
+                # only the outermost one turns the check back on
+                depth[0] += 1
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    return _real(*a)
+                finally:
+                    depth[0] -= 1
+                    if not depth[0]:
+                        torch.cuda.set_sync_debug_mode("error")
+            saved[name] = getattr(eng, name)
+            setattr(eng, name, allowed)
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps = 0
+        while eng.has_work():
+            eng.step()
+            done.update((r.rid, r) for r in eng.finished())
+            steps += 1
+            if steps > 100_000:
+                fail("swap_serve: the requests did not drain")
+    finally:
+        if no_sync:
+            torch.cuda.set_sync_debug_mode(0)
+            for name, real in saved.items():
+                setattr(eng, name, real)
+    return [done[r] for r in rids]
+
+
+def swap_forced(torch, cfg, params, mods, prompts, forced, phase, kv_quant,
+                dev, lane_kw, late=False):
+    """A teacher-forced swapping run on the synchronous lane: ``prompts``
+    at SWAP_SHORT_NEW tokens with the swap forced, every emitted token
+    forced to ``forced`` ({index: tokens}), and the decode logits of every
+    resumed row (a request preempted before) recorded; the round trips
+    watched.  ``late`` restores every page one slot late (a planted
+    fault).  -> ({index: {position: logits}}, the watch state, stats)."""
+    import paddle_tpu_torch.models.paged_decode as pd
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    cache = PagedKVCache(cfg, kv_quant=kv_quant, device=dev,
+                         host_pages=SWAP_HOST_PAGES, **SWAP_CACHE)
+    eng = ContinuousBatchingEngine(cfg, params, cache, **lane_kw)
+    eng.offload_swap_gbps = 1e9
+    watch = swap_watch(torch, eng, cache, mods)
+    rec = {}
+    first = eng._next_rid            # the rids of ``prompts``, in order
+    real_pick, emit_first = pd._pick_token, eng._emit_first
+
+    def pick(logits, temperature, generator=None, top_k=0, top_p=1.0):
+        tok = real_pick(logits, temperature, generator, top_k, top_p)
+        for s, r in eng._active.items():
+            n = len(r.generated)
+            if r.preempted:
+                rec.setdefault(r.rid - first, {})[n] = \
+                    logits[s].float().clone()
+            tok[s] = forced[r.rid - first][n]
+        return tok
+
+    def emit(reqs, slots, toks):
+        for i, r in enumerate(reqs):
+            if not r.generated:
+                toks[i] = forced[r.rid - first][0]
+        return emit_first(reqs, slots, toks)
+
+    eng._emit_first = emit
+    restore = cache._restore_pages
+
+    def restore_late(pids, k, v, ks, vs):
+        k, v = k.roll(1, dims=3), v.roll(1, dims=3)
+        if ks is not None:
+            ks, vs = ks.roll(1, dims=3), vs.roll(1, dims=3)
+        return restore(pids, k, v, ks, vs)
+
+    if late:
+        cache._restore_pages = restore_late
+    with patched((pd, "_pick_token", pick)):
+        swap_serve(torch, eng, prompts, SWAP_SHORT_NEW)
+    swap_clean(phase, "the forced run", cache)
+    stats = dict(preemptions=eng.preemptions,
+                 resumes_swapped=eng.resumes_swapped,
+                 resumes_recompute=eng.resumes_recompute)
+    return rec, watch, stats
+
+
+def swap_logit_diff(torch, cfg, params, prompts, forced, rec, dev, kv_q8):
+    """The largest distance of the recorded logits from the plain forward
+    over the same forced sequences (int8 weights through their plain
+    matmul)."""
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    from paddle_tpu_torch.ops import int8_matmul as im
+    diff = 0.0
+    with patched((tlp, "int8_matmul", im.int8_matmul_plain)):
+        for i, rows in rec.items():
+            seq = list(prompts[i]) + list(forced[i][:SWAP_SHORT_NEW - 1])
+            plain = plain_logits(torch, cfg, params, seq, dev, kv_q8=kv_q8)
+            off = len(prompts[i]) - 1
+            for n, lg in rows.items():
+                diff = max(diff, float((lg - plain[off + n]).abs().max()))
+    return diff
+
+
+def swap_promotion(torch, cfg, seed, params, mods, phase, dev):
+    """Arm (e): serve_prefix's PREFIX_LEN-token system prompt registered by
+    one request, its pages demoted to the host tier by filler traffic that
+    needs the whole pool, then hit again by a request sharing it: the
+    promoted pages equal the originals bit for bit.  -> (stats,
+    launches)."""
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    rng = np.random.default_rng(seed + 7)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+    tails = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in SWAP_PREFIX_TAILS]
+    filler = np.random.RandomState(seed + 11)
+    page = SWAP_CACHE["page"]
+    shared = PREFIX_LEN // page
+    cache = PagedKVCache(cfg, device=dev, host_pages=SWAP_HOST_PAGES,
+                         **SWAP_CACHE)
+    eng = ContinuousBatchingEngine(cfg, params, cache,
+                                   enable_prefix_caching=True)
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    eng.submit(prefix + tails[0], max_new_tokens=PREFIX_NEW)
+    eng.run_to_completion()
+    keys = cache._chain_keys(np.asarray(prefix + tails[0]), page)[:shared]
+    if any(k not in cache._prefix_index for k in keys):
+        fail(f"{phase}: the prefix did not register its {shared} pages")
+    snap = page_blocks(torch, cache, [cache._prefix_index[k] for k in keys])
+    for n, new in SWAP_FILLER:
+        eng.submit(filler.randint(1, cfg.vocab_size, (n,)),
+                   max_new_tokens=new)
+    eng.run_to_completion()
+    demoted = sum(k in cache._host_prefix_index for k in keys)
+    if demoted != shared:
+        fail(f"{phase}: the filler demoted {demoted} of the prefix's "
+             f"{shared} pages")
+    promos, hits, ins = (cache.prefix_promotions, cache.prefix_hits,
+                         cache.swap_in_pages)
+    rid = eng.submit(prefix + tails[1], max_new_tokens=PREFIX_NEW)
+    eng.step()
+    slot = next(s for s, r in eng._active.items() if r.rid == rid)
+    got = page_blocks(torch, cache,
+                      [int(cache.tables[slot, j]) for j in range(shared)])
+    equal = all(torch.equal(bits(torch, a), bits(torch, b))
+                for a, b in zip(snap, got))
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    if not equal:
+        fail(f"{phase}: the promoted prefix pages differ from the pages "
+             f"demoted")
+    if cache.prefix_promotions - promos != shared or \
+            cache.prefix_hits - hits != shared:
+        fail(f"{phase}: the hit promoted "
+             f"{cache.prefix_promotions - promos} and hit "
+             f"{cache.prefix_hits - hits} pages, want {shared}")
+    if any(r.status != "ok" or len(r.generated) != PREFIX_NEW for r in done):
+        fail(f"{phase}: the promotion arm's request did not finish whole")
+    swap_clean(phase, "the promotion arm", cache, indexed_ok=True)
+    stats = dict(prefix_pages=shared, demoted=demoted,
+                 promoted=cache.prefix_promotions - promos,
+                 promoted_bit_for_bit=equal,
+                 swap_out_pages=cache.swap_out_pages,
+                 swap_in_pages=cache.swap_in_pages - ins,
+                 host_indexed_after=len(cache._host_prefix_index),
+                 wall_s=wall,
+                 launches={k: launches[k] for k in SWAP_KERNELS})
+    return stats, launches
+
+
+def swap_faults(torch, cfg, params, mods, prompts, phase, cache, lane_kw):
+    """Each swap fault site armed for a whole run on the overlap lane over
+    ``cache`` (its decode graph captured already): preemption degrades to
+    recompute, every request is served.  -> (stats by site, launches)."""
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    from paddle_tpu_torch.testing import faults
+    out, total = {}, {}
+    for site in ("swap_out", "swap_in", "host_pool_full"):
+        eng = ContinuousBatchingEngine(cfg, params, cache, overlap=True,
+                                       **lane_kw)
+        eng.offload_swap_gbps = 1e9
+        zero_counts(mods)
+        graphs0 = graph_state()
+        with faults.plane() as fp:
+            fp.inject(site, None if site == "host_pool_full"
+                      else RuntimeError(f"injected {site}"))
+            done = swap_serve(torch, eng, prompts, SWAP_SHORT_NEW)
+        launches = ran_launches(read_counts(mods), graphs0)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for r in done:
+            if r.status != "ok" or len(r.generated) != SWAP_SHORT_NEW:
+                fail(f"{phase}: request {r.rid} ended {r.status} "
+                     f"({r.error}) with {len(r.generated)} tokens under "
+                     f"{site}")
+        if eng.resumes_swapped or not eng.resumes_recompute:
+            fail(f"{phase}: {site} resumed {eng.resumes_swapped} swapped "
+                 f"and {eng.resumes_recompute} recomputed")
+        swap_clean(phase, f"the {site} fault run", cache)
+        out[site] = dict(preemptions=eng.preemptions,
+                         resumes_recompute=eng.resumes_recompute,
+                         fired=fp.fired.get(site, 0),
+                         consulted=fp.counts.get(site, 0))
+        if not out[site]["consulted"]:
+            fail(f"{phase}: the {site} site was never consulted")
+    return out, total
+
+
+def swap_micro(torch, eng, cache):
+    """One victim's SWAP_VICTIM_PAGES pages through the host tier of
+    ``cache``: the pinned D2H wall (gather, side-stream copy, flush) and
+    H2D wall (gather from the pinned buffer), each between synchronizes,
+    the median of 5; a pageable D2H of the same block for contrast; and the
+    device busy share while the victim stages under SWAP_BUSY_REPLAYS
+    replays of ``eng``'s decode graph (the kernels' summed time over the
+    window's wall, CUDA-only profiler)."""
+    n = SWAP_VICTIM_PAGES
+    cache.alloc_row(0, n * cache.page)
+    pids = cache._owned[0][:n]
+    hids = [cache.host.alloc() for _ in range(n)]
+    nbytes = n * cache.page_bytes
+
+    def wall(fn):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    def d2h():
+        cache._stage_swap_out(pids, hids)
+        cache.host.flush()
+
+    d2h_s = wall(d2h)
+    h2d_s = wall(lambda: cache.host.gather(hids))
+    blk = page_blocks(torch, cache, pids)
+    pageable_s = wall(lambda: [b.to("cpu") for b in blk])
+    del blk
+    graph = eng._graph()
+    replay = lambda: graph(eng.params, eng._pools(), eng._gen)  # noqa: E731
+    replay()
+    torch.cuda.synchronize()
+    t_alone = wall(lambda: [replay() for _ in range(SWAP_BUSY_REPLAYS)])
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache._stage_swap_out(pids, hids)
+        for _ in range(SWAP_BUSY_REPLAYS):
+            replay()
+        cache.host.flush()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    kern_us = copy_us = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memcpy" in e.name.lower():
+            copy_us += e.time_range.elapsed_us()
+        else:
+            kern_us += e.time_range.elapsed_us()
+    for h in hids:
+        cache.host.free(h)
+    cache.release_row(0)
+    return dict(victim_pages=n, victim_bytes=nbytes,
+                pinned_d2h_gb_per_s=nbytes / d2h_s / 1e9,
+                pinned_h2d_gb_per_s=nbytes / h2d_s / 1e9,
+                pageable_d2h_gb_per_s=nbytes / pageable_s / 1e9,
+                d2h_ms=d2h_s * 1e3, h2d_ms=h2d_s * 1e3,
+                staging_window_ms=window * 1e3,
+                replays_alone_ms=t_alone * 1e3,
+                device_busy_share_while_staging=kern_us / 1e3
+                / (window * 1e3),
+                copy_ms_in_window=copy_us / 1e3)
+
+
+def swap_default_choice(eng, cache):
+    """What ``_preempt_mode`` picks at its defaults (10 GB/s, the card's
+    989 TFLOP/s) for a victim of SWAP_PROMPT + 1 tokens, with the two
+    priced times."""
+    from paddle_tpu_torch.models.serving_engine import (
+        _chip_flops_default, _count_params)
+    L = SWAP_PROMPT + 1
+    private = -(-L // cache.page)
+    swap_s = 2.0 * private * cache.page_bytes / (10.0 * 1e9)
+    recompute_s = 2.0 * _count_params(eng.params) * L \
+        / _chip_flops_default(cache.device)
+    return dict(victim_tokens=L, private_pages=private,
+                swap_ms=swap_s * 1e3, recompute_ms=recompute_s * 1e3,
+                choice="swap" if swap_s < recompute_s else "recompute")
+
+
+def phase_serve_swap(torch, cfg, seed, params, mods, kv_quant=None,
+                     dev="cuda"):
+    """The two-tier KV cache on LLaMA-7B (see 4h / 4i in this file's
+    docstring).  -> the launches of the timed arms, the promotion arm and
+    the fault runs."""
+    phase = "serve_swap_int8" if kv_quant else "serve_swap"
+    limit = INT8_LOGIT_LIMIT if kv_quant else LOGIT_LIMIT
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(1, cfg.vocab_size, (SWAP_PROMPT,)).tolist()
+               for _ in range(SWAP_REQUESTS)]
+    # int8: the packed lane (K2, K3 both paths); bf16: the batched lane,
+    # whose dense prefill runs K5
+    lane_kw = {} if kv_quant else {"packed": False}
+    t_phase = time.perf_counter()
+    arms, total = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def watched(name, watch):
+        if watch["refused"]:
+            fail(f"{phase}: {name}: swap-outs refused: {watch['refused']}")
+        if watch["prefill"]:
+            fail(f"{phase}: {name}: swapped resumes of {watch['prefill']} "
+                 f"dispatched a prefill or launched K2 / K5")
+        bad = sum(1 for e in watch["equal"] if not bool(e))
+        if bad:
+            fail(f"{phase}: {name}: {bad} restored page blocks differ from "
+                 f"their snapshot")
+        return watch["pages"]
+
+    if kv_quant:
+        served, stats, launches, eng, cache, watch = swap_arm(
+            torch, cfg, params, mods, prompts, phase, "(d) int8 swap",
+            kv_quant, dev, overlap=True)
+        arms["d_int8_swap_overlap"] = stats
+        stats["round_trip_pages"] = watched("(d)", watch)
+        stats["pinned_bytes"] = cache.host.nbytes
+        add(launches)
+        need = ["paged_decode_attention_q8", "flash_attention_segmented",
+                "int8_matmul", "int8_matmul_wave"]
+        default_choice = swap_default_choice(eng, cache)
+        del eng, cache
+    else:
+        _, a, launches, _, _, _ = swap_arm(
+            torch, cfg, params, mods, prompts, phase, "(a) recompute", None,
+            dev, host=False, lane_kw=lane_kw)
+        arms["a_recompute_sync"] = a
+        add(launches)
+        served, b, launches, eng, cache, watch = swap_arm(
+            torch, cfg, params, mods, prompts, phase, "(b) swap sync", None,
+            dev, lane_kw=lane_kw)
+        b["round_trip_pages"] = watched("(b)", watch)
+        b["pinned_bytes"] = cache.host.nbytes
+        arms["b_swap_sync"] = b
+        add(launches)
+        default_choice = swap_default_choice(eng, cache)
+        del eng, cache
+        torch.cuda.empty_cache()
+        over, c, launches, eng_c, cache_c, watch = swap_arm(
+            torch, cfg, params, mods, prompts, phase, "(c) swap overlap",
+            None, dev, overlap=True, lane_kw=lane_kw, no_sync=True)
+        c["round_trip_pages"] = watched("(c)", watch)
+        arms["c_swap_overlap"] = c
+        add(launches)
+        if over != served:
+            # the first diverging token, with the plain forward's logits of
+            # both picks over the synchronous arm's context
+            i = next(i for i in range(len(served)) if over[i] != served[i])
+            j = next(j for j in range(len(served[i]))
+                     if over[i][j] != served[i][j])
+            lg = plain_logits(torch, cfg, params,
+                              prompts[i] + list(served[i][:j]), dev)[-1]
+            top = lg.topk(2)
+            emit(f"{phase}_divergence", request=i, token=j,
+                 sync_token=served[i][j], overlap_token=over[i][j],
+                 plain_logit_sync=float(lg[served[i][j]]),
+                 plain_logit_overlap=float(lg[over[i][j]]),
+                 plain_top2=[float(v) for v in top.values],
+                 diverged=[k for k in range(len(served))
+                           if over[k] != served[k]],
+                 log_sync=b["preemption_log"], log_overlap=c[
+                     "preemption_log"])
+            fail(f"{phase}: the overlap arm's request {i} differs from the "
+                 f"synchronous arm's at token {j}")
+        if c["captures_in_timed_run"]:
+            fail(f"{phase}: the overlap arm captured "
+                 f"{c['captures_in_timed_run']} graphs after its warm-up")
+        if a["resumes_recompute"] <= 0 or a["resumes_swapped"]:
+            fail(f"{phase}: the recompute arm resumed "
+                 f"{a['resumes_recompute']} recomputed, "
+                 f"{a['resumes_swapped']} swapped")
+        fault_stats, launches = swap_faults(torch, cfg, params, mods,
+                                            prompts, phase, cache_c, lane_kw)
+        add(launches)
+        micro = swap_micro(torch, eng_c, cache_c)
+        del eng_c, cache_c
+        torch.cuda.empty_cache()
+        promotion, launches = swap_promotion(torch, cfg, seed, params, mods,
+                                             phase, dev)
+        add(launches)
+        need = ["paged_decode_attention", "flash_attention_segmented",
+                "fused_rope"]
+    for name in need:
+        if total.get(name, 0) <= 0:
+            fail(f"{phase}: kernel {name} was not launched")
+    for name in FLAGGED:
+        if total.get(name):
+            fail(f"{phase}: kernel {name} was launched with its flag off")
+    for arm, st in arms.items():
+        if arm.startswith("a_"):
+            continue
+        if st["resumes_swapped"] <= 0 or st["prefill_tokens_avoided"] <= 0 \
+                or st["resumes_recompute"]:
+            fail(f"{phase}: {arm} resumed {st['resumes_swapped']} swapped "
+                 f"and {st['resumes_recompute']} recomputed with the swap "
+                 f"forced, avoided {st['prefill_tokens_avoided']} prefill "
+                 f"tokens")
+        if not st["round_trip_pages"]:
+            fail(f"{phase}: {arm} round-tripped no page")
+    t_check = time.perf_counter()
+    forced = [list(g[:SWAP_SHORT_NEW]) for g in served]
+    rec, watch, forced_stats = swap_forced(torch, cfg, params, mods, prompts,
+                                           forced, phase, kv_quant, dev,
+                                           lane_kw)
+    forced_pages = watched("the forced run", watch)
+    if not rec:
+        fail(f"{phase}: the forced run resumed no row with tokens left")
+    diff = swap_logit_diff(torch, cfg, params, prompts, forced, rec, dev,
+                           kv_q8=bool(kv_quant))
+    rec_f, _, _ = swap_forced(torch, cfg, params, mods, prompts, forced,
+                              phase, kv_quant, dev, lane_kw, late=True)
+    fault_diff = swap_logit_diff(torch, cfg, params, prompts, forced,
+                                 rec_f, dev, kv_q8=bool(kv_quant))
+    del rec, rec_f
+    check_s = time.perf_counter() - t_check
+    fields = dict(model="LLaMA-7B (LlamaPretrainConfig defaults)",
+                  weights="int8 (quantize_params_int8)" if kv_quant
+                  else "bf16", kv_pages=kv_quant or "bf16",
+                  source="bench.py:654 _preemption_line, TPU recipe "
+                  "(bench.py:680-690)",
+                  requests=SWAP_REQUESTS, prompt_tokens=SWAP_PROMPT,
+                  new_tokens=SWAP_NEW, cache=SWAP_CACHE,
+                  host_pages=SWAP_HOST_PAGES, arms=arms,
+                  preempt_mode_at_defaults=default_choice,
+                  forced_run=dict(forced_stats,
+                                  round_trip_pages=forced_pages),
+                  logit_check_s=check_s, logit_max_abs_diff=diff,
+                  logit_limit=limit,
+                  logit_reference=("plain forward, int8 weights through "
+                                   "their plain matmul, K / V through "
+                                   "quantize_kv_token" if kv_quant
+                                   else "plain forward"),
+                  planted_fault="pages restored one slot late",
+                  planted_fault_max_abs_diff=fault_diff,
+                  launches={k: total.get(k, 0) for k in SWAP_KERNELS},
+                  phase_s=time.perf_counter() - t_phase)
+    if not kv_quant:
+        a_ms = arms["a_recompute_sync"]["resume_ms_mean"]
+        b_ms = arms["b_swap_sync"]["resume_ms_mean"]
+        fields.update(resume_ms_ratio_recompute_over_swap=a_ms / b_ms,
+                      faults=fault_stats, transfer=micro,
+                      promotion=promotion)
+    emit(phase, **fields)
+    if diff > limit:
+        fail(f"{phase}: the resumed rows' teacher-forced logits differ from "
+             f"the plain forward's by {diff} (limit {limit})")
+    if fault_diff <= limit:
+        fail(f"{phase}: the planted fault moved the logits by only "
+             f"{fault_diff}, within the limit {limit}")
+    from paddle_tpu_torch.models import graphed_step
+    graphed_step.clear()                 # the arms' caches are gone
+    return total
+
+
 def train_launches_per_step(cfg, flag_set=None):
     """What the code launches in one AdamW step under remat full: K8 once
     per leaf (9 stacked block leaves, embed, final_norm, lm_head); K6a in
@@ -4359,6 +5099,8 @@ def main():
     torch.cuda.empty_cache()
     launches_spec = phase_serve_spec(torch, cfg, args.seed, params, mods)
     torch.cuda.empty_cache()
+    launches_swap = phase_serve_swap(torch, cfg, args.seed, params, mods)
+    torch.cuda.empty_cache()
     launches_int8, qparams = phase_serve_int8(torch, cfg, args.seed, params,
                                               mods)
     del params
@@ -4373,6 +5115,9 @@ def main():
                                             mods, kv_quant="int8")
     torch.cuda.empty_cache()
     launches_spec_int8 = phase_serve_spec(torch, cfg, args.seed, qparams,
+                                          mods, kv_quant="int8")
+    torch.cuda.empty_cache()
+    launches_swap_int8 = phase_serve_swap(torch, cfg, args.seed, qparams,
                                           mods, kv_quant="int8")
     del qparams
     torch.cuda.empty_cache()             # the serves' weights are gone
@@ -4395,8 +5140,9 @@ def main():
     # train_fused phases
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
             launches_dense, launches_faults, launches_mixed, launches_spec,
-            launches_int8, launches_int8_overlap, launches_prefix_int8,
-            launches_mixed_int8, launches_spec_int8,
+            launches_swap, launches_int8, launches_int8_overlap,
+            launches_prefix_int8, launches_mixed_int8, launches_spec_int8,
+            launches_swap_int8,
             launches_train, launches_packed, *launches_fused]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 

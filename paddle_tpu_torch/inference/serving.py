@@ -492,9 +492,9 @@ class GenerationServer:
     @staticmethod
     def _health_from_engine(eng) -> dict:
         """The registry view's counts read from the engine's attributes
-        (no registry to view); caller holds the server lock.  The lanes
-        the port lacks read 0; a speculative engine adds its round and
-        acceptance counts and gamma."""
+        (no registry to view); caller holds the server lock.  A
+        speculative engine adds its round and acceptance counts and
+        gamma."""
         h = {"requests_cancelled": eng.requests_cancelled,
                 "requests_expired": eng.requests_expired,
                 "requests_rejected": eng.requests_rejected,
@@ -508,9 +508,9 @@ class GenerationServer:
                 "prefill_calls": eng.prefill_calls,
                 "preemptions": eng.preemptions,
                 "prefix_hits": eng.cache.prefix_hits,
-                "swap_out_pages": 0,
-                "swap_in_pages": 0,
-                "prefill_tokens_avoided": 0,
+                "swap_out_pages": eng.cache.swap_out_pages,
+                "swap_in_pages": eng.cache.swap_in_pages,
+                "prefill_tokens_avoided": eng.prefill_tokens_avoided,
                 "mixed_ticks": eng.mixed_ticks,
                 "mixed_prefill_tokens": eng.mixed_prefill_tokens,
                 "mixed_budget_utilization": round(

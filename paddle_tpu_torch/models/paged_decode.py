@@ -25,9 +25,17 @@ donated.  The counterpart of JAX's jit of the async and horizon steps, with
 its ``_step_async_cache`` / ``_step_multi_cache``, is a CUDA graph captured
 once per key (``models/graphed_step.py``), as is the speculative round on
 the overlap lane; the other bodies, the mixed tick's included, stay eager.
-The host page tier (swap, prefix demotion), export and TP meshes are later
-slices, as is ``generate_auto`` (it waits for the dense ``make_generate``);
-asking for them raises ``NotImplementedError``.
+
+``PagedKVCache(host_pages=N)`` backs the device pool with a host page tier
+(:class:`~paddle_tpu_torch.models.kv_offload.HostPagePool`, pinned on a
+CUDA cache): ``swap_out_row`` / ``swap_in_row`` park a preempted row's
+private pages there and restore them with zero prefill tokens, and evicted
+cached-prefix pages demote there and promote back on a later lookup.
+Restores and promotions write the pools in place, so the decode graphs
+captured over them stay valid.  Still raising ``NotImplementedError``: TP
+meshes (``mesh=``, ROADMAP.md queue 1 item 7), the disaggregation hand-off
+records (``export_row`` / ``adopt_swap``, item 8) and ``generate_auto``
+(it waits for the dense ``make_generate``, item 9(d)).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..testing import faults
 from ..ops.flash_varlen import flash_attention_segmented
 from ..ops.paged_attention import (paged_decode_attention,
                                    paged_decode_attention_q8,
@@ -64,7 +73,14 @@ class PagedKVCache:
     and ``kscale`` / ``vscale`` ``[L, num_pages, nkv, page]`` f32 hold one
     scale per (page, head, slot); otherwise both are ``None``.  Page 0 is
     reserved as the junk page unused table slots point at; the kernels
-    never read it."""
+    never read it.
+
+    With ``host_pages`` > 0 a host page tier (``self.host``, a
+    :class:`~paddle_tpu_torch.models.kv_offload.HostPagePool` of the pool's
+    dtype, pinned on a CUDA cache) backs the pool: preempted rows swap out
+    instead of releasing (``swap_out_row`` / ``swap_in_row``, zero prefill
+    tokens on resume) and evicted cached-prefix pages demote to it and
+    promote back on lookup."""
 
     def __init__(self, cfg: LlamaPretrainConfig, num_pages: int,
                  pages_max: int, batch: int, page: int = 64,
@@ -74,11 +90,8 @@ class PagedKVCache:
             raise ValueError("kv_quant must be None or 'int8'")
         if mesh is not None:
             raise NotImplementedError(
-                "kv-head-sharded pools (TP meshes) are not ported yet")
-        if host_pages:
-            raise NotImplementedError(
-                "the host page tier (swap, prefix demotion) is not "
-                "ported yet")
+                "kv-head-sharded pools (TP meshes) are not ported yet "
+                "(ROADMAP.md queue 1 item 7)")
         self.cfg = cfg
         self.page = page
         self.pages_max = pages_max
@@ -117,10 +130,40 @@ class PagedKVCache:
         self._prefix_parent: dict = {}
         self._prefix_children: dict = {}
         self.prefix_hits = 0              # pages reused through the index
+        # -- the host tier: preempted rows swap out to host RAM and evicted
+        # prefix pages demote there instead of dying.  A key lives in one
+        # tier at a time (_prefix_index or _host_prefix_index); the chain
+        # structure spans both.
+        self.host = None
+        if host_pages:
+            from .kv_offload import HostPagePool
+            self.host = HostPagePool(cfg, host_pages, page, dt,
+                                     kv_quant=kv_quant, device=self.device)
+        self._host_prefix_index: "OrderedDict[bytes, int]" = OrderedDict()
+        self._host_pinned: set = set()    # hids mid-promotion
+        self._demote_pending: list = []   # (pid, hid) gathers to stage
+        self._swapped: dict = {}          # handle -> swapped-row record
+        self._next_swap = 0
+        self.prefix_promotions = 0        # host -> device page promotions
+        self.swap_out_pages = 0
+        self.swap_in_pages = 0
+        self.swap_bytes = 0
         self.scatter_dispatches = 0       # page writes, one per wave
+        self.restore_dispatches = 0       # swap-in / promotion restores
         # the engine's EngineMetrics (the engine sets it; None records
         # nothing)
         self.metrics = None
+
+    @property
+    def page_bytes(self) -> int:
+        """Bytes one page costs across all layers, K + V (+ the int8 scale
+        planes): the unit of the swap cost model."""
+        per = (self.cfg.num_hidden_layers * self.cfg.num_key_value_heads
+               * self.page * self.cfg.head_dim)
+        b = 2 * per * self.kpool.element_size()
+        if self.kv_quant == "int8":
+            b += 2 * (per // self.cfg.head_dim) * 4
+        return b
 
     def free_pages(self) -> int:
         return len(self._free)
@@ -166,12 +209,66 @@ class PagedKVCache:
             self._prefix_children[parent].discard(key)
         self._prefix_children.pop(key, None)
 
+    def _ids(self, pids):
+        """Page ids as a long tensor on the pools' device, sent without a
+        host sync (the copy may be issued under in-flight steps)."""
+        return torch.from_numpy(np.asarray(pids, np.int64)).to(
+            self.device, non_blocking=True)
+
+    def _host_free(self, hid: int) -> None:
+        """Free a host page, dropping any deferred demotion gather aimed at
+        it (its content is discarded; a late gather would clobber the
+        page's next tenant)."""
+        if self._demote_pending:
+            self._demote_pending = [
+                (p, h) for p, h in self._demote_pending if h != hid]
+        self.host.free(hid)
+
+    def _host_evict_one(self) -> bool:
+        """Free the oldest host-tier prefix page with no live child (hids
+        pinned mid-promotion are skipped): leaf first, as on the device.
+        -> whether a page was freed."""
+        for key in list(self._host_prefix_index):
+            hid = self._host_prefix_index[key]
+            if hid in self._host_pinned:
+                continue
+            if self._prefix_children.get(key):
+                continue                      # has live children
+            del self._host_prefix_index[key]
+            self._drop_chain_entry(key)
+            self._host_free(hid)
+            return True
+        return False
+
+    def _host_alloc(self) -> int:
+        """Pop a host page, evicting host-tier cached prefixes (oldest leaf
+        first) when the host free list is empty."""
+        while not self.host._free:
+            if not self._host_evict_one():
+                break
+        return self.host.alloc()
+
+    def host_available(self) -> int:
+        """Host pages obtainable now: free plus evictable host-tier prefix
+        pages.  0 without a host tier, and while a ``host_pool_full``
+        condition rule is armed (the cost model and the swap-out
+        precondition then degrade to recompute)."""
+        if self.host is None:
+            return 0
+        if faults.active("host_pool_full"):
+            return 0
+        return (self.host.free_pages() + len(self._host_prefix_index)
+                - len(self._host_pinned))
+
     def _evict_one_prefix(self) -> bool:
-        """Free the oldest leaf cached-prefix page held by the index alone
-        (``refs == 1``, no child in the index).  Leaf first keeps every
-        chain usable for lookup: evicting a head would orphan its tail.
-        There is no host tier, so nothing is demoted.  -> whether a page
-        was freed."""
+        """Take the oldest leaf cached-prefix page held by the index alone
+        (``refs == 1``, no child in the device index) off the device: it
+        demotes to the host tier when one is attached and has room (a later
+        lookup promotes it back), else it is dropped.  Leaf first keeps
+        every chain usable for lookup: evicting a head would orphan its
+        tail.  The demotion's gather is deferred to
+        :meth:`_flush_demotions`, so one allocator call's demotions move as
+        one batch.  -> whether a page was freed."""
         for key in list(self._prefix_index):
             pid = self._prefix_index[key]
             if self.refs[pid] != 1:
@@ -180,11 +277,74 @@ class PagedKVCache:
                    for c in self._prefix_children.get(key, ())):
                 continue
             del self._prefix_index[key]
-            self._drop_chain_entry(key)
+            if self.host is not None and self.host_available() > 0:
+                hid = self._host_alloc()
+                self._demote_pending.append((pid, hid))
+                self._host_prefix_index[key] = hid   # the chain entry stays
+            else:
+                self._drop_chain_entry(key)
             self.refs[pid] = 0
             self._free.append(pid)
+            # the traffic is counted when the gather is staged: a deferred
+            # demotion dropped before then moved no bytes
             return True
         return False
+
+    def _count_swap(self, n: int, out: bool) -> None:
+        """The one bookkeeping site of swap traffic (the plain counters
+        and the registry's stay in lockstep)."""
+        nbytes = n * self.page_bytes
+        if out:
+            self.swap_out_pages += n
+        else:
+            self.swap_in_pages += n
+        self.swap_bytes += nbytes
+        if self.metrics is not None:
+            (self.metrics.swap_out_pages if out
+             else self.metrics.swap_in_pages).inc(n)
+            self.metrics.swap_bytes.inc(nbytes)
+
+    def _flush_demotions(self) -> None:
+        """Stage every demotion :meth:`_evict_one_prefix` deferred as one
+        batched gather.  Runs before any pool write (a demoted page may
+        already be handed out: the write must come after the gather in the
+        stream's order), and on the exit of every allocator entry point."""
+        if not self._demote_pending:
+            return
+        pending, self._demote_pending = self._demote_pending, []
+        self._stage_swap_out([p for p, _ in pending],
+                             [h for _, h in pending])
+        self._count_swap(len(pending), out=True)
+
+    def _stage_swap_out(self, pids, hids) -> None:
+        """One batched gather of device pages ``pids`` (page-major, on the
+        compute stream, so it reads every write enqueued before it) staged
+        into host pages ``hids``; the copy rides under the next steps."""
+        idx = self._ids(pids)
+
+        def take(pool):
+            return pool.transpose(0, 1).index_select(0, idx)
+
+        if self.kv_quant == "int8":
+            self.host.stage(hids, take(self.kpool), take(self.vpool),
+                            take(self.kscale), take(self.vscale))
+        else:
+            self.host.stage(hids, take(self.kpool), take(self.vpool))
+
+    def _restore_pages(self, pids, k, v, ks, vs) -> None:
+        """One batched restore of page-major host blocks into device pages
+        ``pids``, in place (the decode graphs captured the pools'
+        addresses; a rebound pool would leave them reading a stale one).
+        Pending demotion gathers are staged first: they must precede any
+        pool write."""
+        self._flush_demotions()
+        idx = self._ids(pids)
+        self.kpool[:, idx] = k.transpose(0, 1)
+        self.vpool[:, idx] = v.transpose(0, 1)
+        if self.kv_quant == "int8":
+            self.kscale[:, idx] = ks.transpose(0, 1)
+            self.vscale[:, idx] = vs.transpose(0, 1)
+        self.restore_dispatches += 1
 
     def _page_alloc(self) -> int:
         """Pop a free page, evicting a cached prefix page (oldest leaf
@@ -198,13 +358,16 @@ class PagedKVCache:
     def alloc_row_prefix(self, b: int, ctx: np.ndarray) -> int:
         """:meth:`alloc_row` that shares cached prefix pages: the longest
         run of ``ctx``'s chain keys found in the index is shared (a ref
-        each), fresh pages take the rest.  A whole context that is cached
-        and page-aligned keeps its last page private (the engine computes
-        that page's K/V for the next-token logits).  On pool exhaustion
-        the claim rolls back, the row is left empty and ``RuntimeError``
-        propagates.  ``prefix_hits`` counts only a committed claim.
-        -> the tokens reused (a page multiple); the caller prefills from
-        there."""
+        each), fresh pages take the rest.  A key that misses on the device
+        but hits the host tier is promoted: a fresh device page is
+        claimed, restored from host RAM (one batched restore for the row)
+        and the key moves back into the device index.  A whole context that
+        is cached and page-aligned keeps its last page private (the engine
+        computes that page's K/V for the next-token logits).  On pool
+        exhaustion the claim rolls back, the row is left empty and
+        ``RuntimeError`` propagates.  ``prefix_hits`` counts only a
+        committed claim.  -> the tokens reused (a page multiple); the
+        caller prefills from there."""
         page = self.page
         L = len(ctx)
         need = (L + page - 1) // page
@@ -212,33 +375,76 @@ class PagedKVCache:
             raise ValueError(f"length {L} exceeds pages_max")
         self.release_row(b)
         keys = self._chain_keys(ctx, page)
-        plan = []                          # shared page ids, chain order
+        plan = []                # chain order: ("share"|"promote", key, id)
         for key in keys:
             pid = self._prefix_index.get(key)
-            if pid is None:
-                break
-            self._prefix_index.move_to_end(key)          # LRU touch
-            plan.append(pid)
+            if pid is not None:
+                self._prefix_index.move_to_end(key)          # LRU touch
+                plan.append(("share", key, pid))
+                continue
+            hid = self._host_prefix_index.get(key)
+            if hid is not None:
+                self._host_prefix_index.move_to_end(key)
+                plan.append(("promote", key, hid))
+                continue
+            break
         if L % page == 0 and len(plan) == len(keys) and plan:
             plan.pop()
+        promos = [(j, key, hid) for j, (kind, key, hid) in enumerate(plan)
+                  if kind == "promote"]
+        # pin the promotions' host pages: the allocations below may demote
+        # other pages, and host eviction must not take the pages about to
+        # be read
+        self._host_pinned.update(h for _, _, h in promos)
         row = [None] * need
-        # the shared pages first: their ref lifts them above eviction
-        for j, pid in enumerate(plan):
-            self.refs[pid] += 1
-            row[j] = pid
         try:
-            for j in range(len(plan), need):
-                pid = self._page_alloc()
-                self.refs[pid] += 1
-                row[j] = pid
-        except RuntimeError:
-            for pid in row:
-                if pid is None:
-                    continue
-                self.refs[pid] -= 1
-                if self.refs[pid] == 0:
-                    self._free.append(pid)
-            raise
+            # the shared pages first: their ref lifts them above eviction
+            for j, (kind, key, val) in enumerate(plan):
+                if kind == "share":
+                    self.refs[val] += 1
+                    row[j] = val
+            # promotions: claim device pages, one batched restore, then the
+            # index entries move host -> device
+            promo_pids = []
+            try:
+                for _ in promos:
+                    promo_pids.append(self._page_alloc())
+            except RuntimeError:
+                self._free.extend(promo_pids)
+                for j, (kind, key, val) in enumerate(plan):
+                    if kind == "share":
+                        self.refs[val] -= 1     # the index ref remains
+                raise
+            if promos:
+                k, v, ks, vs = self.host.gather([h for _, _, h in promos])
+                self._restore_pages(promo_pids, k, v, ks, vs)
+                for (j, key, hid), pid in zip(promos, promo_pids):
+                    del self._host_prefix_index[key]
+                    self._host_free(hid)
+                    self._prefix_index[key] = pid
+                    self._link_chain(key, keys[j - 1] if j else None)
+                    self.refs[pid] = 2          # the index's and the row's
+                    row[j] = pid
+                self.prefix_promotions += len(promos)
+                self._count_swap(len(promos), out=False)
+            # fresh pages for the rest
+            try:
+                for j in range(len(plan), need):
+                    pid = self._page_alloc()
+                    self.refs[pid] += 1
+                    row[j] = pid
+            except RuntimeError:
+                # promoted pages keep their index ref: valid cached pages
+                for pid in row:
+                    if pid is None:
+                        continue
+                    self.refs[pid] -= 1
+                    if self.refs[pid] == 0:
+                        self._free.append(pid)
+                raise
+        finally:
+            self._host_pinned.difference_update(h for _, _, h in promos)
+            self._flush_demotions()
         self._owned[b] = row
         for j, pid in enumerate(row):
             self.tables[b, j] = pid
@@ -253,12 +459,17 @@ class PagedKVCache:
     def register_prefix(self, b: int, ctx: np.ndarray) -> None:
         """Enter row ``b``'s full pages of ``ctx`` into the prefix index,
         one index ref each, so later admissions sharing the prefix reuse
-        them.  Keys already cached keep their page."""
+        them.  Keys already cached keep their page; a key demoted to the
+        host tier is refreshed (its host copy is dropped for the identical
+        device page just written: a key lives in one tier)."""
         keys = self._chain_keys(ctx, self.page)
         for j, key in enumerate(keys):
             if key in self._prefix_index:
                 continue
             pid = int(self.tables[b, j])
+            hid = self._host_prefix_index.pop(key, None)
+            if hid is not None:
+                self._host_free(hid)
             self._prefix_index[key] = pid
             self._link_chain(key, keys[j - 1] if j else None)
             self.refs[pid] += 1
@@ -280,6 +491,8 @@ class PagedKVCache:
         except RuntimeError:
             self.release_row(b)
             raise
+        finally:
+            self._flush_demotions()
         self.tables_version += 1
         self.lens[b] = length
 
@@ -309,6 +522,7 @@ class PagedKVCache:
                     self._owned[b].append(pid)
                     grew = True
         finally:
+            self._flush_demotions()
             if grew:
                 self.tables_version += 1
 
@@ -355,7 +569,10 @@ class PagedKVCache:
         self._scatter_pages(ids, kb, vb, ks_s, vs_s)
 
     def _scatter_pages(self, ids, kb, vb, ks_s=None, vs_s=None) -> None:
-        """The page-write device seam (one call per admission wave)."""
+        """The page-write device seam (one call per admission wave).
+        Pending demotion gathers are staged first: they must precede any
+        pool write."""
+        self._flush_demotions()
         idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         self.kpool[:, idx] = kb.to(self.kpool.dtype)
         self.vpool[:, idx] = vb.to(self.vpool.dtype)
@@ -374,21 +591,154 @@ class PagedKVCache:
         self.lens[b] = 0
         self.tables_version += 1
 
+    # -- the host tier's row swap (preemption without recompute) ----------
+    def private_pages(self, b: int) -> int:
+        """Pages of row ``b``'s written context that only the row holds
+        (``refs == 1``): what :meth:`swap_out_row` moves to the host tier.
+        The engine's cost model and the swap precondition both read it."""
+        npg = (int(self.lens[b]) + self.page - 1) // self.page
+        return sum(1 for pid in self._owned[b][:npg] if self.refs[pid] == 1)
+
+    def swap_out_row(self, b: int) -> int:
+        """Park row ``b``'s cached context in the host tier: its private
+        pages go in one batched gather staged to host pages, its shared
+        (prefix) pages stay on the device with the row's ref carried by the
+        swap record.  The row is released.  -> a handle for
+        :meth:`swap_in_row`.  Raises ``RuntimeError`` before changing
+        anything when there is no host tier or it cannot hold the private
+        pages (and at an armed ``swap_out`` fault site)."""
+        if self.host is None:
+            raise RuntimeError("no host page tier attached")
+        faults.fire("swap_out")
+        L = int(self.lens[b])
+        npg = (L + self.page - 1) // self.page
+        private = self.private_pages(b)
+        if self.host_available() < private:
+            raise RuntimeError(
+                f"host tier full: {private} pages to swap, "
+                f"{self.host_available()} available")
+        entries, dev_ids, host_ids = [], [], []
+        for pid in self._owned[b][:npg]:
+            if self.refs[pid] > 1:
+                entries.append(("dev", pid))      # carries the row's ref
+            else:
+                hid = self._host_alloc()
+                entries.append(("host", hid))
+                dev_ids.append(pid)
+                host_ids.append(hid)
+        if dev_ids:
+            self._stage_swap_out(dev_ids, host_ids)
+            for pid in dev_ids:
+                self.refs[pid] = 0
+                self._free.append(pid)
+            self._count_swap(len(dev_ids), out=True)
+        for pid in self._owned[b][npg:]:          # unwritten growth
+            self.refs[pid] -= 1
+            if self.refs[pid] == 0:
+                self._free.append(pid)
+        self._owned[b] = []
+        self.tables[b] = 0
+        self.lens[b] = 0
+        self.tables_version += 1
+        handle = self._next_swap
+        self._next_swap += 1
+        self._swapped[handle] = {"entries": entries, "lens": L}
+        return handle
+
+    def swap_pages_needed(self, handle: int) -> int:
+        """Device pages a :meth:`swap_in_row` of this record claims (its
+        on-device entries hold theirs already)."""
+        return sum(1 for kind, _ in self._swapped[handle]["entries"]
+                   if kind == "host")
+
+    def swap_ctx_len(self, handle: int) -> int:
+        return int(self._swapped[handle]["lens"])
+
+    def swap_in_row(self, b: int, handle: int) -> int:
+        """Rebuild row ``b`` from a swap record: fresh device pages for the
+        host entries, restored by one batched in-place copy; the on-device
+        entries slot their held pages back into the table.  Zero prefill
+        tokens.  -> the restored context length.  On device-pool exhaustion
+        the record is left intact and ``RuntimeError`` propagates (the
+        caller falls back to recompute)."""
+        faults.fire("swap_in")
+        rec = self._swapped[handle]
+        entries = rec["entries"]
+        self.release_row(b)
+        fresh = []
+        try:
+            for _ in range(sum(1 for kind, _ in entries if kind == "host")):
+                fresh.append(self._page_alloc())
+        except RuntimeError:
+            self._free.extend(fresh)
+            raise
+        finally:
+            self._flush_demotions()
+        del self._swapped[handle]
+        it = iter(fresh)
+        restore_ids, hids = [], []
+        for j, (kind, val) in enumerate(entries):
+            if kind == "host":
+                pid = next(it)
+                self.refs[pid] += 1
+                restore_ids.append(pid)
+                hids.append(val)
+            else:
+                pid = val              # the record's ref becomes the row's
+            self.tables[b, j] = pid
+            self._owned[b].append(pid)
+        if restore_ids:
+            k, v, ks, vs = self.host.gather(hids)
+            self._restore_pages(restore_ids, k, v, ks, vs)
+            for hid in hids:
+                self._host_free(hid)
+            self._count_swap(len(restore_ids), out=False)
+        self.lens[b] = rec["lens"]
+        self.tables_version += 1
+        return int(rec["lens"])
+
+    def discard_swap(self, handle: int) -> None:
+        """Drop a swap record without restoring it (its request falls back
+        to recompute): its host pages free, its held device refs
+        release."""
+        rec = self._swapped.pop(handle)
+        for kind, val in rec["entries"]:
+            if kind == "dev":
+                self.refs[val] -= 1
+                if self.refs[val] == 0:
+                    self._free.append(val)
+            else:
+                self._host_free(val)
+
+    def export_row(self, *args, **kwargs):
+        """The disaggregation hand-off records: not ported."""
+        raise NotImplementedError(
+            "the disaggregation hand-off (export_row / export_fetch / "
+            "export_discard / adopt_swap) is not ported yet (ROADMAP.md "
+            "queue 1 item 8)")
+
+    export_fetch = export_discard = adopt_swap = export_row
+
     def audit(self) -> dict:
         """Check every page-accounting invariant and return pool stats;
         raises ``AssertionError`` on the first violation:
 
         * ``refs[pid]`` equals the rows owning the page plus its index
-          entries;
+          entries plus the swap records holding it on the device;
         * the free list is duplicate-free, never holds page 0 and holds
           no referenced page;
         * a page owned by two rows is an index page (sharing goes through
           the index only);
         * ``tables[b]`` mirrors ``_owned[b]`` positionally;
         * free + referenced pages cover the pool except page 0;
-        * every live key whose parent is live sits in its parent's
-          children set (else leaf-first eviction could take the parent).
-        """
+        * every live key (either tier) whose parent is live sits in its
+          parent's children set (else leaf-first eviction could take the
+          parent);
+        * host tier: its free list and the pages of the host index and of
+          the swap records partition it exactly.
+
+        With a host tier the stats also hold ``swap_records``, ``host_free``
+        and ``host_indexed`` (a cache without one holds no swap record)."""
         free = self._free
         assert len(set(free)) == len(free), "free list has duplicates"
         assert 0 not in set(free), "reserved page 0 on the free list"
@@ -400,12 +750,15 @@ class PagedKVCache:
                     f"tables[{b},{j}]={self.tables[b, j]} != owned {pid}"
             owned.update(row)
         index: Counter = Counter(self._prefix_index.values())
+        swap: Counter = Counter(pid for rec in self._swapped.values()
+                                for kind, pid in rec["entries"]
+                                if kind == "dev")
         free_set = set(free)
         for pid in range(self.num_pages):
-            want = owned[pid] + index[pid]
+            want = owned[pid] + index[pid] + swap[pid]
             assert int(self.refs[pid]) == want, \
                 (f"page {pid}: refs {int(self.refs[pid])} != owned "
-                 f"{owned[pid]} + index {index[pid]}")
+                 f"{owned[pid]} + index {index[pid]} + swapped {swap[pid]}")
             if pid in free_set:
                 assert want == 0, f"page {pid} free while referenced"
         for pid, c in owned.items():
@@ -413,16 +766,32 @@ class PagedKVCache:
                 assert index[pid] > 0, \
                     (f"page {pid} owned by {c} rows but not a prefix-index "
                      f"page (sharing goes through the index only)")
-        held = set(owned) | set(index)
+        held = set(owned) | set(index) | set(swap)
         assert len(free) + len(held) == self.num_pages - 1, "pages leaked"
-        live = set(self._prefix_index)
+        live = set(self._prefix_index) | set(self._host_prefix_index)
         for key in live:
             parent = self._prefix_parent.get(key)
             if parent is not None and parent in live:
                 assert key in self._prefix_children.get(parent, ()), \
                     "prefix chain edge missing (parent unaware of live child)"
-        return {"free": len(free), "owned": sum(owned.values()),
-                "indexed": len(self._prefix_index)}
+        stats = {"free": len(free), "owned": sum(owned.values()),
+                 "indexed": len(self._prefix_index)}
+        if self.host is not None:
+            hfree = self.host._free
+            assert len(set(hfree)) == len(hfree), \
+                "host free list has duplicates"
+            used = list(self._host_prefix_index.values()) + [
+                hid for rec in self._swapped.values()
+                for kind, hid in rec["entries"] if kind == "host"]
+            assert len(set(used)) == len(used), "host page held twice"
+            assert not (set(hfree) & set(used)), \
+                "host page free while in use"
+            assert len(hfree) + len(used) == self.host.num_pages, \
+                "host pages leaked"
+            stats.update(swap_records=len(self._swapped),
+                         host_free=len(hfree),
+                         host_indexed=len(self._host_prefix_index))
+        return stats
 
 
 def _rope_rows(x, theta, pos):

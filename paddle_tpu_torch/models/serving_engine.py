@@ -3,8 +3,14 @@
 Counterpart of ``paddle_tpu/models/serving_engine.py``: ``submit``,
 ``cancel`` (and deadlines), ``step``, ``finished``, ``drain_stream``,
 ``run_to_completion``; on pool exhaustion the youngest request is
-preempted recompute-style and resumes through the admission lanes.
-Weights may be int8 (``quantize_params_int8``) and the cache's pages int8
+preempted and requeued.  Without a host page tier it resumes
+recompute-style through the admission lanes.  With one
+(``PagedKVCache(host_pages=N)``) a bytes-against-FLOPs cost model
+(``_preempt_mode``) may swap the victim's private pages out to host RAM
+instead, and its resume is one batched restore with zero prefill tokens
+(``_admit_swapped``); a swap fault, a full host tier or a swap priced above
+the re-prefill falls back to recompute, as in JAX.  Weights may be int8
+(``quantize_params_int8``) and the cache's pages int8
 (``PagedKVCache(kv_quant="int8")``), each independently of the other.
 
 Three admission lanes, as in JAX:
@@ -80,9 +86,9 @@ The fault plane (``paddle_tpu_torch/testing/faults.py``) fires its
 ``step_dispatch`` and ``prefill_dispatch`` sites at JAX's points, so one
 rule poisons the same dispatch in both engines.
 
-Not ported yet, and refused at construction when asked for: TP meshes,
-scheduler policies, tenant quotas and the quantized TP all-reduce (the host
-page tier is refused by ``PagedKVCache``).
+Not ported yet, and refused at construction when asked for: TP meshes
+(ROADMAP.md queue 1 item 7), scheduler policies and tenant quotas (item
+6(f)) and the quantized TP all-reduce (item 7).
 """
 
 from __future__ import annotations
@@ -126,10 +132,12 @@ class EngineDeadError(RuntimeError):
 
 
 def _release_engine_claims(engine) -> None:
-    """Best-effort release of every page claim a dead engine holds: each
-    slot off the free list (active rows and rows stranded mid-admission by
-    a fatal step), so a cache that outlives the engine starts from clean
-    page accounting (``PagedKVCache.audit()``)."""
+    """Best-effort release of every page and swap claim a dead engine
+    holds: each slot off the free list (active rows and rows stranded
+    mid-admission by a fatal step) and every parked swap record, so a cache
+    that outlives the engine starts from clean page accounting
+    (``PagedKVCache.audit()``).  A transplanted request whose record goes
+    here resumes recompute-style."""
     for slot in range(engine.B):
         if slot in engine._free_slots:
             continue
@@ -137,6 +145,33 @@ def _release_engine_claims(engine) -> None:
             engine._release_slot(slot)
         except Exception:
             pass
+    for handle in list(engine._swap_handles.values()):
+        try:
+            engine.cache.discard_swap(handle)
+        except Exception:
+            pass
+    engine._swap_handles.clear()
+
+
+def _chip_flops_default(device) -> float:
+    """The chip compute rate the preemption cost model assumes when
+    ``offload_chip_flops`` is None: on a CUDA device the H100 SXM's
+    data-sheet bf16 dense peak (989 TFLOP/s, the rate PERF.md's bounds
+    use), else JAX's conservative CPU figure, so the CPU decisions equal
+    JAX's."""
+    return 989e12 if torch.device(device).type == "cuda" else 5e10
+
+
+def _count_params(params) -> int:
+    """Total parameter count over every tensor leaf (the 2 * N FLOPs a
+    token estimate's N); engines cache it in ``_n_params``."""
+    if torch.is_tensor(params):
+        return params.numel()
+    if isinstance(params, dict):
+        return sum(_count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(_count_params(v) for v in params)
+    return 0
 
 
 def _drive_to_completion(driver, max_steps: int):
@@ -383,6 +418,18 @@ class ContinuousBatchingEngine:
         self.resumes_recompute = 0        # preempted requests re-admitted
         self.resume_wall_s = 0.0          # all-resume admission waves' wall
         self.resume_events = 0
+        # -- the host page tier: preemption may swap the victim's pages to
+        # host RAM and resume with zero prefill tokens, when the cost model
+        # below prices the swap under the re-prefill
+        self._offload = cache.host is not None
+        self._swap_handles: Dict[int, int] = {}   # rid -> swap handle
+        self.prefill_tokens_avoided = 0
+        self.resumes_swapped = 0
+        # the cost model's knobs: the assumed swap bandwidth and chip rate
+        # (None: _chip_flops_default)
+        self.offload_swap_gbps = 10.0
+        self.offload_chip_flops = None
+        self._n_params = None             # counted on first use
         self.decode_wall_s = 0.0
         self.max_queue_len = max_queue_len
         self.max_queued_tokens = max_queued_tokens
@@ -940,7 +987,12 @@ class ContinuousBatchingEngine:
     def _finish_queued_abnormal(self, req: Request, status: str,
                                 error: Optional[str] = None) -> None:
         """Retire a request that holds no slot (queued, or popped by an
-        admission that faulted) with ``status`` and ``error``."""
+        admission that faulted) with ``status`` and ``error``.  Its swap
+        record, the one resource a queued request can hold, is discarded:
+        its host pages free and its held device refs release."""
+        handle = self._swap_handles.pop(req.rid, None)
+        if handle is not None:
+            self.cache.discard_swap(handle)
         req.done = True
         req.status = status
         req.error = error
@@ -1051,6 +1103,13 @@ class ContinuousBatchingEngine:
         self._dev = None
         self._needs_flush = False
         self._drain_active = np.zeros((self.B,), bool)
+        if self.cache.host is not None:
+            try:
+                # staged swap-out copies predate the fault: dropping them
+                # would corrupt parked rows
+                self.cache.host.flush()
+            except Exception:
+                pass
         for slot in list(self._active):
             try:
                 self._retire_abnormal(slot, "error", text)
@@ -1065,7 +1124,15 @@ class ContinuousBatchingEngine:
             if req.done or (req.slot is not None
                             and self._active.get(req.slot) is req):
                 continue
-            self._finish_queued_abnormal(req, "error", text)
+            try:
+                # also discards a record a faulted swap-in left parked
+                self._finish_queued_abnormal(req, "error", text)
+            except Exception:
+                # the discard raised: the request still ends loudly
+                req.done, req.status, req.error = True, "error", text
+                req.t_finish = time.monotonic()
+                _finalize_trace(req)
+                self._finished.append(req)
         self._admitting = []
         # rows parked mid-prefill die with the wave: the dispatches that
         # carried their context dropped; the sweep below reclaims their
@@ -1117,11 +1184,25 @@ class ContinuousBatchingEngine:
 
     def _collect_admissions(self):
         """Pop every queued request that fits (slots + pool pages),
-        head-of-line FIFO: stop at the first that does not fit."""
+        head-of-line FIFO: stop at the first that does not fit.  A
+        swapped-out request gates on the device pages its restore claims
+        (its shared pages are held already) and bypasses the prefill lanes.
+        -> ``(admits, swap_ins)``: (request, context) pairs to prefill, and
+        requests to restore."""
         admits: List = []                    # (request, context) pairs
+        swap_ins: List = []                  # swapped-row restores
         reserved = 0
-        while self._queue and len(self._free_slots) > len(admits):
+        while self._queue and \
+                len(self._free_slots) > len(admits) + len(swap_ins):
             head = self._queue[0]
+            handle = self._swap_handles.get(head.rid)
+            if handle is not None:
+                need = self.cache.swap_pages_needed(handle)
+                if reserved + need > self.cache.available_pages():
+                    break
+                reserved += need
+                swap_ins.append(self._queue.popleft())
+                continue
             ctx = self._ctx_of(head)
             need = (len(ctx) + self.cache.page - 1) // self.cache.page
             if reserved + need > self.cache.available_pages():
@@ -1132,32 +1213,132 @@ class ContinuousBatchingEngine:
                 if self.metrics is not None:
                     self.metrics.preempt_resume_recompute.inc()
             admits.append((self._queue.popleft(), ctx))
-        return admits
+        return admits, swap_ins
 
     def _admit_wave(self) -> None:
-        admits = self._collect_admissions()
+        """The sequential admission path: pop everything that fits, flush
+        the pipeline (admission is a scheduler mutation), restore the
+        swapped-out requests and prefill the rest as one wave through the
+        packed, batched or chunked lane."""
+        admits, swap_ins = self._collect_admissions()
+        while not admits and not swap_ins and not self._active \
+                and self._queue and self._degrade_one_swap():
+            # nothing fits and nothing runs: parked swap records are all
+            # that still pins pages; degrade them to recompute resumes
+            # until the head of the queue fits
+            admits, swap_ins = self._collect_admissions()
+        if not admits and not swap_ins:
+            return
+        # requests popped off the queue but not yet active: a fault from
+        # here on (the flush's drains included) fails them loudly in
+        # _quarantine, never drops them with the stack
+        self._admitting = [req for req, _ in admits] + list(swap_ins)
+        if self.overlap:
+            # admission is a scheduler mutation: drain the pipeline before
+            # slots and pages move under it
+            self._pipeline_flush()
+        failed = [req for req in swap_ins if not self._admit_swapped(req)]
+        for req in reversed(failed):
+            # FIFO: the oldest failed resume stays at the head for its
+            # recompute admission
+            self._queue.appendleft(req)
+        self._admitting = [req for req, _ in admits]
+        all_resumes = bool(admits) and all(r.generated for r, _ in admits)
+        t_adm = time.perf_counter()
         if admits:
-            # requests popped off the queue but not yet active: a fault
-            # from here on (the flush's drains included) fails them loudly
-            # in _quarantine, never drops them with the stack
-            self._admitting = [req for req, _ in admits]
-            if self.overlap:
-                # admission is a scheduler mutation: drain the pipeline
-                # before slots and pages move under it
-                self._pipeline_flush()
-            all_resumes = all(r.generated for r, _ in admits)
-            t_adm = time.perf_counter()
             self._admit_sequential(admits)
-            self._admitting = []      # every admit committed to _active
-            if all_resumes:
-                # an all-resume wave's admission wall is the resume
-                # latency, attributed per request
-                dt = time.perf_counter() - t_adm
-                self.resume_wall_s += dt
-                self.resume_events += len(admits)
-                if self.metrics is not None:
-                    self.metrics.preempt_resume_seconds.observe(
-                        dt / len(admits))
+        self._admitting = []          # every admit committed to _active
+        if all_resumes:
+            # an all-resume recompute wave's admission wall is the resume
+            # latency, attributed per request (comparable with the
+            # per-request swap-in samples)
+            dt = time.perf_counter() - t_adm
+            self.resume_wall_s += dt
+            self.resume_events += len(admits)
+            if self.metrics is not None:
+                self.metrics.preempt_resume_seconds.observe(
+                    dt / len(admits))
+
+    def _admit_swapped(self, req: Request) -> bool:
+        """Re-admit a swapped-out request: restore its parked pages (one
+        batched restore) and rebuild its table -- zero prefill tokens, no
+        sampling (its next input is saved).  On device-pool exhaustion the
+        record is dropped and False returns (the caller requeues it for a
+        recompute admission).  Any other exception returns the slot and
+        leaves the record mapped: the quarantine and restart paths discard
+        it through ``_finish_queued_abnormal``."""
+        t0 = time.perf_counter()
+        handle = self._swap_handles[req.rid]
+        slot = self._free_slots.pop()
+        try:
+            restored = self.cache.swap_in_row(slot, handle)
+        except RuntimeError:
+            del self._swap_handles[req.rid]
+            self.cache.discard_swap(handle)
+            self._free_slots.append(slot)
+            return False
+        except BaseException:
+            self._free_slots.append(slot)
+            raise
+        del self._swap_handles[req.rid]
+        self.prefill_tokens_avoided += restored
+        self.resumes_swapped += 1
+        dt = time.perf_counter() - t0
+        self.resume_wall_s += dt
+        self.resume_events += 1
+        if self.metrics is not None:
+            m = self.metrics
+            m.preempt_resume_swapped.inc()
+            m.prefill_tokens_avoided.inc(restored)
+            m.preempt_resume_seconds.observe(dt)
+            m.ring.emit("swap_resume", rid=req.rid, slot=slot,
+                        tokens=restored)
+        self._finish_admit(req, slot, req.generated[-1])
+        if req.trace is not None:
+            # the span after the admission commit: the restored row's claim
+            # is committed before anything fallible runs
+            t1 = time.monotonic()
+            req.trace.span("swap_in", t1 - dt, t1, slot=slot,
+                           tokens=restored)
+        return True
+
+    def _preempt_mode(self, slot: int) -> str:
+        """The bytes-against-FLOPs preemption cost model: ``"swap"`` when
+        parking the victim's private pages in the host tier and restoring
+        them (twice their bytes at ``offload_swap_gbps``) costs less than
+        re-prefilling its context (``2 * N_params`` FLOPs a token at
+        ``offload_chip_flops``), else ``"recompute"``; recompute too with
+        no host tier or one without room."""
+        if not self._offload:
+            return "recompute"
+        cache = self.cache
+        L = int(cache.lens[slot])
+        private = cache.private_pages(slot)
+        if private == 0:
+            return "swap"         # all pages shared: nothing moves, and
+            #                       the resume still skips the prefill
+        if cache.host_available() < private:
+            return "recompute"    # host tier full
+        if self._n_params is None:
+            self._n_params = _count_params(self.params)
+        chip = self.offload_chip_flops
+        if chip is None:
+            chip = _chip_flops_default(self.device)
+        swap_s = (2.0 * private * cache.page_bytes
+                  / (self.offload_swap_gbps * 1e9))
+        recompute_s = 2.0 * self._n_params * L / chip
+        return "swap" if swap_s < recompute_s else "recompute"
+
+    def _degrade_one_swap(self) -> bool:
+        """Last-resort page reclamation: drop one parked swap record (its
+        request falls back to a recompute resume), releasing its held
+        device refs and its host pages, so swap records never wedge the
+        allocator.  -> whether a record was dropped."""
+        if not self._swap_handles:
+            return False
+        rid = next(iter(self._swap_handles))
+        self.cache.discard_swap(self._swap_handles.pop(rid))
+        return True
 
     def _admit_sequential(self, admits: List) -> None:
         """The lane of one popped admission wave: the packed lane (any
@@ -1408,10 +1589,11 @@ class ContinuousBatchingEngine:
         """Mixed-lane admission: claim a slot and the row's pages for each
         waiting request that fits and park it as chunk state in
         ``_mixed_pref`` (no prefill dispatch here; its context rides inside
-        the next mixed ticks).  A context longer than ``mixed_ctx_cap`` does
-        not fit the mixed stream and admits through one sequential packed
-        wave (counted in ``mixed_degraded``).  JAX's swap-resume branch
-        waits for the host page tier (ROADMAP.md queue 1 item 6(e))."""
+        the next mixed ticks).  A swapped-out request restores through the
+        ordinary zero-prefill path (``_admit_swapped``, the pipeline flushed
+        first on the overlap lane).  A context longer than ``mixed_ctx_cap``
+        does not fit the mixed stream and admits through one sequential
+        packed wave (counted in ``mixed_degraded``)."""
         cache = self.cache
         degrades: List = []
         res_pages = 0
@@ -1419,6 +1601,21 @@ class ContinuousBatchingEngine:
             if len(self._free_slots) <= len(degrades):
                 break                 # keep a slot per pending degrade
             head = self._queue[0]
+            handle = self._swap_handles.get(head.rid)
+            if handle is not None:
+                need = cache.swap_pages_needed(handle)
+                if need + res_pages > cache.available_pages():
+                    break
+                if self.overlap:
+                    self._pipeline_flush()
+                req = self._queue.popleft()
+                self._admitting.append(req)
+                if not self._admit_swapped(req):
+                    # record dropped: back to the head for a recompute
+                    # admission through the carve
+                    self._queue.appendleft(req)
+                self._admitting = []
+                continue
             ctx = self._ctx_of(head)
             need = -(-len(ctx) // cache.page)
             if need + res_pages > cache.available_pages():
@@ -1716,9 +1913,12 @@ class ContinuousBatchingEngine:
 
     def _preempt(self, keep: Optional[int]) -> bool:
         """Evict the most recently admitted active request (except slot
-        ``keep``) and requeue it at the FRONT of the queue, its pages
-        released (recompute-style: the resume re-prefills prompt +
-        generated).  Returns False when there is no other request.
+        ``keep``) and requeue it at the FRONT of the queue.  With a host
+        tier and a cost model that favours it (``_preempt_mode``) its
+        private pages swap out (the resume restores them, zero prefill);
+        otherwise, or when the swap-out is refused, its pages are released
+        (recompute-style: the resume re-prefills prompt + generated).
+        Returns False when there is no other request.
 
         Rows parked mid-prefill on the mixed lane go first (the youngest
         carve first): they are the youngest page holders and have produced
@@ -1746,21 +1946,43 @@ class ContinuousBatchingEngine:
         if not victims:
             return False
         slot = max(victims, key=lambda s: self._active[s].admit_seq)
+        mode = self._preempt_mode(slot)
         req = self._active.pop(slot)
         req.slot = None
         req.preempted += 1
         self.preemptions += 1
-        self._free_slot(slot)
+        if mode == "swap":
+            t0 = time.perf_counter()
+            try:
+                self._swap_handles[req.rid] = self.cache.swap_out_row(slot)
+            except RuntimeError:
+                # refused before any change (the host tier raced full, or
+                # an injected fault): recompute-style preemption instead
+                mode = "recompute"
+                self._release_slot(slot)
+            else:
+                # the main row is parked; the speculative state is rebuilt
+                # at the resume
+                self._release_aux(slot)
+                if self.metrics is not None:
+                    self.metrics.swap_seconds.observe(
+                        time.perf_counter() - t0)
+        else:
+            self._release_slot(slot)
+        self._free_slots.append(slot)
+        self._remaining[slot] = 0
+        self._active_mask[slot] = 0
         # a scheduler mutation point: the decode loop never touches the
-        # phase clocks
-        advance_phase(req, "preempted")
+        # phase clocks.  "swapped": parked in the host tier (a restore
+        # pending); "preempted": a recompute requeue
+        advance_phase(req, "swapped" if mode == "swap" else "preempted")
         if req.trace is not None:
-            req.trace.event("preempt", mode="recompute", slot=slot,
+            req.trace.event("preempt", mode=mode, slot=slot,
                             generated=len(req.generated))
         if self.metrics is not None:
             self.metrics.preemptions.inc()
             self.metrics.ring.emit("preemption", rid=req.rid, slot=slot,
-                                   mode="recompute",
+                                   mode=mode,
                                    generated=len(req.generated))
         self._queue.appendleft(req)
         if self.overlap:
@@ -1848,6 +2070,11 @@ class ContinuousBatchingEngine:
                             break
                         continue
                     if not self._preempt(keep=slot):
+                        # no victim left: parked swap records may still
+                        # hold shared-page refs; degrade them to recompute
+                        # resumes before giving up
+                        if self._degrade_one_swap():
+                            continue
                         raise RuntimeError(
                             "KV page pool exhausted and no preemption "
                             "victim remains; the pool is too small for a "
@@ -2504,6 +2731,10 @@ class ContinuousBatchingEngine:
             return
         while self._inflight:
             self._drain_one()
+        if self.cache.host is not None:
+            # a scheduler mutation point: wait for the staged swap-out
+            # copies that rode under the drained dispatches
+            self.cache.host.flush()
         self._dev = None
         self._needs_flush = False
         self.pipeline_flushes += 1

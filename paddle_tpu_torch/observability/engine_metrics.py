@@ -6,8 +6,8 @@ Counter/Gauge/Histogram the continuous-batching stack publishes, created
 against one registry (the process-wide default for servers; a fresh
 registry in tests that assert exact counts).  The catalogue is JAX's
 whole catalogue, name for name and type for type: the instruments of
-lanes the port does not have yet (host-tier swap, TP, quotas) are
-registered and read 0, as they do on a JAX engine with those lanes off.
+lanes the port does not have yet (TP, quotas) are registered and read 0,
+as they do on a JAX engine with those lanes off.
 
 Gauges derivable from engine/cache state use scrape-time callbacks
 (``set_function``) through a weakref — the hot path pays nothing to
@@ -344,8 +344,7 @@ def bind_engine_gauges(m: EngineMetrics, engine) -> None:
     """Point the callback gauges at one engine (+ its cache).  Called
     from the engine constructor; re-binding (a newer engine on the
     shared default registry) is last-writer-wins by design.  The host
-    tier's two page gauges keep no callback: the port's cache has no
-    host tier, so they read 0."""
+    tier's page gauges read 0 on a cache without one."""
     cache = engine.cache
     # rows parked mid-prefill on the mixed lane hold a slot: they count as
     # active and occupying, as in JAX
@@ -376,3 +375,11 @@ def bind_engine_gauges(m: EngineMetrics, engine) -> None:
     m.kv_utilization.set_function(
         _weak_fn(cache,
                  lambda c: 1.0 - c.free_pages() / usable))
+    m.host_pool_pages.set_function(
+        _weak_fn(cache,
+                 lambda c: float(c.host.used_pages())
+                 if c.host is not None else 0.0))
+    m.host_pool_free_pages.set_function(
+        _weak_fn(cache,
+                 lambda c: float(c.host.free_pages())
+                 if c.host is not None else 0.0))

@@ -28,12 +28,21 @@ site                   consulted by
 ``stream_write``       the ``/generate_stream`` chunk writer: simulates a
                        client disconnect (``BrokenPipeError``) without a
                        real socket close
+``swap_out``           ``PagedKVCache.swap_out_row`` before any change: a
+                       ``RuntimeError`` degrades the preemption to
+                       recompute
+``swap_in``            ``PagedKVCache.swap_in_row`` before any change: a
+                       ``RuntimeError`` drops the record and the request
+                       resumes recompute-style; any other exception is a
+                       wave fault (the quarantine discards the record)
+``host_pool_full``     ``HostPagePool.alloc`` (an exception rule fails the
+                       allocator) and ``PagedKVCache.host_available`` (a
+                       condition rule reads 0: the cost model and the
+                       swap-out precondition degrade to recompute)
 =====================  ==================================================
 
 JAX's other sites wait for the subsystems that consult them (ROADMAP.md
-queue 1): ``swap_in``, ``swap_out`` and ``host_pool_full`` with the host
-page tier (item 6(e));
-``route_dispatch``, ``replica_death``,
+queue 1): ``route_dispatch``, ``replica_death``,
 ``replica_slow``, ``conn_drop``, ``frame_truncate``, ``net_delay``,
 ``agent_kill`` and ``kv_handoff`` with the fleet and disaggregation
 (item 8).

@@ -35,6 +35,7 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.models.serving_engine\n"
         "import paddle_tpu_torch.models.paged_decode\n"
+        "import paddle_tpu_torch.models.kv_offload\n"
         "import paddle_tpu_torch.models.graphed_step\n"
         "import paddle_tpu_torch.models.speculative\n"
         "import paddle_tpu_torch.observability.engine_metrics\n"

@@ -29,8 +29,10 @@ its wiring through the port's engine, held against paddle_tpu's.
   equal JAX's, and ``/health``'s ``mixed_budget_utilization`` follows
   JAX's formula.
 
-JAX's speculative, swap, TP, quota, restart, fleet, disaggregation and
-comm-watchdog cases wait for their lanes (ROADMAP.md).
+The swap instruments are held in ``tests/test_torch_kv_offload.py`` and
+``tests/test_torch_serving_swap.py``.  JAX's speculative, TP, quota,
+restart, fleet, disaggregation and comm-watchdog cases wait for their
+lanes (ROADMAP.md).
 """
 
 import importlib

@@ -29,8 +29,9 @@ the clocks) and ``cache.audit()`` must be equal, and the pool clean:
 * a fault at a mixed tick (``mixed=True``, sync and overlap) quarantines
   the rows parked mid-prefill with the decode rows.
 
-The swap, speculative, fleet and transport sites wait for their lanes
-(ROADMAP.md).
+The swap sites (``swap_in``, ``swap_out``, ``host_pool_full``) are held in
+``tests/test_torch_serving_swap.py``; the fleet and transport sites wait
+for their lanes (ROADMAP.md).
 """
 
 import json

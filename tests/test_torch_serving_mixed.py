@@ -28,8 +28,9 @@ restart failing parked rows, a parked row as the preemption victim, and
 the registry's and the HTTP front's mixed counters.
 ``PagedKVCache.audit()`` is clean after every engine case.
 
-JAX's TP-mesh, host-tier (swap resume) and disaggregation cases wait for
-their items (ROADMAP.md queue 1 items 7, 6(e) and 8).
+The host-tier case (swap resumes through the carve) is held in
+``tests/test_torch_serving_swap.py``.  JAX's TP-mesh and disaggregation
+cases wait for their items (ROADMAP.md queue 1 items 7 and 8).
 """
 
 import json

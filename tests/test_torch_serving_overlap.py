@@ -27,9 +27,10 @@ knob's validation, the HTTP front, and chunked and prefix-cached admission
 under the pipeline and the horizon (``alloc_row_prefix`` bumps
 ``tables_version``, so the graph lanes upload the new tables).
 
-Kept out, with their lanes (not ported): speculative rounds, TP meshes,
-the metrics registry, wave quarantine (the fault plane) and the host page
-tier (swap resumes).  On
+Kept out, each held in its lane's file: speculative rounds, the metrics
+registry, wave quarantine (the fault plane) and the host page tier (swap
+resumes, ``tests/test_torch_serving_swap.py``); TP meshes are not ported.
+On
 the CPU the steps run eagerly, through the same body the card replays from
 a CUDA graph (``tests/test_torch_serving_overlap_cuda.py`` holds the
 graphs there).

@@ -444,10 +444,19 @@ def test_engine_refuses_lanes_not_ported(models):
                {"tp_allreduce": "int8"}):
         with pytest.raises(NotImplementedError):
             _engine(tcfg, tparams, **kw)
-    # the host page tier (swap, prefix demotion) is refused by the cache
-    with pytest.raises(NotImplementedError, match="host page tier"):
+    # the host page tier is ported (tests/test_torch_kv_offload.py): it
+    # builds and a row round-trips through it; its TP form stays refused
+    cache = tpd.PagedKVCache(tcfg, 8, 2, 1, page=PAGE, host_pages=4,
+                             device="cpu")
+    cache.alloc_row(0, 20)
+    cache.kpool[:, cache.tables[0, :2]] = 1.5
+    h = cache.swap_out_row(0)
+    assert cache.host.used_pages() == 2 and cache.swap_in_row(0, h) == 20
+    assert bool((cache.kpool[:, cache.tables[0, :2]] == 1.5).all())
+    assert cache.audit()["host_free"] == 4
+    with pytest.raises(NotImplementedError, match="item 7"):
         tpd.PagedKVCache(tcfg, 8, 2, 1, page=PAGE, host_pages=4,
-                         device="cpu")
+                         mesh=object(), device="cpu")
     # int8 is the one page quantization, as in JAX
     with pytest.raises(ValueError, match="kv_quant"):
         tpd.PagedKVCache(tcfg, 8, 2, 1, page=PAGE, kv_quant="fp8",

@@ -22,9 +22,9 @@ weak draft, a ``step_dispatch`` fault on a round, the registry's spec
 instruments and the HTTP front's ``/health`` and ``/metrics``.  Both caches
 audit clean after every case.
 
-JAX's TP (mesh) case, the host-tier swap resume (``host_pages``) and the
-fleet and disaggregation pass-through wait for ROADMAP.md queue 1 items 7,
-6(e) and 8.
+The host-tier swap resume (``host_pages``) is held in
+``tests/test_torch_serving_swap.py``.  JAX's TP (mesh) case and the fleet
+and disaggregation pass-through wait for ROADMAP.md queue 1 items 7 and 8.
 """
 
 import json

@@ -25,8 +25,9 @@ the same weights (``params_from_jax``).
   engine's, tracing token-exact, and the phase clocks of rows parked
   mid-prefill chaining gaplessly.
 
-JAX's swap, disaggregation, fleet failover and remote-replica cases wait
-for their lanes (ROADMAP.md).
+JAX's swap case (the ``swapped`` phase and the ``swap_in`` span) is held in
+``tests/test_torch_serving_swap.py``; its disaggregation, fleet failover
+and remote-replica cases wait for their lanes (ROADMAP.md).
 """
 
 import importlib

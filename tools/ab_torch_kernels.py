@@ -3,7 +3,8 @@
 turns, in one process on one CUDA card: the paged decode kernels (K1 bf16
 pages, K4 int8 pages), the segmented flash forward (K2), the int8 matmul
 (K3) at a prefill wave and at decode, its decode path at every decode
-shape of LLaMA-7B (K3dec), the flash-attention forward (K6a)
+shape of LLaMA-7B (K3dec), the fused RoPE (K5), the flash-attention
+forward (K6a)
 and backward (K6b dq, K6c dk / dv), the segmented backward (K7a dq, K7b dk /
 dv), the RMSNorm forward and backward (K9a, K9b) and the fused RMSNorm ->
 matmul (K11);
@@ -13,7 +14,8 @@ counts where one takes over from the other (K3route).
 Run from the repository root:
 
     python3 tools/ab_torch_kernels.py --parent DIR [--reps 50]
-        [--kernels K1,K4,K2,K3,K3dec,K3route,K6a,K6b,K6c,K7a,K7b,K9a,K9b,K11]
+        [--kernels K1,K4,K2,K3,K3dec,K3route,K5,K6a,K6b,K6c,K7a,K7b,K9a,K9b,
+                   K11]
 
 DIR holds an earlier tree of the repository (``git archive <commit>``
 unpacked into a directory that ``.gitignore`` lists, such as
@@ -28,7 +30,8 @@ nkv 32 and 8, d 128, page 64, lens ``K1_LENS``); K2 at its packed stream
 (1000, 4096, 1000: N % 16 != 0), K3dec at ``K3DEC_SHAPES`` (batch 8:
 wq / wk / wv / wo, w_gate / w_up, w_down, lm_head; w_gate at batch 1 and
 16), K3route at M 16, 32, 64 and 128 of the
-same weight; K6a-c at
+same weight; K5 at ``K5_AB_SHAPES`` bf16 (the trainer's ``[8, 2048, 16,
+128]`` and the dense serving wave's ``[8, 256, 32, 128]``); K6a-c at
 ``TRAIN_SHAPES[0]`` causal (K6b and K6c both from this tree's forward
 kernel's out and lse); K7a / K7b at ``K7_TIMED`` of ``K7_CASES`` (the
 packed trainer's rows, GQA 32 over 8, one document a row), from this tree's
@@ -87,6 +90,9 @@ K3DEC_SHAPES = [(8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096),
 # [n, h] of K9a / K9b: the trainer's rows, the serving admission wave's
 # (8 prompts of 256 at LLaMA-7B's width) and a decode step's at batch 8
 K9_SHAPES = [(16384, 2048), (2048, 4096), (8, 4096)]
+# [B, S, heads, d] of K5: the trainer's q / k and the dense serving wave's
+# (8 prompts of 256 at LLaMA-7B's 32 heads)
+K5_AB_SHAPES = [(8, 2048, 16, 128), (8, 256, 32, 128)]
 
 
 def parent_ops(root: Path, name: str):
@@ -197,7 +203,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--kernels",
-        default="K1,K4,K2,K3,K3dec,K3route,K6a,K6b,K6c,K7a,K7b,K9a,K9b,K11")
+        default="K1,K4,K2,K3,K3dec,K3route,K5,K6a,K6b,K6c,K7a,K7b,K9a,K9b,"
+                "K11")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -432,6 +439,23 @@ def main():
                     library=sdpa_bwd, **shape, **extra)
             del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out, sdpa_bwd
             del new_args, old_args, ranges
+    if "K5" in kernels:
+        from paddle_tpu_torch.ops import rope as rp
+        old_rp = parent_ops(args.parent, "rope")
+        for shape in K5_AB_SHAPES:
+            B, S, N, d = shape
+            x = torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            cos, sin = rp.rope_tables(S, d)
+            # chip_smoke's k5 work: x read and written, the f32 tables read
+            work = (2 * x.numel() * 2 + 2 * cos.numel() * 4, 3 * x.numel(),
+                    cs.PEAK_F32_FLOPS)
+            run("K5", lambda: old_rp._apply(x, cos, sin, False),
+                lambda: rp._apply(x, cos, sin, False), work,
+                lambda a, b: cs.check_close(f"K5 {list(shape)} new vs parent",
+                                            a, b, cs.K5_TOL),
+                shape=list(shape))
+            del x, cos, sin
     if "K9a" in kernels or "K9b" in kernels:
         old_rn = parent_ops(args.parent, "rms_norm")
         eps = 1e-6
