@@ -11,8 +11,9 @@ Phases, one JSON line each on stdout:
              (name<template args>) to its registers, spill stores and
              loads, stack and static shared memory in bytes (the same,
              one line a function, and ptxas's warnings go to stderr);
-             K7a's and K7b's four instances, K3's decode instances and
-             K9a's register-held instances must spill nothing.
+             K7a's and K7b's four instances, K3's decode instances,
+             K9a's register-held instances and K5's instances must spill
+             nothing.
 3. k1..k4  - each kernel against its plain PyTorch version on the card, at
              the main paths' shapes (k1, k2, k4: nkv = 32 as LLaMA-7B and
              nkv = 8 for GQA, and k2's per-tile range kernel against its
@@ -32,7 +33,11 @@ Phases, one JSON line each on stdout:
              trainer's shapes ([8, 2048, 16, 128] bf16, causal; the w_gate
              leaf [24, 2048, 5504]) and at a ragged length, head_dim 64
              and a leaf size no vector divides; k5 also at the serving
-             shape [8, 256, 32, 128] (serve_dense's batched lane, timed); k6c also prints delta_ms
+             shape [8, 256, 32, 128] (serve_dense's batched lane, timed)
+             and one request's [1, 256 | 512, 32, 128] (a spec-on
+             admission's draft prefill, 256 timed), forward and backward
+             equal to the plain version bit for bit, with the head group
+             and grid the kernel launched; k6c also prints delta_ms
              (the wrapper's sum of dout * out) and bwd_total_ms (K6b +
              K6c + delta), the whole backward beside SDPA's.
    k7      - the segmented backward, dq (K7a) and dk / dv (K7b), from K2's
@@ -100,8 +105,11 @@ Phases, one JSON line each on stdout:
              one batched dense dispatch ([8, 256]: K5 on q and k of every
              layer, 64 launches from serving, counted against the code's),
              then a 1,000-token prompt through the chunked lane (4 chunks of
-             256 over the row's cached pages); each wave's admission ms;
-             the served sequences teacher-forced through each lane's own
+             256 over the row's cached pages); each wave's admission ms
+             and the RoPE tables it built (at most once, for the bucket);
+             a fresh batched wave's ms with the tables' memo and without
+             it, in turns; the served sequences teacher-forced through
+             each lane's own
              admission within LOGIT_LIMIT of the plain forward's, a planted
              fault (K5 rotating by -sin) beyond it.
 4e. serve_faults - fault containment (paddle_tpu_torch/testing/faults.py):
@@ -358,8 +366,12 @@ TRAIN_BATCH, TRAIN_TOKENS, TRAIN_STEPS = 8, 2049, 4
 # (B, S, H, d) of K5 and K6: the trainer's shape, a ragged length, head_dim 64
 TRAIN_SHAPES = [(8, 2048, 16, 128), (2, 2047, 16, 128), (2, 2048, 16, 64)]
 # K5 also at the serving shape: the dense batched lane's q / k at 8 prompts
-# of a 256-token bucket, LLaMA-7B's 32 heads of 128
-K5_SHAPES = TRAIN_SHAPES + [(8, 256, 32, 128)]
+# of a 256-token bucket, LLaMA-7B's 32 heads of 128; and at one request's,
+# a spec-on admission's draft prefill or a one-request dense wave (1 prompt
+# of 256 or 512).  K5_TIMED are timed.
+K5_SHAPES = TRAIN_SHAPES + [(8, 256, 32, 128), (1, 256, 32, 128),
+                            (1, 512, 32, 128)]
+K5_TIMED = ((8, 2048, 16, 128), (8, 256, 32, 128), (1, 256, 32, 128))
 K8_SIZES = [24 * 2048 * 5504, 1_000_003]      # w_gate; no multiple of 4
 
 K1_LENS = [1, 64, 65, 2048, 300, 1000, 1500, 777]
@@ -392,12 +404,14 @@ K7_TIMED = ("trainer", "gqa", "onedoc")
 # number of functions the build must report under each: K7a and K7b, the
 # segmented instances of csrc/flash_bwd_sm90.cuh's templates; K3's decode
 # path (int8_decode_kernel<MT, kTmaW>: 8 or 16 rows, TMA or plain-load
-# weight); K9a's register-held rows (rms_fwd_rows_kernel<NV, WPR, types>)
+# weight); K9a's register-held rows (rms_fwd_rows_kernel<NV, WPR, types>);
+# K5's head groups (rope_kernel<T, G>: bf16 and f32, G 1, 2, 4)
 SPILL_FREE = {
     **{f"flash_varlen_bwd.cu:flash_bwd_{p}_kernel<{d}, 1>": 1
        for p in ("dq", "dkv") for d in (128, 64)},
     "int8_matmul.cu:int8_decode_kernel<": 4,
-    "rms_norm.cu:rms_fwd_rows_kernel<": 24}
+    "rms_norm.cu:rms_fwd_rows_kernel<": 24,
+    "rope.cu:rope_kernel<": 6}
 # JAX's packed-pretraining invariant: each target's loss in the packed rows
 # equals its loss in its document run alone, so the packed loss is the
 # token-weighted mean of the documents' losses.  Both sides compute in bf16
@@ -774,7 +788,7 @@ def phase_k3(torch, im, shape, gen, flush):
 
 def phase_k5(torch, rp, shape, gen, flush, timed):
     """K5 forward and backward (the same kernel with -sin) against the
-    plain rotate-half on the same bf16 x."""
+    plain rotate-half on the same bf16 x: equal bit for bit."""
     B, S, N, d = shape
     x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
     cos, sin = rp.rope_tables(S, d)
@@ -785,7 +799,12 @@ def phase_k5(torch, rp, shape, gen, flush, timed):
         torch.cuda.synchronize()
         err = max(err, check_close(f"K5 {shape} neg_sin={neg}", out, ref,
                                    K5_TOL))
-    res = dict(shape=list(shape), max_abs_err=err)
+        if not torch.equal(out, ref):
+            fail(f"K5 {shape} neg_sin={neg}: not bit for bit with the plain "
+                 f"version (max abs err {err})")
+    group, blocks = rp.launch_plan(shape)
+    res = dict(shape=list(shape), max_abs_err=err, group=group,
+               blocks=blocks)
     if timed:
         nbytes = 2 * x.numel() * 2 + 2 * cos.numel() * 4
         b_ms, b_by = bound(nbytes, 3 * x.numel(), PEAK_F32_FLOPS)
@@ -2379,6 +2398,7 @@ def phase_serve_dense(torch, cfg, seed, params, mods, dev="cuda"):
                                    prefill_chunk=CHUNK)
     waves = timed_waves(torch, eng)
     gens = [None] * len(prompts)
+    builds = rp.table_builds
     zero_counts(mods)
     t0 = time.perf_counter()
     for wave in (batched, chunked):
@@ -2389,6 +2409,7 @@ def phase_serve_dense(torch, cfg, seed, params, mods, dev="cuda"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(mods)
+    table_builds = rp.table_builds - builds
     stats = cache.audit()
     del eng, cache
     torch.cuda.empty_cache()
@@ -2396,6 +2417,29 @@ def phase_serve_dense(torch, cfg, seed, params, mods, dev="cuda"):
     if launches["fused_rope"] != want_rope:
         fail(f"serve_dense: K5 was launched {launches['fused_rope']} times "
              f"from serving, the code predicts {want_rope}")
+    if table_builds > 1:
+        fail(f"serve_dense: the waves built the RoPE tables {table_builds} "
+             f"times; the memo builds them once for the bucket")
+
+    def batched_wave_ms(memo):
+        # one batched wave on a fresh engine; without the memo every
+        # layer's _rope builds its tables, as before the memo
+        cache = new_cache()
+        eng = ContinuousBatchingEngine(cfg, params, cache, packed=False,
+                                       prefill_bucket=DENSE_BUCKET)
+        timed = timed_waves(torch, eng)
+        for i in batched:
+            eng.submit(prompts[i], max_new_tokens=1)
+        build = (rp.cached_tables if memo else
+                 lambda s, d, theta, device=None: rp.rope_tables(
+                     s, d, theta, device=device))
+        with patched((tlp, "cached_tables", build)):
+            eng._admit_wave()
+        del eng, cache
+        torch.cuda.empty_cache()
+        return timed[0]["ms"]
+
+    memo_ab = [batched_wave_ms(memo) for memo in (True, False, False, True)]
     if launches["paged_decode_attention"] <= 0:
         fail("serve_dense: kernel paged_decode_attention was not launched")
     for name in ("flash_attention_segmented", "segment_tile_ranges",
@@ -2441,6 +2485,9 @@ def phase_serve_dense(torch, cfg, seed, params, mods, dev="cuda"):
          packed=False, prefill_bucket=DENSE_BUCKET, prefill_chunk=CHUNK,
          batched_prompt_lens=DENSE_LENS, chunked_prompt_len=CHUNK_LEN,
          new_tokens=DENSE_NEW, wall_s=wall, waves=waves,
+         rope_table_builds=table_builds,
+         batched_wave_ms_memo=[memo_ab[0], memo_ab[3]],
+         batched_wave_ms_no_memo=memo_ab[1:3],
          k5_launches_from_serving=launches["fused_rope"],
          k5_launches_predicted=want_rope, launches=launches,
          logit_check_s=check_s, logit_max_abs_diff=logit_diff,
@@ -5064,8 +5111,8 @@ def main():
     k2 = [phase_k2(torch, fv, nkv, gen, flush) for nkv in (32, 8)]
     k3 = [phase_k3(torch, im, shape, gen, flush) for shape in K3_SHAPES]
     k4 = [phase_k4(torch, pa, nkv, gen, flush) for nkv in (32, 8)]
-    k5 = [phase_k5(torch, rp, shape, gen, flush, timed=i in (0, 3))
-          for i, shape in enumerate(K5_SHAPES)]
+    k5 = [phase_k5(torch, rp, shape, gen, flush, timed=shape in K5_TIMED)
+          for shape in K5_SHAPES]
     k6 = [phase_k6(torch, fa, shape, gen, flush, timed=i == 0)
           for i, shape in enumerate(TRAIN_SHAPES)]
     k8 = [phase_k8(torch, aw, n, gen, flush, timed=i == 0)

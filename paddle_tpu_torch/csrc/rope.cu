@@ -14,14 +14,27 @@
 // a fraction of a percent of x at the training shape.
 //
 // What the design does about it:
-// * One thread owns 16 bytes of x1 and the matching 16 bytes of x2 of one
-//   (batch, position), loads its cos / sin values once and walks the heads
-//   with them, so the tables are read once per position and every access to
-//   x and out is a 16-byte vector.
+// * A thread owns one 16-byte chunk of x1 and the matching chunk of x2 for
+//   a group of G heads of one (batch, position) row: heads g, g + ng, ...,
+//   g + (G - 1) * ng, with ng = ceil(N / G) groups a row.  It issues all
+//   2 * G loads before its first store, so each thread keeps 32 * G bytes
+//   in flight, and loads its cos / sin values once for the G heads.
+// * The host picks G per shape: the largest of 4, 2 (no more than N) whose
+//   grid still gives every SM kMinCtasPerSm blocks, else 1.  The trainer's
+//   [8, 2048, 16, 128] takes G = 4 (2,048 blocks), the serving wave
+//   [8, 256, 32, 128] G = 2 (1,024) and a one-request wave G = 1 (256 for
+//   256 tokens), where the first design, one thread walking all N heads,
+//   left most SMs idle (64 blocks, and 8 for a single 256-token request).
+//   G = 8 (126 registers in bf16, two blocks an SM) read 2% slower than
+//   G = 4 at the trainer's shape on the H100, so 4 is the largest group.
+// * The threads of one row sit next to each other in a block (chunk
+//   fastest, then head group), so a row's cos / sin slice comes from DRAM
+//   once and from L1 for the other groups, and a warp's accesses to x and
+//   out are whole 128-byte lines of 16-byte vectors.
 // * The products and sums are separate f32 roundings (no fused multiply-add),
 //   the plain version's arithmetic, so the two agree bit for bit.
-// * Any S, N and any d with d/2 a multiple of the 16-byte vector: the grid
-//   is cut over (batch * position, chunk) and the last block masks its tail,
+// * Any S, N and any d with d/2 a multiple of the 16-byte vector: the head
+//   tail (N no multiple of G) and the grid's tail are masked in the kernel,
 //   so there is no shape the kernel hands back to a composite.
 
 #include <cuda_bf16.h>
@@ -31,27 +44,30 @@
 namespace {
 
 constexpr int kThreads = 256;
+// blocks of kThreads an SM that a head group may not take the grid below
+constexpr int kMinCtasPerSm = 4;
+constexpr int kMaxDevices = 64;
 
 template <typename T>
-struct Vec;   // 16 bytes of T as floats
+struct Vec;   // 16 bytes of T, unpacked to and packed from floats
 
 template <>
 struct Vec<float> {
   static constexpr int kN = 4;
-  static __device__ __forceinline__ void load(const float* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  static __device__ __forceinline__ void unpack(const uint4& raw, float* f) {
+    f[0] = __uint_as_float(raw.x); f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z); f[3] = __uint_as_float(raw.w);
   }
-  static __device__ __forceinline__ void store(float* p, const float* f) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
 };
 
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int kN = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* f) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  static __device__ __forceinline__ void unpack(const uint4& raw, float* f) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -60,68 +76,132 @@ struct Vec<__nv_bfloat16> {
       f[2 * e + 1] = v.y;
     }
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* f) {
-    __nv_bfloat162 h[4];
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
     for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+    return raw;
   }
 };
 
-// rows = B * S; one thread per (row, 16-byte chunk of a half), all N heads.
-template <typename T>
+// One thread per (row, head group, 16-byte chunk of a half); rows = B * S,
+// total = rows * ng * chunks threads.
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 rope_kernel(const T* __restrict__ x, const float* __restrict__ cos_t,
             const float* __restrict__ sin_t, T* __restrict__ out,
-            long long rows, int S, int N, int d, float sign) {
+            unsigned total, int S, int N, int ng, int chunks, int d,
+            float sign) {
   constexpr int V = Vec<T>::kN;
+  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const int c = (int)(i % (unsigned)chunks);
+  const unsigned t = i / (unsigned)chunks;
+  const int g = (int)(t % (unsigned)ng);
+  const unsigned row = t / (unsigned)ng;
+  const int s = (int)(row % (unsigned)S);
   const int half = d / 2;
-  const int chunks = half / V;
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= rows * chunks) return;
-  const int c = (int)(i % chunks);
-  const long long row = i / chunks;
-  const int s = (int)(row % S);
+  const T* xr = x + (size_t)row * N * d + (size_t)c * V;
+  T* outr = out + (size_t)row * N * d + (size_t)c * V;
 
+  // every load of the group first: x1 and x2 of each of its heads
+  uint4 raw1[G], raw2[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const int h = g + k * ng;
+    if (h < N) {
+      raw1[k] = *reinterpret_cast<const uint4*>(xr + (size_t)h * d);
+      raw2[k] = *reinterpret_cast<const uint4*>(xr + (size_t)h * d + half);
+    }
+  }
   float cs[V], sn[V];
+  const float* ct = cos_t + (size_t)s * half + c * V;
+  const float* st = sin_t + (size_t)s * half + c * V;
 #pragma unroll
   for (int e = 0; e < V; e += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(
-        cos_t + (size_t)s * half + c * V + e);
-    const float4 b = *reinterpret_cast<const float4*>(
-        sin_t + (size_t)s * half + c * V + e);
+    const float4 a = *reinterpret_cast<const float4*>(ct + e);
+    const float4 b = *reinterpret_cast<const float4*>(st + e);
     cs[e] = a.x; cs[e + 1] = a.y; cs[e + 2] = a.z; cs[e + 3] = a.w;
     sn[e] = b.x * sign; sn[e + 1] = b.y * sign;
     sn[e + 2] = b.z * sign; sn[e + 3] = b.w * sign;
   }
 
-  const size_t base = (size_t)row * N * d + (size_t)c * V;
-#pragma unroll 4
-  for (int n = 0; n < N; ++n) {
-    const size_t at = base + (size_t)n * d;
-    float x1[V], x2[V], lo[V], hi[V];
-    Vec<T>::load(x + at, x1);
-    Vec<T>::load(x + at + half, x2);
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      lo[e] = __fsub_rn(__fmul_rn(x1[e], cs[e]), __fmul_rn(x2[e], sn[e]));
-      hi[e] = __fadd_rn(__fmul_rn(x2[e], cs[e]), __fmul_rn(x1[e], sn[e]));
+  for (int k = 0; k < G; ++k) {
+    const int h = g + k * ng;
+    if (h < N) {
+      float x1[V], x2[V], lo[V], hi[V];
+      Vec<T>::unpack(raw1[k], x1);
+      Vec<T>::unpack(raw2[k], x2);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        lo[e] = __fsub_rn(__fmul_rn(x1[e], cs[e]), __fmul_rn(x2[e], sn[e]));
+        hi[e] = __fadd_rn(__fmul_rn(x2[e], cs[e]), __fmul_rn(x1[e], sn[e]));
+      }
+      *reinterpret_cast<uint4*>(outr + (size_t)h * d) = Vec<T>::pack(lo);
+      *reinterpret_cast<uint4*>(outr + (size_t)h * d + half) =
+          Vec<T>::pack(hi);
     }
-    Vec<T>::store(out + at, lo);
-    Vec<T>::store(out + at + half, hi);
   }
+}
+
+// The current device's SM count, read once per device.
+int sm_count(int* sms_out) {
+  static int sms[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices && sms[dev]) {
+    *sms_out = sms[dev];
+    return (int)cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms_out, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxDevices) sms[dev] = *sms_out;
+  return (int)err;
+}
+
+struct Plan {
+  int group, ng, chunks;
+  long long threads, blocks;
+};
+
+Plan plan_of(long long rows, int N, int chunks, int sms) {
+  Plan p{1, N, chunks, 0, 0};
+  for (int G = 4; G >= 1; G /= 2) {
+    if (G > N && G > 1) continue;
+    p.group = G;
+    p.ng = (N + G - 1) / G;
+    p.threads = rows * p.ng * chunks;
+    p.blocks = (p.threads + kThreads - 1) / kThreads;
+    if (p.blocks >= (long long)kMinCtasPerSm * sms) break;
+  }
+  return p;
+}
+
+template <typename T, int G>
+void launch_group(const Plan& p, const void* x, const void* cos_t,
+                  const void* sin_t, void* out, int S, int N, int d,
+                  float sign, cudaStream_t stream) {
+  rope_kernel<T, G><<<(unsigned)p.blocks, kThreads, 0, stream>>>(
+      (const T*)x, (const float*)cos_t, (const float*)sin_t, (T*)out,
+      (unsigned)p.threads, S, N, p.ng, p.chunks, d, sign);
 }
 
 template <typename T>
 int launch(const void* x, const void* cos_t, const void* sin_t, void* out,
            int B, int S, int N, int d, int neg_sin, cudaStream_t stream) {
-  const long long rows = (long long)B * S;
-  const long long threads = rows * (d / 2 / Vec<T>::kN);
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  rope_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const T*)x, (const float*)cos_t, (const float*)sin_t, (T*)out, rows, S,
-      N, d, neg_sin ? -1.f : 1.f);
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err) return err;
+  const Plan p = plan_of((long long)B * S, N, d / 2 / Vec<T>::kN, sms);
+  if (p.threads > 0xffffffffLL) return (int)cudaErrorInvalidValue;
+  const float sign = neg_sin ? -1.f : 1.f;
+  switch (p.group) {
+    case 4: launch_group<T, 4>(p, x, cos_t, sin_t, out, S, N, d, sign, stream); break;
+    case 2: launch_group<T, 2>(p, x, cos_t, sin_t, out, S, N, d, sign, stream); break;
+    default: launch_group<T, 1>(p, x, cos_t, sin_t, out, S, N, d, sign, stream);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -139,4 +219,18 @@ extern "C" int fused_rope_apply(const void* x, const void* cos_t,
   if (is_bf16)
     return launch<__nv_bfloat16>(x, cos_t, sin_t, out, B, S, N, d, neg_sin, st);
   return launch<float>(x, cos_t, sin_t, out, B, S, N, d, neg_sin, st);
+}
+
+// The head group G and the grid (blocks of 256 threads) that
+// fused_rope_apply launches for these arguments on the current device.
+// Returns the SM-count query's cudaError_t.
+extern "C" int fused_rope_plan(int B, int S, int N, int d, int is_bf16,
+                               int* group, long long* blocks) {
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err) return err;
+  const Plan p = plan_of((long long)B * S, N, d / 2 / (is_bf16 ? 8 : 4), sms);
+  *group = p.group;
+  *blocks = p.blocks;
+  return (int)cudaSuccess;
 }

@@ -69,7 +69,7 @@ from ..ops.fused_adamw import fused_adamw
 from ..ops.int8_matmul import int8_matmul
 from ..ops.rms_norm import rms_norm
 from ..ops.rmsnorm_matmul import rmsnorm_matmul
-from ..ops.rope import fused_rope, rope_tables
+from ..ops.rope import cached_tables, fused_rope
 from ..ops.swiglu import swiglu
 
 __all__ = ["LlamaPretrainConfig", "init_params", "layer_params",
@@ -234,10 +234,11 @@ def _block_post_attn(bp: Dict[str, Any], x, attn,
 # ---------------------------------------------------------------------------
 def _rope(q, k, theta):
     """Rotate q and k [b, s, n, d] by position.  The fused RoPE kernel when
-    ``d % 128 == 0`` (JAX's condition), else the inline rotate-half."""
+    ``d % 128 == 0`` (JAX's condition), else the inline rotate-half.  The
+    tables come from ``cached_tables``: built once for every layer."""
     d = q.shape[-1]
     s = q.shape[1]
-    cos_t, sin_t = rope_tables(s, d, theta, device=q.device)    # [s, d/2]
+    cos_t, sin_t = cached_tables(s, d, theta, device=q.device)  # [s, d/2]
     if d % 128 == 0:
         return (fused_rope(q.contiguous(), cos_t, sin_t),
                 fused_rope(k.contiguous(), cos_t, sin_t))

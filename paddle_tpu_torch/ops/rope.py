@@ -5,7 +5,8 @@ Counterpart of ``paddle_tpu/ops/pallas/rope.py``: :func:`rope_inv_freq` and
 :func:`rope_tables` are copies of the JAX functions; :func:`fused_rope`
 replaces the Pallas ``fused_rope`` (forward and, with ``-sin``, backward)
 with the hand-written Hopper kernel in ``csrc/rope.cu``; :func:`_composite`
-is the plain version.
+is the plain version.  :func:`cached_tables` keeps the tables of the last
+few (S, d, theta, device) keys, so a model's layers build them once.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor goes to the
 kernel, or the wrapper raises.  The JAX wrapper's composite fallback for
@@ -15,18 +16,27 @@ masks its own tail, so every length runs it.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import threading
 
 import torch
 
 from .._device import resolve_device
 from . import _build
 
-__all__ = ["fused_rope", "rope_tables", "rope_inv_freq", "launches"]
+__all__ = ["fused_rope", "rope_tables", "cached_tables", "rope_inv_freq",
+           "launch_plan", "launches"]
 
 # kernel launches made by fused_rope, forward and backward together
 launches = 0
+# tables built by cached_tables (a miss, or a call during a graph capture)
+table_builds = 0
+# (S, d, theta, device) keys cached_tables keeps, least recently used first
+TABLES_MAX = 16
+_tables: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+_tables_lock = threading.Lock()
 
 
 def rope_inv_freq(head_dim: int, theta: float = 10000.0, device=None):
@@ -44,6 +54,37 @@ def rope_tables(seq_len: int, head_dim: int, theta: float = 10000.0,
     t = torch.arange(seq_len, dtype=torch.float32, device=inv.device)
     freqs = torch.outer(t, inv)
     return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
+
+
+def cached_tables(seq_len: int, head_dim: int, theta: float = 10000.0,
+                  device=None):
+    """:func:`rope_tables` (f32) for (S, d, theta, device), built once and
+    kept among the last ``TABLES_MAX`` keys.  The tensors are shared: a
+    caller must not write them.  A call made while a CUDA graph is being
+    captured builds the tables fresh and keeps nothing, so no graph's
+    memory enters the cache and no graph reads a tensor the cache may
+    drop."""
+    global table_builds
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if torch.cuda.is_current_stream_capturing():
+            table_builds += 1
+            return rope_tables(seq_len, head_dim, theta, device=dev)
+    key = (int(seq_len), int(head_dim), float(theta), dev)
+    with _tables_lock:
+        hit = _tables.get(key)
+        if hit is not None:
+            _tables.move_to_end(key)
+            return hit
+    hit = rope_tables(seq_len, head_dim, theta, device=dev)
+    with _tables_lock:
+        table_builds += 1
+        _tables[key] = hit
+        while len(_tables) > TABLES_MAX:
+            _tables.popitem(last=False)
+    return hit
 
 
 def _composite(x, cos, sin, neg_sin: bool):
@@ -66,6 +107,28 @@ def _kernel_fn():
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_fn():
+    fn = _build.library("rope").fused_rope_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int),
+                                        ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_plan(shape, dtype=torch.bfloat16):
+    """(G, blocks): the head group and the grid of 256-thread blocks the
+    kernel launches for x of ``shape`` [B, S, N, d] and ``dtype`` on the
+    current CUDA device (the host's pick, from the device's SM count)."""
+    b, s, n, d = shape
+    group, blocks = ctypes.c_int(), ctypes.c_longlong()
+    err = _plan_fn()(b, s, n, d, int(dtype == torch.bfloat16),
+                     ctypes.byref(group), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"fused_rope plan failed: cudaError {err}")
+    return group.value, blocks.value
 
 
 def _check(x, cos, sin):

@@ -558,12 +558,29 @@ def test_segmented_kernel_refuses_what_it_cannot_take(gen):
                     seg, True)
 
 
-@pytest.mark.parametrize("b,s,n,d,dtype", [
-    (1, 1, 1, 128, torch.bfloat16),
-    (2, 65, 3, 64, torch.bfloat16),       # ragged length, head_dim 64
-    (1, 7, 2, 16, torch.bfloat16),        # the narrowest bf16 head
-    (2, 33, 2, 128, torch.float32),
-])
+# K5 across its head groups (the host's pick on a 132-SM H100 in the
+# comment: G = 1, 2 or 4), head tails (N no multiple of G) and grid tails,
+# one token (B * S = 1), S 1 / 7 / 2047, N 1 / 3 / 32, d 16 / 64 / 128,
+# bf16 and f32
+ROPE_CASES = [
+    (1, 1, 1, 128, torch.bfloat16),       # G 1, one token
+    (2, 65, 3, 64, torch.bfloat16),       # G 1, ragged length, head_dim 64
+    (1, 7, 2, 16, torch.bfloat16),        # G 1, the narrowest bf16 head
+    (2, 33, 2, 128, torch.float32),       # G 1
+    (1, 2047, 1, 128, torch.bfloat16),    # G 1, one head, grid tail
+    (1, 7, 3, 128, torch.float32),        # G 1, three heads
+    (5, 2047, 3, 128, torch.bfloat16),    # G 2, head tail, grid tail
+    (4, 2047, 3, 128, torch.float32),     # G 2, f32, head tail, grid tail
+    (2, 2047, 16, 128, torch.bfloat16),   # G 2, the ragged trainer shape
+    (3, 2047, 32, 64, torch.bfloat16),    # G 4, head_dim 64, grid tail
+    (6, 2047, 5, 64, torch.float32),      # G 4, f32 d 64, head tail
+    (3, 700, 32, 128, torch.float32),     # G 4, f32
+    (8, 2047, 7, 128, torch.bfloat16),    # G 4, head tail, grid tail
+    (4, 2047, 5, 128, torch.float32),     # G 4, f32, head tail, grid tail
+]
+
+
+@pytest.mark.parametrize("b,s,n,d,dtype", ROPE_CASES)
 def test_fused_rope_kernel_matches_plain_bit_for_bit(gen, b, s, n, d, dtype):
     """Forward and backward: the kernel rounds each product and sum on
     its own, as the plain version does."""
@@ -579,6 +596,57 @@ def test_fused_rope_kernel_matches_plain_bit_for_bit(gen, b, s, n, d, dtype):
     assert rope.launches == before + 2
     assert torch.equal(out, rope._composite(x.detach(), cos, sin, False))
     assert torch.equal(x.grad, rope._composite(ct, cos, sin, True))
+
+
+def test_fused_rope_plan_fills_the_card(gen):
+    """The host's head group: the largest of 4, 2 (at most N) whose grid
+    of 256-thread blocks gives every SM 4, else 1; ROPE_CASES reach every
+    group."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def blocks(b, s, n, d, dtype, g):
+        chunks = d // 2 // (8 if dtype == torch.bfloat16 else 4)
+        return -(-(b * s * -(-n // g) * chunks) // 256)
+
+    seen = set()
+    for b, s, n, d, dtype in ROPE_CASES + [(8, 256, 32, 128, torch.bfloat16),
+                                           (1, 256, 32, 128, torch.bfloat16)]:
+        g, grid = rope.launch_plan((b, s, n, d), dtype)
+        seen.add(g)
+        assert grid == blocks(b, s, n, d, dtype, g)
+        assert g == 1 or grid >= 4 * sms
+        for bigger in (2 * g, 4 * g):
+            if bigger <= min(4, n):
+                assert blocks(b, s, n, d, dtype, bigger) < 4 * sms
+    if sms == 132:
+        assert seen == {1, 2, 4}
+
+
+def test_rope_tables_made_in_a_graph_capture_are_not_kept(gen):
+    """``_rope`` inside a CUDA-graph capture builds its tables in the
+    graph's memory and keeps none in the memo; a later eager call (which
+    keeps them) gives the replay's tensors."""
+    from paddle_tpu_torch.models import llama_pretrain as tlp
+    s, d, theta = 37, 128, 12345.0          # a key no other test uses
+    key = (s, d, theta, torch.device("cuda", torch.cuda.current_device()))
+    q = torch.randn((2, s, 4, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn((2, s, 2, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    tlp._rope(q[:, :5], k[:, :5], theta)    # builds and loads the kernel
+    torch.cuda.synchronize()
+    builds = rope.table_builds
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_q, got_k = tlp._rope(q, k, theta)
+    assert key not in rope._tables
+    assert rope.table_builds == builds + 1
+    graph.replay()
+    want_q, want_k = tlp._rope(q, k, theta)
+    torch.cuda.synchronize()
+    assert key in rope._tables
+    assert torch.equal(got_q, want_q) and torch.equal(got_k, want_k)
+    del graph
 
 
 def test_fused_rope_kernel_refuses_what_it_cannot_take(gen):

@@ -31,7 +31,10 @@ nkv 32 and 8, d 128, page 64, lens ``K1_LENS``); K2 at its packed stream
 wq / wk / wv / wo, w_gate / w_up, w_down, lm_head; w_gate at batch 1 and
 16), K3route at M 16, 32, 64 and 128 of the
 same weight; K5 at ``K5_AB_SHAPES`` bf16 (the trainer's ``[8, 2048, 16,
-128]`` and the dense serving wave's ``[8, 256, 32, 128]``); K6a-c at
+128]``, the dense serving wave's ``[8, 256, 32, 128]``, one request's
+``[1, 256 | 512, 32, 128]``, an odd length), forward and backward (``-sin``),
+with the head group and grid each tree launched, then the model's
+``_rope`` (q and k with their tables) at the serving shape; K6a-c at
 ``TRAIN_SHAPES[0]`` causal (K6b and K6c both from this tree's forward
 kernel's out and lse); K7a / K7b at ``K7_TIMED`` of ``K7_CASES`` (the
 packed trainer's rows, GQA 32 over 8, one document a row), from this tree's
@@ -61,9 +64,9 @@ block-diagonal mask), K3 and K3dec (cuBLAS on the weight dequantized
 beforehand), K9a (``F.rms_norm``) and K9b (the autograd backward of
 ``F.rms_norm``).  The two outputs (K2, K6a: out and lse; K6c: dk and dv;
 K9a: out and rstd; K9b: dx and dw) are held against each other at
-chip_smoke's tolerance.  Prints the card, the floor of both timers (one
-one-element fill), and one JSON line per kernel and case; exits non-zero
-without a CUDA device.
+chip_smoke's tolerance; K5's must be equal bit for bit.  Prints the card,
+the floor of both timers (one one-element fill), and one JSON line per
+kernel and case; exits non-zero without a CUDA device.
 """
 
 import argparse
@@ -90,9 +93,12 @@ K3DEC_SHAPES = [(8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096),
 # [n, h] of K9a / K9b: the trainer's rows, the serving admission wave's
 # (8 prompts of 256 at LLaMA-7B's width) and a decode step's at batch 8
 K9_SHAPES = [(16384, 2048), (2048, 4096), (8, 4096)]
-# [B, S, heads, d] of K5: the trainer's q / k and the dense serving wave's
-# (8 prompts of 256 at LLaMA-7B's 32 heads)
-K5_AB_SHAPES = [(8, 2048, 16, 128), (8, 256, 32, 128)]
+# [B, S, heads, d] of K5: the trainer's q / k, the dense serving wave's
+# (8 prompts of 256 at LLaMA-7B's 32 heads), a spec-on admission's draft
+# prefill and a one-request wave (1 prompt of 256 / 512), the trainer's
+# heads at an odd length
+K5_AB_SHAPES = [(8, 2048, 16, 128), (8, 256, 32, 128), (1, 256, 32, 128),
+                (1, 512, 32, 128), (2, 2047, 16, 128)]
 
 
 def parent_ops(root: Path, name: str):
@@ -107,6 +113,28 @@ def parent_ops(root: Path, name: str):
         sys.modules[spec.name] = mod
         spec.loader.exec_module(mod)
     return importlib.import_module(f"parent_paddle_tpu_torch.ops.{name}")
+
+
+def k5_plan(mod, shape):
+    """{"group", "blocks"}: the head group G and the grid of 256-thread
+    blocks a tree's K5 launches for bf16 x of ``shape``.  A tree without
+    ``launch_plan`` runs the first design: one thread a (row, 16-byte
+    chunk) walking all N heads."""
+    B, S, N, d = shape
+    if hasattr(mod, "launch_plan"):
+        group, blocks = mod.launch_plan(shape)
+    else:
+        group, blocks = N, -(-B * S * (d // 2 // 8) // 256)
+    return {"group": group, "blocks": blocks}
+
+
+def k5_equal(torch, cs, name, a, b):
+    """K5 new against parent: both trees round each product and sum on
+    its own, so the outputs must be equal bit for bit.  -> 0.0"""
+    if not torch.equal(a, b):
+        cs.fail(f"{name}: new differs from parent by up to "
+                f"{float((a.float() - b.float()).abs().max())}")
+    return 0.0
 
 
 def card_alone_ms(torch, fn, flush, reps):
@@ -450,12 +478,33 @@ def main():
             # chip_smoke's k5 work: x read and written, the f32 tables read
             work = (2 * x.numel() * 2 + 2 * cos.numel() * 4, 3 * x.numel(),
                     cs.PEAK_F32_FLOPS)
-            run("K5", lambda: old_rp._apply(x, cos, sin, False),
-                lambda: rp._apply(x, cos, sin, False), work,
-                lambda a, b: cs.check_close(f"K5 {list(shape)} new vs parent",
-                                            a, b, cs.K5_TOL),
-                shape=list(shape))
+            plans = {"parent_plan": k5_plan(old_rp, shape),
+                     "new_plan": k5_plan(rp, shape)}
+            for neg in (False, True):
+                run("K5", functools.partial(old_rp._apply, x, cos, sin, neg),
+                    functools.partial(rp._apply, x, cos, sin, neg), work,
+                    functools.partial(k5_equal, torch, cs,
+                                      f"K5 {list(shape)} neg_sin={neg}"),
+                    shape=list(shape), neg_sin=neg, **plans)
             del x, cos, sin
+        # the model's _rope on a dense wave's q and k: the parent's builds
+        # the tables every call (a layer), this tree's reads them from the
+        # memo; the host time per call is the memo's saving
+        from paddle_tpu_torch.models import llama_pretrain as lp
+        old_lp = importlib.import_module(
+            "parent_paddle_tpu_torch.models.llama_pretrain")
+        shape = K5_AB_SHAPES[1]
+        q, k = (torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        theta = 10000.0
+        work = (2 * (2 * q.numel() * 2 + q.shape[1] * q.shape[3] * 4),
+                6 * q.numel(), cs.PEAK_F32_FLOPS)
+        run("K5 _rope", functools.partial(old_lp._rope, q, k, theta),
+            functools.partial(lp._rope, q, k, theta), work,
+            lambda a, b: max(k5_equal(torch, cs, "_rope q", a[0], b[0]),
+                             k5_equal(torch, cs, "_rope k", a[1], b[1])),
+            shape=list(shape), tensors="q and k")
+        del q, k
     if "K9a" in kernels or "K9b" in kernels:
         old_rn = parent_ops(args.parent, "rms_norm")
         eps = 1e-6

@@ -17,15 +17,18 @@ Builds LLaMA-7B (full width and depth, random weights from ``--seed``; with
   without it every token is computed.  On the packed lane (the default)
   and on the chunked lane (``packed=False``, ``prefill_chunk`` 256);
 * the batched dense lane (``packed=False``, ``prefill_bucket`` 256): one
-  wave of 8 prompts of 242-256 tokens, one [8, 256] dense dispatch.
+  wave of 8 prompts of 242-256 tokens, one [8, 256] dense dispatch; once
+  with the RoPE tables' memo (``ops.rope.cached_tables``) and once with
+  every layer building its tables (``rope_tables``), as before the memo.
 
 Each case runs ``WAVES`` + 1 times on fresh engines (the first a warm-up):
 the measured wave timed on the host clock between two synchronizes (its
 prefill dispatches, page write and first tokens), then once more under
 ``torch.profiler``: device time by kernel kind (K2 with its range kernel,
 K3, K5, the library matrix products, the rest), the busy share (device
-time over the least host time) and the device activities.  Prints one JSON
-line per case with the card's name and power limit.  Exits non-zero
+time over the least host time), the device activities and the RoPE table
+builds of the profiled wave.  Prints one JSON line per case with the
+card's name and power limit.  Exits non-zero
 without a CUDA device.
 """
 
@@ -44,10 +47,12 @@ PREFIX_LEN = 448
 TAILS = [[16, 200, 64, 130], [40, 180, 100, 150]]
 DENSE_LENS = [256, 250, 243, 255, 242, 248, 253, 246]
 WAVES = 3
-CASES = [("packed", True, {}), ("packed", False, {}),
-         ("chunked", True, {"packed": False, "prefill_chunk": 256}),
-         ("chunked", False, {"packed": False, "prefill_chunk": 256}),
-         ("batched", False, {"packed": False, "prefill_bucket": 256})]
+# (lane, prefix caching, engine keywords, the RoPE tables' memo)
+CASES = [("packed", True, {}, True), ("packed", False, {}, True),
+         ("chunked", True, {"packed": False, "prefill_chunk": 256}, True),
+         ("chunked", False, {"packed": False, "prefill_chunk": 256}, True),
+         ("batched", False, {"packed": False, "prefill_bucket": 256}, True),
+         ("batched", False, {"packed": False, "prefill_bucket": 256}, False)]
 
 
 def _kind(name: str) -> str:
@@ -67,12 +72,14 @@ def main():
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         sys.exit(1)
+    import paddle_tpu_torch.models.llama_pretrain as tlp
     from paddle_tpu_torch.models.decode import quantize_params_int8
     from paddle_tpu_torch.models.llama_pretrain import (LlamaPretrainConfig,
                                                         init_params)
     from paddle_tpu_torch.models.paged_decode import PagedKVCache
     from paddle_tpu_torch.models.serving_engine import (
         ContinuousBatchingEngine)
+    from paddle_tpu_torch.ops import rope as rp
 
     card = card_line()
     cfg = LlamaPretrainConfig()
@@ -107,12 +114,19 @@ def main():
         torch.cuda.synchronize()
         return eng, cache
 
-    for lane, prefix_on, kw in CASES:
+    builds = [0]
+
+    def no_memo(s, d, theta, device=None):
+        builds[0] += 1
+        return rp.rope_tables(s, d, theta, device=device)
+
+    for lane, prefix_on, kw, memo in CASES:
+        tlp.cached_tables = rp.cached_tables if memo else no_memo
         host_ms = []
         for i in range(WAVES + 2):
             eng, cache = ready(lane, prefix_on, kw)
             c0 = (eng.prefill_calls, eng.prefill_token_slots,
-                  cache.prefix_hits)
+                  cache.prefix_hits, rp.table_builds + builds[0])
             if i == WAVES + 1:
                 with torch.profiler.profile(activities=acts) as prof:
                     eng._admit_wave()
@@ -125,7 +139,8 @@ def main():
                     host_ms.append((time.perf_counter() - t0) * 1e3)
             wave = {"dispatches": eng.prefill_calls - c0[0],
                     "stream_slots": eng.prefill_token_slots - c0[1],
-                    "prefix_hit_pages": cache.prefix_hits - c0[2]}
+                    "prefix_hit_pages": cache.prefix_hits - c0[2],
+                    "rope_table_builds": rp.table_builds + builds[0] - c0[3]}
             del eng, cache
             torch.cuda.empty_cache()
         busy, kinds, top = device_time(torch, prof, _kind, 1, 8)
@@ -135,6 +150,7 @@ def main():
             "card": card, "model": "LLaMA-7B (LlamaPretrainConfig defaults)",
             "weights_and_pages": "int8" if args.int8 else "bf16",
             "lane": lane, "prefix_caching": prefix_on, "engine_kw": kw,
+            "rope_tables_memo": memo,
             **wave, "host_ms": host_ms, "host_ms_min": min(host_ms),
             "device_busy_ms": busy, "device_busy_share": busy / min(host_ms),
             "device_activities": len(spans), "ms_by_kind": kinds,
