@@ -143,8 +143,9 @@ Phases, one JSON line each on stdout:
              utilization, K2 launches (once a layer in every mixed tick),
              fresh tokens a tick (at most the budget), the pool clean; the
              device ms of one mixed tick and each lane's busy share; the
-             first two waves served on the sync mixed lane with every
-             token's logits recorded where the engine computes it, within
+             first two waves served (24 new tokens and the stagger) on the
+             sync mixed lane with every token's logits recorded where the
+             engine computes it, within
              LOGIT_LIMIT of the plain forward, a planted fault (fresh stream
              K/V one slot late) beyond it; the share of tokens equal to the
              sequential lane's (printed).  The earlier serves build their
@@ -169,7 +170,8 @@ Phases, one JSON line each on stdout:
              (gamma + 1) x draft layers a synchronous round, K5 2 x draft
              layers a spec-on admission, one graph capture (one gamma) and
              none after warm-up, both caches clean; the verify's logits of
-             the served sequences, teacher-forced, within LOGIT_LIMIT of
+             the served sequences (the 8 requests served again to 32
+             tokens), teacher-forced, within LOGIT_LIMIT of
              the plain forward and a planted fault (fresh K/V scattered one
              slot late) beyond it.
 4h. serve_swap - the two-tier KV cache (PagedKVCache(host_pages=64), the
@@ -178,10 +180,11 @@ Phases, one JSON line each on stdout:
              256 prompt tokens from np.random.RandomState(seed) (bench.py's
              RandomState(0) at seed 0), 192 new tokens, greedy, batch 4,
              18 pages of 64 (7 a request at its end: preemption is forced),
-             pages_max 8, each arm after a warm-up of 5 requests of 72 new
-             tokens (bench.py warms 192, for its jit; the port compiles
-             nothing at run time).  Arms, in one process: (a) no host tier
-             (recompute resumes), (b) the host tier with the swap forced
+             pages_max 8, the graph arms after a warm-up of 5 requests of
+             72 new tokens (bench.py warms 192, for its jit; the port
+             compiles nothing at run time, and the synchronous arms capture
+             nothing, so they run cold).  Arms, in one process: (a) no host
+             tier (recompute resumes), (b) the host tier with the swap forced
              (offload_swap_gbps 1e9) on the synchronous lane, (c) as (b) on
              the overlap lane (every step after the first under
              set_sync_debug_mode("error") outside the flush points:
@@ -216,6 +219,42 @@ Phases, one JSON line each on stdout:
              logits within INT8_LOGIT_LIMIT of the plain forward over the
              same quantized K / V (every token's K and V through
              quantize_kv_token), the planted fault beyond it.
+4j. serve_qos - QoS and the in-process fleet (paddle_tpu_torch/fleet) at
+             LLaMA-7B, bf16, pages of 64, greedy.  (a) One engine: a quota
+             check (tenant "t", 100 tokens/s, burst 600, the clock pinned:
+             the third 252-token charge refused with its bucket's
+             retry_after, admitted after that refill) and a burst of 24
+             requests in the class mix 1 high : 2 normal : 2 low against a
+             queue of 8, nothing stepped: the verdicts (admitted, degraded,
+             rejected per class) equal to the port's CPU engine's on the
+             same submissions; then priority preemption: 8 lows fill the
+             batch, two highs arrive, each evicting the youngest low, on the
+             synchronous lane, the overlap lane (graph replays; the same
+             tokens as the synchronous arm) and with a host tier (the
+             victims swapped out and restored bit for bit), and on int8
+             weights over int8 pages (K3, K4): every request finishes, no
+             high is churned, each served schedule's decode logits within
+             LOGIT_LIMIT (int8: INT8_LOGIT_LIMIT) of the plain forward and a
+             planted fault (attention over lens, not lens + 1) beyond it.
+             (b) bench.py's _serving_qos_line TPU recipe (bench.py:1168-1177)
+             through FleetRouter: a fixed 1-replica fleet, the same under
+             FleetAutoscaler, and that with replica_death injected
+             mid-ramp, every replica over the one weight set: tok/s, TTFT
+             p99 by class, rejections by class, degraded, the replica
+             trajectory, deaths, replacements, scale-ups and -downs, and
+             memory allocated / reserved at the start, at the peak replica
+             count and after the walk back to one replica.  Fails on a
+             request neither finished nor rejected, a live replica's audit
+             not clean, the kill arm without exactly one death and one
+             replacement, the walk back ending more than 64 MiB above the
+             fixed arm's allocated memory, or a peak above the memory
+             before the first replica plus 3 pools plus 4 GiB.  (c)
+             FleetServer over two replicas on HTTP: priority and tenant in
+             the body, a quota 429 with its Retry-After, degraded
+             completions flagged in /generate and in the stream, /health's
+             fleet state and the fleet instruments in /metrics, and a
+             replica death mid-stream: the stream ends with the error while
+             a request queued behind it fails over and completes.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -287,6 +326,7 @@ Phases, one JSON line each on stdout:
 12. kernels - one JSON object with an entry per ported kernel (16, and
              K3's wave path beside its decode path and the segmented
              kernels' per-tile range kernel: 18).
+13. timing - each phase's seconds and the whole run's.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before that line.  Without a CUDA device, or without the package
@@ -3068,8 +3108,10 @@ MIXED_CACHE = dict(num_pages=160, pages_max=8, batch=8, page=64)
 # the warm-up: two waves of the twin schedule with 8 new tokens (the second
 # arrives while the first decodes, so the mixed arms tick before the timing)
 MIXED_WARM_WAVES, MIXED_WARM_NEW = 2, 8
-# the teacher-forced check serves the first two waves of the schedule
-MIXED_CHECK_WAVES = 2
+# the teacher-forced check serves the first two waves of the schedule at
+# MIXED_CHECK_NEW new tokens (the second wave still arrives while the first
+# decodes, so the check covers mixed ticks)
+MIXED_CHECK_WAVES, MIXED_CHECK_NEW = 2, 24
 MIXED_DEVICE_REPS = 5
 
 
@@ -3248,8 +3290,9 @@ def mixed_recorded(torch, cfg, params, cache, sched, forced=None, wrap=None):
     engine emit those tokens instead of its picks: with eos None the
     schedule depends on lengths alone, so this replays the same ticks over
     the same inputs (teacher forcing).  ``wrap`` rewrites the mixed step's
-    arguments (a planted fault).  -> (tokens per request, logits per
-    request, [tokens, V] fp32)."""
+    arguments (a planted fault).  Each request takes MIXED_CHECK_NEW
+    tokens.  -> (tokens per request, logits per request, [tokens, V]
+    fp32)."""
     import paddle_tpu_torch.models.paged_decode as pd
     import paddle_tpu_torch.models.serving_engine as se
     eng = se.ContinuousBatchingEngine(cfg, params, cache, mixed=True,
@@ -3298,7 +3341,7 @@ def mixed_recorded(torch, cfg, params, cache, sched, forced=None, wrap=None):
 
     eng._step_mixed, eng._emit_first = stepper, emit
     with patched((pd, "_pick_token", pick), (se, "_pick_token", pick_wave)):
-        _, _, done, _ = mixed_drive(eng, sched)
+        _, _, done, _ = mixed_drive(eng, sched, new=MIXED_CHECK_NEW)
     if cache.audit()["owned"]:
         fail("serve_mixed: the recorded run left pages owned")
     gens = [r.generated for r in done]
@@ -3465,6 +3508,9 @@ def phase_serve_mixed(torch, cfg, seed, params, mods, kv_quant=None,
 SPEC_BANK, SPEC_STEM, SPEC_SCAN_NEW, SPEC_MAX_START = 16, 12, 150, 70
 SPEC_MAX_PROMPTS, SPEC_MIN_CYCLES = 5, 2
 SPEC_REQUESTS, SPEC_NEW, SPEC_WARM_NEW = 8, 64, 8
+# the logit check serves the same requests to half their length (the
+# chip_smoke wall: each spec arm keeps SPEC_NEW)
+SPEC_CHECK_NEW = 32
 SPEC_GAMMA, SPEC_LOOKUP_GAMMA = 4, 7
 SPEC_DRAFT_LAYERS, SPEC_DRAFT_SEED = 2, 1
 SPEC_CACHE = dict(num_pages=72, pages_max=8, batch=8, page=64)
@@ -3654,11 +3700,13 @@ def spec_recorded(torch, cfg, params, cache, dcache, reqs, forced=None,
     tokens instead of its argmax (the accept fold then commits them): with
     eos None the served sequences replay over the same contexts (teacher
     forcing).  ``late`` scatters every fresh K/V one slot late (a planted
-    fault).  -> (tokens per request, [len - 1, V] fp32 logits per request
-    of its tokens 1.., recorded)."""
+    fault).  Each request takes SPEC_CHECK_NEW tokens.  -> (tokens per
+    request, [SPEC_CHECK_NEW - 1, V] fp32 logits per request of its tokens
+    1.., recorded)."""
     import paddle_tpu_torch.models.paged_decode as pd
     from paddle_tpu_torch.models.serving_engine import (
         ContinuousBatchingEngine, SpecConfig)
+    new = SPEC_CHECK_NEW
     spec = SpecConfig(gamma=SPEC_GAMMA, draft_cfg=cfg, draft_params=params,
                       draft_cache=dcache)
     eng = ContinuousBatchingEngine(cfg, params, cache, spec=spec)
@@ -3673,7 +3721,7 @@ def spec_recorded(torch, cfg, params, cache, dcache, reqs, forced=None,
         for s, r in eng._active.items():
             n = len(r.generated)
             for j in range(logits.shape[1]):
-                if n + j < SPEC_NEW:
+                if n + j < new:
                     rec.setdefault(r.rid, {})[n + j] = logits[s, j].clone()
                     if forced is not None:
                         tok[s, j] = forced[r.rid][n + j]
@@ -3693,11 +3741,11 @@ def spec_recorded(torch, cfg, params, cache, dcache, reqs, forced=None,
     seams = [(pd, "_pick_token", pick)] + ([(pd, "_spec_dest", dest)]
                                            if late else [])
     with patched(*seams):
-        done = spec_serve(torch, eng, reqs, SPEC_NEW, True)
+        done = spec_serve(torch, eng, reqs, new, True)
     if cache.audit()["owned"] or dcache.audit()["owned"]:
         fail("serve_spec: the recorded run left pages owned")
     gens = [r.generated for r in done]
-    logits = [torch.stack([rec[r.rid][j] for j in range(1, SPEC_NEW)])
+    logits = [torch.stack([rec[r.rid][j] for j in range(1, new)])
               for r in done]
     return gens, logits
 
@@ -4029,12 +4077,13 @@ def swap_clean(phase, arm, cache, indexed_ok=False):
 
 
 def swap_arm(torch, cfg, params, mods, prompts, phase, arm, kv_quant, dev,
-             host=True, overlap=False, lane_kw=None, no_sync=False):
+             host=True, overlap=False, lane_kw=None, no_sync=False,
+             warm=True):
     """One timed arm: an engine (its own registry) over a fresh cache,
-    warmed on the first batch + 1 prompts at SWAP_SHORT_NEW tokens, then
-    timed on every prompt at SWAP_NEW with the launch counts set to 0 just
-    before.  -> (tokens per request, stats, launches, engine, cache, the
-    swap watch)."""
+    warmed (``warm``; the stats say whether) on the first batch + 1 prompts
+    at SWAP_SHORT_NEW tokens, then timed on every prompt at SWAP_NEW with the launch counts
+    set to 0 just before.  -> (tokens per request, stats, launches, engine,
+    cache, the swap watch)."""
     from paddle_tpu_torch.models.paged_decode import PagedKVCache
     from paddle_tpu_torch.models.serving_engine import (
         ContinuousBatchingEngine)
@@ -4048,8 +4097,8 @@ def swap_arm(torch, cfg, params, mods, prompts, phase, arm, kv_quant, dev,
     if host:
         eng.offload_swap_gbps = 1e9          # the swap always wins
     watch = swap_watch(torch, eng, cache, mods)
-    warm = swap_serve(torch, eng, prompts[:cache.tables.shape[0] + 1],
-                      SWAP_SHORT_NEW)
+    warmed = swap_serve(torch, eng, prompts[:cache.tables.shape[0] + 1],
+                        SWAP_SHORT_NEW) if warm else []
     swap_clean(phase, f"{arm} (warm-up)", cache)
     torch.cuda.synchronize()
     m = eng.metrics
@@ -4070,7 +4119,7 @@ def swap_arm(torch, cfg, params, mods, prompts, phase, arm, kv_quant, dev,
     captured = sum(1 for key, (g, _, was) in graph_state().items()
                    if g.graph is not None and not (key in graphs0
                                                    and graphs0[key][2]))
-    for r in done + warm:
+    for r in done + warmed:
         want = SWAP_NEW if r in done else SWAP_SHORT_NEW
         if r.status != "ok" or len(r.generated) != want:
             fail(f"{phase}: {arm} request {r.rid} ended {r.status} "
@@ -4090,6 +4139,7 @@ def swap_arm(torch, cfg, params, mods, prompts, phase, arm, kv_quant, dev,
     stats = dict(
         lane="overlap" if overlap else "sync",
         admission="batched (packed=False)" if lane_kw else "packed",
+        warm=warm,
         host_pages=SWAP_HOST_PAGES if host else 0, wall_s=wall,
         decode_tok_per_s=sum(len(r.generated) for r in done) / wall,
         decode_steps=eng.decode_steps - base["steps"],
@@ -4475,12 +4525,12 @@ def phase_serve_swap(torch, cfg, seed, params, mods, kv_quant=None,
     else:
         _, a, launches, _, _, _ = swap_arm(
             torch, cfg, params, mods, prompts, phase, "(a) recompute", None,
-            dev, host=False, lane_kw=lane_kw)
+            dev, host=False, lane_kw=lane_kw, warm=False)
         arms["a_recompute_sync"] = a
         add(launches)
         served, b, launches, eng, cache, watch = swap_arm(
             torch, cfg, params, mods, prompts, phase, "(b) swap sync", None,
-            dev, lane_kw=lane_kw)
+            dev, lane_kw=lane_kw, warm=False)
         b["round_trip_pages"] = watched("(b)", watch)
         b["pinned_bytes"] = cache.host.nbytes
         arms["b_swap_sync"] = b
@@ -4590,6 +4640,8 @@ def phase_serve_swap(torch, cfg, seed, params, mods, kv_quant=None,
         a_ms = arms["a_recompute_sync"]["resume_ms_mean"]
         b_ms = arms["b_swap_sync"]["resume_ms_mean"]
         fields.update(resume_ms_ratio_recompute_over_swap=a_ms / b_ms,
+                      resume_ms_ratio_warm=(arms["a_recompute_sync"]["warm"]
+                                            and arms["b_swap_sync"]["warm"]),
                       faults=fault_stats, transfer=micro,
                       promotion=promotion)
     emit(phase, **fields)
@@ -4601,6 +4653,821 @@ def phase_serve_swap(torch, cfg, seed, params, mods, kv_quant=None,
              f"{fault_diff}, within the limit {limit}")
     from paddle_tpu_torch.models import graphed_step
     graphed_step.clear()                 # the arms' caches are gone
+    return total
+
+
+# serve_qos: QoS (priority classes, class-aware shedding, tenant quotas,
+# priority preemption) and the in-process fleet at LLaMA-7B.  The fleet
+# recipe is bench.py's _serving_qos_line TPU settings (bench.py:1168-1177):
+# batch 8, pages of 64, 96 pages, pages_max 8, 32 new tokens, a queue of 8
+# a replica, at most 3 replicas, waves of (4, 6, 8, 10, 10, 8) requests 3
+# router steps apart, prompts of 48 / 96 / 160 / 220 tokens in the class
+# mix 1 high : 2 normal : 2 low, the autoscaler's band 512 / 64 queued
+# tokens a replica.  (a)'s preemption arms use the same cache: a full batch
+# of lows of the recipe's lengths, each with a budget of its own (20-34
+# tokens, the port's choice: no two retire at one step, so the resume waves
+# are the same on every lane), then two highs of 96 and 160 tokens.
+QOS_CACHE = dict(num_pages=96, pages_max=8, batch=8, page=64)
+QOS_QUEUE_CAP, QOS_MAX_REPLICAS = 8, 3
+QOS_WAVES = (4, 6, 8, 10, 10, 8)
+QOS_STEPS_PER_WAVE = 3
+QOS_PROMPT_LENS = (48, 96, 160, 220)
+QOS_CLASSES = ("high", "normal", "normal", "low", "low")
+QOS_NEW = 32
+QOS_HIGH_QT, QOS_LOW_QT = 512.0, 64.0
+QOS_LOW_NEWS = (20, 22, 24, 26, 28, 30, 32, 34)
+QOS_HIGH_LENS, QOS_HIGH_NEW = (96, 160), 24
+# a retired replica gives back its pool, graphs and workspaces: the walk
+# back to one replica ends within QOS_MEM_SLACK of the fixed arm's
+# allocated memory; no replica copies the weights: an arm's peak stays
+# within 3 pools and QOS_PEAK_SLACK of the memory before its first replica
+QOS_MEM_SLACK = 64 * 2**20
+QOS_PEAK_SLACK = 4 * 2**30
+# (a)'s shedding burst (nothing stepped): a quota check on tenant "t" (rate
+# 100 tokens/s, burst 600, the clock pinned), then 24 requests in the
+# recipe's class mix and lengths against the queue of 8
+QOS_BURST = 24
+QOS_QUOTA = dict(rate_tokens_per_s=100.0, burst_tokens=600.0)
+# a failed-over request's tokens are held against the plain forward over
+# its own sequence: each served token's plain logit within twice the serve's
+# logit bar of the plain argmax (served logits lie within LOGIT_LIMIT of the
+# plain ones, so a greedy pick of the served logits lies within 2 x of the
+# plain argmax; a token equality with one engine would also compare batch
+# compositions, which bf16 GEMMs do not keep bit for bit).  (b) checks this
+# many of the kill arm's failed-over requests, (c) its queued one; a planted
+# fault (the prompt's last token lost in the move) must land beyond the bar.
+QOS_FAILOVER_SAMPLE = 4
+
+
+def qos_shed_burst(se, eng, prompts):
+    """The quota check and the shedding burst on ``eng`` (the clock pinned,
+    nothing stepped) -> (each submission's verdict, counts per class)."""
+    eng.quotas = se.TenantQuotas(**QOS_QUOTA)
+    clock = [1000.0]
+    eng._now = lambda: clock[0]
+    out = []
+    per = {c: {"admitted": 0, "degraded": 0, "rejected": 0}
+           for c in se.PRIORITIES}
+
+    def submit(p, cls, tenant=None):
+        try:
+            rid = eng.submit(p, max_new_tokens=QOS_NEW, priority=cls,
+                             tenant=tenant)
+        except se.QuotaExceededError as e:
+            out.append(("quota", e.tenant, round(e.retry_after, 6)))
+            return
+        except se.QueueFullError as e:
+            out.append(("rejected", cls, "hard bound" in str(e)))
+            per[cls]["rejected"] += 1
+            return
+        kind = "degraded" if eng._queue[-1].degraded else "admitted"
+        assert eng._queue[-1].rid == rid
+        out.append((kind, cls))
+        per[cls][kind] += 1
+
+    big = prompts[QOS_PROMPT_LENS.index(220)]       # cost 220 + 32 = 252
+    for _ in range(3):
+        submit(big, "normal", "t")
+    clock[0] += out[-1][2] + 1e-6                    # the hinted refill
+    submit(big, "normal", "t")
+    for i in range(QOS_BURST):
+        submit(prompts[i % len(prompts)], QOS_CLASSES[i % 5])
+    return out, per
+
+
+def qos_shedding(torch, cfg, params, dev):
+    """(a)'s burst on a card engine at LLaMA-7B and on the port's CPU
+    engine (a 2-layer model on the same cache geometry: the verdicts read
+    the queue, the lengths and the classes only) -> the line's fields."""
+    import paddle_tpu_torch.models.serving_engine as se
+    from paddle_tpu_torch.models.llama_pretrain import (
+        LlamaPretrainConfig, init_params)
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab_size, (L,)) for L in QOS_PROMPT_LENS]
+    eng = se.ContinuousBatchingEngine(
+        cfg, params, PagedKVCache(cfg, device=dev, **QOS_CACHE),
+        max_queue_len=QOS_QUEUE_CAP, metrics_registry=False)
+    card, per = qos_shed_burst(se, eng, prompts)
+    tiny = LlamaPretrainConfig(vocab_size=128, hidden_size=64,
+                               intermediate_size=128, num_hidden_layers=2,
+                               num_attention_heads=4, num_key_value_heads=2,
+                               dtype=torch.float32)
+    ceng = se.ContinuousBatchingEngine(
+        tiny, init_params(tiny, 0, "cpu", dtype=torch.float32),
+        PagedKVCache(tiny, device="cpu", **QOS_CACHE),
+        max_queue_len=QOS_QUEUE_CAP, metrics_registry=False)
+    cpu, cpu_per = qos_shed_burst(se, ceng, [p % 128 for p in prompts])
+    # nothing was stepped: cancel the burst, one step retires it unserved
+    for r in list(eng._queue):
+        eng.cancel(r.rid)
+    eng.step()
+    cancelled = sum(r.status == "cancelled" for r in eng.finished())
+    if card != cpu or per != cpu_per:
+        fail(f"serve_qos: the shedding verdicts on the card {per} differ "
+             f"from the CPU engine's {cpu_per}")
+    quota = [v for v in card if v[0] == "quota"]
+    want_hint = (252 - (600 - 2 * 252)) / QOS_QUOTA["rate_tokens_per_s"]
+    if len(quota) != 1 or quota[0][1] != "t" or \
+            abs(quota[0][2] - want_hint) > 1e-9 or card[3][0] != "admitted":
+        fail(f"serve_qos: the quota check gave {card[:4]}, want the third "
+             f"charge refused with retry_after {want_hint} and the fourth "
+             f"admitted after the refill")
+    if not per["low"]["rejected"] or per["high"]["rejected"] > \
+            per["low"]["rejected"] or not per["normal"]["degraded"]:
+        fail(f"serve_qos: the burst shed {per}: want lows rejected, "
+             f"normals degraded")
+    queued = sum(v[0] in ("admitted", "degraded") for v in card)
+    if eng.cache.audit()["owned"] or cancelled != queued:
+        fail(f"serve_qos: the cancelled burst left {eng.cache.audit()} "
+             f"({cancelled} cancelled)")
+    return dict(verdicts_per_class=per, equal_to_cpu_engine=True,
+                quota_retry_after_s=quota[0][2])
+
+
+def qos_preempt_run(torch, cfg, params, mods, dev, kv_quant=None,
+                    lane_kw=None, host_pages=0, record=False, forced=None,
+                    fault=False):
+    """One priority-preemption arm: a full batch of lows (QOS_LOW_NEWS),
+    two steps, then two highs, stepped to the end, the launch counts set
+    to 0 just before and read just after (graph replays included).
+    ``record`` keeps every decode step's logits by (request, position),
+    and on the mixed lane each tick's first tokens' too; ``forced``
+    ({index: tokens}) forces every token; ``fault`` plants attention over
+    lens instead of lens + 1 in every decode layer.  -> (tokens by index,
+    stats, logits, launches, prompts)."""
+    import paddle_tpu_torch.models.paged_decode as pd
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    from paddle_tpu_torch.observability import MetricsRegistry
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, cfg.vocab_size, (QOS_PROMPT_LENS[i % 4],))
+               for i in range(len(QOS_LOW_NEWS))]
+    prompts += [rng.randint(1, cfg.vocab_size, (L,)) for L in QOS_HIGH_LENS]
+    news = list(QOS_LOW_NEWS) + [QOS_HIGH_NEW] * len(QOS_HIGH_LENS)
+    cache = PagedKVCache(cfg, kv_quant=kv_quant, host_pages=host_pages,
+                         device=dev, **QOS_CACHE)
+    eng = ContinuousBatchingEngine(cfg, params, cache,
+                                   metrics_registry=MetricsRegistry(),
+                                   **(lane_kw or {}))
+    if host_pages:
+        eng.offload_swap_gbps = 1e9            # the swap always wins
+    watch = swap_watch(torch, eng, cache, mods) if host_pages else None
+    rec, index = {}, {}
+    real_pick, emit_first = pd._pick_token, eng._emit_first
+    # a mixed tick picks twice, by slot: its decode rows, then the first
+    # tokens of the rows whose prefill ends in it (p_sample)
+    tick = {"first": None, "calls": 0}
+
+    def pick(logits, temperature, generator=None, top_k=0, top_p=1.0):
+        tok = real_pick(logits, temperature, generator, top_k, top_p)
+        if tick["first"] is not None and tick["calls"] == 1:
+            rows = tick["first"]
+        else:
+            rows = [(s, r, len(r.generated)) for s, r in eng._active.items()]
+        tick["calls"] += 1
+        for s, r, n in rows:
+            i = index[r.rid]
+            if record:
+                rec.setdefault(i, {})[n] = logits[s].float().clone()
+            if forced is not None:
+                tok[s] = forced[i][n]
+        return tok
+
+    step_mixed = eng._step_mixed
+
+    def stepper(*a):
+        tick["first"] = [(s, eng._mixed_pref[s]["req"], 0)
+                         for s in a[-3].nonzero()[:, 0].tolist()]
+        tick["calls"] = 0
+        try:
+            return step_mixed(*a)
+        finally:
+            tick["first"] = None
+
+    def emit(reqs, slots, toks):
+        for k, r in enumerate(reqs):
+            if not r.generated:
+                toks[k] = forced[index[r.rid]][0]
+        return emit_first(reqs, slots, toks)
+
+    seams = [(pd, "_pick_token", pick)] if record or forced else []
+    if forced is not None:
+        eng._emit_first = emit
+    if seams and step_mixed is not None:
+        eng._step_mixed = stepper
+    if fault:
+        name = ("paged_decode_attention_q8" if kv_quant
+                else "paged_decode_attention")
+        real = getattr(pd, name)
+        seams.append((pd, name, lambda *a: real(*a[:-1], a[-1] - 1)))
+    graphs0 = graph_state()
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    with patched(*seams):
+        low = len(QOS_LOW_NEWS)
+        for i in range(low):
+            index[eng.submit(prompts[i], max_new_tokens=news[i],
+                             priority="low")] = i
+        eng.step()
+        eng.step()
+        for i in range(low, len(prompts)):
+            index[eng.submit(prompts[i], max_new_tokens=news[i],
+                             priority="high")] = i
+        done = {r.rid: r for r in eng.run_to_completion()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran_launches(read_counts(mods), graphs0)
+    replayed, _ = graph_launches(graphs0)
+    arm = f"preemption arm {lane_kw or 'sync'}, host_pages {host_pages}"
+    gens = [None] * len(prompts)
+    for rid, i in index.items():
+        r = done.get(rid)
+        if r is None or r.status != "ok" or len(r.generated) != news[i]:
+            fail(f"serve_qos: {arm}: request {i} ended "
+                 f"{None if r is None else (r.status, len(r.generated))}")
+        gens[i] = list(r.generated)
+    victims = [(index[e["rid"]], e["mode"])
+               for e in eng.metrics.ring.recent()
+               if e["name"] == "preemption"]
+    preempted = {index[rid]: r.preempted for rid, r in done.items()}
+    swap_clean("serve_qos", arm, cache)
+    stats = dict(wall_s=wall, decode_tok_s=sum(map(len, gens)) / wall,
+                 preemptions=eng.preemptions,
+                 resumes_recompute=eng.resumes_recompute,
+                 resumes_swapped=eng.resumes_swapped,
+                 pipeline_flushes=eng.pipeline_flushes, victims=victims,
+                 preempted_highs=[i for i in range(low, len(prompts))
+                                  if preempted[i]],
+                 k1_from_replays=replayed.get("paged_decode_attention", 0))
+    if watch is not None:
+        stats.update(round_trip_pages=watch["pages"],
+                     round_trip_unequal=sum(1 for e in watch["equal"]
+                                            if not bool(e)),
+                     swap_out_refused=watch["refused"],
+                     swapped_resumes_with_prefill=watch["prefill"])
+    return gens, stats, rec, launches, prompts
+
+
+def qos_logit_diff(torch, cfg, params, prompts, gens, rec, dev, kv_q8):
+    """The recorded decode logits against the plain forward over the same
+    sequences (int8 weights through their plain matmul)."""
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    from paddle_tpu_torch.ops import int8_matmul as im
+    diff = 0.0
+    with patched((tlp, "int8_matmul", im.int8_matmul_plain)):
+        for i, rows in rec.items():
+            plain = plain_logits(torch, cfg, params,
+                                 list(prompts[i]) + gens[i][:-1], dev,
+                                 kv_q8=kv_q8)
+            off = len(prompts[i]) - 1
+            for n, lg in rows.items():
+                diff = max(diff, float((lg - plain[off + n]).abs().max()))
+    return diff
+
+
+def qos_preemption(torch, cfg, params, mods, dev):
+    """(a)'s priority preemption: the sync, overlap, host-tier (swap) and
+    mixed arms in bf16 and a sync arm on int8 weights over int8 pages, each
+    served schedule's decode logits (the mixed ticks' first tokens too)
+    against the plain forward and a planted fault's beyond the bar.  The
+    mixed arm preempts at the carve, the port's departure from JAX's
+    carve, which waits for a seat.  -> (line fields, launches)."""
+    from paddle_tpu_torch.models import graphed_step
+    from paddle_tpu_torch.models.decode import quantize_params_int8
+    total, arms, checks = {}, {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def checked(name, params, kv_quant, **kw):
+        gens, st, rec, launches, prompts = qos_preempt_run(
+            torch, cfg, params, mods, dev, kv_quant=kv_quant, record=True,
+            **kw)
+        add(launches)
+        q8 = kv_quant == "int8"
+        diff = qos_logit_diff(torch, cfg, params, prompts, gens, rec, dev, q8)
+        positions = sum(map(len, rec.values()))
+        del rec
+        _, _, rec, _, _ = qos_preempt_run(
+            torch, cfg, params, mods, dev, kv_quant=kv_quant, record=True,
+            forced=gens, fault=True, **kw)
+        fault = qos_logit_diff(torch, cfg, params, prompts, gens, rec, dev,
+                               q8)
+        del rec
+        limit = INT8_LOGIT_LIMIT if q8 else LOGIT_LIMIT
+        arms[name] = st
+        checks[name] = dict(positions=positions, logit_max_abs_diff=diff,
+                            logit_limit=limit,
+                            planted_fault_max_abs_diff=fault)
+        if diff > limit:
+            fail(f"serve_qos: {name}: the served schedule's teacher-forced "
+                 f"logits differ from the plain forward's by {diff} (limit "
+                 f"{limit})")
+        if fault <= limit:
+            fail(f"serve_qos: {name}: the planted fault moved the logits by "
+                 f"only {fault}, within the limit {limit}")
+        return gens, launches
+
+    sync, _ = checked("sync", params, None)
+    over, st, _, launches, _ = qos_preempt_run(
+        torch, cfg, params, mods, dev, lane_kw={"overlap": True})
+    arms["overlap"] = st
+    add(launches)
+    if over != sync:
+        i = next(i for i in range(len(sync)) if over[i] != sync[i])
+        fail(f"serve_qos: the overlap arm's request {i} differs from the "
+             f"synchronous arm's ({over[i]} against {sync[i]})")
+    if st["k1_from_replays"] <= 0:
+        fail("serve_qos: the overlap arm launched K1 from no graph replay")
+    graphed_step.clear()
+    checked("host_tier", params, None, host_pages=64)
+    checked("mixed", params, None, lane_kw={"mixed": True})
+    qparams = quantize_params_int8(params)
+    _, launches = checked("int8", qparams, "int8")
+    for name in ("paged_decode_attention_q8", "flash_attention_segmented",
+                 "int8_matmul", "int8_matmul_wave"):
+        if launches.get(name, 0) <= 0:
+            fail(f"serve_qos: the int8 arm did not launch {name}")
+    del qparams
+    low = len(QOS_LOW_NEWS)
+    for name, st in arms.items():
+        # two highs, each evicting the youngest low: 7, then 6
+        if [v for v, _ in st["victims"]] != [low - 1, low - 2] or \
+                st["preempted_highs"]:
+            fail(f"serve_qos: {name}: victims {st['victims']}, churned highs "
+                 f"{st['preempted_highs']}: want the lows {low - 1} then "
+                 f"{low - 2}, no high")
+        want = "swap" if name == "host_tier" else "recompute"
+        if any(m != want for _, m in st["victims"]):
+            fail(f"serve_qos: {name}: victims {st['victims']}, want {want}")
+        resumed = st["resumes_swapped" if want == "swap"
+                     else "resumes_recompute"]
+        if resumed != 2:
+            fail(f"serve_qos: {name}: {resumed} victims resumed by {want}")
+    host = arms["host_tier"]
+    if host["round_trip_unequal"] or not host["round_trip_pages"] or \
+            host["swap_out_refused"] or host["swapped_resumes_with_prefill"]:
+        fail(f"serve_qos: the host-tier arm's round trip: {host}")
+    for name in ("paged_decode_attention", "flash_attention_segmented",
+                 "segment_tile_ranges"):
+        if total.get(name, 0) <= 0:
+            fail(f"serve_qos: the bf16 arms did not launch {name}")
+    return dict(arms=arms, checks=checks, overlap_equals_sync=True), total
+
+
+def qos_greedy_gap(torch, cfg, params, prompt, gen, dev, lost=False):
+    """The plain forward over ``prompt`` + ``gen``: the largest margin by
+    which its argmax stands above a served token's logit.  ``lost`` drops
+    the prompt's last token (the planted fault)."""
+    ctx = [int(t) for t in prompt][:-1 if lost else None]
+    gen = [int(t) for t in gen]
+    plain = plain_logits(torch, cfg, params, ctx + gen[:-1], dev).float()
+    rows = plain[len(ctx) - 1:]
+    picked = rows.gather(1, torch.tensor(gen, device=rows.device)[:, None])
+    return float((rows.max(-1).values - picked[:, 0]).max())
+
+
+def qos_failover_tokens(torch, cfg, params, dev, part, seqs):
+    """Hold the failed-over ``seqs`` ((prompt, tokens) pairs) against the
+    plain forward, and a planted fault beyond the bar -> line fields."""
+    limit = 2 * LOGIT_LIMIT
+    if not seqs:
+        fail(f"serve_qos: {part}: no failed-over request to check")
+        return {}
+    gaps = [qos_greedy_gap(torch, cfg, params, p, g, dev) for p, g in seqs]
+    fault = max(qos_greedy_gap(torch, cfg, params, p, g, dev, lost=True)
+                for p, g in seqs)
+    if max(gaps) > limit:
+        fail(f"serve_qos: {part}: a failed-over request's tokens stand "
+             f"{max(gaps)} below the plain forward's argmax (limit {limit})")
+    if fault <= limit:
+        fail(f"serve_qos: {part}: the planted fault moved the margin by "
+             f"only {fault}, within the limit {limit}")
+    return dict(requests=len(seqs), tokens=sum(len(g) for _, g in seqs),
+                greedy_margin_max=max(gaps), limit=limit,
+                planted_fault="the prompt's last token lost",
+                planted_fault_margin=fault)
+
+
+def qos_fleet_arm(torch, cfg, params, mods, dev, load, warm, autoscale,
+                  kill_wave=None):
+    """One arm of bench.py's _serving_qos_line at LLaMA-7B: the ramped
+    mixed-class load through a 1-replica FleetRouter, under a
+    FleetAutoscaler when ``autoscale``, with replica_death injected after
+    wave ``kill_wave``; every replica factory closes over ``params``.
+    -> (the arm's fields, launches)."""
+    import gc
+    from paddle_tpu_torch.fleet import FleetAutoscaler, FleetRouter
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine, QueueFullError)
+    from paddle_tpu_torch.testing import faults
+
+    def factory():
+        return ContinuousBatchingEngine(
+            cfg, params, PagedKVCache(cfg, device=dev, **QOS_CACHE),
+            max_queue_len=QOS_QUEUE_CAP, metrics_registry=False)
+
+    def live(router):
+        return sum(1 for h in router._replicas
+                   if h.state in ("READY", "DEGRADED") and not h.retiring)
+
+    def mem():
+        gc.collect()
+        torch.cuda.synchronize()
+        return dict(allocated=torch.cuda.memory_allocated(),
+                    reserved=torch.cuda.memory_reserved())
+
+    base = mem()
+    torch.cuda.reset_peak_memory_stats()
+    router = FleetRouter([factory], metrics_registry=False)
+    c0 = router._replicas[0].engine.cache
+    pool = sum(t.numel() * t.element_size() for t in (c0.kpool, c0.vpool))
+    del c0
+    for p in warm:
+        router.submit(p, max_new_tokens=2)
+    router.run_to_completion()
+    start = mem()
+    asc = FleetAutoscaler(
+        router, factory, min_replicas=1, max_replicas=QOS_MAX_REPLICAS,
+        high_queued_tokens=QOS_HIGH_QT, low_queued_tokens=QOS_LOW_QT,
+        up_consecutive=1, down_consecutive=2,
+        cooldown_s=0.0) if autoscale else None
+    cls_of, rejected, traj, done = {}, {}, [], []
+    prompt_of, moved_rids = {}, set()
+    top, at_top = 1, start
+    fp = faults.install() if kill_wave is not None else None
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    try:
+        for w, wave in enumerate(load):
+            for p, c in wave:
+                try:
+                    rid = router.submit(p, max_new_tokens=QOS_NEW,
+                                        priority=c)
+                    cls_of[rid], prompt_of[rid] = c, p
+                except QueueFullError:
+                    rejected[c] = rejected.get(c, 0) + 1
+            if w == kill_wave:
+                # nth counts the site's consults: the next replica step dies
+                fp.inject("replica_death", RuntimeError("mid-ramp kill"),
+                          nth=fp.counts.get("replica_death", 0) + 1)
+            for _ in range(QOS_STEPS_PER_WAVE):
+                router.step()
+                moved_rids.update(rid for rid, f in router._requests.items()
+                                  if f.failovers)
+            if asc:
+                asc.tick()
+            traj.append(live(router))
+            if traj[-1] > top:
+                top = traj[-1]
+                at_top = dict(allocated=torch.cuda.memory_allocated(),
+                              reserved=torch.cuda.memory_reserved())
+            done.extend(router.finished())
+        done.extend(router.run_to_completion())
+    finally:
+        if fp is not None:
+            faults.uninstall()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    if asc:                               # drained: walk back to one
+        for _ in range(8):
+            asc.tick()
+            router.step()
+            traj.append(live(router))
+            if traj[-1] == 1 and all(h.state != "DRAINING"
+                                     for h in router._replicas):
+                break
+    owned = [h.engine.cache.audit()["owned"] for h in router._replicas
+             if h.state not in ("DEAD", "RETIRED")]
+    # one live replica now (the walk back, or the fixed arm's own)
+    end = mem()
+    ok = [r for r in done if r.status == "ok"]
+    finished = {r.rid for r in done}
+    ttft = {c: [(r.t_first_token - r.t_submit) * 1000 for r in ok
+                if cls_of.get(r.rid) == c and r.t_first_token]
+            for c in ("high", "normal", "low")}
+    out = dict(
+        requests_offered=sum(len(w) for w in load), accepted=len(cls_of),
+        ok=len(ok), errored=sum(r.status == "error" for r in done),
+        rejected_by_class=rejected,
+        degraded=sum(1 for r in done if r.degraded),
+        tok_per_s=sum(len(r.generated) for r in ok) / wall, wall_s=wall,
+        ttft_p99_ms_by_class={c: pctl(v, 99) for c, v in ttft.items()},
+        replica_trajectory=traj, deaths=router.deaths,
+        replaces=router.replaces, failovers=router.failovers,
+        live_replicas_at_end=live(router),
+        memory_before_replicas=base, memory_start=start,
+        memory_at_peak_replicas=dict(at_top, replicas=top),
+        memory_end=end, peak_allocated=torch.cuda.max_memory_allocated())
+    if asc:
+        out.update(scale_ups=asc.scale_ups, scale_downs=asc.scale_downs,
+                   skipped_settling=asc.skipped_settling)
+    drops = sorted(set(cls_of) - finished)
+    moved = [(prompt_of[r.rid], list(r.generated)) for r in ok
+             if r.rid in moved_rids]
+    out["failed_over_ok"] = len(moved)
+    # the plane's exception holds the router's frames: drop it too
+    del router, asc, done, ok, fp
+    out["memory_router_gone"] = mem()
+    return out, launches, drops, owned, pool, moved
+
+
+def qos_fleet(torch, cfg, params, mods, dev):
+    """(b): the three arms of bench.py's _serving_qos_line at LLaMA-7B and
+    their gates.  -> (line fields, launches)."""
+    rng = np.random.RandomState(0)
+    load = [[(rng.randint(1, cfg.vocab_size,
+                          (QOS_PROMPT_LENS[j % len(QOS_PROMPT_LENS)],)),
+              QOS_CLASSES[j % len(QOS_CLASSES)]) for j in range(nw)]
+            for nw in QOS_WAVES]
+    warm = [rng.randint(1, cfg.vocab_size, (L,)) for L in QOS_PROMPT_LENS]
+    total, arms, moved_by = {}, {}, {}
+    for name, kw in (("fixed_1_replica", dict(autoscale=False)),
+                     ("autoscaled", dict(autoscale=True)),
+                     ("autoscaled_midramp_kill",
+                      dict(autoscale=True, kill_wave=len(QOS_WAVES) // 2))):
+        arm, launches, drops, owned, pool, moved = qos_fleet_arm(
+            torch, cfg, params, mods, dev, load, warm, **kw)
+        arms[name], moved_by[name] = arm, moved
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if drops:
+            fail(f"serve_qos: {name}: requests {drops} neither finished nor "
+                 f"rejected")
+        if any(owned):
+            fail(f"serve_qos: {name}: a live replica's audit is not clean "
+                 f"({owned} pages owned)")
+        limit = arm["memory_before_replicas"]["allocated"] \
+            + QOS_MAX_REPLICAS * pool + QOS_PEAK_SLACK
+        arm["peak_limit"] = limit
+        if arm["peak_allocated"] > limit:
+            fail(f"serve_qos: {name}: peak allocated {arm['peak_allocated']} "
+                 f"above one weight set + {QOS_MAX_REPLICAS} pools + 4 GiB "
+                 f"({limit})")
+        for k in ("paged_decode_attention", "flash_attention_segmented"):
+            if launches.get(k, 0) <= 0:
+                fail(f"serve_qos: {name} did not launch {k}")
+    fixed = arms["fixed_1_replica"]["memory_end"]["allocated"]
+    for name in ("autoscaled", "autoscaled_midramp_kill"):
+        arm = arms[name]
+        if max(arm["replica_trajectory"]) < 2 or \
+                arm["live_replicas_at_end"] != 1:
+            fail(f"serve_qos: {name} walked {arm['replica_trajectory']}: "
+                 f"want a scale-up and the walk back to one replica")
+        if arm["memory_end"]["allocated"] - fixed > QOS_MEM_SLACK:
+            fail(f"serve_qos: {name}: {arm['memory_end']['allocated']} "
+                 f"bytes allocated after the walk back to one replica, "
+                 f"more than 64 MiB above the fixed arm's {fixed}")
+    kill = arms["autoscaled_midramp_kill"]
+    if kill["deaths"] != 1 or kill["replaces"] != 1:
+        fail(f"serve_qos: the kill arm saw {kill['deaths']} deaths and "
+             f"{kill['replaces']} replacements, want one each")
+    kill["failover_tokens"] = qos_failover_tokens(
+        torch, cfg, params, dev, "(b) the kill arm",
+        moved_by["autoscaled_midramp_kill"][:QOS_FAILOVER_SAMPLE])
+    return dict(arms=arms, source="bench.py:1141 _serving_qos_line, TPU "
+                "recipe (bench.py:1168-1177)"), total
+
+
+def qos_http_call(url, payload=None, timeout=600):
+    """POST ``payload`` (or GET) -> (code, body, headers)."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data),
+                                    timeout=timeout) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def qos_stream(url, payload, lines, timeout=600):
+    """POST ``payload`` to /generate_stream, appending each line's JSON to
+    ``lines`` as it arrives."""
+    import urllib.request
+    req = urllib.request.Request(url + "/generate_stream",
+                                 data=json.dumps(payload).encode())
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            if line.strip():
+                lines.append(json.loads(line))
+
+
+def qos_http(torch, cfg, params, mods, dev):
+    """(c): FleetServer over two replicas on the card: priority and tenant
+    in the body, a quota 429 with its Retry-After, degraded completions
+    flagged in /generate and in the stream, /health's fleet state and the
+    fleet instruments in /metrics, then a replica death mid-stream: the
+    streamed request ends with an error line while a request queued behind
+    it on the same replica (its prefix's owner) fails over and completes.
+    The drive loop is gated, so each submission lands where the check
+    expects.  -> (line fields, launches)."""
+    from paddle_tpu_torch.fleet import FleetRouter, FleetServer
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine, TenantQuotas)
+    from paddle_tpu_torch.testing import faults
+
+    def factory():
+        return ContinuousBatchingEngine(
+            cfg, params, PagedKVCache(cfg, device=dev, **QOS_CACHE),
+            max_queue_len=2, metrics_registry=False)
+
+    rng = np.random.RandomState(4)
+    prompt = {L: [int(t) for t in rng.randint(1, cfg.vocab_size, (L,))]
+              for L in QOS_PROMPT_LENS}
+    # tenant "q": 10 tokens/s, burst 150; a 96-token request of 16 costs 112
+    router = FleetRouter([factory] * 2, tenant_quotas=TenantQuotas(
+        rate_tokens_per_s=10.0, burst_tokens=150.0))
+    router._now = lambda: 1000.0          # pinned: the bucket never refills
+    allow = [0]                           # steps the drive loop may take
+    has_work = router.has_work
+
+    def gated():
+        if allow[0] == 0:
+            return False
+        if allow[0] > 0:
+            allow[0] -= 1
+        return has_work()
+
+    router.has_work = gated
+    srv = FleetServer(router)
+    url = f"http://127.0.0.1:{srv.start()}"
+    res, threads, problems = {}, [], []
+
+    def start(key, payload, stream=False):
+        n = router._next_rid
+
+        def run():
+            try:
+                if stream:
+                    res[key] = []
+                    qos_stream(url, payload, res[key])
+                else:
+                    res[key] = qos_http_call(url + "/generate", payload)
+            except Exception as e:
+                res.setdefault(key + "_error", f"{type(e).__name__}: {e}")
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        threads.append(th)
+        t0 = time.perf_counter()
+        while router._next_rid == n and not (key in res and not stream) \
+                and key + "_error" not in res:
+            if time.perf_counter() - t0 > 60:
+                fail(f"serve_qos: HTTP request {key} was never placed")
+            time.sleep(0.001)
+        return router._next_rid - 1
+
+    def body(L, new, **kw):
+        return {"prompt": prompt[L], "max_new_tokens": new, **kw}
+
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    try:
+        start("q1", body(96, 16, tenant="q"))
+        start("q2", body(96, 16, tenant="q"))
+        for k, cls in (("f0", "high"), ("f1", "low"), ("f2", "high")):
+            start(k, body(48, 16, priority=cls))
+        queues = [len(h.engine._queue) for h in router._replicas]
+        start("d_gen", body(160, 16))
+        start("d_stream", body(220, 16), stream=True)
+        allow[0] = -1
+        for th in threads:
+            th.join(timeout=600)
+        code, health, _ = qos_http_call(url + "/health")
+        _, metrics, _ = qos_http_call(url + "/metrics")
+        health = json.loads(health)
+        metrics = metrics.decode()
+        # the death: S streams from one replica, Q (S's first two pages)
+        # queues behind it there; that replica's next step dies
+        while has_work():
+            time.sleep(0.01)
+        allow[0] = 0
+        threads.clear()
+        base = prompt[220][:128]
+        s_rid = start("s", {"prompt": base + prompt[48][:16],
+                            "max_new_tokens": 48}, stream=True)
+        s_rep = router._requests[s_rid].replica
+        allow[0] = 1
+        t1 = time.perf_counter()
+        while not res.get("s") and time.perf_counter() - t1 < 60:
+            time.sleep(0.001)
+        q_rid = start("q", {"prompt": base + prompt[48][16:40],
+                            "max_new_tokens": 16})
+        q_rep, q_streamed = (router._requests[q_rid].replica,
+                             router._requests[q_rid].streamed)
+        fp = faults.install()
+        fp.inject("replica_death", RuntimeError("killed mid-stream"),
+                  nth=fp.counts.get("replica_death", 0) + 1)
+        allow[0] = -1
+        for th in threads:
+            th.join(timeout=600)
+        t1 = time.perf_counter()
+        while router.replaces < 1 and time.perf_counter() - t1 < 60:
+            time.sleep(0.01)
+    finally:
+        faults.uninstall()
+        srv.stop()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    snap = router.fleet_snapshot()
+    owned = [h.engine.cache.audit()["owned"] for h in router._replicas
+             if h.state == "READY"]
+    errors = {k: v for k, v in res.items() if k.endswith("_error")}
+    # the checks
+    q1, q2 = res.get("q1"), res.get("q2")
+    if not q1 or q1[0] != 200 or not q2 or q2[0] != 429 or \
+            b"quota" not in q2[1] or q2[2].get("Retry-After") != "8":
+        got = q2 and (q2[0], q2[1][:80], q2[2].get("Retry-After"))
+        problems.append(f"quota: {q1 and q1[0]}, {got}, want 200 then 429 "
+                        f"quota with Retry-After 8")
+    for k in ("f0", "f1", "f2"):
+        if not res.get(k) or res[k][0] != 200 or \
+                len(json.loads(res[k][1])["tokens"]) != 16:
+            problems.append(f"{k}: {res.get(k) and res[k][0]}")
+    if queues != [2, 2]:
+        problems.append(f"the replicas' queues before the normals: {queues}")
+    d = res.get("d_gen")
+    doc = json.loads(d[1]) if d and d[0] == 200 else {}
+    if doc.get("degraded") is not True or len(doc.get("tokens", ())) != 8:
+        problems.append(f"/generate degraded: {d and d[0]} {doc}")
+    last = (res.get("d_stream") or [{}])[-1]
+    if last.get("degraded") is not True or len(last.get("tokens", ())) != 8:
+        problems.append(f"/generate_stream's last line: {last}")
+    if health.get("fleet", {}).get("states", {}).get("READY") != 2 or \
+            not health.get("ready"):
+        problems.append(f"/health: {health}")
+    for name in ("paddle_tpu_fleet_replicas_ready_count 2",
+                 "paddle_tpu_fleet_quota_rejected_total 1",
+                 "paddle_tpu_fleet_routed_least_loaded_total"):
+        if name not in metrics:
+            problems.append(f"/metrics lacks {name!r}")
+    s_last = (res.get("s") or [{}])[-1]
+    if "died" not in str(s_last.get("error", "")) or len(res["s"]) < 2:
+        problems.append(f"the stream through the death: {res.get('s')}")
+    qd = res.get("q")
+    q_toks = json.loads(qd[1])["tokens"] if qd and qd[0] == 200 else []
+    if q_rep != s_rep or q_streamed or len(q_toks) != 16:
+        problems.append(f"the queued request: replica {q_rep} (S on "
+                        f"{s_rep}), reply {qd and qd[0]}")
+    if (snap["deaths"], snap["failovers"], snap["replaces"]) != (1, 1, 1):
+        problems.append(f"deaths / failovers / replaces: {snap['deaths']}, "
+                        f"{snap['failovers']}, {snap['replaces']}")
+    if errors or any(owned):
+        problems.append(f"client errors {errors}, owned pages {owned}")
+    for k in ("paged_decode_attention", "flash_attention_segmented"):
+        if launches.get(k, 0) <= 0:
+            problems.append(f"{k} was not launched")
+    if problems:
+        fail(f"serve_qos: (c) FleetServer: {problems}")
+    moved = qos_failover_tokens(
+        torch, cfg, params, dev, "(c) the queued request",
+        [(base + prompt[48][16:40], q_toks)] if q_toks else [])
+    return dict(wall_s=wall, fleet=snap, retry_after=q2[2]["Retry-After"],
+                degraded_generate=doc, degraded_stream_last=last,
+                stream_error=s_last.get("error"),
+                failover_tokens=moved), launches
+
+
+def phase_serve_qos(torch, cfg, seed, params, mods, dev="cuda"):
+    """(a) QoS on one engine, (b) bench.py's _serving_qos_line recipe
+    through the fleet, (c) FleetServer over HTTP, at LLaMA-7B; ``params``
+    the bf16 serve's weights (the int8 arm quantizes its own).  -> the
+    launches of every part."""
+    total, secs = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    t = time.perf_counter()
+    shed = qos_shedding(torch, cfg, params, dev)
+    secs["a_shedding"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pre, launches = qos_preemption(torch, cfg, params, mods, dev)
+    add(launches)
+    secs["a_preemption"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    fleet, launches = qos_fleet(torch, cfg, params, mods, dev)
+    add(launches)
+    secs["b_fleet"] = time.perf_counter() - t
+    t = time.perf_counter()
+    http, launches = qos_http(torch, cfg, params, mods, dev)
+    add(launches)
+    secs["c_http"] = time.perf_counter() - t
+    for name in FLAGGED:
+        if total.get(name):
+            fail(f"serve_qos: kernel {name} was launched with its flag off")
+    emit("serve_qos", model="LLaMA-7B (LlamaPretrainConfig defaults)",
+         cache=QOS_CACHE, shedding=shed, preemption=pre, fleet=fleet,
+         http=http, part_s=secs, launches=total)
     return total
 
 
@@ -5044,6 +5911,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device (this script measures the port on a card)")
@@ -5107,87 +5975,124 @@ def main():
     from paddle_tpu_torch.models.llama_pretrain import LlamaPretrainConfig
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    k1 = [phase_k1(torch, pa, nkv, gen, flush) for nkv in (32, 8)]
-    k2 = [phase_k2(torch, fv, nkv, gen, flush) for nkv in (32, 8)]
-    k3 = [phase_k3(torch, im, shape, gen, flush) for shape in K3_SHAPES]
-    k4 = [phase_k4(torch, pa, nkv, gen, flush) for nkv in (32, 8)]
-    k5 = [phase_k5(torch, rp, shape, gen, flush, timed=shape in K5_TIMED)
-          for shape in K5_SHAPES]
-    k6 = [phase_k6(torch, fa, shape, gen, flush, timed=i == 0)
-          for i, shape in enumerate(TRAIN_SHAPES)]
-    k8 = [phase_k8(torch, aw, n, gen, flush, timed=i == 0)
-          for i, n in enumerate(K8_SIZES)]
-    k7 = [phase_k7(torch, fv, fa, case, args.seed, gen, flush,
-                   timed=case[0] in K7_TIMED) for case in K7_CASES]
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    k1 = timed("k1", lambda: [phase_k1(torch, pa, nkv, gen, flush)
+                              for nkv in (32, 8)])
+    k2 = timed("k2", lambda: [phase_k2(torch, fv, nkv, gen, flush)
+                              for nkv in (32, 8)])
+    k3 = timed("k3", lambda: [phase_k3(torch, im, shape, gen, flush)
+                              for shape in K3_SHAPES])
+    k4 = timed("k4", lambda: [phase_k4(torch, pa, nkv, gen, flush)
+                              for nkv in (32, 8)])
+    k5 = timed("k5", lambda: [
+        phase_k5(torch, rp, shape, gen, flush, timed=shape in K5_TIMED)
+        for shape in K5_SHAPES])
+    k6 = timed("k6", lambda: [
+        phase_k6(torch, fa, shape, gen, flush, timed=i == 0)
+        for i, shape in enumerate(TRAIN_SHAPES)])
+    k8 = timed("k8", lambda: [phase_k8(torch, aw, n, gen, flush, timed=i == 0)
+                              for i, n in enumerate(K8_SIZES)])
+    k7 = timed("k7", lambda: [
+        phase_k7(torch, fv, fa, case, args.seed, gen, flush,
+                 timed=case[0] in K7_TIMED) for case in K7_CASES])
     eps = LlamaPretrainConfig.rms_norm_eps
-    k9 = [phase_k9(torch, rn, case, eps, gen, flush,
-                   timed=case[0] in K9_TIMED) for case in K9_CASES]
-    k10 = [phase_k10(torch, sw, shape, gen, flush, timed=i == 0)
-           for i, shape in enumerate(K10_SHAPES)]
-    k11 = [phase_k11(torch, rmm, case, eps, gen, flush) for case in K11_CASES]
+    k9 = timed("k9", lambda: [
+        phase_k9(torch, rn, case, eps, gen, flush, timed=case[0] in K9_TIMED)
+        for case in K9_CASES])
+    k10 = timed("k10", lambda: [
+        phase_k10(torch, sw, shape, gen, flush, timed=i == 0)
+        for i, shape in enumerate(K10_SHAPES)])
+    k11 = timed("k11", lambda: [phase_k11(torch, rmm, case, eps, gen, flush)
+                                for case in K11_CASES])
     del flush
     torch.cuda.empty_cache()
     cfg = LlamaPretrainConfig()
-    launches, params = phase_serve(torch, cfg, args.seed, mods)
+    s = args.seed
+    launches, params = timed("serve", phase_serve, torch, cfg, s, mods)
     torch.cuda.empty_cache()             # the bf16 serve's cache is gone
-    launches_overlap = phase_serve_overlap(torch, cfg, args.seed, params,
-                                           mods)
+    launches_overlap = timed("serve_overlap", phase_serve_overlap, torch,
+                             cfg, s, params, mods)
     torch.cuda.empty_cache()
-    launches_observe = phase_serve_observe(torch, cfg, args.seed, params,
-                                           mods)
+    launches_observe = timed("serve_observe", phase_serve_observe, torch,
+                             cfg, s, params, mods)
     torch.cuda.empty_cache()
-    launches_prefix = phase_serve_prefix(torch, cfg, args.seed, params, mods)
+    launches_prefix = timed("serve_prefix", phase_serve_prefix, torch, cfg,
+                            s, params, mods)
     torch.cuda.empty_cache()
-    launches_dense = phase_serve_dense(torch, cfg, args.seed, params, mods)
+    launches_dense = timed("serve_dense", phase_serve_dense, torch, cfg, s,
+                           params, mods)
     torch.cuda.empty_cache()
-    launches_faults = phase_serve_faults(torch, cfg, args.seed, params, mods)
+    launches_faults = timed("serve_faults", phase_serve_faults, torch, cfg,
+                            s, params, mods)
     torch.cuda.empty_cache()
-    launches_mixed = phase_serve_mixed(torch, cfg, args.seed, params, mods)
+    launches_mixed = timed("serve_mixed", phase_serve_mixed, torch, cfg, s,
+                           params, mods)
     torch.cuda.empty_cache()
-    launches_spec = phase_serve_spec(torch, cfg, args.seed, params, mods)
+    launches_spec = timed("serve_spec", phase_serve_spec, torch, cfg, s,
+                          params, mods)
     torch.cuda.empty_cache()
-    launches_swap = phase_serve_swap(torch, cfg, args.seed, params, mods)
+    launches_swap = timed("serve_swap", phase_serve_swap, torch, cfg, s,
+                          params, mods)
     torch.cuda.empty_cache()
-    launches_int8, qparams = phase_serve_int8(torch, cfg, args.seed, params,
-                                              mods)
+    launches_qos = timed("serve_qos", phase_serve_qos, torch, cfg, s, params,
+                         mods)
+    torch.cuda.empty_cache()
+    launches_int8, qparams = timed("serve_int8", phase_serve_int8, torch,
+                                   cfg, s, params, mods)
     del params
     torch.cuda.empty_cache()
-    launches_int8_overlap = phase_serve_overlap(
-        torch, cfg, args.seed, qparams, mods, kv_quant="int8")
+    launches_int8_overlap = timed(
+        "serve_int8_overlap", phase_serve_overlap, torch, cfg, s, qparams,
+        mods, kv_quant="int8")
     torch.cuda.empty_cache()
-    launches_prefix_int8 = phase_serve_prefix(torch, cfg, args.seed, qparams,
-                                              mods, kv_quant="int8")
+    launches_prefix_int8 = timed(
+        "serve_prefix_int8", phase_serve_prefix, torch, cfg, s, qparams,
+        mods, kv_quant="int8")
     torch.cuda.empty_cache()
-    launches_mixed_int8 = phase_serve_mixed(torch, cfg, args.seed, qparams,
-                                            mods, kv_quant="int8")
+    launches_mixed_int8 = timed(
+        "serve_mixed_int8", phase_serve_mixed, torch, cfg, s, qparams, mods,
+        kv_quant="int8")
     torch.cuda.empty_cache()
-    launches_spec_int8 = phase_serve_spec(torch, cfg, args.seed, qparams,
-                                          mods, kv_quant="int8")
+    launches_spec_int8 = timed(
+        "serve_spec_int8", phase_serve_spec, torch, cfg, s, qparams, mods,
+        kv_quant="int8")
     torch.cuda.empty_cache()
-    launches_swap_int8 = phase_serve_swap(torch, cfg, args.seed, qparams,
-                                          mods, kv_quant="int8")
+    launches_swap_int8 = timed(
+        "serve_swap_int8", phase_serve_swap, torch, cfg, s, qparams, mods,
+        kv_quant="int8")
     del qparams
     torch.cuda.empty_cache()             # the serves' weights are gone
     train_cfg = LlamaPretrainConfig(**TRAIN_CFG)
-    launches_train = phase_train(torch, train_cfg, args.seed, mods, card)
+    launches_train = timed("train", phase_train, torch, train_cfg, s, mods,
+                           card)
     torch.cuda.empty_cache()
-    phase_train_grads(torch, train_cfg, args.seed, mods)
+    timed("train_grads", phase_train_grads, torch, train_cfg, s, mods)
     torch.cuda.empty_cache()
-    launches_packed = phase_train_packed(torch, train_cfg, args.seed, mods,
-                                         card)
+    launches_packed = timed("train_packed", phase_train_packed, torch,
+                            train_cfg, s, mods, card)
     torch.cuda.empty_cache()
-    phase_train_packed_grads(torch, train_cfg, args.seed, mods)
+    timed("train_packed_grads", phase_train_packed_grads, torch, train_cfg,
+          s, mods)
     torch.cuda.empty_cache()
-    launches_fused = [phase_train(torch, train_cfg, args.seed, mods, card,
-                                  flag_set=flag_set) for flag_set in "AB"]
+    launches_fused = [timed("train_fused", phase_train, torch, train_cfg, s,
+                            mods, card, flag_set=flag_set)
+                      for flag_set in "AB"]
     torch.cuda.empty_cache()
     for flag_set in "AB":
-        phase_train_grads(torch, train_cfg, args.seed, mods, flag_set=flag_set)
+        timed("train_fused_grads", phase_train_grads, torch, train_cfg, s,
+              mods, flag_set=flag_set)
     # each kernel's launches in the serve, train, train_packed and
     # train_fused phases
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
             launches_dense, launches_faults, launches_mixed, launches_spec,
-            launches_swap, launches_int8, launches_int8_overlap,
+            launches_swap, launches_qos, launches_int8, launches_int8_overlap,
             launches_prefix_int8, launches_mixed_int8, launches_spec_int8,
             launches_swap_int8,
             launches_train, launches_packed, *launches_fused]
@@ -5261,6 +6166,8 @@ def main():
         entry("rmsnorm_matmul", "paddle_tpu_torch/csrc/rmsnorm_matmul.cu",
               "paddle_tpu/ops/pallas/rmsnorm_matmul.py:93", k11),
     ], "card": card}), flush=True)
+    emit("timing", phase_s=phase_s,
+         total_s=time.perf_counter() - t_start, card=card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,15 +17,20 @@ Counterpart of ``paddle_tpu/inference/serving.py``'s ``GenerationServer`` /
   ``/trace/<rid>`` (a request's span tree; ``?format=perfetto`` for a
   chrome trace merged with the ring), as docs/OBSERVABILITY.md describes
   them, so ``tools/metrics_dump.py`` reads this server unchanged;
-* 400 for a bad or oversized request, 429 with ``Retry-After`` when the
-  admission queue is full, 500 with the fault's text for a request whose
-  wave faulted, 503 once the engine died, 504 for an expired deadline.
+* 400 for a bad or oversized request or an unknown priority class, 429
+  with ``Retry-After`` when the admission queue is full or the tenant is
+  over its token quota (the bucket's refill time), 500 with the fault's
+  text for a request whose wave faulted, 503 once the engine died, 504
+  for an expired deadline.
+
+A body may name a ``priority`` class and a ``tenant``; a completion that
+overload shedding admitted degraded carries ``"degraded": true`` in the
+``/generate`` reply and the stream's last line.
 
 With ``engine_factory`` the drive loop steps an ``EngineSupervisor``: an
 exception that escapes the engine's own quarantine rebuilds the engine
 and only the requests whose pages died fail.
 
-Priority classes and tenants (the QoS slice) are refused with 400.
 Nothing here imports beyond the standard library, numpy and the port's
 engine and observability package.
 """
@@ -198,17 +203,17 @@ class _GenHandler(BaseHTTPRequestHandler):
             max_new = int(req.get("max_new_tokens", 64))
             deadline = req.get("deadline_s")
             deadline = None if deadline is None else float(deadline)
-            if req.get("priority", "normal") != "normal" or \
-                    req.get("tenant") is not None:
-                raise ValueError("priority classes and tenants are not "
-                                 "supported by this server")
+            priority = str(req.get("priority", "normal"))
+            tenant = req.get("tenant")
+            tenant = None if tenant is None else str(tenant)
         except Exception as e:
             self._reply(400, f"bad payload: {type(e).__name__}: {e}"
                         .encode(), "text/plain")
             return
         try:
-            rid, q = srv.submit(prompt, max_new, deadline_s=deadline)
-        except ValueError as e:           # empty / oversized for the pool
+            rid, q = srv.submit(prompt, max_new, deadline_s=deadline,
+                                priority=priority, tenant=tenant)
+        except ValueError as e:     # empty, oversized, or an unknown class
             self._reply(400, f"rejected: {e}".encode(), "text/plain")
             return
         except QueueFullError as e:       # backpressure: come back later
@@ -232,8 +237,11 @@ class _GenHandler(BaseHTTPRequestHandler):
                     self._reply(code, text.encode(), "text/plain")
                     return
                 else:
-                    self._reply(200, json.dumps(
-                        {"rid": rid, "tokens": payload}).encode())
+                    doc = {"rid": rid, "tokens": payload}
+                    if kind == "done_degraded":
+                        # overload shedding halved this request's budget
+                        doc["degraded"] = True
+                    self._reply(200, json.dumps(doc).encode())
                     return
 
         # STREAMING: one JSON line per token as the engine produces it
@@ -259,6 +267,8 @@ class _GenHandler(BaseHTTPRequestHandler):
                     doc = {"rid": rid, "done": True, "error": payload[1]}
                 else:
                     doc = {"rid": rid, "done": True, "tokens": payload}
+                    if kind == "done_degraded":
+                        doc["degraded"] = True
                 chunk(json.dumps(doc).encode() + b"\n")
                 chunk(b"")                   # terminal chunk: 0\r\n\r\n
                 return
@@ -300,6 +310,7 @@ class GenerationServer:
     exception is fatal: pending requests get 500 with its text, new
     submits 503."""
 
+    handler_class = _GenHandler
     # how long a readiness probe or /health scrape waits for the server
     # lock before serving the last verdict built under it (a step, a
     # first capture, can hold the lock for a while)
@@ -465,29 +476,37 @@ class GenerationServer:
                 return stale
             self._lock.acquire()
         try:
-            eng = self.engine
-            fixed = {"status": "ok" if self._fatal is None else "failed",
-                     "error": self._fatal,
-                     "live": self.is_live(),
-                     "ready": self._is_ready_locked(),
-                     "restarts": self.restarts,
-                     "step_faults": eng.step_faults}
-            extra = {"host_syncs": eng.host_syncs,
-                     "pipeline_flushes": eng.pipeline_flushes}
-            # a speculative engine's gamma (configuration, moved by an
-            # adaptive retune); None on the other lanes
-            gamma = eng.gamma if hasattr(eng, "spec_rounds") else None
-            h = None if eng.metrics is not None else \
-                self._health_from_engine(eng)
+            h, view = self._health_locked()
         finally:
             self._lock.release()
         if h is None:
-            h = self._health_from_registry(self.registry.snapshot(),
-                                           eng.decode_horizon,
-                                           eng.mixed_token_budget, gamma)
-        h = {**fixed, **h, **extra}
+            fixed, extra, args = view
+            h = {**fixed, **self._health_from_registry(
+                self.registry.snapshot(), *args), **extra}
         self._health_last = (h, time.monotonic())
         return h
+
+    def _health_locked(self):
+        """The locked half of :meth:`health_snapshot` (caller holds the
+        lock): ``(doc, None)`` when the document is whole, else ``(None,
+        (fixed, extra, args))`` for the registry view built after the lock
+        is released."""
+        eng = self.engine
+        fixed = {"status": "ok" if self._fatal is None else "failed",
+                 "error": self._fatal,
+                 "live": self.is_live(),
+                 "ready": self._is_ready_locked(),
+                 "restarts": self.restarts,
+                 "step_faults": eng.step_faults}
+        extra = {"host_syncs": eng.host_syncs,
+                 "pipeline_flushes": eng.pipeline_flushes}
+        if eng.metrics is None:
+            return {**fixed, **self._health_from_engine(eng), **extra}, None
+        # a speculative engine's gamma (configuration, moved by an
+        # adaptive retune); None on the other lanes
+        gamma = eng.gamma if hasattr(eng, "spec_rounds") else None
+        return None, (fixed, extra, (eng.decode_horizon,
+                                     eng.mixed_token_budget, gamma))
 
     @staticmethod
     def _health_from_engine(eng) -> dict:
@@ -589,14 +608,16 @@ class GenerationServer:
             h["gamma"] = gamma
         return h
 
-    def submit(self, prompt, max_new_tokens, deadline_s=None):
+    def submit(self, prompt, max_new_tokens, deadline_s=None,
+               priority="normal", tenant=None):
         t0 = time.monotonic()
         with self._turn():
             if self._fatal is not None:
                 raise RuntimeError(f"engine died: {self._fatal}")
             q = _queue.Queue()
             rid = self._driver.submit(prompt, max_new_tokens=max_new_tokens,
-                                      deadline_s=deadline_s)
+                                      deadline_s=deadline_s,
+                                      priority=priority, tenant=tenant)
             self._queues[rid] = q
         self._http_counters["generate"].inc()
         if self.tracer is not None:
@@ -647,7 +668,9 @@ class GenerationServer:
                             if q is None:
                                 continue
                             if req.status == "ok":
-                                q.put(("done", list(req.generated)))
+                                q.put(("done_degraded"
+                                       if getattr(req, "degraded", False)
+                                       else "done", list(req.generated)))
                             elif req.status == "expired":
                                 q.put(("err", (504, "deadline exceeded")))
                             elif req.status == "cancelled":
@@ -669,7 +692,7 @@ class GenerationServer:
 
     def start(self) -> int:
         self._httpd = ThreadingHTTPServer((self._host, self._port),
-                                          _GenHandler)
+                                          self.handler_class)
         self._httpd.owner = self
         for target in (self._httpd.serve_forever, self._drive):
             t = threading.Thread(target=target, daemon=True)

@@ -86,9 +86,19 @@ The fault plane (``paddle_tpu_torch/testing/faults.py``) fires its
 ``step_dispatch`` and ``prefill_dispatch`` sites at JAX's points, so one
 rule poisons the same dispatch in both engines.
 
-Not ported yet, and refused at construction when asked for: TP meshes
-(ROADMAP.md queue 1 item 7), scheduler policies and tenant quotas (item
-6(f)) and the quantized TP all-reduce (item 7).
+QoS, as in JAX: ``submit(priority=, tenant=)`` takes a class (``"high"``,
+``"normal"``, ``"low"``) and a quota tenant.  A :class:`SchedulerPolicy`
+orders the admission queue by (class, arrival), picks preemption victims
+lowest class first (``admit_seq`` LIFO within a class), evicts strictly
+lower-class work when the queue head finds no seat, and sheds overload by
+class when the queue's soft bound trips: low rejects, normal admits
+degraded (half its ``max_new_tokens``, spec off), high admits, both up to
+``overload_factor`` times the bounds.  :class:`TenantQuotas` charges each
+request's worst-case tokens to its tenant's token bucket.  A workload that
+never names a class keeps the plain FIFO queue and its soft-bound 429.
+
+Not ported yet, and refused at construction when asked for: TP meshes and
+the quantized TP all-reduce (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -111,7 +121,18 @@ from .paged_decode import (PagedKVCache, _packed_prefill_body, _pick_token,
                            make_paged_decode_step, make_spec_step)
 
 __all__ = ["ContinuousBatchingEngine", "EngineDeadError", "EngineSupervisor",
-           "QueueFullError", "Request", "SpecConfig"]
+           "PRIORITIES", "QueueFullError", "QuotaExceededError", "Request",
+           "SchedulerPolicy", "SpecConfig", "TenantQuotas", "priority_rank"]
+
+# priority classes, best first
+PRIORITIES = ("high", "normal", "low")
+_PRIO_RANK = {"high": 0, "normal": 1, "low": 2}
+
+
+def priority_rank(priority: str) -> int:
+    """Sort key of a priority class, 0 the best ("high").  An unknown
+    string ranks as "normal": this orders, ``submit()`` validates."""
+    return _PRIO_RANK.get(priority, 1)
 
 
 class QueueFullError(RuntimeError):
@@ -123,6 +144,120 @@ class QueueFullError(RuntimeError):
     def __init__(self, why: str, retry_after: float = 1.0):
         super().__init__(why)
         self.retry_after = float(retry_after)
+
+
+class QuotaExceededError(QueueFullError):
+    """``submit()`` refused because the request's tenant is over its
+    token-rate budget (:class:`TenantQuotas`), apart from the pool's own
+    backpressure.  A :class:`QueueFullError`, so the HTTP front answers
+    ``429``; ``retry_after`` is the bucket's time to hold this request's
+    cost again."""
+
+    def __init__(self, why: str, retry_after: float = 1.0,
+                 tenant: Optional[str] = None):
+        super().__init__(why, retry_after=retry_after)
+        self.tenant = tenant
+
+
+class TenantQuotas:
+    """Per-tenant token buckets charged at admission: a tenant accrues
+    ``rate_tokens_per_s`` up to ``burst_tokens`` (buckets start full) and
+    each submission charges its worst-case cost (prompt +
+    ``max_new_tokens``) up front, so one tenant's burst cannot spend
+    another's capacity.  ``overrides`` maps a tenant to its own ``(rate,
+    burst)``; ``tenant=None`` is unmetered.  Not locked: the engine and the
+    fleet router call it behind their own serving lock."""
+
+    def __init__(self, rate_tokens_per_s: float,
+                 burst_tokens: Optional[float] = None,
+                 overrides: Optional[Dict[str, tuple]] = None):
+        if rate_tokens_per_s <= 0:
+            raise ValueError("rate_tokens_per_s must be > 0, got "
+                             f"{rate_tokens_per_s}")
+        self.rate = float(rate_tokens_per_s)
+        self.burst = float(burst_tokens if burst_tokens is not None
+                           else rate_tokens_per_s)
+        self.overrides = dict(overrides or {})
+        self._buckets: Dict[str, list] = {}   # tenant -> [level, last t]
+
+    def _limits(self, tenant: str) -> tuple:
+        if tenant in self.overrides:
+            rate, burst = self.overrides[tenant]
+            return float(rate), float(burst)
+        return self.rate, self.burst
+
+    def charge(self, tenant: Optional[str], cost: float,
+               now: float) -> None:
+        """Take ``cost`` tokens from ``tenant``'s bucket or raise
+        :class:`QuotaExceededError` with the refill time of the deficit
+        (clamped to [0.1, 60] s).  All or nothing: a refused charge leaves
+        the level as the refill made it."""
+        if tenant is None:
+            return
+        rate, burst = self._limits(tenant)
+        bucket = self._buckets.get(tenant)
+        if bucket is None:
+            bucket = self._buckets[tenant] = [burst, now]
+        level, last = bucket
+        level = min(burst, level + (now - last) * rate)
+        bucket[1] = now
+        if cost > level:
+            # a cost over the whole burst still gets a finite hint: the
+            # time to refill the burst
+            deficit = min(cost, burst) - level
+            bucket[0] = level
+            raise QuotaExceededError(
+                f"tenant {tenant!r} over token-rate quota: cost "
+                f"{cost:.0f} > bucket {level:.0f} (rate {rate:.0f} "
+                f"tok/s, burst {burst:.0f})",
+                retry_after=float(min(max(deficit / rate, 0.1), 60.0)),
+                tenant=tenant)
+        bucket[0] = level - cost
+
+
+class SchedulerPolicy:
+    """Which queued request admits next, which active one is evicted, and
+    how overload sheds by class.  The default: admission by (class,
+    arrival); victims lowest class first, ``admit_seq`` LIFO within a class;
+    when the soft queue bound trips, reject low, degrade normal (half its
+    ``max_new_tokens``, spec off), admit high, both up to
+    ``overload_factor`` times the bounds.  Subclass it and pass
+    ``ContinuousBatchingEngine(policy=...)`` to change a decision."""
+
+    # how far past the soft bounds a protected class may queue
+    overload_factor = 2.0
+
+    def order_queue(self, queue: deque) -> deque:
+        """The queue sorted by class, stably: arrival order, and a
+        preempted request's place at the head, hold within a class."""
+        return deque(sorted(queue,
+                            key=lambda r: priority_rank(r.priority)))
+
+    def select_victim(self, victims: List[int],
+                      active: Dict[int, "Request"]) -> int:
+        """The slot to evict among ``victims``: the lowest class, the most
+        recently admitted within it."""
+        return max(victims,
+                   key=lambda s: (priority_rank(active[s].priority),
+                                  active[s].admit_seq))
+
+    def preemptable_for(self, head: "Request",
+                        active: Dict[int, "Request"]) -> List[int]:
+        """The slots the queue head may evict for a seat: every active
+        request of a strictly lower class (equal classes are never
+        churned)."""
+        hr = priority_rank(head.priority)
+        return [s for s, r in active.items()
+                if priority_rank(r.priority) > hr]
+
+    def shed(self, priority: str) -> str:
+        """The verdict for a class when the soft bound trips:
+        ``"reject"``, ``"degrade"`` or ``"admit"``."""
+        if priority == "low":
+            return "reject"
+        if priority == "normal":
+            return "degrade"
+        return "admit"
 
 
 class EngineDeadError(RuntimeError):
@@ -251,6 +386,11 @@ class Request:
     trace: Optional[object] = None
     # the speculative toggle: None takes the engine's SpecConfig.default_on
     spec: Optional[bool] = None
+    # QoS: the class (admission order, preemption victims), the quota
+    # tenant, and whether overload shedding admitted it degraded
+    priority: str = "normal"
+    tenant: Optional[str] = None
+    degraded: bool = False
 
 
 @dataclass
@@ -337,7 +477,12 @@ class ContinuousBatchingEngine:
 
     ``quarantine_faults`` (default on) contains a step exception in the
     wave it poisoned; ``max_consecutive_faults`` faults in a row re-raise
-    it (see :meth:`step`)."""
+    it (see :meth:`step`).
+
+    ``policy`` (a :class:`SchedulerPolicy`, the default's when None) orders
+    admission, picks preemption victims and sheds overload by class;
+    ``tenant_quotas`` (a :class:`TenantQuotas`) meters tenants at
+    ``submit()``."""
 
     def __init__(self, cfg: LlamaPretrainConfig, params,
                  cache: PagedKVCache, eos_id: Optional[int] = None,
@@ -376,16 +521,14 @@ class ContinuousBatchingEngine:
                 "to gamma+1 committed tokens per dispatch) -- tune "
                 "spec.gamma instead of stacking a second horizon on top")
         later = {"mesh": mesh is not None,
-                 "tp_allreduce": tp_allreduce != "fp32",
-                 "policy": policy is not None,
-                 "tenant_quotas": tenant_quotas is not None}
+                 "tp_allreduce": tp_allreduce != "fp32"}
         asked = [k for k, on in later.items() if on]
         if asked:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(asked)} (this engine has the "
                 f"synchronous, overlap, horizon, mixed and speculative "
-                f"lanes, packed, batched and chunked admission and prefix "
-                f"caching; see ROADMAP.md)")
+                f"lanes, packed, batched and chunked admission, prefix "
+                f"caching and QoS; see ROADMAP.md)")
         self.cfg = cfg
         self.params = params
         self.cache = cache
@@ -433,6 +576,14 @@ class ContinuousBatchingEngine:
         self.decode_wall_s = 0.0
         self.max_queue_len = max_queue_len
         self.max_queued_tokens = max_queued_tokens
+        # QoS: class-ordered admission, class-aware victims and shedding,
+        # tenant buckets charged at submit().  _has_priorities stays False
+        # while every request is "normal", and the plain FIFO path runs
+        self.policy = policy if policy is not None else SchedulerPolicy()
+        self.quotas = tenant_quotas
+        self._has_priorities = False
+        self.requests_degraded = 0
+        self.quota_rejected = 0
         # per-step exception handling: quarantine the poisoned wave up to
         # max_consecutive_faults faults in a row, then re-raise (only a
         # supervisor rebuild can help an engine that faults every step)
@@ -644,7 +795,9 @@ class ContinuousBatchingEngine:
     def submit(self, prompt, max_new_tokens: int = 64,
                stop_sequences=None,
                deadline_s: Optional[float] = None,
-               spec: Optional[bool] = None) -> int:
+               trace=None, spec: Optional[bool] = None,
+               priority: str = "normal",
+               tenant: Optional[str] = None) -> int:
         """Queue a request.  An empty or oversized request fails HERE
         with ``ValueError`` (never mid ``step()``); a full admission
         queue fails with :class:`QueueFullError`.
@@ -655,7 +808,18 @@ class ContinuousBatchingEngine:
         with ``status == "expired"``.  ``spec``: the request's speculative
         toggle (``None`` takes ``SpecConfig.default_on``); spec-off rows
         ride the same round with one plain greedy token.  ``spec=True`` on
-        an engine built without ``spec=SpecConfig(...)`` raises."""
+        an engine built without ``spec=SpecConfig(...)`` raises.
+        ``trace``: a trace context minted above the engine (a fleet
+        router's, under its rid); None begins one on the engine's tracer.
+
+        ``priority``: ``"high"``, ``"normal"`` or ``"low"``.  When the
+        queue's soft bound trips, the policy sheds by class (low raises
+        :class:`QueueFullError`, normal admits ``degraded``, high admits),
+        both admitting up to ``policy.overload_factor`` times the bounds;
+        while no request has named a class the soft bound refuses every
+        request, as before.  ``tenant``: the key ``tenant_quotas`` charges
+        the worst-case tokens to, after the shed verdict; over budget
+        raises :class:`QuotaExceededError`.  None is unmetered."""
         prompt = np.asarray(prompt, np.int64)
         if prompt.size == 0:
             raise ValueError(
@@ -693,9 +857,49 @@ class ContinuousBatchingEngine:
                 "spec=True needs an engine built with spec=SpecConfig(...): "
                 "the fused draft+verify program is built at engine "
                 "construction")
+        if priority not in PRIORITIES:
+            raise ValueError(
+                f"priority must be one of {PRIORITIES}, got {priority!r}")
+        degraded = False
         why = self.queue_capacity_reason(len(prompt))
         if why is not None:
-            self._reject(why)
+            # the soft bound tripped: shed by class, the protected classes
+            # only up to the hard bound.  A workload that never named a
+            # class keeps the plain refusal at the soft bound
+            if self._has_priorities or priority != "normal":
+                verdict = self.policy.shed(priority)
+            else:
+                verdict = "reject"
+            if verdict == "reject":
+                self._reject(why)
+            hard = self.queue_capacity_reason(
+                len(prompt), factor=self.policy.overload_factor)
+            if hard is not None:
+                self._reject(f"{hard} [hard bound, class {priority!r}]")
+            if verdict == "degrade":
+                max_new_tokens = max(1, int(max_new_tokens) // 2)
+                spec = False if self._spec is not None else spec
+                degraded = True
+                self.requests_degraded += 1
+                if self.metrics is not None:
+                    self.metrics.requests_degraded.inc()
+                    self.metrics.ring.emit(
+                        "request_degraded", reason=why, priority=priority,
+                        tenant=tenant, max_new_tokens=int(max_new_tokens))
+        if self.quotas is not None:
+            # after the verdict: a rejected request costs its tenant
+            # nothing, a degraded one its halved budget
+            try:
+                self.quotas.charge(tenant,
+                                   len(prompt) + int(max_new_tokens),
+                                   now=self._now())
+            except QuotaExceededError:
+                self.quota_rejected += 1
+                if self.metrics is not None:
+                    self.metrics.quota_rejected.inc()
+                    self.metrics.ring.emit("quota_rejected", tenant=tenant,
+                                           priority=priority)
+                raise
         deadline = 0.0
         if deadline_s is not None:
             deadline = self._now() + float(deadline_s)
@@ -704,21 +908,25 @@ class ContinuousBatchingEngine:
         self._next_rid += 1
         req = Request(rid, prompt, max_new_tokens, stop_sequences=stops,
                       t_submit=time.monotonic(), deadline=deadline,
-                      spec=spec)
-        # phase accounting starts at the queue
+                      spec=spec, priority=priority, tenant=tenant,
+                      degraded=degraded)
+        if priority != "normal":
+            self._has_priorities = True
+        # phase accounting starts at the queue; a trace minted above the
+        # engine wins over the engine's own tracer
         req.t_phase = req.t_submit
-        if self.tracer is not None:
-            req.trace = self.tracer.begin_trace(
+        if trace is None and self.tracer is not None:
+            trace = self.tracer.begin_trace(
                 str(rid), prompt_len=len(prompt),
                 max_new_tokens=int(max_new_tokens))
+        req.trace = trace
         self._queue.append(req)
         if self.metrics is not None:
             self.metrics.requests_submitted.inc()
-            # priority and tenant as JAX records a request without them
             self.metrics.ring.emit("request_submitted", rid=rid,
                                    prompt_len=len(prompt),
                                    max_new_tokens=max_new_tokens,
-                                   priority="normal", tenant=None)
+                                   priority=priority, tenant=tenant)
         return rid
 
     def _reject(self, why: str) -> None:
@@ -753,28 +961,43 @@ class ContinuousBatchingEngine:
 
     def queued_by_class(self) -> Dict[str, int]:
         """Waiting requests per priority class, rows parked mid-prefill
-        included.  The port has no priority classes yet, so every waiting
-        request counts as ``"normal"``, as JAX counts a request submitted
-        without a priority.  Reads only ``len`` of the host containers, so
-        scrape threads call it lock-free."""
-        return {"high": 0,
-                "normal": len(self._queue) + len(self._mixed_pref),
-                "low": 0}
+        included.  Iterates ``tuple()`` copies, so scrape threads call it
+        lock-free."""
+        out = {p: 0 for p in PRIORITIES}
+        for r in tuple(self._queue):
+            out[r.priority if r.priority in out else "normal"] += 1
+        for e in tuple(self._mixed_pref.values()):
+            p = e["req"].priority
+            out[p if p in out else "normal"] += 1
+        return out
 
-    def queue_capacity_reason(self, prompt_len: int = 0) -> Optional[str]:
+    def queue_capacity_reason(self, prompt_len: int = 0,
+                              factor: float = 1.0,
+                              priority: Optional[str] = None
+                              ) -> Optional[str]:
         """Why the bounded admission queue would refuse a submission now,
         or ``None`` while capacity remains: the one predicate behind
-        ``submit()``'s backpressure and the server's ``/health/ready``."""
-        if self.max_queue_len is not None and \
-                len(self._queue) >= self.max_queue_len:
-            return (f"admission queue full: {len(self._queue)} waiting >= "
-                    f"max_queue_len {self.max_queue_len}")
+        ``submit()``'s backpressure, the server's ``/health/ready`` and the
+        fleet router's placement.  ``factor`` scales both bounds (the shed
+        path asks the hard bound); ``priority`` asks whether ``submit()``
+        would reject that class now (a class the policy protects is
+        measured against the hard bound, as ``submit()`` measures it)."""
+        if priority is not None and \
+                (self._has_priorities or priority != "normal") and \
+                self.policy.shed(priority) != "reject":
+            factor = max(factor, self.policy.overload_factor)
+        if self.max_queue_len is not None:
+            bound = int(self.max_queue_len * factor)
+            if len(self._queue) >= bound:
+                return (f"admission queue full: {len(self._queue)} waiting "
+                        f">= max_queue_len {bound}")
         if self.max_queued_tokens is not None:
+            bound = int(self.max_queued_tokens * factor)
             waiting = self.queued_tokens()
             need = max(int(prompt_len), 1)
-            if waiting + need > self.max_queued_tokens:
+            if waiting + need > bound:
                 return (f"queued tokens {waiting} + prompt {need} > "
-                        f"max_queued_tokens {self.max_queued_tokens}")
+                        f"max_queued_tokens {bound}")
         return None
 
     def retry_after_s(self) -> float:
@@ -1182,32 +1405,45 @@ class ContinuousBatchingEngine:
             self.metrics.decode_seconds.observe(dt)
         return len(self._active)
 
+    def _order_queue(self) -> None:
+        """Class-order the queue (``policy.order_queue``; stable, so arrival
+        order holds within a class).  Skipped while every request is
+        "normal"."""
+        if self._has_priorities and len(self._queue) > 1:
+            self._queue = self.policy.order_queue(self._queue)
+
+    def _pages_needed(self, req: Request) -> int:
+        """The device pages ``req``'s admission claims: its restore's when
+        it is swapped out (its shared pages are held already), else its
+        context's."""
+        handle = self._swap_handles.get(req.rid)
+        if handle is not None:
+            return self.cache.swap_pages_needed(handle)
+        return -(-len(self._ctx_of(req)) // self.cache.page)
+
     def _collect_admissions(self):
         """Pop every queued request that fits (slots + pool pages),
-        head-of-line FIFO: stop at the first that does not fit.  A
-        swapped-out request gates on the device pages its restore claims
-        (its shared pages are held already) and bypasses the prefill lanes.
-        -> ``(admits, swap_ins)``: (request, context) pairs to prefill, and
-        requests to restore."""
+        head-of-line FIFO within a class (the queue class-ordered first):
+        stop at the first that does not fit.  A swapped-out request gates
+        on the device pages its restore claims (its shared pages are held
+        already) and bypasses the prefill lanes.  -> ``(admits,
+        swap_ins)``: (request, context) pairs to prefill, and requests to
+        restore."""
+        self._order_queue()
         admits: List = []                    # (request, context) pairs
         swap_ins: List = []                  # swapped-row restores
         reserved = 0
         while self._queue and \
                 len(self._free_slots) > len(admits) + len(swap_ins):
             head = self._queue[0]
-            handle = self._swap_handles.get(head.rid)
-            if handle is not None:
-                need = self.cache.swap_pages_needed(handle)
-                if reserved + need > self.cache.available_pages():
-                    break
-                reserved += need
-                swap_ins.append(self._queue.popleft())
-                continue
-            ctx = self._ctx_of(head)
-            need = (len(ctx) + self.cache.page - 1) // self.cache.page
+            need = self._pages_needed(head)
             if reserved + need > self.cache.available_pages():
                 break
             reserved += need
+            if head.rid in self._swap_handles:
+                swap_ins.append(self._queue.popleft())
+                continue
+            ctx = self._ctx_of(head)
             if head.generated:               # recompute-style resume
                 self.resumes_recompute += 1
                 if self.metrics is not None:
@@ -1226,6 +1462,13 @@ class ContinuousBatchingEngine:
             # nothing fits and nothing runs: parked swap records are all
             # that still pins pages; degrade them to recompute resumes
             # until the head of the queue fits
+            admits, swap_ins = self._collect_admissions()
+        while self._has_priorities and not admits and not swap_ins \
+                and self._queue and self._priority_preempt():
+            # priority preemption: the class-ordered head finds no seat
+            # while strictly lower-class work holds slots or pages; evict
+            # one victim a turn through the swap / recompute path until the
+            # head fits or no lower-class victim is left
             admits, swap_ins = self._collect_admissions()
         if not admits and not swap_ins:
             return
@@ -1258,6 +1501,22 @@ class ContinuousBatchingEngine:
             if self.metrics is not None:
                 self.metrics.preempt_resume_seconds.observe(
                     dt / len(admits))
+
+    def _priority_preempt(self) -> bool:
+        """Evict one active request of a class strictly below the queue
+        head's (the policy's victim), the pipeline drained first on the
+        overlap lane.  False when there is none: equal classes are never
+        churned."""
+        victims = self.policy.preemptable_for(self._queue[0], self._active)
+        if not victims:
+            return False
+        if self.overlap:
+            self._pipeline_flush()
+            # the drain may have retired rows
+            victims = [s for s in victims if s in self._active]
+            if not victims:
+                return True           # pages freed with no preemption
+        return self._preempt(keep=None, only=victims)
 
     def _admit_swapped(self, req: Request) -> bool:
         """Re-admit a swapped-out request: restore its parked pages (one
@@ -1593,19 +1852,28 @@ class ContinuousBatchingEngine:
         ordinary zero-prefill path (``_admit_swapped``, the pipeline flushed
         first on the overlap lane).  A context longer than ``mixed_ctx_cap``
         does not fit the mixed stream and admits through one sequential
-        packed wave (counted in ``mixed_degraded``)."""
+        packed wave (counted in ``mixed_degraded``).  The queue is
+        class-ordered and a head that finds no seat priority-preempts, as in
+        ``_admit_wave``: a deliberate departure from JAX's carve, which
+        waits for a seat."""
         cache = self.cache
+        self._order_queue()
+        while self._has_priorities and self._queue and not (
+                self._free_slots and self._pages_needed(self._queue[0])
+                <= cache.available_pages()) and self._priority_preempt():
+            # as in _admit_wave, until the head finds a slot and its
+            # pages; the victim went back to the head
+            self._order_queue()
         degrades: List = []
         res_pages = 0
         while self._queue:
             if len(self._free_slots) <= len(degrades):
                 break                 # keep a slot per pending degrade
             head = self._queue[0]
-            handle = self._swap_handles.get(head.rid)
-            if handle is not None:
-                need = cache.swap_pages_needed(handle)
-                if need + res_pages > cache.available_pages():
-                    break
+            need = self._pages_needed(head)
+            if need + res_pages > cache.available_pages():
+                break
+            if head.rid in self._swap_handles:
                 if self.overlap:
                     self._pipeline_flush()
                 req = self._queue.popleft()
@@ -1617,9 +1885,6 @@ class ContinuousBatchingEngine:
                 self._admitting = []
                 continue
             ctx = self._ctx_of(head)
-            need = -(-len(ctx) // cache.page)
-            if need + res_pages > cache.available_pages():
-                break
             if len(ctx) > self.mixed_ctx_cap:
                 degrades.append((self._queue.popleft(), ctx))
                 res_pages += need
@@ -1911,21 +2176,24 @@ class ContinuousBatchingEngine:
             self.metrics.tokens_generated.inc(advanced)
             self.metrics.host_bookkeeping.observe(time.perf_counter() - t0)
 
-    def _preempt(self, keep: Optional[int]) -> bool:
-        """Evict the most recently admitted active request (except slot
-        ``keep``) and requeue it at the FRONT of the queue.  With a host
-        tier and a cost model that favours it (``_preempt_mode``) its
-        private pages swap out (the resume restores them, zero prefill);
-        otherwise, or when the swap-out is refused, its pages are released
+    def _preempt(self, keep: Optional[int],
+                 only: Optional[List[int]] = None) -> bool:
+        """Evict one active request (except slot ``keep``; among ``only``
+        when given, the priority path's lower-class slots) and requeue it
+        at the FRONT of the queue.  The policy picks the victim: the lowest
+        class, the most recently admitted within it.  With a host tier and
+        a cost model that favours it (``_preempt_mode``) its private pages
+        swap out (the resume restores them, zero prefill); otherwise, or
+        when the swap-out is refused, its pages are released
         (recompute-style: the resume re-prefills prompt + generated).
-        Returns False when there is no other request.
+        Returns False when there is no victim.
 
         Rows parked mid-prefill on the mixed lane go first (the youngest
         carve first): they are the youngest page holders and have produced
         nothing, and without this a carve could leave an active row's
         growth with no victim.  The pipeline is drained when this runs, so
         a parked row's half-written pages are safe to free."""
-        if self._mixed_pref:
+        if self._mixed_pref and only is None:
             slot = next(reversed(self._mixed_pref))
             req = self._mixed_pref.pop(slot)["req"]
             req.slot = None
@@ -1942,10 +2210,11 @@ class ContinuousBatchingEngine:
                                        mode="mixed-parked",
                                        generated=len(req.generated))
             return True
-        victims = [s for s in self._active if s != keep]
+        victims = [s for s in (self._active if only is None else only)
+                   if s != keep and s in self._active]
         if not victims:
             return False
-        slot = max(victims, key=lambda s: self._active[s].admit_seq)
+        slot = self.policy.select_victim(victims, self._active)
         mode = self._preempt_mode(slot)
         req = self._active.pop(slot)
         req.slot = None
@@ -2901,6 +3170,8 @@ class EngineSupervisor:
                 new._queue.append(req)
                 if req.deadline:
                     new._has_deadlines = True
+                if req.priority != "normal":
+                    new._has_priorities = True
         old._queue.clear()
         new._next_rid = max(new._next_rid, old._next_rid)
         new.last_fault = text

@@ -13,14 +13,16 @@ reads a port server unchanged:
   chrome-trace export.
 * :mod:`.engine_metrics` — the instrument bundle the continuous-batching
   engine records into (JAX's whole catalogue).
+* :mod:`.fleet_metrics` — the fleet router's bundle (replica states,
+  routing decisions, failovers, quota rejections, scaling).
 * :mod:`.tracing` — per-request tracing: phase clocks accrued at scheduler
   mutation points, materialized as spans at retirement, kept by a bounded
   tail-sampling :class:`TraceStore` (``GET /traces``, ``GET /trace/<rid>``).
 
 Everything is host-side: instrumentation launches no kernel and adds no
 device sync — values are recorded from numbers the engine already holds
-on the host.  The fleet, disaggregation and transport bundles wait for
-their lanes.
+on the host.  The disaggregation and transport bundles wait for their
+lanes.
 """
 
 from .events import EventRing, default_ring            # noqa: F401
@@ -28,13 +30,14 @@ from .metrics import (Counter, Gauge, Histogram,       # noqa: F401
                       MetricsRegistry, default_registry)
 from .engine_metrics import (EngineMetrics,            # noqa: F401
                              bind_engine_gauges)
+from .fleet_metrics import FleetMetrics                # noqa: F401
 from .tracing import (PHASES, TraceContext, Tracer,    # noqa: F401
                       TraceStore, advance_phase, default_tracer,
                       finalize_request_trace, phase_clocks)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "default_registry", "EventRing", "default_ring",
-           "EngineMetrics", "bind_engine_gauges", "PHASES",
+           "EngineMetrics", "bind_engine_gauges", "FleetMetrics", "PHASES",
            "TraceContext", "Tracer",
            "TraceStore", "advance_phase", "default_tracer",
            "finalize_request_trace", "phase_clocks"]

@@ -6,8 +6,8 @@ Counter/Gauge/Histogram the continuous-batching stack publishes, created
 against one registry (the process-wide default for servers; a fresh
 registry in tests that assert exact counts).  The catalogue is JAX's
 whole catalogue, name for name and type for type: the instruments of
-lanes the port does not have yet (TP, quotas) are registered and read 0,
-as they do on a JAX engine with those lanes off.
+lanes the port does not have yet (TP) are registered and read 0, as they
+do on a JAX engine with those lanes off.
 
 Gauges derivable from engine/cache state use scrape-time callbacks
 (``set_function``) through a weakref — the hot path pays nothing to

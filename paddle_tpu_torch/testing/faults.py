@@ -39,13 +39,24 @@ site                   consulted by
                        allocator) and ``PagedKVCache.host_available`` (a
                        condition rule reads 0: the cost model and the
                        swap-out precondition degrade to recompute)
+``route_dispatch``     ``FleetRouter`` before handing a request to the
+                       chosen replica: the router tries the next
+                       candidate; with none left the submit raises
+``replica_death``      the router's per-replica step, once per stepped
+                       replica: an exception rule kills the replica
+                       (DEAD; requests that streamed nothing fail over,
+                       the others end with an error; ``auto_replace``
+                       rebuilds it)
+``replica_slow``       a condition rule at the same seam: while it
+                       matches the replica skips its step and turns
+                       DEGRADED (routing steers around it); READY again
+                       once it stops matching
 =====================  ==================================================
 
 JAX's other sites wait for the subsystems that consult them (ROADMAP.md
-queue 1): ``route_dispatch``, ``replica_death``,
-``replica_slow``, ``conn_drop``, ``frame_truncate``, ``net_delay``,
-``agent_kill`` and ``kv_handoff`` with the fleet and disaggregation
-(item 8).
+queue 1 item 8): ``conn_drop``, ``frame_truncate``, ``net_delay`` and
+``agent_kill`` with the sockets transport, ``kv_handoff`` with
+disaggregation.
 
 Faults are deterministic: rules match by call index (``nth`` = exactly
 the n-th consult, ``every`` = every K-th consult, the default = every

@@ -52,6 +52,7 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.flags\n"
         "import paddle_tpu_torch.observability\n"
         "import paddle_tpu_torch.testing.faults\n"
+        "import paddle_tpu_torch.fleet\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.ab_torch_kernels\n"

@@ -43,7 +43,7 @@ from paddle_tpu_torch.models import decode as tdec  # noqa: E402
 from paddle_tpu_torch.models import llama_pretrain as tlp  # noqa: E402
 from paddle_tpu_torch.models import paged_decode as tpd  # noqa: E402
 from paddle_tpu_torch.models.serving_engine import (  # noqa: E402
-    ContinuousBatchingEngine)
+    ContinuousBatchingEngine, SchedulerPolicy, TenantQuotas)
 from paddle_tpu_torch.models.weights import params_from_jax  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -438,12 +438,16 @@ def test_engine_refuses_lanes_not_ported(models):
     # overlap and decode_horizon are ported (test_torch_serving_overlap.py),
     # prefix caching and packed=False too (test_torch_prefix_cache.py,
     # test_torch_prefill_lanes.py), mixed (test_torch_serving_mixed.py) and
-    # spec (test_torch_serving_spec.py)
-    for kw in ({"mesh": object()},
-               {"policy": object()}, {"tenant_quotas": object()},
-               {"tp_allreduce": "int8"}):
+    # spec (test_torch_serving_spec.py); the scheduler policy and tenant
+    # quotas are ported (test_torch_serving_qos.py): an engine builds with
+    # them, and the TP lanes still refuse beside them
+    qos = {"policy": SchedulerPolicy(),
+           "tenant_quotas": TenantQuotas(rate_tokens_per_s=10.0)}
+    eng, _ = _engine(tcfg, tparams, **qos)
+    assert eng.policy is qos["policy"] and eng.quotas is qos["tenant_quotas"]
+    for kw in ({"mesh": object()}, {"tp_allreduce": "int8"}):
         with pytest.raises(NotImplementedError):
-            _engine(tcfg, tparams, **kw)
+            _engine(tcfg, tparams, **qos, **kw)
     # the host page tier is ported (tests/test_torch_kv_offload.py): it
     # builds and a row round-trips through it; its TP form stays refused
     cache = tpd.PagedKVCache(tcfg, 8, 2, 1, page=PAGE, host_pages=4,
@@ -524,9 +528,20 @@ def test_http_front_serves_the_engine_tokens(models):
         code, _, _ = _post(url + "/generate", {"prompt": [],
                                                "max_new_tokens": 4})
         assert code == 400
-        code, _, _ = _post(url + "/generate", {"prompt": [1],
-                                               "priority": "high"})
-        assert code == 400
+        # a priority class is honoured (the class rides to the engine's
+        # request), an unknown one is a 400
+        code, body, _ = _post(url + "/generate", {"prompt": prompt,
+                                                  "max_new_tokens": 6,
+                                                  "priority": "high",
+                                                  "tenant": "t"})
+        assert code == 200 and json.loads(body)["tokens"] == want
+        assert "degraded" not in json.loads(body)
+        assert [(e["priority"], e["tenant"]) for e in eng.metrics.ring.recent()
+                if e["name"] == "request_submitted"][-1] == ("high", "t")
+        assert eng._has_priorities
+        code, body, _ = _post(url + "/generate", {"prompt": [1],
+                                                  "priority": "urgent"})
+        assert code == 400 and b"priority" in body
         code, body, _ = _post(url + "/cancel", {"rid": 999})
         assert code == 200 and json.loads(body)["cancelled"] is False
         code, _, _ = _get(url + "/nope")

@@ -373,11 +373,14 @@ def test_spec_rejections_name_the_constraint(models):
             draft_cache=_cache(models, "port", "weak", batch=3)))
     with pytest.raises(ValueError, match="SpecConfig"):
         mk().submit(np.arange(1, 6), max_new_tokens=4, spec=True)
-    # the lanes still to port keep refusing
-    for kw in ({"mesh": object()}, {"policy": object()},
-               {"tenant_quotas": object()}, {"tp_allreduce": "int8"}):
+    # the scheduler policy and tenant quotas build beside spec; the TP
+    # lanes still to port keep refusing
+    qos = {"policy": tse.SchedulerPolicy(),
+           "tenant_quotas": tse.TenantQuotas(rate_tokens_per_s=10.0)}
+    assert mk(spec=lookup, **qos).quotas is qos["tenant_quotas"]
+    for kw in ({"mesh": object()}, {"tp_allreduce": "int8"}):
         with pytest.raises(NotImplementedError):
-            mk(spec=lookup, **kw)
+            mk(spec=lookup, **qos, **kw)
 
 
 @pytest.mark.parametrize("draft", ["same", "weak"])
