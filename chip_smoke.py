@@ -255,6 +255,28 @@ Phases, one JSON line each on stdout:
              fleet state and the fleet instruments in /metrics, and a
              replica death mid-stream: the stream ends with the error while
              a request queued behind it fails over and completes.
+4k. serve_disagg - the in-process disaggregated pair
+             (paddle_tpu_torch/models/disagg.py: PrefillEngine, DecodeEngine,
+             DisaggCoordinator) at LLaMA-7B, bf16, both engines over the one
+             weight set with a cache each (128 pages of 64, a host tier of
+             96), the route forced through the hand-off, under serve_mixed's
+             schedule (bench.py's _disagg_line recipe).  The unified engine
+             and the pair timed on it: TTFT and TPOT p50 / p99, the decode
+             step's p99 during admission ticks, hand-off ms a request and
+             its GB/s (printed, not gated); the flip link speed at the
+             schedule's lengths and the default handoff_gbps's verdict;
+             K1 and K2 launched.  Gates: (a) every hand-off's restored pages
+             equal to its export's bit for bit; (b) no prefill on the decode
+             side, prefill_tokens_avoided the handed-off context, the
+             routing counters adding up; (c) the served logits within
+             LOGIT_LIMIT of the plain forward (a served token within
+             2 * LOGIT_LIMIT of the plain top), a planted fault (every
+             shipped page adopted one slot late) beyond it; (d) a
+             kv_handoff fault at the ship half and at the restore half each
+             degrading one request to a colocated re-prefill, none lost,
+             the pools clean; (e) FleetRouter(roles=["prefill", "decode"]):
+             a replica_death of the prefill replica with untaken records
+             reclaims their staging pages and fails the requests over.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -280,6 +302,10 @@ Phases, one JSON line each on stdout:
              recorded logits within INT8_LOGIT_LIMIT of the same run
              replayed teacher-forced with every kernel replaced by its plain
              version, the planted fault beyond it.
+5f. serve_disagg_int8 - serve_disagg's (a), (b) and (c) on the int8
+             weights over int8 pages (scale planes shipped bit for bit; K2,
+             K3 and K4 launched): logits within INT8_LOGIT_LIMIT of the
+             plain forward over the int8 weights and quantized K / V.
 6. train   - the 1.345 B-parameter LLaMA of the JAX package's training
              bench (vocab 32000, hidden 2048, FFN 5504, 24 layers, 16 heads
              of 128; bf16 compute over f32 masters, remat full, chunked
@@ -5907,6 +5933,529 @@ def phase_train_grads(torch, cfg, seed, mods, dev="cuda", flag_set=None):
              f"check cannot see it")
 
 
+# serve_disagg (and serve_disagg_int8): the in-process 1P+1D disaggregated
+# pair (paddle_tpu_torch/models/disagg.py) on LLaMA-7B at full width and
+# depth, under bench.py's _disagg_line TPU recipe (bench.py:1810-1817):
+# batch 8, pages of 64, 128 pages of which a row holds 8, a host tier of 96
+# pages on each engine's cache, serve_mixed's four waves of six prompts
+# (MIXED_LONG / MIXED_SHORT, one wave every MIXED_WAVE_GAP ticks) with
+# MIXED_NEW new tokens plus MIXED_STAGGER for each place in the wave, so the
+# unified arm is serve_mixed's synchronous sequential arm on the same
+# schedule.  Both engines close over the one weight set; each has its own
+# cache.  The route is forced through the hand-off (force_route="prefill"):
+# at the CUDA defaults the cost model keeps every LLaMA-7B request colocated
+# (the phase prints the flip and the default's verdict).
+DISAGG_CACHE = dict(num_pages=128, pages_max=8, batch=8, page=64)
+DISAGG_HOST_PAGES = 96
+DISAGG_CHECK_WAVES, DISAGG_CHECK_NEW = 2, 24
+DISAGG_FAULT_NEW = 8
+# (e): a 1 prefill + 1 decode fleet on smaller pools (a functional check)
+DISAGG_ROUTER_CACHE = dict(num_pages=48, pages_max=8, batch=4, page=64)
+DISAGG_ROUTER_HOST_PAGES = 32
+
+
+def disagg_caches(cfg, kv_quant, dev):
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    return [PagedKVCache(cfg, kv_quant=kv_quant, device=dev,
+                         host_pages=DISAGG_HOST_PAGES, **DISAGG_CACHE)
+            for _ in range(2)]
+
+
+def disagg_pair(cfg, params, caches, **co_kw):
+    from paddle_tpu_torch.models.disagg import (
+        DecodeEngine, DisaggCoordinator, PrefillEngine)
+    pe = PrefillEngine(cfg, params, caches[0],
+                       max_inflight_handoffs=2 * DISAGG_CACHE["batch"])
+    de = DecodeEngine(cfg, params, caches[1])
+    co = DisaggCoordinator(pe, de, force_route="prefill", **co_kw)
+    return pe, de, co
+
+
+def disagg_drive(drv, sched, new, admitted):
+    """bench.py's _ab_drive with serve_mixed's stagger: the waves submitted
+    on schedule, one step a tick, the decode step's host wall (the whole
+    step on a unified engine, ``last_decode_step_s`` on a coordinator)
+    filed under admission when ``admitted()`` says the tick admitted.
+    -> (admission ms, quiet ms, the finished requests in submission
+    order)."""
+    adm, quiet = [], []
+    pend = list(enumerate(sched))
+    rids, done = [], {}
+    tick = 0
+    while pend or drv.has_work():
+        if pend and tick >= pend[0][0] * MIXED_WAVE_GAP:
+            for j, p in enumerate(pend.pop(0)[1]):
+                rids.append(drv.submit(p, max_new_tokens=new
+                                       + MIXED_STAGGER * j))
+        t0 = time.perf_counter()
+        drv.step()
+        wall = (time.perf_counter() - t0) * 1e3
+        ms = wall if not hasattr(drv, "last_decode_step_s") \
+            else drv.last_decode_step_s * 1e3
+        hit = admitted()
+        if ms > 0:
+            (adm if hit else quiet).append(ms)
+        done.update((r.rid, r) for r in drv.finished())
+        tick += 1
+        if tick > 5000:
+            fail("serve_disagg: the traffic did not drain")
+    return adm, quiet, [done[r] for r in rids]
+
+
+def latency_stats(done):
+    """TTFT / TPOT p50 / p99 in ms (bench.py's _ab_lat_stats)."""
+    ttft = [(r.t_first_token - r.t_submit) * 1e3 for r in done
+            if r.t_first_token]
+    tpot = [(r.t_finish - r.t_first_token) * 1e3 / (len(r.generated) - 1)
+            for r in done if r.t_first_token and len(r.generated) > 1]
+    return dict(ttft_p50_ms=pctl(ttft, 50), ttft_p99_ms=pctl(ttft, 99),
+                tpot_p50_ms=pctl(tpot, 50), tpot_p99_ms=pctl(tpot, 99))
+
+
+def disagg_clean(phase, what, *caches):
+    for c in caches:
+        a = c.audit()
+        if a["owned"] or a.get("swap_records") or \
+                a.get("host_free", 0) + a.get("host_indexed", 0) \
+                != (c.host.num_pages if c.host is not None else 0):
+            fail(f"{phase}: {what} left the pools unclean: {a}")
+
+
+def disagg_arm(torch, cfg, params, caches, mods, sched, warm, disagg, phase):
+    """One timed arm on ``sched`` after a warm-up on ``warm``: the unified
+    engine over ``caches[0]`` or the forced 1P+1D pair over both, the
+    launch counts set to 0 just before the timed drive.  -> its stats."""
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    if disagg:
+        pe, de, drv = disagg_pair(cfg, params, caches)
+        last = {"pf": 0, "sw": 0}
+
+        def admitted():
+            # the prefill engine ran a wave or the decode engine restored
+            # shipped pages (the pair's admission cost lives in restores)
+            hit = (pe.prefill_calls > last["pf"]
+                   or de.resumes_swapped > last["sw"])
+            last["pf"], last["sw"] = pe.prefill_calls, de.resumes_swapped
+            return hit
+    else:
+        drv = ContinuousBatchingEngine(cfg, params, caches[0])
+        last = {"pf": 0}
+
+        def admitted():
+            hit = drv.prefill_calls > last["pf"]
+            last["pf"] = drv.prefill_calls
+            return hit
+    disagg_drive(drv, warm, MIXED_WARM_NEW, admitted)
+    torch.cuda.synchronize()
+    if disagg:
+        c0 = dict(routed=dict(drv.routed), shipped=drv.handoffs_shipped,
+                  pages=drv.handoff_pages, bytes=drv.handoff_bytes,
+                  wall=drv.handoff_wall_s, fallbacks=drv.colocated_fallbacks,
+                  de_prefill=de.prefill_calls,
+                  avoided=de.prefill_tokens_avoided,
+                  pe_steps=pe.decode_steps)
+    graphs0 = graph_state()
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    adm, quiet, done = disagg_drive(drv, sched, MIXED_NEW, admitted)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran_launches(read_counts(mods), graphs0)
+    name = "disagg" if disagg else "unified"
+    news = mixed_news(sched)
+    for r, n in zip(done, news):
+        if r.status != "ok" or len(r.generated) != n:
+            fail(f"{phase}: the {name} arm's request {r.rid} ended "
+                 f"{r.status} with {len(r.generated)} of {n} tokens")
+    disagg_clean(phase, f"the {name} arm", *(caches if disagg
+                                             else caches[:1]))
+    stats = dict(wall_s=wall, requests=len(done),
+                 tokens=sum(len(r.generated) for r in done),
+                 admission_ticks=len(adm), quiet_ticks=len(quiet),
+                 decode_step_p50_during_admission_ms=pctl(adm, 50),
+                 decode_step_p99_during_admission_ms=pctl(adm, 99),
+                 decode_step_p99_quiet_ms=pctl(quiet, 99),
+                 launches=launches, **latency_stats(done))
+    if disagg:
+        n = len(done)
+        routed = {k: drv.routed[k] - c0["routed"][k] for k in drv.routed}
+        shipped = drv.handoffs_shipped - c0["shipped"]
+        hbytes = drv.handoff_bytes - c0["bytes"]
+        hwall = drv.handoff_wall_s - c0["wall"]
+        stats.update(
+            routed=routed, handoffs_shipped=shipped,
+            handoff_pages=drv.handoff_pages - c0["pages"],
+            handoff_bytes=hbytes,
+            handoff_ms_per_request=1e3 * hwall / max(shipped, 1),
+            handoff_gb_per_s=hbytes / hwall / 1e9 if hwall else None,
+            colocated_fallbacks=drv.colocated_fallbacks - c0["fallbacks"],
+            decode_prefill_calls=de.prefill_calls - c0["de_prefill"],
+            prefill_tokens_avoided=(de.prefill_tokens_avoided
+                                    - c0["avoided"]),
+            prefill_decode_steps=pe.decode_steps - c0["pe_steps"])
+        ctx = sum(len(p) for wave in sched for p in wave)
+        # (b): no prefill on the decode side, every context token handed
+        # off, and the routing counters adding up to the requests
+        if stats["decode_prefill_calls"] or stats["prefill_decode_steps"]:
+            fail(f"{phase}: the decode engine prefilled "
+                 f"({stats['decode_prefill_calls']} waves) or the prefill "
+                 f"engine decoded under force_route='prefill'")
+        if stats["prefill_tokens_avoided"] != ctx or shipped != n:
+            fail(f"{phase}: prefill_tokens_avoided "
+                 f"{stats['prefill_tokens_avoided']} (want {ctx}) and "
+                 f"{shipped} hand-offs (want {n})")
+        if sum(routed.values()) != n or routed["prefill"] != n:
+            fail(f"{phase}: the routing counters {routed} do not add up "
+                 f"to the {n} requests")
+    return stats
+
+
+def handoff_bits_watch(torch, pe, de):
+    """(a): snapshot each row's pages as ``export_row`` sees them and hold
+    them against the pages the decode cache restores for that hand-off,
+    bit for bit (int8 scale planes included).  -> the watch state."""
+    state = {"checked": 0, "bad": []}
+    snaps, export_of = {}, {}
+    export_row, admit = pe.cache.export_row, de.admit_handoff
+    swap_in = de.cache.swap_in_row
+
+    def pages(cache, b, L):
+        npg = -(-L // cache.page)
+        return page_blocks(torch, cache, cache._owned[b][:npg])
+
+    def export(b):
+        snap = [bits(torch, t)
+                for t in pages(pe.cache, b, int(pe.cache.lens[b]))]
+        st = export_row(b)
+        snaps[st["id"]] = snap
+        return st
+
+    def adopt(rec):
+        local = admit(rec)
+        export_of[de._swap_handles[local]] = rec.export["id"]
+        return local
+
+    def restore(b, handle):
+        eid = export_of.pop(handle, None)
+        L = swap_in(b, handle)
+        if eid is not None:
+            got = [bits(torch, t) for t in pages(de.cache, b, L)]
+            if not all(torch.equal(a, g)
+                       for a, g in zip(snaps.pop(eid), got)):
+                state["bad"].append(eid)
+            state["checked"] += 1
+        return L
+
+    pe.cache.export_row, de.admit_handoff = export, adopt
+    de.cache.swap_in_row = restore
+    return state
+
+
+def disagg_recorded(torch, cfg, params, caches, sched, forced=None,
+                    corrupt=False, watch=False):
+    """Serve ``sched`` (DISAGG_CHECK_NEW tokens plus the stagger) through
+    the forced pair and record every token's logits where an engine
+    computes it: each first token in the prefill engine's wave, every
+    later one in the decode engine's steps.  ``forced`` ({coordinator rid:
+    tokens}) makes the engines emit those tokens (teacher forcing: the
+    schedule depends on lengths alone); ``corrupt`` adopts every shipped
+    page one slot late (a planted fault of the hand-off); ``watch`` holds
+    each hand-off's restored pages against its export bit for bit.  -> (the
+    served tokens, logits per request, the watch state, counters)."""
+    import paddle_tpu_torch.models.paged_decode as pd
+    import paddle_tpu_torch.models.serving_engine as se
+    pe, de, co = disagg_pair(cfg, params, caches)
+    rec, ctx = {}, {"wave": None}
+    real_pick, emit_first = pd._pick_token, pe._emit_first
+
+    def pick(logits, temperature, generator=None, top_k=0, top_p=1.0):
+        tok = real_pick(logits, temperature, generator, top_k, top_p)
+        for s, r in de._active.items():
+            cid, j = co._decode_rids[r.rid], len(r.generated)
+            rec.setdefault(cid, {})[j] = logits[s].float().clone()
+            if forced is not None:
+                tok[s] = forced[cid][j]
+        return tok
+
+    def pick_wave(logits, *a, **k):
+        ctx["wave"] = logits.float().clone()
+        return torch.argmax(logits, dim=-1)
+
+    def emit(reqs, slots, toks):
+        for i, r in enumerate(reqs):
+            if not r.generated:
+                cid = co._prefill_rids[r.rid]
+                rec.setdefault(cid, {})[0] = ctx["wave"][i]
+                if forced is not None:
+                    toks[i] = forced[cid][0]
+        return emit_first(reqs, slots, toks)
+
+    pe._emit_first = emit
+    if corrupt:
+        adopt = de.cache.adopt_swap
+
+        def adopt_late(k, v, ks, vs, L):
+            k, v = k.roll(1, dims=3), v.roll(1, dims=3)
+            if ks is not None:
+                ks, vs = ks.roll(1, dims=3), vs.roll(1, dims=3)
+            return adopt(k, v, ks, vs, L)
+
+        de.cache.adopt_swap = adopt_late
+    state = handoff_bits_watch(torch, pe, de) if watch else None
+    with patched((pd, "_pick_token", pick), (se, "_pick_token", pick_wave)):
+        _, _, done = disagg_drive(co, sched, DISAGG_CHECK_NEW, lambda: False)
+    for c in caches:                     # the instance seams go with it
+        for name in ("export_row", "adopt_swap", "swap_in_row"):
+            c.__dict__.pop(name, None)
+    disagg_clean("serve_disagg", "the recorded run", *caches)
+    gens = [r.generated for r in done]
+    logits = [torch.stack([rec[i][j] for j in range(len(g))])
+              for i, g in enumerate(gens)]
+    counts = dict(handoffs=co.handoffs_shipped,
+                  decode_prefill_calls=de.prefill_calls,
+                  prefill_tokens_avoided=de.prefill_tokens_avoided)
+    return gens, logits, state, counts
+
+
+def disagg_logit_check(torch, cfg, params, caches, sched, kv_quant, dev,
+                       phase):
+    """(a) and (c): the recorded run with the bit watch on, its logits
+    against the plain forward over the served sequences (int8: the int8
+    weights through their plain matmul, K / V through int8 pages'
+    quantization), a served token's plain logit within 2 * LOGIT_LIMIT of
+    the plain top (bf16), and the same tokens forced with every shipped page
+    one slot late (a planted fault) beyond the limit."""
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    from paddle_tpu_torch.ops import int8_matmul as im
+    prompts = [p for wave in sched for p in wave]
+    t0 = time.perf_counter()
+    served, sound, watch, counts = disagg_recorded(
+        torch, cfg, params, caches, sched, watch=True)
+    forced = dict(enumerate(served))
+    _, fault, _, _ = disagg_recorded(torch, cfg, params, caches, sched,
+                                     forced=forced, corrupt=True)
+    q8 = kv_quant == "int8"
+    with patched((tlp, "int8_matmul", im.int8_matmul_plain)):
+        plain = [plain_logits(torch, cfg, params, p + g[:-1], dev,
+                              kv_q8=q8)[len(p) - 1:]
+                 for p, g in zip(prompts, served)]
+    limit = INT8_LOGIT_LIMIT if q8 else LOGIT_LIMIT
+    out = dict(checked_requests=len(prompts),
+               handoffs_bit_checked=watch["checked"],
+               handoffs_bit_mismatched=len(watch["bad"]),
+               logit_max_abs_diff=max_diff(sound, plain), logit_limit=limit,
+               planted_fault_max_abs_diff=max_diff(fault, plain),
+               served_token_max_gap=None if q8
+               else served_gap(torch, served, plain),
+               check_counts=counts, logit_check_s=time.perf_counter() - t0)
+    del sound, fault, plain
+    if watch["bad"] or watch["checked"] != len(prompts):
+        fail(f"{phase}: {len(watch['bad'])} of {watch['checked']} hand-offs "
+             f"restored other bits than their export (want "
+             f"{len(prompts)} checked)")
+    if counts["decode_prefill_calls"] or counts["handoffs"] != len(prompts):
+        fail(f"{phase}: the recorded run prefilled on the decode side or "
+             f"shipped {counts['handoffs']} of {len(prompts)} hand-offs")
+    if out["logit_max_abs_diff"] > limit:
+        fail(f"{phase}: the served logits differ from the plain forward's "
+             f"by {out['logit_max_abs_diff']} (limit {limit})")
+    if out["planted_fault_max_abs_diff"] <= limit:
+        fail(f"{phase}: the planted hand-off fault moved the logits by only "
+             f"{out['planted_fault_max_abs_diff']}, within the limit "
+             f"{limit}: the check cannot see it")
+    if out["served_token_max_gap"] is not None and \
+            out["served_token_max_gap"] > 2 * LOGIT_LIMIT:
+        fail(f"{phase}: a served token sits {out['served_token_max_gap']} "
+             f"below the plain top logit (limit {2 * LOGIT_LIMIT})")
+    return out
+
+
+def disagg_faults(torch, cfg, params, caches, sched, phase):
+    """(d): a kv_handoff fault at the ship half (the first consult) and at
+    the restore half (the second) each degrade one request to a colocated
+    re-prefill on the decode engine; every request still finishes with all
+    its tokens and both caches audit clean."""
+    from paddle_tpu_torch.testing import faults
+    out = {}
+    for half, nth in (("ship", 1), ("restore", 2)):
+        pe, de, co = disagg_pair(cfg, params, caches)
+        with faults.plane() as fp:
+            fp.inject("kv_handoff", RuntimeError(f"{half} fault"), nth=nth,
+                      times=1)
+            _, _, done = disagg_drive(co, sched, DISAGG_FAULT_NEW,
+                                      lambda: False)
+            fired = fp.fired.get("kv_handoff", 0)
+        news = [DISAGG_FAULT_NEW + MIXED_STAGGER * j for wave in sched
+                for j in range(len(wave))]
+        lost = [r.rid for r, n in zip(done, news)
+                if r.status != "ok" or len(r.generated) != n]
+        out[half] = dict(fired=fired, fallbacks=co.colocated_fallbacks,
+                         decode_fallbacks=de.colocated_fallbacks,
+                         decode_prefill_calls=de.prefill_calls,
+                         lost=lost)
+        disagg_clean(phase, f"the {half} fault", *caches)
+        if fired != 1 or co.colocated_fallbacks != 1 or \
+                de.colocated_fallbacks != 1 or lost or \
+                de.prefill_calls < 1:
+            fail(f"{phase}: a kv_handoff fault at the {half} half did not "
+                 f"degrade one request to a colocated re-prefill: "
+                 f"{out[half]}")
+    return out
+
+
+def disagg_router(torch, cfg, params, sched, dev, phase):
+    """(e): FleetRouter(roles=["prefill", "decode"]) over the one weight set:
+    one wave exported by the prefill replica and left untaken, then a
+    replica_death of the prefill replica: its records' staging pages come
+    back (its cache audits clean), the requests fail over to the decode
+    replica and finish with all their tokens."""
+    from paddle_tpu_torch.fleet import FleetRouter
+    from paddle_tpu_torch.models.disagg import DecodeEngine, PrefillEngine
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.testing import faults
+
+    def mk(cls):
+        def factory():
+            return cls(cfg, params, PagedKVCache(
+                cfg, device=dev, host_pages=DISAGG_ROUTER_HOST_PAGES,
+                **DISAGG_ROUTER_CACHE), metrics_registry=False)
+        return factory
+
+    router = FleetRouter([mk(PrefillEngine), mk(DecodeEngine)],
+                         roles=["prefill", "decode"],
+                         metrics_registry=False, handoff_gbps=1e9)
+    prompts = sched[0][:DISAGG_ROUTER_CACHE["batch"]]
+    rids = [router.submit(p, max_new_tokens=DISAGG_FAULT_NEW)
+            for p in prompts]
+    pe = router._replicas[0].engine
+    pe.step()                    # the wave exports outside a router tick
+    untaken = len(pe._handoff_ready)
+    staged = pe.cache.host.used_pages()
+    with faults.plane() as fp:
+        fp.inject("replica_death", RuntimeError("prefill replica died"),
+                  nth=1, times=1)
+        done = {r.rid: r for r in router.run_to_completion()}
+    out = dict(untaken_records=untaken, staged_pages=staged,
+               staged_after=pe.cache.host.used_pages(),
+               deaths=router.deaths, failovers=router.failovers,
+               routed=dict(router.routed),
+               statuses=[done[r].status for r in rids],
+               tokens=[len(done[r].generated) for r in rids])
+    disagg_clean(phase, "the dead prefill replica", pe.cache)
+    for h in router._replicas:
+        disagg_clean(phase, f"replica {h.idx}", h.engine.cache)
+    if untaken != len(prompts) or not staged or out["staged_after"] or \
+            router.deaths != 1 or router.failovers != len(prompts) or \
+            out["statuses"] != ["ok"] * len(prompts) or \
+            out["tokens"] != [DISAGG_FAULT_NEW] * len(prompts):
+        fail(f"{phase}: the prefill replica's death mid-hand-off did not "
+             f"reclaim its records and fail over: {out}")
+    return out
+
+
+def phase_serve_disagg(torch, cfg, seed, params, mods, kv_quant=None,
+                       dev="cuda"):
+    """The 1P+1D pair on LLaMA-7B.  bf16 (``kv_quant`` None): the unified
+    arm and the disaggregated arm timed on serve_mixed's schedule (TTFT /
+    TPOT p50 / p99, the decode step's p99 during admission ticks, hand-off
+    ms a request and the GB/s it reached, printed, not gated) with (b)'s
+    counter gates; the flip link speed at the schedule's lengths and the
+    default ``handoff_gbps``'s verdict; (a) and (c) on the first
+    DISAGG_CHECK_WAVES waves; (d) the kv_handoff faults; (e) the router's
+    roles.  int8 (``params`` the quantized weights): (a) and (c) over int8
+    pages.  -> the launches of the timed arms (bf16) or of the checked
+    run (int8)."""
+    from paddle_tpu_torch.models import graphed_step as gs
+    from paddle_tpu_torch.models.disagg import (handoff_flip_gbps,
+                                                handoff_wins)
+    phase = "serve_disagg_int8" if kv_quant else "serve_disagg"
+    t_phase = time.perf_counter()
+    secs = {}
+    sched = mixed_schedule(cfg, seed)
+    warm = mixed_schedule(cfg, seed + 1, MIXED_WARM_WAVES)
+    check = sched[:DISAGG_CHECK_WAVES]
+    attn = ("paged_decode_attention_q8" if kv_quant
+            else "paged_decode_attention")
+    path = [attn, "flash_attention_segmented", "segment_tile_ranges"] + (
+        ["int8_matmul", "int8_matmul_wave"]
+        if isinstance(params["lm_head"], dict) else [])
+    caches = disagg_caches(cfg, kv_quant, dev)
+    arms, total = {}, {}
+    if kv_quant is None:
+        for disagg in (False, True):
+            name = "disagg" if disagg else "unified"
+            t = time.perf_counter()
+            arms[name] = disagg_arm(torch, cfg, params, caches, mods, sched,
+                                    warm, disagg, phase)
+            secs[name] = time.perf_counter() - t
+            for k, v in arms[name]["launches"].items():
+                total[k] = total.get(k, 0) + v
+            for kname in path:
+                if arms[name]["launches"][kname] <= 0:
+                    fail(f"{phase}: the {name} arm did not launch {kname}")
+            for kname in FLAGGED:
+                if arms[name]["launches"][kname]:
+                    fail(f"{phase}: the {name} arm launched {kname} with "
+                         f"its flag off")
+            emit(phase, arm=name, **arms[name])
+    t = time.perf_counter()
+    graphs0 = graph_state()
+    zero_counts(mods)
+    check_out = disagg_logit_check(torch, cfg, params, caches, check,
+                                   kv_quant, dev, phase)
+    if kv_quant:
+        total = ran_launches(read_counts(mods), graphs0)
+        for kname in path:
+            if total[kname] <= 0:
+                fail(f"{phase}: the checked runs did not launch {kname}")
+    secs["check"] = time.perf_counter() - t
+    de_probe = disagg_pair(cfg, params, caches)[1]
+    lens = sorted(set(MIXED_LONG + MIXED_SHORT))
+    flip = {L: handoff_flip_gbps(L, de_probe) for L in lens}
+    verdict = {L: handoff_wins(L, de_probe, 10.0) for L in lens}
+    del de_probe
+    extra = {}
+    if kv_quant is None:
+        t = time.perf_counter()
+        extra["faults"] = disagg_faults(torch, cfg, params, caches,
+                                        check[:1], phase)
+        secs["faults"] = time.perf_counter() - t
+        del caches
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        extra["router"] = disagg_router(torch, cfg, params, sched, dev,
+                                        phase)
+        secs["router"] = time.perf_counter() - t
+    else:
+        del caches
+    emit(phase, model="LLaMA-7B (LlamaPretrainConfig defaults)",
+         weights="int8 (quantize_params_int8)" if kv_quant else "bf16",
+         kv_pages=kv_quant or "bf16", cache=DISAGG_CACHE,
+         host_pages=DISAGG_HOST_PAGES,
+         traffic=dict(waves=MIXED_WAVES, per_wave=MIXED_PER_WAVE,
+                      wave_gap_ticks=MIXED_WAVE_GAP, long=MIXED_LONG,
+                      short=MIXED_SHORT, new=MIXED_NEW,
+                      stagger=MIXED_STAGGER),
+         unified_vs_disagg={key: {arm: arms[arm][key] for arm in arms}
+                            for key in ("ttft_p50_ms", "ttft_p99_ms",
+                                        "tpot_p50_ms", "tpot_p99_ms",
+                                        "decode_step_p99_during_admission_ms")
+                            } if arms else None,
+         handoff_ms_per_request=arms["disagg"]["handoff_ms_per_request"]
+         if arms else None,
+         handoff_gb_per_s=arms["disagg"]["handoff_gb_per_s"]
+         if arms else None,
+         flip_gbps=flip, default_handoff_gbps=10.0,
+         default_disaggregates=verdict,
+         k1_launches=total.get(attn), k2_launches=total.get(
+             "flash_attention_segmented"), launches=total,
+         **check_out, **extra, secs=secs,
+         phase_s=time.perf_counter() - t_phase)
+    gs.clear()
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6044,6 +6593,9 @@ def main():
     launches_qos = timed("serve_qos", phase_serve_qos, torch, cfg, s, params,
                          mods)
     torch.cuda.empty_cache()
+    launches_disagg = timed("serve_disagg", phase_serve_disagg, torch, cfg,
+                            s, params, mods)
+    torch.cuda.empty_cache()
     launches_int8, qparams = timed("serve_int8", phase_serve_int8, torch,
                                    cfg, s, params, mods)
     del params
@@ -6067,6 +6619,10 @@ def main():
     launches_swap_int8 = timed(
         "serve_swap_int8", phase_serve_swap, torch, cfg, s, qparams, mods,
         kv_quant="int8")
+    torch.cuda.empty_cache()
+    launches_disagg_int8 = timed(
+        "serve_disagg_int8", phase_serve_disagg, torch, cfg, s, qparams,
+        mods, kv_quant="int8")
     del qparams
     torch.cuda.empty_cache()             # the serves' weights are gone
     train_cfg = LlamaPretrainConfig(**TRAIN_CFG)
@@ -6092,9 +6648,9 @@ def main():
     # train_fused phases
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
             launches_dense, launches_faults, launches_mixed, launches_spec,
-            launches_swap, launches_qos, launches_int8, launches_int8_overlap,
-            launches_prefix_int8, launches_mixed_int8, launches_spec_int8,
-            launches_swap_int8,
+            launches_swap, launches_qos, launches_disagg, launches_int8,
+            launches_int8_overlap, launches_prefix_int8, launches_mixed_int8,
+            launches_spec_int8, launches_swap_int8, launches_disagg_int8,
             launches_train, launches_packed, *launches_fused]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 

@@ -1,7 +1,6 @@
 """paddle_tpu_torch.fleet: the replica router tier over N serving engines.
 
-Counterpart of ``paddle_tpu/fleet`` for in-process replicas that serve
-both phases:
+Counterpart of ``paddle_tpu/fleet`` for in-process replicas:
 
 * :class:`FleetRouter` owns N :class:`ReplicaHandle` s (each an engine
   behind an ``EngineSupervisor``, with the states ``STARTING`` /
@@ -16,10 +15,13 @@ both phases:
   ``/generate[_stream]`` protocol, the aggregated ``/metrics`` and a
   ``/fleet`` document.
 
-The fault plane's ``route_dispatch``, ``replica_death`` and
-``replica_slow`` sites drive the degraded paths.  Disaggregated prefill /
-decode lanes, the KV hand-off transport and replicas behind sockets are
-not ported yet (ROADMAP.md queue 1 item 8).
+Replicas take a role: ``"unified"`` (both phases), or ``"prefill"`` and
+``"decode"`` (the disaggregated lanes: the router ships each prefill
+replica's KV hand-off records to a decode replica through
+``handoff_transport``, in process by default).  The fault plane's
+``route_dispatch``, ``replica_death``, ``replica_slow`` and ``kv_handoff``
+sites drive the degraded paths.  Replicas behind sockets and the sockets
+transport are not ported yet (ROADMAP.md queue 1 item 8).
 """
 
 from .autoscaler import FleetAutoscaler                # noqa: F401

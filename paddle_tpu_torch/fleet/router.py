@@ -1,7 +1,7 @@
 """Replica router: lifecycle-managed fleet serving over N engines.
 
-Counterpart of ``paddle_tpu/fleet/router.py`` for in-process replicas that
-serve both phases (role ``"unified"``).  Each replica is one
+Counterpart of ``paddle_tpu/fleet/router.py`` for in-process replicas.  Each
+replica is one
 :class:`~paddle_tpu_torch.models.serving_engine.ContinuousBatchingEngine`
 behind an :class:`~paddle_tpu_torch.models.serving_engine.EngineSupervisor`,
 wrapped in a :class:`ReplicaHandle` with the fleet's state machine::
@@ -30,14 +30,28 @@ depend on placement); one that has streamed ends with ``status ==
 replica's engine is dropped with its decode graphs, so its KV pool goes
 back to the allocator.
 
+Roles (``roles=``, one a factory; ``"unified"`` by default): a
+``"prefill"`` replica (its factory builds a
+:class:`~paddle_tpu_torch.models.disagg.PrefillEngine`) takes the requests
+the bytes-against-FLOPs cost model sends through a hand-off; the router
+takes its exported records and ships them, one tick later, through
+``handoff_transport`` (by default in process:
+``DecodeEngine.admit_handoff``) to the least-loaded ``"decode"`` replica (a
+:class:`~paddle_tpu_torch.models.disagg.DecodeEngine`).  Short prompts
+place on decode or unified replicas directly.  A failed ship or restore
+(a ``kv_handoff`` fault, a full host tier) degrades the request to a
+colocated re-prefill on a decode replica that keeps its first token; a
+replica death mid-hand-off reclaims the records and fails the requests
+over.
+
 All replicas share one process and one card: a replica factory should
 close over one weight set (no copy per replica) and build its own
 ``PagedKVCache``.
 
 Not ported yet (ROADMAP.md queue 1 item 8), and refused with
-``NotImplementedError``: ``roles`` other than ``"unified"`` (disaggregated
-prefill / decode lanes), ``handoff_transport``, and a ``RemoteSpec`` in
-place of a factory (replicas behind a socket).
+``NotImplementedError``: a ``RemoteSpec`` in place of a factory (replicas
+behind a socket, and the sockets transport that ships hand-offs to
+them).
 
 Thread safety: every public method takes ``_lock``; the replica engines
 are touched only under it.
@@ -55,12 +69,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..models import graphed_step
+from ..models.disagg import handoff_wins
 from ..models.serving_engine import (PRIORITIES, EngineDeadError,
                                      EngineSupervisor, QueueFullError,
                                      QuotaExceededError, Request,
                                      TenantQuotas, _drive_to_completion,
                                      _release_engine_claims)
-from ..observability import (FleetMetrics, MetricsRegistry, advance_phase,
+from ..observability import (DisaggMetrics, FleetMetrics, MetricsRegistry,
+                             advance_phase, finalize_request_trace,
                              phase_clocks)
 from ..testing import faults
 
@@ -68,9 +84,10 @@ __all__ = ["FleetRouter", "ReplicaHandle", "REPLICA_STATES"]
 
 REPLICA_STATES = ("STARTING", "READY", "DEGRADED", "DRAINING", "DEAD",
                   "RETIRED")
+ROLES = ("unified", "prefill", "decode")
 
-_NOT_PORTED = ("not ported yet (ROADMAP.md queue 1 item 8, disaggregation "
-               "and the sockets transport): ")
+_NOT_PORTED = ("not ported yet (ROADMAP.md queue 1 item 8, the sockets "
+               "transport): ")
 
 
 def _refuse_remote(factory) -> None:
@@ -80,11 +97,22 @@ def _refuse_remote(factory) -> None:
             "socket); pass an in-process engine factory")
 
 
-def _refuse_role(role: str) -> None:
-    if role != "unified":
-        raise NotImplementedError(
-            _NOT_PORTED + f"replica role {role!r}; this router serves "
-            f"'unified' replicas only")
+def _check_role(h: "ReplicaHandle") -> None:
+    """A prefill replica's engine exports hand-offs, a decode replica's
+    adopts them: refuse a factory that built anything else."""
+    eng = h.engine
+    if h.role == "prefill" and not hasattr(eng, "take_handoffs"):
+        raise ValueError(
+            f"replica {h.idx} has role='prefill' but its factory built "
+            f"{type(eng).__name__} — a prefill lane needs a "
+            f"models.disagg.PrefillEngine (it exports KV handoff records "
+            f"instead of decoding)")
+    if h.role == "decode" and not hasattr(eng, "admit_handoff"):
+        raise ValueError(
+            f"replica {h.idx} has role='decode' but its factory built "
+            f"{type(eng).__name__} — a decode lane needs a "
+            f"models.disagg.DecodeEngine (it adopts KV handoffs through "
+            f"the zero-prefill restore path)")
 
 
 class ReplicaHandle:
@@ -92,14 +120,16 @@ class ReplicaHandle:
     fleet state and the local -> fleet rid map.  Touched only under the
     router's lock."""
 
-    role = "unified"
     # scale-down mark: the drain (or death) ends in RETIRED, not a replace
     retiring = False
 
     def __init__(self, idx: int, factory: Callable, *,
                  max_restarts: int = 3, window_s: float = 60.0,
-                 backoff_s: float = 0.0):
+                 backoff_s: float = 0.0, role: str = "unified"):
         self.idx = idx
+        # the serving lane: "prefill" exports hand-offs, "decode" adopts
+        # them, "unified" serves both phases
+        self.role = role
         self._factory = factory
         self._sup_kw = dict(max_restarts=max_restarts,
                             window_s=window_s, backoff_s=backoff_s)
@@ -255,7 +285,14 @@ class FleetRouter:
     ``tenant_quotas`` meters tenants at the router (build the replica
     engines without quotas, or a request pays twice).  ``tracer`` gives
     every accepted request one trace under its fleet rid, continued across
-    failovers."""
+    failovers and hand-offs.
+
+    ``roles`` (one a factory) grows disaggregated lanes (the module
+    docstring); ``handoff_gbps`` / ``handoff_chip_flops`` are the cost
+    model's knobs, ``max_inflight_handoffs`` bounds the hand-offs in flight
+    fleet-wide (past it, long prompts place colocated) and
+    ``handoff_transport(record, decode_handle) -> local rid`` replaces the
+    in-process ship."""
 
     def __init__(self, factories: Sequence[Callable], *,
                  prefix_routing: bool = True,
@@ -265,22 +302,25 @@ class FleetRouter:
                  restart_backoff_s: float = 0.0,
                  roles: Optional[Sequence[str]] = None,
                  handoff_transport: Optional[Callable] = None,
+                 handoff_gbps: float = 10.0,
+                 handoff_chip_flops: Optional[float] = None,
+                 max_inflight_handoffs: int = 8,
                  tenant_quotas: Optional[TenantQuotas] = None,
                  metrics_registry=None, metrics_ring=None,
                  tracer=None):
         if not factories:
             raise ValueError("FleetRouter needs >= 1 replica factory")
-        if roles is not None:
-            if len(roles) != len(factories):
-                raise ValueError(
-                    f"roles ({len(roles)}) must match factories "
-                    f"({len(factories)})")
-            for role in roles:
-                _refuse_role(role)
-        if handoff_transport is not None:
-            raise NotImplementedError(
-                _NOT_PORTED + "handoff_transport (the KV hand-off between "
-                "prefill and decode replicas)")
+        roles = ["unified"] * len(factories) if roles is None \
+            else list(roles)
+        if len(roles) != len(factories):
+            raise ValueError(
+                f"roles ({len(roles)}) must match factories "
+                f"({len(factories)})")
+        bad = [r for r in roles if r not in ROLES]
+        if bad:
+            raise ValueError(
+                f"unknown replica role(s) {bad}: expected 'unified', "
+                f"'prefill' or 'decode'")
         for f in factories:
             _refuse_remote(f)
         self._lock = threading.Lock()
@@ -293,8 +333,17 @@ class FleetRouter:
         self.prefix_routing = bool(prefix_routing)
         self.auto_replace = bool(auto_replace)
         self._replicas: List[ReplicaHandle] = [
-            ReplicaHandle(i, f, **self._restart_kw)
-            for i, f in enumerate(factories)]
+            ReplicaHandle(i, f, role=role, **self._restart_kw)
+            for i, (f, role) in enumerate(zip(factories, roles))]
+        for h in self._replicas:
+            _check_role(h)
+        self._has_prefill_lane = "prefill" in roles
+        self.handoff_transport = handoff_transport \
+            if handoff_transport is not None else self._transport_default
+        self.handoff_gbps = float(handoff_gbps)
+        self.handoff_chip_flops = handoff_chip_flops
+        self.max_inflight_handoffs = int(max_inflight_handoffs)
+        self._handoffs: deque = deque()   # (record, freq) awaiting ship
         self._page = int(self._replicas[0].engine.cache.page)
         self._requests: Dict[int, _FleetRequest] = {}
         self._pending: deque = deque()    # orphans awaiting re-placement
@@ -304,10 +353,11 @@ class FleetRouter:
         self._prefix_cap = 4096
         self._next_rid = 0
         self._now = time.monotonic        # seam: tests pin the clock
-        # plain counters, exact with metrics off ("disagg" stays 0 until
-        # that lane is ported)
+        # plain counters, exact with metrics off
         self.routed = {"prefix": 0, "least_loaded": 0, "failover": 0,
                        "disagg": 0}
+        # the cost model's verdicts on a fleet with a prefill lane
+        self.disagg_decisions = {"disagg": 0, "colocated": 0}
         self.failovers = 0
         self.rejected = 0
         self.quota_rejected = 0
@@ -316,6 +366,10 @@ class FleetRouter:
         self.scale_ups = 0
         self.scale_downs = 0
         self.route_errors = 0
+        self.handoffs_shipped = 0
+        self.handoff_pages = 0
+        self.handoff_bytes = 0
+        self.colocated_fallbacks = 0      # degraded hand-offs
         if metrics_registry is False:
             self.metrics = None
         else:
@@ -332,6 +386,12 @@ class FleetRouter:
             self.metrics = FleetMetrics(
                 metrics_registry if metrics_registry is not None
                 else MetricsRegistry(), ring=metrics_ring)
+        # the hand-off instruments exist only with a prefill lane: a
+        # unified fleet's exposition is unchanged
+        self.disagg_metrics = None
+        if self._has_prefill_lane and self.metrics is not None:
+            self.disagg_metrics = DisaggMetrics(self.metrics.registry,
+                                                ring=self.metrics.ring)
         self._update_gauges_locked()
 
     # -- client side ------------------------------------------------------
@@ -363,11 +423,22 @@ class FleetRouter:
             # marked here too: the engine's mark dies with its replica
             freq.cancelled = True
             if freq.replica >= 0:
-                return self._replicas[freq.replica].supervisor.cancel(
+                ok = self._replicas[freq.replica].supervisor.cancel(
                     freq.local_rid)
+                # a prefill-lane request may have been exported this tick
+                # (record not yet taken): the mark reclaims it at the take
+                return ok or self._replicas[freq.replica].role == "prefill"
+            src = None
+            for i, (rec, f) in enumerate(self._handoffs):
+                if f is freq:
+                    # mid-hand-off: reclaim the record now
+                    del self._handoffs[i]
+                    rec.discard()
+                    src = rec.request
+                    break
             self._pending = deque(q for q in self._pending
                                   if q is not freq)
-            self._finish_synth_locked(freq, "cancelled", None)
+            self._finish_synth_locked(freq, "cancelled", None, src=src)
             return True
 
     def finished(self) -> List[Request]:
@@ -419,14 +490,23 @@ class FleetRouter:
 
     def add_replica(self, factory: Callable, *,
                     role: str = "unified") -> int:
-        """Grow the fleet by one replica built from ``factory``, routable
-        from the next ``submit`` or ``step`` -> its index."""
-        _refuse_role(role)
+        """Grow the fleet by one replica of ``role`` built from ``factory``,
+        routable from the next ``submit`` or ``step`` -> its index."""
+        if role not in ROLES:
+            raise ValueError(
+                f"unknown replica role {role!r}: expected 'unified', "
+                f"'prefill' or 'decode'")
         _refuse_remote(factory)
         with self._lock:
             idx = len(self._replicas)
-            self._replicas.append(
-                ReplicaHandle(idx, factory, **self._restart_kw))
+            h = ReplicaHandle(idx, factory, role=role, **self._restart_kw)
+            _check_role(h)
+            self._replicas.append(h)
+            if role == "prefill":
+                self._has_prefill_lane = True
+                if self.metrics is not None and self.disagg_metrics is None:
+                    self.disagg_metrics = DisaggMetrics(
+                        self.metrics.registry, ring=self.metrics.ring)
             self.scale_ups += 1
             if self.metrics is not None:
                 self.metrics.scale_up.inc()
@@ -522,7 +602,24 @@ class FleetRouter:
                 max_new_tokens=int(max_new_tokens))
         # place before committing the rid: a rejected submit burns none
         try:
-            self._place_locked(freq, failover=False)
+            if self._disagg_wins_locked(len(prompt), int(max_new_tokens)):
+                try:
+                    self._place_locked(freq, failover=False,
+                                       lane="prefill")
+                    self._count_disagg_placement_locked(True)
+                except ValueError:
+                    # malformed or oversized: every lane would refuse it
+                    raise
+                except Exception:
+                    # the prefill lane is saturated, down or faulting:
+                    # colocation beats shedding (the 429 belongs to the
+                    # serve lane alone)
+                    self._place_locked(freq, failover=False)
+                    self._count_disagg_placement_locked(False)
+            else:
+                self._place_locked(freq, failover=False)
+                if self._has_prefill_lane:
+                    self._count_disagg_placement_locked(False)
         except BaseException:
             if freq.trace is not None:
                 freq.trace.close(status="rejected",
@@ -533,14 +630,62 @@ class FleetRouter:
         self._requests[freq.rid] = freq
         return freq.rid
 
-    def _candidates_locked(self, freq: _FleetRequest):
-        """Routing order: the prefix owner first (READY only), then READY
-        by load, then DEGRADED by load -> ``(candidates, prefix_hit_idx,
-        prefix_key)``."""
-        ready = sorted((h for h in self._replicas if h.state == "READY"),
+    def _disagg_wins_locked(self, prompt_len: int,
+                            max_new_tokens: int = 0) -> bool:
+        """The disaggregation verdict (pure; counted once a placement
+        lands): the cost model prices the prefill stall a decode replica
+        would pay against the hand-off's copies; short prompts, a full
+        in-flight pipeline and a request the decode lane's pool could never
+        hold (so ``submit()``'s ``ValueError`` refuses it up front) stay
+        colocated."""
+        if not self._has_prefill_lane:
+            return False
+        ref = next((h for h in self._replicas
+                    if h.role != "prefill" and h.engine is not None), None)
+        if ref is None:
+            return False              # nowhere to decode: placement fails
+        cache = ref.engine.cache
+        row_cap = min(cache.pages_max, cache.num_pages - 1) * cache.page
+        if prompt_len + max_new_tokens > row_cap:
+            return False
+        return self._inflight_handoffs_locked() \
+            < self.max_inflight_handoffs and \
+            handoff_wins(prompt_len, ref.engine, self.handoff_gbps,
+                         self.handoff_chip_flops)
+
+    def _count_disagg_placement_locked(self, disagg: bool) -> None:
+        self.disagg_decisions["disagg" if disagg else "colocated"] += 1
+        if self.disagg_metrics is not None:
+            (self.disagg_metrics.routed_prefill if disagg
+             else self.disagg_metrics.routed_colocated).inc()
+
+    def _inflight_handoffs_locked(self) -> int:
+        """Hand-offs anywhere in the fleet: exported and untaken on prefill
+        replicas, pending at the router, adopted and not yet admitted on
+        decode replicas."""
+        n = len(self._handoffs)
+        for h in self._replicas:
+            if h.state in ("DEAD", "RETIRED"):
+                continue
+            if h.role == "prefill":
+                n += len(h.engine._handoff_ready)
+            elif h.role == "decode":
+                n += h.engine.pending_handoffs()
+        return n
+
+    def _candidates_locked(self, freq: _FleetRequest, lane: str = "serve"):
+        """Routing order within ``lane`` (``"serve"``: decode and unified
+        replicas; ``"prefill"``: the disaggregated admission lane): the
+        prefix owner first (READY only), then READY by load, then DEGRADED
+        by load -> ``(candidates, prefix_hit_idx, prefix_key)``."""
+        def in_lane(h):
+            return (h.role == "prefill") == (lane == "prefill")
+
+        ready = sorted((h for h in self._replicas
+                        if h.state == "READY" and in_lane(h)),
                        key=lambda h: h.load())
         degraded = sorted((h for h in self._replicas
-                           if h.state == "DEGRADED"),
+                           if h.state == "DEGRADED" and in_lane(h)),
                           key=lambda h: h.load())
         cands = ready + degraded
         prefix_hit = None
@@ -556,11 +701,14 @@ class FleetRouter:
                     break
         return cands, prefix_hit, key
 
-    def _place_locked(self, freq: _FleetRequest, failover: bool) -> None:
-        """Hand ``freq`` to the best replica that takes it; raises when none
-        did (``QueueFullError`` with the least READY ``retry_after`` when
-        every refusal was backpressure)."""
-        cands, prefix_hit, key = self._candidates_locked(freq)
+    def _place_locked(self, freq: _FleetRequest, failover: bool,
+                      lane: str = "serve") -> None:
+        """Hand ``freq`` to the best replica of ``lane`` that takes it;
+        raises when none did (``QueueFullError`` with the least READY
+        ``retry_after`` when every refusal was backpressure).  A failover
+        always places on the serve lane: a re-prefill there is token-exact,
+        a second hand-off would pay the copies again."""
+        cands, prefix_hit, key = self._candidates_locked(freq, lane)
         if not cands:
             raise EngineDeadError(
                 f"no replica available: {self._states_locked()}")
@@ -602,14 +750,16 @@ class FleetRouter:
                 continue
             h.local_rids[local] = freq.rid
             freq.replica, freq.local_rid = h.idx, local
-            reason = ("failover" if failover
+            reason = ("disagg" if lane == "prefill"
+                      else "failover" if failover
                       else "prefix" if prefix_hit == h.idx
                       else "least_loaded")
             if freq.trace is not None:
                 ctx = freq.trace
                 if failover and freq.t_orphan:
                     # orphaned -> placed again, in the same trace as both
-                    # replicas' spans
+                    # replicas' spans (a hand-off that waited out decode-
+                    # lane backpressure is no death's gap)
                     gap = ("failover_gap" if freq.failovers
                            else "pending_replacement")
                     ctx.span(gap, freq.t_orphan, time.monotonic(),
@@ -627,7 +777,8 @@ class FleetRouter:
                 m = self.metrics
                 {"prefix": m.routed_prefix,
                  "least_loaded": m.routed_least_loaded,
-                 "failover": m.routed_failover}[reason].inc()
+                 "failover": m.routed_failover,
+                 "disagg": m.routed_disagg}[reason].inc()
             return
         if queue_full:
             # every admitting replica refused: the least hint of the READY
@@ -670,6 +821,10 @@ class FleetRouter:
                     self._replace_locked(h)
         # 2. place the orphans again before stepping
         self._flush_pending_locked(now)
+        # 2b. ship the hand-offs taken last tick (their staged copies rode
+        # under the dispatches since)
+        if self._handoffs:
+            self._ship_handoffs_locked(now)
         # 3. step every serving replica, then merge its outputs
         active = 0
         for h in self._replicas:
@@ -691,6 +846,23 @@ class FleetRouter:
             except Exception as exc:
                 self._on_death_locked(h, exc)
                 continue
+            if h.role == "prefill":
+                # take the wave's records: popping the local rid hands the
+                # request to the router and keeps the merges below off it
+                # (its first token streams at the decode side's admission,
+                # so it stays failover-eligible until then)
+                for rec in h.engine.take_handoffs():
+                    rid = h.local_rids.pop(rec.request.rid, None)
+                    freq = None if rid is None \
+                        else self._requests.get(rid)
+                    if freq is None or freq.cancelled:
+                        rec.discard()
+                        if freq is not None:
+                            self._finish_synth_locked(
+                                freq, "cancelled", None, src=rec.request)
+                        continue
+                    freq.replica, freq.local_rid = -1, -1
+                    self._handoffs.append((rec, freq))
             for local, tok in h.supervisor.drain_stream():
                 rid = h.local_rids.get(local)
                 if rid is None:
@@ -783,6 +955,8 @@ class FleetRouter:
             by_local.update((r.rid, r) for r in list(eng._admitting))
             for ent in eng._mixed_pref.values():
                 by_local[ent["req"].rid] = ent["req"]
+            for rec in getattr(eng, "_handoff_ready", ()):
+                by_local[rec.request.rid] = rec.request
             now = time.monotonic()
             for local, rid in local_map.items():
                 freq = self._requests.get(rid)
@@ -833,11 +1007,115 @@ class FleetRouter:
                     f"failover placement failed: {type(e).__name__}: {e}")
         self._pending = keep
 
+    # -- the KV hand-off (disaggregated lanes) ----------------------------
+    def _transport_default(self, rec, h: ReplicaHandle) -> int:
+        """The in-process hand-off transport: materialise on the source
+        side, adopt into the destination's host tier (both halves of the
+        ``kv_handoff`` fault site fire inside) -> the decode-side local rid.
+        A sockets transport replaces this seam; the routing, failover and
+        backpressure decisions above it stay as they are."""
+        eng = h.engine
+        if not hasattr(eng, "admit_handoff"):
+            raise RuntimeError(
+                f"replica {h.idx} (role {h.role!r}) cannot adopt a KV "
+                f"handoff — ship targets need a DecodeEngine")
+        rec.materialize()
+        return eng.admit_handoff(rec)
+
+    def _ship_handoffs_locked(self, now: float) -> None:
+        """Ship every pending hand-off to the least-loaded READY decode
+        replica.  Backpressure (every target's queue full) keeps the record
+        pending; any other failure (a ``kv_handoff`` fault, a full host
+        tier, no decode replica up) degrades the request to a colocated
+        re-prefill: ``admit_degraded`` on a decode replica (keeping the
+        first token), else a failover placement."""
+        keep: deque = deque()
+        while self._handoffs:
+            rec, freq = self._handoffs.popleft()
+            if freq.cancelled:
+                rec.discard()
+                self._finish_synth_locked(freq, "cancelled", None,
+                                          src=rec.request)
+                continue
+            if freq.deadline and now >= freq.deadline:
+                rec.discard()
+                self._finish_synth_locked(freq, "expired", None,
+                                          src=rec.request)
+                continue
+            targets = sorted((h for h in self._replicas
+                              if h.role == "decode" and h.state == "READY"),
+                             key=lambda h: h.load())
+            t0 = time.perf_counter()
+            shipped = queue_full = False
+            for h in targets:
+                try:
+                    local = self.handoff_transport(rec, h)
+                except QueueFullError:
+                    queue_full = True
+                    continue
+                except Exception:
+                    # a consumed fault or a full host tier poisons this
+                    # record's ship: degrade rather than try the next target
+                    # with a half-materialised record
+                    queue_full = False
+                    break
+                h.local_rids[local] = freq.rid
+                freq.replica, freq.local_rid = h.idx, local
+                shipped = True
+                dt = time.perf_counter() - t0
+                if freq.trace is not None:
+                    t1 = time.monotonic()
+                    freq.trace.span("handoff_ship", t1 - dt, t1,
+                                    pages=rec.pages, bytes=rec.nbytes,
+                                    to_replica=h.idx)
+                    freq.trace.default_attrs["replica"] = h.idx
+                self.handoffs_shipped += 1
+                self.handoff_pages += rec.pages
+                self.handoff_bytes += rec.nbytes
+                if self.disagg_metrics is not None:
+                    m = self.disagg_metrics
+                    m.handoff_pages.inc(rec.pages)
+                    m.handoff_bytes.inc(rec.nbytes)
+                    m.handoff_seconds.observe(dt)
+                break
+            if shipped:
+                continue
+            if queue_full:
+                keep.append((rec, freq))       # retry next tick
+                continue
+            rec.discard()
+            self.colocated_fallbacks += 1
+            if freq.trace is not None:
+                freq.trace.event("handoff_degraded")
+            if self.disagg_metrics is not None:
+                self.disagg_metrics.colocated_fallback.inc()
+                self.disagg_metrics.ring.emit("kv_handoff_fallback",
+                                              rid=freq.rid)
+            placed = False
+            for h in targets:
+                try:
+                    local = h.engine.admit_degraded(rec.request)
+                except Exception:
+                    continue
+                h.local_rids[local] = freq.rid
+                freq.replica, freq.local_rid = h.idx, local
+                if freq.trace is not None:
+                    freq.trace.default_attrs["replica"] = h.idx
+                placed = True
+                break
+            if not placed:
+                freq.t_orphan = time.monotonic()
+                self._pending.append(freq)
+        self._handoffs = keep
+
     def _finish_synth_locked(self, freq: _FleetRequest, status: str,
-                             error: Optional[str]) -> None:
+                             error: Optional[str],
+                             src: Optional[Request] = None) -> None:
         """The terminal message of a request no engine owns any more (an
-        orphan cancelled or expired while pending, a death mid-stream):
-        the client always gets a status."""
+        orphan cancelled or expired while pending, a death mid-stream, a
+        record triaged mid-hand-off): the client always gets a status.
+        ``src``, the engine-side request a record carried, reports its
+        phase intervals into the trace before the close."""
         self._requests.pop(freq.rid, None)
         req = Request(freq.rid, freq.prompt, freq.max_new_tokens,
                       stop_sequences=freq.stop_sequences,
@@ -847,23 +1125,30 @@ class FleetRouter:
         req.error = error
         req.t_finish = self._now()
         if freq.trace is not None:
-            try:
-                freq.trace.close(status=status, error=error,
-                                 failovers=freq.failovers)
-            except Exception:
-                pass
+            if src is not None:
+                finalize_request_trace(freq.trace, src, status=status,
+                                       error=error,
+                                       failovers=freq.failovers)
+            else:
+                try:
+                    freq.trace.close(status=status, error=error,
+                                     failovers=freq.failovers)
+                except Exception:
+                    pass
         self._finished.append(req)
 
     def _has_work_locked(self) -> bool:
         # undelivered terminal messages count: a cancel() can make one
         # outside step() while the fleet is idle
-        if self._pending or self._finished:
+        if self._pending or self._finished or self._handoffs:
             return True
         return any(h.state not in ("DEAD", "RETIRED")
                    and h.supervisor.has_work() for h in self._replicas)
 
     def _accepting_locked(self) -> bool:
-        return any(h.admitting and
+        # a prefill replica never serves a request end to end: readiness
+        # needs a decode or unified replica with room
+        return any(h.admitting and h.role != "prefill" and
                    h.engine.queue_capacity_reason() is None
                    for h in self._replicas)
 
@@ -873,22 +1158,36 @@ class FleetRouter:
             out[h.state] += 1
         return out
 
+    def _roles_locked(self) -> dict:
+        out = {r: 0 for r in ROLES}
+        for h in self._replicas:
+            out[h.role] += 1
+        return out
+
     def _snapshot_locked(self) -> dict:
-        return {"replicas": [h.row() for h in self._replicas],
-                "states": self._states_locked(),
-                "roles": {"unified": len(self._replicas), "prefill": 0,
-                          "decode": 0},
-                "routed": dict(self.routed),
-                "failovers": self.failovers,
-                "rejected": self.rejected,
-                "quota_rejected": self.quota_rejected,
-                "deaths": self.deaths,
-                "replaces": self.replaces,
-                "scale_ups": self.scale_ups,
-                "scale_downs": self.scale_downs,
-                "route_errors": self.route_errors,
-                "pending_failovers": len(self._pending),
-                "requests_live": len(self._requests)}
+        doc = {"replicas": [h.row() for h in self._replicas],
+               "states": self._states_locked(),
+               "roles": self._roles_locked(),
+               "routed": dict(self.routed),
+               "failovers": self.failovers,
+               "rejected": self.rejected,
+               "quota_rejected": self.quota_rejected,
+               "deaths": self.deaths,
+               "replaces": self.replaces,
+               "scale_ups": self.scale_ups,
+               "scale_downs": self.scale_downs,
+               "route_errors": self.route_errors,
+               "pending_failovers": len(self._pending),
+               "requests_live": len(self._requests)}
+        if self._has_prefill_lane:
+            doc["disagg"] = {
+                "decisions": dict(self.disagg_decisions),
+                "handoffs_shipped": self.handoffs_shipped,
+                "handoff_pages": self.handoff_pages,
+                "handoff_bytes": self.handoff_bytes,
+                "handoffs_inflight": self._inflight_handoffs_locked(),
+                "colocated_fallbacks": self.colocated_fallbacks}
+        return doc
 
     def _update_gauges_locked(self) -> None:
         if self.metrics is None:
@@ -902,7 +1201,13 @@ class FleetRouter:
         m.replicas_dead.set(states["DEAD"])
         m.replicas_retired.set(states["RETIRED"])
         m.pending_failovers.set(len(self._pending))
-        m.role_unified.set(len(self._replicas))
+        roles = self._roles_locked()
+        m.role_prefill.set(roles["prefill"])
+        m.role_decode.set(roles["decode"])
+        m.role_unified.set(roles["unified"])
+        if self.disagg_metrics is not None:
+            self.disagg_metrics.handoff_inflight.set(
+                self._inflight_handoffs_locked())
 
     def _prefix_key(self, prompt: np.ndarray) -> Optional[int]:
         """Affinity key: the prompt's full pages (what the prefix cache can

@@ -503,10 +503,12 @@ class GenerationServer:
         if eng.metrics is None:
             return {**fixed, **self._health_from_engine(eng), **extra}, None
         # a speculative engine's gamma (configuration, moved by an
-        # adaptive retune); None on the other lanes
+        # adaptive retune); None on the other lanes.  A drive target
+        # without a lane's knob (a DisaggCoordinator) reads JAX's defaults
         gamma = eng.gamma if hasattr(eng, "spec_rounds") else None
-        return None, (fixed, extra, (eng.decode_horizon,
-                                     eng.mixed_token_budget, gamma))
+        return None, (fixed, extra,
+                      (getattr(eng, "decode_horizon", 1),
+                       getattr(eng, "mixed_token_budget", 0), gamma))
 
     @staticmethod
     def _health_from_engine(eng) -> dict:
@@ -514,12 +516,15 @@ class GenerationServer:
         (no registry to view); caller holds the server lock.  A
         speculative engine adds its round and acceptance counts and
         gamma."""
+        mixed_ticks = getattr(eng, "mixed_ticks", 0)
+        mixed_tokens = getattr(eng, "mixed_prefill_tokens", 0)
         h = {"requests_cancelled": eng.requests_cancelled,
                 "requests_expired": eng.requests_expired,
                 "requests_rejected": eng.requests_rejected,
                 "requests_faulted": eng.requests_faulted,
                 "queued_tokens": eng.queued_tokens(),
-                "active": len(eng._active) + len(eng._mixed_pref),
+                "active": len(eng._active)
+                + len(getattr(eng, "_mixed_pref", ())),
                 "queued": len(eng._queue),
                 "free_pages": eng.cache.free_pages(),
                 "decode_steps": eng.decode_steps,
@@ -530,13 +535,15 @@ class GenerationServer:
                 "swap_out_pages": eng.cache.swap_out_pages,
                 "swap_in_pages": eng.cache.swap_in_pages,
                 "prefill_tokens_avoided": eng.prefill_tokens_avoided,
-                "mixed_ticks": eng.mixed_ticks,
-                "mixed_prefill_tokens": eng.mixed_prefill_tokens,
+                "mixed_ticks": mixed_ticks,
+                "mixed_prefill_tokens": mixed_tokens,
                 "mixed_budget_utilization": round(
-                    eng.mixed_prefill_tokens
-                    / max(eng.mixed_ticks * eng.mixed_token_budget, 1), 4),
-                "decode_horizon": eng.decode_horizon,
-                "horizon_trimmed_tokens": eng.horizon_trimmed_tokens,
+                    mixed_tokens / max(
+                        mixed_ticks * getattr(eng, "mixed_token_budget", 0),
+                        1), 4),
+                "decode_horizon": getattr(eng, "decode_horizon", 1),
+                "horizon_trimmed_tokens":
+                    getattr(eng, "horizon_trimmed_tokens", 0),
                 "requests_finished": eng.requests_finished}
         if hasattr(eng, "spec_rounds"):
             h["spec_rounds"] = eng.spec_rounds
@@ -606,6 +613,14 @@ class GenerationServer:
             h["spec_acceptance"] = round(
                 h["spec_accepted"] / max(h["spec_drafted"], 1), 4)
             h["gamma"] = gamma
+        if "paddle_tpu_disagg_handoff_pages_total" in snap:
+            # a disaggregated front (DisaggCoordinator, or a fleet with
+            # prefill and decode roles): the hand-off pipeline
+            h["handoff_pages"] = v("paddle_tpu_disagg_handoff_pages_total")
+            h["handoff_inflight"] = v(
+                "paddle_tpu_disagg_handoff_inflight_count")
+            h["disagg_colocated_fallbacks"] = v(
+                "paddle_tpu_disagg_colocated_fallback_total")
         return h
 
     def submit(self, prompt, max_new_tokens, deadline_s=None,

@@ -98,6 +98,9 @@ class HostPagePool:
         # staged device -> host copies: (hids, device blocks, event after
         # the copies; None on the CPU, where the copy is already done)
         self._pending: List = []
+        # host -> device reads still in flight: (hids, event after the
+        # copies); a host-side write into one of those pages waits on it
+        self._reads: List = []
         self._side = (torch.cuda.Stream(device=self.device) if pin
                       else None)
 
@@ -200,4 +203,41 @@ class HostPagePool:
                 for i, h0, r in _runs(hids):
                     dst[i:i + r].copy_(buf[h0:h0 + r], non_blocking=True)
                 out.append(dst)
+        if self._side is not None:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self._reads = [e for e in self._reads if not e[1].query()]
+            self._reads.append((set(hids), event))
         return tuple(out)
+
+    # -- host-side access (the cross-cache KV hand-off) --------------------
+    def read(self, hids: List[int]):
+        """Host copies of pages ``hids`` after every pending write has
+        landed: ``(k, v, kscale, vscale)`` as CPU tensors, page-major
+        (scales ``None`` for a non-int8 pool)."""
+        self.flush()
+        idx = torch.as_tensor([int(h) for h in hids], dtype=torch.long)
+        return tuple(None if buf is None else buf.index_select(0, idx)
+                     for buf in self._bufs())
+
+    def write(self, hids: List[int], k, v, ks=None, vs=None) -> None:
+        """Fill host pages ``hids`` from host blocks (page-major, the pool's
+        layout).  Waits first for any device read of those pages still in
+        flight (a page freed after a :meth:`gather` may be recycled here
+        before the device has copied it) and for staged writes to them."""
+        hids = [int(h) for h in hids]
+        want = set(hids)
+        hit = [e for e in self._pending if want & set(e[0])]
+        if hit:
+            self._pending = [e for e in self._pending
+                             if not want & set(e[0])]
+            self._wait(hit)
+        for seen, event in self._reads:
+            if want & seen:
+                event.synchronize()
+        pairs = [(self.kbuf, k), (self.vbuf, v)]
+        if self.kscale is not None:
+            pairs += [(self.kscale, ks), (self.vscale, vs)]
+        for buf, blk in pairs:
+            for i, h0, r in _runs(hids):
+                buf[h0:h0 + r].copy_(blk[i:i + r])

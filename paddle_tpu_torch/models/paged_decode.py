@@ -32,10 +32,13 @@ CUDA cache): ``swap_out_row`` / ``swap_in_row`` park a preempted row's
 private pages there and restore them with zero prefill tokens, and evicted
 cached-prefix pages demote there and promote back on a later lookup.
 Restores and promotions write the pools in place, so the decode graphs
-captured over them stay valid.  Still raising ``NotImplementedError``: TP
-meshes (``mesh=``, ROADMAP.md queue 1 item 7), the disaggregation hand-off
-records (``export_row`` / ``adopt_swap``, item 8) and ``generate_auto``
-(it waits for the dense ``make_generate``, item 9(d)).
+captured over them stay valid.  The same tier carries the disaggregation
+hand-off: ``export_row`` stages a finished row for another cache,
+``export_fetch`` / ``export_discard`` end the export, and ``adopt_swap``
+parks a shipped context as a swap record of the receiving cache.  Still
+raising ``NotImplementedError``: TP meshes (``mesh=``, ROADMAP.md queue 1
+item 7) and ``generate_auto`` (it waits for the dense ``make_generate``,
+item 9(d)).
 """
 
 from __future__ import annotations
@@ -144,6 +147,10 @@ class PagedKVCache:
         self._demote_pending: list = []   # (pid, hid) gathers to stage
         self._swapped: dict = {}          # handle -> swapped-row record
         self._next_swap = 0
+        # live cross-cache hand-off exports (export id -> export state):
+        # their staging host pages are held until fetched or discarded
+        self._exports: dict = {}
+        self._next_export = 0
         self.prefix_promotions = 0        # host -> device page promotions
         self.swap_out_pages = 0
         self.swap_in_pages = 0
@@ -710,14 +717,107 @@ class PagedKVCache:
             else:
                 self._host_free(val)
 
-    def export_row(self, *args, **kwargs):
-        """The disaggregation hand-off records: not ported."""
-        raise NotImplementedError(
-            "the disaggregation hand-off (export_row / export_fetch / "
-            "export_discard / adopt_swap) is not ported yet (ROADMAP.md "
-            "queue 1 item 8)")
+    # -- the cross-cache KV hand-off (disaggregated prefill / decode) -----
+    def export_row(self, b: int) -> dict:
+        """Stage row ``b``'s whole written context (shared prefix pages
+        included: another cache holds none of this one's pages) for a hand-off
+        to another cache, and release the row.  Unlike
+        :meth:`swap_out_row` the result is portable.
 
-    export_fetch = export_discard = adopt_swap = export_row
+        The gather stages through the host tier (one batched gather on the
+        compute stream, the device -> host copy on the side stream, riding
+        under the next dispatches) when the tier has room, else it is a
+        synchronous copy to the host.  Either way the gather is ordered
+        before any later write to the freed pages.  -> an export state for
+        :meth:`export_fetch` / :meth:`export_discard`; live exports are
+        tracked so :meth:`audit` accounts their host pages."""
+        page = self.page
+        L = int(self.lens[b])
+        npg = (L + page - 1) // page
+        pids = self._owned[b][:npg]
+        state = {"id": self._next_export, "lens": L, "pages": npg}
+        self._next_export += 1
+        if npg and self.host is not None \
+                and self.host_available() >= npg:
+            hids = [self._host_alloc() for _ in range(npg)]
+            self._stage_swap_out(pids, hids)
+            state["hids"] = hids
+        elif npg:
+            idx = self._ids(pids)
+
+            def take(pool):
+                return pool.transpose(0, 1).index_select(0, idx).cpu()
+
+            state["k"] = take(self.kpool)
+            state["v"] = take(self.vpool)
+            if self.kv_quant == "int8":
+                state["ks"] = take(self.kscale)
+                state["vs"] = take(self.vscale)
+        self.release_row(b)
+        self._exports[state["id"]] = state
+        return state
+
+    def export_fetch(self, state: dict):
+        """Materialise an export as host blocks ``(k, v, kscale, vscale,
+        ctx_len)``: page-major CPU tensors of the pool's dtype (scales
+        ``None`` for a non-int8 pool), and free the staging host pages.  The
+        hand-off's one blocking point: the host tier's flush commits the
+        copies that have ridden under the dispatches since
+        :meth:`export_row`."""
+        self._exports.pop(state["id"], None)
+        if "hids" in state:
+            k, v, ks, vs = self.host.read(state["hids"])
+            for hid in state["hids"]:
+                self._host_free(hid)
+            return k, v, ks, vs, state["lens"]
+        return (state.get("k"), state.get("v"), state.get("ks"),
+                state.get("vs"), state["lens"])
+
+    def export_discard(self, state: dict) -> None:
+        """Drop an export that was not shipped (its request degraded to a
+        colocated re-prefill, or its engine died): its staging host pages
+        free.  Idempotent."""
+        if self._exports.pop(state["id"], None) is None:
+            return                     # already fetched or discarded
+        for hid in state.get("hids", ()):
+            self._host_free(hid)
+
+    def adopt_swap(self, k, v, kscale, vscale, length: int) -> int:
+        """Take a shipped context into this cache's host tier as a swap
+        record of host entries only: the receiving half of a hand-off.  The
+        owning engine maps the handle to its request and admits it through
+        the ordinary ``_admit_swapped`` path: one batched restore, zero
+        prefill tokens.  Raises before changing anything: ``RuntimeError``
+        without a host tier or with too little room in it (the caller
+        degrades the request to a colocated re-prefill), ``ValueError`` on
+        a dtype or ``kv_quant`` mismatch (a bitwise restore needs both
+        caches alike)."""
+        if self.host is None:
+            raise RuntimeError(
+                "adopt_swap needs a host page tier on the receiving cache "
+                "(PagedKVCache(host_pages=N)): hand-off records park there "
+                "until their batched restore")
+        npg = (int(length) + self.page - 1) // self.page
+        if self.host_available() < npg:
+            raise RuntimeError(
+                f"host tier full: {npg} pages to adopt, "
+                f"{self.host_available()} available")
+        if k.dtype != self.host.kbuf.dtype:
+            raise ValueError(
+                f"handoff dtype {k.dtype} != pool dtype "
+                f"{self.host.kbuf.dtype} (source and destination caches "
+                f"must share dtype / kv_quant for a bitwise restore)")
+        if (kscale is None) == (self.kv_quant == "int8"):
+            raise ValueError(
+                "handoff kv_quant mismatch: int8 records need their scale "
+                "planes and fp records must not carry them")
+        hids = [self._host_alloc() for _ in range(npg)]
+        self.host.write(hids, k, v, kscale, vscale)
+        handle = self._next_swap
+        self._next_swap += 1
+        self._swapped[handle] = {"entries": [("host", h) for h in hids],
+                                 "lens": int(length)}
+        return handle
 
     def audit(self) -> dict:
         """Check every page-accounting invariant and return pool stats;
@@ -734,8 +834,9 @@ class PagedKVCache:
         * every live key (either tier) whose parent is live sits in its
           parent's children set (else leaf-first eviction could take the
           parent);
-        * host tier: its free list and the pages of the host index and of
-          the swap records partition it exactly.
+        * host tier: its free list and the pages of the host index, of
+          the swap records and of the live hand-off exports partition it
+          exactly.
 
         With a host tier the stats also hold ``swap_records``, ``host_free``
         and ``host_indexed`` (a cache without one holds no swap record)."""
@@ -782,7 +883,9 @@ class PagedKVCache:
                 "host free list has duplicates"
             used = list(self._host_prefix_index.values()) + [
                 hid for rec in self._swapped.values()
-                for kind, hid in rec["entries"] if kind == "host"]
+                for kind, hid in rec["entries"] if kind == "host"] + [
+                hid for st in self._exports.values()
+                for hid in st.get("hids", ())]
             assert len(set(used)) == len(used), "host page held twice"
             assert not (set(hfree) & set(used)), \
                 "host page free while in use"

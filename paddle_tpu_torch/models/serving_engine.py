@@ -286,6 +286,15 @@ def _release_engine_claims(engine) -> None:
         except Exception:
             pass
     engine._swap_handles.clear()
+    # claims beyond rows and swap records (a PrefillEngine's exported
+    # hand-off records) release through this seam, so orphaned records
+    # give their staging pages back
+    extra = getattr(engine, "release_extra_claims", None)
+    if extra is not None:
+        try:
+            extra()
+        except Exception:
+            pass
 
 
 def _chip_flops_default(device) -> float:
@@ -3174,6 +3183,12 @@ class EngineSupervisor:
                     new._has_priorities = True
         old._queue.clear()
         new._next_rid = max(new._next_rid, old._next_rid)
+        # engines carrying state across engines (a DecodeEngine's adopted,
+        # not yet admitted hand-offs; a PrefillEngine's untaken exports)
+        # re-register or fail it here
+        hook = getattr(new, "transplant_extra", None)
+        if hook is not None:
+            hook(old)
         new.last_fault = text
         self.engine = new
         self._restart_times.append(now)

@@ -15,14 +15,16 @@ reads a port server unchanged:
   engine records into (JAX's whole catalogue).
 * :mod:`.fleet_metrics` — the fleet router's bundle (replica states,
   routing decisions, failovers, quota rejections, scaling).
+* :mod:`.disagg_metrics` — the disaggregated prefill / decode bundle
+  (hand-off pages, bytes and latency, the in-flight gauge, routing
+  decisions, colocated fallbacks).
 * :mod:`.tracing` — per-request tracing: phase clocks accrued at scheduler
   mutation points, materialized as spans at retirement, kept by a bounded
   tail-sampling :class:`TraceStore` (``GET /traces``, ``GET /trace/<rid>``).
 
 Everything is host-side: instrumentation launches no kernel and adds no
 device sync — values are recorded from numbers the engine already holds
-on the host.  The disaggregation and transport bundles wait for their
-lanes.
+on the host.  The sockets transport's bundle waits for its lane.
 """
 
 from .events import EventRing, default_ring            # noqa: F401
@@ -31,13 +33,15 @@ from .metrics import (Counter, Gauge, Histogram,       # noqa: F401
 from .engine_metrics import (EngineMetrics,            # noqa: F401
                              bind_engine_gauges)
 from .fleet_metrics import FleetMetrics                # noqa: F401
+from .disagg_metrics import DisaggMetrics              # noqa: F401
 from .tracing import (PHASES, TraceContext, Tracer,    # noqa: F401
                       TraceStore, advance_phase, default_tracer,
                       finalize_request_trace, phase_clocks)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "default_registry", "EventRing", "default_ring",
-           "EngineMetrics", "bind_engine_gauges", "FleetMetrics", "PHASES",
+           "EngineMetrics", "bind_engine_gauges", "FleetMetrics",
+           "DisaggMetrics", "PHASES",
            "TraceContext", "Tracer",
            "TraceStore", "advance_phase", "default_tracer",
            "finalize_request_trace", "phase_clocks"]

@@ -11,8 +11,8 @@ The registry is label-free, so a labelled series such as
 ``fleet_replicas{state="ready"}`` is one instrument per state or reason.
 The per-state gauges are set from inside the router's step, under its
 lock, rather than read by scrape-time callbacks: a callback would read the
-replica table from the scrape thread outside that lock.  The disaggregated
-lanes' role gauges are registered and read 0 until those lanes are ported.
+replica table from the scrape thread outside that lock, the role gauges
+included.
 """
 
 from __future__ import annotations

@@ -51,12 +51,21 @@ site                   consulted by
                        matches the replica skips its step and turns
                        DEGRADED (routing steers around it); READY again
                        once it stops matching
+``kv_handoff``         the disaggregated prefill / decode hand-off, two
+                       halves a hand-off: the ship half in
+                       ``HandoffRecord.materialize`` (before the staging
+                       flush and the host read) and the restore half in
+                       ``DecodeEngine.admit_handoff`` (before the record
+                       adopts into the receiving host tier).  Either
+                       failure degrades the request to a colocated
+                       re-prefill on the decode side (counted in
+                       ``disagg_colocated_fallback_total``), never a
+                       dropped request
 =====================  ==================================================
 
-JAX's other sites wait for the subsystems that consult them (ROADMAP.md
-queue 1 item 8): ``conn_drop``, ``frame_truncate``, ``net_delay`` and
-``agent_kill`` with the sockets transport, ``kv_handoff`` with
-disaggregation.
+JAX's other sites wait for the sockets transport that consults them
+(ROADMAP.md queue 1 item 8): ``conn_drop``, ``frame_truncate``,
+``net_delay`` and ``agent_kill``.
 
 Faults are deterministic: rules match by call index (``nth`` = exactly
 the n-th consult, ``every`` = every K-th consult, the default = every

@@ -14,7 +14,9 @@ autoscaler's decisions and trajectory, and the HTTP codes and
 and autoscaler cases of ``tests/test_serving_qos.py``,
 ``tests/test_tracing.py::test_fleet_plain_failover_latency_breakdown`` and
 ``tests/test_serving_spec.py::test_spec_fleet_pass_through``; then the
-port's own: the lanes still to port raise ``NotImplementedError``, and a
+port's own: the prefill / decode roles and a caller's hand-off transport
+serve as JAX's do (``tests/test_torch_disagg.py`` holds the rest of the
+role lanes), a ``RemoteSpec`` still raises ``NotImplementedError``, and a
 replaced or retired replica's pool is freed.
 """
 
@@ -39,9 +41,11 @@ import jax.numpy as jnp  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
 import paddle_tpu.fleet as jfleet  # noqa: E402
+import paddle_tpu.models.disagg as jdg  # noqa: E402
 import paddle_tpu.inference.serving as jsrv  # noqa: E402
 import paddle_tpu.observability as jobs  # noqa: E402
 import paddle_tpu_torch.fleet as tfleet  # noqa: E402
+import paddle_tpu_torch.models.disagg as tdg  # noqa: E402
 import paddle_tpu_torch.inference.serving as tsrv  # noqa: E402
 import paddle_tpu_torch.observability as tobs  # noqa: E402
 from paddle_tpu.models import llama_pretrain as jlp  # noqa: E402
@@ -77,10 +81,12 @@ def sides():
                               device="cpu")
     return {
         "jax": types.SimpleNamespace(
-            name="jax", se=jse, pd=jpd, fleet=jfleet, faults=jfaults,
+            name="jax", se=jse, pd=jpd, dg=jdg, fleet=jfleet,
+            faults=jfaults,
             srv=jsrv, obs=jobs, cfg=jcfg, params=jparams, dev={}),
         "port": types.SimpleNamespace(
-            name="port", se=tse, pd=tpd, fleet=tfleet, faults=tfaults,
+            name="port", se=tse, pd=tpd, dg=tdg, fleet=tfleet,
+            faults=tfaults,
             srv=tsrv, obs=tobs, cfg=tcfg, params=tparams,
             dev={"device": "cpu"})}
 
@@ -1023,31 +1029,72 @@ def test_spec_fleet_pass_through(sides):
 
 
 # ---------------------------------------------------------------------------
-# the port's own: what is not ported refuses; replaced and retired
-# replicas give their pools back
+# the port's own: the lanes that once refused serve (a RemoteSpec still
+# refuses); replaced and retired replicas give their pools back
 # ---------------------------------------------------------------------------
 class _RemoteSpec:
     is_remote_spec = True
 
 
+def role_factory(S, role):
+    """A prefill or decode replica factory of side ``S`` (host tier on)."""
+    engine = {"prefill": S.dg.PrefillEngine, "decode": S.dg.DecodeEngine}
+
+    def mk():
+        cache = S.pd.PagedKVCache(S.cfg, **CACHE, host_pages=32, **S.dev)
+        return engine[role](S.cfg, S.params, cache, metrics_registry=False)
+    return mk
+
+
 @pytest.mark.parametrize("what", ["roles", "handoff_transport",
                                   "remote_spec"])
 def test_unported_fleet_lanes_raise(sides, what):
-    S = sides["port"]
-    mk = factory(S)
-    kw = {"roles": dict(roles=["prefill", "decode"]),
-          "handoff_transport": dict(handoff_transport=lambda rec, h: 0),
-          "remote_spec": {}}[what]
-    factories = [_RemoteSpec(), mk] if what == "remote_spec" else [mk, mk]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        S.fleet.FleetRouter(factories, metrics_registry=False, **kw)
-    router = S.fleet.FleetRouter([mk], metrics_registry=False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        if what == "remote_spec":
+    """The lanes this case once refused: ``roles`` (prefill and decode
+    replicas, one grown through ``add_replica(role=...)``) and a caller's
+    ``handoff_transport`` now serve, equal to JAX's router (tokens, the
+    routing and hand-off counters, the transport's calls, clean audits); a
+    ``RemoteSpec`` still raises ``NotImplementedError`` naming item 8."""
+    if what == "remote_spec":
+        S = sides["port"]
+        mk = factory(S)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            S.fleet.FleetRouter([_RemoteSpec(), mk], metrics_registry=False)
+        router = S.fleet.FleetRouter([mk], metrics_registry=False)
+        with pytest.raises(NotImplementedError, match="item 8"):
             router.add_replica(_RemoteSpec())
+        assert len(router._replicas) == 1 and router.scale_ups == 0
+        return
+
+    def run(S):
+        shipped = []
+        kw = dict(metrics_registry=False, handoff_gbps=1e9)
+        if what == "handoff_transport":
+            def transport(rec, h):
+                shipped.append((h.idx, rec.pages))
+                rec.materialize()
+                return h.engine.admit_handoff(rec)
+            kw["handoff_transport"] = transport
+            router = S.fleet.FleetRouter(
+                [role_factory(S, "prefill"), role_factory(S, "decode")],
+                roles=["prefill", "decode"], **kw)
         else:
-            router.add_replica(mk, role="decode")
-    assert len(router._replicas) == 1 and router.scale_ups == 0
+            router = S.fleet.FleetRouter([role_factory(S, "decode")],
+                                         roles=["decode"], **kw)
+            router.add_replica(role_factory(S, "prefill"), role="prefill")
+        rids = [router.submit(p, max_new_tokens=6) for p in PROMPTS[:3]]
+        done = outcome(router.run_to_completion())
+        snap = router.fleet_snapshot()
+        return ([done[r] for r in rids], counters(router), snap["roles"],
+                snap["disagg"], shipped, audit_all(router))
+
+    j, t = both(sides, run)
+    assert t == j
+    S = sides["port"]
+    assert [g for _, _, g, _ in t[0]] == ref_outputs(S, PROMPTS[:3], new=6)
+    assert t[1]["routed"]["disagg"] == t[3]["handoffs_shipped"] == 3
+    assert t[2] == {"unified": 0, "prefill": 1, "decode": 1}
+    if what == "handoff_transport":
+        assert [idx for idx, _ in t[4]] == [1, 1, 1]
 
 
 def test_replaced_and_retired_replicas_free_their_pools(sides):

@@ -38,7 +38,9 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.models.kv_offload\n"
         "import paddle_tpu_torch.models.graphed_step\n"
         "import paddle_tpu_torch.models.speculative\n"
+        "import paddle_tpu_torch.models.disagg\n"
         "import paddle_tpu_torch.observability.engine_metrics\n"
+        "import paddle_tpu_torch.observability.disagg_metrics\n"
         "import paddle_tpu_torch.models.weights\n"
         "import paddle_tpu_torch.models.packing\n"
         "import paddle_tpu_torch.ops.int8_matmul\n"

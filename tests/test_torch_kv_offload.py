@@ -506,12 +506,19 @@ def test_page_accounting_fuzz_as_jax(models, offload):
 
 
 def test_mesh_still_refused(models):
-    """The TP form of the cache (and so of its host tier) stays out."""
+    """The TP form of the cache (and so of its host tier) stays out; the
+    hand-off records that once refused with it now stage through the host
+    tier (``tests/test_torch_disagg.py`` holds them against JAX's)."""
     cfg = models["port"][0]
     with pytest.raises(NotImplementedError, match="item 7"):
         tpd.PagedKVCache(cfg, 8, 4, 2, page=16, mesh=object(),
                          host_pages=8, device="cpu")
     cache = tpd.PagedKVCache(cfg, 8, 4, 2, page=16, host_pages=8,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cache.export_row(0)
+    cache.alloc_row(0, 20)
+    cache.lens[0] = 20
+    state = cache.export_row(0)
+    assert state["pages"] == 2 and len(state["hids"]) == 2
+    assert cache.audit()["host_free"] == 6
+    cache.export_discard(state)
+    assert cache.audit()["host_free"] == 8

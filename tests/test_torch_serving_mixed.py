@@ -34,11 +34,17 @@ cases wait for their items (ROADMAP.md queue 1 items 7 and 8).
 """
 
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: these cases run tiny ops, and the default pool (one
+# thread a core in each of the suite's xdist workers) oversubscribes the
+# cores about tenfold
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -121,6 +127,23 @@ def _run(models, specs, cache_kw=None, stagger=False, **kw):
     if not kw.get("enable_prefix_caching"):
         assert cache.free_pages() == cache.num_pages - 1
     return got, eng
+
+
+_REF = {}
+
+
+def _ref(models, specs, cache_kw=None, stagger=False, **kw):
+    """:func:`_run` of a reference lane, run once per module for each set
+    of arguments (several cases share one reference) -> (tokens, its
+    engine)."""
+    key = (tuple((tuple(int(t) for t in p), n) for p, n in specs),
+           tuple(sorted((cache_kw or {}).items())), stagger,
+           tuple(sorted(kw.items())))
+    if key not in _REF:
+        _REF[key] = _run(models, specs, cache_kw=cache_kw, stagger=stagger,
+                         **kw)
+    got, eng = _REF[key]
+    return {k: list(v) for k, v in got.items()}, eng
 
 
 def _run_jax(models, specs, cache_kw=None, stagger=False, **kw):
@@ -306,7 +329,7 @@ def test_mixed_engine_equals_jax_and_the_sequential_lane(models, kv_quant,
                                                          overlap):
     specs = _specs(0)
     ck = dict(kv_quant=kv_quant)
-    ref, _ = _run(models, specs, cache_kw=ck, stagger=True)
+    ref, _ = _ref(models, specs, cache_kw=ck, stagger=True)
     got, eng = _run(models, specs, cache_kw=ck, stagger=True,
                     overlap=overlap, **MIXED)
     want, jeng = _run_jax(models, specs, cache_kw=ck, stagger=True,
@@ -353,7 +376,7 @@ def test_mixed_preemption_exact(models, overlap):
     rng = np.random.RandomState(5)
     specs = [(rng.randint(1, 128, (20,)), 60) for _ in range(3)]
     ck = dict(num_pages=11)
-    ref, er = _run(models, specs, cache_kw=ck)
+    ref, er = _ref(models, specs, cache_kw=ck)
     assert er.preemptions > 0, "the fixture must force preemption"
     got, eng = _run(models, specs, cache_kw=ck, overlap=overlap, **MIXED)
     assert got == ref
@@ -491,7 +514,7 @@ def test_mixed_first_token_eos_finishes_with_one_token(models, overlap):
     rng = np.random.RandomState(21)
     filler = rng.randint(1, 128, (6,))
     probe = rng.randint(1, 128, (9,))
-    ref, _ = _run(models, [(filler, 20), (probe, 8)], stagger=True)
+    ref, _ = _ref(models, [(filler, 20), (probe, 8)], stagger=True)
     eos = ref[1][0]
 
     def run(**kw):
@@ -506,7 +529,9 @@ def test_mixed_first_token_eos_finishes_with_one_token(models, overlap):
         cache.audit()
         return {r.rid: list(r.generated) for r in done}, eng
 
-    seq, _ = run()
+    if "eos_seq" not in _REF:
+        _REF["eos_seq"] = run()
+    seq = _REF["eos_seq"][0]
     mix, eng = run(overlap=overlap, **MIXED)
     assert mix == seq and mix[1] == [eos]
     assert eng.mixed_ticks > 0
@@ -633,7 +658,9 @@ def test_mixed_parked_row_is_preemptible(models, overlap):
         assert cache.free_pages() == cache.num_pages - 1
         return {r.rid: list(r.generated) for r in done}, eng
 
-    ref, _ = run()
+    if "parked_seq" not in _REF:
+        _REF["parked_seq"] = run()
+    ref = _REF["parked_seq"][0]
     got, eng = run(overlap=overlap, **MIXED)
     assert got == ref
     assert eng.preemptions >= 1
@@ -676,7 +703,7 @@ def test_http_front_serves_the_mixed_lane(models, registry):
     formula."""
     _, tcfg, _, tparams = models
     specs = _specs(33, n=4, lo=10, hi=40, new_lo=12, new_hi=20)
-    want, _ = _run(models, specs, stagger=True)
+    want, _ = _ref(models, specs, stagger=True)
     srv = GenerationServer(tcfg, tparams,
                            tpd.PagedKVCache(tcfg, device="cpu", **CACHE),
                            overlap=True, metrics_registry=registry, **MIXED)
@@ -684,10 +711,32 @@ def test_http_front_serves_the_mixed_lane(models, registry):
     eng.submit(specs[0][0], max_new_tokens=specs[0][1])
     eng.submit(specs[1][0], max_new_tokens=specs[1][1])
     eng.step()               # a resident batch before the HTTP requests
+    # the drive loop holds until both HTTP requests are queued, so they
+    # arrive while the resident batch decodes (else the batch may finish
+    # first and an idle engine admits them sequentially)
+    gate = threading.Event()
+    has_work = eng.has_work
+    eng.has_work = lambda: gate.is_set() and has_work()
     url = f"http://127.0.0.1:{srv.start()}"
+    got = [None, None]
+
+    def client(i, p, n):
+        got[i] = generate_http(url, [int(t) for t in p], n)
+
+    clients = [threading.Thread(target=client, args=(i, p, n))
+               for i, (p, n) in enumerate(specs[2:])]
     try:
-        got = [generate_http(url, [int(t) for t in p], n)
-               for p, n in specs[2:]]
+        for t in clients:
+            t.start()
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            with srv._lock:
+                if len(eng._queue) == 2:
+                    break
+            time.sleep(0.005)
+        gate.set()
+        for t in clients:
+            t.join(timeout=120.0)
         code, body, _ = _get(url + "/health")
         doc = json.loads(body)
         code_m, text, _ = _get(url + "/metrics")

@@ -42,6 +42,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: these cases run tiny ops, and the default pool (one
+# thread a core in each of the suite's xdist workers) oversubscribes the
+# cores about tenfold
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -229,6 +233,21 @@ def _run(tcfg, tparams, specs, batch=2, num_pages=64, kv_quant=None,
     return {r.rid: list(r.generated) for r in done}, eng
 
 
+_REF = {}
+
+
+def _ref(tcfg, tparams, specs, **kw):
+    """:func:`_run` of a synchronous reference, served once per module for
+    each set of arguments (several cases share one) -> ({rid: tokens},
+    engine)."""
+    key = (tuple((tuple(int(t) for t in p), n) for p, n in specs),
+           tuple(sorted((k, repr(v)) for k, v in kw.items())))
+    if key not in _REF:
+        _REF[key] = _run(tcfg, tparams, specs, **kw)
+    got, eng = _REF[key]
+    return {k: list(v) for k, v in got.items()}, eng
+
+
 def _churn(seed=0, n=5):
     rng = np.random.RandomState(seed)
     return [(rng.randint(1, 128, (int(rng.randint(3, 20)),)),
@@ -305,7 +324,7 @@ def test_overlap_eos_stops_early_as_the_jax_engine(models):
 def test_overlap_token_exact_vs_sync_under_churn(models, kv_quant):
     _, tcfg, _, tparams = models
     specs = _churn()
-    ref, _ = _run(tcfg, tparams, specs, kv_quant=kv_quant)
+    ref, _ = _ref(tcfg, tparams, specs, kv_quant=kv_quant)
     for lookahead in (1, 3):
         got, eng = _run(tcfg, tparams, specs, kv_quant=kv_quant,
                         overlap=True, lookahead=lookahead)
@@ -335,7 +354,7 @@ def test_overlap_stop_sequence_retires_and_flushes(models, H):
     _, tcfg, _, tparams = models
     rng = np.random.RandomState(3)
     p1, p2 = rng.randint(1, 128, (9,)), rng.randint(1, 128, (7,))
-    ref, _ = _run(tcfg, tparams, [(p1, 12), (p2, 12)])
+    ref, _ = _ref(tcfg, tparams, [(p1, 12), (p2, 12)])
     stop = ref[0][3:5]                       # completes at token 5
     eng, cache = _engine(tcfg, tparams, overlap=True, decode_horizon=H)
     r1 = eng.submit(p1, max_new_tokens=12, stop_sequences=[stop])
@@ -364,7 +383,7 @@ def test_overlap_preemption_midflight_token_exact(models, H):
     assert any(r.preempted > 0 for r in done), \
         "the pool was sized to force preemption"
     for req, p in zip(done, prompts):
-        solo, _ = _run(tcfg, tparams, [(p, 20)], batch=1)
+        solo, _ = _ref(tcfg, tparams, [(p, 20)], batch=1)
         assert list(req.generated) == solo[0]
     assert cache.audit() == {"free": 4, "owned": 0, "indexed": 0}
 
@@ -414,7 +433,7 @@ def test_overlap_exactly_sized_request_at_row_capacity(models, lookahead):
     the step's table read clamps as JAX's gather does."""
     _, tcfg, _, tparams = models
     prompt = np.random.RandomState(11).randint(1, 128, (16,))
-    solo, _ = _run(tcfg, tparams, [(prompt, 48)], batch=1)
+    solo, _ = _ref(tcfg, tparams, [(prompt, 48)], batch=1)
     eng, cache = _engine(tcfg, tparams, batch=1, num_pages=32, pages_max=4,
                          overlap=True, lookahead=lookahead)
     eng.submit(prompt, max_new_tokens=48)          # 16 + 48 == 64
@@ -483,7 +502,7 @@ def test_horizon_prefix_cache_token_exact(models, kv_quant):
 def test_horizon_token_exact_vs_h1_churn(models, kv_quant):
     _, tcfg, _, tparams = models
     specs = _churn()
-    ref, _ = _run(tcfg, tparams, specs, kv_quant=kv_quant)
+    ref, _ = _ref(tcfg, tparams, specs, kv_quant=kv_quant)
     for H, overlap in ((2, False), (2, True), (4, False), (4, True)):
         got, _ = _run(tcfg, tparams, specs, kv_quant=kv_quant,
                       decode_horizon=H, overlap=overlap)
@@ -493,7 +512,7 @@ def test_horizon_token_exact_vs_h1_churn(models, kv_quant):
 def _one_row(models):
     _, tcfg, _, tparams = models
     prompt = np.random.RandomState(3).randint(1, 128, (8,))
-    ref, _ = _run(tcfg, tparams, [(prompt, 12)], batch=1)
+    ref, _ = _ref(tcfg, tparams, [(prompt, 12)], batch=1)
     return tcfg, tparams, prompt, ref[0]
 
 

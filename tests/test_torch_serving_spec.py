@@ -33,6 +33,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: these cases run tiny ops, and the default pool (one
+# thread a core in each of the suite's xdist workers) oversubscribes the
+# cores about tenfold
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -154,14 +158,22 @@ def _both(models, specs, spec=True, **kw):
     return tt, te, tc, tdc
 
 
+_PLAIN = {}
+
+
 def _plain(models, specs, kv_quant=None, **kw):
-    cfg, params = models["target"]["port"]
-    cache = _cache(models, "port", kv_quant=kv_quant)
-    eng = tse.ContinuousBatchingEngine(cfg, params, cache,
-                                       metrics_registry=False, **kw)
-    got = _serve(eng, specs, spec=None)
-    _clean(cache)
-    return got
+    """The plain engine's tokens for ``specs``, served once per module for
+    each set of arguments (several cases share one reference)."""
+    key = (tuple((tuple(int(t) for t in p), n) for p, n in specs),
+           kv_quant, tuple(sorted(kw.items())))
+    if key not in _PLAIN:
+        cfg, params = models["target"]["port"]
+        cache = _cache(models, "port", kv_quant=kv_quant)
+        eng = tse.ContinuousBatchingEngine(cfg, params, cache,
+                                           metrics_registry=False, **kw)
+        _PLAIN[key] = _serve(eng, specs, spec=None)
+        _clean(cache)
+    return [list(t) for t in _PLAIN[key]]
 
 
 def _specs(seed, lens=None, n=5, new=None):

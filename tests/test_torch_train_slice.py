@@ -26,6 +26,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: these cases run small ops, and the default pool (one
+# thread a core in each of the suite's xdist workers) oversubscribes the
+# cores about tenfold
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
