@@ -277,6 +277,40 @@ Phases, one JSON line each on stdout:
              the pools clean; (e) FleetRouter(roles=["prefill", "decode"]):
              a replica_death of the prefill replica with untaken records
              reclaims their staging pages and fails the requests over.
+4l. serve_remote - the sockets fleet (paddle_tpu_torch/fleet/transport.py,
+             fleet/remote.py) at LLaMA-7B, bf16, pages of 64: agents spawned
+             in OS processes of their own (spawn start method) from
+             testing/agent_factory.py:make_llama7b_engine with the parent's
+             seed (the same weights, drawn in the child; 128 pages of 64),
+             loading the kernel libraries the parent built; their K1 / K2
+             launch counts come back through a file.  (a) a FleetServer over
+             one agent and one in-process replica answers serve's prompts
+             over HTTP, the even ones pinned to the agent: every reply
+             complete, every served token's plain teacher-forced logit
+             within 2 * LOGIT_LIMIT of the plain top (a planted fault, the
+             prompt's last token lost, beyond it), every
+             paddle_tpu_transport_* instrument in /metrics with frames and
+             bytes above 0, K1 and K2 launched in the agent; exact token
+             agreement with an in-process engine, spawn-to-ready seconds and
+             RTT p50 / p99 printed.  (c) on the same router, two requests
+             decoding on the agent and two submitted behind them, then
+             SIGKILL: the two that streamed end with an error, the two that
+             did not complete on the survivor with their fleet rid and
+             absolute deadline, the survivor's cache audits clean, and
+             auto_replace's respawned agent serves one more request
+             (failover ms printed).  (b) FleetRouter(roles=["prefill",
+             "decode"]) over a spawned prefill agent and an in-process
+             DecodeEngine with a host tier: four 256-token records (128 MiB
+             each) cross the wire; every restored page equal bit for bit to
+             the blocks that arrived, no prefill on the decode side,
+             prefill_tokens_avoided the handed-off context; hand-off ms and
+             GB/s printed.  (d) an agent whose engine
+             (chip_smoke:sticky_llama7b_engine) indexes out of bounds on the
+             card after REMOTE_STICKY_AFTER decode steps, a device-side
+             assert: the agent reports DEAD (its rebuild fails in the
+             poisoned context), the router counts one death and fails the
+             requests over as in (c), and the parent's context then runs K1
+             against its plain version and serves a request on the survivor.
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -6456,6 +6490,599 @@ def phase_serve_disagg(torch, cfg, seed, params, mods, kv_quant=None,
     return total
 
 
+# serve_remote: the sockets fleet (paddle_tpu_torch/fleet/transport.py,
+# fleet/remote.py) with a LLaMA-7B replica in an OS process of its own,
+# spawned from AGENT_FACTORY with the parent's seed (the same weights,
+# drawn in the child), bf16, 128 pages of 64 (4 GiB of pages), beside an
+# in-process replica over the parent's weights.  The child loads the kernel
+# libraries the parent built; its K1 / K2 launch counts come back through a
+# file (REMOTE counts), the wire stays JAX's.
+AGENT_FACTORY = "paddle_tpu_torch.testing.agent_factory:make_llama7b_engine"
+REMOTE_CACHE = dict(num_pages=128, pages_max=32, batch=8, page=64)
+REMOTE_HOST_PAGES = 48
+REMOTE_LEASE_S, REMOTE_RPC_S = 1.5, 0.5
+# (b): prompts of 256 tokens (a bf16 record is 0.5 MiB a token)
+REMOTE_HANDOFF_LEN, REMOTE_HANDOFF_N, REMOTE_HANDOFF_NEW = 256, 4, 8
+# (c) and (d): two requests decoding when the agent dies, two behind them
+REMOTE_KILL_NEW = 48
+REMOTE_STICKY_AFTER = 24            # (d): decode steps before the assert
+REMOTE_STICKY_BATCH = 2             # (d): the two late requests queue
+REMOTE_TIMEOUT_S = 300.0
+
+
+_STICKY = {"poisoned": False}
+
+
+def sticky_llama7b_engine(fault_after=REMOTE_STICKY_AFTER, **kw):
+    """(d)'s agent engine: make_llama7b_engine's, whose step, once the engine
+    has run ``fault_after`` decode steps, indexes a tensor on its device out
+    of bounds and waits for it.  On a card that is a device-side assert, a
+    sticky error: every later CUDA call of the process fails, the
+    supervisor's rebuild included.  On the CPU (a rehearsal) the index
+    raises at once and nothing sticks, so a flag stands in for the poisoned
+    context and refuses the rebuild.  Spawned agents import it by path
+    (``chip_smoke:sticky_llama7b_engine``)."""
+    import torch
+    from paddle_tpu_torch.testing.agent_factory import make_llama7b_engine
+    if _STICKY["poisoned"]:
+        raise RuntimeError("the CPU stand-in for a sticky device error")
+    eng = make_llama7b_engine(**kw)
+    step = eng.step
+
+    def faulting_step():
+        out = step()
+        if eng.decode_steps >= fault_after:
+            _STICKY["poisoned"] = eng.device.type != "cuda"
+            x = torch.zeros(4, device=eng.device)
+            idx = torch.full((1,), 1 << 20, device=eng.device)
+            x[idx].sum().item()
+        return out
+
+    eng.step = faulting_step
+    return eng
+
+
+def remote_spec(cfg, seed, dev, factory=AGENT_FACTORY, role=None, **kw):
+    """A RemoteSpec(spawn=...) of one agent over ``factory`` with the
+    parent's seed and config."""
+    from paddle_tpu_torch.fleet import RemoteSpec
+    fkw = dict(REMOTE_CACHE, device=dev, seed=seed,
+               config={f.name: getattr(cfg, f.name)
+                       for f in dataclasses.fields(cfg) if f.init})
+    fkw.update(kw)
+    return RemoteSpec(
+        spawn={"factory": factory, "factory_kwargs": fkw,
+               "agent_kwargs": {"lease_s": REMOTE_LEASE_S,
+                                "role": role or "unified"}},
+        role=role, lease_s=REMOTE_LEASE_S, rpc_timeout_s=REMOTE_RPC_S,
+        max_retries=2)
+
+
+def remote_pin(router, pins):
+    """Route by prompt length: ``pins[len(prompt)]`` names the replica a
+    first placement tries first; a failed-over request tries the
+    in-process replica (index 1) first."""
+    real = router._candidates_locked
+
+    def pinned(freq, lane="serve"):
+        cands, hit, key = real(freq, lane)
+        want = 1 if freq.failovers else pins.get(len(freq.prompt))
+        if want is not None:
+            cands = sorted(cands, key=lambda h: h.idx != want)
+        return cands, hit, key
+
+    router._candidates_locked = pinned
+
+
+def remote_teardown(router):
+    """Stop every agent the router started and reap its process."""
+    import os
+    import signal
+    for h in router._replicas:
+        if not getattr(h, "remote", False):
+            continue
+        if h._agent is not None:
+            h._agent.die()
+        if h._proc is not None:
+            if h._proc.is_alive():
+                os.kill(h._proc.pid, signal.SIGKILL)
+            h._proc.join(30)
+
+
+def remote_counts(path):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def remote_drive(router, rids, phase, what):
+    """Step ``router`` until every rid finished -> {rid: request}."""
+    done = {}
+    t0 = time.perf_counter()
+    while not set(rids) <= set(done):
+        router.step()
+        done.update((r.rid, r) for r in router.finished())
+        if time.perf_counter() - t0 > REMOTE_TIMEOUT_S:
+            fail(f"{phase}: {what}: {len(set(rids) - set(done))} requests "
+                 f"unfinished after {REMOTE_TIMEOUT_S} s")
+    return done
+
+
+def remote_gaps(torch, cfg, params, seqs, dev, phase, what):
+    """Every served token's plain teacher-forced logit within
+    2 * LOGIT_LIMIT of the plain top, and a planted fault beyond it."""
+    limit = 2 * LOGIT_LIMIT
+    gaps = [qos_greedy_gap(torch, cfg, params, p, g, dev) for p, g in seqs]
+    fault = max(qos_greedy_gap(torch, cfg, params, p, g, dev, lost=True)
+                for p, g in seqs if len(p) > 1)
+    if max(gaps) > limit:
+        fail(f"{phase}: {what}: a served token stands {max(gaps)} below the "
+             f"plain forward's argmax (limit {limit})")
+    if fault <= limit:
+        fail(f"{phase}: {what}: the planted fault moved the margin by only "
+             f"{fault}, within the limit {limit}")
+    return dict(greedy_margin_max=max(gaps), limit=limit,
+                planted_fault="the prompt's last token lost",
+                planted_fault_margin=fault)
+
+
+def remote_serve(torch, cfg, seed, params, dev, tmp, phase):
+    """(a) HTTP through a FleetServer over a spawned agent and an in-process
+    replica, then (c) a SIGKILL of the agent mid-decode on the same router.
+    -> (fields of a, fields of c, the agent's launch counts)."""
+    import os
+    import signal
+    import urllib.request
+    from paddle_tpu_torch.fleet import FleetRouter, FleetServer
+    from paddle_tpu_torch.inference.serving import generate_http
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+    from paddle_tpu_torch.observability import MetricsRegistry
+    counts = os.path.join(tmp, "agent_serve.json")
+    reg = MetricsRegistry()
+
+    def local():
+        return ContinuousBatchingEngine(
+            cfg, params, PagedKVCache(cfg, device=dev, **REMOTE_CACHE),
+            metrics_registry=reg)
+
+    t = time.perf_counter()
+    router = FleetRouter([remote_spec(cfg, seed, dev, counts_path=counts),
+                          local], metrics_registry=reg)
+    spawn_s = time.perf_counter() - t
+    try:
+        prompts, news = serve_prompts(cfg, seed), SERVE_NEWS
+        pins = {len(p): (0 if i % 2 == 0 else 1)
+                for i, p in enumerate(prompts)}
+        remote_pin(router, pins)
+        # a submit waits on the agent's engine lock (a step holds it)
+        submit_ms = []
+        sub = router._replicas[0].supervisor.submit
+
+        def timed_submit(*args, **kw):
+            t = time.perf_counter()
+            out = sub(*args, **kw)
+            submit_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        router._replicas[0].supervisor.submit = timed_submit
+        srv = FleetServer(router)
+        url = f"http://127.0.0.1:{srv.start()}"
+        results, errors = {}, []
+
+        def client(i):
+            try:
+                results[i] = generate_http(url, prompts[i], news[i],
+                                           timeout=REMOTE_TIMEOUT_S)
+            except Exception as e:
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+        t = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(REMOTE_TIMEOUT_S)
+        wall = time.perf_counter() - t
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            samples = prom_samples(r.read().decode())
+        routed = dict(router.routed)
+        srv.stop()
+        if errors or len(results) != len(prompts):
+            fail(f"{phase}: (a): {errors or 'a request did not return'}")
+        short = [i for i in range(len(prompts))
+                 if len(results[i]) != news[i]]
+        if short:
+            fail(f"{phase}: (a): requests {short} came back short")
+        on_agent = sum(1 for i in range(len(prompts)) if i % 2 == 0)
+        names = ["paddle_tpu_transport_reconnects_total",
+                 "paddle_tpu_transport_retries_total",
+                 "paddle_tpu_transport_heartbeat_misses_total",
+                 "paddle_tpu_transport_frames_total",
+                 "paddle_tpu_transport_bytes_total",
+                 "paddle_tpu_transport_rtt_seconds_count"]
+        missing = [n for n in names if n not in samples]
+        if missing or not samples.get(names[3]) or \
+                not samples.get(names[4]):
+            fail(f"{phase}: (a): /metrics lacks the transport instruments "
+                 f"{missing} or moved no frames / bytes")
+        rtt = reg.snapshot()["paddle_tpu_transport_rtt_seconds"]
+        a_counts = remote_counts(counts)
+        for k in ("paged_decode_attention", "flash_attention_segmented"):
+            if a_counts.get(k, 0) <= 0:
+                fail(f"{phase}: (a): the agent process did not launch {k} "
+                     f"({a_counts})")
+        gens = [results[i] for i in range(len(prompts))]
+        gap = remote_gaps(torch, cfg, params, list(zip(prompts, gens)), dev,
+                          phase, "(a)")
+        ref = ContinuousBatchingEngine(
+            cfg, params, PagedKVCache(cfg, device=dev, **REMOTE_CACHE),
+            metrics_registry=False)
+        rrids = [ref.submit(p, max_new_tokens=n)
+                 for p, n in zip(prompts, news)]
+        rdone = {r.rid: r for r in ref.run_to_completion()}
+        agree = [i for i in range(len(prompts))
+                 if [int(t) for t in rdone[rrids[i]].generated] == gens[i]]
+        del ref, rdone
+        a = dict(spawn_to_ready_s=spawn_s, requests=len(prompts),
+                 on_agent=on_agent, routed=routed, wall_s=wall,
+                 transport={n: samples[n] for n in names},
+                 rtt_p50_ms=1e3 * hist_quantile(rtt, 0.5),
+                 rtt_p99_ms=1e3 * hist_quantile(rtt, 0.99),
+                 rtt_over_1s=rtt["count"] - rtt["buckets"]["1"],
+                 agent_submit_ms=list(submit_ms),
+                 agent_launches=a_counts,
+                 exact_agreement_with_in_process=[len(agree), len(prompts)],
+                 **gap)
+
+        # (c): two requests decoding on the agent, two submitted behind
+        # them and never synced, then SIGKILL
+        h, surv = router._replicas
+        spawn = h._spawn_and_connect
+        respawn = {}
+
+        def timed_spawn():
+            t = time.perf_counter()
+            spawn()
+            respawn["s"] = time.perf_counter() - t
+
+        h._spawn_and_connect = timed_spawn
+        late_p = [prompts[3], prompts[4]]
+        early_p = [prompts[1], prompts[2]]
+        pins.clear()
+        pins.update({len(p): 0 for p in early_p + late_p})
+        early = [router.submit(p, max_new_tokens=REMOTE_KILL_NEW,
+                               deadline_s=REMOTE_TIMEOUT_S)
+                 for p in early_p]
+        t0 = time.perf_counter()
+        while min(router._requests[r].streamed for r in early) < 2:
+            router.step()
+            if time.perf_counter() - t0 > REMOTE_TIMEOUT_S:
+                fail(f"{phase}: (c): the agent never streamed")
+        late = [router.submit(p, max_new_tokens=REMOTE_KILL_NEW,
+                              deadline_s=REMOTE_TIMEOUT_S) for p in late_p]
+        deadlines = {r: router._requests[r].deadline for r in late}
+        streamed = {r: router._requests[r].streamed for r in early + late}
+        surv_done0 = surv.engine.requests_finished
+        pid = h._proc.pid
+        # the respawned agent writes the same file from 0
+        killed_counts = remote_counts(counts)
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        done, t_death = {}, None
+        while not set(early + late) <= set(done):
+            router.step()
+            if t_death is None and router.deaths:
+                t_death = time.perf_counter()
+            done.update((r.rid, r) for r in router.finished())
+            if time.perf_counter() - t_kill > REMOTE_TIMEOUT_S:
+                fail(f"{phase}: (c): requests lost after the SIGKILL")
+        t_done = time.perf_counter()
+        bad = [r for r in early if done[r].status != "error"] + \
+            [r for r in late if done[r].status != "ok"
+             or len(done[r].generated) != REMOTE_KILL_NEW
+             or abs(done[r].deadline - deadlines[r]) > 1.0]
+        audit = surv.engine.cache.audit()
+        served_by_survivor = surv.engine.requests_finished - surv_done0
+        if bad or router.deaths != 1 or audit["owned"] or \
+                served_by_survivor != len(late):
+            fail(f"{phase}: (c): after the SIGKILL: statuses "
+                 f"{[(r, done[r].status, len(done[r].generated)) for r in done]}"
+                 f", deaths {router.deaths}, survivor finished "
+                 f"{served_by_survivor}, audit {audit}")
+        gap_c = remote_gaps(torch, cfg, params,
+                            [(p, [int(t) for t in done[r].generated])
+                             for p, r in zip(late_p, late)], dev, phase,
+                            "(c) failed over")
+        # auto_replace respawned the agent: it serves one more request
+        pins.clear()
+        pins[len(prompts[5])] = 0
+        t = time.perf_counter()
+        while h.state != "READY" or h.replaces < 1:
+            router.step()
+            if time.perf_counter() - t > REMOTE_TIMEOUT_S:
+                fail(f"{phase}: (c): the agent was not replaced")
+        rid = router.submit(prompts[5], max_new_tokens=news[5])
+        more = remote_drive(router, [rid], phase, "(c) after the respawn")
+        if more[rid].status != "ok" or len(more[rid].generated) != news[5] \
+                or h._proc is None or h._proc.pid == pid:
+            fail(f"{phase}: (c): the respawned agent did not serve: "
+                 f"{more[rid].status} {len(more[rid].generated)}")
+        agent_counts = dict(killed_counts)
+        for k, v in remote_counts(counts).items():
+            agent_counts[k] = agent_counts.get(k, 0) + v
+        c = dict(streamed_at_kill=list(streamed.values()),
+                 statuses={"decoding": [done[r].status for r in early],
+                           "queued": [done[r].status for r in late]},
+                 errors=[done[r].error for r in early],
+                 deaths=router.deaths, failovers=router.failovers,
+                 replaces=router.replaces,
+                 failover_detect_ms=1e3 * (t_death - t_kill),
+                 failover_complete_ms=1e3 * (t_done - t_kill),
+                 survivor_audit=audit, respawned_pid_differs=True,
+                 respawn_to_ready_s=respawn.get("s"), **gap_c)
+        return a, c, agent_counts
+    finally:
+        remote_teardown(router)
+
+
+def remote_handoff(torch, cfg, seed, params, dev, tmp, phase):
+    """(b) FleetRouter(roles=["prefill", "decode"]): a spawned prefill agent,
+    an in-process DecodeEngine with a host tier; the records cross the
+    wire.  -> (fields, the agent's launch counts)."""
+    import os
+    from paddle_tpu_torch.fleet import FleetRouter
+    from paddle_tpu_torch.models.disagg import DecodeEngine
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    counts = os.path.join(tmp, "agent_prefill.json")
+    import paddle_tpu_torch.fleet.remote as tremote
+    watch = {"adopted": {}, "checked": 0, "bad": [], "ctx": [], "bytes": 0,
+             "take_s": 0.0, "adopt_s": 0.0, "unpack_s": 0.0}
+    holder = {}
+
+    def decode():
+        de = DecodeEngine(cfg, params, PagedKVCache(
+            cfg, device=dev, host_pages=REMOTE_HOST_PAGES, **REMOTE_CACHE),
+            metrics_registry=False)
+        admit, swap_in = de.admit_handoff, de.cache.swap_in_row
+
+        def adopt(rec):
+            k, v, ks, vs, L = rec.materialize()
+            arrived = [bits(torch, t).clone() for t in (k, v, ks, vs)
+                       if t is not None]
+            t = time.perf_counter()
+            local = admit(rec)
+            watch["adopt_s"] += time.perf_counter() - t
+            watch["adopted"][de._swap_handles[local]] = (arrived, int(L))
+            watch["ctx"].append(int(L))
+            watch["bytes"] += rec.nbytes
+            return local
+
+        def restore(b, handle):
+            ent = watch["adopted"].pop(handle, None)
+            L = swap_in(b, handle)
+            if ent is not None:
+                npg = -(-L // de.cache.page)
+                got = [bits(torch, t).cpu() for t in
+                       page_blocks(torch, de.cache, de.cache._owned[b][:npg])]
+                if L != ent[1] or not all(
+                        torch.equal(a, g) for a, g in zip(ent[0], got)):
+                    watch["bad"].append(handle)
+                watch["checked"] += 1
+            return L
+
+        de.admit_handoff, de.cache.swap_in_row = adopt, restore
+        holder["de"] = de
+        return de
+
+    t = time.perf_counter()
+    router = FleetRouter(
+        [remote_spec(cfg, seed, dev, role="prefill", engine="prefill",
+                     host_pages=REMOTE_HOST_PAGES, counts_path=counts),
+         decode], roles=["prefill", "decode"], handoff_gbps=1e9,
+        metrics_registry=False)
+    spawn_s = time.perf_counter() - t
+    try:
+        pe = router._replicas[0].engine
+        take = pe.take_handoffs
+
+        def timed_take():
+            t = time.perf_counter()
+            out = take()
+            watch["take_s"] += time.perf_counter() - t
+            return out
+
+        pe.take_handoffs = timed_take
+        unpack = tremote._unpack_record
+
+        def timed_unpack(metas, blobs):
+            t = time.perf_counter()
+            out = unpack(metas, blobs)
+            watch["unpack_s"] += time.perf_counter() - t
+            return out
+
+        rng = np.random.default_rng(seed + 7)
+        prompts = [rng.integers(0, cfg.vocab_size, REMOTE_HANDOFF_LEN).tolist()
+                   for _ in range(REMOTE_HANDOFF_N)]
+        rids = [router.submit(p, max_new_tokens=REMOTE_HANDOFF_NEW)
+                for p in prompts]
+        with patched((tremote, "_unpack_record", timed_unpack)):
+            done = remote_drive(router, rids, phase, "(b)")
+        de = holder["de"]
+        out = dict(spawn_to_ready_s=spawn_s, requests=len(rids),
+                   prompt_len=REMOTE_HANDOFF_LEN,
+                   routed=dict(router.routed),
+                   handoffs_shipped=router.handoffs_shipped,
+                   colocated_fallbacks=router.colocated_fallbacks,
+                   pages_checked_bitwise=watch["checked"],
+                   pages_differing=watch["bad"],
+                   decode_prefill_calls=de.prefill_calls,
+                   prefill_tokens_avoided=de.prefill_tokens_avoided,
+                   handed_off_context=sum(watch["ctx"]),
+                   record_mib=watch["bytes"] / len(rids) / 2**20,
+                   handoff_ms_per_request=1e3 * (watch["take_s"]
+                                                 + watch["adopt_s"])
+                   / len(rids),
+                   wire_ms_per_request=1e3 * watch["take_s"] / len(rids),
+                   router_unpack_ms_per_request=1e3 * watch["unpack_s"]
+                   / len(rids),
+                   handoff_gb_per_s=watch["bytes"] / 1e9
+                   / max(watch["take_s"] + watch["adopt_s"], 1e-9),
+                   statuses=[done[r].status for r in rids],
+                   tokens=[len(done[r].generated) for r in rids],
+                   agent_launches=remote_counts(counts))
+        if out["statuses"] != ["ok"] * len(rids) or \
+                out["tokens"] != [REMOTE_HANDOFF_NEW] * len(rids) or \
+                router.handoffs_shipped != len(rids) or \
+                watch["checked"] != len(rids) or watch["bad"] or \
+                de.prefill_calls or \
+                de.prefill_tokens_avoided != sum(watch["ctx"]) or \
+                watch["ctx"] != [REMOTE_HANDOFF_LEN] * len(rids):
+            fail(f"{phase}: (b): the hand-off over the wire: {out}")
+        return out, out["agent_launches"]
+    finally:
+        remote_teardown(router)
+
+
+def remote_sticky(torch, cfg, seed, params, dev, phase):
+    """(d) a device-side assert in a spawned agent: the agent reports DEAD,
+    the router counts one death and fails the queued requests over.
+    -> fields."""
+    from paddle_tpu_torch.fleet import FleetRouter
+    from paddle_tpu_torch.models.paged_decode import PagedKVCache
+    from paddle_tpu_torch.models.serving_engine import (
+        ContinuousBatchingEngine)
+
+    def local():
+        return ContinuousBatchingEngine(
+            cfg, params, PagedKVCache(cfg, device=dev, **REMOTE_CACHE),
+            metrics_registry=False)
+
+    spec = remote_spec(cfg, seed, dev,
+                       factory="chip_smoke:sticky_llama7b_engine",
+                       batch=REMOTE_STICKY_BATCH)
+    router = FleetRouter([spec, local], auto_replace=False,
+                         metrics_registry=False)
+    try:
+        h, surv = router._replicas
+        fatal = {}
+        apply = h.apply_sync
+
+        def watch(resp):
+            apply(resp)
+            if resp["snap"].get("fatal"):
+                fatal.update(resp["snap"])
+
+        h.apply_sync = watch
+        streamed = {}
+        on_death = router._on_death_locked
+
+        def death(dead, exc):
+            streamed.update((rid, router._requests[rid].streamed)
+                            for rid in dead.local_rids.values())
+            on_death(dead, exc)
+
+        router._on_death_locked = death
+        prompts = serve_prompts(cfg, seed)
+        # the first two take the agent's two slots, the last two queue
+        sel = [prompts[1], prompts[2], prompts[6], prompts[3]]
+        remote_pin(router, {len(p): 0 for p in sel})
+        rids = [router.submit(p, max_new_tokens=REMOTE_KILL_NEW)
+                for p in sel]
+        done = remote_drive(router, rids, phase, "(d)")
+        st = [done[r].status for r in rids]
+        want = ["error" if streamed.get(r) else "ok" for r in rids]
+        h._proc.join(30)
+        out = dict(agent_state=fatal.get("state"),
+                   agent_fatal=fatal.get("fatal"),
+                   agent_restarts=fatal.get("restarts"),
+                   deaths=router.deaths, failovers=router.failovers,
+                   streamed_at_death=[streamed.get(r) for r in rids],
+                   statuses=st, replica_error=h.error,
+                   agent_exitcode=h._proc.exitcode if h._proc else None)
+        if fatal.get("state") != "DEAD" or not fatal.get("fatal") or \
+                router.deaths != 1 or st != want or want[2:] != ["ok"] * 2 \
+                or router.failovers != want.count("ok") or \
+                any(len(done[r].generated) != REMOTE_KILL_NEW
+                    for r, w in zip(rids, want) if w == "ok"):
+            fail(f"{phase}: (d): the agent's sticky error was not one "
+                 f"replica's death: {out}")
+        return out, router
+    except BaseException:
+        remote_teardown(router)
+        raise
+
+
+def phase_serve_remote(torch, cfg, seed, params, mods, dev="cuda",
+                       card=None):
+    """The sockets fleet at LLaMA-7B bf16 (serve_remote): (a) a FleetServer
+    over a spawned agent and an in-process replica, (c) a SIGKILL of the
+    agent mid-decode with auto_replace, (b) a prefill agent's hand-offs
+    over the wire to an in-process DecodeEngine, (d) a device-side assert in
+    an agent.  -> the launches of the phase's serving: the parent's counts
+    (the K1 check after (d) left out) and the agents' from their files."""
+    import tempfile
+    phase = "serve_remote"
+    t_phase = time.perf_counter()
+    secs, fields = {}, {}
+    zero_counts(mods)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        fields["serve"], fields["sigkill"], counts_a = remote_serve(
+            torch, cfg, seed, params, dev, tmp, phase)
+        secs["serve_and_sigkill"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        fields["handoff"], counts_b = remote_handoff(
+            torch, cfg, seed, params, dev, tmp, phase)
+        secs["handoff"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    fields["sticky"], router = remote_sticky(torch, cfg, seed, params, dev,
+                                             phase)
+    total = read_counts(mods)
+    try:
+        if dev == "cuda":
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            fields["sticky"]["parent_k1_max_abs_err"] = check_paged_kernel(
+                torch, mods["pa"], f"{phase}: K1 after the agent's sticky "
+                f"error", 32, gen, False)
+        zero_counts(mods)
+        p = serve_prompts(cfg, seed)[5]
+        rid = router.submit(p, max_new_tokens=SERVE_NEWS[5])
+        after = remote_drive(router, [rid], phase, "(d) after")
+        if after[rid].status != "ok" or \
+                len(after[rid].generated) != SERVE_NEWS[5]:
+            fail(f"{phase}: (d): the survivor did not serve after the "
+                 f"agent's sticky error")
+        fields["sticky"]["survivor_served_after"] = True
+    finally:
+        remote_teardown(router)
+    secs["sticky"] = time.perf_counter() - t
+    for k, v in read_counts(mods).items():
+        total[k] += v
+    agents = {}
+    for c in (counts_a, counts_b):
+        for k, v in c.items():
+            agents[k] = agents.get(k, 0) + v
+            if k in total:
+                total[k] += v
+    for k in ("paged_decode_attention", "flash_attention_segmented",
+              "segment_tile_ranges"):
+        if total.get(k, 0) <= 0:
+            fail(f"{phase}: {k} was not launched")
+    emit(phase, model="LLaMA-7B (LlamaPretrainConfig defaults)", card=card,
+         weights="bf16", cache=REMOTE_CACHE, lease_s=REMOTE_LEASE_S,
+         rpc_timeout_s=REMOTE_RPC_S, **fields,
+         agent_launches=agents, launches=total, secs=secs,
+         phase_s=time.perf_counter() - t_phase)
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6596,6 +7223,9 @@ def main():
     launches_disagg = timed("serve_disagg", phase_serve_disagg, torch, cfg,
                             s, params, mods)
     torch.cuda.empty_cache()
+    launches_remote = timed("serve_remote", phase_serve_remote, torch, cfg,
+                            s, params, mods, card=card)
+    torch.cuda.empty_cache()
     launches_int8, qparams = timed("serve_int8", phase_serve_int8, torch,
                                    cfg, s, params, mods)
     del params
@@ -6648,7 +7278,8 @@ def main():
     # train_fused phases
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
             launches_dense, launches_faults, launches_mixed, launches_spec,
-            launches_swap, launches_qos, launches_disagg, launches_int8,
+            launches_swap, launches_qos, launches_disagg, launches_remote,
+            launches_int8,
             launches_int8_overlap, launches_prefix_int8, launches_mixed_int8,
             launches_spec_int8, launches_swap_int8, launches_disagg_int8,
             launches_train, launches_packed, *launches_fused]

@@ -38,8 +38,9 @@ class FleetAutoscaler:
     """Closed-loop replica-count controller for one routing role.
 
     ``router``: the :class:`~paddle_tpu_torch.fleet.FleetRouter` to
-    scale.  ``factory``: the engine factory
-    :meth:`FleetRouter.add_replica` builds from on scale up.
+    scale.  ``factory``: what :meth:`FleetRouter.add_replica` builds on
+    scale up, an engine factory or a
+    :class:`~paddle_tpu_torch.fleet.remote.RemoteSpec`.
     ``min_replicas`` / ``max_replicas``: hard bounds on LIVE replicas
     of ``role`` (retired slots never count).
     ``high_queued_tokens`` / ``low_queued_tokens``: per-live-replica

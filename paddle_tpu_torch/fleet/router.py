@@ -44,14 +44,15 @@ colocated re-prefill on a decode replica that keeps its first token; a
 replica death mid-hand-off reclaims the records and fails the requests
 over.
 
-All replicas share one process and one card: a replica factory should
-close over one weight set (no copy per replica) and build its own
-``PagedKVCache``.
-
-Not ported yet (ROADMAP.md queue 1 item 8), and refused with
-``NotImplementedError``: a ``RemoteSpec`` in place of a factory (replicas
-behind a socket, and the sockets transport that ships hand-offs to
-them).
+In-process replicas share one process and one card: a replica factory
+should close over one weight set (no copy per replica) and build its own
+``PagedKVCache``.  A :class:`~paddle_tpu_torch.fleet.remote.RemoteSpec` in
+place of a factory puts the replica behind a socket (its own thread or OS
+process, or an agent someone else runs), driven through a
+:class:`~paddle_tpu_torch.fleet.remote.RemoteReplicaHandle` with the same
+states, routing and failover; its hand-offs ship over the wire.  A replica
+in its own process has its own CUDA context, so a sticky CUDA error there
+is one replica's death, not the router's.
 
 Thread safety: every public method takes ``_lock``; the replica engines
 are touched only under it.
@@ -76,8 +77,8 @@ from ..models.serving_engine import (PRIORITIES, EngineDeadError,
                                      TenantQuotas, _drive_to_completion,
                                      _release_engine_claims)
 from ..observability import (DisaggMetrics, FleetMetrics, MetricsRegistry,
-                             advance_phase, finalize_request_trace,
-                             phase_clocks)
+                             TransportMetrics, advance_phase,
+                             finalize_request_trace, phase_clocks)
 from ..testing import faults
 
 __all__ = ["FleetRouter", "ReplicaHandle", "REPLICA_STATES"]
@@ -85,17 +86,6 @@ __all__ = ["FleetRouter", "ReplicaHandle", "REPLICA_STATES"]
 REPLICA_STATES = ("STARTING", "READY", "DEGRADED", "DRAINING", "DEAD",
                   "RETIRED")
 ROLES = ("unified", "prefill", "decode")
-
-_NOT_PORTED = ("not ported yet (ROADMAP.md queue 1 item 8, the sockets "
-               "transport): ")
-
-
-def _refuse_remote(factory) -> None:
-    if getattr(factory, "is_remote_spec", False):
-        raise NotImplementedError(
-            _NOT_PORTED + "a RemoteSpec replica (a replica behind a "
-            "socket); pass an in-process engine factory")
-
 
 def _check_role(h: "ReplicaHandle") -> None:
     """A prefill replica's engine exports hand-offs, a decode replica's
@@ -120,6 +110,7 @@ class ReplicaHandle:
     fleet state and the local -> fleet rid map.  Touched only under the
     router's lock."""
 
+    remote = False      # RemoteReplicaHandle (fleet/remote.py): True
     # scale-down mark: the drain (or death) ends in RETIRED, not a replace
     retiring = False
 
@@ -277,7 +268,9 @@ class FleetRouter:
     drive loop (and :class:`~paddle_tpu_torch.fleet.FleetServer`) works
     unchanged.
 
-    ``factories``: one zero-argument engine factory per replica.  Engines
+    ``factories``: one zero-argument engine factory per replica, or a
+    :class:`~paddle_tpu_torch.fleet.remote.RemoteSpec` for a replica behind
+    a socket (the agent's hello decides its role).  Engines
     built on one shared ``MetricsRegistry`` give an aggregated
     ``/metrics``; the router then publishes its fleet instruments to the
     same registry.  ``prefix_routing=False`` places by load alone;
@@ -321,8 +314,6 @@ class FleetRouter:
             raise ValueError(
                 f"unknown replica role(s) {bad}: expected 'unified', "
                 f"'prefill' or 'decode'")
-        for f in factories:
-            _refuse_remote(f)
         self._lock = threading.Lock()
         self.quotas = tenant_quotas
         # add_replica() builds with the same restart budget
@@ -332,12 +323,21 @@ class FleetRouter:
         self.tracer = tracer
         self.prefix_routing = bool(prefix_routing)
         self.auto_replace = bool(auto_replace)
-        self._replicas: List[ReplicaHandle] = [
-            ReplicaHandle(i, f, role=role, **self._restart_kw)
-            for i, (f, role) in enumerate(zip(factories, roles))]
-        for h in self._replicas:
-            _check_role(h)
-        self._has_prefill_lane = "prefill" in roles
+        self._replicas: List[ReplicaHandle] = []
+        try:
+            for i, (f, role) in enumerate(zip(factories, roles)):
+                self._replicas.append(self._new_handle(i, f, role))
+            for h in self._replicas:
+                _check_role(h)
+        except BaseException:
+            # a failed construction must not leak the agents (processes,
+            # threads, ports) that the remote handles started
+            self._kill_remote(self._replicas, "fleet construction failed")
+            raise
+        self._has_remote = any(h.remote for h in self._replicas)
+        # a remote replica's role is the one its agent's hello gave
+        self._has_prefill_lane = any(h.role == "prefill"
+                                     for h in self._replicas)
         self.handoff_transport = handoff_transport \
             if handoff_transport is not None else self._transport_default
         self.handoff_gbps = float(handoff_gbps)
@@ -392,7 +392,40 @@ class FleetRouter:
         if self._has_prefill_lane and self.metrics is not None:
             self.disagg_metrics = DisaggMetrics(self.metrics.registry,
                                                 ring=self.metrics.ring)
+        # the transport instruments exist only with a remote replica: an
+        # in-process fleet's exposition is unchanged
+        self.transport_metrics = None
+        if self._has_remote:
+            self._wire_transport_metrics_locked()
         self._update_gauges_locked()
+
+    def _new_handle(self, idx: int, factory, role: str):
+        """A replica handle: remote for a ``RemoteSpec``, else in-process."""
+        if getattr(factory, "is_remote_spec", False):
+            from .remote import RemoteReplicaHandle
+            return RemoteReplicaHandle(idx, factory, role=role)
+        return ReplicaHandle(idx, factory, role=role, **self._restart_kw)
+
+    @staticmethod
+    def _kill_remote(handles, why: str) -> None:
+        for h in handles:
+            if h.remote:
+                try:
+                    h.kill(why)
+                except Exception:
+                    pass
+
+    def _wire_transport_metrics_locked(self) -> None:
+        """Give every remote replica's connection the transport
+        instruments, built on the fleet's registry the first time."""
+        if self.metrics is None:
+            return
+        if self.transport_metrics is None:
+            self.transport_metrics = TransportMetrics(
+                self.metrics.registry, ring=self.metrics.ring)
+        for h in self._replicas:
+            if h.remote:
+                h.set_transport_metrics(self.transport_metrics)
 
     # -- client side ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 64,
@@ -490,19 +523,26 @@ class FleetRouter:
 
     def add_replica(self, factory: Callable, *,
                     role: str = "unified") -> int:
-        """Grow the fleet by one replica of ``role`` built from ``factory``,
-        routable from the next ``submit`` or ``step`` -> its index."""
+        """Grow the fleet by one replica of ``role`` built from ``factory``
+        (an engine factory or a ``RemoteSpec``), routable from the next
+        ``submit`` or ``step`` -> its index."""
         if role not in ROLES:
             raise ValueError(
                 f"unknown replica role {role!r}: expected 'unified', "
                 f"'prefill' or 'decode'")
-        _refuse_remote(factory)
         with self._lock:
             idx = len(self._replicas)
-            h = ReplicaHandle(idx, factory, role=role, **self._restart_kw)
-            _check_role(h)
+            h = self._new_handle(idx, factory, role)
+            try:
+                _check_role(h)
+            except BaseException:
+                self._kill_remote([h], "add_replica validation failed")
+                raise
             self._replicas.append(h)
-            if role == "prefill":
+            if h.remote:
+                self._has_remote = True
+                self._wire_transport_metrics_locked()
+            if h.role == "prefill":
                 self._has_prefill_lane = True
                 if self.metrics is not None and self.disagg_metrics is None:
                     self.disagg_metrics = DisaggMetrics(
@@ -511,7 +551,7 @@ class FleetRouter:
             if self.metrics is not None:
                 self.metrics.scale_up.inc()
                 self.metrics.ring.emit("fleet_scale_up", replica=idx,
-                                       role=role, remote=False)
+                                       role=role, remote=h.remote)
             self._update_gauges_locked()
             return idx
 
@@ -727,6 +767,10 @@ class FleetRouter:
             try:
                 faults.fire("route_dispatch")
                 extra = {}
+                if h.remote:
+                    # the wire's idempotency key: a submit retried after an
+                    # ambiguous timeout dedups on the agent by fleet rid
+                    extra["fleet_rid"] = freq.rid
                 if freq.spec is not None:
                     # only an explicit toggle rides: replicas without a
                     # speculative lane take default traffic
@@ -882,6 +926,15 @@ class FleetRouter:
                     # placement
                     req.t_submit = freq.t_submit
                     if freq.trace is not None:
+                        if h.remote:
+                            # the agent accrued the phase clocks without a
+                            # tracer (only the trace id rode the wire): the
+                            # spans are built here, on this clock
+                            try:
+                                freq.trace.report_request(
+                                    req, replica=h.idx, remote=True)
+                            except Exception:
+                                pass
                         try:
                             freq.trace.close(
                                 status=req.status, error=req.error,
@@ -946,8 +999,8 @@ class FleetRouter:
         """Report the dead replica's accrued phase intervals into each
         orphan's fleet trace (tagged with the replica and ``died=True``).
         Best effort: tracing must not break a failover."""
-        if self.tracer is None:
-            return
+        if self.tracer is None or h.remote:
+            return                    # its requests live in the agent
         try:
             eng = h.supervisor.engine
             by_local = {r.rid: r for r in list(eng._queue)}
@@ -1012,8 +1065,10 @@ class FleetRouter:
         """The in-process hand-off transport: materialise on the source
         side, adopt into the destination's host tier (both halves of the
         ``kv_handoff`` fault site fire inside) -> the decode-side local rid.
-        A sockets transport replaces this seam; the routing, failover and
-        backpressure decisions above it stay as they are."""
+        A remote decode replica's ``admit_handoff`` ships the record over the
+        wire; a caller's ``handoff_transport`` replaces this seam, and the
+        routing, failover and backpressure decisions above it stay as they
+        are."""
         eng = h.engine
         if not hasattr(eng, "admit_handoff"):
             raise RuntimeError(
@@ -1187,6 +1242,20 @@ class FleetRouter:
                 "handoff_bytes": self.handoff_bytes,
                 "handoffs_inflight": self._inflight_handoffs_locked(),
                 "colocated_fallbacks": self.colocated_fallbacks}
+        if self._has_remote:
+            # the wire counters summed over the remote replicas
+            agg = {"reconnects": 0, "retries": 0, "heartbeat_misses": 0,
+                   "frames": 0, "bytes": 0}
+            for h in self._replicas:
+                c = getattr(h, "conn", None)
+                if not h.remote or c is None:
+                    continue
+                agg["reconnects"] += c.reconnects
+                agg["retries"] += c.retries
+                agg["heartbeat_misses"] += c.heartbeat_misses
+                agg["frames"] += c.frames
+                agg["bytes"] += c.bytes_sent + c.bytes_recv
+            doc["transport"] = agg
         return doc
 
     def _update_gauges_locked(self) -> None:

@@ -18,13 +18,15 @@ reads a port server unchanged:
 * :mod:`.disagg_metrics` — the disaggregated prefill / decode bundle
   (hand-off pages, bytes and latency, the in-flight gauge, routing
   decisions, colocated fallbacks).
+* :mod:`.transport_metrics` — the sockets transport's bundle (reconnects,
+  retries, heartbeat misses, frames, wire bytes, round-trip times).
 * :mod:`.tracing` — per-request tracing: phase clocks accrued at scheduler
   mutation points, materialized as spans at retirement, kept by a bounded
   tail-sampling :class:`TraceStore` (``GET /traces``, ``GET /trace/<rid>``).
 
 Everything is host-side: instrumentation launches no kernel and adds no
 device sync — values are recorded from numbers the engine already holds
-on the host.  The sockets transport's bundle waits for its lane.
+on the host.
 """
 
 from .events import EventRing, default_ring            # noqa: F401
@@ -34,6 +36,7 @@ from .engine_metrics import (EngineMetrics,            # noqa: F401
                              bind_engine_gauges)
 from .fleet_metrics import FleetMetrics                # noqa: F401
 from .disagg_metrics import DisaggMetrics              # noqa: F401
+from .transport_metrics import TransportMetrics        # noqa: F401
 from .tracing import (PHASES, TraceContext, Tracer,    # noqa: F401
                       TraceStore, advance_phase, default_tracer,
                       finalize_request_trace, phase_clocks)
@@ -41,7 +44,7 @@ from .tracing import (PHASES, TraceContext, Tracer,    # noqa: F401
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "default_registry", "EventRing", "default_ring",
            "EngineMetrics", "bind_engine_gauges", "FleetMetrics",
-           "DisaggMetrics", "PHASES",
+           "DisaggMetrics", "TransportMetrics", "PHASES",
            "TraceContext", "Tracer",
            "TraceStore", "advance_phase", "default_tracer",
            "finalize_request_trace", "phase_clocks"]

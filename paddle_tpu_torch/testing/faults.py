@@ -61,11 +61,26 @@ site                   consulted by
                        re-prefill on the decode side (counted in
                        ``disagg_colocated_fallback_total``), never a
                        dropped request
+``conn_drop``          the sockets transport's client connection
+                       (``fleet/transport.py``), once a frame: an
+                       exception rule resets the connection mid-call;
+                       idempotent ops re-dial and retry with backoff,
+                       others surface the ambiguity
+``frame_truncate``     the same seam, a condition rule: the client sends
+                       a cut frame and drops; the agent drops that
+                       connection (its ``ProtocolError`` path) and keeps
+                       serving, the client retries over a fresh dial
+``net_delay``          the same seam, a condition rule: the frame leaves
+                       ``NET_DELAY_S`` late, so a tighter RPC timeout
+                       trips (a stalled link)
+``agent_kill``         ``RemoteReplicaHandle``'s per-tick sync
+                       (``fleet/remote.py``), a condition rule: the
+                       handle SIGKILLs its agent process (or tears down
+                       the in-thread agent) before the sync; the lease
+                       expires and the router's death path takes over.
+                       The plane is per process: a spawned agent arms
+                       its own from ``fault_spec`` in its spawn config
 =====================  ==================================================
-
-JAX's other sites wait for the sockets transport that consults them
-(ROADMAP.md queue 1 item 8): ``conn_drop``, ``frame_truncate``,
-``net_delay`` and ``agent_kill``.
 
 Faults are deterministic: rules match by call index (``nth`` = exactly
 the n-th consult, ``every`` = every K-th consult, the default = every

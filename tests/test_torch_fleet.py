@@ -16,8 +16,8 @@ and autoscaler cases of ``tests/test_serving_qos.py``,
 ``tests/test_serving_spec.py::test_spec_fleet_pass_through``; then the
 port's own: the prefill / decode roles and a caller's hand-off transport
 serve as JAX's do (``tests/test_torch_disagg.py`` holds the rest of the
-role lanes), a ``RemoteSpec`` still raises ``NotImplementedError``, and a
-replaced or retired replica's pool is freed.
+role lanes), and a replaced or retired replica's pool is freed
+(``tests/test_torch_transport.py`` holds the remote replicas).
 """
 
 import importlib
@@ -1029,13 +1029,9 @@ def test_spec_fleet_pass_through(sides):
 
 
 # ---------------------------------------------------------------------------
-# the port's own: the lanes that once refused serve (a RemoteSpec still
-# refuses); replaced and retired replicas give their pools back
+# the port's own: the lanes that once refused serve; replaced and retired
+# replicas give their pools back
 # ---------------------------------------------------------------------------
-class _RemoteSpec:
-    is_remote_spec = True
-
-
 def role_factory(S, role):
     """A prefill or decode replica factory of side ``S`` (host tier on)."""
     engine = {"prefill": S.dg.PrefillEngine, "decode": S.dg.DecodeEngine}
@@ -1046,25 +1042,13 @@ def role_factory(S, role):
     return mk
 
 
-@pytest.mark.parametrize("what", ["roles", "handoff_transport",
-                                  "remote_spec"])
+@pytest.mark.parametrize("what", ["roles", "handoff_transport"])
 def test_unported_fleet_lanes_raise(sides, what):
     """The lanes this case once refused: ``roles`` (prefill and decode
     replicas, one grown through ``add_replica(role=...)``) and a caller's
     ``handoff_transport`` now serve, equal to JAX's router (tokens, the
-    routing and hand-off counters, the transport's calls, clean audits); a
-    ``RemoteSpec`` still raises ``NotImplementedError`` naming item 8."""
-    if what == "remote_spec":
-        S = sides["port"]
-        mk = factory(S)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            S.fleet.FleetRouter([_RemoteSpec(), mk], metrics_registry=False)
-        router = S.fleet.FleetRouter([mk], metrics_registry=False)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            router.add_replica(_RemoteSpec())
-        assert len(router._replicas) == 1 and router.scale_ups == 0
-        return
-
+    routing and hand-off counters, the transport's calls, clean audits).
+    ``RemoteSpec`` replicas serve too (``tests/test_torch_transport.py``)."""
     def run(S):
         shipped = []
         kw = dict(metrics_registry=False, handoff_gbps=1e9)

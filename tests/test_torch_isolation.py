@@ -55,6 +55,10 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.observability\n"
         "import paddle_tpu_torch.testing.faults\n"
         "import paddle_tpu_torch.fleet\n"
+        "import paddle_tpu_torch.fleet.transport\n"
+        "import paddle_tpu_torch.fleet.remote\n"
+        "import paddle_tpu_torch.observability.transport_metrics\n"
+        "import paddle_tpu_torch.testing.agent_factory\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.ab_torch_kernels\n"
