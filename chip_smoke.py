@@ -311,6 +311,25 @@ Phases, one JSON line each on stdout:
              poisoned context), the router counts one death and fails the
              requests over as in (c), and the parent's context then runs K1
              against its plain version and serves a request on the survivor.
+4m. api_llama - the Paddle API's Layer LlamaForCausalLM (models/llama.py)
+             at LLaMA-7B, full depth, built over the serve's bf16 weights
+             (models/weights.py:causal_lm_from_params: every parameter a
+             view, nothing copied), batch 2 x 128-token prompts from
+             np.random.RandomState(seed): (a) the forward's logits within
+             LOGIT_LIMIT of the plain forward's, teacher-forced, a planted
+             fault (the flash forward non-causal) beyond it, and K5 2 x 32,
+             K6a 32, K9a 2 x 32 + 1 launched and nothing else; (b) the
+             eager generate (8 new tokens over the concatenated cache) and
+             (c) generate_compiled (the dense decode, f32 compute as JAX
+             pins it) greedy and with int8 weights (K3 (7 x 32 + 1) x 8
+             times): each generated token within 2 * LOGIT_LIMIT (int8: 2 *
+             INT8_LOGIT_LIMIT) of the plain top logit on its own sequence,
+             the dense decode's teacher-forced logits within the limits;
+             (d) make_generate_beam with 4 beams: each best beam's score
+             against the plain forward's summed log-probabilities; (e)
+             generate_auto over the serve's tree, a uniform batch on the
+             dense decode and a ragged one (128 and 100 tokens) on the paged
+             path (K1).
 5. serve_int8 - the same model and requests served with int8 weights
              (quantize_params_int8 of the same seeded weights) over int8
              KV pages: every reply complete, K2 (and its range kernel), K3
@@ -327,12 +346,16 @@ Phases, one JSON line each on stdout:
              INT8_LOGIT_LIMIT of the same lane with every kernel replaced
              by its plain version, the planted fault beyond it.
 5d. serve_mixed_int8 - serve_mixed on the int8 weights over int8 pages
-             (K4 in the decode half, K3 on both paths): the recorded logits
-             within INT8_LOGIT_LIMIT of the same run replayed teacher-forced
-             with every kernel replaced by its plain version.
-5e. serve_spec_int8 - serve_spec on the int8 weights over int8 target and
-             draft pages (K4 and K3's decode path in the draft's
-             micro-steps, K3's wave path in the verify at M = 40): the
+             at half its depth (MIXED_INT8_WAVES of its waves, both
+             checked; K4 in the decode half, K3 on both paths): the
+             recorded logits within INT8_LOGIT_LIMIT of the same run
+             replayed teacher-forced with every kernel replaced by its
+             plain version.
+5e. serve_spec_int8 - serve_spec's first three arms (SPEC_INT8_ARMS: h1
+             and the target drafting for itself, sync and overlap) on the
+             int8 weights over int8 target and draft pages (K4 and K3's
+             decode path in the draft's micro-steps, K3's wave path in the
+             verify at M = 40): the
              recorded logits within INT8_LOGIT_LIMIT of the same run
              replayed teacher-forced with every kernel replaced by its plain
              version, the planted fault beyond it.
@@ -383,6 +406,16 @@ Phases, one JSON line each on stdout:
              K9-K11 also replaced by their plain versions in the plain pass
              and a planted fault per set beyond the limit (A: K9b's dx
              without its xhat * c term; B: K11's epilogue without rstd).
+11b. api_train - the Layer LlamaForCausalLM at LLaMA-7B's width and
+             API_TRAIN_LAYERS layers, bf16 parameters drawn by the API's
+             initializers from paddle.seed, AdamW(multi_precision=True)
+             (f32 masters): one step's gradients (loss.backward()) within
+             GRAD_LIMIT of autograd through the kernels' plain versions
+             (the API's op table re-registered), a planted fault (the RoPE
+             backward with +sin) beyond it, K5 4 x L, K6a-c L, K9a-b 2 x L
+             + 1 a step; then API_TRAIN_STEPS steps of model(x, labels=y),
+             loss.backward(), opt.step(), opt.clear_grad() on one [2, 2048]
+             batch: the loss falls; step ms and tokens/s printed.
 12. kernels - one JSON object with an entry per ported kernel (16, and
              K3's wave path beside its decode path and the segmented
              kernels' per-tile range kernel: 18).
@@ -3172,6 +3205,11 @@ MIXED_WARM_WAVES, MIXED_WARM_NEW = 2, 8
 # MIXED_CHECK_NEW new tokens (the second wave still arrives while the first
 # decodes, so the check covers mixed ticks)
 MIXED_CHECK_WAVES, MIXED_CHECK_NEW = 2, 24
+# serve_mixed_int8 re-runs the recipe on int8 weights and pages at half its
+# depth (2 of its 4 waves, both checked as in serve_mixed: the second's
+# admission is the one that rides mixed ticks), so the whole script keeps room under its time
+# limit on a slow host
+MIXED_INT8_WAVES = 2
 MIXED_DEVICE_REPS = 5
 
 
@@ -3411,7 +3449,7 @@ def mixed_recorded(torch, cfg, params, cache, sched, forced=None, wrap=None):
 
 
 def phase_serve_mixed(torch, cfg, seed, params, mods, kv_quant=None,
-                      dev="cuda"):
+                      dev="cuda", waves=MIXED_WAVES):
     """The mixed lane against the sequential packed lane on LLaMA-7B, on the
     synchronous and overlap lanes (bf16, or int8 weights over int8 pages:
     ``params`` are then the quantized ones), under the traffic above:
@@ -3445,7 +3483,7 @@ def phase_serve_mixed(torch, cfg, seed, params, mods, kv_quant=None,
     phase = "serve_mixed_int8" if kv_quant else "serve_mixed"
     t_phase = time.perf_counter()
     cache = PagedKVCache(cfg, kv_quant=kv_quant, device=dev, **MIXED_CACHE)
-    sched = mixed_schedule(cfg, seed)
+    sched = mixed_schedule(cfg, seed, waves)
     warm = mixed_schedule(cfg, seed + 1, MIXED_WARM_WAVES)
     attn = ("paged_decode_attention_q8" if kv_quant
             else "paged_decode_attention")
@@ -3521,7 +3559,7 @@ def phase_serve_mixed(torch, cfg, seed, params, mods, kv_quant=None,
     emit(phase, model="LLaMA-7B (LlamaPretrainConfig defaults)",
          weights="int8 (quantize_params_int8)" if kv_quant else "bf16",
          kv_pages=kv_quant or "bf16", requests=len(ref),
-         traffic=dict(waves=MIXED_WAVES, per_wave=MIXED_PER_WAVE,
+         traffic=dict(waves=waves, per_wave=MIXED_PER_WAVE,
                       wave_gap_ticks=MIXED_WAVE_GAP, long=MIXED_LONG,
                       short=MIXED_SHORT, new=MIXED_NEW,
                       stagger=MIXED_STAGGER),
@@ -3576,6 +3614,12 @@ SPEC_DRAFT_LAYERS, SPEC_DRAFT_SEED = 2, 1
 SPEC_CACHE = dict(num_pages=72, pages_max=8, batch=8, page=64)
 SPEC_SCAN_CACHE = dict(num_pages=48, pages_max=3, batch=8, page=64)
 SPEC_DEVICE_REPS = 5
+SPEC_ARMS = ("h1", "spec_same_sync", "spec_same_overlap", "spec_draft2_sync",
+             "spec_lookup_sync")
+# serve_spec_int8 runs the first three: the two-layer draft's and prompt
+# lookup's paths are the bf16 phase's, so the whole script keeps room under
+# its time limit on a slow host
+SPEC_INT8_ARMS = SPEC_ARMS[:3]
 
 
 def spec_workload(cfg, params, dev):
@@ -3827,7 +3871,7 @@ def spec_round_device_ms(torch, launch):
 
 
 def phase_serve_spec(torch, cfg, seed, params, mods, kv_quant=None,
-                     dev="cuda"):
+                     dev="cuda", arms=SPEC_ARMS):
     """Speculative decoding (``spec=SpecConfig(...)``) on LLaMA-7B against
     the plain synchronous lane (H = 1), bf16, or int8 weights over int8
     target and draft pages (``params`` are then the quantized ones), on
@@ -3857,7 +3901,8 @@ def phase_serve_spec(torch, cfg, seed, params, mods, kv_quant=None,
     within 2 * LOGIT_LIMIT of its top logit; int8: within INT8_LOGIT_LIMIT
     of the same run with every kernel replaced by its plain version), and
     a planted fault (every fresh K/V scattered one slot late) beyond the
-    limit.  -> the launches of the timed arms."""
+    limit.  ``arms`` names the arms to run (the first three are needed).
+    -> the launches of the timed arms."""
     import paddle_tpu_torch.models.llama_pretrain as tlp
     import paddle_tpu_torch.models.paged_decode as pd
     from paddle_tpu_torch.models import graphed_step as gs
@@ -3879,22 +3924,26 @@ def phase_serve_spec(torch, cfg, seed, params, mods, kv_quant=None,
     cache = PagedKVCache(cfg, kv_quant=kv_quant, device=dev, **SPEC_CACHE)
     dcache = PagedKVCache(cfg, kv_quant=kv_quant, device=dev, **SPEC_CACHE)
     dcfg = dataclasses.replace(cfg, num_hidden_layers=SPEC_DRAFT_LAYERS)
-    dparams = init_params(dcfg, SPEC_DRAFT_SEED, dev)
-    if kv_quant:
-        dparams = quantize_params_int8(dparams)
-    dcache2 = PagedKVCache(dcfg, kv_quant=kv_quant, device=dev, **SPEC_CACHE)
+    dparams = dcache2 = None
+    if "spec_draft2_sync" in arms:
+        dparams = init_params(dcfg, SPEC_DRAFT_SEED, dev)
+        if kv_quant:
+            dparams = quantize_params_int8(dparams)
+        dcache2 = PagedKVCache(dcfg, kv_quant=kv_quant, device=dev,
+                               **SPEC_CACHE)
     same = SpecConfig(gamma=SPEC_GAMMA, draft_cfg=cfg, draft_params=params,
                       draft_cache=dcache)
     arms_cfg = [
         ("h1", None, False, None),
         ("spec_same_sync", same, False, cfg),
-        ("spec_same_overlap", same, True, cfg),
-        ("spec_draft2_sync", SpecConfig(
+        ("spec_same_overlap", same, True, cfg)]
+    if "spec_draft2_sync" in arms:
+        arms_cfg.append(("spec_draft2_sync", SpecConfig(
             gamma=SPEC_GAMMA, draft_cfg=dcfg, draft_params=dparams,
-            draft_cache=dcache2), False, dcfg),
-        ("spec_lookup_sync", SpecConfig(gamma=SPEC_LOOKUP_GAMMA,
-                                        source="prompt_lookup"), False,
-         None)]
+            draft_cache=dcache2), False, dcfg))
+    if "spec_lookup_sync" in arms:
+        arms_cfg.append(("spec_lookup_sync", SpecConfig(
+            gamma=SPEC_LOOKUP_GAMMA, source="prompt_lookup"), False, None))
     attn = ("paged_decode_attention_q8" if kv_quant
             else "paged_decode_attention")
     path = {"h1": [attn], "spec_draft2_sync": [attn, "fused_rope"],
@@ -3956,7 +4005,7 @@ def phase_serve_spec(torch, cfg, seed, params, mods, kv_quant=None,
         emit(phase, arm=name, **st)
         arms[name] = st
     for c in (cache, dcache, dcache2):
-        if c.audit()["owned"]:
+        if c is not None and c.audit()["owned"]:
             fail(f"{phase}: an arm left pages owned")
     captured = arms["spec_same_overlap"]["captured_gammas"]
     if captured != [SPEC_GAMMA]:
@@ -4003,7 +4052,7 @@ def phase_serve_spec(torch, cfg, seed, params, mods, kv_quant=None,
     emit(phase, model="LLaMA-7B (LlamaPretrainConfig defaults)",
          weights="int8 (quantize_params_int8)" if kv_quant else "bf16",
          kv_pages=kv_quant or "bf16", requests=len(reqs), new=SPEC_NEW,
-         gamma=SPEC_GAMMA, lookup_gamma=SPEC_LOOKUP_GAMMA,
+         arms=list(arms), gamma=SPEC_GAMMA, lookup_gamma=SPEC_LOOKUP_GAMMA,
          draft2=dict(layers=SPEC_DRAFT_LAYERS, seed=SPEC_DRAFT_SEED),
          cache=SPEC_CACHE,
          token_share_equal_to_h1=agree,
@@ -7083,6 +7132,375 @@ def phase_serve_remote(torch, cfg, seed, params, mods, dev="cuda",
     return total
 
 
+# api_llama / api_train: the Paddle API's core (paddle_tpu_torch's Tensor,
+# nn.Layer, autograd, optimizer) and its Layer-API LlamaForCausalLM
+# (models/llama.py).  api_llama builds LLaMA-7B in full over the serve's
+# bf16 weights (models/weights.py:causal_lm_from_params: every parameter a
+# view of the stacked params, nothing copied) and drives its forward, the
+# eager generate, generate_compiled (greedy and int8; f32 compute, as JAX
+# pins it), the dense decode's beam search and generate_auto on both
+# routes.  api_train takes AdamW(multi_precision=True) steps of LLaMA-7B's
+# width at API_TRAIN_LAYERS layers, bf16 parameters, through
+# loss.backward(), opt.step() and opt.clear_grad().
+API_BATCH, API_PROMPT, API_NEW, API_BEAMS = 2, 128, 8, 4
+API_RAGGED = (128, 100)                  # generate_auto's paged route
+API_TRAIN_LAYERS, API_TRAIN_SEQ, API_TRAIN_STEPS = 4, 2048, 3
+API_TRAIN_LR = 3e-4
+
+
+def api_plain_impls(torch, mods):
+    """Op-table entries (ops/dispatch.py) that send the API's kernel routes
+    to the kernels' plain versions, differentiable by autograd."""
+    rp, fa, rn = mods["rp"], mods["fa"], mods["rn"]
+
+    def rms(x, w, eps):
+        out, _ = rn.rms_norm_plain(x.reshape(-1, x.shape[-1]), w, eps)
+        return out.reshape(x.shape)
+
+    return {"rms_norm": rms,
+            "flash_attention": lambda q, k, v, causal=False:
+                fa.sdpa_plain(q, k, v, causal),
+            "fused_rope": lambda x, cos, sin: rp._composite(x, cos, sin,
+                                                            False)}
+
+
+@contextlib.contextmanager
+def op_impls(impls):
+    """Register ``impls`` in the API's op table for the block."""
+    from paddle_tpu_torch.ops import dispatch
+    saved = {k: dispatch.get_op_impl(k, None) for k in impls}
+    for k, fn in impls.items():
+        dispatch.register_op_impl(k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            dispatch.register_op_impl(k, fn)
+
+
+def api_forward_launches(layers):
+    """The kernels one full Layer forward launches (no cache): K5 on q and
+    k of every layer, K6a once a layer, K9a on both norms of every layer
+    and the final one."""
+    return {"fused_rope": 2 * layers, "flash_attention_fwd": layers,
+            "rms_norm_fwd": 2 * layers + 1}
+
+
+def api_token_gap(torch, seqs, plain, P):
+    """The largest distance of a generated token's plain teacher-forced
+    logit below the plain top logit; ``seqs`` [B, P + new] tokens,
+    ``plain`` one [P + new - 1, V] logits tensor a row."""
+    return served_gap(torch, [s[P:].tolist() for s in seqs],
+                      [p[P - 1:] for p in plain])
+
+
+def phase_api_llama(torch, cfg, seed, params, mods, dev="cuda"):
+    """The Layer-API LLaMA over ``params`` (the serve's weights)."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.models.llama_pretrain as tlp
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.decode import (make_generate_beam,
+                                                quantize_params_int8)
+    from paddle_tpu_torch.models.paged_decode import generate_auto
+    from paddle_tpu_torch.models.weights import causal_lm_from_params
+    from paddle_tpu_torch.ops import dispatch
+    im = mods["im"]
+    t_all = time.perf_counter()
+    L = cfg.num_hidden_layers
+    lcfg = LlamaConfig(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+        intermediate_size=cfg.intermediate_size, num_hidden_layers=L,
+        num_attention_heads=cfg.num_attention_heads,
+        num_key_value_heads=cfg.num_key_value_heads,
+        rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta)
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    model = causal_lm_from_params(params, lcfg)
+    model.eval()
+    prompts = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (API_BATCH, API_PROMPT))
+    ids = paddle.to_tensor(prompts)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    out = {}
+    problems = []
+    launches = {name: 0 for name, _, _ in COUNTERS}
+
+    def arm(fn):
+        """``fn()`` with the counts zeroed first -> (its result, the kernels
+        it launched), added to the phase's launches."""
+        zero_counts(mods)
+        res = fn()
+        used = read_counts(mods)
+        for k, v in used.items():
+            launches[k] += v
+        return res, used
+
+    def plain(c, seqs, p=params):
+        return [plain_logits(torch, c, p, list(map(int, s)), dev)
+                for s in seqs]
+
+    # (a) the full forward, teacher-forced on the prompts
+    t0 = time.perf_counter()
+    with paddle.no_grad():
+        logits, used = arm(lambda: model(ids)._data.float())
+    ref = plain(cfg, prompts)
+    out["forward_logit_max_abs_diff"] = max_diff(list(logits), ref)
+    # planted fault: the flash forward attending to the whole sequence
+    real_fa = dispatch.get_op_impl("flash_attention", None)
+    with op_impls({"flash_attention": lambda q, k, v, causal=False:
+                   real_fa(q, k, v, causal=False)}):
+        with paddle.no_grad():
+            fault = model(ids)._data.float()
+    out["forward_planted_fault_max_abs_diff"] = max_diff(list(fault), ref)
+    del logits, fault
+    out["forward_launches"] = {k: v for k, v in used.items() if v}
+    out["forward_s"] = time.perf_counter() - t0
+    want = api_forward_launches(L)
+    for name, n in used.items():
+        if n != want.get(name, 0):
+            problems.append(f"the Layer forward launched {name} {n} times, "
+                            f"the code predicts {want.get(name, 0)}")
+    if out["forward_logit_max_abs_diff"] > LOGIT_LIMIT:
+        problems.append("the Layer forward's logits differ from the plain "
+                        f"forward's by {out['forward_logit_max_abs_diff']}")
+    if out["forward_planted_fault_max_abs_diff"] <= LOGIT_LIMIT:
+        problems.append("the planted fault (non-causal flash forward) moved "
+                        "the logits by only "
+                        f"{out['forward_planted_fault_max_abs_diff']}")
+
+    # (b) the eager generate over the concatenated cache, greedy
+    t0 = time.perf_counter()
+    eager, used = arm(lambda: model.generate(ids,
+                                             max_new_tokens=API_NEW)._data)
+    out["eager_launches"] = {k: v for k, v in used.items() if v}
+    out["eager_s"] = time.perf_counter() - t0
+    out["eager_token_max_gap"] = api_token_gap(
+        torch, eager, plain(cfg, eager[:, :-1]), API_PROMPT)
+    want = {"fused_rope": 2 * L, "flash_attention_fwd": L,
+            "rms_norm_fwd": (2 * L + 1) * (API_NEW + 1)}
+    for name, n in used.items():
+        if n != want.get(name, 0):
+            problems.append(f"generate launched {name} {n} times, the code "
+                            f"predicts {want.get(name, 0)}")
+
+    # (c) generate_compiled: the dense decode in f32, greedy and int8
+    pcfg = model._pretrain_config()
+    t0 = time.perf_counter()
+    dense, used = arm(lambda: model.generate_compiled(
+        ids, max_new_tokens=API_NEW)._data)
+    out["compiled_launches"] = {k: v for k, v in used.items() if v}
+    out["compiled_s"] = time.perf_counter() - t0
+    stacked = model._cached_pretrain_params()
+    dense_plain = plain(f32, dense[:, :-1])
+    out["compiled_logit_max_abs_diff"] = max_diff(
+        [api_dense_logits(torch, pcfg, stacked, s) for s in dense[:, :-1]],
+        dense_plain)
+    out["compiled_token_max_gap"] = api_token_gap(torch, dense, dense_plain,
+                                                  API_PROMPT)
+    out["compiled_equal_eager"] = bool(torch.equal(dense, eager))
+    if {k: v for k, v in used.items() if v} != {"fused_rope": 2 * L}:
+        problems.append(f"generate_compiled launched {used}, the code "
+                        f"predicts K5 {2 * L} times and nothing else")
+    t0 = time.perf_counter()
+    q8, used = arm(lambda: model.generate_compiled(
+        ids, max_new_tokens=API_NEW, quantize_int8=True)._data)
+    out["int8_launches"] = {k: v for k, v in used.items() if v}
+    out["int8_s"] = time.perf_counter() - t0
+    qparams = model._cached_pretrain_params(True)
+    with patched((tlp, "int8_matmul", im.int8_matmul_plain)):
+        q8_plain = plain(f32, q8[:, :-1], qparams)
+    out["int8_logit_max_abs_diff"] = max_diff(
+        [api_dense_logits(torch, pcfg, qparams, s) for s in q8[:, :-1]],
+        q8_plain)
+    out["int8_token_max_gap"] = api_token_gap(torch, q8, q8_plain,
+                                              API_PROMPT)
+    want_k3 = (7 * L + 1) * API_NEW
+    if used["int8_matmul"] + used["int8_matmul_wave"] != want_k3:
+        problems.append(f"the int8 arm launched K3 {used['int8_matmul']} + "
+                        f"{used['int8_matmul_wave']} times, want {want_k3}")
+    del qparams, q8_plain
+    model.__dict__.pop("_gen_params", None)     # the int8 tree
+
+    # (d) beam search on the dense decode, K beams
+    t0 = time.perf_counter()
+    stacked = model._cached_pretrain_params()
+    (toks, scores), used = arm(lambda: make_generate_beam(
+        pcfg, API_PROMPT, API_NEW, API_BEAMS)(
+            stacked, torch.as_tensor(prompts, device=dev)))
+    out["beam_launches"] = {k: v for k, v in used.items() if v}
+    out["beam_s"] = time.perf_counter() - t0
+    seqs = torch.cat([torch.as_tensor(prompts, device=dev), toks], 1)
+    lp = [torch.log_softmax(x, -1) for x in plain(f32, seqs[:, :-1])]
+    ref_scores = torch.stack([
+        x[API_PROMPT - 1:].gather(-1, t[:, None]).sum()
+        for x, t in zip(lp, toks)])
+    out["beam_scores"] = scores.tolist()
+    out["beam_score_max_abs_diff"] = float(
+        (scores - ref_scores).abs().max())
+    if out["beam_score_max_abs_diff"] > API_NEW * LOGIT_LIMIT:
+        problems.append("the beams' summed log-probabilities differ from "
+                        "the plain forward's by "
+                        f"{out['beam_score_max_abs_diff']}")
+    del stacked
+    model.__dict__.pop("_gen_params", None)
+
+    # (e) generate_auto over the serve's tree: uniform -> dense, ragged ->
+    # paged (K1)
+    t0 = time.perf_counter()
+    uni, used_uni = arm(lambda: generate_auto(
+        cfg, params, [list(r) for r in prompts], API_NEW))
+    rows = [list(prompts[i, :n]) for i, n in enumerate(API_RAGGED)]
+    rag, used_rag = arm(lambda: generate_auto(cfg, params, rows, API_NEW))
+    out["auto_s"] = time.perf_counter() - t0
+    out["auto_launches"] = {"uniform": {k: v for k, v in used_uni.items()
+                                        if v},
+                            "ragged": {k: v for k, v in used_rag.items()
+                                       if v}}
+    gaps = []
+    for r, toks_ in zip(rows + [list(p) for p in prompts],
+                        list(rag) + list(uni)):
+        seq = torch.as_tensor(r + toks_.tolist(), device=dev)
+        gaps.append(api_token_gap(torch, seq[None], plain(cfg, [seq[:-1]]),
+                                  len(r)))
+    out["auto_token_max_gap"] = max(gaps)
+    if used_uni["paged_decode_attention"] or not used_uni["fused_rope"]:
+        problems.append("generate_auto's uniform batch left the dense "
+                        f"decode: {used_uni}")
+    if not used_rag["paged_decode_attention"]:
+        problems.append("generate_auto's ragged batch launched no K1")
+    for key in ("eager", "compiled", "auto"):
+        if out[f"{key}_token_max_gap"] > 2 * LOGIT_LIMIT:
+            problems.append(f"a {key} token sits {out[key + '_token_max_gap']}"
+                            f" below the plain top logit")
+    if out["compiled_logit_max_abs_diff"] > LOGIT_LIMIT:
+        problems.append("generate_compiled's logits differ from the plain "
+                        f"forward's by {out['compiled_logit_max_abs_diff']}")
+    if out["int8_logit_max_abs_diff"] > INT8_LOGIT_LIMIT:
+        problems.append("the int8 arm's logits differ from the plain int8 "
+                        f"forward's by {out['int8_logit_max_abs_diff']}")
+    if out["int8_token_max_gap"] > 2 * INT8_LOGIT_LIMIT:
+        problems.append(f"an int8 token sits {out['int8_token_max_gap']} "
+                        "below the plain int8 top logit")
+    del model
+    emit("api_llama", model="LLaMA-7B (LlamaConfig defaults), the serve's "
+         "bf16 weights as views", layers=L, batch=API_BATCH,
+         prompt=API_PROMPT, new_tokens=API_NEW, beams=API_BEAMS,
+         ragged=list(API_RAGGED), logit_limit=LOGIT_LIMIT,
+         int8_logit_limit=INT8_LOGIT_LIMIT, gap_limit=2 * LOGIT_LIMIT,
+         launches={k: v for k, v in launches.items() if v},
+         phase_s=time.perf_counter() - t_all, **out)
+    for p in problems:
+        fail(f"api_llama: {p}")
+    return launches
+
+
+def api_dense_logits(torch, pcfg, params, seq):
+    """Teacher-forced logits [S, V] of one sequence through the dense
+    decode's own prefill (models/decode.py: K5, K3 on int8 weights)."""
+    from paddle_tpu_torch.models import decode as tdec
+    with torch.no_grad():
+        x, _, _ = tdec._prefill(pcfg, params, seq[None])
+        return head_logits(pcfg, params, x[0])
+
+
+def phase_api_train(torch, seed, mods, dev="cuda", cfg_kw=None,
+                    seq=API_TRAIN_SEQ):
+    """AdamW(multi_precision=True) steps of the Layer LLaMA at LLaMA-7B's
+    width (``cfg_kw`` overrides the config, for a rehearsal)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    rp = mods["rp"]
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    paddle.seed(seed)
+    lcfg = LlamaConfig(**dict(num_hidden_layers=API_TRAIN_LAYERS,
+                              **(cfg_kw or {})))
+    L, S = lcfg.num_hidden_layers, seq
+    model = LlamaForCausalLM(lcfg).bfloat16()
+    n_params = sum(p.size for p in model.parameters())
+    opt = paddle.optimizer.AdamW(API_TRAIN_LR, parameters=model.parameters(),
+                                 multi_precision=True)
+    toks = np.random.RandomState(seed).randint(0, lcfg.vocab_size,
+                                               (API_BATCH, S + 1))
+    x, y = paddle.to_tensor(toks[:, :-1]), paddle.to_tensor(toks[:, 1:])
+    problems = []
+
+    def grads():
+        loss = model(x, labels=y)
+        loss.backward()
+        g = [p.grad._data.clone() for p in model.parameters()]
+        model.clear_gradients()
+        return float(loss), g
+
+    def worst(a, b):
+        return max(float((u.float() - v.float()).abs().max()
+                         / v.float().abs().max()) for u, v in zip(a, b))
+
+    # one step's gradients: kernels, plain versions, a planted fault
+    t0 = time.perf_counter()
+    zero_counts(mods)
+    loss_k, g_k = grads()
+    per_step = {k: v for k, v in read_counts(mods).items() if v}
+    with op_impls(api_plain_impls(torch, mods)):
+        zero_counts(mods)
+        loss_p, g_p = grads()
+        if any(read_counts(mods).values()):
+            problems.append("the plain pass launched a kernel")
+    real_rope = rp._apply
+    with patched((rp, "_apply", lambda x, cos, sin, neg_sin:
+                  real_rope(x, cos, sin, False))):
+        _, g_f = grads()
+    diff, fault_diff = worst(g_k, g_p), worst(g_f, g_p)
+    del g_p, g_f
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+    del g_k
+    check_s = time.perf_counter() - t0
+    want = {"fused_rope": 4 * L, "flash_attention_fwd": L,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+            "rms_norm_fwd": 2 * L + 1, "rms_norm_bwd": 2 * L + 1}
+    if per_step != want:
+        problems.append(f"a step launched {per_step}, the code predicts "
+                        f"{want}")
+    # the steps
+    zero_counts(mods)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    for _ in range(API_TRAIN_STEPS):
+        t = time.perf_counter()
+        loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = read_counts(mods)
+    emit("api_train", model="LlamaForCausalLM at LLaMA-7B width, bf16 "
+         "parameters, AdamW(multi_precision=True)", layers=L,
+         params=n_params, batch=API_BATCH, seq=S, lr=API_TRAIN_LR,
+         losses=losses, step_ms=step_ms,
+         tokens_per_s=[API_BATCH * S / (t / 1e3) for t in step_ms],
+         launches_per_step=per_step, loss_kernels=loss_k,
+         loss_plain=loss_p, grad_max_rel_diff=diff, grad_limit=GRAD_LIMIT,
+         planted_fault="the RoPE backward rotating with +sin instead of "
+         "-sin", planted_fault_max_rel_diff=fault_diff, check_s=check_s,
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+         phase_s=time.perf_counter() - t_all)
+    if not finite:
+        problems.append("a gradient is not finite")
+    if diff > GRAD_LIMIT:
+        problems.append(f"the kernels' gradients differ from their plain "
+                        f"versions' by {diff} of a leaf's largest")
+    if fault_diff <= GRAD_LIMIT:
+        problems.append(f"the planted fault moved the gradients by only "
+                        f"{fault_diff}, within the limit")
+    if not losses[-1] < losses[0]:
+        problems.append(f"the loss did not fall: {losses}")
+    for p in problems:
+        fail(f"api_train: {p}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7226,6 +7644,9 @@ def main():
     launches_remote = timed("serve_remote", phase_serve_remote, torch, cfg,
                             s, params, mods, card=card)
     torch.cuda.empty_cache()
+    launches_api = timed("api_llama", phase_api_llama, torch, cfg, s, params,
+                         mods)
+    torch.cuda.empty_cache()
     launches_int8, qparams = timed("serve_int8", phase_serve_int8, torch,
                                    cfg, s, params, mods)
     del params
@@ -7240,11 +7661,11 @@ def main():
     torch.cuda.empty_cache()
     launches_mixed_int8 = timed(
         "serve_mixed_int8", phase_serve_mixed, torch, cfg, s, qparams, mods,
-        kv_quant="int8")
+        kv_quant="int8", waves=MIXED_INT8_WAVES)
     torch.cuda.empty_cache()
     launches_spec_int8 = timed(
         "serve_spec_int8", phase_serve_spec, torch, cfg, s, qparams, mods,
-        kv_quant="int8")
+        kv_quant="int8", arms=SPEC_INT8_ARMS)
     torch.cuda.empty_cache()
     launches_swap_int8 = timed(
         "serve_swap_int8", phase_serve_swap, torch, cfg, s, qparams, mods,
@@ -7274,15 +7695,18 @@ def main():
     for flag_set in "AB":
         timed("train_fused_grads", phase_train_grads, torch, train_cfg, s,
               mods, flag_set=flag_set)
-    # each kernel's launches in the serve, train, train_packed and
-    # train_fused phases
+    torch.cuda.empty_cache()
+    launches_api_train = timed("api_train", phase_api_train, torch, s, mods)
+    # each kernel's launches in the serve, train, train_packed,
+    # train_fused, api_llama and api_train phases
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
             launches_dense, launches_faults, launches_mixed, launches_spec,
             launches_swap, launches_qos, launches_disagg, launches_remote,
             launches_int8,
             launches_int8_overlap, launches_prefix_int8, launches_mixed_int8,
             launches_spec_int8, launches_swap_int8, launches_disagg_int8,
-            launches_train, launches_packed, *launches_fused]
+            launches_train, launches_packed, *launches_fused, launches_api,
+            launches_api_train]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 
     def entry(name, source, replaces, runs):

@@ -1,11 +1,48 @@
 """paddle_tpu_torch: the PyTorch + CUDA port of paddle_tpu for NVIDIA Hopper.
 
 The port runs the LLaMA serving path of ``paddle_tpu`` (HTTP front,
-continuous-batching engine, packed prefill, paged decode) in PyTorch, with
-hand-written CUDA kernels for sm_90a where the JAX package has Pallas TPU
-kernels.  It imports neither ``jax`` nor ``paddle_tpu``.  Entry points run
-on the CUDA device unless the caller passes ``device="cpu"``, where every
-kernel wrapper uses its plain PyTorch version.
+continuous-batching engine, packed prefill, paged decode) and its training
+step in PyTorch, with hand-written CUDA kernels for sm_90a where the JAX
+package has Pallas TPU kernels.  It imports neither ``jax`` nor
+``paddle_tpu``.  Entry points run on the CUDA device unless the caller
+passes ``device="cpu"``, where every kernel wrapper uses its plain PyTorch
+version.
+
+The namespace mirrors ``paddle`` for the dygraph core this port carries
+(``import paddle_tpu_torch as paddle``): ``to_tensor`` and the tensor ops,
+``backward`` / ``grad`` / ``no_grad``, ``nn`` (``Layer``, ``Linear``,
+``Embedding``, ``RMSNorm``, ...), ``optimizer`` (``SGD``, ``Momentum``,
+``Adam``, ``AdamW``) and ``incubate.nn.functional``.  Tensors go to the
+current place, the card unless ``paddle.set_device("cpu")``; on a host
+without a card the default place raises when a tensor is made.
+
+    import paddle_tpu_torch as paddle
+    paddle.set_device("cpu")
+    x = paddle.to_tensor([[1., 2.], [3., 4.]], stop_gradient=False)
+    paddle.matmul(x, x).sum().backward()
+    print(x.grad)
 """
 
 __version__ = "0.1.0"
+
+from .flags import get_flags, set_flags  # noqa: F401,E402
+from .framework.dtype import (  # noqa: F401,E402
+    bfloat16, bool_, complex64, complex128, dtype, float16, float32,
+    float64, get_default_dtype, int8, int16, int32, int64,
+    set_default_dtype, uint8)
+from .framework.place import (  # noqa: F401,E402
+    CPUPlace, CUDAPlace, device_count, get_device, is_compiled_with_cuda,
+    set_device)
+from .framework.random import seed  # noqa: F401,E402
+from .tensor.tensor import Tensor, is_tensor, to_tensor  # noqa: F401,E402
+from . import tensor  # noqa: F401,E402
+from .tensor import *  # noqa: F401,F403,E402
+from . import autograd  # noqa: F401,E402
+from .autograd import (  # noqa: F401,E402
+    enable_grad, grad, is_grad_enabled, no_grad, set_grad_enabled)
+from .framework.param import Parameter, ParamAttr  # noqa: F401,E402
+from . import nn  # noqa: F401,E402
+from . import optimizer  # noqa: F401,E402
+from . import incubate  # noqa: F401,E402
+
+bool = bool_  # paddle.bool

@@ -132,3 +132,14 @@ define_flag("FLAGS_pallas_swiglu", False,
 define_flag("FLAGS_pallas_rmsnorm_matmul", False,
             "Fuse ln1 into the q / k / v products and ln2 into the gate / "
             "up products through the rmsnorm_matmul kernel.")
+define_flag("FLAGS_pallas_flash_attention", True,
+            "Route scaled_dot_product_attention through the flash "
+            "attention kernels where its rule allows (no mask, no dropout, "
+            "q_len == kv_len; bf16 on the card).")
+define_flag("FLAGS_pallas_rope", True,
+            "Route fused_rotary_position_embedding through the fused RoPE "
+            "kernel (rotate-half, no position_ids, head_dim % 128 == 0).")
+define_flag("FLAGS_check_nan_inf", False,
+            "Check every dispatched op's floating outputs for NaN / Inf.")
+define_flag("FLAGS_check_nan_inf_level", 0,
+            "0: a NaN / Inf raises FloatingPointError; above 0: it warns.")

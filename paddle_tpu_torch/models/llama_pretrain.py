@@ -194,11 +194,19 @@ def _mm(x, w, dt):
     The dict goes to :func:`int8_matmul` for any K and N (the JAX code
     takes its Pallas kernel only for lane-aligned dims and an XLA
     dequant-then-matmul otherwise; the port's kernel masks ragged edges,
-    so it has one branch)."""
+    so it has one branch).  The kernel takes bf16 activations and writes
+    bf16: an f32 compute type on a CUDA tensor (the Layer model's
+    ``generate_compiled``, which pins f32 as JAX does) rounds x to bf16
+    at the kernel and widens its output back, decided here before the
+    launch (ROADMAP.md queue 3); on the CPU the plain version keeps f32."""
     if isinstance(w, dict):
         K = w["q"].shape[0]
         x2 = x.reshape(-1, K).to(dt).contiguous()
-        out = int8_matmul(x2, w["q"], w["s"], out_dtype=dt)
+        if x2.device.type == "cuda" and dt != torch.bfloat16:
+            out = int8_matmul(x2.to(torch.bfloat16), w["q"], w["s"],
+                              out_dtype=torch.bfloat16).to(dt)
+        else:
+            out = int8_matmul(x2, w["q"], w["s"], out_dtype=dt)
         return out.reshape(*x.shape[:-1], out.shape[-1])
     return x @ w.to(dt)
 

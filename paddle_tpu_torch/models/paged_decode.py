@@ -37,8 +37,9 @@ hand-off: ``export_row`` stages a finished row for another cache,
 ``export_fetch`` / ``export_discard`` end the export, and ``adopt_swap``
 parks a shipped context as a swap record of the receiving cache.  Still
 raising ``NotImplementedError``: TP meshes (``mesh=``, ROADMAP.md queue 1
-item 7) and ``generate_auto`` (it waits for the dense ``make_generate``,
-item 9(d)).
+item 7).  :func:`generate_auto` routes a uniform batch to the dense decode
+(``models/decode.py:make_generate``) and a ragged one to
+:func:`generate_paged`.
 """
 
 from __future__ import annotations
@@ -1860,11 +1861,46 @@ def generate_paged(cfg: LlamaPretrainConfig, params, prompt,
 
 def generate_auto(cfg: LlamaPretrainConfig, params, prompts,
                   max_new_tokens: int, temperature: float = 0.0,
-                  seed: int = 0, page: int = 64, cache=None):
-    """JAX's adaptive router between the dense single-program cache and
-    :func:`generate_paged`; its dense half (``make_generate``) is not
-    ported yet, so this raises ``NotImplementedError``."""
-    raise NotImplementedError(
-        "generate_auto routes equal-length batches to the dense "
-        "make_generate, which is not ported yet; call generate_paged "
-        "(see ROADMAP.md)")
+                  seed: int = 0, page: int = 64,
+                  cache: Optional[PagedKVCache] = None):
+    """JAX's adaptive router between the two decode paths:
+
+    * equal-length prompts and no caller cache -> the dense cache of
+      :func:`~paddle_tpu_torch.models.decode.make_generate`;
+    * ragged lengths (or a caller's cache) -> the paged path: each row
+      claims its pages (``cache.alloc_row``) and :func:`generate_paged`
+      decodes them (on a cache of its own made on the params' device when
+      none is given).
+
+    ``prompts``: a list of 1-D token sequences (possibly ragged) or a ``[B,
+    S]`` array / tensor.  Sampling at ``temperature > 0`` draws from a
+    generator seeded with ``seed``.  -> ``[B, max_new_tokens]`` int64."""
+    from .decode import make_generate
+    if isinstance(prompts, (list, tuple)):
+        rows = [np.asarray(p) for p in prompts]
+    else:
+        arr = prompts.cpu().numpy() if torch.is_tensor(prompts) else \
+            np.asarray(prompts)
+        rows = list(arr)
+    lens = [len(r) for r in rows]
+    dev = params["embed"].device
+    if cache is None and len(set(lens)) == 1:
+        gen = make_generate(cfg, prompt_len=int(lens[0]),
+                            max_new_tokens=max_new_tokens,
+                            temperature=temperature)
+        return gen(params, torch.as_tensor(np.stack(rows), device=dev),
+                   seed)
+    B, S = len(lens), max(lens)
+    padded = np.zeros((B, S), np.int64)
+    for b, r in enumerate(rows):
+        padded[b, :lens[b]] = r
+    if cache is None:
+        pages_max = (S + max_new_tokens + page - 1) // page
+        total = sum((n + max_new_tokens + page - 1) // page
+                    for n in lens) + 1
+        cache = PagedKVCache(cfg, num_pages=total, pages_max=pages_max,
+                             batch=B, page=page, device=dev)
+    for b, n in enumerate(lens):
+        cache.alloc_row(b, n)
+    return generate_paged(cfg, params, padded, max_new_tokens, cache,
+                          temperature=temperature, seed=seed)

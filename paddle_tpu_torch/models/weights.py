@@ -8,6 +8,13 @@ This is how the tests give both packages the same weights.
 :func:`opt_state_from_jax` does the same for an optimizer state
 (``{"t", "moments"}`` of AdamW or Adafactor), so that both packages can
 start a training step from the same state.
+
+For the Layer API: :func:`layer_state_from_jax` loads a JAX Layer model's
+``state_dict()`` (JAX's dotted names, numpy arrays or anything with
+``.numpy()``) into the port's Layer model of the same config, and
+:func:`causal_lm_from_params` builds the port's ``LlamaForCausalLM`` over a
+functional params tree without copying it: each parameter is a view of
+one layer's slice of the stacked ``[L, ...]`` tensors.
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["params_from_jax", "opt_state_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "layer_state_from_jax",
+           "causal_lm_from_params"]
 
 
 def params_from_jax(tree: Any, device=None) -> Any:
@@ -48,3 +56,46 @@ def opt_state_from_jax(state: Any, device=None) -> Any:
     ``device`` (CUDA unless asked otherwise), bit for bit."""
     return {"t": int(np.asarray(state["t"])),
             "moments": params_from_jax(state["moments"], device)}
+
+
+def layer_state_from_jax(model, state) -> None:
+    """Load a JAX Layer model's ``state_dict()`` into the port's ``model``
+    (same names and shapes): each value cast to the port parameter's type
+    and kept on its device.  Raises on a name either side lacks."""
+    arrays = {k: (v.numpy() if hasattr(v, "numpy") else np.asarray(v))
+              for k, v in state.items()}
+    missing, unexpected = model.set_state_dict(arrays)
+    if missing or unexpected:
+        raise KeyError(f"state_dict names differ: missing {missing}, "
+                       f"unexpected {unexpected}")
+
+
+def causal_lm_from_params(params, cfg):
+    """The port's ``LlamaForCausalLM`` for ``cfg`` (an untied
+    ``LlamaConfig``) over the functional ``params`` (``embed``, stacked
+    ``blocks``, ``final_norm``, ``lm_head``, on any device): no parameter
+    is drawn or copied, each is a view of ``params`` (layer ``i``'s
+    weights are ``blocks[name][i]``), so writing one writes the other."""
+    from ..nn.layer.layers import deferred_init
+    from .llama import LlamaForCausalLM, _NAMES
+    if cfg.tie_word_embeddings:
+        raise ValueError("the functional params have their own lm_head; "
+                         "build an untied config")
+    with deferred_init():
+        model = LlamaForCausalLM(cfg)
+
+    def put(param, data):
+        if tuple(data.shape) != tuple(param.shape):
+            raise ValueError(f"{tuple(data.shape)} != {param.shape}")
+        keep = param.stop_gradient
+        param._data = data.detach()
+        param.stop_gradient = keep
+
+    blocks = params["blocks"]
+    for i, layer in enumerate(model.llama.layers):
+        for name, get in _NAMES.items():
+            put(get(layer), blocks[name][i])
+    put(model.llama.embed_tokens.weight, params["embed"])
+    put(model.llama.norm.weight, params["final_norm"])
+    put(model.lm_head.weight, params["lm_head"])
+    return model

@@ -1,0 +1,232 @@
+"""Functional nn ops: ``linear``, ``embedding``, ``silu``, ``softmax``,
+``log_softmax``, ``cross_entropy``, ``rms_norm`` and
+``scaled_dot_product_attention``.
+
+Counterpart of the same functions of ``paddle_tpu/nn/functional/``.  Two of
+them reach the port's kernels through the op table
+(``ops/dispatch.py``), by JAX's conditions:
+
+* :func:`rms_norm` with a weight calls the ``rms_norm`` entry, the K9a /
+  K9b wrapper: the kernels on a CUDA tensor, their plain versions on a CPU
+  one (JAX takes its kernel whenever the backend is the accelerator).
+  Without a weight it is the composite.
+* :func:`scaled_dot_product_attention` follows :func:`sdpa_route`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as TF
+
+from ...flags import flags
+from ...framework import dtype as dtypes
+from ...ops.dispatch import apply, as_tensor, get_op_impl
+from ...ops.flash_attention import causal_mask, sdpa_plain
+
+__all__ = ["linear", "embedding", "silu", "softmax", "log_softmax",
+           "cross_entropy", "rms_norm", "scaled_dot_product_attention",
+           "sdpa_route"]
+
+
+def silu(x, name=None):
+    return apply("silu", TF.silu, as_tensor(x))
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    tdt = dtypes.to_torch_dtype(dtype)
+
+    def fn(a):
+        return torch.softmax(a if tdt is None else a.to(tdt), dim=axis)
+
+    return apply("softmax", fn, as_tensor(x))
+
+
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    tdt = dtypes.to_torch_dtype(dtype)
+
+    def fn(a):
+        return torch.log_softmax(a if tdt is None else a.to(tdt), dim=axis)
+
+    return apply("log_softmax", fn, as_tensor(x))
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ W + b`` with W ``[in, out]`` (Paddle's layout)."""
+    x, weight = as_tensor(x), as_tensor(weight)
+    if bias is not None:
+        return apply("linear", lambda a, w, b: torch.matmul(a, w) + b, x,
+                     weight, as_tensor(bias))
+    return apply("linear", torch.matmul, x, weight)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` [V, h] at ids ``x``; ids equal to
+    ``padding_idx`` give zeros (JAX's rule: the output, not only the
+    gradient)."""
+    def fn(ids, w):
+        out = TF.embedding(ids.long(), w)
+        if padding_idx is not None:
+            out = out.masked_fill((ids == padding_idx)[..., None], 0.0)
+        return out
+
+    return apply("embedding", fn, as_tensor(x), as_tensor(weight))
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """JAX's ``cross_entropy``: hard or soft labels, ``ignore_index``
+    masked out of the sum and of the mean's count, per-class ``weight``,
+    ``label_smoothing``."""
+    def reduce(loss):
+        if reduction == "mean":
+            return loss.mean()
+        if reduction == "sum":
+            return loss.sum()
+        return loss
+
+    def fn(logits, lab, *w):
+        logp = torch.log_softmax(logits, dim=axis) if use_softmax else \
+            torch.log(torch.clamp(logits, min=1e-30))
+        nclass = logits.shape[axis]
+        if soft_label or (lab.dim() == logits.dim() and
+                          lab.shape[axis] == nclass and
+                          lab.is_floating_point()):
+            soft = lab
+            if label_smoothing > 0:
+                soft = soft * (1 - label_smoothing) + label_smoothing / nclass
+            return reduce(-(soft * logp).sum(axis))
+        idx = lab.long()
+        if idx.dim() == logits.dim():
+            idx = idx.squeeze(axis)
+        mask = idx != ignore_index
+        safe = torch.where(mask, idx, torch.zeros_like(idx))
+        if label_smoothing > 0:
+            oh = TF.one_hot(safe, nclass).movedim(-1, axis).to(logp.dtype)
+            oh = oh * (1 - label_smoothing) + label_smoothing / nclass
+            loss = -(oh * logp).sum(axis)
+        else:
+            loss = -logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+        loss = torch.where(mask, loss, torch.zeros_like(loss))
+        if w:
+            wt = w[0][safe]
+            loss = loss * wt
+            if reduction == "mean":
+                return loss.sum() / torch.clamp((wt * mask).sum(), min=1e-12)
+        if reduction == "mean":
+            return loss.sum() / torch.clamp(mask.sum(), min=1)
+        return reduce(loss)
+
+    args = [as_tensor(input), as_tensor(label)]
+    if weight is not None:
+        args.append(as_tensor(weight))
+    return apply("cross_entropy", fn, *args)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    """RMSNorm over the last axis.  With a weight: the ``rms_norm`` op
+    table entry (the K9 wrapper: ``x`` reshaped to rows and back, f32
+    inside, the output in ``promote(x, w)``).  Without one: JAX's
+    composite, ``x * rstd`` rounded to x's type."""
+    x = as_tensor(x)
+    impl = get_op_impl("rms_norm", None)
+    if impl is not None and weight is not None:
+        return apply("rms_norm", lambda a, w: impl(a, w, epsilon), x,
+                     as_tensor(weight))
+
+    def fn(a, *w):
+        af = a.float()
+        var = torch.mean(af * af, -1, keepdim=True)
+        out = (af * torch.rsqrt(var + epsilon)).to(a.dtype)
+        return out * w[0] if w else out
+
+    if weight is not None:
+        return apply("rms_norm", fn, x, as_tensor(weight))
+    return apply("rms_norm", fn, x)
+
+
+def _pick_block(s: int):
+    """JAX's ``_pick_blocks``: the largest power-of-two block <= 512 that
+    divides ``s``, or None when no block >= 8 does."""
+    for b in (512, 256, 128, 64, 32, 16, 8):
+        if s % b == 0:
+            return b
+    return None
+
+
+def sdpa_route(q, k, attn_mask=None, dropout_p=0.0) -> str:
+    """Which attention :func:`scaled_dot_product_attention` runs for q / k
+    ``[b, s, h, d]`` data, decided from shapes, types and the device
+    before anything launches:
+
+    * ``"composite"``: no ``flash_attention`` entry in the op table,
+      ``FLAGS_pallas_flash_attention`` off, a mask or dropout (JAX's
+      conditions) -- the einsum composite in the inputs' type;
+    * ``"plain"``: JAX's flash wrapper sends these to its XLA attention
+      (``_xla_sdpa``): ``q_len != kv_len`` (decode shapes), unequal head
+      counts, or a length no power-of-two block >= 8 divides.  The port
+      adds one condition of its own: on a CUDA tensor, a type other than
+      bf16 or a head_dim other than 64 / 128, which the kernels do not
+      take (JAX sends f32 into its kernel; ROADMAP.md queue 3).  This
+      route is ``ops.flash_attention.sdpa_plain``, the same f32 math;
+    * ``"flash"``: the rest, the flash attention kernels (K6a forward,
+      K6b / K6c backward) on the card, their plain versions on the CPU.
+    """
+    impl = get_op_impl("flash_attention", None)
+    if impl is None or not flags.FLAGS_pallas_flash_attention or \
+            attn_mask is not None or dropout_p != 0.0:
+        return "composite"
+    if q.shape[1] != k.shape[1] or q.shape[2] != k.shape[2] or \
+            _pick_block(q.shape[1]) is None:
+        return "plain"
+    if q.device.type == "cuda" and (q.dtype != torch.bfloat16 or
+                                    q.shape[-1] not in (64, 128)):
+        return "plain"
+    return "flash"
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """q / k / v ``[batch, seq, heads, dim]``; routed by
+    :func:`sdpa_route`.  A causal mask is end-aligned (a 1-token query
+    sees the whole cache); ``q_len > kv_len`` with ``is_causal`` raises.
+    Dropout is not ported yet (ROADMAP.md queue 1 item 10)."""
+    q, k, v = as_tensor(query), as_tensor(key), as_tensor(value)
+    if is_causal:
+        causal_mask(q.shape[1], k.shape[1])
+    if dropout_p > 0.0 and training:
+        raise NotImplementedError(
+            "attention dropout is not ported yet (ROADMAP.md queue 1 item "
+            "10)")
+    route = sdpa_route(q._data, k._data, attn_mask, dropout_p)
+    if route == "flash":
+        impl = get_op_impl("flash_attention", None)
+        return apply("flash_attention",
+                     lambda qq, kk, vv: impl(qq, kk, vv, causal=is_causal),
+                     q, k, v)
+    if route == "plain":
+        return apply("flash_attention",
+                     lambda qq, kk, vv: sdpa_plain(qq, kk, vv, is_causal),
+                     q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def fn(qq, kk, vv, *mask):
+        qq, kk, vv = (t.transpose(1, 2) for t in (qq, kk, vv))
+        logits = torch.einsum("bhqd,bhkd->bhqk", qq, kk) * scale
+        if is_causal:
+            cm = causal_mask(logits.shape[-2], logits.shape[-1],
+                             logits.device)
+            logits = logits.masked_fill(~cm, -math.inf)
+        if mask:
+            m = mask[0]
+            logits = logits.masked_fill(~m, -math.inf) \
+                if m.dtype == torch.bool else logits + m
+        probs = torch.softmax(logits.float(), dim=-1).to(vv.dtype)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, vv).transpose(1, 2)
+
+    if attn_mask is not None:
+        return apply("sdpa", fn, q, k, v, as_tensor(attn_mask))
+    return apply("sdpa", fn, q, k, v)

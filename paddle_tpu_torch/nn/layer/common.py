@@ -1,0 +1,61 @@
+"""``Linear`` and ``Embedding`` (counterpart of
+``paddle_tpu/nn/layer/common.py``).  ``Linear``'s weight keeps Paddle's
+``[in, out]`` layout, so a JAX ``state_dict()`` loads unchanged."""
+
+from __future__ import annotations
+
+from .. import functional as F
+from .. import initializer as I
+from .layers import Layer
+
+__all__ = ["Linear", "Embedding"]
+
+
+class Linear(Layer):
+    """``y = x W + b`` with W ``[in_features, out_features]``."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        self._in_features = in_features
+        self._out_features = out_features
+        self.weight = self.create_parameter(
+            [in_features, out_features], attr=weight_attr,
+            default_initializer=None if (
+                weight_attr and getattr(weight_attr, "initializer", None))
+            else I.XavierUniform())
+        self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return (f"in_features={self._in_features}, "
+                f"out_features={self._out_features}")
+
+
+class Embedding(Layer):
+    """Weight ``[num_embeddings, embedding_dim]``, N(0, 1) by default."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None):
+        super().__init__()
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=I.Normal(0.0, 1.0) if weight_attr is None
+            or getattr(weight_attr, "initializer", None) is None else None)
+        if padding_idx is not None and self.weight._data.device.type != \
+                "meta":
+            data = self.weight._data.detach().clone()
+            data[padding_idx] = 0.0
+            self.weight.set_value(data)
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"

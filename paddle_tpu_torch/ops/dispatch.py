@@ -1,0 +1,102 @@
+"""Op application: the eager dispatch path of the Paddle API.
+
+Counterpart of ``paddle_tpu/ops/dispatch.py``.  Every op of the API is a
+torch function over the tensors' ``_data``; :func:`apply` runs it, and
+torch's autograd records it when an input needs grad (there is no vjp
+tape of the port's own).  The outputs come back as Tensors whose
+``stop_gradient`` follows torch.
+
+:data:`_op_table` is JAX's kernel registry: the API's functional ops look
+up a kernel by JAX's name (``register_op_impl`` / ``get_op_impl``) at call
+time, and the port's kernel wrappers are registered under those names
+below (paddle_tpu/ops/pallas/__init__.py's list).  Each wrapper launches
+its CUDA kernel on a CUDA tensor and runs its plain version on a CPU one.
+Registering another function under a name re-routes every API call that
+takes it (how a comparison runs the plain versions on the card).
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Any, Callable, Dict, Union
+
+import numpy as np
+import torch
+
+from ..flags import flags
+from ..tensor.tensor import Tensor, _to_torch, wrap_array
+
+__all__ = ["apply", "as_tensor", "unwrap", "register_op_impl", "get_op_impl"]
+
+_op_table: Dict[str, Callable] = {}
+
+
+def register_op_impl(name: str, fn: Callable) -> None:
+    _op_table[name] = fn
+
+
+def get_op_impl(name: str, default: Callable) -> Callable:
+    return _op_table.get(name, default)
+
+
+def as_tensor(x: Any, dtype=None, device=None) -> Tensor:
+    """An op operand as a Tensor: Python bool / int / float as bool /
+    int64 / the default float type, a float64 ndarray as float32 (JAX's
+    rules), on ``device`` (the current place when ``None``)."""
+    if isinstance(x, Tensor):
+        return x
+    if isinstance(x, torch.Tensor):
+        return wrap_array(x)
+    if isinstance(x, np.ndarray) and x.dtype == np.float64 and \
+            dtype is None:
+        x = x.astype(np.float32)
+    return wrap_array(_to_torch(x, dtype, None, device=device))
+
+
+def unwrap(x: Any):
+    return x._data if isinstance(x, Tensor) else x
+
+
+def _check_nan_inf(name: str, outs) -> None:
+    for o in outs:
+        if (o.is_floating_point() or o.is_complex()) and \
+                not bool(torch.isfinite(o).all()):
+            msg = f"NaN/Inf detected in output of op '{name}'"
+            if flags.FLAGS_check_nan_inf_level > 0:
+                warnings.warn(msg)
+            else:
+                raise FloatingPointError(msg)
+
+
+def apply(name: str, fn: Callable, *inputs: Tensor
+          ) -> Union[Tensor, tuple]:
+    """Run ``fn`` (torch tensors in, one tensor or a tuple out) on the
+    inputs' data; torch's autograd records it."""
+    outs = fn(*(t._data for t in inputs))
+    single = not isinstance(outs, (tuple, list))
+    outs_t = (outs,) if single else tuple(outs)
+    if flags.FLAGS_check_nan_inf:
+        _check_nan_inf(name, outs_t)
+    wrapped = tuple(wrap_array(o) for o in outs_t)
+    return wrapped[0] if single else wrapped
+
+
+def register_kernel_ops() -> None:
+    """The port's kernel wrappers under JAX's names."""
+    from .flash_attention import flash_attention
+    from .fused_adamw import fused_adamw
+    from .int8_matmul import int8_matmul
+    from .rms_norm import rms_norm
+    from .rmsnorm_matmul import rmsnorm_matmul
+    from .rope import fused_rope
+    from .swiglu import swiglu
+    register_op_impl("flash_attention", flash_attention)
+    register_op_impl("fused_adamw", fused_adamw)
+    register_op_impl("rms_norm", rms_norm)
+    register_op_impl("fused_rope", fused_rope)
+    register_op_impl("swiglu", swiglu)
+    register_op_impl("int8_matmul", int8_matmul)
+    register_op_impl("rmsnorm_matmul", rmsnorm_matmul)
+
+
+register_kernel_ops()

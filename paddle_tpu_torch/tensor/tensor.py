@@ -1,0 +1,313 @@
+"""The user-facing Tensor: a handle over a ``torch.Tensor`` ``_data``.
+
+Counterpart of ``paddle_tpu/tensor/tensor.py``.  Autograd is torch's:
+``stop_gradient`` is ``not _data.requires_grad`` (True by default, False
+for parameters), an op on tensors that need grad is recorded by torch as
+it runs, and ``backward`` / ``grad`` / hooks go to torch's engine
+(``autograd/tape.py``).  A leaf's gradient lives on ``_data.grad``.
+
+Arithmetic and most methods are attached to the class by ``tensor/``'s
+op modules (``tensor/__init__.py``), as in JAX.
+
+One departure: JAX's tape snapshots each consumed value, so mutating a
+tensor after an op read it leaves that op's gradient on the old value.
+Torch's version counter raises instead when the backward needs the
+overwritten value (ROADMAP.md queue 3).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..framework import dtype as dtypes
+from ..framework import place as places
+
+__all__ = ["Tensor", "is_tensor", "wrap_array", "to_tensor"]
+
+
+class Tensor:
+    __slots__ = ("_data", "name", "persistable", "_is_param", "__weakref__",
+                 "__dict__")
+
+    _name_counter = [0]
+
+    def __init__(self, data: Any = None, dtype: Any = None, place=None,
+                 stop_gradient: bool = True, name: Optional[str] = None):
+        if data is None:
+            data = torch.zeros((), dtype=dtypes.to_torch_dtype(
+                dtype or "float32"))
+        self._data = _to_torch(data, dtype, place)
+        if name is None:
+            Tensor._name_counter[0] += 1
+            name = f"generated_tensor_{Tensor._name_counter[0]}"
+        self.name = name
+        self.persistable = False
+        self._is_param = False
+        self.stop_gradient = stop_gradient
+
+    # -- meta ---------------------------------------------------------------
+    @property
+    def shape(self) -> List[int]:
+        return list(self._data.shape)
+
+    @property
+    def dtype(self) -> dtypes.DType:
+        return dtypes.convert_dtype(self._data.dtype)
+
+    @property
+    def ndim(self) -> int:
+        return self._data.dim()
+
+    @property
+    def size(self) -> int:
+        return self._data.numel()
+
+    @property
+    def place(self):
+        d = self._data.device
+        return places.CPUPlace() if d.type == "cpu" else \
+            places.CUDAPlace(d.index or 0)
+
+    @property
+    def is_leaf(self) -> bool:
+        return self._data.grad_fn is None
+
+    @property
+    def _grad_node(self):
+        return self._data.grad_fn
+
+    # -- autograd -----------------------------------------------------------
+    @property
+    def stop_gradient(self) -> bool:
+        return not self._data.requires_grad
+
+    @stop_gradient.setter
+    def stop_gradient(self, value: bool) -> None:
+        d = self._data
+        if value:
+            if d.requires_grad:
+                self._data = d.detach() if d.grad_fn is not None else \
+                    d.requires_grad_(False)
+        elif not d.requires_grad and (d.is_floating_point() or
+                                      d.is_complex()):
+            d.requires_grad_(True)
+
+    @property
+    def grad(self) -> Optional["Tensor"]:
+        d = self._data
+        g = d.grad if (d.grad_fn is None or d.retains_grad) else None
+        if g is None:
+            return None
+        t = wrap_array(g)
+        t.name = self.name + "@GRAD"
+        return t
+
+    @grad.setter
+    def grad(self, value) -> None:
+        self._data.grad = None if value is None else unwrap_data(value)
+
+    def backward(self, grad_tensor: Optional["Tensor"] = None,
+                 retain_graph: bool = False) -> None:
+        from ..autograd import tape
+        tape.run_backward([self], [grad_tensor], retain_graph=retain_graph)
+
+    def clear_grad(self) -> None:
+        self._data.grad = None
+
+    clear_gradient = clear_grad
+
+    def register_hook(self, hook: Callable):
+        """``hook(grad) -> grad or None`` on the gradient flowing into this
+        tensor (once, on the accumulated total)."""
+        def call(g):
+            out = hook(wrap_array(g))
+            return None if out is None else unwrap_data(out)
+        return self._data.register_hook(call)
+
+    def detach(self) -> "Tensor":
+        t = wrap_array(self._data.detach())
+        t.name = self.name + ".detach"
+        return t
+
+    def detach_(self) -> "Tensor":
+        self._data = self._data.detach()
+        return self
+
+    # -- value access -------------------------------------------------------
+    def numpy(self) -> np.ndarray:
+        """The values as a numpy array (bf16 comes back as float32: numpy
+        has no bfloat16 of its own)."""
+        d = self._data.detach()
+        if d.dtype == torch.bfloat16:
+            d = d.float()
+        return d.cpu().numpy()
+
+    def item(self, *args) -> Any:
+        if args:
+            return self.numpy().item(*args)
+        return self._data.item()
+
+    def tolist(self):
+        return self.numpy().tolist()
+
+    def __len__(self) -> int:
+        if self._data.dim() == 0:
+            raise TypeError("len() of a 0-D tensor")
+        return self._data.shape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    def __int__(self):
+        return int(self.item())
+
+    def __float__(self):
+        return float(self.item())
+
+    def __bool__(self):
+        if self._data.numel() != 1:
+            raise ValueError("The truth value of a Tensor with more than "
+                             "one element is ambiguous.")
+        return bool(self.item())
+
+    def __index__(self):
+        return int(self.item())
+
+    def __format__(self, spec):
+        if self._data.numel() == 1:
+            return format(self.item(), spec)
+        return format(self.numpy(), spec)
+
+    def __repr__(self) -> str:
+        body = np.array2string(self.numpy(), precision=8, separator=", ")
+        return (f"Tensor(shape={self.shape}, dtype={self.dtype.name}, "
+                f"place={self.place}, stop_gradient={self.stop_gradient},\n"
+                f"       {body})")
+
+    __hash__ = object.__hash__
+
+    # -- value replacement --------------------------------------------------
+    def set_value(self, value) -> None:
+        """New values of this tensor's shape, in its type and on its
+        device; a parameter stays a leaf with its ``stop_gradient``."""
+        src = unwrap_data(value) if isinstance(value, Tensor) else \
+            _to_torch(value, None, None, device=self._data.device)
+        if tuple(src.shape) != tuple(self._data.shape):
+            raise ValueError(f"set_value shape mismatch: {tuple(src.shape)} "
+                             f"vs {tuple(self._data.shape)}")
+        keep = self.stop_gradient
+        self._data = src.detach().to(device=self._data.device,
+                                     dtype=self._data.dtype, copy=True)
+        self.stop_gradient = keep
+
+    # -- device movement ----------------------------------------------------
+    def to(self, *args, **kwargs) -> "Tensor":
+        device = kwargs.get("device")
+        dtype_arg = kwargs.get("dtype")
+        for a in args:
+            if isinstance(a, dtypes.DType) or isinstance(a, torch.dtype) or (
+                    isinstance(a, str) and a.replace("paddle.", "")
+                    in dtypes._BY_NAME):
+                dtype_arg = a
+            else:
+                device = a
+        data = self._data
+        if dtype_arg is not None:
+            data = data.to(dtypes.to_torch_dtype(dtype_arg))
+        if device is not None:
+            data = data.to(places._parse_device(device).torch_device())
+        return wrap_array(data)
+
+    def cpu(self) -> "Tensor":
+        return self.to(device="cpu")
+
+    def cuda(self, device_id=0, blocking=True) -> "Tensor":
+        return self.to(device=f"gpu:{device_id}")
+
+
+def unwrap_data(x):
+    return x._data if isinstance(x, Tensor) else x
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    if "bfloat16" in str(a.dtype):
+        # numpy's bfloat16 is an extension type torch does not read
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _to_torch(data, dtype=None, place=None, device=None) -> torch.Tensor:
+    """JAX's ``_to_jax_array`` rules: a Tensor's or torch tensor's own type,
+    a numpy array's own type, Python bool / int / float as bool / int64 /
+    the default float type, a nested list with floats as the default float
+    type; then ``dtype`` if given, on ``place`` (a torch tensor stays where
+    it is, everything else goes to the current place)."""
+    tdt = dtypes.to_torch_dtype(dtype)
+    if isinstance(data, Tensor):
+        arr = data._data.detach()
+    elif isinstance(data, torch.Tensor):
+        arr = data.detach()
+    elif isinstance(data, np.ndarray):
+        arr = _from_numpy(data)
+        if device is None and place is None:
+            device = places.current_torch_device()
+    else:
+        if isinstance(data, (bool, int, float, complex)):
+            if tdt is None:
+                if isinstance(data, bool):
+                    tdt = torch.bool
+                elif isinstance(data, int):
+                    tdt = torch.int64
+                elif isinstance(data, float):
+                    tdt = dtypes.default_float_dtype().torch_dtype
+                else:
+                    tdt = torch.complex64
+            arr = torch.tensor(data, dtype=tdt)
+        else:
+            np_arr = np.asarray(data)
+            if tdt is None and np_arr.dtype == np.float64:
+                tdt = dtypes.default_float_dtype().torch_dtype
+            arr = _from_numpy(np_arr)
+        if device is None and place is None:
+            device = places.current_torch_device()
+    if place is not None:
+        device = places._parse_device(place).torch_device()
+    if tdt is not None and arr.dtype != tdt:
+        arr = arr.to(tdt)
+    if device is not None and arr.device != torch.device(device):
+        arr = arr.to(device)
+    return arr
+
+
+def wrap_array(arr: torch.Tensor, stop_gradient: Optional[bool] = None
+               ) -> Tensor:
+    """A Tensor over ``arr`` itself (no copy).  ``stop_gradient`` follows
+    ``arr.requires_grad`` unless given."""
+    t = Tensor.__new__(Tensor)
+    t._data = arr
+    Tensor._name_counter[0] += 1
+    t.name = f"generated_tensor_{Tensor._name_counter[0]}"
+    t.persistable = False
+    t._is_param = False
+    if stop_gradient is not None:
+        t.stop_gradient = stop_gradient
+    return t
+
+
+def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> Tensor:
+    """Mirror of ``paddle.to_tensor``."""
+    return Tensor(data, dtype=dtype, place=place,
+                  stop_gradient=stop_gradient)
+
+
+def is_tensor(x) -> bool:
+    return isinstance(x, Tensor)

@@ -1,6 +1,7 @@
 """The port's flag mirror (``paddle_tpu_torch/flags.py``): the three trunk
-flags off by default, set and read at call time, initialised from the
-environment, and restored after each test that sets them."""
+flags off by default, the Paddle API's four at JAX's defaults, set and read
+at call time, initialised from the environment, and restored after each
+test that sets them."""
 
 import os
 import subprocess
@@ -16,6 +17,9 @@ from paddle_tpu_torch import flags as tfl  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 TRUNK = ("FLAGS_pallas_rms_norm", "FLAGS_pallas_swiglu",
          "FLAGS_pallas_rmsnorm_matmul")
+# read by nn.functional / incubate.nn.functional / ops.dispatch
+API = {"FLAGS_pallas_flash_attention": True, "FLAGS_pallas_rope": True,
+       "FLAGS_check_nan_inf": False, "FLAGS_check_nan_inf_level": 0}
 
 
 @pytest.fixture
@@ -33,7 +37,8 @@ def test_the_trunk_flags_exist_and_are_off_by_default():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=60)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == str(sorted((f, False) for f in TRUNK))
+    want = dict(API, **{f: False for f in TRUNK})
+    assert r.stdout.strip() == str(sorted(want.items()))
 
 
 def test_the_environment_sets_a_flag_at_import():
@@ -60,7 +65,7 @@ def test_set_get_and_attribute_access(restore_flags):
     assert tfl.get_flags(["FLAGS_pallas_swiglu"])["FLAGS_pallas_swiglu"] \
         is False
     with pytest.raises(ValueError, match="unknown flag"):
-        tfl.set_flags({"FLAGS_pallas_rope": True})
+        tfl.set_flags({"FLAGS_pallas_int8_matmul": True})
     with pytest.raises(ValueError, match="parse"):
         tfl.set_flags({"FLAGS_pallas_rms_norm": "maybe"})
     with pytest.raises(AttributeError):

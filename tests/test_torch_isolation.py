@@ -59,6 +59,33 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.fleet.remote\n"
         "import paddle_tpu_torch.observability.transport_metrics\n"
         "import paddle_tpu_torch.testing.agent_factory\n"
+        "import paddle_tpu_torch.framework.dtype\n"
+        "import paddle_tpu_torch.framework.place\n"
+        "import paddle_tpu_torch.framework.random\n"
+        "import paddle_tpu_torch.framework.param\n"
+        "import paddle_tpu_torch.tensor\n"
+        "import paddle_tpu_torch.tensor.creation\n"
+        "import paddle_tpu_torch.tensor.manipulation\n"
+        "import paddle_tpu_torch.tensor.math\n"
+        "import paddle_tpu_torch.tensor.logic\n"
+        "import paddle_tpu_torch.tensor.linalg\n"
+        "import paddle_tpu_torch.tensor.search\n"
+        "import paddle_tpu_torch.ops.dispatch\n"
+        "import paddle_tpu_torch.autograd\n"
+        "import paddle_tpu_torch.autograd.tape\n"
+        "import paddle_tpu_torch.nn\n"
+        "import paddle_tpu_torch.nn.functional\n"
+        "import paddle_tpu_torch.nn.initializer\n"
+        "import paddle_tpu_torch.nn.layer.layers\n"
+        "import paddle_tpu_torch.nn.layer.common\n"
+        "import paddle_tpu_torch.nn.layer.norm\n"
+        "import paddle_tpu_torch.nn.layer.activation\n"
+        "import paddle_tpu_torch.nn.layer.loss\n"
+        "import paddle_tpu_torch.incubate.nn.functional\n"
+        "import paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.models.llama\n"
+        "import paddle_tpu_torch.models._layers\n"
+        "import paddle_tpu_torch.models.decode\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.ab_torch_kernels\n"
@@ -122,6 +149,14 @@ def test_entry_points_without_a_device_and_without_cuda_raise(monkeypatch):
         tlp.make_train_step(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         rope_tables(4, 8)
+    # the Paddle API's default place is the card
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place as tplace
+    monkeypatch.setattr(tplace, "_current_place", tplace.CUDAPlace(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle.to_tensor([1.0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle.set_device("gpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         generate_speculative(cfg, params, cfg, params, [1, 2], 2, gamma=1,
                              page=8)

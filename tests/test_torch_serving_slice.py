@@ -467,9 +467,17 @@ def test_engine_refuses_lanes_not_ported(models):
                          device="cpu")
     with pytest.raises(ValueError, match="kv_quant"):
         tpd.make_paged_decode_step(tcfg, kv_quant="int4")
-    # generate_auto waits for the dense make_generate
-    with pytest.raises(NotImplementedError, match="make_generate"):
-        tpd.generate_auto(tcfg, tparams, [[1, 2]], 2)
+    # generate_auto serves: a uniform batch through the dense
+    # make_generate, a ragged one through generate_paged over its own cache
+    uni = tpd.generate_auto(tcfg, tparams, [[1, 2], [3, 4]], 2)
+    assert torch.equal(uni, tdec.make_generate(tcfg, 2, 2)(
+        tparams, torch.tensor([[1, 2], [3, 4]])))
+    rag = tpd.generate_auto(tcfg, tparams, [[1, 2], [3]], 2, page=PAGE)
+    cache = tpd.PagedKVCache(tcfg, 4, 1, 2, page=PAGE, device="cpu")
+    cache.alloc_row(0, 2)
+    cache.alloc_row(1, 1)
+    assert torch.equal(rag, tpd.generate_paged(
+        tcfg, tparams, np.array([[1, 2], [3, 0]]), 2, cache))
 
 
 def test_submit_validation_and_cancel(models):
