@@ -178,8 +178,9 @@ Phases, one JSON line each on stdout:
              host tier pinned, its copies on a side stream) under bench.py's
              _preemption_line TPU recipe (bench.py:680-690): 6 requests of
              256 prompt tokens from np.random.RandomState(seed) (bench.py's
-             RandomState(0) at seed 0), 192 new tokens, greedy, batch 4,
-             18 pages of 64 (7 a request at its end: preemption is forced),
+             RandomState(0) at seed 0), 96 new tokens (the recipe's 192
+             halved for the time limit), greedy, batch 4, 18 pages of 64
+             (6 a request at its end: preemption is forced),
              pages_max 8, the graph arms after a warm-up of 5 requests of
              72 new tokens (bench.py warms 192, for its jit; the port
              compiles nothing at run time, and the synchronous arms capture
@@ -416,10 +417,47 @@ Phases, one JSON line each on stdout:
              + 1 a step; then API_TRAIN_STEPS steps of model(x, labels=y),
              loss.backward(), opt.step(), opt.clear_grad() on one [2, 2048]
              batch: the loss falls; step ms and tokens/s printed.
+11c. api_bert - BERT-base SQuAD fine-tune (bench.py:354-386, BASELINE
+             config 3) through incubate.jit_train_step: BertConfig()
+             defaults with dropout 0.1, AdamW(5e-5), AMP O1 bf16, batch 32
+             x 384 drawn as bench.py draws them, the padding mask all
+             ones.  Checks first: one step's gradients of the mask-free
+             arm (attn_mask=None: K6a-c, non-causal, head_dim 64) within
+             GRAD_LIMIT of the plain versions' (the same dropout masks:
+             the framework's generator reseeded before each pass), a
+             planted fault (the kernels told the wrong causality) beyond
+             it; a dropout-0 lane whose replayed losses stay within
+             JIT_LOSS_LIMIT of an eager loop's over API_BERT_CHECK_STEPS
+             steps; a dropout-0.1 lane at lr 0 whose replayed losses
+             differ step to step and repeat after the same paddle.seed.
+             Then the recipe's capture and API_BERT_STEPS timed replays,
+             the same model's eager loop for API_BERT_STEPS steps, and
+             the mask-free arm's capture and replays: step ms and
+             samples/s of each, K6a-c 12 a replay mask-free and 0 masked
+             (the graphs' recorded launches), sdpa_plain never reached;
+             one replay of each arm and one eager step under a CUDA-only
+             profiler: host ms, device ms, busy share, device ms by kind.
+11d. api_gpt - GPT-3 XL (gpt3_1p3b_config: 24 x 2048, 16 heads of 128,
+             vocab 50304) pretraining on one card through jit_train_step:
+             batch 2 x 2048 from a seed, AMP O1 bf16, AdamW(beta2 0.95,
+             weight decay 0.1, lr 2e-4) with ClipGradByGlobalNorm(1.0)
+             (GPT-3's Table 2.1 / Appendix B), GPTPretrainingCriterion.
+             One O1 step's gradients through K6a-c (causal, head_dim 128)
+             within GRAD_LIMIT of the plain versions', a planted fault
+             (non-causal kernels) beyond it; then API_GPT_EAGER_STEPS
+             eager steps and the capture plus API_GPT_STEPS timed replays:
+             the loss falls over the replays, K6a-c 24 a replay, step ms
+             eager and replayed, tokens/s, the GB allocated when the
+             phase began and its peak since;
+             one eager step and one replay profiled as in api_bert.
 12. kernels - one JSON object with an entry per ported kernel (16, and
              K3's wave path beside its decode path and the segmented
              kernels' per-tile range kernel: 18).
 13. timing - each phase's seconds and the whole run's.
+
+Cuts for the 1,200 s limit: serve_mixed_int8 runs 2 of its 4 waves,
+serve_spec_int8 its first 3 arms, serve_int8_overlap its reference and
+last lane, serve_swap 96 new tokens a request where the recipe has 192.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before that line.  Without a CUDA device, or without the package
@@ -1777,6 +1815,11 @@ OVERLAP_LANES = [("sync", {}),
                  ("overlap", {"overlap": True, "lookahead": 1}),
                  ("horizon4", {"decode_horizon": 4}),
                  ("overlap_horizon4", {"overlap": True, "decode_horizon": 4})]
+# serve_int8_overlap runs the reference and the last lane only, which
+# drives the int8 horizon graph and the pipeline; the int8 async graph
+# (H = 1) is driven by serve_swap_int8's overlap arm (a cut for the run's
+# time limit)
+INT8_OVERLAP_LANES = [OVERLAP_LANES[0], OVERLAP_LANES[-1]]
 
 
 def run_lane(torch, cfg, params, cache, prompts, news, mods, engine_kw,
@@ -1840,8 +1883,8 @@ def run_lane(torch, cfg, params, cache, prompts, news, mods, engine_kw,
 
 
 def phase_serve_overlap(torch, cfg, seed, params, mods, kv_quant=None,
-                        dev="cuda"):
-    """The serve's requests through the four OVERLAP_LANES on one cache
+                        dev="cuda", lanes=OVERLAP_LANES):
+    """The serve's requests through ``lanes`` on one cache
     (so the lanes that share a step key share its graph): every graph lane
     token for token equal to the eager synchronous lane, K1 (K4) and, with
     int8 weights, K3's decode path launched from graph replays; then the
@@ -1861,7 +1904,7 @@ def phase_serve_overlap(torch, cfg, seed, params, mods, kv_quant=None,
                      else [])
     total = {}
     ref = None
-    for lane, kw in OVERLAP_LANES:
+    for lane, kw in lanes:
         gens, st = run_lane(torch, cfg, params, cache, prompts, SERVE_NEWS,
                             mods, kw, profiled=False)
         again, st_p = run_lane(torch, cfg, params, cache, prompts,
@@ -1899,12 +1942,12 @@ def phase_serve_overlap(torch, cfg, seed, params, mods, kv_quant=None,
     # the same lane behind the HTTP front, the requests queued in order
     # into one wave as above (a wave of another layout tiles K2's stream
     # differently: other bits, and other tokens at near-ties)
-    kw = dict(OVERLAP_LANES[-1][1])
+    kw = dict(lanes[-1][1])
     gens, stats = drive(torch, cfg, params, cache, prompts, SERVE_NEWS, mods,
                         in_order=True, **kw)
     for k, v in stats["launches"].items():
         total[k] = total.get(k, 0) + v
-    emit(phase, lane="http_" + OVERLAP_LANES[-1][0], engine_kw=kw,
+    emit(phase, lane="http_" + lanes[-1][0], engine_kw=kw,
          health=stats["health"], launches=stats["launches"])
     if gens != ref:
         fail(f"{phase}: GenerationServer(overlap=True, decode_horizon=4) "
@@ -4076,10 +4119,12 @@ def phase_serve_spec(torch, cfg, seed, params, mods, kv_quant=None,
 
 
 # serve_swap: bench.py's _preemption_line TPU recipe (bench.py:680-690) at
-# LLaMA-7B: 6 requests of 256 prompt tokens, 192 new, batch 4, 18 pages of
-# 64 (a request ends at 7 pages: the pool holds two at their end),
-# pages_max 8, a host tier of 64 pages
-SWAP_REQUESTS, SWAP_PROMPT, SWAP_NEW = 6, 256, 192
+# LLaMA-7B: 6 requests of 256 prompt tokens, batch 4, 18 pages of 64,
+# pages_max 8, a host tier of 64 pages; 96 new tokens where the recipe has
+# 192 (a cut for the run's time limit: the sync arms decode half the steps,
+# and a request ends at 6 pages, so the pool holds three at their end and
+# every admission wave still preempts at its rows' first page of growth)
+SWAP_REQUESTS, SWAP_PROMPT, SWAP_NEW = 6, 256, 96
 SWAP_CACHE = dict(num_pages=18, pages_max=8, batch=4, page=64)
 SWAP_HOST_PAGES = 64
 # the warm-up (5 requests) and the teacher-forced check runs: 72 new tokens
@@ -7501,6 +7546,430 @@ def phase_api_train(torch, seed, mods, dev="cuda", cfg_kw=None,
     return launches
 
 
+# api_bert / api_gpt: the BERT and GPT Layer models (models/bert.py,
+# models/gpt.py) trained through incubate.jit_train_step, one CUDA graph a
+# step, under AMP O1 (f32 parameters, bf16 products).  api_bert is
+# bench.py's _bert_line TPU recipe (bench.py:354-386: BASELINE config 3,
+# Devlin et al. 2019's SQuAD fine-tune); api_gpt is gpt3_1p3b_config with
+# GPT-3's optimizer settings (Brown et al. 2020, Table 2.1 and Appendix B)
+# at batch 2 x 2048 on one card (BASELINE config 4 shards it; that waits
+# for a mesh).  JIT_LOSS_LIMIT bounds a replayed loss against the eager
+# loop's, relative: the same kernels, the eager optimizer's Python-float
+# beta powers rounding apart from the graph's device scalars.
+API_BERT_BATCH, API_BERT_SEQ, API_BERT_LR = 32, 384, 5e-5
+API_BERT_STEPS, API_BERT_CHECK_STEPS = 5, 3
+API_GPT_BATCH, API_GPT_SEQ, API_GPT_LR = 2, 2048, 2e-4
+API_GPT_STEPS, API_GPT_EAGER_STEPS = 5, 3
+JIT_LOSS_LIMIT = 2e-3
+K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+
+
+def jit_grads(torch, paddle, model, loss_of, seed):
+    """One O1 forward and backward of ``loss_of()`` after
+    ``paddle.seed(seed)`` (the same dropout masks every call) -> (loss,
+    {name: gradient in bf16} over the leaves the loss reaches)."""
+    named = list(model.named_parameters())
+    paddle.seed(seed)
+    with paddle.amp.auto_cast(level="O1"):
+        loss = loss_of()
+    grads = torch.autograd.grad(loss._data, [p._data for _, p in named],
+                                allow_unused=True)
+    return float(loss), {name: g.to(torch.bfloat16)
+                         for (name, _), g in zip(named, grads)
+                         if g is not None}
+
+
+# grad_gap's yardstick for a leaf: its own largest |gradient|, or this
+# share of the model's largest where that is more.  Some leaves' gradients
+# are zero in exact arithmetic, so their largest element is rounding noise
+# and no yardstick: the attention's key bias (softmax ignores a shift of a
+# row's scores) and, under the QA loss (a softmax over positions), the
+# last LayerNorm's bias.
+GRAD_FLOOR = 1e-2
+
+
+def grad_gap(got, ref):
+    """(the largest |got - ref| over its leaf's yardstick, that leaf)."""
+    top = max(float(r.float().abs().max()) for r in ref.values())
+    return max((float((got[n].float() - r.float()).abs().max())
+                / max(float(r.float().abs().max()), GRAD_FLOOR * top), n)
+               for n, r in ref.items())
+
+
+def k6_grad_check(torch, paddle, mods, model, loss_of, seed):
+    """Kernels, plain versions (the op table's ``flash_attention`` entry
+    sent to ``sdpa_plain``) and a planted fault (the kernels told the
+    other causality) -> (loss kernels, loss plain, (gap, leaf), (fault
+    gap, leaf), the kernels' launches in the kernels' pass, the plain
+    pass's, every gradient finite)."""
+    fa = mods["fa"]
+    zero_counts(mods)
+    loss_k, g_k = jit_grads(torch, paddle, model, loss_of, seed)
+    launched = {k: v for k, v in read_counts(mods).items() if v}
+    with op_impls(api_plain_impls(torch, mods)):
+        zero_counts(mods)
+        loss_p, g_p = jit_grads(torch, paddle, model, loss_of, seed)
+        plain_launched = {k: v for k, v in read_counts(mods).items() if v}
+    real_tail = fa._launch_tail
+    with patched((fa, "_launch_tail",
+                  lambda q, causal: real_tail(q, not causal))):
+        _, g_f = jit_grads(torch, paddle, model, loss_of, seed)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    return (loss_k, loss_p, grad_gap(g_k, g_p), grad_gap(g_f, g_p),
+            launched, plain_launched, finite)
+
+
+def timed_calls(torch, fn, n):
+    """``n`` calls of ``fn() -> loss``, each timed to its loss on the host
+    -> (losses, ms)."""
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(fn()))
+        ms.append((time.perf_counter() - t) * 1e3)
+    return losses, ms
+
+
+def device_kind(name):
+    """A CUDA kernel's kind, by its name, for the api phases' profiles."""
+    low = name.lower()
+    for tag, kind in (("flash_fwd_kernel", "K6a"), ("flash_bwd_dq", "K6b"),
+                      ("flash_bwd_dkv", "K6c"), ("layer_norm", "layer_norm"),
+                      ("softmax", "softmax"), ("reduce", "reduce")):
+        if tag in low:
+            return kind
+    if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "cublas",
+                              "xmma")):
+        return "matmul (cuBLAS)"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    return "other"
+
+
+def profiled_call(torch, fn):
+    """``fn()`` once under a CUDA-only profiler -> {host ms to its end,
+    device ms, busy share, device ms by kind}."""
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t) * 1e3
+    kinds = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = device_kind(e.name)
+            kinds[k] = kinds.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    device = sum(kinds.values())
+    return {"host_ms": host, "device_ms": device,
+            "busy_share": device / host,
+            "device_ms_by_kind": dict(sorted(kinds.items(),
+                                             key=lambda kv: -kv[1]))}
+
+
+def eager_o1_step(paddle, model, loss_fn, opt, x, y):
+    with paddle.amp.auto_cast(level="O1"):
+        loss = loss_fn(model(*x), y)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def step_launches(step):
+    """The K6 launches each replay of each of ``step``'s graphs makes."""
+    return [{k: g.capture_launches.get(k, 0) for k in K6_NAMES}
+            for g in step.graphs()]
+
+
+def steps_ran_launches(wrapper, steps):
+    """The launches that ran since the counters were zeroed, while
+    ``steps`` (jit_train_step functions) were made and driven: the
+    wrappers' counts, less what they recorded into each step's graphs at
+    capture, plus every replay's."""
+    out = dict(wrapper)
+    for step in steps:
+        for g in step.graphs():
+            for k, c in g.capture_launches.items():
+                out[k] = out.get(k, 0) + (g.replays - 1) * c
+    return out
+
+
+def phase_api_bert(torch, seed, mods, card, dev="cuda", cfg_kw=None,
+                   batch=API_BERT_BATCH, seq=API_BERT_SEQ):
+    """BERT-base SQuAD fine-tune through jit_train_step (``cfg_kw`` and
+    the batch shape override the recipe, for a rehearsal)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import jit_train_step
+    from paddle_tpu_torch.models import BertConfig, BertForQuestionAnswering
+    fa = mods["fa"]
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 2**30
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    problems = []
+
+    def config(dropout):
+        return BertConfig(**dict(dict(cfg_kw or {}), dropout_prob=dropout))
+
+    cfg = config(0.1)
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(0)               # bench.py:372-378
+    ids = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (batch, seq)))
+    tt = paddle.to_tensor(np.zeros((batch, seq), np.int64))
+    mask = paddle.to_tensor(np.ones((batch, seq), np.float32))
+    start = paddle.to_tensor(rng.randint(0, seq, (batch,)))
+    end = paddle.to_tensor(rng.randint(0, seq, (batch,)))
+    x_masked, x_free, ys = (ids, tt, mask), (ids, tt), (start, end)
+    ce = paddle.nn.CrossEntropyLoss()
+
+    def qa_loss(out, y):
+        return (ce(out[0], y[0]) + ce(out[1], y[1])) * 0.5
+
+    def adamw(net, lr=API_BERT_LR):
+        return paddle.optimizer.AdamW(learning_rate=lr,
+                                      parameters=net.parameters())
+
+    def model(dropout):
+        paddle.seed(55)
+        net = BertForQuestionAnswering(config(dropout))
+        net.train()
+        return net
+
+    # (1) the mask-free arm's gradients: kernels, plain versions, a fault
+    t0 = time.perf_counter()
+    net = model(0.1)
+    lk, lp, (gap, gap_leaf), (fault_gap, _), launched, plain_launched, \
+        finite = k6_grad_check(torch, paddle, mods, net,
+                               lambda: qa_loss(net(*x_free), ys), seed)
+    want = {k: L for k in K6_NAMES}
+    if {k: launched.get(k, 0) for k in K6_NAMES} != want:
+        problems.append(f"the mask-free step launched {launched}, the code "
+                        f"predicts {want}")
+    if plain_launched:
+        problems.append(f"the plain pass launched {plain_launched}")
+    # (2) dropout 0: replays against the eager loop
+    nets0 = [model(0.0), model(0.0)]
+    step0 = jit_train_step(nets0[0], qa_loss, adamw(nets0[0]),
+                           amp_level="O1")
+    opt_e = adamw(nets0[1])
+    replayed0 = [float(step0(x_masked, ys))
+                 for _ in range(API_BERT_CHECK_STEPS)]
+    eager0 = [float(eager_o1_step(paddle, nets0[1], qa_loss, opt_e,
+                                  x_masked, ys))
+              for _ in range(API_BERT_CHECK_STEPS)]
+    gap0 = max(abs(a - b) / abs(b) for a, b in zip(replayed0, eager0))
+    del nets0, step0, opt_e
+    # (3) dropout 0.1 at lr 0: fresh masks every replay, the same masks in
+    # a second lane built after the same seed
+    drop_runs = []
+    for _ in range(2):
+        net_d = model(0.1)
+        step_d = jit_train_step(net_d, qa_loss, adamw(net_d, lr=0.0),
+                                amp_level="O1")
+        paddle.seed(seed + 1)
+        drop_runs.append([float(step_d(x_masked, ys))
+                          for _ in range(API_BERT_CHECK_STEPS)])
+        del net_d, step_d
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+
+    # (4) the main path: the recipe's replays, the eager loop, the
+    # mask-free arm's replays
+    plain_calls = []
+    real_plain = fa.sdpa_plain
+    opt = adamw(net)
+    step = jit_train_step(net, qa_loss, opt, amp_level="O1")
+    zero_counts(mods)
+    with patched((fa, "sdpa_plain", lambda *a, **k: plain_calls.append(1)
+                  or real_plain(*a, **k))):
+        t = time.perf_counter()
+        first = float(step(x_masked, ys))
+        capture_s = time.perf_counter() - t
+        losses, step_ms = timed_calls(torch, lambda: step(x_masked, ys),
+                                      API_BERT_STEPS)
+        eager_losses, eager_ms = timed_calls(
+            torch, lambda: eager_o1_step(paddle, net, qa_loss, opt,
+                                         x_masked, ys), API_BERT_STEPS)
+        t = time.perf_counter()
+        first_free = float(step(x_free, ys))
+        capture_free_s = time.perf_counter() - t
+        free_losses, free_ms = timed_calls(torch, lambda: step(x_free, ys),
+                                           API_BERT_STEPS)
+        profiles = {
+            "replay_masked": profiled_call(torch,
+                                           lambda: step(x_masked, ys)),
+            "replay_mask_free": profiled_call(torch,
+                                              lambda: step(x_free, ys)),
+            "eager_masked": profiled_call(
+                torch, lambda: eager_o1_step(paddle, net, qa_loss, opt,
+                                             x_masked, ys))}
+    launches = steps_ran_launches(read_counts(mods), [step])
+    per_replay = step_launches(step)
+    emit("api_bert", model="BertForQuestionAnswering, BertConfig() "
+         "defaults (12 x 768, 12 heads of 64, FFN 3072, vocab 30522)",
+         source="bench.py:354-386 _bert_line TPU recipe (BASELINE config "
+         "3; Devlin et al. 2019 SQuAD fine-tune)", dropout=0.1,
+         batch=batch, seq=seq, lr=API_BERT_LR, amp="O1 bf16",
+         params=sum(p.size for p in net.parameters()),
+         capture_s=capture_s, first_loss=first, losses=losses,
+         step_ms=step_ms,
+         samples_per_s=[batch / (t / 1e3) for t in step_ms],
+         eager_losses=eager_losses, eager_step_ms=eager_ms,
+         eager_samples_per_s=[batch / (t / 1e3) for t in eager_ms],
+         mask_free=dict(capture_s=capture_free_s, first_loss=first_free,
+                        losses=free_losses, step_ms=free_ms,
+                        samples_per_s=[batch / (t / 1e3) for t in free_ms],
+                        grad_loss_kernels=lk, grad_loss_plain=lp,
+                        grad_max_rel_diff=gap, grad_worst_leaf=gap_leaf,
+                        grad_limit=GRAD_LIMIT,
+                        planted_fault="K6a-c told causal=True",
+                        planted_fault_max_rel_diff=fault_gap),
+         k6_per_replay_masked_then_mask_free=per_replay,
+         dropout0_replayed=replayed0, dropout0_eager=eager0,
+         dropout0_max_rel_gap=gap0, jit_loss_limit=JIT_LOSS_LIMIT,
+         dropout01_lr0_runs=drop_runs, sdpa_plain_calls=len(plain_calls),
+         profiles=profiles,
+         check_s=check_s, start_gb=start_gb,
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+         phase_s=time.perf_counter() - t_all, card=card)
+    if not finite:
+        problems.append("a gradient is not finite")
+    if gap > GRAD_LIMIT:
+        problems.append(f"the mask-free arm's gradients differ from the "
+                        f"plain versions' by {gap} of a leaf's largest")
+    if fault_gap <= GRAD_LIMIT:
+        problems.append(f"the planted fault moved the gradients by only "
+                        f"{fault_gap}, within the limit")
+    if gap0 > JIT_LOSS_LIMIT:
+        problems.append(f"the replayed losses {replayed0} differ from the "
+                        f"eager loop's {eager0} by {gap0}")
+    if len(set(drop_runs[0])) != len(drop_runs[0]):
+        problems.append(f"dropout drew a mask twice: {drop_runs[0]}")
+    if drop_runs[0] != drop_runs[1]:
+        problems.append(f"the seeded dropout runs differ: {drop_runs}")
+    if per_replay != [{k: 0 for k in K6_NAMES}, want]:
+        problems.append(f"the graphs launch {per_replay} a replay (masked, "
+                        f"mask-free), the code predicts 0 and {want}")
+    if plain_calls:
+        problems.append(f"{len(plain_calls)} attentions reached sdpa_plain")
+    if not all(math.isfinite(v) for v in losses + eager_losses +
+               free_losses):
+        problems.append("a loss is not finite")
+    for p in problems:
+        fail(f"api_bert: {p}")
+    del step, net, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_api_gpt(torch, seed, mods, card, dev="cuda", cfg_kw=None,
+                  batch=API_GPT_BATCH, seq=API_GPT_SEQ):
+    """GPT-3 XL pretraining steps through jit_train_step (``cfg_kw`` and
+    the batch shape override the recipe, for a rehearsal)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import jit_train_step
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion,
+                                         gpt3_1p3b_config)
+    fa = mods["fa"]
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 2**30
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    problems = []
+    cfg = gpt3_1p3b_config(**(cfg_kw or {}))
+    L = cfg.num_hidden_layers
+    paddle.seed(seed)
+    net = GPTForCausalLM(cfg)
+    crit = GPTPretrainingCriterion()
+    ids = paddle.to_tensor(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (batch, seq)))
+    t0 = time.perf_counter()
+    lk, lp, (gap, gap_leaf), (fault_gap, _), launched, plain_launched, \
+        finite = k6_grad_check(torch, paddle, mods, net,
+                               lambda: crit(net(ids), ids), seed)
+    want = {k: L for k in K6_NAMES}
+    if {k: launched.get(k, 0) for k in K6_NAMES} != want:
+        problems.append(f"the step launched {launched}, the code predicts "
+                        f"{want}")
+    if plain_launched:
+        problems.append(f"the plain pass launched {plain_launched}")
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    opt = paddle.optimizer.AdamW(
+        learning_rate=API_GPT_LR, beta1=0.9, beta2=0.95, weight_decay=0.1,
+        parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    plain_calls = []
+    real_plain = fa.sdpa_plain
+    zero_counts(mods)
+    with patched((fa, "sdpa_plain", lambda *a, **k: plain_calls.append(1)
+                  or real_plain(*a, **k))):
+        eager_losses, eager_ms = timed_calls(
+            torch, lambda: eager_o1_step(paddle, net, crit, opt, (ids,),
+                                         ids), API_GPT_EAGER_STEPS)
+        profiles = {"eager": profiled_call(
+            torch, lambda: eager_o1_step(paddle, net, crit, opt, (ids,),
+                                         ids))}
+        torch.cuda.empty_cache()
+        step = jit_train_step(net, crit, opt, amp_level="O1")
+        t = time.perf_counter()
+        first = float(step(ids, ids))
+        capture_s = time.perf_counter() - t
+        losses, step_ms = timed_calls(torch, lambda: step(ids, ids),
+                                      API_GPT_STEPS)
+        profiles["replay"] = profiled_call(torch, lambda: step(ids, ids))
+    launches = steps_ran_launches(read_counts(mods), [step])
+    per_replay = step_launches(step)
+    tokens = batch * seq
+    emit("api_gpt", model="GPTForCausalLM, gpt3_1p3b_config (GPT-3 XL: 24 "
+         "x 2048, 16 heads of 128, vocab 50304, 2048 positions)",
+         source="gpt3_1p3b_config (paddle_tpu/models/gpt.py:47); GPT-3 "
+         "Table 2.1 / Appendix B optimizer (Brown et al. 2020)",
+         layers=L, batch=batch, seq=seq, lr=API_GPT_LR, amp="O1 bf16",
+         clip="ClipGradByGlobalNorm(1.0)",
+         params=sum(p.size for p in net.parameters()),
+         grad_loss_kernels=lk, grad_loss_plain=lp, grad_max_rel_diff=gap,
+         grad_worst_leaf=gap_leaf, grad_limit=GRAD_LIMIT,
+         planted_fault="K6a-c told causal=False",
+         planted_fault_max_rel_diff=fault_gap, check_s=check_s,
+         eager_losses=eager_losses, eager_step_ms=eager_ms,
+         eager_tokens_per_s=[tokens / (t / 1e3) for t in eager_ms],
+         capture_s=capture_s, first_loss=first, losses=losses,
+         step_ms=step_ms, tokens_per_s=[tokens / (t / 1e3) for t in step_ms],
+         k6_per_replay=per_replay, profiles=profiles,
+         sdpa_plain_calls=len(plain_calls), start_gb=start_gb,
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+         phase_s=time.perf_counter() - t_all, card=card)
+    if not finite:
+        problems.append("a gradient is not finite")
+    if gap > GRAD_LIMIT:
+        problems.append(f"the kernels' gradients differ from the plain "
+                        f"versions' by {gap} of a leaf's largest")
+    if fault_gap <= GRAD_LIMIT:
+        problems.append(f"the planted fault moved the gradients by only "
+                        f"{fault_gap}, within the limit")
+    if per_replay != [want]:
+        problems.append(f"the graph launches {per_replay} a replay, the "
+                        f"code predicts {want}")
+    if plain_calls:
+        problems.append(f"{len(plain_calls)} attentions reached sdpa_plain")
+    if not losses[-1] < losses[0]:
+        problems.append(f"the loss did not fall over the replays: {losses}")
+    if not all(math.isfinite(v) for v in losses + eager_losses):
+        problems.append("a loss is not finite")
+    for p in problems:
+        fail(f"api_gpt: {p}")
+    del step, net, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7653,7 +8122,7 @@ def main():
     torch.cuda.empty_cache()
     launches_int8_overlap = timed(
         "serve_int8_overlap", phase_serve_overlap, torch, cfg, s, qparams,
-        mods, kv_quant="int8")
+        mods, kv_quant="int8", lanes=INT8_OVERLAP_LANES)
     torch.cuda.empty_cache()
     launches_prefix_int8 = timed(
         "serve_prefix_int8", phase_serve_prefix, torch, cfg, s, qparams,
@@ -7697,8 +8166,14 @@ def main():
               mods, flag_set=flag_set)
     torch.cuda.empty_cache()
     launches_api_train = timed("api_train", phase_api_train, torch, s, mods)
+    torch.cuda.empty_cache()
+    launches_api_bert = timed("api_bert", phase_api_bert, torch, s, mods,
+                              card)
+    torch.cuda.empty_cache()
+    launches_api_gpt = timed("api_gpt", phase_api_gpt, torch, s, mods, card)
     # each kernel's launches in the serve, train, train_packed,
-    # train_fused, api_llama and api_train phases
+    # train_fused and api phases (the api_bert / api_gpt graphs' replays
+    # counted in)
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
             launches_dense, launches_faults, launches_mixed, launches_spec,
             launches_swap, launches_qos, launches_disagg, launches_remote,
@@ -7706,7 +8181,7 @@ def main():
             launches_int8_overlap, launches_prefix_int8, launches_mixed_int8,
             launches_spec_int8, launches_swap_int8, launches_disagg_int8,
             launches_train, launches_packed, *launches_fused, launches_api,
-            launches_api_train]
+            launches_api_train, launches_api_bert, launches_api_gpt]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 
     def entry(name, source, replaces, runs):

@@ -11,8 +11,10 @@ version.
 The namespace mirrors ``paddle`` for the dygraph core this port carries
 (``import paddle_tpu_torch as paddle``): ``to_tensor`` and the tensor ops,
 ``backward`` / ``grad`` / ``no_grad``, ``nn`` (``Layer``, ``Linear``,
-``Embedding``, ``RMSNorm``, ...), ``optimizer`` (``SGD``, ``Momentum``,
-``Adam``, ``AdamW``) and ``incubate.nn.functional``.  Tensors go to the
+``Embedding``, ``LayerNorm``, ``RMSNorm``, ``GELU``, ``Dropout``, the
+gradient clips, ...), ``optimizer`` (``SGD``, ``Momentum``, ``Adam``,
+``AdamW``), ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``) and
+``incubate`` (``nn.functional``, ``jit_train_step``).  Tensors go to the
 current place, the card unless ``paddle.set_device("cpu")``; on a host
 without a card the default place raises when a tensor is made.
 
@@ -43,6 +45,7 @@ from .autograd import (  # noqa: F401,E402
 from .framework.param import Parameter, ParamAttr  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
+from . import amp  # noqa: F401,E402
 from . import incubate  # noqa: F401,E402
 
 bool = bool_  # paddle.bool

@@ -44,10 +44,13 @@ from typing import Dict, Optional
 import torch
 
 from .. import flags
+from ..ops import flash_attention as _fa
+from ..ops import fused_adamw as _aw
 from ..ops import int8_matmul as _im
 from ..ops import paged_attention as _pa
 from ..ops import rms_norm as _rn
 from ..ops import rmsnorm_matmul as _rmm
+from ..ops import rope as _rp
 from ..ops import swiglu as _sw
 from .paged_decode import (make_paged_decode_step_async,
                            make_paged_decode_step_multi, make_spec_step)
@@ -65,14 +68,22 @@ _spec_graph_cache: Dict[tuple, "SpecGraph"] = {}
 # cache captures anew)
 _warmup_streams: Dict[str, "torch.cuda.Stream"] = {}
 
-# the launch counters a decode step can bump: (name, module, attribute)
+# the launch counters a captured decode step or training step
+# (incubate/jit_train.py) can bump: (name, module, attribute)
 _COUNTERS = (("paged_decode_attention", _pa, "launches"),
              ("paged_decode_attention_q8", _pa, "launches_q8"),
              ("int8_matmul", _im, "launches"),
              ("int8_matmul_wave", _im, "launches_wave"),
              ("rms_norm_fwd", _rn, "launches"),
+             ("rms_norm_bwd", _rn, "launches_bwd"),
              ("swiglu_fwd", _sw, "launches"),
-             ("rmsnorm_matmul", _rmm, "launches"))
+             ("swiglu_bwd", _sw, "launches_bwd"),
+             ("rmsnorm_matmul", _rmm, "launches"),
+             ("fused_rope", _rp, "launches"),
+             ("flash_attention_fwd", _fa, "launches"),
+             ("flash_attention_bwd_dq", _fa, "launches_dq"),
+             ("flash_attention_bwd_dkv", _fa, "launches_dkv"),
+             ("fused_adamw", _aw, "launches"))
 
 
 def _counts() -> Dict[str, int]:

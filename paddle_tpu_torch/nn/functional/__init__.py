@@ -1,6 +1,6 @@
-"""Functional nn ops: ``linear``, ``embedding``, ``silu``, ``softmax``,
-``log_softmax``, ``cross_entropy``, ``rms_norm`` and
-``scaled_dot_product_attention``.
+"""Functional nn ops: ``linear``, ``embedding``, ``silu``, ``gelu``,
+``tanh``, ``softmax``, ``log_softmax``, ``cross_entropy``, ``layer_norm``,
+``rms_norm``, ``dropout`` and ``scaled_dot_product_attention``.
 
 Counterpart of the same functions of ``paddle_tpu/nn/functional/``.  Two of
 them reach the port's kernels through the op table
@@ -10,7 +10,15 @@ them reach the port's kernels through the op table
   K9b wrapper: the kernels on a CUDA tensor, their plain versions on a CPU
   one (JAX takes its kernel whenever the backend is the accelerator).
   Without a weight it is the composite.
-* :func:`scaled_dot_product_attention` follows :func:`sdpa_route`.
+* :func:`scaled_dot_product_attention` follows :func:`sdpa_route`, on the
+  type the AMP hook will give q (``ops.dispatch.amp_cast_dtype``).
+
+The rest are plain torch ops under JAX's op names (``"gelu"``,
+``"layer_norm"``, ``"dropout"``, ``"dropout_id"``, ``"tanh"``), so AMP's
+lists reach them: JAX has no Pallas kernel for any of them.
+:func:`dropout` draws its mask from the framework's generator of the
+tensor's device (``framework/random.py``), never from torch's global
+ones; the bits differ from ``jax.random``'s, the distribution does not.
 """
 
 from __future__ import annotations
@@ -22,16 +30,26 @@ import torch.nn.functional as TF
 
 from ...flags import flags
 from ...framework import dtype as dtypes
-from ...ops.dispatch import apply, as_tensor, get_op_impl
+from ...framework import random as framework_random
+from ...ops.dispatch import amp_cast_dtype, apply, as_tensor, get_op_impl
 from ...ops.flash_attention import causal_mask, sdpa_plain
+from ...tensor.math import tanh
 
-__all__ = ["linear", "embedding", "silu", "softmax", "log_softmax",
-           "cross_entropy", "rms_norm", "scaled_dot_product_attention",
-           "sdpa_route"]
+__all__ = ["linear", "embedding", "silu", "gelu", "tanh", "softmax",
+           "log_softmax", "cross_entropy", "layer_norm", "rms_norm",
+           "dropout", "scaled_dot_product_attention", "sdpa_route"]
 
 
 def silu(x, name=None):
     return apply("silu", TF.silu, as_tensor(x))
+
+
+def gelu(x, approximate=False, name=None):
+    """``x * Phi(x)``; ``approximate=True`` is the tanh form (JAX's
+    ``jax.nn.gelu(approximate=True)``, torch's ``"tanh"``)."""
+    mode = "tanh" if approximate else "none"
+    return apply("gelu", lambda a: TF.gelu(a, approximate=mode),
+                 as_tensor(x))
 
 
 def softmax(x, axis=-1, dtype=None, name=None):
@@ -147,6 +165,70 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     return apply("rms_norm", fn, x)
 
 
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    """Normalise over the trailing ``normalized_shape`` axes with the
+    population variance, then ``* weight + bias``.  When x, weight and
+    bias share one type this is torch's ``layer_norm`` (the same math in
+    one pass); otherwise JAX's composite, whose products promote (a bf16
+    x with f32 weights gives f32)."""
+    x = as_tensor(x)
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    shape = [int(d) for d in normalized_shape]
+    axes = tuple(range(x.ndim - len(shape), x.ndim))
+    has_w, has_b = weight is not None, bias is not None
+
+    def fn(a, *wb):
+        w = wb[0] if has_w else None
+        b = wb[-1] if has_b else None
+        if all(t is None or t.dtype == a.dtype for t in (w, b)):
+            return TF.layer_norm(a, shape, w, b, epsilon)
+        m = a.mean(axes, keepdim=True)
+        v = a.var(axes, unbiased=False, keepdim=True)
+        out = (a - m) / torch.sqrt(v + epsilon)
+        if w is not None:
+            out = out * w
+        return out + b if b is not None else out
+
+    args = [x]
+    if has_w:
+        args.append(as_tensor(weight))
+    if has_b:
+        args.append(as_tensor(bias))
+    return apply("layer_norm", fn, *args)
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """Zero each element (or each slice along ``axis``: the mask has size 1
+    on every other axis) with probability ``p``.  ``upscale_in_train``
+    scales the kept ones by 1 / (1 - p) in training and is the identity
+    in inference; ``downscale_in_infer`` keeps them as they are in
+    training and scales by 1 - p in inference."""
+    x = as_tensor(x)
+    if not training or p == 0:
+        if mode == "downscale_in_infer" and not training:
+            return apply("dropout", lambda a: a * (1.0 - p), x)
+        return apply("dropout_id", lambda a: a, x)
+    gen = framework_random.generator(x._data.device)
+    scale = (0.0 if p >= 1 else 1.0 / (1.0 - p)) \
+        if mode == "upscale_in_train" else 1.0
+
+    def fn(a):
+        shape = list(a.shape)
+        if axis is not None:
+            ax = [axis] if isinstance(axis, int) else list(axis)
+            ax = [i % a.dim() for i in ax]
+            shape = [s if i in ax else 1 for i, s in enumerate(shape)]
+        keep = torch.rand(shape, generator=gen, device=a.device) >= p
+        kept = a * scale if scale != 1.0 else a
+        return torch.where(keep, kept, torch.zeros((), dtype=a.dtype,
+                                                   device=a.device))
+
+    return apply("dropout", fn, x)
+
+
 def _pick_block(s: int):
     """JAX's ``_pick_blocks``: the largest power-of-two block <= 512 that
     divides ``s``, or None when no block >= 8 does."""
@@ -156,10 +238,11 @@ def _pick_block(s: int):
     return None
 
 
-def sdpa_route(q, k, attn_mask=None, dropout_p=0.0) -> str:
+def sdpa_route(q, k, attn_mask=None, dropout_p=0.0, dtype=None) -> str:
     """Which attention :func:`scaled_dot_product_attention` runs for q / k
     ``[b, s, h, d]`` data, decided from shapes, types and the device
-    before anything launches:
+    before anything launches.  ``dtype`` is the type the op will run in
+    (the AMP hook's cast of q's; q's own when None):
 
     * ``"composite"``: no ``flash_attention`` entry in the op table,
       ``FLAGS_pallas_flash_attention`` off, a mask or dropout (JAX's
@@ -181,7 +264,8 @@ def sdpa_route(q, k, attn_mask=None, dropout_p=0.0) -> str:
     if q.shape[1] != k.shape[1] or q.shape[2] != k.shape[2] or \
             _pick_block(q.shape[1]) is None:
         return "plain"
-    if q.device.type == "cuda" and (q.dtype != torch.bfloat16 or
+    dtype = q.dtype if dtype is None else dtype
+    if q.device.type == "cuda" and (dtype != torch.bfloat16 or
                                     q.shape[-1] not in (64, 128)):
         return "plain"
     return "flash"
@@ -193,19 +277,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """q / k / v ``[batch, seq, heads, dim]``; routed by
     :func:`sdpa_route`.  A causal mask is end-aligned (a 1-token query
     sees the whole cache); ``q_len > kv_len`` with ``is_causal`` raises.
-    Dropout is not ported yet (ROADMAP.md queue 1 item 10)."""
+    ``dropout_p`` drops elements of the attention's output in training, as
+    JAX does (not the probabilities); any ``dropout_p`` takes the
+    composite."""
     q, k, v = as_tensor(query), as_tensor(key), as_tensor(value)
     if is_causal:
         causal_mask(q.shape[1], k.shape[1])
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP.md queue 1 item "
-            "10)")
-    route = sdpa_route(q._data, k._data, attn_mask, dropout_p)
+    route = sdpa_route(q._data, k._data, attn_mask, dropout_p,
+                       amp_cast_dtype("flash_attention", q._data.dtype))
     if route == "flash":
         impl = get_op_impl("flash_attention", None)
         return apply("flash_attention",
-                     lambda qq, kk, vv: impl(qq, kk, vv, causal=is_causal),
+                     lambda qq, kk, vv: impl(qq.contiguous(), kk.contiguous(),
+                                             vv.contiguous(),
+                                             causal=is_causal),
                      q, k, v)
     if route == "plain":
         return apply("flash_attention",
@@ -228,5 +313,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return torch.einsum("bhqk,bhkd->bhqd", probs, vv).transpose(1, 2)
 
     if attn_mask is not None:
-        return apply("sdpa", fn, q, k, v, as_tensor(attn_mask))
-    return apply("sdpa", fn, q, k, v)
+        out = apply("sdpa", fn, q, k, v, as_tensor(attn_mask))
+    else:
+        out = apply("sdpa", fn, q, k, v)
+    if dropout_p > 0.0 and training:
+        out = dropout(out, p=dropout_p, training=training)
+    return out

@@ -1,4 +1,4 @@
-"""``Linear`` and ``Embedding`` (counterpart of
+"""``Linear``, ``Embedding`` and ``Dropout`` (counterpart of
 ``paddle_tpu/nn/layer/common.py``).  ``Linear``'s weight keeps Paddle's
 ``[in, out]`` layout, so a JAX ``state_dict()`` loads unchanged."""
 
@@ -8,7 +8,7 @@ from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding"]
+__all__ = ["Linear", "Embedding", "Dropout"]
 
 
 class Linear(Layer):
@@ -59,3 +59,21 @@ class Embedding(Layer):
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout(Layer):
+    """``F.dropout`` with the layer's ``training`` flag."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, p=self.p, axis=self.axis,
+                         training=self.training, mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"

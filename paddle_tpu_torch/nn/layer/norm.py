@@ -1,5 +1,8 @@
-"""``RMSNorm`` (counterpart of ``paddle_tpu/nn/layer/norm.py``): through
-``F.rms_norm``, so the K9a / K9b kernels on the card."""
+"""``LayerNorm`` and ``RMSNorm`` (counterpart of
+``paddle_tpu/nn/layer/norm.py``).  ``RMSNorm`` goes through ``F.rms_norm``,
+so the K9a / K9b kernels on the card; ``LayerNorm`` through
+``F.layer_norm`` (JAX has no kernel for it).  ``weight_attr=False`` /
+``bias_attr=False`` leave the weight / bias out, as in JAX."""
 
 from __future__ import annotations
 
@@ -7,7 +10,29 @@ from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
+
+
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = None if weight_attr is False else \
+            self.create_parameter(self._normalized_shape, attr=weight_attr,
+                                  default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            self._normalized_shape, attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.layer_norm(x, self._normalized_shape, weight=self.weight,
+                            bias=self.bias, epsilon=self._epsilon)
+
+    def extra_repr(self):
+        return f"normalized_shape={self._normalized_shape}"
 
 
 class RMSNorm(Layer):

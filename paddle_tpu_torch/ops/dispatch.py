@@ -13,12 +13,19 @@ below (paddle_tpu/ops/pallas/__init__.py's list).  Each wrapper launches
 its CUDA kernel on a CUDA tensor and runs its plain version on a CPU one.
 Registering another function under a name re-routes every API call that
 takes it (how a comparison runs the plain versions on the card).
+
+:func:`set_amp_hook` is JAX's seam for AMP: ``paddle_tpu_torch.amp``
+installs ``hook(op_name, arrays) -> arrays`` and :func:`apply` runs each op
+on what it returns (torch's autograd takes the casts back to the callers'
+types in the backward).  :func:`amp_cast_dtype` asks the hook, without
+running an op, what type it gives an input of ``name``: a route that picks
+a kernel by type (``F.sdpa_route``) decides on the type the op will see.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -26,9 +33,25 @@ import torch
 from ..flags import flags
 from ..tensor.tensor import Tensor, _to_torch, wrap_array
 
-__all__ = ["apply", "as_tensor", "unwrap", "register_op_impl", "get_op_impl"]
+__all__ = ["apply", "as_tensor", "unwrap", "register_op_impl", "get_op_impl",
+           "set_amp_hook", "amp_cast_dtype"]
 
 _op_table: Dict[str, Callable] = {}
+_amp_hook: Optional[Callable] = None
+
+
+def set_amp_hook(hook: Optional[Callable]) -> None:
+    """Installed by ``paddle_tpu_torch.amp``: (op_name, arrays) -> arrays."""
+    global _amp_hook
+    _amp_hook = hook
+
+
+def amp_cast_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """The type the AMP hook gives an input of op ``name`` that has
+    ``dtype`` (``dtype`` itself when no hook casts it)."""
+    if _amp_hook is None:
+        return dtype
+    return _amp_hook(name, (torch.empty(0, dtype=dtype),))[0].dtype
 
 
 def register_op_impl(name: str, fn: Callable) -> None:
@@ -71,8 +94,12 @@ def _check_nan_inf(name: str, outs) -> None:
 def apply(name: str, fn: Callable, *inputs: Tensor
           ) -> Union[Tensor, tuple]:
     """Run ``fn`` (torch tensors in, one tensor or a tuple out) on the
-    inputs' data; torch's autograd records it."""
-    outs = fn(*(t._data for t in inputs))
+    inputs' data, cast by the AMP hook when one is installed; torch's
+    autograd records it."""
+    arrays = tuple(t._data for t in inputs)
+    if _amp_hook is not None:
+        arrays = _amp_hook(name, arrays)
+    outs = fn(*arrays)
     single = not isinstance(outs, (tuple, list))
     outs_t = (outs,) if single else tuple(outs)
     if flags.FLAGS_check_nan_inf:

@@ -12,9 +12,16 @@ parameter keeps its storage (and its version counter moves, which is how
 ``multi_precision=True`` keeps an f32 master copy of each bf16 / fp16
 parameter: the rule runs on the master and f32 moments, and the parameter
 takes the master rounded to its type.  As in JAX, AdamW does not call the
-``fused_adamw`` kernel.  A learning-rate scheduler (``optimizer/lr.py``)
-and gradient clipping are not ported yet (ROADMAP.md queue 1 item 10):
-``learning_rate`` is a float and ``grad_clip`` must be None.
+``fused_adamw`` kernel.  ``grad_clip`` (``nn.ClipGradBy*``) runs on the
+``[(param, grad)]`` list before the rule, as in JAX.  ``state_dict()``
+carries each parameter's state under ``"<name>.<key>"`` and ``"@step"``.
+A learning-rate scheduler (``optimizer/lr.py``) is not ported yet
+(ROADMAP.md queue 1 item 10): ``learning_rate`` is a float.
+
+``incubate.jit_train_step`` runs the same rules inside a CUDA graph; there
+the state's ``beta*_pow`` are device scalars (a Python float would freeze
+at its capture-time value) and ``lr`` is a device scalar copied before
+each replay.  The rules take either.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..tensor.tensor import Tensor
+from ..tensor.tensor import Tensor, wrap_array
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
@@ -38,10 +45,7 @@ class Optimizer:
             raise NotImplementedError(
                 "learning-rate schedulers are not ported yet (ROADMAP.md "
                 "queue 1 item 10); pass a float")
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "gradient clipping is not ported yet (ROADMAP.md queue 1 "
-                "item 10)")
+        self._grad_clip = grad_clip
         self._parameter_list = list(parameters) if parameters is not None \
             else None
         self._learning_rate = float(learning_rate)
@@ -59,6 +63,9 @@ class Optimizer:
 
     def get_lr(self) -> float:
         return self._learning_rate
+
+    def set_lr(self, value: float) -> None:
+        self._learning_rate = float(value)
 
     def _params(self) -> List[Tensor]:
         if self._parameter_list is None:
@@ -91,12 +98,16 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
+        params_grads = [(p, wrap_array(p._data.grad)) for p in self._params()
+                        if not p.stop_gradient and p._data.grad is not None]
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
         lr = self.get_lr()
         self._step_count += 1
-        for p in self._params():
-            g = p._data.grad
-            if p.stop_gradient or g is None:
+        for p, g in params_grads:
+            if g is None:
                 continue
+            g = g._data
             self._current_param = p
             state = self._get_state(p)
             master = state.get("master")
@@ -119,6 +130,18 @@ class Optimizer:
             p.clear_grad()
 
     clear_gradients = clear_grad
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Every parameter's state as ``"<param name>.<key>"`` (tensors as
+        Tensors over the live state, numbers as they are) and ``"@step"``,
+        the steps taken."""
+        out: Dict[str, Any] = {}
+        for p in self._params():
+            for k, v in (self._states.get(id(p)) or {}).items():
+                out[f"{p.name}.{k}"] = wrap_array(v) if isinstance(
+                    v, torch.Tensor) else v
+        out["@step"] = self._step_count
+        return out
 
     def _apply_decay(self, param, grad):
         """L2 regularisation folded into the gradient."""

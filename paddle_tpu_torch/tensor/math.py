@@ -4,7 +4,7 @@ Counterpart of ``paddle_tpu/tensor/math.py`` for the ops the Layer API and
 the training loop use: the binary arithmetic (a Python scalar operand is
 closed over, so it takes the tensor's type, as JAX's weak types do),
 ``pow``, ``maximum``, the unary ``exp`` / ``log`` / ``sqrt`` / ``abs`` /
-``neg``, and the reductions ``sum`` / ``mean`` / ``max``.
+``neg`` / ``tanh``, and the reductions ``sum`` / ``mean`` / ``max``.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ log = _make_unary("log", torch.log)
 sqrt = _make_unary("sqrt", torch.sqrt)
 abs = _make_unary("abs", torch.abs)
 neg = _make_unary("neg", torch.neg)
+tanh = _make_unary("tanh", torch.tanh)
 
 
 def _make_binary(name, tfn, exports=None):

@@ -538,10 +538,16 @@ def test_sdpa_route_rules():
         assert TF.sdpa_route(q, q) == "composite"
     finally:
         tp.set_flags({"FLAGS_pallas_flash_attention": True})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TF.scaled_dot_product_attention(
-            tp.to_tensor(ATT[0]), tp.to_tensor(ATT[1]), tp.to_tensor(ATT[2]),
-            dropout_p=0.1)
+    # attention dropout (ported since): the composite, then the output
+    # dropped as JAX drops it, each element 0 or 1 / (1 - p) of the
+    # dropout-free output
+    args = [tp.to_tensor(a) for a in ATT[:3]]
+    ref = TF.scaled_dot_product_attention(*args).numpy()
+    out = TF.scaled_dot_product_attention(*args, dropout_p=0.5).numpy()
+    kept = out != 0
+    assert kept.any() and not kept.all()
+    np.testing.assert_allclose(out[kept], 2 * ref[kept], rtol=1e-5,
+                               atol=1e-6)
 
 
 @pytest.fixture
@@ -655,6 +661,11 @@ def test_optimizer_steps_match_jax(kind, mp):
 def test_unported_optimizer_options_raise():
     w = tp.Parameter(np.ones(3, np.float32))
     with pytest.raises(NotImplementedError, match="item 10"):
-        tp.optimizer.SGD(0.1, parameters=[w], grad_clip=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
         tp.optimizer.AdamW(object(), parameters=[w])
+    # gradient clipping is ported since: the optimizer takes it
+    opt = tp.optimizer.SGD(1.0, parameters=[w],
+                           grad_clip=tp.nn.ClipGradByValue(0.5))
+    (w * tp.to_tensor(np.array([3.0, -3.0, 0.1], np.float32))).sum() \
+        .backward()
+    opt.step()
+    np.testing.assert_allclose(w.numpy(), [0.5, 1.5, 0.9], rtol=1e-6)

@@ -86,6 +86,11 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.models.llama\n"
         "import paddle_tpu_torch.models._layers\n"
         "import paddle_tpu_torch.models.decode\n"
+        "import paddle_tpu_torch.models.bert\n"
+        "import paddle_tpu_torch.models.gpt\n"
+        "import paddle_tpu_torch.amp\n"
+        "import paddle_tpu_torch.nn.clip\n"
+        "import paddle_tpu_torch.incubate.jit_train\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.ab_torch_kernels\n"
