@@ -450,6 +450,34 @@ Phases, one JSON line each on stdout:
              eager and replayed, tokens/s, the GB allocated when the
              phase began and its peak since;
              one eager step and one replay profiled as in api_bert.
+11e. api_fit - BASELINE config 1: Model(LeNet()).fit on the synthetic
+             MNIST (2,048 samples, Normalize(0.5, 0.5)), Adam(1e-3),
+             CrossEntropyLoss, Accuracy, batch 64, 2 epochs, two DataLoader
+             workers over shared memory (persistent: spawned once for
+             both epochs); then evaluate and predict on
+             MNIST(mode="test").  Gates: one CUDA graph
+             replayed once a step, every batch counted through shared
+             memory, accuracy >= API_FIT_ACC, save -> load into a fresh
+             Model giving evaluate and predict outputs equal bit for bit,
+             the loss falling by more than API_FIT_FLAT over the run and a
+             planted fault (the optimizer's rule returns the parameter)
+             leaving it within API_FIT_FLAT.  Prints fit s, samples/s and
+             a step's median wall ms.
+11f. api_resnet - _resnet_line's TPU recipe (bench.py:302-330, BASELINE
+             config 2, its data parallelism cut to one card):
+             resnet50(num_classes=1000), batch 256 x 3 x 224 x 224 from
+             np.random.RandomState(0), Momentum(0.1, 0.9), jit_train_step
+             at O1 bf16.  At full width and batch 32, 3 replays against the
+             eager O1 loop from the same weights: losses within
+             RESNET_LOSS_LIMIT, every BatchNorm's _mean / _variance within
+             RESNET_STAT_LIMIT, a planted fault (torch's momentum
+             convention) beyond it.  Then at 256: 3 eager steps (their
+             pool freed), the capture, 1 warm-up and 5 timed replays on two
+             alternating batches (the loss falls over the replays: the last
+             pair's mean below the first pair's; no NaN),
+             one replay profiled (device ms by kind: conv, batchnorm,
+             elementwise, matmul, other); replayed and eager ms, images/s,
+             capture s, peak GB.
 12. kernels - one JSON object with an entry per ported kernel (16, and
              K3's wave path beside its decode path and the segmented
              kernels' per-tile range kernel: 18).
@@ -457,7 +485,9 @@ Phases, one JSON line each on stdout:
 
 Cuts for the 1,200 s limit: serve_mixed_int8 runs 2 of its 4 waves,
 serve_spec_int8 its first 3 arms, serve_int8_overlap its reference and
-last lane, serve_swap 96 new tokens a request where the recipe has 192.
+last lane, serve_swap 96 new tokens a request where the recipe has 192,
+serve_qos 6 new tokens a fleet request where the recipe has 32 (and its
+preemption arms' lows 6-13 and highs 6, where they were 20-34 and 24).
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before that line.  Without a CUDA device, or without the package
@@ -4827,10 +4857,14 @@ QOS_WAVES = (4, 6, 8, 10, 10, 8)
 QOS_STEPS_PER_WAVE = 3
 QOS_PROMPT_LENS = (48, 96, 160, 220)
 QOS_CLASSES = ("high", "normal", "normal", "low", "low")
-QOS_NEW = 32
+# the recipe's 32 new tokens a request, cut to 6 in the fleet for the
+# script's time limit (and the preemption arms' lows to 6-13 and highs to
+# 6); the shedding burst, which steps nothing, keeps 32, and every gate
+# stands
+QOS_NEW, QOS_SHED_NEW = 6, 32
 QOS_HIGH_QT, QOS_LOW_QT = 512.0, 64.0
-QOS_LOW_NEWS = (20, 22, 24, 26, 28, 30, 32, 34)
-QOS_HIGH_LENS, QOS_HIGH_NEW = (96, 160), 24
+QOS_LOW_NEWS = (6, 7, 8, 9, 10, 11, 12, 13)
+QOS_HIGH_LENS, QOS_HIGH_NEW = (96, 160), 6
 # a retired replica gives back its pool, graphs and workspaces: the walk
 # back to one replica ends within QOS_MEM_SLACK of the fixed arm's
 # allocated memory; no replica copies the weights: an arm's peak stays
@@ -4865,7 +4899,7 @@ def qos_shed_burst(se, eng, prompts):
 
     def submit(p, cls, tenant=None):
         try:
-            rid = eng.submit(p, max_new_tokens=QOS_NEW, priority=cls,
+            rid = eng.submit(p, max_new_tokens=QOS_SHED_NEW, priority=cls,
                              tenant=tenant)
         except se.QuotaExceededError as e:
             out.append(("quota", e.tenant, round(e.retry_after, 6)))
@@ -7648,9 +7682,11 @@ def device_kind(name):
     return "other"
 
 
-def profiled_call(torch, fn):
+def profiled_call(torch, fn, kind_of=None):
     """``fn()`` once under a CUDA-only profiler -> {host ms to its end,
-    device ms, busy share, device ms by kind}."""
+    device ms, busy share, device ms by kind (``kind_of(kernel name)``,
+    ``device_kind`` by default)}."""
+    kind_of = kind_of or device_kind
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
     with prof:
@@ -7662,7 +7698,7 @@ def profiled_call(torch, fn):
     kinds = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = device_kind(e.name)
+            k = kind_of(e.name)
             kinds[k] = kinds.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
     device = sum(kinds.values())
     return {"host_ms": host, "device_ms": device,
@@ -7970,6 +8006,361 @@ def phase_api_gpt(torch, seed, mods, card, dev="cuda", cfg_kw=None,
     return launches
 
 
+# api_fit: BASELINE config 1 (BASELINE.md, "Benchmark configurations"):
+# LeNet through Model.fit on the synthetic MNIST, Adam(1e-3), batch 64,
+# 2 epochs, two DataLoader workers over shared memory
+API_FIT_BATCH, API_FIT_EPOCHS, API_FIT_WORKERS, API_FIT_LR = 64, 2, 2, 1e-3
+API_FIT_ACC = 0.9          # JAX's Model.fit reaches 1.0 on the CPU
+# the loss over a run's last 8 batches against its first 8: the recipe's
+# falls by more than this share, the planted fault's (a replay that skips
+# the optimizer) moves by less
+API_FIT_FLAT = 0.05
+
+
+class _LossLog:
+    """A Model.fit callback: each train batch's loss and wall ms."""
+
+    def __init__(self):
+        from paddle_tpu_torch.callbacks import Callback
+
+        class Log(Callback):
+            def on_train_batch_begin(cb, step, logs=None):
+                cb.t = time.perf_counter()
+
+            def on_train_batch_end(cb, step, logs=None):
+                cb.ms.append((time.perf_counter() - cb.t) * 1e3)
+                cb.losses.append(float(np.asarray(logs["loss"]).ravel()[0]))
+
+        self.cb = Log()
+        self.cb.losses, self.cb.ms = [], []
+
+
+def fit_trend(losses):
+    """The mean loss of the last 8 batches over the first 8's, less 1."""
+    return float(np.mean(losses[-8:]) / np.mean(losses[:8]) - 1.0)
+
+
+def phase_api_fit(torch, seed, card, dev="cuda"):
+    """BASELINE config 1: Model(LeNet()).fit over DataLoader workers."""
+    import os
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import worker as tworker
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    t_all = time.perf_counter()
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    problems = []
+    norm = T.Normalize(mean=[0.5], std=[0.5])
+    train = MNIST(mode="train", transform=norm)
+    test = MNIST(mode="test", transform=norm)
+
+    def build(s):
+        paddle.seed(s)
+        net = LeNet()
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.Adam(API_FIT_LR,
+                                            parameters=net.parameters()),
+                      paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        return model
+
+    model = build(seed)
+    log = _LossLog()
+    shm0 = tworker.shm_batches
+    np.random.seed(seed)
+    t = time.perf_counter()
+    # the workers start once (a spawned worker imports torch) and serve
+    # both epochs
+    loader = paddle.io.DataLoader(
+        train, batch_size=API_FIT_BATCH, shuffle=True,
+        num_workers=API_FIT_WORKERS, use_shared_memory=True,
+        persistent_workers=True)
+    model.fit(loader, epochs=API_FIT_EPOCHS, verbose=0, callbacks=[log.cb])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    shm = tworker.shm_batches - shm0
+    loader._workers.shutdown()
+    steps = len(log.cb.losses)
+    graphs = model._adapter._jit_step.graphs()
+    t = time.perf_counter()
+    ev = model.evaluate(test, batch_size=API_FIT_BATCH, verbose=0)
+    eval_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pred = model.predict(test, batch_size=API_FIT_BATCH, stack_outputs=True,
+                         verbose=0)[0]
+    predict_s = time.perf_counter() - t
+    tmp = tempfile.mkdtemp(prefix="api_fit_")
+    try:
+        model.save(os.path.join(tmp, "lenet"))
+        fresh = build(seed + 1)
+        fresh.load(os.path.join(tmp, "lenet"))
+        ev2 = fresh.evaluate(test, batch_size=API_FIT_BATCH, verbose=0)
+        pred2 = fresh.predict(test, batch_size=API_FIT_BATCH,
+                              stack_outputs=True, verbose=0)[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the planted fault: the optimizer's rule returns the parameter as it
+    # was, so every replay leaves the weights where they were
+    faulted = build(seed)
+    faulted._optimizer._update = lambda param, grad, state, lr: (param, {})
+    flog = _LossLog()
+    np.random.seed(seed)
+    faulted.fit(train, batch_size=API_FIT_BATCH, epochs=1, verbose=0,
+                callbacks=[flog.cb])
+    fgraphs = faulted._adapter._jit_step.graphs()
+    trend, fault_trend = fit_trend(log.cb.losses), fit_trend(flog.cb.losses)
+    emit("api_fit", model="LeNet (vision/models/lenet.py), 61,610 "
+         "parameters", source="BASELINE.md config 1 (LeNet MNIST via "
+         "Model.fit); synthetic MNIST (vision/datasets.py, 2,048 train / "
+         "512 test)", transform="Normalize(0.5, 0.5)",
+         optimizer=f"Adam({API_FIT_LR})", batch=API_FIT_BATCH,
+         epochs=API_FIT_EPOCHS, num_workers=API_FIT_WORKERS,
+         use_shared_memory=True, persistent_workers=True, steps=steps,
+         captures=len(graphs), replays=[g.replays for g in graphs],
+         shm_batches=shm, fit_s=fit_s,
+         samples_per_s=steps * API_FIT_BATCH / fit_s,
+         step_ms_median=float(np.median(log.cb.ms)) if log.cb.ms else None,
+         first_losses=log.cb.losses[:4], last_losses=log.cb.losses[-4:],
+         loss_trend=trend, eval=ev, eval_s=eval_s, predict_s=predict_s,
+         predict_shape=list(pred.shape),
+         reloaded_eval_equal=ev2 == ev,
+         reloaded_predict_equal=bool(np.array_equal(pred, pred2)),
+         planted_fault="the optimizer's rule returns the parameter unchanged",
+         planted_fault_trend=fault_trend, flat_bar=API_FIT_FLAT,
+         planted_fault_replays=[g.replays for g in fgraphs],
+         phase_s=time.perf_counter() - t_all, card=card)
+    want_steps = API_FIT_EPOCHS * len(train) // API_FIT_BATCH
+    if steps != want_steps:
+        problems.append(f"{steps} train batches, want {want_steps}")
+    if [g.replays for g in graphs] != [steps]:
+        problems.append(f"fit's graphs replayed {[g.replays for g in graphs]}"
+                        f", want one graph replayed {steps} times")
+    if shm != steps:
+        problems.append(f"{shm} batches came through shared memory, want "
+                        f"fit's {steps}")
+    if not ev["acc"] >= API_FIT_ACC:
+        problems.append(f"accuracy {ev['acc']} below {API_FIT_ACC}")
+    if ev2 != ev or not np.array_equal(pred, pred2):
+        problems.append(f"the reloaded Model evaluates {ev2}, the trained "
+                        f"one {ev}")
+    if not np.isfinite(pred).all() or list(pred.shape) != [len(test), 10]:
+        problems.append(f"predict gave {list(pred.shape)} or a non-finite "
+                        f"value")
+    if not trend < -API_FIT_FLAT:
+        problems.append(f"the loss moved by {trend} over the run")
+    if abs(fault_trend) > API_FIT_FLAT or \
+            [g.replays for g in fgraphs] != [len(flog.cb.losses)]:
+        problems.append(f"the planted fault moved the loss by {fault_trend}"
+                        f" (replays {[g.replays for g in fgraphs]})")
+    for p in problems:
+        fail(f"api_fit: {p}")
+    del model, fresh, faulted
+    torch.cuda.empty_cache()
+
+
+# api_resnet: _resnet_line's TPU recipe (bench.py:302-330, BASELINE
+# config 2) on one card: resnet50(num_classes=1000), batch 256 x 3 x 224 x
+# 224 from np.random.RandomState(0), Momentum(0.1, 0.9), jit_train_step at
+# O1 bf16, 2 warm-up replays then 5 timed on two alternating batches.
+# BASELINE config 2's data parallelism is cut to one card (ROADMAP.md
+# queue 1 item 9(a)).
+RESNET_BATCH, RESNET_HW, RESNET_CLASSES = 256, 224, 1000
+RESNET_WARM, RESNET_TIMED, RESNET_EAGER = 2, 5, 3
+# the parity gate, at full width and a smaller batch: RESNET_CHECK_STEPS
+# replays against the eager O1 loop from the same weights on the same
+# batches; each loss within RESNET_LOSS_LIMIT (relative), every
+# BatchNorm's _mean / _variance within RESNET_STAT_LIMIT of the buffer's
+# largest |value| (cuDNN's backward sums in no fixed order, and two
+# momentum steps carry that on); the planted fault (torch's convention,
+# Paddle's momentum 0.9 taken as the new statistic's share) must land
+# beyond the stat bar
+RESNET_CHECK_BATCH, RESNET_CHECK_STEPS = 32, 3
+RESNET_LOSS_LIMIT, RESNET_STAT_LIMIT = 2e-3, 1e-2
+
+
+def resnet_kind(name):
+    """A CUDA kernel's kind for api_resnet's profile."""
+    low = name.lower()
+    if any(t in low for t in ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
+                              "bn_")):
+        return "batchnorm"
+    if any(t in low for t in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                              "winograd", "nchwtonhwc", "nhwctonchw",
+                              "cudnn")):
+        return "conv"
+    if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "cublas",
+                              "xmma")):
+        return "matmul"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    return "other"
+
+
+class _TorchMomentum:
+    """torch.nn.functional with batch_norm given Paddle's momentum as
+    torch's (the new statistic's share): api_resnet's planted fault."""
+
+    def __getattr__(self, name):
+        import torch.nn.functional as TF
+        return getattr(TF, name)
+
+    @staticmethod
+    def batch_norm(a, m, v, w=None, b=None, training=False, momentum=0.1,
+                   eps=1e-5):
+        import torch.nn.functional as TF
+        return TF.batch_norm(a, m, v, w, b, training,
+                             1.0 - momentum if training else momentum, eps)
+
+
+def bn_stat_gap(a, b):
+    """The largest gap between two models' BatchNorm buffers, each over its
+    buffer's largest |value| in ``b``."""
+    return max(float((x._data - y._data).abs().max()) /
+               max(float(y._data.abs().max()), 1e-12)
+               for x, y in zip(a.buffers(), b.buffers()))
+
+
+def phase_api_resnet(torch, seed, card, dev="cuda", arch="resnet50",
+                     batch=RESNET_BATCH, hw=RESNET_HW,
+                     classes=RESNET_CLASSES, check_batch=RESNET_CHECK_BATCH):
+    """_resnet_line's recipe on one card (``arch``, the batch and the
+    image size override it, for a rehearsal)."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as pF
+    from paddle_tpu_torch.incubate import jit_train_step
+    from paddle_tpu_torch.vision import models as vm
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 2**30
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    problems = []
+    rng = np.random.RandomState(0)                  # bench.py:318-322
+    xs_np = [rng.randn(batch, 3, hw, hw).astype(np.float32)
+             for _ in range(2)]
+    ys_np = [rng.randint(0, classes, (batch,)).astype(np.int64)
+             for _ in range(2)]
+    ce = paddle.nn.CrossEntropyLoss()
+
+    def build(like=None):
+        paddle.seed(seed)
+        net = getattr(vm, arch)(num_classes=classes)
+        if like is not None:
+            net.set_state_dict(like.state_dict())
+        net.train()
+        return net, paddle.optimizer.Momentum(
+            learning_rate=0.1, momentum=0.9, parameters=net.parameters())
+
+    # (1) parity at full width, batch check_batch
+    t0 = time.perf_counter()
+    cx = [paddle.to_tensor(x[:check_batch]) for x in xs_np]
+    cy = [paddle.to_tensor(y[:check_batch]) for y in ys_np]
+    net_g, opt_g = build()
+    net_e, opt_e = build(net_g)
+    net_f, opt_f = build(net_g)
+    step_g = jit_train_step(net_g, ce, opt_g, amp_level="O1")
+    replayed, eager, loss_gap, stat_gaps = [], [], 0.0, []
+    for i in range(RESNET_CHECK_STEPS):
+        x, y = cx[i % 2], cy[i % 2]
+        replayed.append(float(step_g(x, y)))
+        eager.append(float(eager_o1_step(paddle, net_e, ce, opt_e, (x,), y)))
+        with patched((pF, "TF", _TorchMomentum())):
+            eager_o1_step(paddle, net_f, ce, opt_f, (x,), y)
+        loss_gap = max(loss_gap, abs(replayed[-1] - eager[-1]) /
+                       abs(eager[-1]))
+        stat_gaps.append(bn_stat_gap(net_g, net_e))
+    fault_gap = bn_stat_gap(net_f, net_e)
+    check_replays = [g.replays for g in step_g.graphs()]
+    del step_g, net_g, net_e, net_f, opt_g, opt_e, opt_f, cx, cy
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+
+    # (2) the recipe at batch: the eager loop first, its pool freed, then
+    # the capture and the replays
+    xs = [paddle.to_tensor(x) for x in xs_np]
+    ys = [paddle.to_tensor(y) for y in ys_np]
+    del xs_np, ys_np
+    net, opt = build()
+    turn = [0]
+
+    def alternate(fn):
+        def call():
+            i = turn[0]
+            turn[0] += 1
+            return fn(xs[i % 2], ys[i % 2])
+        return call
+
+    eager_losses, eager_ms = timed_calls(torch, alternate(
+        lambda x, y: eager_o1_step(paddle, net, ce, opt, (x,), y)),
+        RESNET_EAGER)
+    eager_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    step = jit_train_step(net, ce, opt, amp_level="O1")
+    turn[0] = 0
+    t = time.perf_counter()
+    first = float(step(xs[0], ys[0]))
+    capture_s = time.perf_counter() - t
+    turn[0] = 1
+    warm_losses, warm_ms = timed_calls(torch, alternate(step),
+                                       RESNET_WARM - 1)
+    losses, step_ms = timed_calls(torch, alternate(step), RESNET_TIMED)
+    profile = profiled_call(torch, lambda: step(xs[0], ys[0]), resnet_kind)
+    replays = [g.replays for g in step.graphs()]
+    replay_losses = [first] + warm_losses + losses
+    # the replays alternate the two batches: the loss falls when the last
+    # pair (one replay on each batch) averages below the first pair
+    pairs = (float(np.mean(replay_losses[:2])),
+             float(np.mean(replay_losses[-2:])))
+    emit("api_resnet", model=f"{arch}(num_classes={classes}) (vision/"
+         f"models/resnet.py)", source="bench.py:302-330 _resnet_line TPU "
+         "recipe (BASELINE config 2: ResNet-50 ImageNet-shape training)",
+         cut="BASELINE config 2's data parallelism cut to one card "
+             "(ROADMAP.md queue 1 item 9(a))",
+         batch=batch, image=[3, hw, hw], amp="O1 bf16",
+         optimizer="Momentum(0.1, 0.9)",
+         params=sum(p.size for p in net.parameters()),
+         check=dict(batch=check_batch, steps=RESNET_CHECK_STEPS,
+                    replayed=replayed, eager=eager, loss_max_rel_gap=loss_gap,
+                    loss_limit=RESNET_LOSS_LIMIT, bn_stat_gaps=stat_gaps,
+                    stat_limit=RESNET_STAT_LIMIT,
+                    planted_fault="batch_norm given Paddle's momentum as "
+                                  "torch's (0.9 the new share)",
+                    planted_fault_stat_gap=fault_gap, replays=check_replays,
+                    check_s=check_s),
+         eager_losses=eager_losses, eager_step_ms=eager_ms,
+         eager_images_per_s=[batch / (m / 1e3) for m in eager_ms],
+         eager_peak_gb=eager_peak_gb, capture_s=capture_s, first_loss=first,
+         warm_losses=warm_losses, warm_ms=warm_ms, losses=losses,
+         step_ms=step_ms, images_per_s=[batch / (m / 1e3) for m in step_ms],
+         first_and_last_pair_mean_loss=pairs, replays=replays,
+         profile_replay=profile, start_gb=start_gb,
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+         phase_s=time.perf_counter() - t_all, card=card)
+    if loss_gap > RESNET_LOSS_LIMIT:
+        problems.append(f"the replayed losses {replayed} differ from the "
+                        f"eager loop's {eager} by {loss_gap}")
+    if max(stat_gaps) > RESNET_STAT_LIMIT:
+        problems.append(f"the BatchNorm buffers after the replays differ "
+                        f"from the eager loop's by {stat_gaps}")
+    if fault_gap <= RESNET_STAT_LIMIT:
+        problems.append(f"the planted fault moved the BatchNorm buffers by "
+                        f"only {fault_gap}, within the bar")
+    if check_replays != [RESNET_CHECK_STEPS] or \
+            replays != [1 + RESNET_WARM - 1 + RESNET_TIMED + 1]:
+        problems.append(f"graph replays {check_replays} and {replays}")
+    if not pairs[1] < pairs[0]:
+        problems.append(f"the loss did not fall over the replays: "
+                        f"{replay_losses}")
+    if not all(math.isfinite(v) for v in replay_losses + eager_losses +
+               replayed + eager):
+        problems.append("a loss is not finite")
+    for p in problems:
+        fail(f"api_resnet: {p}")
+    del step, net, opt, xs, ys
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8171,6 +8562,10 @@ def main():
                               card)
     torch.cuda.empty_cache()
     launches_api_gpt = timed("api_gpt", phase_api_gpt, torch, s, mods, card)
+    torch.cuda.empty_cache()
+    timed("api_fit", phase_api_fit, torch, s, card)
+    torch.cuda.empty_cache()
+    timed("api_resnet", phase_api_resnet, torch, s, card)
     # each kernel's launches in the serve, train, train_packed,
     # train_fused and api phases (the api_bert / api_gpt graphs' replays
     # counted in)

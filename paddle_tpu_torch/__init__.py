@@ -11,10 +11,13 @@ version.
 The namespace mirrors ``paddle`` for the dygraph core this port carries
 (``import paddle_tpu_torch as paddle``): ``to_tensor`` and the tensor ops,
 ``backward`` / ``grad`` / ``no_grad``, ``nn`` (``Layer``, ``Linear``,
-``Embedding``, ``LayerNorm``, ``RMSNorm``, ``GELU``, ``Dropout``, the
-gradient clips, ...), ``optimizer`` (``SGD``, ``Momentum``, ``Adam``,
-``AdamW``), ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``) and
-``incubate`` (``nn.functional``, ``jit_train_step``).  Tensors go to the
+``Embedding``, ``Conv2D``, the pools, ``BatchNorm2D``, ``LayerNorm``,
+``RMSNorm``, ``ReLU``, ``GELU``, ``Dropout``, the gradient clips, ...),
+``optimizer`` (``SGD``, ``Momentum``, ``Adam``, ``AdamW``, ``lr``), ``amp``
+(``auto_cast``, ``decorate``, ``GradScaler``), ``incubate``
+(``nn.functional``, ``jit_train_step``), ``io`` (``DataLoader`` and the
+datasets), ``metric``, ``Model`` / ``summary`` / ``callbacks`` (hapi),
+``vision`` (LeNet, ResNet, datasets, transforms) and ``save`` / ``load``.  Tensors go to the
 current place, the card unless ``paddle.set_device("cpu")``; on a host
 without a card the default place raises when a tensor is made.
 
@@ -47,5 +50,12 @@ from . import nn  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
 from . import amp  # noqa: F401,E402
 from . import incubate  # noqa: F401,E402
+from . import io  # noqa: F401,E402
+from . import metric  # noqa: F401,E402
+from . import hapi  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402
+from . import vision  # noqa: F401,E402
+from .framework.io import load, save  # noqa: F401,E402
+from .hapi import Model, summary  # noqa: F401,E402
 
 bool = bool_  # paddle.bool

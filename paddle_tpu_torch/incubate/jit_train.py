@@ -29,7 +29,9 @@ The semantics are JAX's:
   master copies of ``multi_precision``) is the optimizer's own, so its
   ``state_dict()`` carries it with ``"@step"``;
 * a buffer the forward rebinds is written back into the buffer's own
-  storage, so the next step reads it;
+  storage, so the next step reads it; a buffer rebound between steps
+  (``set_state_dict``, an eager forward in train mode) is copied back into
+  that storage before the next step;
 * dropout draws from the framework's generator of the device, which the
   graph registers: every replay draws a fresh mask, and two runs after the
   same ``paddle.seed`` draw the same ones.
@@ -231,7 +233,20 @@ def jit_train_step(model: Layer, loss_fn: Callable, optimizer,
             framework_random.renew_generator(device)
             raise
 
+    def rehome_buffers():
+        """A buffer rebound outside the step (``set_state_dict``, a
+        forward run eagerly) goes back into its own storage, which the
+        captured graphs read."""
+        with torch.no_grad():
+            for layer, name, b, data in buffers:
+                cur = layer._buffers[name]
+                if cur is not b or b._data is not data:
+                    data.copy_(cur._data)
+                    b._data = data
+                    layer._buffers[name] = b
+
     def step(x, y):
+        rehome_buffers()
         x_tuple, y_tuple = isinstance(x, (tuple, list)), \
             isinstance(y, (tuple, list))
         xs = [a.to(device) for a in _flat(x)]

@@ -1,6 +1,8 @@
-"""Functional nn ops: ``linear``, ``embedding``, ``silu``, ``gelu``,
-``tanh``, ``softmax``, ``log_softmax``, ``cross_entropy``, ``layer_norm``,
-``rms_norm``, ``dropout`` and ``scaled_dot_product_attention``.
+"""Functional nn ops: ``linear``, ``embedding``, ``relu``, ``silu``,
+``gelu``, ``tanh``, ``softmax``, ``log_softmax``, ``cross_entropy``,
+``layer_norm``, ``rms_norm``, ``batch_norm``, ``dropout``,
+``scaled_dot_product_attention``, the convolutions (``conv.py``) and the
+pools (``pooling.py``).
 
 Counterpart of the same functions of ``paddle_tpu/nn/functional/``.  Two of
 them reach the port's kernels through the op table
@@ -14,8 +16,9 @@ them reach the port's kernels through the op table
   type the AMP hook will give q (``ops.dispatch.amp_cast_dtype``).
 
 The rest are plain torch ops under JAX's op names (``"gelu"``,
-``"layer_norm"``, ``"dropout"``, ``"dropout_id"``, ``"tanh"``), so AMP's
-lists reach them: JAX has no Pallas kernel for any of them.
+``"layer_norm"``, ``"batch_norm"``, ``"conv2d"``, ``"dropout"``,
+``"dropout_id"``, ``"tanh"``, ...), so AMP's lists reach them: JAX has no
+Pallas kernel for any of them.
 :func:`dropout` draws its mask from the framework's generator of the
 tensor's device (``framework/random.py``), never from torch's global
 ones; the bits differ from ``jax.random``'s, the distribution does not.
@@ -34,10 +37,22 @@ from ...framework import random as framework_random
 from ...ops.dispatch import amp_cast_dtype, apply, as_tensor, get_op_impl
 from ...ops.flash_attention import causal_mask, sdpa_plain
 from ...tensor.math import tanh
+from .conv import conv1d, conv2d, conv3d  # noqa: F401
+from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,  # noqa: F401
+                      adaptive_avg_pool3d, avg_pool1d, avg_pool2d,
+                      avg_pool3d, max_pool1d, max_pool2d, max_pool3d)
 
-__all__ = ["linear", "embedding", "silu", "gelu", "tanh", "softmax",
+__all__ = ["linear", "embedding", "relu", "silu", "gelu", "tanh", "softmax",
            "log_softmax", "cross_entropy", "layer_norm", "rms_norm",
-           "dropout", "scaled_dot_product_attention", "sdpa_route"]
+           "batch_norm", "dropout", "scaled_dot_product_attention",
+           "sdpa_route", "conv1d", "conv2d", "conv3d", "max_pool1d",
+           "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
+           "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
+           "adaptive_avg_pool3d"]
+
+
+def relu(x, name=None):
+    return apply("relu", torch.relu, as_tensor(x))
 
 
 def silu(x, name=None):
@@ -197,6 +212,70 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     if has_b:
         args.append(as_tensor(bias))
     return apply("layer_norm", fn, *args)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """JAX's ``batch_norm``.  The statistics are over every axis but the
+    channel's (axis 1, or the last one for a channel-last
+    ``data_format``):
+
+    * it normalises with the running statistics when ``use_global_stats``
+      says so, else when not ``training``; otherwise with the batch's mean
+      and *biased* variance;
+    * in training (whatever ``use_global_stats`` says, as in JAX) it
+      rebinds the running buffers to ``momentum * old + (1 - momentum) *
+      batch``, with the *unbiased* batch variance.  Paddle's ``momentum``
+      is the share of the old statistic: torch's ``momentum`` (the new
+      share) is ``1 - momentum``.
+
+    The buffers are rebound, not written in place (JAX's rule, which
+    ``incubate.jit_train_step`` relies on: its warm-up run must leave them
+    as they were).  The op is ``"batch_norm"``, on AMP's f32 list, so under
+    O1 it normalises and takes the batch statistics in f32."""
+    x = as_tensor(x)
+    ch_last = not (data_format[1] == "C" or data_format == "NC")
+    use_stats = (not training) if use_global_stats is None else \
+        use_global_stats
+    update = training and running_mean is not None
+    stats = [] if running_mean is None else [as_tensor(running_mean),
+                                             as_tensor(running_var)]
+    new = {}
+
+    def fn(a, *rest):
+        m, v = rest[:2] if stats else (None, None)
+        wb = rest[len(stats):]
+        if ch_last:
+            a = a.movedim(-1, 1)
+        w = wb[0] if weight is not None else None
+        b = wb[-1] if bias is not None else None
+        if use_stats:
+            out = TF.batch_norm(a, m, v, w, b, False, 0.0, epsilon)
+        if update:
+            nm = m.detach().clone()
+            nv = v.detach().clone()
+            if use_stats:
+                TF.batch_norm(a.detach(), nm, nv, None, None, True,
+                              1.0 - momentum, epsilon)
+            else:
+                out = TF.batch_norm(a, nm, nv, w, b, True, 1.0 - momentum,
+                                    epsilon)
+            new["mean"], new["var"] = nm, nv
+        elif not use_stats:
+            out = TF.batch_norm(a, None, None, w, b, True, 0.0, epsilon)
+        return out.movedim(1, -1) if ch_last else out
+
+    args = [x] + stats
+    if weight is not None:
+        args.append(as_tensor(weight))
+    if bias is not None:
+        args.append(as_tensor(bias))
+    out = apply("batch_norm", fn, *args)
+    if update:
+        running_mean._data = new["mean"].to(running_mean._data.dtype)
+        running_var._data = new["var"].to(running_var._data.dtype)
+    return out
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",

@@ -1,4 +1,4 @@
-"""``Silu``, ``GELU`` and ``Tanh`` (counterpart of
+"""``ReLU``, ``Silu``, ``GELU`` and ``Tanh`` (counterpart of
 ``paddle_tpu/nn/layer/activation.py``)."""
 
 from __future__ import annotations
@@ -6,7 +6,15 @@ from __future__ import annotations
 from .. import functional as F
 from .layers import Layer
 
-__all__ = ["Silu", "GELU", "Tanh"]
+__all__ = ["ReLU", "Silu", "GELU", "Tanh"]
+
+
+class ReLU(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.relu(x)
 
 
 class Silu(Layer):

@@ -1,16 +1,112 @@
-"""``LayerNorm`` and ``RMSNorm`` (counterpart of
-``paddle_tpu/nn/layer/norm.py``).  ``RMSNorm`` goes through ``F.rms_norm``,
+"""``BatchNorm`` / ``BatchNorm1D`` / ``2D`` / ``3D``, ``SyncBatchNorm``,
+``LayerNorm`` and ``RMSNorm`` (counterpart of
+``paddle_tpu/nn/layer/norm.py``).  The batch norms keep JAX's buffers,
+``_mean`` (zeros) and ``_variance`` (ones), under JAX's names, so a JAX
+``state_dict()`` loads; ``F.batch_norm`` rebinds them in training
+(Paddle's ``momentum``: the old statistic's share).  ``SyncBatchNorm`` in
+one process is ``BatchNorm``, as in JAX; across processes its forward
+raises (ROADMAP.md queue 1 item 9(a)).  ``RMSNorm`` goes through ``F.rms_norm``,
 so the K9a / K9b kernels on the card; ``LayerNorm`` through
 ``F.layer_norm`` (JAX has no kernel for it).  ``weight_attr=False`` /
 ``bias_attr=False`` leave the weight / bias out, as in JAX."""
 
 from __future__ import annotations
 
+import torch
+
+from ...tensor.creation import ones, zeros
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["LayerNorm", "RMSNorm"]
+__all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
+           "SyncBatchNorm", "LayerNorm", "RMSNorm"]
+
+
+class _BatchNormBase(Layer):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None):
+        super().__init__()
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        self.weight = self.create_parameter(
+            [num_features], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(
+            [num_features], attr=bias_attr, is_bias=True)
+        self.register_buffer("_mean", zeros([num_features]))
+        self.register_buffer("_variance", ones([num_features]))
+
+    def forward(self, x):
+        return F.batch_norm(
+            x, self._mean, self._variance, weight=self.weight,
+            bias=self.bias, training=self.training,
+            momentum=self._momentum, epsilon=self._epsilon,
+            data_format=self._data_format,
+            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return f"num_features={self._num_features}"
+
+
+class BatchNorm(_BatchNormBase):
+    pass
+
+
+class BatchNorm1D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 use_global_stats=None, name=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, "NCHW" if data_format == "NCL"
+                         else data_format, use_global_stats)
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 use_global_stats=None, name=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats)
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """``BatchNorm`` in one process (JAX's SPMD program takes the global
+    batch's statistics itself).  With a process group of more than one
+    rank the statistics would have to be all-reduced, which is not ported:
+    the forward raises."""
+
+    def forward(self, x):
+        dist = torch.distributed
+        if self.training and dist.is_available() and \
+                dist.is_initialized() and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                "SyncBatchNorm across processes needs the data-parallel "
+                "lane (ROADMAP.md queue 1 item 9(a)); one process runs it "
+                "as BatchNorm")
+        return super().forward(x)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        if isinstance(layer, _BatchNormBase) and not isinstance(layer, cls):
+            new = cls(layer._num_features, layer._momentum, layer._epsilon,
+                      data_format=layer._data_format)
+            new.weight = layer.weight
+            new.bias = layer.bias
+            new.register_buffer("_mean", layer._mean)
+            new.register_buffer("_variance", layer._variance)
+            return new
+        for name, sub in list(layer._sub_layers.items()):
+            layer._sub_layers[name] = cls.convert_sync_batchnorm(sub)
+        return layer
 
 
 class LayerNorm(Layer):

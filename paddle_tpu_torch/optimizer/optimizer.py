@@ -14,9 +14,11 @@ parameter: the rule runs on the master and f32 moments, and the parameter
 takes the master rounded to its type.  As in JAX, AdamW does not call the
 ``fused_adamw`` kernel.  ``grad_clip`` (``nn.ClipGradBy*``) runs on the
 ``[(param, grad)]`` list before the rule, as in JAX.  ``state_dict()``
-carries each parameter's state under ``"<name>.<key>"`` and ``"@step"``.
-A learning-rate scheduler (``optimizer/lr.py``) is not ported yet
-(ROADMAP.md queue 1 item 10): ``learning_rate`` is a float.
+carries each parameter's state under ``"<name>.<key>"``, ``"@step"`` and,
+with a scheduler, ``"LR_Scheduler"``; ``set_state_dict`` loads them (into
+the state's own tensors where they exist, so a captured step reads the
+loaded values).  ``learning_rate`` is a float or an
+``optimizer.lr.LRScheduler``, whose ``scheduler()`` each step reads.
 
 ``incubate.jit_train_step`` runs the same rules inside a CUDA graph; there
 the state's ``beta*_pow`` are device scalars (a Python float would freeze
@@ -30,7 +32,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..tensor.tensor import Tensor, wrap_array
+from ..tensor.tensor import Tensor, _to_torch, wrap_array
+from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
@@ -41,14 +44,16 @@ class Optimizer:
                  name=None):
         if parameters is not None and isinstance(parameters, Tensor):
             raise TypeError("parameters must be a list of Tensors")
-        if not isinstance(learning_rate, (int, float)):
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
             raise NotImplementedError(
-                "learning-rate schedulers are not ported yet (ROADMAP.md "
-                "queue 1 item 10); pass a float")
+                "learning_rate must be a float or an optimizer.lr."
+                "LRScheduler; other learning-rate objects are not ported "
+                "(ROADMAP.md queue 1 item 10)")
         self._grad_clip = grad_clip
         self._parameter_list = list(parameters) if parameters is not None \
             else None
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate if isinstance(
+            learning_rate, LRScheduler) else float(learning_rate)
         self._multi_precision = multi_precision
         if weight_decay is None:
             self._weight_decay = 0.0
@@ -62,10 +67,18 @@ class Optimizer:
         self._current_param: Optional[Tensor] = None
 
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
 
     def set_lr(self, value: float) -> None:
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError(
+                "cannot set_lr when the learning rate is a scheduler")
         self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler: LRScheduler) -> None:
+        self._learning_rate = scheduler
 
     def _params(self) -> List[Tensor]:
         if self._parameter_list is None:
@@ -140,8 +153,41 @@ class Optimizer:
             for k, v in (self._states.get(id(p)) or {}).items():
                 out[f"{p.name}.{k}"] = wrap_array(v) if isinstance(
                     v, torch.Tensor) else v
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
         out["@step"] = self._step_count
         return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load a ``state_dict()`` (this package's or JAX's): a key whose
+        state entry is already a tensor is copied into it (cast to its
+        type, on its device), so a captured ``jit_train_step`` reads the
+        loaded value; the rest replace the entry, tensors put on the
+        parameter's device."""
+        self._step_count = int(state.get("@step", 0))
+        if "LR_Scheduler" in state and isinstance(self._learning_rate,
+                                                  LRScheduler):
+            self._learning_rate.set_state_dict(state["LR_Scheduler"])
+        for p in self._params():
+            prefix = p.name + "."
+            st = self._get_state(p)
+            for k, v in state.items():
+                if not k.startswith(prefix):
+                    continue
+                key = k[len(prefix):]
+                cur = st.get(key)
+                if isinstance(v, Tensor):
+                    v = v._data
+                if isinstance(cur, torch.Tensor):
+                    cur.copy_(_to_torch(v, None, None,
+                                        device=cur.device).to(cur.dtype))
+                elif isinstance(v, torch.Tensor):
+                    st[key] = v.to(p._data.device)
+                else:
+                    st[key] = v
+
+    set_dict = set_state_dict
 
     def _apply_decay(self, param, grad):
         """L2 regularisation folded into the gradient."""

@@ -20,7 +20,7 @@ from .tensor import Tensor, is_tensor, to_tensor, wrap_array  # noqa: F401
 
 def _patch_tensor_methods() -> None:
     skip = {"to_tensor", "zeros", "ones", "full", "arange", "randint",
-            "randn", "concat"}
+            "randn", "concat", "stack"}
     for mod in (math, manipulation, linalg, logic, search, creation):
         for name in mod.__all__:
             if name not in skip and not hasattr(Tensor, name):

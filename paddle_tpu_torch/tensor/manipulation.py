@@ -17,7 +17,7 @@ from ..ops.dispatch import apply, as_tensor
 from .creation import _shape_list
 from .tensor import Tensor
 
-__all__ = ["reshape", "transpose", "concat", "split", "squeeze",
+__all__ = ["reshape", "transpose", "concat", "stack", "split", "squeeze",
            "unsqueeze", "repeat_interleave", "flatten", "cast", "astype",
            "getitem", "tolist"]
 
@@ -78,6 +78,12 @@ def concat(x, axis=0, name=None):
     ts = [as_tensor(t) for t in x]
     ax = int(axis.item()) if isinstance(axis, Tensor) else int(axis)
     return apply("concat", lambda *arrs: torch.cat(arrs, dim=ax), *ts)
+
+
+def stack(x, axis=0, name=None):
+    ts = [as_tensor(t) for t in x]
+    ax = int(axis.item()) if isinstance(axis, Tensor) else int(axis)
+    return apply("stack", lambda *arrs: torch.stack(arrs, dim=ax), *ts)
 
 
 def split(x, num_or_sections, axis=0, name=None):

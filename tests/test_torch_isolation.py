@@ -91,15 +91,66 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.amp\n"
         "import paddle_tpu_torch.nn.clip\n"
         "import paddle_tpu_torch.incubate.jit_train\n"
+        "import paddle_tpu_torch.io\n"
+        "import paddle_tpu_torch.io.worker\n"
+        "import paddle_tpu_torch.metric\n"
+        "import paddle_tpu_torch.hapi\n"
+        "import paddle_tpu_torch.hapi.model\n"
+        "import paddle_tpu_torch.hapi.callbacks\n"
+        "import paddle_tpu_torch.callbacks\n"
+        "import paddle_tpu_torch.vision\n"
+        "import paddle_tpu_torch.vision.models\n"
+        "import paddle_tpu_torch.vision.datasets\n"
+        "import paddle_tpu_torch.vision.transforms\n"
+        "import paddle_tpu_torch.optimizer.lr\n"
+        "import paddle_tpu_torch.framework.io\n"
+        "import paddle_tpu_torch.nn.functional.conv\n"
+        "import paddle_tpu_torch.nn.functional.pooling\n"
+        "import paddle_tpu_torch.nn.layer.conv\n"
+        "import paddle_tpu_torch.nn.layer.pooling\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.ab_torch_kernels\n"
         "import tools.profile_torch_train\n"
         "import tools.profile_torch_admission\n"
+        "import tools.chip_phases\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+NEW_SUBPACKAGES = ("io", "io.worker", "metric", "hapi", "hapi.model",
+                   "hapi.callbacks", "callbacks", "vision", "vision.models",
+                   "vision.datasets", "vision.transforms", "optimizer.lr",
+                   "framework.io", "nn.functional.conv",
+                   "nn.functional.pooling", "nn.layer.conv",
+                   "nn.layer.pooling")
+
+
+def test_importing_the_port_makes_no_cuda_call():
+    """Spawned DataLoader workers import the port: the import must not
+    touch CUDA.  Every entry into torch's CUDA runtime raises here, and
+    the whole package (the new subpackages included) still imports."""
+    mods = "".join(f"import paddle_tpu_torch.{m}\n" for m in NEW_SUBPACKAGES)
+    code = (
+        "import torch, torch.cuda\n"
+        "def boom(*a, **k):\n"
+        "    raise AssertionError('a CUDA call at import')\n"
+        "for name in ('is_available', 'device_count', 'init', '_lazy_init',\n"
+        "             'current_device', 'get_device_name', 'synchronize'):\n"
+        "    setattr(torch.cuda, name, boom)\n"
+        "torch._C._cuda_getDeviceCount = boom\n"
+        "import paddle_tpu_torch\n" + mods +
+        "import chip_smoke\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = sorted(m for m in __import__('sys').modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -113,6 +164,7 @@ def _sources():
     yield ROOT / "tools" / "profile_torch_train.py"
     yield ROOT / "tools" / "profile_torch_admission.py"
     yield ROOT / "tools" / "torch_profile_common.py"
+    yield ROOT / "tools" / "chip_phases.py"
     yield from sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
 
 

@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Run chosen ``chip_smoke.py`` phases alone on one CUDA card, each timed.
+
+Run from the repository root:
+
+    python3 tools/chip_phases.py [serve_qos] [serve_qos_recipe]
+                                 [api_fit] [api_resnet]
+
+Each phase prints its JSON line as in the whole script; a failed gate is
+printed and the next phase still runs.  ``serve_qos`` runs at LLaMA-7B
+(random weights from seed 0, the serving kernels built first) with the
+script's depth; ``serve_qos_recipe`` runs it again with the recipe's
+depth (32 new tokens a fleet request, the preemption arms' lows 20-34 and
+highs 24), so the two times compare the cut in one process.  The last line
+is ``{"phase_s": {...}, "fails": [...], "card": ...}``; the exit code is 1
+when a gate failed.  With no argument it runs all four in the order above
+(the serving phases first, so that the card's libraries are up before the
+two api phases are timed, as they are in the whole script).
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke as cs  # noqa: E402
+
+QOS_RECIPE = dict(QOS_NEW=32, QOS_LOW_NEWS=(20, 22, 24, 26, 28, 30, 32, 34),
+                  QOS_HIGH_NEW=24)
+
+
+def main():
+    import torch
+    fails = []
+
+    def record(msg):
+        print("chip_smoke: FAILED:", msg, file=sys.stderr, flush=True)
+        fails.append(msg)
+
+    cs.fail = record
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card, flush=True)
+    which = sys.argv[1:] or ["serve_qos", "serve_qos_recipe", "api_fit",
+                             "api_resnet"]
+    secs, qos = {}, None
+    for name in which:
+        t = time.perf_counter()
+        if name == "api_fit":
+            cs.phase_api_fit(torch, 0, card)
+        elif name == "api_resnet":
+            cs.phase_api_resnet(torch, 0, card)
+        elif name in ("serve_qos", "serve_qos_recipe"):
+            if qos is None:
+                qos = qos_setup(torch)
+            saved = {k: getattr(cs, k) for k in QOS_RECIPE}
+            if name == "serve_qos_recipe":
+                for k, v in QOS_RECIPE.items():
+                    setattr(cs, k, v)
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            try:
+                cs.phase_serve_qos(torch, *qos)
+            finally:
+                for k, v in saved.items():
+                    setattr(cs, k, v)
+        else:
+            sys.exit(f"unknown phase {name}")
+        secs[name] = time.perf_counter() - t
+    print(json.dumps({"phase_s": secs, "fails": fails, "card": card}),
+          flush=True)
+    sys.exit(1 if fails else 0)
+
+
+def qos_setup(torch):
+    """The serving kernels built and LLaMA-7B's weights -> serve_qos's
+    (cfg, seed, params, mods)."""
+    from paddle_tpu_torch.models.llama_pretrain import (LlamaPretrainConfig,
+                                                        init_params)
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    from paddle_tpu_torch.ops import fused_adamw as aw
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import rms_norm as rn
+    from paddle_tpu_torch.ops import rmsnorm_matmul as rmm
+    from paddle_tpu_torch.ops import rope as rp
+    from paddle_tpu_torch.ops import swiglu as sw
+    _build.build(["paged_attention", "flash_varlen", "int8_matmul", "rope"])
+    mods = {"pa": pa, "fv": fv, "im": im, "rp": rp, "fa": fa, "aw": aw,
+            "rn": rn, "sw": sw, "rmm": rmm}
+    cfg = LlamaPretrainConfig()
+    return cfg, 0, init_params(cfg, seed=0, device="cuda"), mods
+
+
+if __name__ == "__main__":
+    main()
