@@ -478,13 +478,36 @@ Phases, one JSON line each on stdout:
              one replay profiled (device ms by kind: conv, batchnorm,
              elementwise, matmul, other); replayed and eager ms, images/s,
              capture s, peak GB.
+11g. api_ops - every function the tensor-op slice added (the tensor
+             modules, paddle.linalg, nn.functional's activations, the _
+             forms as Tensor methods; paddle_tpu_torch/testing/op_sweep.py)
+             on CUDA tensors against the same call on CPU tensors from the
+             same numpy inputs: elementwise ops and reductions at [2048,
+             4096] f32, sorts and searches over 4096-wide rows, linear
+             algebra batched at [8, 256, 256], TF32 off; each family's
+             largest error against its bound (op_sweep.BOUNDS), gradients
+             of the differentiable ops too; the CUDA-specific cases (ties,
+             duplicate indices in several runs, cummax / cummin tie
+             indices, a rank-deficient lstsq, a logical shift of negative
+             ints, an even-count median, the decompositions' invariants);
+             the bf16 lane of tests/test_ops_dtype_lanes.py's ops; each
+             random op's seeds and law (2^20 draws); two planted faults
+             (torch.median's lower middle, scatter keeping the first
+             duplicate) caught; the host us of a Paddle call over torch's.
+11h. api_vision - MobileNetV3-Large (Howard et al. 2019, scale 1.0, 1000
+             classes) on api_resnet's recipe and gates at 256 x 224 (its
+             parity models' dropout at 0), then one eager f32 forward of
+             each other family's smallest member at 4 x 224 (299 for
+             InceptionV3) against the CPU's from the same weights.
 12. kernels - one JSON object with an entry per ported kernel (16, and
              K3's wave path beside its decode path and the segmented
              kernels' per-tile range kernel: 18).
 13. timing - each phase's seconds and the whole run's.
 
 Cuts for the 1,200 s limit: serve_mixed_int8 runs 2 of its 4 waves,
-serve_spec_int8 its first 3 arms, serve_int8_overlap its reference and
+serve_spec and serve_spec_int8 32 new tokens a request where the recipe has
+64 (serve_spec_int8 its first 3 arms), serve_mixed, serve_mixed_int8 and
+serve_disagg 32 where it has 48, serve_int8_overlap its reference and
 last lane, serve_swap 96 new tokens a request where the recipe has 192,
 serve_qos 6 new tokens a fleet request where the recipe has 32 (and its
 preemption arms' lows 6-13 and highs 6, where they were 20-34 and 24).
@@ -3269,7 +3292,11 @@ def phase_serve_faults(torch, cfg, seed, params, mods, dev="cuda"):
 # as in bench.py (its warm-up twin from seed + 1).
 MIXED_LONG, MIXED_SHORT = (192, 256, 320, 448), (16, 32)
 MIXED_WAVES, MIXED_PER_WAVE, MIXED_WAVE_GAP = 4, 6, 6
-MIXED_NEW, MIXED_STAGGER, MIXED_BUDGET = 48, 3, 128
+# bench.py's recipe takes 48 new tokens a request; the script takes 32 (its
+# cut for the 1,200 s limit: the last wave still arrives, at tick 18, while
+# the batch decodes; tools/chip_phases.py serve_mixed_before runs 48 in the
+# same process)
+MIXED_NEW, MIXED_STAGGER, MIXED_BUDGET = 32, 3, 128
 MIXED_CACHE = dict(num_pages=160, pages_max=8, batch=8, page=64)
 # the warm-up: two waves of the twin schedule with 8 new tokens (the second
 # arrives while the first decodes, so the mixed arms tick before the timing)
@@ -3306,12 +3333,13 @@ def mixed_news(sched):
             for j in range(len(wave))]
 
 
-def mixed_drive(eng, sched, new=MIXED_NEW):
+def mixed_drive(eng, sched, new=None):
     """bench.py's _ab_drive: the waves submitted on schedule, one step a
     tick, each tick's host wall filed under admission (a sequential wave
     ran, or a mixed tick took fresh tokens) or quiet.  -> (admission ms,
     quiet ms, the finished requests in submission order, fresh tokens of
     each mixed tick)."""
+    new = MIXED_NEW if new is None else new
     adm, quiet, fresh = [], [], []
     pend = list(enumerate(sched))
     rids, done = [], {}
@@ -3678,15 +3706,19 @@ def phase_serve_mixed(torch, cfg, seed, params, mods, kv_quant=None,
 # fault's 4.71, 4.04 and 4.03 (int8 3.93, 4.30, 4.50).
 SPEC_BANK, SPEC_STEM, SPEC_SCAN_NEW, SPEC_MAX_START = 16, 12, 150, 70
 SPEC_MAX_PROMPTS, SPEC_MIN_CYCLES = 5, 2
-SPEC_REQUESTS, SPEC_NEW, SPEC_WARM_NEW = 8, 64, 8
+# bench.py's recipe serves 64 new tokens a request; the script serves 32
+# (its cut for the 1,200 s limit, the logit check and the profiled rounds
+# cut with it: 32 -> 16 and 5 -> 3; tools/chip_phases.py serve_spec_before
+# runs the depth the script had before, in one process)
+SPEC_REQUESTS, SPEC_NEW, SPEC_WARM_NEW = 8, 32, 8
 # the logit check serves the same requests to half their length (the
 # chip_smoke wall: each spec arm keeps SPEC_NEW)
-SPEC_CHECK_NEW = 32
+SPEC_CHECK_NEW = 16
 SPEC_GAMMA, SPEC_LOOKUP_GAMMA = 4, 7
 SPEC_DRAFT_LAYERS, SPEC_DRAFT_SEED = 2, 1
 SPEC_CACHE = dict(num_pages=72, pages_max=8, batch=8, page=64)
 SPEC_SCAN_CACHE = dict(num_pages=48, pages_max=3, batch=8, page=64)
-SPEC_DEVICE_REPS = 5
+SPEC_DEVICE_REPS = 3
 SPEC_ARMS = ("h1", "spec_same_sync", "spec_same_overlap", "spec_draft2_sync",
              "spec_lookup_sync")
 # serve_spec_int8 runs the first three: the two-layer draft's and prompt
@@ -8224,9 +8256,14 @@ def bn_stat_gap(a, b):
 
 def phase_api_resnet(torch, seed, card, dev="cuda", arch="resnet50",
                      batch=RESNET_BATCH, hw=RESNET_HW,
-                     classes=RESNET_CLASSES, check_batch=RESNET_CHECK_BATCH):
+                     classes=RESNET_CLASSES, check_batch=RESNET_CHECK_BATCH,
+                     phase="api_resnet", source=None):
     """_resnet_line's recipe on one card (``arch``, the batch and the
-    image size override it, for a rehearsal)."""
+    image size override it, for a rehearsal; api_vision runs it for
+    MobileNetV3-Large as ``phase``, with its ``source``).  The parity
+    check's models drop nothing (each Dropout's p set to 0: a replay draws
+    its masks afresh, the eager loop others), the timed recipe keeps
+    the model's dropout."""
     import paddle_tpu_torch as paddle
     import paddle_tpu_torch.nn.functional as pF
     from paddle_tpu_torch.incubate import jit_train_step
@@ -8243,11 +8280,15 @@ def phase_api_resnet(torch, seed, card, dev="cuda", arch="resnet50",
              for _ in range(2)]
     ce = paddle.nn.CrossEntropyLoss()
 
-    def build(like=None):
+    def build(like=None, dropout0=False):
         paddle.seed(seed)
         net = getattr(vm, arch)(num_classes=classes)
         if like is not None:
             net.set_state_dict(like.state_dict())
+        if dropout0:
+            for layer in net.sublayers():
+                if isinstance(layer, paddle.nn.Dropout):
+                    layer.p = 0.0
         net.train()
         return net, paddle.optimizer.Momentum(
             learning_rate=0.1, momentum=0.9, parameters=net.parameters())
@@ -8256,9 +8297,9 @@ def phase_api_resnet(torch, seed, card, dev="cuda", arch="resnet50",
     t0 = time.perf_counter()
     cx = [paddle.to_tensor(x[:check_batch]) for x in xs_np]
     cy = [paddle.to_tensor(y[:check_batch]) for y in ys_np]
-    net_g, opt_g = build()
-    net_e, opt_e = build(net_g)
-    net_f, opt_f = build(net_g)
+    net_g, opt_g = build(dropout0=True)
+    net_e, opt_e = build(net_g, dropout0=True)
+    net_f, opt_f = build(net_g, dropout0=True)
     step_g = jit_train_step(net_g, ce, opt_g, amp_level="O1")
     replayed, eager, loss_gap, stat_gaps = [], [], 0.0, []
     for i in range(RESNET_CHECK_STEPS):
@@ -8312,9 +8353,10 @@ def phase_api_resnet(torch, seed, card, dev="cuda", arch="resnet50",
     # pair (one replay on each batch) averages below the first pair
     pairs = (float(np.mean(replay_losses[:2])),
              float(np.mean(replay_losses[-2:])))
-    emit("api_resnet", model=f"{arch}(num_classes={classes}) (vision/"
-         f"models/resnet.py)", source="bench.py:302-330 _resnet_line TPU "
-         "recipe (BASELINE config 2: ResNet-50 ImageNet-shape training)",
+    emit(phase, model=f"{arch}(num_classes={classes}) (vision/models/"
+         f"{vm_file(vm, arch)})", source=source or "bench.py:302-330 "
+         "_resnet_line TPU recipe (BASELINE config 2: ResNet-50 "
+         "ImageNet-shape training)",
          cut="BASELINE config 2's data parallelism cut to one card "
              "(ROADMAP.md queue 1 item 9(a))",
          batch=batch, image=[3, hw, hw], amp="O1 bf16",
@@ -8356,9 +8398,192 @@ def phase_api_resnet(torch, seed, card, dev="cuda", arch="resnet50",
                replayed + eager):
         problems.append("a loss is not finite")
     for p in problems:
-        fail(f"api_resnet: {p}")
+        fail(f"{phase}: {p}")
     del step, net, opt, xs, ys
     torch.cuda.empty_cache()
+
+
+def vm_file(vm, arch):
+    """The vision.models file that defines ``arch``."""
+    return getattr(vm, arch).__module__.rsplit(".", 1)[-1] + ".py"
+
+
+# api_ops: the tensor-op surface (paddle_tpu_torch/testing/op_sweep.py)
+# on the card against the same calls on the CPU from the same numpy
+# inputs: elementwise ops and reductions at [2048, 4096] f32 (LLaMA-7B's
+# hidden width, a serving wave's rows), sorts and searches over 4096-wide
+# rows, linear algebra batched at [8, 256, 256]; TF32 off.  Each family's
+# bound is op_sweep.BOUNDS (the largest error over the CPU output's
+# largest |value|; integer and bool outputs equal).
+OPS_SIZES = dict(rows=2048, cols=4096, mat=256, batch=8, small=64)
+OPS_DUP_RUNS = 4           # runs of each duplicate-index write
+
+
+def ops_lower_middle(rows, avg, nan):
+    """torch.median's lower middle in place of the mean of the two
+    middles: api_ops' planted median fault."""
+    import torch
+    return torch.median(rows, dim=-1).values
+
+
+def ops_first_duplicate(a, idx, vals, accumulate=False):
+    """_put_last keeping the FIRST of duplicate indices: api_ops' planted
+    scatter fault."""
+    import torch
+    idx = tuple(i.long() for i in idx)
+    n = idx[0].numel()
+    lin = idx[0].reshape(-1)
+    first = torch.full((a.shape[0],), n, dtype=torch.long,
+                       device=a.device).scatter_reduce(
+        0, lin, torch.arange(n, device=a.device), "amin")
+    vals = vals.to(a.dtype).expand((n,) + a.shape[1:])
+    return a.index_put((lin,), vals[first[lin]])
+
+
+def phase_api_ops(torch, seed, card, dev="cuda", sizes=None):
+    """Every function the tensor-op slice added, on the card against the
+    CPU (op_sweep.sweep), the CUDA-specific cases (op_sweep.extra_checks),
+    the bf16 lane, the random ops' laws and seeds, two planted faults and
+    the host cost of a Paddle call over torch's own."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tensor import manipulation as tmanip
+    from paddle_tpu_torch.tensor import stat as tstat
+    from paddle_tpu_torch.testing import op_sweep as ow
+    t_all = time.perf_counter()
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    sz = dict(OPS_SIZES, **(sizes or {}))
+    ins = ow.make_inputs(seed=seed, **sz)
+    problems = []
+    missing = ow.coverage()
+    if missing:
+        problems.append(f"names the sweep does not call: {missing}")
+    t0 = time.perf_counter()
+    case_s = {}
+    swept, raised = ow.sweep(paddle, ins, dev, timings=case_s)
+    sweep_s = time.perf_counter() - t0
+    for name, msg in raised.items():
+        problems.append(f"{name} raised {msg}")
+    extra = ow.extra_checks(paddle, ins, dev, runs=OPS_DUP_RUNS)
+    bf16 = ow.bf16_lane(paddle, dev, rows=sz["rows"], cols=sz["cols"])
+    rng = ow.rng_checks(paddle)
+    # planted faults: each must land beyond its check's bound
+    with patched((tstat, "_middle", ops_lower_middle)):
+        planted_median = ow.extra_checks(paddle, ins, dev, runs=1)[
+            "median_even_count"][0]
+    with patched((tmanip, "_put_last", ops_first_duplicate)):
+        planted_scatter = ow.extra_checks(paddle, ins, dev, runs=1)[
+            "scatter_duplicates_later_row"][0]
+    cost = ow.dispatch_cost(paddle, dev)
+    families = {}
+    for name, (fam, err, bound) in swept.items():
+        f = families.setdefault(fam, {"max_err": 0.0, "bound": bound,
+                                      "worst": None, "cases": 0})
+        f["cases"] += 1
+        if err >= f["max_err"]:
+            f["max_err"], f["worst"] = err, name
+        if not err <= bound:
+            problems.append(f"{name} ({fam}): error {err} > {bound}")
+    for group, res in (("extra", extra), ("bf16", bf16), ("rng", rng)):
+        for name, (err, bound) in res.items():
+            if not err <= bound:
+                problems.append(f"{group} {name}: {err} > {bound}")
+    if not planted_median > ow.BOUNDS["elementwise"]:
+        problems.append(f"the planted median fault (torch.median's lower "
+                        f"middle) was not caught: {planted_median}")
+    if not planted_scatter > 0:
+        problems.append("the planted scatter fault (the first duplicate "
+                        "kept) was not caught")
+    names = {c.split(".")[-1] for c in swept}
+    emit("api_ops", names_swept=len(names), cases=len(swept),
+         sizes=sz, sweep_s=sweep_s, families=families,
+         slowest_cases_s=dict(sorted(case_s.items(),
+                                     key=lambda kv: -kv[1])[:12]),
+         extra={k: v[0] for k, v in extra.items()},
+         bf16_max_err=max(v[0] for v in bf16.values()),
+         bf16_bound=ow.BF16_BOUND, bf16_ops=len(bf16),
+         rng_draws=ow.N_DRAWS, rng_problems={k: v[0] for k, v in rng.items()
+                                             if v[0]},
+         rng_ops=len(rng),
+         planted=dict(median_lower_middle_err=planted_median,
+                      scatter_first_duplicate_mismatches=planted_scatter),
+         dispatch_us={k: {"paddle": a, "torch": b, "over": a - b}
+                      for k, (a, b) in cost.items()},
+         phase_s=time.perf_counter() - t_all, card=card)
+    for p in problems:
+        fail(f"api_ops: {p}")
+    del ins
+    torch.cuda.empty_cache()
+
+
+# api_vision: MobileNetV3-Large at its published width (Howard et al.
+# 2019, "Searching for MobileNetV3", the Large config at 224 x 224,
+# scale 1.0, 1000 classes) on _resnet_line's recipe (bench.py:302-330):
+# api_resnet's body and gates.  Then one eager f32 forward (TF32 off) of
+# each other family's smallest member at VISION_FWD_BATCH x 224 (299 for
+# InceptionV3) on the card against the same weights on the CPU: logits
+# within VISION_FWD_LIMIT of their largest |value| (cuDNN's and the CPU's
+# convolution algorithms sum in other orders, through tens of layers).
+VISION_ARCH = "mobilenet_v3_large"
+VISION_FAMILIES = (("vgg11", 224), ("mobilenet_v1", 224),
+                   ("mobilenet_v2", 224), ("mobilenet_v3_small", 224),
+                   ("alexnet", 224), ("squeezenet1_1", 224),
+                   ("densenet121", 224), ("googlenet", 224),
+                   ("inception_v3", 299), ("shufflenet_v2_x0_25", 224))
+VISION_FWD_BATCH = 4
+VISION_FWD_LIMIT = 1e-3
+
+
+def phase_api_vision(torch, seed, card, dev="cuda", batch=RESNET_BATCH,
+                     hw=RESNET_HW, check_batch=RESNET_CHECK_BATCH,
+                     families=VISION_FAMILIES, fwd_batch=VISION_FWD_BATCH):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.weights import layer_state_from_jax
+    from paddle_tpu_torch.vision import models as vm
+    t_all = time.perf_counter()
+    phase_api_resnet(torch, seed, card, dev=dev, arch=VISION_ARCH,
+                     batch=batch, hw=hw, check_batch=check_batch,
+                     phase="api_vision",
+                     source="Howard et al. 2019 (Searching for MobileNetV3)"
+                     " Large, 224 x 224, scale 1.0, on bench.py:302-330 "
+                     "_resnet_line's recipe")
+    recipe_s = time.perf_counter() - t_all
+    rng = np.random.RandomState(seed)
+    fwd, problems = {}, []
+    for arch, size in families:
+        t = time.perf_counter()
+        x = rng.randn(fwd_batch, 3, size, size).astype(np.float32)
+        paddle.set_device("cpu" if dev == "cpu" else "gpu")
+        paddle.seed(seed)
+        net = getattr(vm, arch)(num_classes=1000)
+        net.eval()
+        out = net(paddle.to_tensor(x))
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        got = [o.numpy() for o in outs]
+        paddle.set_device("cpu")
+        ref_net = getattr(vm, arch)(num_classes=1000)
+        layer_state_from_jax(ref_net, net.state_dict())
+        ref_net.eval()
+        ref = ref_net(paddle.to_tensor(x))
+        refs = ref if isinstance(ref, (list, tuple)) else [ref]
+        err = max(float(np.abs(a - b.numpy()).max()) /
+                  max(float(np.abs(b.numpy()).max()), 1e-30)
+                  for a, b in zip(got, refs))
+        finite = all(np.isfinite(a).all() for a in got)
+        fwd[arch] = {"input": [fwd_batch, 3, size, size],
+                     "outputs": [list(a.shape) for a in got],
+                     "max_rel_err": err, "finite": finite,
+                     "s": time.perf_counter() - t}
+        if not err <= VISION_FWD_LIMIT or not finite:
+            problems.append(f"{arch}: logits {err} from the CPU's "
+                            f"(limit {VISION_FWD_LIMIT}), finite {finite}")
+        del net, ref_net, out, ref
+        torch.cuda.empty_cache()
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    emit("api_vision_forwards", families=fwd, limit=VISION_FWD_LIMIT,
+         tf32=False, recipe_s=recipe_s,
+         phase_s=time.perf_counter() - t_all, card=card)
+    for p in problems:
+        fail(f"api_vision: {p}")
 
 
 def main():
@@ -8566,6 +8791,10 @@ def main():
     timed("api_fit", phase_api_fit, torch, s, card)
     torch.cuda.empty_cache()
     timed("api_resnet", phase_api_resnet, torch, s, card)
+    torch.cuda.empty_cache()
+    timed("api_ops", phase_api_ops, torch, s, card)
+    torch.cuda.empty_cache()
+    timed("api_vision", phase_api_vision, torch, s, card)
     # each kernel's launches in the serve, train, train_packed,
     # train_fused and api phases (the api_bert / api_gpt graphs' replays
     # counted in)

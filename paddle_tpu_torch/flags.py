@@ -27,7 +27,9 @@ functions (training, packed prefill and paged decode):
 from __future__ import annotations
 
 import os
+import sys
 import threading
+import types
 from typing import Any, Dict, List, Union
 
 __all__ = ["define_flag", "get_flags", "set_flags", "flags"]
@@ -143,3 +145,23 @@ define_flag("FLAGS_check_nan_inf", False,
             "Check every dispatched op's floating outputs for NaN / Inf.")
 define_flag("FLAGS_check_nan_inf_level", 0,
             "0: a NaN / Inf raises FloatingPointError; above 0: it warns.")
+
+
+class _FlagsModule(types.ModuleType):
+    """The module itself reads and sets the flags as attributes too
+    (``paddle.flags.FLAGS_check_nan_inf``, as JAX's ``paddle.flags``
+    view), beside its functions."""
+
+    def __getattr__(self, name: str) -> Any:
+        if name.startswith("FLAGS_"):
+            return getattr(flags, name)
+        raise AttributeError(name)
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if name.startswith("FLAGS_"):
+            setattr(flags, name, value)
+        else:
+            super().__setattr__(name, value)
+
+
+sys.modules[__name__].__class__ = _FlagsModule

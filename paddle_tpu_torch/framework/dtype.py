@@ -19,7 +19,7 @@ __all__ = [
     "bool_", "uint8", "int8", "int16", "int32", "int64",
     "float16", "bfloat16", "float32", "float64",
     "complex64", "complex128",
-    "get_default_dtype", "set_default_dtype",
+    "get_default_dtype", "set_default_dtype", "iinfo", "finfo",
 ]
 
 
@@ -134,3 +134,30 @@ def set_default_dtype(d: Any) -> None:
 def default_float_dtype() -> DType:
     return _default_dtype
 
+
+
+class iinfo:
+    """The range of an integer type (``paddle.iinfo``)."""
+
+    def __init__(self, d):
+        info = torch.iinfo(to_torch_dtype(d))
+        self.min, self.max, self.bits = int(info.min), int(info.max), \
+            info.bits
+        self.dtype = str(convert_dtype(d))
+
+
+class finfo:
+    """The limits of a float type (``paddle.finfo``)."""
+
+    def __init__(self, d):
+        dt = convert_dtype(d)
+        info = torch.finfo(dt.torch_dtype)
+        self.min = float(info.min)
+        self.max = float(info.max)
+        self.eps = float(info.eps)
+        self.tiny = float(info.tiny)
+        self.smallest_normal = float(info.tiny)
+        self.resolution = float(torch.tensor(info.resolution,
+                                             dtype=dt.torch_dtype))
+        self.bits = info.bits
+        self.dtype = str(dt)

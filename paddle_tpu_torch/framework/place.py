@@ -18,8 +18,11 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["Place", "CPUPlace", "CUDAPlace", "set_device",
-           "get_device", "device_count", "is_compiled_with_cuda",
+__all__ = ["Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "XPUPlace",
+           "TPUPlace", "CustomPlace", "set_device", "get_device",
+           "device_count", "is_compiled_with_cuda", "is_compiled_with_rocm",
+           "is_compiled_with_xpu", "is_compiled_with_tpu",
+           "is_compiled_with_cinn", "is_compiled_with_distribute",
            "current_torch_device"]
 
 
@@ -66,6 +69,33 @@ class CPUPlace(Place):
 
 class CUDAPlace(Place):
     device_type = "gpu"
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory: a CPU place."""
+
+
+class _NoDevicePlace(Place):
+    """A place of JAX's API the port has no device for: it can be named,
+    and asking for its device raises."""
+
+    def torch_device(self) -> torch.device:
+        raise RuntimeError(f"the port runs on 'cpu' or 'gpu'; it has no "
+                           f"{self.device_type} device")
+
+
+class XPUPlace(_NoDevicePlace):
+    device_type = "xpu"
+
+
+class TPUPlace(_NoDevicePlace):
+    device_type = "tpu"
+
+
+class CustomPlace(_NoDevicePlace):
+    def __init__(self, device_type: str, device_id: int = 0) -> None:
+        super().__init__(device_id)
+        self.device_type = device_type
 
 
 _lock = threading.Lock()
@@ -124,3 +154,23 @@ def device_count() -> int:
 
 def is_compiled_with_cuda() -> bool:
     return torch.cuda.is_available()
+
+
+def is_compiled_with_rocm() -> bool:
+    return torch.version.hip is not None
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+def is_compiled_with_cinn() -> bool:
+    return False
+
+
+def is_compiled_with_distribute() -> bool:
+    return torch.distributed.is_available()

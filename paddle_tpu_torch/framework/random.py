@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 __all__ = ["seed", "generator", "generator_guard", "initial_seed",
-           "renew_generator"]
+           "renew_generator", "get_rng_state", "set_rng_state",
+           "get_cuda_rng_state", "set_cuda_rng_state"]
 
 _lock = threading.Lock()
 _seed = int(np.random.SeedSequence().entropy % (2 ** 31))
@@ -98,3 +99,28 @@ def renew_generator(device) -> torch.Generator:
     with _lock:
         _generators[dev] = gen
     return gen
+
+
+def get_rng_state(device=None):
+    """[the state of the framework's generator on ``device``] (the current
+    place when ``None``), for :func:`set_rng_state`."""
+    return [generator(device).get_state()]
+
+
+def set_rng_state(state, device=None) -> None:
+    if isinstance(state, (list, tuple)):
+        state = state[0]
+    generator(device).set_state(state)
+
+
+def get_cuda_rng_state():
+    """The state of the framework's generator on each card."""
+    return [generator(torch.device("cuda", i)).get_state()
+            for i in range(torch.cuda.device_count())]
+
+
+def set_cuda_rng_state(state_list) -> None:
+    if not isinstance(state_list, (list, tuple)):
+        state_list = [state_list]
+    for i, st in enumerate(state_list):
+        generator(torch.device("cuda", i)).set_state(st)

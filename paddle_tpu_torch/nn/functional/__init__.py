@@ -1,5 +1,6 @@
 """Functional nn ops: ``linear``, ``embedding``, ``relu``, ``silu``,
-``gelu``, ``tanh``, ``softmax``, ``log_softmax``, ``cross_entropy``,
+``gelu``, ``tanh``, ``softmax``, ``log_softmax``, the other activations
+(``activation.py``), ``cross_entropy``,
 ``layer_norm``, ``rms_norm``, ``batch_norm``, ``dropout``,
 ``scaled_dot_product_attention``, the convolutions (``conv.py``) and the
 pools (``pooling.py``).
@@ -37,6 +38,8 @@ from ...framework import random as framework_random
 from ...ops.dispatch import amp_cast_dtype, apply, as_tensor, get_op_impl
 from ...ops.flash_attention import causal_mask, sdpa_plain
 from ...tensor.math import tanh
+from .activation import *  # noqa: F401,F403,E402
+from .activation import __all__ as _activation_all
 from .conv import conv1d, conv2d, conv3d  # noqa: F401
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,  # noqa: F401
                       adaptive_avg_pool3d, avg_pool1d, avg_pool2d,
@@ -48,7 +51,7 @@ __all__ = ["linear", "embedding", "relu", "silu", "gelu", "tanh", "softmax",
            "sdpa_route", "conv1d", "conv2d", "conv3d", "max_pool1d",
            "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
            "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
-           "adaptive_avg_pool3d"]
+           "adaptive_avg_pool3d"] + _activation_all
 
 
 def relu(x, name=None):

@@ -1,28 +1,93 @@
-"""``ReLU``, ``Silu``, ``GELU`` and ``Tanh`` (counterpart of
-``paddle_tpu/nn/layer/activation.py``)."""
+"""Activation layers (counterpart of ``paddle_tpu/nn/layer/activation.py``):
+each calls its ``nn.functional`` op; ``PReLU`` holds its slopes as the
+parameter ``weight``, as JAX's does, so a JAX ``state_dict()`` loads."""
 
 from __future__ import annotations
 
 from .. import functional as F
+from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["ReLU", "Silu", "GELU", "Tanh"]
+__all__ = ["ReLU", "ReLU6", "LeakyReLU", "PReLU", "ELU", "SELU", "CELU",
+           "GELU", "Silu", "Swish", "Mish", "Hardshrink", "Hardsigmoid",
+           "Hardswish", "Hardtanh", "Softshrink", "Softsign", "Softplus",
+           "Tanhshrink", "ThresholdedReLU", "LogSigmoid", "Maxout",
+           "Sigmoid", "Tanh", "Softmax", "LogSoftmax", "GLU", "RReLU"]
 
 
-class ReLU(Layer):
-    def __init__(self, name=None):
-        super().__init__()
-
-    def forward(self, x):
-        return F.relu(x)
-
-
-class Silu(Layer):
-    def __init__(self, name=None):
-        super().__init__()
+def _simple(name, fname):
+    def init(self, name=None):
+        Layer.__init__(self)
 
     def forward(self, x):
-        return F.silu(x)
+        return getattr(F, fname)(x)
+
+    return type(name, (Layer,), {"__init__": init, "forward": forward,
+                                 "__doc__": f"``F.{fname}`` as a layer."})
+
+
+ReLU = _simple("ReLU", "relu")
+ReLU6 = _simple("ReLU6", "relu6")
+Silu = _simple("Silu", "silu")
+Swish = _simple("Swish", "swish")
+Mish = _simple("Mish", "mish")
+Softsign = _simple("Softsign", "softsign")
+Tanhshrink = _simple("Tanhshrink", "tanhshrink")
+LogSigmoid = _simple("LogSigmoid", "log_sigmoid")
+Sigmoid = _simple("Sigmoid", "sigmoid")
+Tanh = _simple("Tanh", "tanh")
+Hardsigmoid = _simple("Hardsigmoid", "hardsigmoid")
+Hardswish = _simple("Hardswish", "hardswish")
+
+
+class LeakyReLU(Layer):
+    def __init__(self, negative_slope=0.01, name=None):
+        super().__init__()
+        self._slope = negative_slope
+
+    def forward(self, x):
+        return F.leaky_relu(x, self._slope)
+
+
+class PReLU(Layer):
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_parameters], attr=weight_attr,
+            default_initializer=I.Constant(init))
+
+    def forward(self, x):
+        return F.prelu(x, self.weight, data_format=self._data_format)
+
+
+class ELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.elu(x, self._alpha)
+
+
+class SELU(Layer):
+    def __init__(self, scale=1.0507009873554805, alpha=1.6732632423543772,
+                 name=None):
+        super().__init__()
+        self._scale, self._alpha = scale, alpha
+
+    def forward(self, x):
+        return F.selu(x, self._scale, self._alpha)
+
+
+class CELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.celu(x, self._alpha)
 
 
 class GELU(Layer):
@@ -34,9 +99,91 @@ class GELU(Layer):
         return F.gelu(x, self._approximate)
 
 
-class Tanh(Layer):
-    def __init__(self, name=None):
+class Hardshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
         super().__init__()
+        self._threshold = threshold
 
     def forward(self, x):
-        return F.tanh(x)
+        return F.hardshrink(x, self._threshold)
+
+
+class Hardtanh(Layer):
+    def __init__(self, min=-1.0, max=1.0, name=None):
+        super().__init__()
+        self._min, self._max = min, max
+
+    def forward(self, x):
+        return F.hardtanh(x, self._min, self._max)
+
+
+class Softshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self._threshold = threshold
+
+    def forward(self, x):
+        return F.softshrink(x, self._threshold)
+
+
+class Softplus(Layer):
+    def __init__(self, beta=1.0, threshold=20.0, name=None):
+        super().__init__()
+        self._beta, self._threshold = beta, threshold
+
+    def forward(self, x):
+        return F.softplus(x, self._beta, self._threshold)
+
+
+class ThresholdedReLU(Layer):
+    def __init__(self, threshold=1.0, value=0.0, name=None):
+        super().__init__()
+        self._threshold, self._value = threshold, value
+
+    def forward(self, x):
+        return F.thresholded_relu(x, self._threshold, self._value)
+
+
+class Maxout(Layer):
+    def __init__(self, groups, axis=1, name=None):
+        super().__init__()
+        self._groups, self._axis = groups, axis
+
+    def forward(self, x):
+        return F.maxout(x, self._groups, self._axis)
+
+
+class Softmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.softmax(x, self._axis)
+
+
+class LogSoftmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.log_softmax(x, self._axis)
+
+
+class GLU(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.glu(x, self._axis)
+
+
+class RReLU(Layer):
+    def __init__(self, lower=1.0 / 8.0, upper=1.0 / 3.0, name=None):
+        super().__init__()
+        self._lower, self._upper = lower, upper
+
+    def forward(self, x):
+        return F.rrelu(x, self._lower, self._upper, training=self.training)

@@ -5,6 +5,9 @@ buffers, forward pre / post hooks, ``state_dict`` / ``set_state_dict``
 with JAX's dotted names, ``train`` / ``eval``, ``to`` / ``astype`` /
 ``bfloat16`` and ``clear_gradients``; ``LayerList``, ``Sequential`` and
 ``ParameterList``.  Parameters are made on the current place.
+``in_dynamic_mode`` is always True: the static graph mode is not ported
+(``enable_static`` / ``disable_static`` raise, ROADMAP.md queue 1 item
+10(e)).
 
 :func:`deferred_init` is the port's own: inside it, ``create_parameter``
 makes storage-less ``meta`` tensors, for a caller that sets every
@@ -29,9 +32,26 @@ from ...tensor.tensor import Tensor, _from_numpy
 from .. import initializer as I
 
 __all__ = ["Layer", "LayerList", "Sequential", "ParameterList",
-           "deferred_init"]
+           "deferred_init", "in_dynamic_mode", "enable_static",
+           "disable_static"]
 
 _state = threading.local()
+
+
+def in_dynamic_mode() -> bool:
+    return True
+
+
+def enable_static() -> None:
+    raise NotImplementedError(
+        "the static graph mode is not ported yet (ROADMAP.md queue 1 item "
+        "10(e))")
+
+
+def disable_static() -> None:
+    raise NotImplementedError(
+        "the static graph mode is not ported yet, so there is no mode to "
+        "leave (ROADMAP.md queue 1 item 10(e))")
 
 
 @contextlib.contextmanager

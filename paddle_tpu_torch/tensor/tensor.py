@@ -9,10 +9,15 @@ it runs, and ``backward`` / ``grad`` / hooks go to torch's engine
 Arithmetic and most methods are attached to the class by ``tensor/``'s
 op modules (``tensor/__init__.py``), as in JAX.
 
-One departure: JAX's tape snapshots each consumed value, so mutating a
-tensor after an op read it leaves that op's gradient on the old value.
-Torch's version counter raises instead when the backward needs the
-overwritten value (ROADMAP.md queue 3).
+In-place ops (the ``op_`` forms, ``x[i] = v``) compute out of place and
+rebind ``_data`` (:meth:`Tensor._inplace_assign`), as JAX's do: an op that
+read the tensor earlier keeps the old value and its gradient.  A leaf that
+requires grad and is changed under ``no_grad`` (an update of a parameter)
+keeps requiring it: its storage takes the new values, so optimizers and
+CUDA graphs that hold the storage see them.  That write is the one place
+an earlier reader can still meet torch's version counter: a backward
+through an op that saved the parameter before the write raises, where
+JAX's tape keeps the old value (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -97,7 +102,7 @@ class Tensor:
 
     @property
     def grad(self) -> Optional["Tensor"]:
-        d = self._data
+        d = self.__dict__.get("_grad_leaf", self._data)
         g = d.grad if (d.grad_fn is None or d.retains_grad) else None
         if g is None:
             return None
@@ -107,7 +112,8 @@ class Tensor:
 
     @grad.setter
     def grad(self, value) -> None:
-        self._data.grad = None if value is None else unwrap_data(value)
+        d = self.__dict__.get("_grad_leaf", self._data)
+        d.grad = None if value is None else unwrap_data(value)
 
     def backward(self, grad_tensor: Optional["Tensor"] = None,
                  retain_graph: bool = False) -> None:
@@ -115,7 +121,7 @@ class Tensor:
         tape.run_backward([self], [grad_tensor], retain_graph=retain_graph)
 
     def clear_grad(self) -> None:
-        self._data.grad = None
+        self.__dict__.get("_grad_leaf", self._data).grad = None
 
     clear_gradient = clear_grad
 
@@ -194,6 +200,44 @@ class Tensor:
 
     __hash__ = object.__hash__
 
+    # -- in-place machinery -------------------------------------------------
+    def _inplace_assign(self, new_tensor: "Tensor") -> "Tensor":
+        """Rebind this handle to ``new_tensor``'s data (JAX's
+        ``_inplace_assign``).  JAX only ever clears ``stop_gradient``
+        here, so a tensor that requires grad keeps requiring it when the
+        new data does not (a result computed under ``no_grad``): a leaf of
+        the same shape and type takes the values into its own storage,
+        anything else is rebound to a fresh leaf."""
+        src = new_tensor._data if isinstance(new_tensor, Tensor) else \
+            new_tensor
+        d = self._data
+        if d.requires_grad and d.grad_fn is None and src.grad_fn is not None:
+            # a leaf rebound to a result of the graph: its gradient (the
+            # old value's, as JAX's tape keeps it on the handle) stays
+            # readable through ``grad``
+            self.__dict__.setdefault("_grad_leaf", d)
+        if d.requires_grad and not src.requires_grad:
+            if d.grad_fn is None and src.shape == d.shape and \
+                    src.dtype == d.dtype:
+                with torch.no_grad():
+                    d.copy_(src)
+                return self
+            src = src.detach()
+            if src.is_floating_point() or src.is_complex():
+                src.requires_grad_(True)
+        self._data = src
+        return self
+
+    def copy_(self, other, blocking: bool = True) -> "Tensor":
+        """This tensor's values replaced by ``other``'s, in its type."""
+        src = unwrap_data(other) if isinstance(other, Tensor) else \
+            _to_torch(other, None, None, device=self._data.device)
+        src = src.to(device=self._data.device, dtype=self._data.dtype)
+        return self._inplace_assign(src)
+
+    def get_tensor(self) -> "Tensor":
+        return self
+
     # -- value replacement --------------------------------------------------
     def set_value(self, value) -> None:
         """New values of this tensor's shape, in its type and on its
@@ -231,6 +275,29 @@ class Tensor:
 
     def cuda(self, device_id=0, blocking=True) -> "Tensor":
         return self.to(device=f"gpu:{device_id}")
+
+    def tpu(self, device_id=0) -> "Tensor":
+        raise NotImplementedError(
+            "the port runs on 'cpu' or 'gpu'; it has no TPU place")
+
+    def pin_memory(self) -> "Tensor":
+        d = self._data
+        return wrap_array(d.pin_memory() if d.device.type == "cpu" and
+                          torch.cuda.is_available() else d)
+
+    def contiguous(self) -> "Tensor":
+        return wrap_array(self._data.contiguous())
+
+    def is_contiguous(self) -> bool:
+        return self._data.is_contiguous()
+
+    # -- pytree protocol ----------------------------------------------------
+    def tree_flatten(self):
+        return (self._data,), (self.stop_gradient,)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return wrap_array(children[0], stop_gradient=aux[0])
 
 
 def unwrap_data(x):

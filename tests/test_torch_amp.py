@@ -116,6 +116,20 @@ OPS = {
                     (Q, MASK)),
     "dropout_eval": (lambda pkg, x, w: pkg.nn.functional.dropout(
         pkg.nn.functional.linear(x, w), 0.1, training=False), (X, W)),
+    # the tensor ops' white list: bmm, mv, addmm, mm (matmul) and einsum
+    "white_products": (lambda pkg, x, w: pkg.bmm(
+        pkg.unsqueeze(x, 0), pkg.unsqueeze(w, 0))[0] + pkg.addmm(
+        x, x, w, 0.5, 2.0) + pkg.mm(x, w) + pkg.einsum("ij,jk->ik", x, w)
+        + pkg.unsqueeze(pkg.mv(x, w[0]), 1), (X, W)),
+    # and its black list: the logs and special functions, ...
+    "black_logs": (lambda pkg, x: pkg.log2(pkg.abs(x) + 1) + pkg.log10(
+        pkg.abs(x) + 1) + pkg.log1p(pkg.abs(x)) + pkg.erf(x) + pkg.erfinv(
+        pkg.tanh(x) * 0.5), (X,)),
+    # ... and the reductions
+    "black_reductions": (lambda pkg, x: pkg.logsumexp(x, axis=1) + pkg.sum(
+        pkg.cumsum(x, axis=1), axis=1) + pkg.sum(pkg.cumprod(
+            pkg.tanh(x), dim=1), axis=1) + pkg.var(x, axis=1) + pkg.std(
+        x, axis=1) + pkg.linalg.norm(x, axis=1), (X,)),
 }
 LEVELS = [dict(level="O1"), dict(level="O2"),
           dict(level="O1", custom_white_list={"gelu"},

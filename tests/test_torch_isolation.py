@@ -108,6 +108,21 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.nn.functional.pooling\n"
         "import paddle_tpu_torch.nn.layer.conv\n"
         "import paddle_tpu_torch.nn.layer.pooling\n"
+        "import paddle_tpu_torch.tensor.stat\n"
+        "import paddle_tpu_torch.tensor.einsum\n"
+        "import paddle_tpu_torch.tensor.random\n"
+        "import paddle_tpu_torch.tensor.extras\n"
+        "import paddle_tpu_torch.tensor.inplace\n"
+        "import paddle_tpu_torch.nn.functional.activation\n"
+        "import paddle_tpu_torch.vision.models.vgg\n"
+        "import paddle_tpu_torch.vision.models.mobilenet\n"
+        "import paddle_tpu_torch.vision.models.mobilenetv3\n"
+        "import paddle_tpu_torch.vision.models.alexnet\n"
+        "import paddle_tpu_torch.vision.models.squeezenet\n"
+        "import paddle_tpu_torch.vision.models.densenet\n"
+        "import paddle_tpu_torch.vision.models.googlenet\n"
+        "import paddle_tpu_torch.vision.models.inceptionv3\n"
+        "import paddle_tpu_torch.vision.models.shufflenetv2\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.ab_torch_kernels\n"
@@ -129,7 +144,10 @@ NEW_SUBPACKAGES = ("io", "io.worker", "metric", "hapi", "hapi.model",
                    "vision.datasets", "vision.transforms", "optimizer.lr",
                    "framework.io", "nn.functional.conv",
                    "nn.functional.pooling", "nn.layer.conv",
-                   "nn.layer.pooling")
+                   "nn.layer.pooling", "tensor.stat", "tensor.einsum",
+                   "tensor.random", "tensor.extras", "tensor.inplace",
+                   "nn.functional.activation", "vision.models.mobilenetv3",
+                   "vision.models.densenet", "vision.models.inceptionv3")
 
 
 def test_importing_the_port_makes_no_cuda_call():

@@ -29,8 +29,9 @@ the registry's and the HTTP front's mixed counters.
 ``PagedKVCache.audit()`` is clean after every engine case.
 
 The host-tier case (swap resumes through the carve) is held in
-``tests/test_torch_serving_swap.py``.  JAX's TP-mesh and disaggregation
-cases wait for their items (ROADMAP.md queue 1 items 7 and 8).
+``tests/test_torch_serving_swap.py``, the mixed-capable hand-off cost of
+disaggregation in ``tests/test_torch_disagg.py``.  JAX's TP-mesh cases
+wait for ROADMAP.md queue 1 item 7.
 """
 
 import json

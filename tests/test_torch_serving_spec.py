@@ -23,8 +23,10 @@ instruments and the HTTP front's ``/health`` and ``/metrics``.  Both caches
 audit clean after every case.
 
 The host-tier swap resume (``host_pages``) is held in
-``tests/test_torch_serving_swap.py``.  JAX's TP (mesh) case and the fleet
-and disaggregation pass-through wait for ROADMAP.md queue 1 items 7 and 8.
+``tests/test_torch_serving_swap.py``, the spec pass-through of
+disaggregation and of the fleet in ``tests/test_torch_disagg.py`` and
+``tests/test_torch_fleet.py``.  JAX's TP (mesh) case waits for
+ROADMAP.md queue 1 item 7.
 """
 
 import json

@@ -4,18 +4,31 @@
 Run from the repository root:
 
     python3 tools/chip_phases.py [serve_qos] [serve_qos_recipe]
-                                 [api_fit] [api_resnet]
+                                 [serve_spec] [serve_spec_before]
+                                 [serve_spec_int8] [serve_spec_int8_before]
+                                 [serve_mixed] [serve_mixed_before]
+                                 [serve_mixed_int8]
+                                 [serve_mixed_int8_before] [serve_disagg]
+                                 [serve_disagg_before] [api_fit]
+                                 [api_resnet] [api_ops] [api_vision]
 
 Each phase prints its JSON line as in the whole script; a failed gate is
 printed and the next phase still runs.  ``serve_qos`` runs at LLaMA-7B
 (random weights from seed 0, the serving kernels built first) with the
 script's depth; ``serve_qos_recipe`` runs it again with the recipe's
 depth (32 new tokens a fleet request, the preemption arms' lows 20-34 and
-highs 24), so the two times compare the cut in one process.  The last line
+highs 24), so the two times compare the cut in one process.
+``serve_spec`` / ``serve_spec_int8`` (int8 weights over int8 pages) run at
+the script's depth and ``..._before`` at the depth the script had before
+its spec cut (SPEC_BEFORE: 64 new tokens a request, 32 in the logit
+check, 5 profiled rounds), in one process; ``serve_mixed`` /
+``serve_mixed_int8`` / ``serve_disagg`` likewise with MIXED_BEFORE (48 new
+tokens a request where the script takes 32).  The last line
 is ``{"phase_s": {...}, "fails": [...], "card": ...}``; the exit code is 1
-when a gate failed.  With no argument it runs all four in the order above
-(the serving phases first, so that the card's libraries are up before the
-two api phases are timed, as they are in the whole script).
+when a gate failed.  With no argument it runs serve_qos, serve_qos_recipe,
+api_fit and api_resnet in that order (the serving phases first, so that
+the card's libraries are up before the api phases are timed, as they are
+in the whole script).
 """
 
 import json
@@ -30,6 +43,8 @@ import chip_smoke as cs  # noqa: E402
 
 QOS_RECIPE = dict(QOS_NEW=32, QOS_LOW_NEWS=(20, 22, 24, 26, 28, 30, 32, 34),
                   QOS_HIGH_NEW=24)
+SPEC_BEFORE = dict(SPEC_NEW=64, SPEC_CHECK_NEW=32, SPEC_DEVICE_REPS=5)
+MIXED_BEFORE = dict(MIXED_NEW=48)
 
 
 def main():
@@ -49,13 +64,67 @@ def main():
     print(card, flush=True)
     which = sys.argv[1:] or ["serve_qos", "serve_qos_recipe", "api_fit",
                              "api_resnet"]
-    secs, qos = {}, None
+    secs, qos, qparams = {}, None, None
     for name in which:
         t = time.perf_counter()
         if name == "api_fit":
             cs.phase_api_fit(torch, 0, card)
         elif name == "api_resnet":
             cs.phase_api_resnet(torch, 0, card)
+        elif name == "api_ops":
+            cs.phase_api_ops(torch, 0, card)
+        elif name == "api_vision":
+            cs.phase_api_vision(torch, 0, card)
+        elif name.startswith(("serve_mixed", "serve_disagg")):
+            if qos is None:
+                qos = qos_setup(torch)
+            cfg, seed, params, mods = qos
+            kw = {}
+            if "int8" in name:
+                if qparams is None:
+                    from paddle_tpu_torch.models.decode import \
+                        quantize_params_int8
+                    qparams = quantize_params_int8(params)
+                params = qparams
+                kw = dict(kv_quant="int8")
+                if name.startswith("serve_mixed"):
+                    kw["waves"] = cs.MIXED_INT8_WAVES
+            run = cs.phase_serve_mixed if name.startswith("serve_mixed") \
+                else cs.phase_serve_disagg
+            saved = {k: getattr(cs, k) for k in MIXED_BEFORE}
+            if name.endswith("_before"):
+                for k, v in MIXED_BEFORE.items():
+                    setattr(cs, k, v)
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            try:
+                run(torch, cfg, seed, params, mods, **kw)
+            finally:
+                for k, v in saved.items():
+                    setattr(cs, k, v)
+        elif name.startswith("serve_spec"):
+            if qos is None:
+                qos = qos_setup(torch)
+            cfg, seed, params, mods = qos
+            kw = {}
+            if "int8" in name:
+                if qparams is None:
+                    from paddle_tpu_torch.models.decode import \
+                        quantize_params_int8
+                    qparams = quantize_params_int8(params)
+                params = qparams
+                kw = dict(kv_quant="int8", arms=cs.SPEC_INT8_ARMS)
+            saved = {k: getattr(cs, k) for k in SPEC_BEFORE}
+            if name.endswith("_before"):
+                for k, v in SPEC_BEFORE.items():
+                    setattr(cs, k, v)
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            try:
+                cs.phase_serve_spec(torch, cfg, seed, params, mods, **kw)
+            finally:
+                for k, v in saved.items():
+                    setattr(cs, k, v)
         elif name in ("serve_qos", "serve_qos_recipe"):
             if qos is None:
                 qos = qos_setup(torch)
