@@ -499,6 +499,49 @@ Phases, one JSON line each on stdout:
              parity models' dropout at 0), then one eager f32 forward of
              each other family's smallest member at 4 x 224 (299 for
              InceptionV3) against the CPU's from the same weights.
+11i. api_transformer - Transformer-base (Vaswani et al. 2017, Table 3
+             base) through nn.Transformer(), composed as a user script
+             composes it (a shared, tied embedding over 37,000 tokens,
+             sinusoidal positions, label smoothing 0.1 through one_hot,
+             label_smooth and a soft-label cross_entropy), Adam(0.9, 0.98,
+             1e-9) under NoamDecay(512, 4000), 13 pairs x 256 tokens a side
+             (lengths 236-256, tensor2tensor's last length bucket: about
+             3,200 target tokens, the paper's 25,000 over 8 GPUs; padding
+             and causal masks), jit_train_step at O1: one O1 step's
+             gradients within XF_GRAD_LIMIT of the f32 step's (L2 a
+             leaf), a planted fault (the causal mask one wider) beyond it;
+             32 greedy steps through gen_cache / cache= whose logits stay
+             within DECODE_LIMIT of the full causal forward's (the same
+             fault beyond it); a dropout-0 lane's replays against its
+             eager loop; then the recipe's eager steps, capture and
+             replays: step ms, target tokens/s, capture s, peak GB, one
+             replay's device ms by kind.  Every attention there has a mask
+             or q_len != kv_len: no hand-written kernel runs (checked).
+11j. api_varlen - packed attention through the Paddle API at LLaMA-7B's
+             attention width (32 heads of 128, bf16, 16,384 packed tokens,
+             document lengths from the seed): flash_attn_unpadded at 32 /
+             32 and 32 / 8 heads (37 tokens short: JAX's -1 padding),
+             flash_attn_varlen_qkvpacked and flash_attn_qkvpacked [8, 2048,
+             3, 32, 128], forward and backward: outputs within TOL and
+             gradients within VARLEN_GRAD_LIMIT of the plain versions (each
+             document alone, f32 math), K2 / ranges / K7a / K7b once a
+             varlen call and K6a-c once for the dense one; an f32 call
+             over the whole stream takes the plain route (a document at a
+             time) and launches nothing; cu_seqlens shifted by one lands
+             beyond TOL, K7a / K7b told the other causality beyond
+             VARLEN_GRAD_LIMIT.
+11k. api_nn - nn's families on the card against the CPU
+             (op_sweep.nn_cases: losses over [4096, 32000] logits, norms,
+             pads, resampling, pools with masks and unpools, transposed
+             convolutions, fold / unfold, shuffles, the long tail), the
+             dropouts' laws and a planted reflect-pad fault; the LSTM LM of
+             Zaremba et al. 2014 (large: 2 x 1500, vocab 10,000, 35 steps,
+             batch 20, dropout 0.65, SGD lr 1, clip 10) in f32 through
+             jit_train_step (replays against eager losses, step ms,
+             tokens/s); beam search (4 beams, 8 prompts, 32 steps) over its
+             first LSTMCell through dynamic_decode, each beam's score held
+             against its teacher-forced rescoring (the ids without the
+             backtrace as a planted fault).
 12. kernels - one JSON object with an entry per ported kernel (16, and
              K3's wave path beside its decode path and the segmented
              kernels' per-tile range kernel: 18).
@@ -508,7 +551,9 @@ Cuts for the 1,200 s limit: serve_mixed_int8 runs 2 of its 4 waves,
 serve_spec and serve_spec_int8 32 new tokens a request where the recipe has
 64 (serve_spec_int8 its first 3 arms), serve_mixed, serve_mixed_int8 and
 serve_disagg 32 where it has 48, serve_int8_overlap its reference and
-last lane, serve_swap 96 new tokens a request where the recipe has 192,
+last lane, serve_swap 72 new tokens a request where the recipe has 192,
+api_ops its elementwise ops and reductions over 1,024 rows of 4,096 where
+the serving wave has 2,048,
 serve_qos 6 new tokens a fleet request where the recipe has 32 (and its
 preemption arms' lows 6-13 and highs 6, where they were 20-34 and 24).
 
@@ -4182,11 +4227,12 @@ def phase_serve_spec(torch, cfg, seed, params, mods, kv_quant=None,
 
 # serve_swap: bench.py's _preemption_line TPU recipe (bench.py:680-690) at
 # LLaMA-7B: 6 requests of 256 prompt tokens, batch 4, 18 pages of 64,
-# pages_max 8, a host tier of 64 pages; 96 new tokens where the recipe has
-# 192 (a cut for the run's time limit: the sync arms decode half the steps,
-# and a request ends at 6 pages, so the pool holds three at their end and
-# every admission wave still preempts at its rows' first page of growth)
-SWAP_REQUESTS, SWAP_PROMPT, SWAP_NEW = 6, 256, 96
+# pages_max 8, a host tier of 64 pages; 72 new tokens where the recipe has
+# 192 (a cut for the run's time limit: 72 decodes three eighths of the
+# steps, and a request still ends at 6 pages (256 + 72 > 5 x 64), so the
+# pool holds three at their end and every admission wave still preempts at
+# its rows' first page of growth)
+SWAP_REQUESTS, SWAP_PROMPT, SWAP_NEW = 6, 256, 72
 SWAP_CACHE = dict(num_pages=18, pages_max=8, batch=4, page=64)
 SWAP_HOST_PAGES = 64
 # the warm-up (5 requests) and the teacher-forced check runs: 72 new tokens
@@ -8410,12 +8456,13 @@ def vm_file(vm, arch):
 
 # api_ops: the tensor-op surface (paddle_tpu_torch/testing/op_sweep.py)
 # on the card against the same calls on the CPU from the same numpy
-# inputs: elementwise ops and reductions at [2048, 4096] f32 (LLaMA-7B's
-# hidden width, a serving wave's rows), sorts and searches over 4096-wide
+# inputs: elementwise ops and reductions at [1024, 4096] f32 (LLaMA-7B's
+# hidden width over 1,024 rows: a cut of the serving wave's 2,048 for the
+# run's time limit), sorts and searches over 4096-wide
 # rows, linear algebra batched at [8, 256, 256]; TF32 off.  Each family's
 # bound is op_sweep.BOUNDS (the largest error over the CPU output's
 # largest |value|; integer and bool outputs equal).
-OPS_SIZES = dict(rows=2048, cols=4096, mat=256, batch=8, small=64)
+OPS_SIZES = dict(rows=1024, cols=4096, mat=256, batch=8, small=64)
 OPS_DUP_RUNS = 4           # runs of each duplicate-index write
 
 
@@ -8584,6 +8631,798 @@ def phase_api_vision(torch, seed, card, dev="cuda", batch=RESNET_BATCH,
          phase_s=time.perf_counter() - t_all, card=card)
     for p in problems:
         fail(f"api_vision: {p}")
+
+
+# api_transformer: Transformer-base (Vaswani et al. 2017, "Attention Is
+# All You Need", Table 3 row "base": N = 6 + 6, d_model 512, d_ff 2048,
+# h 8, P_drop 0.1, eps_ls 0.1) composed as a user script composes it: a
+# shared nn.Embedding over the 37,000-token BPE vocabulary of WMT14 en-de
+# (scaled by sqrt(d_model)), sinusoidal positions, nn.Transformer() (its
+# defaults are this configuration) and an output projection tied to the
+# embedding; the loss label-smoothed through F.one_hot, F.label_smooth and
+# F.cross_entropy(soft_label=True) over the non-pad targets; Adam(0.9,
+# 0.98, 1e-9) under NoamDecay(512, 4000), through jit_train_step at O1.
+# A batch is 13 pairs x 256 tokens a side, lengths drawn in [236, 256] and
+# padded (id 0): the paper batches pairs by length, and [236, 256] is
+# tensor2tensor's last length bucket at 256 (its boundaries grow by 1.1x);
+# about 3,200 target tokens a card, the paper's 25,000 over 8 GPUs.
+# XF_GRAD_LIMIT holds one O1 step's gradients against the f32 step's (same
+# weights, dropout off) leaf by leaf in L2 norm (grad_l2_gap); a planted
+# fault (the causal mask one position too wide: each target sees the next
+# token) must land beyond it.  On an H100 the sound gap read 0.0564 and
+# 0.0660, the fault 0.458 and 0.517 (the limit 1.5x the one, 4.6x under
+# the other); grad_gap's largest element read 0.167 sound and 0.253
+# faulty, too close to part them.
+# DECODE_LIMIT bounds, at every one of DECODE_STEPS greedy steps through
+# gen_cache / cache=, the largest |logit gap| between the cached step and
+# the full causal forward over the same tokens (f32, TF32 off), over the
+# full forward's largest |logit|; the same fault lands beyond it.  XF_CFG
+# overrides nn.Transformer()'s defaults (empty: the paper's base).
+XF_VOCAB, XF_BATCH, XF_SEQ, XF_MIN_LEN = 37000, 13, 256, 236
+XF_CFG = {}
+XF_GRAD_LIMIT = 0.1
+XF_STEPS, XF_EAGER_STEPS, XF_CHECK_STEPS = 5, 3, 3
+XF_WARMUP, XF_BETAS, XF_EPS, XF_SMOOTH = 4000, (0.9, 0.98), 1e-9, 0.1
+DECODE_STEPS, DECODE_ROWS, DECODE_LIMIT = 32, 2, 1e-3
+
+
+def sinusoid(n, d):
+    pos = np.arange(n)[:, None]
+    i = np.arange(d)[None, :]
+    ang = pos / np.power(10000.0, (2 * (i // 2)) / d)
+    return np.where(i % 2 == 0, np.sin(ang), np.cos(ang)).astype(np.float32)
+
+
+def transformer_base(paddle, vocab, dropout, cfg=None):
+    """Transformer-base as a user composes it (shared, tied embedding)."""
+    nn, F = paddle.nn, paddle.nn.functional
+    kw = dict(cfg or {})
+    d_model = kw.get("d_model", 512)
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            # N(0, d_model^-0.5), the paper's (tensor2tensor's) draw: the
+            # embedding times sqrt(d_model) is then of unit scale
+            self.emb = nn.Embedding(
+                vocab, d_model, weight_attr=paddle.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0, d_model ** -0.5)))
+            self.transformer = nn.Transformer(dropout=dropout, **kw)
+            self.register_buffer("pos", paddle.to_tensor(
+                sinusoid(1024, d_model)), persistable=False)
+            self.drop = dropout
+
+        def embed(self, ids):
+            x = self.emb(ids) * math.sqrt(d_model) + \
+                self.pos[:ids.shape[1]]
+            return F.dropout(x, self.drop, training=self.training)
+
+        def project(self, h):
+            return paddle.matmul(h, self.emb.weight, transpose_y=True)
+
+        def forward(self, src, tgt, src_mask, tgt_mask):
+            out = self.transformer(self.embed(src), self.embed(tgt),
+                                   src_mask, tgt_mask, src_mask)
+            return self.project(out)
+
+    return Seq2Seq()
+
+
+def smoothed_loss(paddle, vocab):
+    F = paddle.nn.functional
+
+    def loss_fn(logits, y):
+        labels, keep = y
+        soft = F.label_smooth(F.one_hot(labels, vocab), epsilon=XF_SMOOTH)
+        ce = F.cross_entropy(logits, soft, soft_label=True, reduction="none")
+        ce = paddle.reshape(ce, keep.shape)
+        return paddle.sum(ce * keep) / paddle.sum(keep)
+
+    return loss_fn
+
+
+def xf_batch(paddle, seed, vocab, batch, seq, shift=0):
+    """(src, tgt_in, src_mask, tgt_mask), (labels, keep): lengths drawn in
+    [XF_MIN_LEN, seq], id 0 the padding; ``shift`` widens the causal mask
+    (a planted fault)."""
+    rng = np.random.RandomState(seed)
+    lo = min(XF_MIN_LEN, seq)
+    src_len = rng.randint(lo, seq + 1, batch)
+    tgt_len = rng.randint(lo, seq + 1, batch)
+    src = rng.randint(1, vocab, (batch, seq))
+    tgt = rng.randint(1, vocab, (batch, seq + 1))
+    pos = np.arange(seq)
+    src[pos[None] >= src_len[:, None]] = 0
+    keep = (pos[None] < tgt_len[:, None]).astype(np.float32)
+    tgt_in, labels = tgt[:, :-1] * (keep > 0), tgt[:, 1:] * (keep > 0)
+    src_mask = np.where(src[:, None, None, :] == 0, -1e9, 0.0).astype(
+        np.float32)
+    tgt_mask = np.triu(np.full((seq, seq), -1e9, np.float32), 1 + shift)
+    t = paddle.to_tensor
+    return ((t(src), t(tgt_in), t(src_mask), t(tgt_mask)),
+            (t(labels), t(keep)))
+
+
+def xf_kind(name):
+    low = name.lower()
+    if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "cublas",
+                              "xmma")):
+        return "matmul (cuBLAS)"
+    for tag, kind in (("softmax", "softmax"), ("layer_norm", "layer_norm"),
+                      ("reduce", "reduce"), ("adam", "optimizer"),
+                      ("index", "gather / scatter"),
+                      ("elementwise", "elementwise"),
+                      ("vectorized", "elementwise")):
+        if tag in low:
+            return kind
+    return "other"
+
+
+def grad_l2_gap(got, ref):
+    """(the largest ||got - ref|| over its leaf's yardstick, that leaf):
+    grad_gap's rule with L2 norms in place of the largest elements (a bf16
+    step against an f32 one differs by rounding in every element; the
+    norm weighs it against the whole leaf)."""
+    norms = {n: float(r.float().norm()) for n, r in ref.items()}
+    top = max(norms.values())
+    return max((float((got[n].float() - r.float()).norm())
+                / max(norms[n], GRAD_FLOOR * top), n)
+               for n, r in ref.items())
+
+
+def grads_of(torch, paddle, model, loss_fn, x, y, amp):
+    named = list(model.named_parameters())
+    if amp:
+        with paddle.amp.auto_cast(level="O1"):
+            loss = loss_fn(model(*x), y)
+    else:
+        loss = loss_fn(model(*x), y)
+    grads = torch.autograd.grad(loss._data, [p._data for _, p in named],
+                                allow_unused=True)
+    return float(loss), {n: g.float() for (n, _), g in zip(named, grads)
+                         if g is not None}
+
+
+def xf_decode_gap(torch, paddle, net, x, rows, steps, shift=0):
+    """Greedy decoding through gen_cache / cache= against the full causal
+    forward over the same tokens -> (largest |logit gap| over the full
+    forward's largest |logit|, the tokens)."""
+    src, _, src_mask, _ = x
+    src, src_mask = src[:rows], src_mask[:rows]
+    tf = net.transformer
+    with torch.no_grad():
+        memory = tf.encoder(net.embed(src), src_mask=src_mask)
+        cache = tf.decoder.gen_cache(memory)
+        tok = paddle.to_tensor(np.ones((rows, 1), np.int64))
+        toks, logits = [tok], []
+        for t in range(steps):
+            step = net.emb(tok) * math.sqrt(tf.d_model) + net.pos[t:t + 1]
+            out, cache = tf.decoder(step, memory, memory_mask=src_mask,
+                                    cache=cache)
+            lg = net.project(out)
+            logits.append(lg._data[:, 0])
+            tok = paddle.argmax(lg, axis=-1)
+            toks.append(tok)
+        seq = paddle.concat(toks[:-1], axis=1)
+        mask = paddle.to_tensor(np.triu(np.full((steps, steps), -1e9,
+                                                np.float32), 1 + shift))
+        full = net.project(tf.decoder(net.embed(seq), memory, mask,
+                                      src_mask))._data
+        cached = torch.stack(logits, 1)
+        gap = float((cached - full).abs().max() / full.abs().max())
+    return gap, seq
+
+
+def phase_api_transformer(torch, seed, mods, card, dev="cuda"):
+    """Transformer-base training steps through jit_train_step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import jit_train_step
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 2**30
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    problems = []
+    vocab, batch, seq, cfg = XF_VOCAB, XF_BATCH, XF_SEQ, XF_CFG
+    decode_steps = DECODE_STEPS
+    loss_fn = smoothed_loss(paddle, vocab)
+    x, y = xf_batch(paddle, seed, vocab, batch, seq)
+    x_fault, _ = xf_batch(paddle, seed, vocab, batch, seq, shift=1)
+    d_model = cfg.get("d_model", 512)
+
+    def model(dropout):
+        paddle.seed(55)
+        net = transformer_base(paddle, vocab, dropout, cfg)
+        net.train()
+        return net
+
+    def adam(net):
+        sched = paddle.optimizer.lr.NoamDecay(d_model, XF_WARMUP)
+        return paddle.optimizer.Adam(
+            learning_rate=sched, beta1=XF_BETAS[0], beta2=XF_BETAS[1],
+            epsilon=XF_EPS, parameters=net.parameters()), sched
+
+    # (1) one step's gradients: O1 against f32, dropout off; the fault
+    t0 = time.perf_counter()
+    net = model(0.0)
+    loss_o1, g_o1 = grads_of(torch, paddle, net, loss_fn, x, y, True)
+    loss_f32, g_f32 = grads_of(torch, paddle, net, loss_fn, x, y, False)
+    _, g_fault = grads_of(torch, paddle, net, loss_fn, x_fault, y, False)
+    gap, gap_leaf = grad_l2_gap(g_o1, g_f32)
+    fault_gap, _ = grad_l2_gap(g_fault, g_f32)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_o1.values())
+    del g_o1, g_f32, g_fault
+    # (2) greedy decoding with the cache against the full forward, f32
+    net.eval()
+    dec_gap, dec_tokens = xf_decode_gap(torch, paddle, net, x, DECODE_ROWS,
+                                        decode_steps)
+    dec_fault, _ = xf_decode_gap(torch, paddle, net, x, DECODE_ROWS,
+                                 decode_steps, shift=1)
+    # (3) dropout 0: replays against the eager loop, the same weights
+    nets0 = [model(0.0), model(0.0)]
+    opt0, sched0 = adam(nets0[0])
+    step0 = jit_train_step(nets0[0], loss_fn, opt0, amp_level="O1")
+    replayed0 = []
+    for _ in range(XF_CHECK_STEPS):
+        replayed0.append(float(step0(x, y)))
+        sched0.step()
+    opt_e, sched_e = adam(nets0[1])
+    eager0 = []
+    for _ in range(XF_CHECK_STEPS):
+        eager0.append(float(eager_o1_step(paddle, nets0[1], loss_fn, opt_e,
+                                          x, y)))
+        sched_e.step()
+    gap0 = max(abs(a - b) / abs(b) for a, b in zip(replayed0, eager0))
+    del nets0, step0, opt0, opt_e
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+
+    # (4) the recipe: dropout 0.1, eager steps, the capture, replays
+    net = model(0.1)
+    opt, sched = adam(net)
+
+    def eager():
+        loss = eager_o1_step(paddle, net, loss_fn, opt, x, y)
+        sched.step()
+        return loss
+
+    zero_counts(mods)
+    eager_losses, eager_ms = timed_calls(torch, eager, XF_EAGER_STEPS)
+    step = jit_train_step(net, loss_fn, opt, amp_level="O1")
+
+    def replay():
+        loss = step(x, y)
+        sched.step()
+        return loss
+
+    t = time.perf_counter()
+    first = float(replay())
+    capture_s = time.perf_counter() - t
+    losses, step_ms = timed_calls(torch, replay, XF_STEPS)
+    profile = profiled_call(torch, replay, xf_kind)
+    launches = steps_ran_launches(read_counts(mods), [step])
+    tokens = float(np.asarray(y[1].numpy()).sum())
+    emit("api_transformer", model="Transformer-base (Vaswani et al. 2017 "
+         "Table 3 'base': 6 + 6 layers, d_model 512, d_ff 2048, 8 heads, "
+         "dropout 0.1, label smoothing 0.1) through nn.Transformer(), a "
+         f"shared tied embedding over {vocab} tokens",
+         source="Vaswani et al. 2017 (Attention Is All You Need), Table 3 "
+         "base; WMT14 en-de shared BPE vocabulary 37,000; Adam(0.9, 0.98, "
+         "1e-9) with NoamDecay(512, 4000)",
+         batch=batch, seq=seq, target_tokens=tokens, amp="O1 bf16",
+         params=sum(p.size for p in net.parameters()),
+         grad_loss_o1=loss_o1, grad_loss_f32=loss_f32,
+         grad_max_rel_l2_diff=gap, grad_worst_leaf=gap_leaf,
+         grad_limit=XF_GRAD_LIMIT, planted_fault="causal mask one wider",
+         planted_fault_max_rel_l2_diff=fault_gap,
+         decode_steps=decode_steps, decode_rows=DECODE_ROWS,
+         decode_max_rel_gap=dec_gap, decode_limit=DECODE_LIMIT,
+         decode_fault_max_rel_gap=dec_fault,
+         decode_first_tokens=np.asarray(dec_tokens.numpy())[:, :8].tolist(),
+         dropout0_replayed=replayed0, dropout0_eager=eager0,
+         dropout0_max_rel_gap=gap0, jit_loss_limit=JIT_LOSS_LIMIT,
+         eager_losses=eager_losses, eager_step_ms=eager_ms,
+         eager_tokens_per_s=[tokens / (m / 1e3) for m in eager_ms],
+         capture_s=capture_s, first_loss=first, losses=losses,
+         step_ms=step_ms, tokens_per_s=[tokens / (m / 1e3) for m in step_ms],
+         replay_profile=profile, kernel_launches={
+             k: v for k, v in launches.items() if v},
+         check_s=check_s, start_gb=start_gb,
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+         phase_s=time.perf_counter() - t_all, card=card)
+    if not finite:
+        problems.append("an O1 gradient is not finite")
+    if gap > XF_GRAD_LIMIT:
+        problems.append(f"the O1 gradients differ from the f32 step's by "
+                        f"{gap} of a leaf's norm ({gap_leaf})")
+    if fault_gap <= XF_GRAD_LIMIT:
+        problems.append(f"the planted mask fault moved the gradients by only "
+                        f"{fault_gap}, within the limit")
+    if dec_gap > DECODE_LIMIT:
+        problems.append(f"cached decoding's logits differ from the full "
+                        f"forward's by {dec_gap}")
+    if dec_fault <= DECODE_LIMIT:
+        problems.append(f"the planted mask fault moved the decode check by "
+                        f"only {dec_fault}")
+    if gap0 > JIT_LOSS_LIMIT:
+        problems.append(f"the replayed losses {replayed0} differ from the "
+                        f"eager loop's {eager0} by {gap0}")
+    if any(launches.values()):
+        problems.append(f"Transformer-base launched hand-written kernels "
+                        f"{launches}: every attention has a mask or a "
+                        f"q_len / kv_len JAX sends to its composite")
+    if len(step.graphs()) != 1:
+        problems.append(f"{len(step.graphs())} graphs for one signature")
+    if not all(math.isfinite(v) for v in losses + eager_losses):
+        problems.append("a loss is not finite")
+    for p in problems:
+        fail(f"api_transformer: {p}")
+    del step, net, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+# api_varlen: packed (varlen) attention through the Paddle API at
+# LLaMA-7B's attention width (32 heads of 128, bf16), 16,384 packed tokens
+# of documents whose lengths are drawn from the seed in [VARLEN_MIN,
+# VARLEN_MAX] (no published document mix: a smoke phase, as
+# pack_documents is), each forward and backward through loss.backward():
+# F.flash_attn_unpadded (causal) at 32 / 32 heads and at 32 q / 8 kv heads
+# (LLaMA-3-8B's ratio) over 37 fewer tokens (JAX's -1 padding to the next
+# 128 rows), F.flash_attn_varlen_qkvpacked on [T, 3, 32, 128] and
+# F.flash_attn_qkvpacked on [8, 2048, 3, 32, 128].  Each output within TOL
+# of the plain version (ops.flash_varlen.segmented_sdpa_docs: each
+# document alone, f32 math; sdpa_plain for the dense call), each gradient
+# within VARLEN_GRAD_LIMIT (of the largest element, as TOL); the launches
+# against the code's count (K2, the range kernel, K7a and K7b once a varlen
+# call, K6a-c once for the dense one); an f32 call over the 32 / 8 head
+# stream takes the plain route and launches nothing.  Two planted faults:
+# cu_seqlens shifted by one lands beyond TOL; K7a and K7b told the other
+# causality (the forward sound) land beyond VARLEN_GRAD_LIMIT.  On an H100
+# the sound gradients read 4.9e-3-6.0e-3 and the backward fault 3,786.
+VARLEN_T, VARLEN_HEADS, VARLEN_KV, VARLEN_D = 16384, 32, 8, 128
+VARLEN_MIN, VARLEN_MAX, VARLEN_PAD_CUT = 64, 4096, 37
+VARLEN_GRAD_LIMIT = TOL["rtol"]
+VARLEN_DENSE = (8, 2048)
+VARLEN_KERNELS = ("flash_attention_segmented", "segment_tile_ranges",
+                  "flash_attention_segmented_bwd_dq",
+                  "flash_attention_segmented_bwd_dkv")
+
+
+def varlen_docs(seed, total, lo, hi):
+    rng = np.random.RandomState(seed + 17)
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(min(rng.randint(lo, hi + 1), total - sum(lens))))
+    return np.cumsum([0] + lens)
+
+
+def fwd_bwd(torch, paddle, fn, arrays, cot):
+    """fn(*tensors) forward and loss.backward() -> (out, grads)."""
+    ts = [paddle.to_tensor(a, stop_gradient=False) for a in arrays]
+    out = fn(*ts)
+    (out * paddle.to_tensor(cot)).sum().backward()
+    return out._data.detach(), [t.grad._data for t in ts]
+
+
+def rel_gap(torch, got, ref):
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+def phase_api_varlen(torch, seed, mods, card, dev="cuda"):
+    import paddle_tpu_torch as paddle
+    F = paddle.nn.functional
+    fv, fa = mods["fv"], mods["fa"]
+    total, heads, kv, d = VARLEN_T, VARLEN_HEADS, VARLEN_KV, VARLEN_D
+    dense, lo, hi = VARLEN_DENSE, VARLEN_MIN, VARLEN_MAX
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    problems = []
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    cu = varlen_docs(seed, total, lo, hi)
+    cu_cut = cu.copy()
+    cu_cut[-1] -= VARLEN_PAD_CUT
+    T2 = int(cu_cut[-1])
+    arms = {
+        "unpadded_mha": (lambda q, k, v: F.flash_attn_unpadded(
+            q, k, v, cu, cu, causal=True),
+            [rand(total, heads, d), rand(total, heads, d),
+             rand(total, heads, d)], cu),
+        "unpadded_gqa": (lambda q, k, v: F.flash_attn_unpadded(
+            q, k, v, cu_cut, cu_cut, causal=True),
+            [rand(T2, heads, d), rand(T2, kv, d), rand(T2, kv, d)], cu_cut),
+        "varlen_qkvpacked": (lambda p: F.flash_attn_varlen_qkvpacked(
+            p, cu, cu, hi, hi, causal=True), [rand(total, 3, heads, d)],
+            cu),
+        "qkvpacked_dense": (lambda p: F.flash_attn_qkvpacked(p, causal=True),
+                            [rand(*dense, 3, heads, d)], None),
+    }
+    def cot_of(arrays, cuts):
+        return rand(*(arrays[0].shape[:1] + (heads, d)) if cuts is not None
+                    else dense + (heads, d))
+
+    # one call of each first: the libraries load and the allocator warms
+    # before the timed, counted calls
+    for fn, arrays, cuts in arms.values():
+        fwd_bwd(torch, paddle, fn, arrays, cot_of(arrays, cuts))
+    torch.cuda.synchronize()
+    res, launched, kept = {}, {}, None
+    zero_counts(mods)
+    for name, (fn, arrays, cuts) in arms.items():
+        before = read_counts(mods)
+        cot = cot_of(arrays, cuts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, grads = fwd_bwd(torch, paddle, fn, arrays, cot)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launched[name] = {k: v - before[k] for k, v in
+                          read_counts(mods).items() if v - before[k]}
+        # the plain versions: autograd through f32 math
+        leaves = [a.detach().clone().requires_grad_(True) for a in arrays]
+        if cuts is None:
+            p = leaves[0]
+            ref = fa.sdpa_plain(p[:, :, 0], p[:, :, 1], p[:, :, 2], True)
+        elif name == "varlen_qkvpacked":
+            p = leaves[0]
+            ref = fv.segmented_sdpa_docs(p[:, 0], p[:, 1], p[:, 2], cuts,
+                                         True)
+        else:
+            ref = fv.segmented_sdpa_docs(*leaves, cuts, True)
+        ref_grads = torch.autograd.grad(ref, leaves, cot)
+        if name == "unpadded_mha":
+            kept = cot, ref_grads
+        err = rel_gap(torch, out, ref)
+        gerr = max(rel_gap(torch, a, b) for a, b in zip(grads, ref_grads))
+        res[name] = {"shape": list(arrays[0].shape), "fwd_bwd_ms": ms,
+                     "out_max_rel_err": err, "grad_max_rel_err": gerr,
+                     "launches": launched[name]}
+        if err > TOL["rtol"] or gerr > VARLEN_GRAD_LIMIT:
+            problems.append(f"{name}: output {err} (limit {TOL['rtol']}), "
+                            f"gradients {gerr} (limit {VARLEN_GRAD_LIMIT}) "
+                            f"from the plain versions'")
+        del out, grads, ref, ref_grads, leaves
+    launches = read_counts(mods)
+    want_var = {k: 1 for k in VARLEN_KERNELS}
+    want_dense = {k: 1 for k in K6_NAMES}
+    for name in ("unpadded_mha", "unpadded_gqa", "varlen_qkvpacked"):
+        if launched[name] != want_var:
+            problems.append(f"{name} launched {launched[name]}, the code "
+                            f"predicts {want_var}")
+    if launched["qkvpacked_dense"] != want_dense:
+        problems.append(f"qkvpacked_dense launched "
+                        f"{launched['qkvpacked_dense']}, the code predicts "
+                        f"{want_dense}")
+    # an f32 call on the card over the whole 32 / 8 head stream: the plain
+    # route, a document at a time, no kernel
+    q32 = [a.float() for a in arms["unpadded_gqa"][1]]
+    route = F.varlen_route(q32[0])
+    before = read_counts(mods)
+    t = time.perf_counter()
+    out32, _ = fwd_bwd(torch, paddle, lambda q, k, v: F.flash_attn_unpadded(
+        q, k, v, cu_cut, cu_cut, causal=True), q32,
+        torch.ones(q32[0].shape, device=dev))
+    torch.cuda.synchronize()
+    f32_ms = (time.perf_counter() - t) * 1e3
+    f32_launched = {k: v - before[k] for k, v in read_counts(mods).items()
+                    if v - before[k]}
+    with torch.no_grad():
+        f32_gap = rel_gap(torch, out32,
+                          fv.segmented_sdpa_docs(*q32, cu_cut, True))
+    if route != "plain" or f32_launched or f32_gap > 1e-5:
+        problems.append(f"the f32 call took {route}, launched "
+                        f"{f32_launched}, {f32_gap} from the plain version")
+    del q32, out32
+    # the planted faults: cu_seqlens shifted by one; the backward kernels
+    # told the other causality after a sound forward
+    shifted = cu.copy()
+    shifted[1:-1] += 1
+    fn, qkv, _ = arms["unpadded_mha"]
+    with torch.no_grad():
+        good = fv.segmented_sdpa_docs(*qkv, cu, True)
+        bad = F.flash_attn_unpadded(*[paddle.to_tensor(a) for a in qkv],
+                                    shifted, shifted, causal=True)._data
+    fault_err = rel_gap(torch, bad, good)
+    if fault_err <= TOL["rtol"]:
+        problems.append(f"cu_seqlens shifted by one moved the output by only "
+                        f"{fault_err}")
+    del good, bad
+    cot, ref_grads = kept
+    real_bwd = fv._seg_bwd
+    with patched((fv, "_seg_bwd", lambda *a: real_bwd(
+            *a[:7], not a[7], a[8]))):
+        _, bad_grads = fwd_bwd(torch, paddle, fn, qkv, cot)
+    bwd_fault = max(rel_gap(torch, a, b)
+                    for a, b in zip(bad_grads, ref_grads))
+    if bwd_fault <= VARLEN_GRAD_LIMIT:
+        problems.append(f"K7a / K7b told the other causality moved the "
+                        f"gradients by only {bwd_fault}")
+    del bad_grads, ref_grads, kept
+    emit("api_varlen", source="LLaMA-7B attention width (32 heads of 128, "
+         "bf16) and LLaMA-3-8B's GQA ratio (32 q / 8 kv); document lengths "
+         f"drawn in [{lo}, {hi}] from the seed (no published mix: a smoke "
+         "phase)", tokens=total, documents=len(cu) - 1,
+         doc_lens=np.diff(cu).tolist(), arms=res,
+         f32_tokens=T2, f32_route=route, f32_launches=f32_launched,
+         f32_max_rel_err=f32_gap, f32_fwd_bwd_ms=f32_ms,
+         planted_fault="cu_seqlens shifted by one",
+         planted_fault_max_rel_err=fault_err, tol=TOL["rtol"],
+         planted_bwd_fault="K7a / K7b told the other causality",
+         planted_bwd_fault_grad_max_rel_err=bwd_fault,
+         grad_limit=VARLEN_GRAD_LIMIT,
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+         phase_s=time.perf_counter() - t_all, card=card)
+    for p in problems:
+        fail(f"api_varlen: {p}")
+    del arms, qkv
+    torch.cuda.empty_cache()
+    return launches
+
+
+# api_nn: nn's families on the card against the CPU
+# (paddle_tpu_torch/testing/op_sweep.py:nn_cases, one realistic shape a
+# family: the losses over a [4096, 32000] logit batch, the norms, pads,
+# resampling, pools with masks and unpools over a ResNet stage's [8, 256,
+# 56, 56] map and its stem's [8, 64, 112, 112], a segmentation decoder's
+# transposed convolution [8, 256, 56, 56] -> [8, 128, 112, 112], ...),
+# each family's largest error against op_sweep.BOUNDS, gradients too; the
+# dropouts by their laws; a planted fault (reflect padding that repeats
+# the edge) beyond its bound.  Then the LSTM language model of Zaremba et
+# al. 2014 ("Recurrent Neural Network Regularization", the large model: 2
+# layers of 1,500 units, vocabulary 10,000 (Penn Treebank), 35 unrolled
+# steps, batch 20, dropout 0.65, uniform init in [-0.04, 0.04], SGD at lr 1
+# with the gradients' global norm clipped at 10), trained in f32 through
+# jit_train_step: replayed against eager losses (dropout 0), step ms and
+# tokens/s (dropout 0.65).  Each batch starts from zero states (the paper
+# carries them across batches: left out).  Then beam search
+# (BeamSearchDecoder over the LM's first LSTMCell with its embedding and
+# projection, BEAM beams, BEAM_PROMPTS prompts of 10 tokens, BEAM_STEPS
+# steps, dynamic_decode): each beam's score within BEAM_LIMIT of the
+# teacher-forced rescoring of its tokens by the same cell; the ids without
+# the backtrace (JAX's) as a planted fault beyond it.
+LSTM_CFG = dict(vocab=10000, hidden=1500, layers=2, steps=35, batch=20,
+                dropout=0.65, init=0.04, lr=1.0, clip=10.0)
+LSTM_STEPS, LSTM_EAGER_STEPS, LSTM_CHECK_STEPS = 5, 3, 3
+BEAM, BEAM_PROMPTS, BEAM_STEPS, BEAM_PROMPT_LEN = 4, 8, 32, 10
+BEAM_LIMIT = 1e-2          # nats, on summed log-probabilities near -300
+BEAM_END = 2
+
+
+def lstm_lm(paddle, c, dropout):
+    nn, F = paddle.nn, paddle.nn.functional
+    init = nn.initializer.Uniform(-c["init"], c["init"])
+
+    class LM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            nn.initializer.set_global_initializer(init, init)
+            try:
+                self.emb = nn.Embedding(c["vocab"], c["hidden"])
+                self.rnn = nn.LSTM(c["hidden"], c["hidden"], c["layers"],
+                                   dropout=dropout)
+                self.proj = nn.Linear(c["hidden"], c["vocab"])
+            finally:
+                nn.initializer.set_global_initializer(None, None)
+            self.p = dropout
+
+        def forward(self, ids):
+            x = F.dropout(self.emb(ids), self.p, training=self.training)
+            h, _ = self.rnn(x)
+            h = F.dropout(h, self.p, training=self.training)
+            return self.proj(h)
+
+    return LM()
+
+
+def lm_loss(paddle):
+    F = paddle.nn.functional
+
+    def loss_fn(logits, y):
+        return F.cross_entropy(paddle.reshape(logits, [-1, logits.shape[-1]]),
+                               paddle.reshape(y, [-1]))
+
+    return loss_fn
+
+
+def beam_rescore(torch, paddle, lm, states, ids):
+    """Each beam's tokens teacher-forced through the cell from its prompt's
+    states -> summed log-probs [batch, beam] (0 cost after the end)."""
+    cell = lm.rnn.cell_fw_0
+    b, k, n = ids.shape
+    h, c = (s._data.repeat_interleave(k, 0) for s in states)
+    toks = torch.as_tensor(ids.reshape(b * k, n), device=h.device)
+    prev = torch.full((b * k,), 1, dtype=torch.int64, device=h.device)
+    total = torch.zeros(b * k, dtype=torch.float64, device=h.device)
+    done = torch.zeros(b * k, dtype=torch.bool, device=h.device)
+    with torch.no_grad():
+        st = (paddle.to_tensor(h), paddle.to_tensor(c))
+        for t in range(n):
+            out, st = cell(lm.emb(paddle.to_tensor(prev)), st)
+            lp = torch.log_softmax(lm.proj(out)._data, -1)
+            pick = lp.gather(1, toks[:, t:t + 1])[:, 0].double()
+            total += torch.where(done, torch.zeros_like(pick), pick)
+            done |= toks[:, t] == BEAM_END
+            prev = toks[:, t]
+    return total.reshape(b, k).cpu().numpy()
+
+
+def phase_api_nn(torch, seed, card, dev="cuda"):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import jit_train_step
+    from paddle_tpu_torch.nn.functional import common as fcommon
+    from paddle_tpu_torch.testing import op_sweep as ow
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    paddle.set_device("cpu" if dev == "cpu" else "gpu")
+    problems = []
+    # (1) the nn sweep
+    sz = dict(ow.NN_SIZES)
+    missing = ow.nn_coverage()
+    if missing:
+        problems.append(f"nn names the sweep does not call: {missing}")
+    t0 = time.perf_counter()
+    ins = ow.nn_inputs(seed, **sz)
+    case_list = ow.nn_cases(sz)
+    case_s = {}
+    swept, raised = ow.sweep(paddle, ins, dev, case_list=case_list,
+                             timings=case_s)
+    for name, msg in raised.items():
+        problems.append(f"{name} raised {msg}")
+    families = {}
+    for name, (fam, err, bound) in swept.items():
+        f = families.setdefault(fam, {"max_err": 0.0, "bound": bound,
+                                      "worst": None, "cases": 0})
+        f["cases"] += 1
+        if err >= f["max_err"]:
+            f["max_err"], f["worst"] = err, name
+        if not err <= bound:
+            problems.append(f"{name} ({fam}): error {err} > {bound}")
+    laws = ow.nn_laws(paddle, dev)
+    for name, (err, bound) in laws.items():
+        if not err <= bound:
+            problems.append(f"law {name}: {err} > {bound}")
+
+    # the planted fault on the swept device alone, against the CPU's sound
+    # result
+    real_index = fcommon._pad_index
+    pad_case = next(c for c in case_list if c.name == "F.pad.reflect")
+    with patched((fcommon, "_pad_index", lambda n, lo, hi, mode, device: (
+            torch.arange(-lo, n + hi, device=device).clamp(0, n - 1)
+            if mode == "reflect" else real_index(n, lo, hi, mode, device)))):
+        bad = ow.run_case(paddle, pad_case, ins, dev)
+    fault_err = ow.compare(bad, ow.run_case(paddle, pad_case, ins, "cpu"),
+                           "pad")
+    if not fault_err > ow.BOUNDS["pad"]:
+        problems.append(f"the planted reflect-pad fault was not caught: "
+                        f"{fault_err}")
+    sweep_s = time.perf_counter() - t0
+    del ins
+    torch.cuda.empty_cache()
+
+    # (2) the LSTM language model through jit_train_step, f32
+    c = LSTM_CFG
+    rng = np.random.RandomState(seed)
+    ids = paddle.to_tensor(rng.randint(0, c["vocab"],
+                                       (c["batch"], c["steps"] + 1)))
+    x, y = ids[:, :-1], ids[:, 1:]
+    loss_fn = lm_loss(paddle)
+
+    def lm(dropout):
+        paddle.seed(66)
+        net = lstm_lm(paddle, c, dropout)
+        net.train()
+        return net
+
+    def sgd(net):
+        return paddle.optimizer.SGD(
+            learning_rate=c["lr"], parameters=net.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(c["clip"]))
+
+    def eager_f32(net, opt):
+        loss = loss_fn(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    t1 = time.perf_counter()
+    nets0 = [lm(0.0), lm(0.0)]
+    opt0 = sgd(nets0[0])
+    step0 = jit_train_step(nets0[0], loss_fn, opt0)
+    replayed0 = [float(step0(x, y)) for _ in range(LSTM_CHECK_STEPS)]
+    opt_e = sgd(nets0[1])
+    eager0 = [float(eager_f32(nets0[1], opt_e))
+              for _ in range(LSTM_CHECK_STEPS)]
+    gap0 = max(abs(a - b) / abs(b) for a, b in zip(replayed0, eager0))
+    del nets0, step0, opt0, opt_e
+    net = lm(c["dropout"])
+    opt = sgd(net)
+    eager_losses, eager_ms = timed_calls(torch, lambda: eager_f32(net, opt),
+                                         LSTM_EAGER_STEPS)
+    step = jit_train_step(net, loss_fn, opt)
+    t = time.perf_counter()
+    first = float(step(x, y))
+    capture_s = time.perf_counter() - t
+    losses, step_ms = timed_calls(torch, lambda: step(x, y), LSTM_STEPS)
+    tokens = c["batch"] * c["steps"]
+    lstm_s = time.perf_counter() - t1
+
+    # (3) beam search over the LM's first cell
+    t2 = time.perf_counter()
+    beam_steps, beam_prompts = BEAM_STEPS, BEAM_PROMPTS
+    net.eval()
+    prompts = paddle.to_tensor(rng.randint(3, c["vocab"], (
+        beam_prompts, BEAM_PROMPT_LEN)))
+    with torch.no_grad():
+        _, states = paddle.nn.RNN(net.rnn.cell_fw_0)(net.emb(prompts))
+
+    def decode():
+        dec = paddle.nn.BeamSearchDecoder(
+            net.rnn.cell_fw_0, 1, BEAM_END, BEAM, embedding_fn=net.emb,
+            output_fn=net.proj)
+        ids_, lp_ = paddle.nn.dynamic_decode(dec, states,
+                                             max_step_num=beam_steps)
+        return np.asarray(ids_.numpy()), np.asarray(lp_.numpy())
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    beam_ids, beam_lp = decode()
+    beam_ms = (time.perf_counter() - t) * 1e3
+    rescored = beam_rescore(torch, paddle, net, states, beam_ids)
+    beam_gap = float(np.abs(rescored - beam_lp).max())
+    with patched((paddle.nn.functional, "gather_tree",
+                  lambda ids_, parents: ids_)):
+        raw_ids, _ = decode()
+    raw_gap = float(np.abs(beam_rescore(torch, paddle, net, states,
+                                        raw_ids) - beam_lp).max())
+    beam_s = time.perf_counter() - t2
+    emit("api_nn", cases=len(swept), sizes=sz, families=families,
+         slowest_cases_s=dict(sorted(case_s.items(),
+                                     key=lambda kv: -kv[1])[:10]),
+         laws={k: v[0] for k, v in laws.items()},
+         planted_fault="reflect padding repeating the edge",
+         planted_fault_err=fault_err, sweep_s=sweep_s,
+         lstm=dict(model="Zaremba et al. 2014 large LSTM LM (2 x 1500, "
+                   "vocab 10000, 35 steps, batch 20, dropout 0.65, init "
+                   "+-0.04, SGD lr 1, clip 10), f32",
+                   source="Zaremba, Sutskever, Vinyals 2014 (Recurrent "
+                   "Neural Network Regularization), section 4.1 large",
+                   params=sum(p.size for p in net.parameters()),
+                   dropout0_replayed=replayed0, dropout0_eager=eager0,
+                   dropout0_max_rel_gap=gap0, eager_losses=eager_losses,
+                   eager_step_ms=eager_ms, capture_s=capture_s,
+                   first_loss=first, losses=losses, step_ms=step_ms,
+                   tokens_per_s=[tokens / (m / 1e3) for m in step_ms],
+                   eager_tokens_per_s=[tokens / (m / 1e3)
+                                       for m in eager_ms], phase_s=lstm_s),
+         beam=dict(beam=BEAM, prompts=beam_prompts, steps=beam_steps,
+                   ids_shape=list(beam_ids.shape), decode_ms=beam_ms,
+                   max_score_gap=beam_gap, limit=BEAM_LIMIT,
+                   planted_fault="ids without the backtrace (JAX's)",
+                   planted_fault_gap=raw_gap,
+                   best_scores=beam_lp[:, 0].tolist(), phase_s=beam_s),
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+         phase_s=time.perf_counter() - t_all, card=card)
+    if gap0 > JIT_LOSS_LIMIT:
+        problems.append(f"the LSTM's replayed losses {replayed0} differ from "
+                        f"the eager loop's {eager0} by {gap0}")
+    if not all(math.isfinite(v) for v in losses + eager_losses):
+        problems.append("an LSTM loss is not finite")
+    if beam_gap > BEAM_LIMIT:
+        problems.append(f"a beam's score differs from its rescoring by "
+                        f"{beam_gap}")
+    if raw_gap <= BEAM_LIMIT:
+        problems.append(f"the ids without the backtrace rescore within the "
+                        f"limit ({raw_gap})")
+    for p in problems:
+        fail(f"api_nn: {p}")
+    del step, net, opt
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -8795,9 +9634,17 @@ def main():
     timed("api_ops", phase_api_ops, torch, s, card)
     torch.cuda.empty_cache()
     timed("api_vision", phase_api_vision, torch, s, card)
+    torch.cuda.empty_cache()
+    launches_api_xf = timed("api_transformer", phase_api_transformer, torch,
+                            s, mods, card)
+    torch.cuda.empty_cache()
+    launches_api_varlen = timed("api_varlen", phase_api_varlen, torch, s,
+                                mods, card)
+    torch.cuda.empty_cache()
+    timed("api_nn", phase_api_nn, torch, s, card)
     # each kernel's launches in the serve, train, train_packed,
-    # train_fused and api phases (the api_bert / api_gpt graphs' replays
-    # counted in)
+    # train_fused and api phases (the api_bert / api_gpt / api_transformer
+    # graphs' replays counted in; api_varlen's four main-path calls)
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
             launches_dense, launches_faults, launches_mixed, launches_spec,
             launches_swap, launches_qos, launches_disagg, launches_remote,
@@ -8805,7 +9652,8 @@ def main():
             launches_int8_overlap, launches_prefix_int8, launches_mixed_int8,
             launches_spec_int8, launches_swap_int8, launches_disagg_int8,
             launches_train, launches_packed, *launches_fused, launches_api,
-            launches_api_train, launches_api_bert, launches_api_gpt]
+            launches_api_train, launches_api_bert, launches_api_gpt,
+            launches_api_xf, launches_api_varlen]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 
     def entry(name, source, replaces, runs):

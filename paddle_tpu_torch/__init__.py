@@ -10,9 +10,10 @@ version.
 
 The namespace mirrors ``paddle`` for the dygraph core this port carries
 (``import paddle_tpu_torch as paddle``): ``to_tensor`` and the tensor ops,
-``backward`` / ``grad`` / ``no_grad``, ``nn`` (``Layer``, ``Linear``,
-``Embedding``, ``Conv2D``, the pools, ``BatchNorm2D``, ``LayerNorm``,
-``RMSNorm``, ``ReLU``, ``GELU``, ``Dropout``, the gradient clips, ...),
+``backward`` / ``grad`` / ``no_grad``, ``nn`` (whole: ``Layer`` and its
+containers, the convolutions and pools, the norms, every activation and
+loss, ``Transformer``, the RNNs, ``BeamSearchDecoder``, the gradient
+clips, ``functional``, ``initializer``),
 ``optimizer`` (``SGD``, ``Momentum``, ``Adam``, ``AdamW``, ``lr``), ``amp``
 (``auto_cast``, ``decorate``, ``GradScaler``), ``incubate``
 (``nn.functional``, ``jit_train_step``), ``io`` (``DataLoader`` and the

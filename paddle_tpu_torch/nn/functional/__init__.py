@@ -1,9 +1,12 @@
 """Functional nn ops: ``linear``, ``embedding``, ``relu``, ``silu``,
 ``gelu``, ``tanh``, ``softmax``, ``log_softmax``, the other activations
-(``activation.py``), ``cross_entropy``,
-``layer_norm``, ``rms_norm``, ``batch_norm``, ``dropout``,
-``scaled_dot_product_attention``, the convolutions (``conv.py``) and the
-pools (``pooling.py``).
+(``activation.py``), ``cross_entropy``, ``layer_norm``, ``rms_norm``,
+``batch_norm``, ``dropout``, ``scaled_dot_product_attention``, the
+convolutions and their transposes (``conv.py``), the pools
+(``pooling.py``), the other norms (``norm.py``), the losses
+(``loss.py``), padding, resampling and the rest of JAX's common ops
+(``common.py``) and the long tail with the flash-attention entry points
+(``extras.py``): the whole of JAX's ``nn.functional``.
 
 Counterpart of the same functions of ``paddle_tpu/nn/functional/``.  Two of
 them reach the port's kernels through the op table
@@ -16,6 +19,9 @@ them reach the port's kernels through the op table
 * :func:`scaled_dot_product_attention` follows :func:`sdpa_route`, on the
   type the AMP hook will give q (``ops.dispatch.amp_cast_dtype``).
 
+and the varlen entry points (``extras.flash_attn_varlen_qkvpacked``,
+``extras.flash_attn_unpadded``) call the segmented kernels' wrapper by
+``extras.varlen_route``, as JAX's call its Pallas program directly.
 The rest are plain torch ops under JAX's op names (``"gelu"``,
 ``"layer_norm"``, ``"batch_norm"``, ``"conv2d"``, ``"dropout"``,
 ``"dropout_id"``, ``"tanh"``, ...), so AMP's lists reach them: JAX has no
@@ -36,13 +42,15 @@ from ...flags import flags
 from ...framework import dtype as dtypes
 from ...framework import random as framework_random
 from ...ops.dispatch import amp_cast_dtype, apply, as_tensor, get_op_impl
-from ...ops.flash_attention import causal_mask, sdpa_plain
+from ...ops.flash_attention import causal_mask, kernel_takes, sdpa_plain
 from ...tensor.math import tanh
 from .activation import *  # noqa: F401,F403,E402
 from .activation import __all__ as _activation_all
-from .conv import conv1d, conv2d, conv3d  # noqa: F401
+from .conv import (conv1d, conv1d_transpose, conv2d,  # noqa: F401
+                   conv2d_transpose, conv3d, conv3d_transpose)
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,  # noqa: F401
-                      adaptive_avg_pool3d, avg_pool1d, avg_pool2d,
+                      adaptive_avg_pool3d, adaptive_max_pool1d,
+                      adaptive_max_pool2d, avg_pool1d, avg_pool2d,
                       avg_pool3d, max_pool1d, max_pool2d, max_pool3d)
 
 __all__ = ["linear", "embedding", "relu", "silu", "gelu", "tanh", "softmax",
@@ -51,7 +59,9 @@ __all__ = ["linear", "embedding", "relu", "silu", "gelu", "tanh", "softmax",
            "sdpa_route", "conv1d", "conv2d", "conv3d", "max_pool1d",
            "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
            "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
-           "adaptive_avg_pool3d"] + _activation_all
+           "adaptive_avg_pool3d", "conv1d_transpose", "conv2d_transpose",
+           "conv3d_transpose", "adaptive_max_pool1d",
+           "adaptive_max_pool2d"] + _activation_all
 
 
 def relu(x, name=None):
@@ -332,10 +342,11 @@ def sdpa_route(q, k, attn_mask=None, dropout_p=0.0, dtype=None) -> str:
     * ``"plain"``: JAX's flash wrapper sends these to its XLA attention
       (``_xla_sdpa``): ``q_len != kv_len`` (decode shapes), unequal head
       counts, or a length no power-of-two block >= 8 divides.  The port
-      adds one condition of its own: on a CUDA tensor, a type other than
-      bf16 or a head_dim other than 64 / 128, which the kernels do not
-      take (JAX sends f32 into its kernel; ROADMAP.md queue 3).  This
-      route is ``ops.flash_attention.sdpa_plain``, the same f32 math;
+      adds one condition of its own: on a CUDA tensor, inputs the kernels
+      do not take (``ops.flash_attention.kernel_takes``: a type other than
+      bf16 or a head_dim other than 64 / 128; JAX sends f32 into its
+      kernel; ROADMAP.md queue 3).  This route is
+      ``ops.flash_attention.sdpa_plain``, the same f32 math;
     * ``"flash"``: the rest, the flash attention kernels (K6a forward,
       K6b / K6c backward) on the card, their plain versions on the CPU.
     """
@@ -346,9 +357,7 @@ def sdpa_route(q, k, attn_mask=None, dropout_p=0.0, dtype=None) -> str:
     if q.shape[1] != k.shape[1] or q.shape[2] != k.shape[2] or \
             _pick_block(q.shape[1]) is None:
         return "plain"
-    dtype = q.dtype if dtype is None else dtype
-    if q.device.type == "cuda" and (dtype != torch.bfloat16 or
-                                    q.shape[-1] not in (64, 128)):
+    if q.device.type == "cuda" and not kernel_takes(q, dtype):
         return "plain"
     return "flash"
 
@@ -401,3 +410,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if dropout_p > 0.0 and training:
         out = dropout(out, p=dropout_p, training=training)
     return out
+
+
+from .common import *  # noqa: F401,F403,E402
+from .common import __all__ as _common_all  # noqa: E402
+from .extras import *  # noqa: F401,F403,E402
+from .extras import __all__ as _extras_all  # noqa: E402
+from .loss import *  # noqa: F401,F403,E402
+from .loss import __all__ as _loss_all  # noqa: E402
+from .norm import *  # noqa: F401,F403,E402
+from .norm import __all__ as _norm_all  # noqa: E402
+
+__all__ += _common_all + _norm_all + _loss_all + _extras_all

@@ -17,8 +17,17 @@ on the card).  Otherwise the rule is written out: the input padded by hand
 (-inf for a max, 0 for an average), pooled without padding, and an average
 divided by the count of its counted cells.  The adaptive average takes
 torch's bins, which are JAX's (``floor(i * L / n)`` to ``ceil((i + 1) * L /
-n)``).  JAX has no Pallas kernel here.  ``return_mask`` and the adaptive
-max pools are not ported yet (ROADMAP.md queue 1 item 10).
+n)``).  JAX has no Pallas kernel here.
+
+``return_mask=True`` gives each maximum's flat index in its sample's
+unpadded spatial plane (``h * W + w``), int32, with the value: torch's
+``return_indices`` where torch takes the padding, else the written-out
+pool's argmax translated back from the padded plane (JAX's
+``max_pool2d_with_index``, the first maximum of a window on a tie).  JAX
+gives that mask for the 2-D pool alone and ``None`` for the 1-D and 3-D
+pools and the adaptive ones (its 3-D adaptive pool raises); the port
+gives the mask for all of them, the input ``max_unpool*`` takes.  The
+adaptive max pools are torch's (the adaptive average's bins).
 """
 
 from __future__ import annotations
@@ -33,12 +42,16 @@ from .conv import _norm_tuple
 
 __all__ = ["max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d",
            "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
-           "adaptive_avg_pool2d", "adaptive_avg_pool3d"]
+           "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+           "adaptive_max_pool1d", "adaptive_max_pool2d",
+           "adaptive_max_pool3d"]
 
 _MAX = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
 _AVG = {1: TF.avg_pool1d, 2: TF.avg_pool2d, 3: TF.avg_pool3d}
 _ADAPTIVE = {1: TF.adaptive_avg_pool1d, 2: TF.adaptive_avg_pool2d,
              3: TF.adaptive_avg_pool3d}
+_ADAPTIVE_MAX = {1: TF.adaptive_max_pool1d, 2: TF.adaptive_max_pool2d,
+                 3: TF.adaptive_max_pool3d}
 
 
 def _ceil_extra(L, k, s, p):
@@ -97,32 +110,57 @@ def _pool_nd(name, x, kernel, stride, padding, nd, average, ceil_mode=False,
     return apply(name, fn, x)
 
 
-def _no_mask(return_mask):
-    if return_mask:
-        raise NotImplementedError(
-            "max pooling's return_mask is not ported yet (ROADMAP.md queue "
-            "1 item 10)")
+def _max_with_mask(a, kernel, stride, p, nd, ceil_mode):
+    """(max, flat index in the unpadded plane) of a max pool."""
+    if all(2 * p[d] <= kernel[d] for d in range(nd)):
+        out, idx = _MAX[nd](a, kernel, stride, p, ceil_mode=ceil_mode,
+                            return_indices=True)
+        return out, idx.to(torch.int32)
+    if ceil_mode:
+        raise ValueError("return_mask with ceil_mode takes padding of at "
+                         "most half the kernel")
+    padded = TF.pad(a, _flat_pads([(q, q) for q in p]), value=-math.inf)
+    out, idx = _MAX[nd](padded, kernel, stride, return_indices=True)
+    sp = a.shape[2:]
+    psp = padded.shape[2:]
+    flat = torch.zeros_like(idx)
+    rest = idx
+    for d in reversed(range(nd)):
+        coord = rest % psp[d] - p[d]
+        rest = rest // psp[d]
+        flat = flat + coord * math.prod(sp[d + 1:])
+    return out, flat.to(torch.int32)
+
+
+def _max_pool(name, x, kernel_size, stride, padding, nd, ceil_mode,
+              return_mask):
+    if not return_mask:
+        return _pool_nd(name, x, kernel_size, stride, padding, nd, False,
+                        ceil_mode)
+    x = as_tensor(x)
+    kernel = _norm_tuple(kernel_size, nd)
+    stride = _norm_tuple(stride if stride is not None else kernel, nd)
+    p = _norm_tuple(padding, nd)
+    return apply(name, lambda a: _max_with_mask(a, kernel, stride, p, nd,
+                                                ceil_mode), x)
 
 
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, name=None):
-    _no_mask(return_mask)
-    return _pool_nd("max_pool1d", x, kernel_size, stride, padding, 1, False,
-                    ceil_mode)
+    return _max_pool("max_pool1d", x, kernel_size, stride, padding, 1,
+                     ceil_mode, return_mask)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCHW", name=None):
-    _no_mask(return_mask)
-    return _pool_nd("max_pool2d", x, kernel_size, stride, padding, 2, False,
-                    ceil_mode)
+    return _max_pool("max_pool2d", x, kernel_size, stride, padding, 2,
+                     ceil_mode, return_mask)
 
 
 def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCDHW", name=None):
-    _no_mask(return_mask)
-    return _pool_nd("max_pool3d", x, kernel_size, stride, padding, 3, False,
-                    ceil_mode)
+    return _max_pool("max_pool3d", x, kernel_size, stride, padding, 3,
+                     ceil_mode, return_mask)
 
 
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
@@ -161,3 +199,29 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
 
 def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
     return _adaptive_pool("adaptive_avg_pool3d", x, output_size, 3)
+
+
+def _adaptive_max(name, x, output_size, nd, return_mask):
+    x = as_tensor(x)
+    sizes = list(_norm_tuple(output_size, nd))
+
+    def fn(a):
+        out, idx = _ADAPTIVE_MAX[nd](a, sizes, return_indices=True)
+        return (out, idx.to(torch.int32)) if return_mask else out
+
+    return apply(name, fn, x)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    return _adaptive_max("adaptive_max_pool1d", x, output_size, 1,
+                         return_mask)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    return _adaptive_max("adaptive_max_pool2d", x, output_size, 2,
+                         return_mask)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    return _adaptive_max("adaptive_max_pool3d", x, output_size, 3,
+                         return_mask)

@@ -1,9 +1,9 @@
-"""``Conv1D``, ``Conv2D`` and ``Conv3D`` (counterpart of
-``paddle_tpu/nn/layer/conv.py``).  The weight is ``[out, in / groups,
-*kernel]``, Xavier-uniform by default, and the bias U(-1 / sqrt(fan_in), 1
-/ sqrt(fan_in)), JAX's initializers; a JAX ``state_dict()`` loads
-unchanged.  The transposed convolutions are not ported yet (ROADMAP.md
-queue 1 item 10)."""
+"""``Conv1D`` / ``2D`` / ``3D`` and ``Conv1DTranspose`` / ``2D`` / ``3D``
+(counterpart of ``paddle_tpu/nn/layer/conv.py``).  The weight is ``[out,
+in / groups, *kernel]`` (``[in, out / groups, *kernel]`` for a transpose),
+Xavier-uniform by default, and the bias U(-1 / sqrt(fan_in), 1 /
+sqrt(fan_in)) with ``fan_in = in * prod(kernel) / groups``, JAX's
+initializers; a JAX ``state_dict()`` loads unchanged."""
 
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose"]
 
 
 def _ntuple(v, n):
@@ -24,10 +25,12 @@ def _ntuple(v, n):
 
 class _ConvNd(Layer):
     _FN = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+    _FN_T = {1: F.conv1d_transpose, 2: F.conv2d_transpose,
+             3: F.conv3d_transpose}
 
     def __init__(self, nd, in_channels, out_channels, kernel_size, stride,
                  padding, dilation, groups, padding_mode, weight_attr,
-                 bias_attr, data_format):
+                 bias_attr, data_format, transpose=False, output_padding=0):
         super().__init__()
         if padding_mode != "zeros":
             raise NotImplementedError(
@@ -41,17 +44,27 @@ class _ConvNd(Layer):
         self._dilation = _ntuple(dilation, nd)
         self._groups = groups
         self._data_format = data_format
+        self._transpose = transpose
+        self._output_padding = output_padding
+        w_shape = [in_channels, out_channels // groups] if transpose else \
+            [out_channels, in_channels // groups]
         fan_in = in_channels * int(np.prod(self._kernel_size)) // groups
         bound = 1.0 / np.sqrt(fan_in)
         self.weight = self.create_parameter(
-            [out_channels, in_channels // groups] + self._kernel_size,
-            attr=weight_attr, default_initializer=I.XavierUniform())
+            w_shape + self._kernel_size, attr=weight_attr,
+            default_initializer=I.XavierUniform())
         self.bias = self.create_parameter(
             [out_channels], attr=bias_attr, is_bias=True,
             default_initializer=I.Uniform(-bound, bound)
             if bias_attr is None else None)
 
     def forward(self, x):
+        if self._transpose:
+            return self._FN_T[self._nd](
+                x, self.weight, self.bias, stride=self._stride,
+                padding=self._padding, output_padding=self._output_padding,
+                groups=self._groups, dilation=self._dilation,
+                data_format=self._data_format)
         return self._FN[self._nd](
             x, self.weight, self.bias, stride=self._stride,
             padding=self._padding, dilation=self._dilation,
@@ -88,3 +101,33 @@ class Conv3D(_ConvNd):
         super().__init__(3, in_channels, out_channels, kernel_size, stride,
                          padding, dilation, groups, padding_mode,
                          weight_attr, bias_attr, data_format)
+
+
+class Conv1DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCL"):
+        super().__init__(1, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, transpose=True,
+                         output_padding=output_padding)
+
+
+class Conv2DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCHW"):
+        super().__init__(2, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, transpose=True,
+                         output_padding=output_padding)
+
+
+class Conv3DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW"):
+        super().__init__(3, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, transpose=True,
+                         output_padding=output_padding)

@@ -111,7 +111,10 @@ class Layer:
             data = torch.empty(tuple(shape), device="meta",
                                dtype=dtypes.to_torch_dtype(dtype))
         else:
-            init = attr.initializer or default_initializer
+            # the attribute's initializer, else set_global_initializer's,
+            # else the layer's default, else the framework's (JAX's order)
+            init = attr.initializer or I._global_initializer(is_bias) \
+                or default_initializer
             if init is None:
                 init = I.Constant(0.0) if is_bias else I.XavierUniform()
             data = init(shape, dtype, places.current_torch_device())

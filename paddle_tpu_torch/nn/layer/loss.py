@@ -1,11 +1,16 @@
-"""``CrossEntropyLoss`` (counterpart of ``paddle_tpu/nn/layer/loss.py``)."""
+"""Loss layers (counterpart of ``paddle_tpu/nn/layer/loss.py``): each
+holds its options and calls its ``nn.functional`` loss."""
 
 from __future__ import annotations
 
 from .. import functional as F
 from .layers import Layer
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss",
+           "MarginRankingLoss", "HingeEmbeddingLoss", "CosineEmbeddingLoss",
+           "TripletMarginLoss", "SoftMarginLoss", "CTCLoss",
+           "SigmoidFocalLoss"]
 
 
 class CrossEntropyLoss(Layer):
@@ -28,3 +33,165 @@ class CrossEntropyLoss(Layer):
             soft_label=self.soft_label, axis=self.axis,
             use_softmax=self.use_softmax,
             label_smoothing=self.label_smoothing)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, reduction=self.reduction)
+
+
+class L1Loss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.l1_loss(input, label, reduction=self.reduction)
+
+
+class NLLLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.nll_loss(input, label, weight=self.weight,
+                          ignore_index=self.ignore_index,
+                          reduction=self.reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, weight=self.weight,
+                                      reduction=self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, weight=self.weight, reduction=self.reduction,
+            pos_weight=self.pos_weight)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean", log_target=False):
+        super().__init__()
+        self.reduction = reduction
+        self.log_target = log_target
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, reduction=self.reduction,
+                        log_target=self.log_target)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, reduction=self.reduction,
+                                delta=self.delta)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label,
+                                     margin=self.margin,
+                                     reduction=self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, margin=self.margin,
+                                      reduction=self.reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label,
+                                       margin=self.margin,
+                                       reduction=self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.args = dict(margin=margin, p=p, epsilon=epsilon, swap=swap,
+                         reduction=reduction)
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative,
+                                     **self.args)
+
+
+class SoftMarginLoss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.soft_margin_loss(input, label, reduction=self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          blank=self.blank, reduction=self.reduction)
+
+
+class SigmoidFocalLoss(Layer):
+    def __init__(self, alpha=0.25, gamma=2.0, reduction="sum",
+                 normalizer=None, name=None):
+        super().__init__()
+        self.alpha, self.gamma = alpha, gamma
+        self.reduction = reduction
+        self.normalizer = normalizer
+
+    def forward(self, logit, label):
+        return F.sigmoid_focal_loss(logit, label,
+                                    normalizer=self.normalizer,
+                                    alpha=self.alpha, gamma=self.gamma,
+                                    reduction=self.reduction)

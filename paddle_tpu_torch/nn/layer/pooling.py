@@ -1,8 +1,8 @@
 """Pooling layers (counterpart of ``paddle_tpu/nn/layer/pooling.py``):
 ``MaxPool1D`` / ``2D`` / ``3D``, ``AvgPool1D`` / ``2D`` / ``3D`` and
-``AdaptiveAvgPool1D`` / ``2D`` / ``3D``, each over its functional op
-(``nn/functional/pooling.py``).  The adaptive max pools are not ported yet
-(ROADMAP.md queue 1 item 10)."""
+``AdaptiveAvgPool1D`` / ``2D`` / ``3D`` and ``AdaptiveMaxPool1D`` /
+``2D``, each over its functional op (``nn/functional/pooling.py``;
+``AdaptiveMaxPool3D`` is in ``extras.py``, as in JAX)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from .layers import Layer
 
 __all__ = ["MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
            "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
-           "AdaptiveAvgPool3D"]
+           "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D"]
 
 
 class _Pool(Layer):
@@ -81,13 +81,15 @@ class AvgPool3D(_Pool):
 
 
 class _AdaptivePool(Layer):
-    def __init__(self, fn_name, output_size):
+    def __init__(self, fn_name, output_size, **kwargs):
         super().__init__()
         self._fn_name = fn_name
         self._output_size = output_size
+        self._kwargs = kwargs
 
     def forward(self, x):
-        return getattr(F, self._fn_name)(x, self._output_size)
+        return getattr(F, self._fn_name)(x, self._output_size,
+                                         **self._kwargs)
 
     def extra_repr(self):
         return f"output_size={self._output_size}"
@@ -106,3 +108,15 @@ class AdaptiveAvgPool2D(_AdaptivePool):
 class AdaptiveAvgPool3D(_AdaptivePool):
     def __init__(self, output_size, data_format="NCDHW", name=None):
         super().__init__("adaptive_avg_pool3d", output_size)
+
+
+class AdaptiveMaxPool1D(_AdaptivePool):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__("adaptive_max_pool1d", output_size,
+                         return_mask=return_mask)
+
+
+class AdaptiveMaxPool2D(_AdaptivePool):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__("adaptive_max_pool2d", output_size,
+                         return_mask=return_mask)

@@ -36,16 +36,29 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "causal_mask", "sdpa_plain", "launches",
-           "launches_dq", "launches_dkv"]
+__all__ = ["flash_attention", "causal_mask", "sdpa_plain", "kernel_takes",
+           "KERNEL_HEAD_DIMS", "launches", "launches_dq", "launches_dkv"]
 
 NEG_INF = -1e30
+
+# the head sizes the attention kernels take (K6a-c here, K2 and K7a-b in
+# flash_varlen), each in bf16
+KERNEL_HEAD_DIMS = (64, 128)
 
 # kernel launches made by flash_attention: forward, backward dq, backward
 # dk / dv
 launches = 0
 launches_dq = 0
 launches_dkv = 0
+
+
+def kernel_takes(q, dtype=None) -> bool:
+    """Whether the card's attention kernels (K6a-c, K2, K7a-b) take q
+    ``[..., d]`` run in ``dtype`` (q's own when None): bf16 at a head_dim
+    in ``KERNEL_HEAD_DIMS``.  The API's routes ask it before anything
+    launches; the wrappers' checks raise on the same rule."""
+    dtype = q.dtype if dtype is None else dtype
+    return dtype == torch.bfloat16 and q.shape[-1] in KERNEL_HEAD_DIMS
 
 
 def causal_mask(q_len: int, k_len: int, device=None):
@@ -141,8 +154,9 @@ def _check(named):
     if q.dim() != 4:
         raise ValueError(f"want q [b, s, h, d], got {tuple(q.shape)}")
     b, s, h, d = q.shape
-    if d not in (64, 128):
-        raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim {KERNEL_HEAD_DIMS}, got "
+                         f"{d}")
     if h > 65535 or b > 65535:
         raise ValueError(f"kernel takes at most 65535 heads and batch rows, "
                          f"got {h} and {b}")

@@ -8,7 +8,8 @@ dv, K7b, in ``csrc/flash_varlen_bwd.cu``) with hand-written Hopper kernels
 behind one ``torch.autograd.Function``, as ``_flash_seg``'s custom_vjp does;
 all three take the per-128-row-tile ranges that one range-kernel launch
 computes in the forward;
-:func:`segmented_sdpa_plain` mirrors ``xla_segmented_sdpa``;
+:func:`segmented_sdpa_plain` mirrors ``xla_segmented_sdpa``, and
+:func:`segmented_sdpa_docs` runs it a document at a time;
 :func:`_segment_block_ranges` and :func:`segment_ids_from_cu_seqlens` are
 copies of the JAX functions of those names; :func:`_seg_bwd_dq_plain` and
 :func:`_seg_bwd_dkv_plain` are the backward kernels' arithmetic in plain f32
@@ -33,11 +34,11 @@ import math
 
 import torch
 
-from ..models.decode import _grouped_attn
 from . import _build
-from .flash_attention import _delta
+from .flash_attention import KERNEL_HEAD_DIMS, _delta
 
 __all__ = ["flash_attention_segmented", "segmented_sdpa_plain",
+           "segmented_sdpa_docs",
            "segment_ids_from_cu_seqlens", "_segment_block_ranges",
            "_seg_fwd", "_seg_bwd", "launches", "launches_bwd_dq",
            "launches_bwd_dkv", "launches_ranges", "BLOCK_ROWS"]
@@ -98,9 +99,29 @@ def segmented_sdpa_plain(q, k, v, seg, causal):
     """Dense-mask attention within segments, fp32 math.  q [b, s, h, d],
     k/v [b, s, nkv, d] with nkv dividing h, seg [b, s] int.  Counterpart of
     ``xla_segmented_sdpa``."""
+    # here, not at import: models imports this module (the API's varlen
+    # entry points reach it before models is loaded)
+    from ..models.decode import _grouped_attn
     m = _seg_vis(seg.to(q.device), causal)                 # [b, 1, q, k]
     out = _grouped_attn(q.float(), k.float(), v.float(), m[:, None])
     return out.to(q.dtype)
+
+
+def segmented_sdpa_docs(q, k, v, cu, causal):
+    """:func:`segmented_sdpa_plain` a document at a time: q [T, h, d] and
+    k / v [T, nkv, d] packed along T, ``cu`` the documents' bounds (cu[0]
+    = 0, cu[-1] = T) -> [T, h, d] in q's type.  Each document runs alone,
+    so memory grows with the sum of the squared lengths, not with T
+    squared (a dense mask over 16,384 rows of 32 heads is 32 GiB of f32
+    scores); the arithmetic is the dense version's."""
+    outs = []
+    for a, b in zip(cu[:-1], cu[1:]):
+        a, b = int(a), int(b)
+        if b > a:
+            seg = torch.zeros((1, b - a), dtype=torch.int32, device=q.device)
+            outs.append(segmented_sdpa_plain(q[None, a:b], k[None, a:b],
+                                             v[None, a:b], seg, causal)[0])
+    return torch.cat(outs)
 
 
 def _full_heads(x, h):
@@ -186,8 +207,9 @@ def _check(q, k, v, seg, dout=None):
     if h % k.shape[2]:
         raise ValueError(f"q heads {h} must be a multiple of kv heads "
                          f"{k.shape[2]}")
-    if d not in (64, 128):
-        raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim {KERNEL_HEAD_DIMS}, got "
+                         f"{d}")
     if seg.shape != (b, s):
         raise ValueError(f"segment ids {tuple(seg.shape)} != [{b}, {s}]")
     if h > 65535 or b > 65535:

@@ -245,10 +245,12 @@ def cauchy_(x, loc=0, scale=1, name=None):
 def create_parameter(shape, dtype, name=None, attr=None,
                      is_bias=False, default_initializer=None):
     """A trainable Parameter on the current place: ``default_initializer``
-    (zeros for a bias, XavierNormal otherwise, as JAX's)."""
+    (zeros for a bias, XavierNormal otherwise, as JAX's), or
+    ``set_global_initializer``'s where one is set (JAX's function takes
+    ``default_initializer`` alone, whatever the global initializer)."""
     from ..framework.param import Parameter
     from ..nn import initializer as I
-    init = default_initializer
+    init = I._global_initializer(is_bias) or default_initializer
     if init is None:
         init = I.Constant(0.0) if is_bias else I.XavierNormal()
     return Parameter(init(_shape_list(shape), dtype, _dev()), dtype=dtype,

@@ -1,6 +1,10 @@
 """The tensor-op sweep: every public function of the tensor surface, the
 linalg namespace and nn's activations, called on one device and held
-against the same call on the CPU from the same numpy inputs.
+against the same call on the CPU from the same numpy inputs; and the nn
+families of the nn slice (``nn_cases``: losses, norms, pads, resampling,
+pools with masks and unpools, transposed convolutions, fold / unfold,
+shuffles and the long tail), one realistic shape a family, with the
+dropouts held by their laws (``nn_laws``).
 
 ``chip_smoke.py``'s ``api_ops`` phase runs it on the card at the serving
 widths (elementwise ops and reductions at [2048, 4096] f32, sorts and
@@ -26,7 +30,8 @@ import torch
 
 __all__ = ["Case", "BOUNDS", "make_inputs", "cases", "run_case",
            "compare", "sweep", "extra_checks", "bf16_lane", "rng_checks",
-           "dispatch_cost", "required_names"]
+           "dispatch_cost", "required_names", "NN_SIZES", "nn_inputs",
+           "nn_cases", "nn_coverage", "nn_laws"]
 
 # the largest error over the largest |value| of the CPU's result, by
 # family (TF32 off): elementwise ops are a few ulp apart between CUDA's
@@ -35,7 +40,18 @@ __all__ = ["Case", "BOUNDS", "make_inputs", "cases", "run_case",
 # factorizations of 256 x 256 matrices agree to their condition number
 BOUNDS = {"exact": 0.0, "elementwise": 1e-5, "special": 1e-4,
           "reduction": 1e-4, "scan": 1e-4, "product": 1e-4,
-          "linalg": 2e-3, "activation": 1e-5}
+          "linalg": 2e-3, "activation": 1e-5,
+          # the nn families: the losses' reductions over a [4096, 32000]
+          # batch and the norms' statistics over a feature map order their
+          # sums differently; the resampling matrices and the transposed
+          # convolutions sum hundreds of products (TF32 off); the pools,
+          # pads, fold / unfold and the long tail's gathers are copies or
+          # short sums
+          "loss": 1e-4, "norm": 1e-4, "resample": 1e-4, "conv": 1e-4,
+          "pool": 1e-5, "pad": 1e-5, "nn_misc": 1e-4,
+          # CTC's and RNN-T's forward recursions: hundreds of log-sum-exp
+          # steps in sequence (RNN-T's 100 x 21 lattice), each rounding
+          "recursion": 1e-3}
 
 
 class Case(NamedTuple):
@@ -846,9 +862,10 @@ def sweep(paddle, ins, device, case_list=None, timings=None):
     seconds into ``timings`` when given."""
     res, raised = {}, {}
     bases = _Bases(ins)
-    rows, cols = ins["x"].shape
-    for case in case_list or (cases(rows, cols) + inplace_cases() +
-                              f_inplace_cases()):
+    if case_list is None:
+        rows, cols = ins["x"].shape
+        case_list = cases(rows, cols) + inplace_cases() + f_inplace_cases()
+    for case in case_list:
         t = time.perf_counter()
         try:
             got = run_case(paddle, case, ins, device, bases=bases)
@@ -1196,3 +1213,359 @@ def dispatch_cost(paddle, device, n=2000):
             times.append((time.perf_counter() - t) / n * 1e6)
         out[name] = tuple(times)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the nn families
+# ---------------------------------------------------------------------------
+# one realistic shape a family: a language model's [4096, 32000] logit
+# batch (``logits`` rows x ``vocab``), a regression head's [4096, 1024], a
+# ResNet stage's [8, 256, 56, 56] feature map and its stem's [8, 64, 112,
+# 112], a segmentation decoder's transposed convolution [8, 256, 56, 56]
+# -> [8, 128, 112, 112], [4096, 512] embeddings, a CTC head's [400 frames,
+# 16, 29 characters]
+NN_SIZES = dict(rows=4096, vocab=32000, width=1024, emb=512, batch=8,
+                ch=256, hw=56, stem_ch=64, frames=400, ctc_batch=16,
+                chars=29, seq=1024, heads=8)
+
+
+def nn_inputs(seed=0, **sizes):
+    """The nn sweep's numpy inputs, drawn from ``seed``."""
+    z = dict(NN_SIZES, **sizes)
+    r = _Draws(seed)
+    f = np.float32
+    N, V, W, E = z["rows"], z["vocab"], z["width"], z["emb"]
+    B, C, HW = z["batch"], z["ch"], z["hw"]
+    lg = r.randn(N, V).astype(f)
+    soft = np.exp(lg[:, :64] - lg[:, :64].max(1, keepdims=True))
+    T, NB, K = z["frames"], z["ctc_batch"], z["chars"]
+    lab_len = r.randint(T // 8, T // 4, NB)
+    S, Hh = z["seq"], z["heads"]
+    return {
+        "logits": lg, "idx": r.randint(0, V, N), "t01": (
+            r.rand(N, V) > 0.5).astype(f),
+        "soft64": (soft / soft.sum(1, keepdims=True)).astype(f),
+        "lp64": r.randn(N, 64).astype(f),
+        "reg": r.randn(N, W).astype(f), "reg2": r.randn(N, W).astype(f),
+        "pos": (r.rand(N, W) + 0.1).astype(f),
+        "sign": np.where(r.rand(N) > 0.5, 1.0, -1.0).astype(f),
+        "e1": r.randn(N, E).astype(f), "e2": r.randn(N, E).astype(f),
+        "e3": r.randn(N, E).astype(f),
+        "fmap": r.randn(B, C, HW, HW).astype(f),
+        "stem": r.randn(B, z["stem_ch"], 2 * HW, 2 * HW).astype(f),
+        "vid": r.randn(2, 32, 8, HW, HW).astype(f),
+        "seq1d": r.randn(B, C, 4 * HW).astype(f),
+        "gn_w": (1 + 0.1 * r.randn(C)).astype(f),
+        "gn_b": (0.1 * r.randn(C)).astype(f),
+        "tconv_w": (r.randn(C, C // 2, 2, 2) / np.sqrt(4 * C)).astype(f),
+        "tconv_b": (0.1 * r.randn(C // 2)).astype(f),
+        "tconv1_w": (r.randn(C, C // 2, 4) / np.sqrt(4 * C)).astype(f),
+        "tconv3_w": (r.randn(32, 16, 2, 2, 2) / np.sqrt(256)).astype(f),
+        "theta": (np.eye(2, 3)[None] + 0.1 * r.randn(B, 2, 3)).astype(f),
+        "ctc_lp": r.randn(T, NB, K).astype(f),
+        "ctc_lab": r.randint(1, K, (NB, T // 4)),
+        "ctc_il": r.randint(T - T // 4, T + 1, NB), "ctc_ll": lab_len,
+        "q": r.randn(2, Hh, S, 64).astype(f),
+        "k": r.randn(2, Hh, S, 64).astype(f),
+        "v": r.randn(2, Hh, S, 64).astype(f),
+        "starts": r.randint(S // 2, S + 1, (2, Hh, 1, S)),
+        "seg_probs": r.rand(B, HW * HW, 21).astype(f),
+        "seg_lab": r.randint(0, 21, (B, HW * HW, 1)),
+        "hs_w": (r.randn(1023, E) / np.sqrt(E)).astype(f),
+        "hs_idx": r.randint(0, 1024, N),
+        "bil_a": r.randn(1024, 128).astype(f),
+        "bil_b": r.randn(1024, 128).astype(f),
+        "bil_w": (r.randn(64, 128, 128) / 128).astype(f),
+        "lens": r.randint(1, 64, N),
+        "as_head": (r.randn(E, 66) / np.sqrt(E)).astype(f),
+        "as_proj": (r.randn(E, 64) / np.sqrt(E)).astype(f),
+        "as_out": (r.randn(64, 300) / 8).astype(f),
+        "gt_ids": r.randint(0, V, (63, 16, 4)),
+        "gt_par": r.randint(0, 4, (63, 16, 4)),
+        "rnnt_x": r.randn(4, 100, 21, 64).astype(f),
+        "rnnt_y": r.randint(1, 64, (4, 20)),
+    }
+
+
+def _nn(name):
+    def f(paddle, *a, **kw):
+        return getattr(paddle.nn.functional, name)(*a, **kw)
+    return f
+
+
+def nn_cases(sizes=None) -> List[Case]:
+    """The nn families' cases over ``nn_inputs``."""
+    z = dict(NN_SIZES, **(sizes or {}))
+    F = _nn
+    HW = z["hw"]
+    cs = [
+        # losses over the logit batch
+        _c("F.cross_entropy", "loss",
+           lambda p, x, i: F("cross_entropy")(p, x, i), ["logits", "idx"]),
+        _c("F.cross_entropy.label_smoothing", "loss",
+           lambda p, x, i: F("cross_entropy")(p, x, i, label_smoothing=0.1),
+           ["logits", "idx"]),
+        _c("F.softmax_with_cross_entropy", "loss",
+           lambda p, x, i: F("softmax_with_cross_entropy")(
+               p, x, p.unsqueeze(i, -1)), ["logits", "idx"]),
+        _c("F.nll_loss", "loss", lambda p, x, i: F("nll_loss")(
+            p, p.nn.functional.log_softmax(x), i), ["logits", "idx"]),
+        _c("F.one_hot.label_smooth", "loss",
+           lambda p, x, i: F("cross_entropy")(p, x, F("label_smooth")(
+               p, F("one_hot")(p, i, x.shape[-1])), soft_label=True),
+           ["logits", "idx"]),
+        _c("F.binary_cross_entropy_with_logits", "loss",
+           lambda p, x, t: F("binary_cross_entropy_with_logits")(p, x, t),
+           ["logits", "t01"]),
+        _c("F.sigmoid_focal_loss", "loss",
+           lambda p, x, t: F("sigmoid_focal_loss")(p, x, t), ["logits",
+                                                              "t01"]),
+        _c("F.multi_label_soft_margin_loss", "loss",
+           lambda p, x, t: F("multi_label_soft_margin_loss")(p, x, t),
+           ["logits", "t01"]),
+        _c("F.margin_cross_entropy", "loss",
+           lambda p, x, i: F("margin_cross_entropy")(p, p.tanh(x) * 0.9,
+                                                     i),
+           ["logits", "idx"]),
+        _c("F.multi_margin_loss", "loss",
+           lambda p, x, i: F("multi_margin_loss")(p, x, i),
+           ["logits", "idx"]),
+        _c("F.kl_div", "loss", lambda p, x, t: F("kl_div")(
+            p, p.nn.functional.log_softmax(x), t, reduction="batchmean"),
+            ["lp64", "soft64"]),
+        # losses of a regression head
+        _c("F.mse_loss", "loss", lambda p, a, b: F("mse_loss")(p, a, b),
+           ["reg", "reg2"]),
+        _c("F.l1_loss", "loss", lambda p, a, b: F("l1_loss")(p, a, b),
+           ["reg", "reg2"]),
+        _c("F.smooth_l1_loss", "loss",
+           lambda p, a, b: F("smooth_l1_loss")(p, a, b, delta=0.5),
+           ["reg", "reg2"]),
+        _c("F.square_error_cost", "loss",
+           lambda p, a, b: F("square_error_cost")(p, a, b), ["reg", "reg2"]),
+        _c("F.binary_cross_entropy", "loss",
+           lambda p, a, b: F("binary_cross_entropy")(
+               p, p.nn.functional.sigmoid(a), p.nn.functional.sigmoid(b)),
+           ["reg", "reg2"]),
+        _c("F.log_loss", "loss", lambda p, a, b: F("log_loss")(
+            p, p.nn.functional.sigmoid(a), p.nn.functional.sigmoid(b)),
+            ["reg", "reg2"]),
+        _c("F.poisson_nll_loss", "loss",
+           lambda p, a, t: F("poisson_nll_loss")(p, a, t, full=True),
+           ["reg", "pos"]),
+        _c("F.gaussian_nll_loss", "loss",
+           lambda p, a, b, v: F("gaussian_nll_loss")(p, a, b, v),
+           ["reg", "reg2", "pos"]),
+        _c("F.soft_margin_loss", "loss",
+           lambda p, a, y: F("soft_margin_loss")(p, a[:, 0], y),
+           ["reg", "sign"]),
+        # losses over embeddings
+        _c("F.margin_ranking_loss", "loss",
+           lambda p, a, b, y: F("margin_ranking_loss")(p, a[:, 0], b[:, 0],
+                                                       y, margin=0.1),
+           ["e1", "e2", "sign"]),
+        _c("F.hinge_embedding_loss", "loss",
+           lambda p, a, y: F("hinge_embedding_loss")(p, a[:, 0], y),
+           ["e1", "sign"]),
+        _c("F.cosine_embedding_loss", "loss",
+           lambda p, a, b, y: F("cosine_embedding_loss")(p, a, b, y),
+           ["e1", "e2", "sign"]),
+        _c("F.triplet_margin_loss", "loss",
+           lambda p, a, b, c: F("triplet_margin_loss")(p, a, b, c,
+                                                       swap=True),
+           ["e1", "e2", "e3"]),
+        _c("F.triplet_margin_with_distance_loss", "loss",
+           lambda p, a, b, c: F("triplet_margin_with_distance_loss")(
+               p, a, b, c), ["e1", "e2", "e3"]),
+        _c("F.npair_loss", "loss",
+           lambda p, a, b, y: F("npair_loss")(p, a, b, p.cast(
+               y, "float32")), ["e1", "e2", "lens"]),
+        _c("F.hsigmoid_loss", "loss",
+           lambda p, a, w, y: F("hsigmoid_loss")(p, a, y, 1024, w),
+           ["e1", "hs_w", "hs_idx"]),
+        _c("F.adaptive_log_softmax_with_loss", "loss",
+           lambda p, a, h, pr, o, i: F("adaptive_log_softmax_with_loss")(
+               p, a, i, h, [[pr, o]], [64]),
+           ["e1", "as_head", "as_proj", "as_out", "lens"]),
+        _c("F.dice_loss", "loss", lambda p, x, y: F("dice_loss")(p, x, y),
+           ["seg_probs", "seg_lab"]),
+        _c("F.ctc_loss", "recursion",
+           lambda p, lp, y, il, ll: F("ctc_loss")(p, lp, y, il, ll),
+           ["ctc_lp", "ctc_lab", "ctc_il", "ctc_ll"]),
+        # norms over the feature map
+        _c("F.group_norm", "norm", lambda p, x, w, b: F("group_norm")(
+            p, x, 32, weight=w, bias=b), ["fmap", "gn_w", "gn_b"]),
+        _c("F.instance_norm", "norm", lambda p, x, w, b: F("instance_norm")(
+            p, x, weight=w, bias=b), ["fmap", "gn_w", "gn_b"]),
+        _c("F.local_response_norm", "norm",
+           lambda p, x: F("local_response_norm")(p, x, 5), ["fmap"]),
+        _c("F.normalize", "norm", lambda p, x: F("normalize")(p, x),
+           ["fmap"]),
+        _c("F.cosine_similarity", "norm",
+           lambda p, a, b: F("cosine_similarity")(p, a, b), ["e1", "e2"]),
+        _c("F.pairwise_distance", "norm",
+           lambda p, a, b: F("pairwise_distance")(p, a, b), ["e1", "e2"]),
+        # pads
+        *[_c(f"F.pad.{m}", "pad", (lambda m: lambda p, x: F("pad")(
+            p, x, [1, 1, 2, 1], mode=m, value=0.5))(m), ["fmap"])
+          for m in ("constant", "reflect", "replicate", "circular")],
+        _c("F.zeropad2d", "pad", lambda p, x: F("zeropad2d")(
+            p, x, [1, 2, 0, 1]), ["fmap"]),
+        # resampling
+        *[_c(f"F.interpolate.{m}", "resample", (lambda m: lambda p, x: F(
+            "interpolate")(p, x, scale_factor=2, mode=m))(m), ["fmap"])
+          for m in ("nearest", "bilinear", "bicubic")],
+        _c("F.interpolate.bilinear_down", "resample",
+           lambda p, x: F("interpolate")(p, x, size=[HW // 2 + 3, HW // 2],
+                                         mode="bilinear"), ["fmap"]),
+        _c("F.upsample.trilinear", "resample",
+           lambda p, x: F("upsample")(p, x, scale_factor=2,
+                                      mode="trilinear"), ["vid"]),
+        _c("F.affine_grid", "resample", lambda p, t: F("affine_grid")(
+            p, t, [z["batch"], 1, HW, HW], align_corners=False), ["theta"]),
+        *[_c(f"F.grid_sample.{m}", "resample", (lambda m: lambda p, x, t: F(
+            "grid_sample")(p, x, F("affine_grid")(
+                p, t, [z["batch"], 1, HW, HW]) * 1.1, mode=m))(m),
+            ["fmap", "theta"]) for m in ("bilinear", "nearest")],
+        # pools with masks, unpools
+        _c("F.max_pool2d.mask", "pool", lambda p, x: F("max_pool2d")(
+            p, x, 3, 2, 1, return_mask=True), ["stem"]),
+        _c("F.max_unpool2d", "pool", lambda p, x: F("max_unpool2d")(
+            p, *F("max_pool2d")(p, x, 2, 2, return_mask=True), 2, 2),
+            ["stem"]),
+        _c("F.max_pool2d_with_index", "pool",
+           lambda p, x: F("max_pool2d_with_index")(p, x, 2, 2, 1),
+           ["fmap"]),
+        _c("F.max_pool1d.mask", "pool", lambda p, x: F("max_pool1d")(
+            p, x, 3, 2, 1, return_mask=True), ["seq1d"]),
+        _c("F.max_unpool1d", "pool", lambda p, x: F("max_unpool1d")(
+            p, *F("max_pool1d")(p, x, 2, return_mask=True), 2), ["seq1d"]),
+        _c("F.max_pool3d.mask", "pool", lambda p, x: F("max_pool3d")(
+            p, x, 2, 2, return_mask=True), ["vid"]),
+        _c("F.max_unpool3d", "pool", lambda p, x: F("max_unpool3d")(
+            p, *F("max_pool3d")(p, x, 2, return_mask=True), 2), ["vid"]),
+        *[_c(f"F.adaptive_max_pool{n}d", "pool", (lambda n, inp: lambda p, x:
+              F(f"adaptive_max_pool{n}d")(p, x, 7, return_mask=True))(n, i),
+             [i]) for n, i in ((1, "seq1d"), (2, "fmap"), (3, "vid"))],
+        _c("F.lp_pool2d", "pool", lambda p, x: F("lp_pool2d")(
+            p, p.abs(x), 2.0, 3, 2), ["fmap"]),
+        _c("F.lp_pool1d", "pool", lambda p, x: F("lp_pool1d")(
+            p, p.abs(x), 3.0, 2), ["seq1d"]),
+        _c("F.fractional_max_pool2d", "pool",
+           lambda p, x: F("fractional_max_pool2d")(
+               p, x[:, :64], [HW // 2, HW // 2], random_u=0.3), ["fmap"]),
+        _c("F.fractional_max_pool3d", "pool",
+           lambda p, x: F("fractional_max_pool3d")(
+               p, x[:, :8], [4, HW // 4, HW // 4], random_u=0.6), ["vid"]),
+        # transposed convolutions
+        _c("F.conv2d_transpose", "conv",
+           lambda p, x, w, b: F("conv2d_transpose")(p, x, w, b, stride=2),
+           ["fmap", "tconv_w", "tconv_b"]),
+        _c("F.conv1d_transpose", "conv",
+           lambda p, x, w: F("conv1d_transpose")(p, x, w, stride=2,
+                                                 padding=1), ["seq1d",
+                                                              "tconv1_w"]),
+        _c("F.conv3d_transpose", "conv",
+           lambda p, x, w: F("conv3d_transpose")(p, x, w, stride=2),
+           ["vid", "tconv3_w"]),
+        # fold / unfold, shuffles, the long tail
+        _c("F.unfold", "pad", lambda p, x: F("unfold")(p, x[:, :64], 3,
+                                                       paddings=1),
+           ["fmap"]),
+        _c("F.fold", "pad", lambda p, x: F("fold")(
+            p, F("unfold")(p, x[:, :64], 2, 2), [HW, HW], 2, 2), ["fmap"]),
+        _c("F.pixel_shuffle", "exact", lambda p, x: F("pixel_shuffle")(
+            p, x, 2), ["fmap"]),
+        _c("F.pixel_unshuffle", "exact", lambda p, x: F("pixel_unshuffle")(
+            p, x, 2), ["fmap"]),
+        _c("F.channel_shuffle", "exact", lambda p, x: F("channel_shuffle")(
+            p, x, 8), ["fmap"]),
+        _c("F.temporal_shift", "exact", lambda p, x: F("temporal_shift")(
+            p, x, 2), ["fmap"]),
+        _c("F.bilinear", "nn_misc", lambda p, a, b, w: F("bilinear")(
+            p, a, b, w), ["bil_a", "bil_b", "bil_w"]),
+        _c("F.sequence_mask", "exact", lambda p, n: F("sequence_mask")(
+            p, n, maxlen=64), ["lens"], grad=False),
+        _c("F.sparse_attention", "nn_misc",
+           lambda p, q, k, v: F("sparse_attention")(
+               p, q, k, v, *_csr_band(p, q.shape[0], q.shape[1],
+                                      q.shape[2], 64)), ["q", "k", "v"]),
+        _c("F.flash_attention_with_sparse_mask", "nn_misc",
+           lambda p, q, k, v, st: F("flash_attention_with_sparse_mask")(
+               p, p.transpose(q, [0, 2, 1, 3]), p.transpose(k, [0, 2, 1, 3]),
+               p.transpose(v, [0, 2, 1, 3]),
+               attn_mask_start_row_indices=st), ["q", "k", "v", "starts"]),
+        _c("F.gather_tree", "exact", lambda p, i, q: F("gather_tree")(
+            p, i, q), ["gt_ids", "gt_par"], grad=False),
+        _c("F.rnnt_loss", "recursion", lambda p, x, y: F("rnnt_loss")(
+            p, x, y, p.full([4], 100, "int64"), p.full([4], 20, "int64")),
+           ["rnnt_x", "rnnt_y"]),
+    ]
+    return cs
+
+
+def _csr_band(paddle, B, H, S, w):
+    """A banded CSR layout (each row sees the ``w`` keys up to itself), the
+    offsets and columns on the current place."""
+    rows = np.arange(S)
+    lo = np.maximum(rows - w + 1, 0)
+    counts = rows - lo + 1
+    off = np.concatenate([[0], np.cumsum(counts)])
+    cols = np.concatenate([np.arange(a, r + 1) for a, r in zip(lo, rows)])
+    off = np.broadcast_to(off, (B, H, S + 1)).copy()
+    cols = np.broadcast_to(cols, (B, H, cols.size)).copy()
+    return paddle.to_tensor(off), paddle.to_tensor(cols)
+
+
+# nn.functional names the nn sweep reaches another way: the flash entry
+# points (chip_smoke's api_varlen, against their plain versions), the
+# dropouts (nn_laws) and the host-side sampler (its own check below)
+NN_COVERED_ELSEWHERE = {
+    "flash_attn_qkvpacked", "flash_attn_varlen_qkvpacked",
+    "flash_attn_unpadded", "varlen_route", "dropout2d", "dropout3d",
+    "alpha_dropout", "class_center_sample", "linear_interp",
+}
+
+
+def nn_coverage() -> List[str]:
+    """The nn slice's functional names no nn case calls."""
+    from ..nn.functional import common, extras, loss, norm
+    req = list(common.__all__) + list(norm.__all__) + list(loss.__all__) + \
+        list(extras.__all__) + ["conv1d_transpose", "conv2d_transpose",
+                                "conv3d_transpose", "adaptive_max_pool1d",
+                                "adaptive_max_pool2d"]
+    called = set()
+    for c in nn_cases():
+        called |= set(c.name[2:].split("."))
+    return [n for n in req if n not in called and
+            n not in NN_COVERED_ELSEWHERE]
+
+
+def nn_laws(paddle, device, seed=3):
+    """The dropouts on ``device`` by their laws, and class_center_sample's
+    invariants -> {name: (problems, 0)}."""
+    res = {}
+    paddle.seed(seed)
+    F = paddle.nn.functional
+    with _place(paddle, device):
+        x = paddle.ones([64, 256, 8, 8])
+        y = _numpy(F.dropout2d(x, p=0.3)).reshape(64, 256, -1)
+        whole = bool(((y == 0).all(-1) | (y == y[..., :1]).all(-1)).all())
+        frac = float((y[..., 0] == 0).mean())
+        res["dropout2d_whole_channels"] = (0.0 if whole else 1.0, 0.0)
+        res["dropout2d_rate"] = (float(abs(frac - 0.3) > 0.02), 0.0)
+        y3 = _numpy(F.dropout3d(paddle.ones([16, 256, 2, 4, 4]), p=0.5))
+        res["dropout3d_whole_channels"] = (
+            0.0 if (y3.reshape(16, 256, -1).std(-1) == 0).all() else 1.0,
+            0.0)
+        g = paddle.randn([1024, 1024])
+        a = _numpy(F.alpha_dropout(g, p=0.2))
+        res["alpha_dropout_moments"] = (
+            float(abs(a.mean()) > 0.01 or abs(a.std() - 1) > 0.01), 0.0)
+        lab = paddle.to_tensor(np.array([3, 7, 3, 19, 0]))
+        remapped, sampled = F.class_center_sample(lab, 20, 8)
+        s, r = _numpy(sampled), _numpy(remapped)
+        ok = len(s) == 8 and {0, 3, 7, 19} <= set(s.tolist()) and \
+            np.array_equal(s[r], np.array([3, 7, 3, 19, 0]))
+        res["class_center_sample_positives"] = (0.0 if ok else 1.0, 0.0)
+    return res

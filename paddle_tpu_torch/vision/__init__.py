@@ -2,7 +2,7 @@
 ``models`` (LeNet and the ResNet family), ``datasets``, ``transforms``,
 ``set_image_backend`` / ``get_image_backend`` and ``image_load``.  JAX's
 ``vision.ops`` (detection ops) is not ported yet (ROADMAP.md queue 1 item
-10)."""
+10(b))."""
 
 from . import models  # noqa: F401
 from . import datasets  # noqa: F401

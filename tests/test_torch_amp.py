@@ -130,6 +130,20 @@ OPS = {
         pkg.cumsum(x, axis=1), axis=1) + pkg.sum(pkg.cumprod(
             pkg.tanh(x), dim=1), axis=1) + pkg.var(x, axis=1) + pkg.std(
         x, axis=1) + pkg.linalg.norm(x, axis=1), (X,)),
+    # the nn slice: a transposed convolution (white) between the f32 norms
+    "tconv_norms": (lambda pkg, x, w: pkg.nn.functional.group_norm(
+        pkg.nn.functional.conv2d_transpose(pkg.nn.functional.instance_norm(
+            pkg.reshape(x, [1, 2, 4, 4])), pkg.reshape(w, [2, 4, 2, 4]),
+            stride=2), 2), (X, W)),
+    # and its losses on the black list, over a white product
+    "losses": (lambda pkg, x, w: pkg.nn.functional.mse_loss(
+        pkg.nn.functional.linear(x, w), x) + pkg.nn.functional.l1_loss(
+        x, w[:4]) + pkg.nn.functional.binary_cross_entropy_with_logits(
+        pkg.nn.functional.linear(x, w), pkg.nn.functional.sigmoid(x))
+        + pkg.nn.functional.kl_div(pkg.nn.functional.log_softmax(x),
+                                   pkg.nn.functional.softmax(x))
+        + pkg.nn.functional.sigmoid_focal_loss(x, pkg.nn.functional.sigmoid(
+            x)), (X, W)),
 }
 LEVELS = [dict(level="O1"), dict(level="O2"),
           dict(level="O1", custom_white_list={"gelu"},

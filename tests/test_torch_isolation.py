@@ -123,6 +123,13 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.vision.models.googlenet\n"
         "import paddle_tpu_torch.vision.models.inceptionv3\n"
         "import paddle_tpu_torch.vision.models.shufflenetv2\n"
+        "import paddle_tpu_torch.nn.functional.common\n"
+        "import paddle_tpu_torch.nn.functional.norm\n"
+        "import paddle_tpu_torch.nn.functional.loss\n"
+        "import paddle_tpu_torch.nn.functional.extras\n"
+        "import paddle_tpu_torch.nn.layer.rnn\n"
+        "import paddle_tpu_torch.nn.layer.transformer\n"
+        "import paddle_tpu_torch.nn.layer.extras\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.ab_torch_kernels\n"
@@ -147,7 +154,11 @@ NEW_SUBPACKAGES = ("io", "io.worker", "metric", "hapi", "hapi.model",
                    "nn.layer.pooling", "tensor.stat", "tensor.einsum",
                    "tensor.random", "tensor.extras", "tensor.inplace",
                    "nn.functional.activation", "vision.models.mobilenetv3",
-                   "vision.models.densenet", "vision.models.inceptionv3")
+                   "vision.models.densenet", "vision.models.inceptionv3",
+                   "nn.functional.common", "nn.functional.norm",
+                   "nn.functional.loss", "nn.functional.extras",
+                   "nn.layer.rnn", "nn.layer.transformer",
+                   "nn.layer.extras")
 
 
 def test_importing_the_port_makes_no_cuda_call():
@@ -169,6 +180,25 @@ def test_importing_the_port_makes_no_cuda_call():
         "bad = sorted(m for m in __import__('sys').modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_varlen_entry_point_runs_in_a_fresh_process():
+    """nn.functional's varlen entry points reach ops.flash_varlen before
+    anything has imported ``models``: that import must not be circular
+    (it was, while ops.flash_varlen imported models.decode at import)."""
+    code = (
+        "import numpy as np\n"
+        "import paddle_tpu_torch as paddle\n"
+        "paddle.set_device('cpu')\n"
+        "F = paddle.nn.functional\n"
+        "q = paddle.to_tensor(np.ones((6, 2, 64), np.float32))\n"
+        "cu = np.array([0, 2, 6])\n"
+        "out = F.flash_attn_unpadded(q, q, q, cu, cu, causal=True)\n"
+        "assert out.shape == [6, 2, 64]\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)

@@ -1,7 +1,8 @@
 """The port's public surface against paddle_tpu's, for the namespaces the
 tensor-op slice completes: the top level, ``paddle.linalg``, Tensor's
 methods, nn's activation layers, nn.functional's activations and
-``vision.models``.
+``vision.models``; and for those the nn slice completes: ``nn``,
+``nn.functional`` and ``nn.initializer``, whole.
 
 JAX's public names (``dir()``, submodules left out) minus the port's must
 be exactly a named remainder, and each remaining name maps to the
@@ -48,6 +49,16 @@ TOP_REMAINDER = {"DataParallel": "9(a)", "enable_static": "10(e)",
 JAX_F_ACTIVATIONS = JF.__all__[:JF.__all__.index("linear")] + [
     "elu_", "hardtanh_", "leaky_relu_", "softmax_", "tanh_",
     "thresholded_relu_"]
+# JAX's public names that are its modules' imports leaking through dir(),
+# not API: the port's modules do not import them at the top
+LEAKED = {
+    "nn.functional": {"Optional": "typing import", "Sequence":
+                      "typing import", "Union": "typing import",
+                      "Tensor": "the Tensor class imported for isinstance",
+                      "wrap_array": "the array wrapper imported for ops"},
+    "nn.initializer": {"Optional": "typing import",
+                       "Tensor": "the Tensor class imported for Assign"},
+}
 # the port's own names beyond JAX's in the namespaces held here
 PORT_ONLY = {
     "top": set(),
@@ -94,6 +105,17 @@ def test_functional_activations_are_whole():
     assert not missing, sorted(missing)
     assert {"relu6", "hardswish", "gumbel_softmax", "rrelu"} <= set(
         JAX_F_ACTIVATIONS)
+
+
+@pytest.mark.parametrize("ns", ["nn", "nn.functional", "nn.initializer"])
+def test_nn_namespaces_are_whole(ns):
+    jmod, tmod = jp, tp
+    for part in ns.split("."):
+        jmod, tmod = getattr(jmod, part), getattr(tmod, part)
+    missing = _public(jmod) - _public(tmod)
+    assert missing == set(LEAKED.get(ns, {})), sorted(missing)
+    # none of them is in the API JAX's module declares
+    assert not set(LEAKED.get(ns, {})) & set(getattr(jmod, "__all__", ()))
 
 
 def test_vision_models_are_whole():

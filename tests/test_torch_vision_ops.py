@@ -312,8 +312,9 @@ def test_sync_batch_norm_is_batch_norm_in_one_process(monkeypatch):
 
 
 def test_unported_pool_and_conv_options_raise():
-    x = tp.to_tensor(np.zeros((1, 1, 4, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TF.max_pool2d(x, 2, return_mask=True)
+    x = tp.to_tensor(np.arange(16, dtype=np.float32).reshape(1, 1, 4, 4))
+    # return_mask is ported: the maxima and their flat indices
+    out, mask = TF.max_pool2d(x, 2, return_mask=True)
+    np.testing.assert_array_equal(_np(mask).ravel(), [5, 7, 13, 15])
     with pytest.raises(NotImplementedError):
         tp.nn.Conv2D(1, 1, 3, padding_mode="reflect")

@@ -11,6 +11,9 @@ Run from the repository root:
                                  [serve_mixed_int8_before] [serve_disagg]
                                  [serve_disagg_before] [api_fit]
                                  [api_resnet] [api_ops] [api_vision]
+                                 [api_transformer] [api_varlen] [api_nn]
+                                 [api_ops_before] [serve_swap]
+                                 [serve_swap_before]
 
 Each phase prints its JSON line as in the whole script; a failed gate is
 printed and the next phase still runs.  ``serve_qos`` runs at LLaMA-7B
@@ -23,7 +26,10 @@ the script's depth and ``..._before`` at the depth the script had before
 its spec cut (SPEC_BEFORE: 64 new tokens a request, 32 in the logit
 check, 5 profiled rounds), in one process; ``serve_mixed`` /
 ``serve_mixed_int8`` / ``serve_disagg`` likewise with MIXED_BEFORE (48 new
-tokens a request where the script takes 32).  The last line
+tokens a request where the script takes 32); ``serve_swap`` with
+SWAP_BEFORE (96 new tokens a request where the script takes 72) and
+``api_ops_before`` with OPS_BEFORE (2,048 rows where the script takes
+1,024).  The last line
 is ``{"phase_s": {...}, "fails": [...], "card": ...}``; the exit code is 1
 when a gate failed.  With no argument it runs serve_qos, serve_qos_recipe,
 api_fit and api_resnet in that order (the serving phases first, so that
@@ -45,6 +51,8 @@ QOS_RECIPE = dict(QOS_NEW=32, QOS_LOW_NEWS=(20, 22, 24, 26, 28, 30, 32, 34),
                   QOS_HIGH_NEW=24)
 SPEC_BEFORE = dict(SPEC_NEW=64, SPEC_CHECK_NEW=32, SPEC_DEVICE_REPS=5)
 MIXED_BEFORE = dict(MIXED_NEW=48)
+SWAP_BEFORE = dict(SWAP_NEW=96)
+OPS_BEFORE = dict(rows=2048)
 
 
 def main():
@@ -73,8 +81,19 @@ def main():
             cs.phase_api_resnet(torch, 0, card)
         elif name == "api_ops":
             cs.phase_api_ops(torch, 0, card)
+        elif name == "api_ops_before":
+            cs.phase_api_ops(torch, 0, card, sizes=OPS_BEFORE)
         elif name == "api_vision":
             cs.phase_api_vision(torch, 0, card)
+        elif name in ("api_transformer", "api_varlen", "api_nn"):
+            mods = api_kernels()
+            t = time.perf_counter()
+            if name == "api_transformer":
+                cs.phase_api_transformer(torch, 0, mods, card)
+            elif name == "api_varlen":
+                cs.phase_api_varlen(torch, 0, mods, card)
+            else:
+                cs.phase_api_nn(torch, 0, card)
         elif name.startswith(("serve_mixed", "serve_disagg")):
             if qos is None:
                 qos = qos_setup(torch)
@@ -99,6 +118,21 @@ def main():
             t = time.perf_counter()
             try:
                 run(torch, cfg, seed, params, mods, **kw)
+            finally:
+                for k, v in saved.items():
+                    setattr(cs, k, v)
+        elif name in ("serve_swap", "serve_swap_before"):
+            if qos is None:
+                qos = qos_setup(torch)
+            cfg, seed, params, mods = qos
+            saved = {k: getattr(cs, k) for k in SWAP_BEFORE}
+            if name.endswith("_before"):
+                for k, v in SWAP_BEFORE.items():
+                    setattr(cs, k, v)
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            try:
+                cs.phase_serve_swap(torch, cfg, seed, params, mods)
             finally:
                 for k, v in saved.items():
                     setattr(cs, k, v)
@@ -147,12 +181,7 @@ def main():
     sys.exit(1 if fails else 0)
 
 
-def qos_setup(torch):
-    """The serving kernels built and LLaMA-7B's weights -> serve_qos's
-    (cfg, seed, params, mods)."""
-    from paddle_tpu_torch.models.llama_pretrain import (LlamaPretrainConfig,
-                                                        init_params)
-    from paddle_tpu_torch.ops import _build
+def _mods():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_varlen as fv
     from paddle_tpu_torch.ops import fused_adamw as aw
@@ -162,9 +191,26 @@ def qos_setup(torch):
     from paddle_tpu_torch.ops import rmsnorm_matmul as rmm
     from paddle_tpu_torch.ops import rope as rp
     from paddle_tpu_torch.ops import swiglu as sw
-    _build.build(["paged_attention", "flash_varlen", "int8_matmul", "rope"])
-    mods = {"pa": pa, "fv": fv, "im": im, "rp": rp, "fa": fa, "aw": aw,
+    return {"pa": pa, "fv": fv, "im": im, "rp": rp, "fa": fa, "aw": aw,
             "rn": rn, "sw": sw, "rmm": rmm}
+
+
+def api_kernels():
+    """The attention kernels the api phases reach, built (once a process:
+    the build is skipped when the libraries exist) -> chip_smoke's mods."""
+    from paddle_tpu_torch.ops import _build
+    _build.build(["flash_varlen", "flash_varlen_bwd", "flash_attention"])
+    return _mods()
+
+
+def qos_setup(torch):
+    """The serving kernels built and LLaMA-7B's weights -> serve_qos's
+    (cfg, seed, params, mods)."""
+    from paddle_tpu_torch.models.llama_pretrain import (LlamaPretrainConfig,
+                                                        init_params)
+    from paddle_tpu_torch.ops import _build
+    _build.build(["paged_attention", "flash_varlen", "int8_matmul", "rope"])
+    mods = _mods()
     cfg = LlamaPretrainConfig()
     return cfg, 0, init_params(cfg, seed=0, device="cuda"), mods
 
