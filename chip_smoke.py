@@ -531,7 +531,7 @@ Phases, one JSON line each on stdout:
              beyond TOL, K7a / K7b told the other causality beyond
              VARLEN_GRAD_LIMIT.
 11k. api_nn - nn's families on the card against the CPU
-             (op_sweep.nn_cases: losses over [4096, 32000] logits, norms,
+             (op_sweep.nn_cases: losses over [1024, 32000] logits, norms,
              pads, resampling, pools with masks and unpools, transposed
              convolutions, fold / unfold, shuffles, the long tail), the
              dropouts' laws and a planted reflect-pad fault; the LSTM LM of
@@ -542,6 +542,27 @@ Phases, one JSON line each on stdout:
              first LSTMCell through dynamic_decode, each beam's score held
              against its teacher-forced rescoring (the ids without the
              backtrace as a planted fault).
+11l. api_infer - the deployment path at BERT-base's full width
+             (BertForQuestionAnswering, BertConfig() defaults, seed 55,
+             bf16) on api_bert's recipe shape, 32 x 384, mask-free: (1)
+             jit.to_static against the eager and the plain versions'
+             forward (K6a a layer from the replayed graph, sdpa_plain not
+             reached, capture s, replayed and eager ms, samples/s); (2)
+             Model.save(training=False) -> jit.load, the same logits; (3)
+             inference.convert_to_export, loaded and replayed by a
+             Predictor in a child process that imports no model code
+             (its logits, K6a a replay, replay ms, samples/s); (4)
+             InferenceServer over a DevicePool on the card, 4 client
+             threads x 8 predict_http requests of distinct inputs, each
+             answer equal to its solo run bit for bit, /health and
+             /metrics counting them, a malformed body a 400 (requests/s,
+             latency p50 / p99); (5) LlamaForCausalLM at LLaMA-7B's width,
+             2 layers, bf16, a 512-token prompt, through the same export
+             (K5, K6a, K9a a replay as the code predicts, logits within
+             LOGIT_LIMIT of the plain forward's); (6) planted faults: K6a
+             told causal=True inside the exported program, and two
+             requests copied into the graph before the first's answer is
+             copied out (the lock's reach).
 12. kernels - one JSON object with an entry per ported kernel (16, and
              K3's wave path beside its decode path and the segmented
              kernels' per-tile range kernel: 18).
@@ -567,11 +588,14 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -9166,10 +9190,11 @@ def phase_api_varlen(torch, seed, mods, card, dev="cuda"):
 
 # api_nn: nn's families on the card against the CPU
 # (paddle_tpu_torch/testing/op_sweep.py:nn_cases, one realistic shape a
-# family: the losses over a [4096, 32000] logit batch, the norms, pads,
-# resampling, pools with masks and unpools over a ResNet stage's [8, 256,
-# 56, 56] map and its stem's [8, 64, 112, 112], a segmentation decoder's
-# transposed convolution [8, 256, 56, 56] -> [8, 128, 112, 112], ...),
+# family: the losses over a [1024, 32000] logit batch, the norms, pads,
+# resampling, pools with masks and unpools over a ResNet stage's [2, 256,
+# 56, 56] map and its stem's [2, 64, 112, 112], a segmentation decoder's
+# transposed convolution [2, 256, 56, 56] -> [2, 128, 112, 112], ...: the
+# NN_SWEEP cut of op_sweep.NN_SIZES),
 # each family's largest error against op_sweep.BOUNDS, gradients too; the
 # dropouts by their laws; a planted fault (reflect padding that repeats
 # the edge) beyond its bound.  Then the LSTM language model of Zaremba et
@@ -9185,6 +9210,11 @@ def phase_api_varlen(torch, seed, mods, card, dev="cuda"):
 # steps, dynamic_decode): each beam's score within BEAM_LIMIT of the
 # teacher-forced rescoring of its tokens by the same cell; the ids without
 # the backtrace (JAX's) as a planted fault beyond it.
+# the nn sweep's sizes over op_sweep.NN_SIZES, cut for the time limit: the
+# losses' logits at 1,024 rows of the 32,000 vocabulary (NN_SIZES: 4,096)
+# and the feature maps at batch 2 (NN_SIZES: 8); tools/chip_phases.py
+# api_nn_before runs the sweep at NN_SIZES in the same process
+NN_SWEEP = dict(rows=1024, batch=2)
 LSTM_CFG = dict(vocab=10000, hidden=1500, layers=2, steps=35, batch=20,
                 dropout=0.65, init=0.04, lr=1.0, clip=10.0)
 LSTM_STEPS, LSTM_EAGER_STEPS, LSTM_CHECK_STEPS = 5, 3, 3
@@ -9261,7 +9291,7 @@ def phase_api_nn(torch, seed, card, dev="cuda"):
     paddle.set_device("cpu" if dev == "cpu" else "gpu")
     problems = []
     # (1) the nn sweep
-    sz = dict(ow.NN_SIZES)
+    sz = dict(ow.NN_SIZES, **NN_SWEEP)
     missing = ow.nn_coverage()
     if missing:
         problems.append(f"nn names the sweep does not call: {missing}")
@@ -9423,6 +9453,406 @@ def phase_api_nn(torch, seed, card, dev="cuda"):
         fail(f"api_nn: {p}")
     del step, net, opt
     torch.cuda.empty_cache()
+
+
+# api_infer: the deployment path (paddle.jit, paddle.static's inference
+# model, paddle.inference and inference.serving's InferenceServer) at
+# BERT-base's full width: BertForQuestionAnswering at BertConfig() defaults
+# (seed 55, Layer.bfloat16()) on api_bert's recipe shape (bench.py:354-386,
+# 32 x 384), mask-free (ids and token types), so K6a runs in every layer;
+# then LlamaForCausalLM at LLaMA-7B's width (4096, 32 heads of 128, FFN
+# 11008, vocab 32000) cut to 2 layers, bf16, one prompt of 512 tokens,
+# through the same export (K5, K6a, K9a).  The logits gate: the largest
+# gap to the plain versions' forward within INFER_REL_LIMIT of the plain
+# logits' largest magnitude (bf16 activations through 12 layers: a few
+# roundings of 2^-8 of the largest value, the plain attention in f32),
+# LLaMA's within LOGIT_LIMIT (the serve's bar on LLaMA-7B's logits of std
+# 1).  Every planted fault must land beyond its bar.
+INFER_REL_LIMIT = 0.05
+INFER_CALLS = 5                    # timed replays
+INFER_CLIENTS, INFER_REQUESTS = 4, 8
+INFER_BERT = {}                    # BertConfig() defaults: BERT-base
+INFER_LLAMA = dict(vocab_size=32000, hidden_size=4096,
+                   intermediate_size=11008, num_hidden_layers=2,
+                   num_attention_heads=32, tensor_parallel=False)
+INFER_LLAMA_PROMPT = 512
+# the child process that serves the export: it imports the port's
+# inference package (never its models), loads the artifact, replays it
+# INFER_CALLS times and prints one JSON line
+INFER_CHILD = r"""
+import json, sys, time
+import numpy as np, torch
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.inference import Config, create_predictor
+art, inp, outp, runs, dev = sys.argv[1:4] + [int(sys.argv[4]), sys.argv[5]]
+paddle.set_device("gpu" if dev == "cuda" else "cpu")
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+z = np.load(inp)
+xs = [z[k] for k in sorted(z.files, key=lambda n: int(n.split("_")[1]))]
+t = time.perf_counter()
+pred = create_predictor(Config(art))
+load_s = time.perf_counter() - t
+t = time.perf_counter()
+outs = pred.run(xs)
+capture_s = time.perf_counter() - t
+call, = pred._calls.values()
+run_ms, replay_ms = [], []
+for _ in range(runs):
+    sync()
+    t = time.perf_counter()
+    outs = pred.run(xs)
+    run_ms.append((time.perf_counter() - t) * 1e3)
+for _ in range(runs):
+    if dev == "cuda":
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        call.replay()
+        ev[1].record()
+        sync()
+        replay_ms.append(ev[0].elapsed_time(ev[1]))
+    else:
+        t = time.perf_counter()
+        call.replay()
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+bad = sorted(m for m in sys.modules if m.startswith(
+    "paddle_tpu_torch.models") or m.split(".")[0] in ("jax", "paddle_tpu"))
+np.savez(outp, *outs)
+print(json.dumps({"load_s": load_s, "capture_s": capture_s,
+                  "run_ms": run_ms, "replay_ms": replay_ms,
+                  "replays": call.replays,
+                  "per_replay": call.capture_launches,
+                  "forbidden_modules": bad}), flush=True)
+"""
+
+
+def calls_ran(wrapper, calls):
+    """The launches that ran since the counters were zeroed, while
+    ``calls`` (jit.capture calls made in that time) were captured and
+    replayed: the wrappers' counts, less what each capture recorded, plus
+    every replay's."""
+    out = dict(wrapper)
+    for c in calls:
+        for k, n in c.capture_launches.items():
+            out[k] = out.get(k, 0) + (c.replays - 1) * n
+    return out
+
+
+def logit_stack(torch, outs):
+    """A model's outputs (Tensors or arrays) as one f32 torch tensor."""
+    outs = outs if isinstance(outs, (list, tuple)) else [outs]
+    return torch.stack([torch.as_tensor(np.asarray(o)) if not hasattr(
+        o, "_data") else o._data.float().cpu() for o in outs])
+
+
+def phase_api_infer(torch, seed, mods, card, dev="cuda"):
+    """The deployment path on the card: (1) to_static against the eager and
+    the plain forward; (2) Model.save(training=False) -> jit.load; (3)
+    convert_to_export, served by a Predictor in a child process that loads
+    no model code; (4) InferenceServer over a DevicePool on the card, 4
+    clients x 8 requests; (5) the Layer LLaMA through the same export; (6)
+    planted faults: K6a told causal=True inside the exported program, and
+    the graph's lock held short (two requests' copies in before the first's
+    copy out).  The model and input sizes are module constants
+    (``INFER_BERT``, ``API_BERT_BATCH`` / ``API_BERT_SEQ``, ``INFER_LLAMA``
+    / ``INFER_LLAMA_PROMPT``), which a rehearsal patches; ``dev="cpu"``
+    runs it on the CPU.  -> the main path's launches."""
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.models import (BertConfig, BertForQuestionAnswering,
+                                         LlamaConfig, LlamaForCausalLM)
+    fa = mods["fa"]
+    t_all = time.perf_counter()
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    paddle.set_device("gpu" if cuda else "cpu")
+    llama_cfg, llama_prompt = INFER_LLAMA, INFER_LLAMA_PROMPT
+    problems, launches = [], {}
+
+    def add(ran):
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+
+    cfg = BertConfig(**INFER_BERT)
+    L, B, S = cfg.num_hidden_layers, API_BERT_BATCH, API_BERT_SEQ
+    paddle.seed(55)
+    net = BertForQuestionAnswering(cfg)
+    net.bfloat16()
+    net.eval()
+    rng = np.random.RandomState(0)               # bench.py:372-378
+    ids = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    tt = np.zeros((B, S), np.int64)
+    x = (paddle.to_tensor(ids), paddle.to_tensor(tt))
+    plain_calls = []
+    real_plain = fa.sdpa_plain
+
+    def wall_ms(fn, n):
+        ms = []
+        for _ in range(n):
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return ms
+
+    # (1) to_static against the eager forward and the plain versions'
+    with paddle.no_grad():
+        with op_impls(api_plain_impls(torch, mods)):
+            plain = logit_stack(torch, net(*x))
+        eager = logit_stack(torch, net(*x))
+        eager_ms = wall_ms(lambda: net(*x), INFER_CALLS)
+        static = paddle.jit.to_static(net)
+        zero_counts(mods)
+        with patched((fa, "sdpa_plain", lambda *a, **k: plain_calls.append(1)
+                      or real_plain(*a, **k))):
+            t = time.perf_counter()
+            static(*x)
+            sync()
+            capture_s = time.perf_counter() - t
+            static_ms = wall_ms(lambda: static(*x), INFER_CALLS)
+            got = logit_stack(torch, static(*x))
+    scalls = list(static._static_fn.program_cache.values())
+    add(calls_ran(read_counts(mods), scalls))
+    scale = float(plain.abs().max())
+    bar = INFER_REL_LIMIT * scale
+    gap = float((got - plain).abs().max())
+    static_eager_gap = float((got - eager).abs().max())
+    per_call = scalls[0].capture_launches if scalls else {}
+    if len(scalls) != 1 or per_call.get("flash_attention_fwd") != L:
+        problems.append(f"to_static made {len(scalls)} programs, a replay "
+                        f"launching {per_call}; the code predicts one, {L} "
+                        f"of flash_attention_fwd")
+    if plain_calls:
+        problems.append(f"{len(plain_calls)} attentions reached sdpa_plain")
+    if not gap <= bar:
+        problems.append(f"the to_static logits differ from the plain "
+                        f"versions' by {gap} (limit {bar})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (2) Model.save(training=False) -> jit.load
+        t = time.perf_counter()
+        paddle.Model(net).save(f"{tmp}/bert", training=False)
+        loaded = paddle.jit.load(f"{tmp}/bert")
+        with paddle.no_grad():
+            loaded_gap = float((logit_stack(torch, loaded(*x)) - eager)
+                               .abs().max())
+        save_load_s = time.perf_counter() - t
+        del loaded
+        if loaded_gap != 0.0:
+            problems.append(f"the TranslatedLayer's logits differ from the "
+                            f"saved Layer's by {loaded_gap}")
+
+        # (3) the export, served in a child process
+        t = time.perf_counter()
+        art = inference.convert_to_export(net, [((B, S), "int64")] * 2,
+                                          f"{tmp}/bert_export")
+        export_s = time.perf_counter() - t
+        np.savez(f"{tmp}/in.npz", ids, tt)
+        root = os.path.dirname(os.path.abspath(__file__))
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", INFER_CHILD, art, f"{tmp}/in.npz",
+             f"{tmp}/out.npz", str(INFER_CALLS), dev], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+            text=True, timeout=600)
+        child_s = time.perf_counter() - t
+        rep = {}
+        if child.returncode != 0:
+            problems.append(f"the serving child failed: "
+                            f"{child.stderr.strip()[-2000:]}")
+        else:
+            rep = json.loads(child.stdout.strip().splitlines()[-1])
+            z = np.load(f"{tmp}/out.npz")
+            child_logits = logit_stack(torch, [z[k] for k in sorted(
+                z.files, key=lambda n: int(n.split("_")[1]))])
+            rep["gap_to_eager"] = float((child_logits - eager).abs().max())
+            rep["gap_to_plain"] = float((child_logits - plain).abs().max())
+            k6 = rep["per_replay"].get("flash_attention_fwd")
+            if k6 != L:
+                problems.append(f"the child's replay launches "
+                                f"{rep['per_replay']}, the code predicts "
+                                f"{L} of flash_attention_fwd")
+            if rep["forbidden_modules"]:
+                problems.append(f"the child imported "
+                                f"{rep['forbidden_modules']}")
+            if not rep["gap_to_eager"] <= bar:
+                problems.append(f"the child's logits differ from the eager "
+                                f"ones by {rep['gap_to_eager']} (limit "
+                                f"{bar})")
+            add({k: v * rep["replays"] for k, v in
+                 rep["per_replay"].items()})
+            rep["samples_per_s"] = [B / (m / 1e3) for m in rep["replay_ms"]]
+
+        # (4) InferenceServer over a DevicePool on the card
+        zero_counts(mods)
+        srv = serving.InferenceServer(inference.Config(art),
+                                      devices=["cuda:0" if cuda else "cpu"])
+        port = srv.start()
+        url = f"http://127.0.0.1:{port}"
+        n_req = INFER_CLIENTS * INFER_REQUESTS
+        reqs = [[rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int64),
+                 tt] for _ in range(n_req)]
+        try:
+            replica = srv.pool._replicas[0]
+            solo = [replica.run(r) for r in reqs]
+            scall2, = replica._calls.values()
+            answers, lat, errs = {}, [], []
+
+            def client(c):
+                try:
+                    for i in range(c, n_req, INFER_CLIENTS):
+                        t0 = time.perf_counter()
+                        answers[i] = serving.predict_http(url, reqs[i],
+                                                          timeout=120)
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                except Exception as e:
+                    errs.append(repr(e))
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(INFER_CLIENTS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            serve_s = time.perf_counter() - t
+            wrong = [i for i in range(n_req) if i not in answers or not all(
+                np.array_equal(a, b) for a, b in zip(answers[i], solo[i]))]
+            with urllib.request.urlopen(url + "/health", timeout=30) as r:
+                health = json.loads(r.read())
+            with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+                prom = prom_samples(r.read().decode())
+            counted = prom.get("paddle_tpu_http_predict_requests_total")
+            bad_req = urllib.request.Request(
+                url + "/predict", data=b"not an npz",
+                headers={"Content-Type": "application/octet-stream"})
+            try:
+                urllib.request.urlopen(bad_req, timeout=30)
+                malformed = 200
+            except urllib.error.HTTPError as e:
+                malformed = e.code
+            after = serving.predict_http(url, reqs[0], timeout=120)
+            still = all(np.array_equal(a, b) for a, b in zip(after, solo[0]))
+            # the planted fault: the lock's reach, by hand, without a race
+            xa, xb = replica._inputs_of(reqs[0]), replica._inputs_of(reqs[1])
+            with scall2.lock:
+                scall2.load(xa)
+                scall2.replay()
+                scall2.load(xb)
+                scall2.replay()
+                short = [o.float().cpu() for o in scall2.fetch()]
+            short = torch.stack(short)
+            lock_fault = float((short - logit_stack(torch, solo[0]))
+                               .abs().max())
+            lock_is_b = bool(torch.equal(short, logit_stack(torch, solo[1])))
+        finally:
+            srv.stop()
+        add(calls_ran(read_counts(mods), [scall2]))
+        if errs:
+            problems.append(f"clients failed: {errs[:3]}")
+        if wrong:
+            problems.append(f"answers {wrong} differ from their solo runs")
+        if health.get("requests") != n_req:
+            problems.append(f"/health counts {health.get('requests')} "
+                            f"requests, {n_req} were served")
+        if counted != n_req:
+            problems.append(f"/metrics counts {counted} predicts, {n_req} "
+                            f"were served")
+        if malformed != 400 or not still:
+            problems.append(f"a malformed body got {malformed}, and the "
+                            f"server answered after it: {still}")
+        if not (lock_is_b and lock_fault > bar):
+            problems.append(f"the short lock's answer is B's: {lock_is_b}, "
+                            f"{lock_fault} from A's (limit {bar})")
+
+        # (6a) K6a told causal=True inside the exported program: the
+        # server's loaded program, captured anew under the fault
+        real_tail = fa._launch_tail
+        faulty = inference.Predictor(inference.Config(art),
+                                     _shared_from=replica)
+        faulty._calls = {}
+        with patched((fa, "_launch_tail",
+                      lambda q, causal: real_tail(q, not causal))):
+            bad = faulty.run([ids, tt])
+        del faulty
+        causal_fault = float((logit_stack(torch, bad) - plain).abs().max())
+        if not causal_fault > bar:
+            problems.append(f"K6a told causal=True moved the logits by only "
+                            f"{causal_fault} (limit {bar})")
+        del bad
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (5) the Layer LLaMA through the same export: K5, K6a, K9a
+    lcfg = LlamaConfig(**llama_cfg)
+    paddle.seed(seed)
+    lm = LlamaForCausalLM(lcfg)
+    lm.bfloat16()
+    lm.eval()
+    prompt = np.random.RandomState(seed).randint(
+        0, lcfg.vocab_size, (1, llama_prompt)).astype(np.int64)
+    with paddle.no_grad(), op_impls(api_plain_impls(torch, mods)):
+        lplain = lm(paddle.to_tensor(prompt))._data.float()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        lart = inference.convert_to_export(
+            lm, [(prompt.shape, "int64")], f"{tmp}/llama")
+        lexport_s = time.perf_counter() - t
+        zero_counts(mods)
+        lpred = inference.create_predictor(inference.Config(lart))
+        lout = lpred.run([prompt])[0]
+        lms = wall_ms(lambda: lpred.run([prompt]), INFER_CALLS)
+        lcall, = lpred._calls.values()
+        add(calls_ran(read_counts(mods), [lcall]))
+    lgap = float((torch.as_tensor(lout) - lplain.cpu()).abs().max())
+    lwant = api_forward_launches(lcfg.num_hidden_layers)
+    lper = {k: lcall.capture_launches.get(k, 0) for k in lwant}
+    if lper != lwant:
+        problems.append(f"the LLaMA replay launches {lcall.capture_launches},"
+                        f" the code predicts {lwant}")
+    if not lgap <= LOGIT_LIMIT:
+        problems.append(f"the LLaMA export's logits differ from the plain "
+                        f"forward's by {lgap} (limit {LOGIT_LIMIT})")
+    del lm, lpred, lplain
+    emit("api_infer", model="BertForQuestionAnswering, BertConfig() "
+         "defaults (12 x 768, 12 heads of 64, FFN 3072, vocab 30522), bf16, "
+         "seed 55", source="bench.py:354-386 _bert_line recipe shape "
+         "(32 x 384), served mask-free", batch=B, seq=S,
+         to_static=dict(capture_s=capture_s, replay_ms=static_ms,
+                        eager_ms=eager_ms,
+                        samples_per_s=[B / (m / 1e3) for m in static_ms],
+                        per_replay=per_call, gap_to_plain=gap,
+                        gap_to_eager=static_eager_gap, limit=bar,
+                        plain_logit_scale=scale,
+                        sdpa_plain_calls=len(plain_calls)),
+         save_load=dict(seconds=save_load_s, gap=loaded_gap),
+         export=dict(seconds=export_s, child_s=child_s, child=rep),
+         serving=dict(clients=INFER_CLIENTS, requests=n_req,
+                      seconds=serve_s, requests_per_s=n_req / serve_s,
+                      latency_ms_p50=pctl(lat, 50),
+                      latency_ms_p99=pctl(lat, 99), health=health,
+                      metrics_predicts=counted, malformed_code=malformed,
+                      replays=scall2.replays,
+                      per_replay=scall2.capture_launches),
+         llama=dict(config=llama_cfg, prompt=llama_prompt,
+                    export_s=lexport_s, run_ms=lms, per_replay=lper,
+                    gap_to_plain=lgap, limit=LOGIT_LIMIT),
+         planted_faults=dict(k6a_causal=causal_fault,
+                             short_lock_gap=lock_fault,
+                             short_lock_answer_is_b=lock_is_b),
+         launches=launches,
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+         phase_s=time.perf_counter() - t_all, card=card)
+    for p in problems:
+        fail(f"api_infer: {p}")
+    del net, static
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -9642,9 +10072,13 @@ def main():
                                 mods, card)
     torch.cuda.empty_cache()
     timed("api_nn", phase_api_nn, torch, s, card)
+    torch.cuda.empty_cache()
+    launches_api_infer = timed("api_infer", phase_api_infer, torch, s, mods,
+                               card)
     # each kernel's launches in the serve, train, train_packed,
     # train_fused and api phases (the api_bert / api_gpt / api_transformer
-    # graphs' replays counted in; api_varlen's four main-path calls)
+    # graphs' replays counted in; api_varlen's four main-path calls;
+    # api_infer's replays, its child's included)
     runs = [launches, launches_overlap, launches_observe, launches_prefix,
             launches_dense, launches_faults, launches_mixed, launches_spec,
             launches_swap, launches_qos, launches_disagg, launches_remote,
@@ -9653,7 +10087,7 @@ def main():
             launches_spec_int8, launches_swap_int8, launches_disagg_int8,
             launches_train, launches_packed, *launches_fused, launches_api,
             launches_api_train, launches_api_bert, launches_api_gpt,
-            launches_api_xf, launches_api_varlen]
+            launches_api_xf, launches_api_varlen, launches_api_infer]
     launches = {k: sum(r[k] for r in runs) for k in launches}
 
     def entry(name, source, replaces, runs):

@@ -20,7 +20,10 @@ clips, ``functional``, ``initializer``),
 datasets), ``metric``, ``Model`` / ``summary`` / ``callbacks`` (hapi),
 ``vision`` (LeNet, ResNet, VGG, MobileNet v1 / v2 / v3, AlexNet,
 SqueezeNet, DenseNet, GoogLeNet, InceptionV3, ShuffleNetV2, datasets,
-transforms), ``linalg`` and ``save`` / ``load``.  Tensors go to the
+transforms), ``linalg``, ``save`` / ``load``, ``jit`` (``to_static``,
+``save`` / ``load``), ``static`` (``Program``, ``Executor``, the inference
+models) and ``inference`` (``Config``, ``Predictor``,
+``convert_to_export``; ``inference.serving``'s ``InferenceServer``).  Tensors go to the
 current place, the card unless ``paddle.set_device("cpu")``; on a host
 without a card the default place raises when a tensor is made.
 
@@ -63,6 +66,9 @@ from . import metric  # noqa: F401,E402
 from . import hapi  # noqa: F401,E402
 from . import callbacks  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
+from . import jit  # noqa: F401,E402
+from . import static  # noqa: F401,E402
+from . import inference  # noqa: F401,E402
 from .framework.io import load, save  # noqa: F401,E402
 from .hapi import Model, summary  # noqa: F401,E402
 from .nn.layer.layers import (  # noqa: F401,E402

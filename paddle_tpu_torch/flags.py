@@ -145,6 +145,8 @@ define_flag("FLAGS_check_nan_inf", False,
             "Check every dispatched op's floating outputs for NaN / Inf.")
 define_flag("FLAGS_check_nan_inf_level", 0,
             "0: a NaN / Inf raises FloatingPointError; above 0: it warns.")
+define_flag("FLAGS_log_level", 0,
+            "VLOG-style verbosity (jit.set_code_level / set_verbosity).")
 
 
 class _FlagsModule(types.ModuleType):

@@ -23,9 +23,11 @@ replay that fails raises, so a fault on the card is never hidden behind a
 slower loop.
 
 ``save(path)`` writes ``path.pdparams`` and ``path.pdopt`` with
-``paddle.save`` (JAX's format); ``save(path, training=False)`` needs
-``jit.save``, which is not ported (ROADMAP.md queue 1 item 10), and
-raises.  ``prepare(jit=True)`` raises for the same reason.
+``paddle.save`` (JAX's format); ``save(path, training=False)`` writes the
+inference bundle with ``jit.save``.  ``prepare(jit=True)`` wraps the
+network with ``jit.to_static``, as JAX does; ``fit``, ``evaluate`` and
+``predict`` still build their steps over the Layer it wraps, so no graph
+is captured inside another.
 """
 
 from __future__ import annotations
@@ -255,10 +257,8 @@ class Model:
                 from ..amp import GradScaler
                 self._scaler = GradScaler()
         if jit:
-            raise NotImplementedError(
-                "prepare(jit=True) needs jit.to_static, which is not "
-                "ported yet (ROADMAP.md queue 1 item 10); fit already "
-                "trains through incubate.jit_train_step")
+            from ..jit import to_static
+            self.network = to_static(self.network)
 
     # -- batch-level --------------------------------------------------------
     def train_batch(self, inputs, labels=None, update=True):
@@ -389,18 +389,17 @@ class Model:
 
     # -- save / load ----------------------------------------------------------
     def save(self, path, training=True):
-        if not training:
-            raise NotImplementedError(
-                "Model.save(training=False) writes an inference program "
-                "with jit.save, which is not ported yet (ROADMAP.md queue 1 "
-                "item 10)")
         from ..framework.io import save as fsave
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)
-        fsave(self.network.state_dict(), path + ".pdparams")
-        if self._optimizer is not None:
-            fsave(self._optimizer.state_dict(), path + ".pdopt")
+        if training:
+            fsave(self.network.state_dict(), path + ".pdparams")
+            if self._optimizer is not None:
+                fsave(self._optimizer.state_dict(), path + ".pdopt")
+        else:
+            from ..jit import save as jsave
+            jsave(self.network, path)
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
         from ..framework.io import load as fload

@@ -12,7 +12,9 @@ kernels and warms the libraries), captures it, and replays; every later
 call copies the batch into the graph's static inputs and the learning rate
 into a device scalar, then replays.  A capture or a replay that fails
 raises: there is no eager fallback on the card.  On the CPU the same step
-runs eagerly, because the caller chose that device.
+runs eagerly, because the caller chose that device.  A ``jit.to_static``
+proxy is stepped through the Layer it wraps (its graphs are not captured
+inside the step's).
 
 The semantics are JAX's:
 
@@ -54,6 +56,7 @@ import torch
 from .. import flags as _flags
 from ..amp import auto_cast
 from ..framework import random as framework_random
+from ..jit import inner_layer
 from ..nn.clip import ClipGradByGlobalNorm
 from ..nn.layer.layers import Layer
 from ..tensor.tensor import Tensor, wrap_array
@@ -125,6 +128,7 @@ def jit_train_step(model: Layer, loss_fn: Callable, optimizer,
     with ``return_outputs=True``); ``x`` / ``y`` are a Tensor or a tuple
     of them (``model(*x)``, ``loss_fn(out, y_tuple)``).  Parameters and
     the optimizer's state stay on the device between calls."""
+    model = inner_layer(model)      # a to_static proxy: its Layer
     clip = getattr(optimizer, "_grad_clip", None)
     if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
         raise NotImplementedError(
@@ -220,7 +224,7 @@ def jit_train_step(model: Layer, loss_fn: Callable, optimizer,
                 tuple(sorted(_flags.get_flags().items())))
 
     def capture(g, x_tuple, y_tuple):
-        from ..models.graphed_step import _capture
+        from ..jit.capture import capture as _capture
 
         def run(write):
             g.loss, g.outs = body(g.xs, g.ys, x_tuple, y_tuple, write)
@@ -285,6 +289,7 @@ def jit_eval_step(model: Layer):
     per-build counter, so evaluating leaves the training stream where it
     was.  Raises when the model's train / eval mode differs from its mode
     at build."""
+    model = inner_layer(model)
     mode = model.training
     _EVAL_SEQ[0] += 1
     seed = (framework_random.initial_seed()

@@ -1,8 +1,21 @@
-"""LLM generation serving over HTTP: the continuous-batching engine behind a
-stdlib ``ThreadingHTTPServer``.
+"""Serving over HTTP: an exported model behind ``POST /predict``, and LLM
+generation over the continuous-batching engine, each behind a stdlib
+``ThreadingHTTPServer``.
 
-Counterpart of ``paddle_tpu/inference/serving.py``'s ``GenerationServer`` /
-``_GenHandler`` and its clients ``generate_http`` / ``generate_http_stream``:
+Counterpart of ``paddle_tpu/inference/serving.py``.  :class:`DevicePool`
+holds one ``Predictor`` replica per visible CUDA device (or the devices the
+caller names, the CPU among them) over one loaded program, and
+round-robins ``run`` across them; each replica replays a CUDA graph per
+input signature, and the graph's lock is held from the copy of a request's
+inputs in to the copy of its outputs out, so concurrent requests on one
+replica get their own answers.  :class:`InferenceServer` serves ``POST
+/predict`` (an ``.npz`` of ``x0..xN`` in, of ``out0..outN`` out; 400 for a
+malformed body or an arity / shape mismatch, 500 for a failure of the
+program), ``GET /health`` (the devices and the requests served) and the
+observability endpoints below; :func:`predict_http` is its client.
+
+``GenerationServer`` / ``_GenHandler`` and the clients ``generate_http`` /
+``generate_http_stream``:
 
 * ``POST /generate`` blocks for the whole completion, ``POST
   /generate_stream`` streams one JSON line per token (HTTP/1.1 chunked
@@ -31,13 +44,14 @@ With ``engine_factory`` the drive loop steps an ``EngineSupervisor``: an
 exception that escapes the engine's own quarantine rebuilds the engine
 and only the requests whose pages died fail.
 
-Nothing here imports beyond the standard library, numpy and the port's
-engine and observability package.
+Nothing here imports beyond the standard library, numpy, torch and the
+port's engine, inference and observability packages.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import queue as _queue
 import threading
@@ -47,18 +61,21 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
+import numpy as np
+
 from ..models.serving_engine import (ContinuousBatchingEngine,
                                      EngineSupervisor, QueueFullError)
 from ..observability import (MetricsRegistry, TraceStore, Tracer,
                              default_ring)
 from ..testing import faults
+from . import Config, Predictor
 
-__all__ = ["GenerationServer", "generate_http", "generate_http_stream"]
+__all__ = ["DevicePool", "InferenceServer", "predict_http",
+           "GenerationServer", "generate_http", "generate_http_stream"]
 
 
 def _http_metrics(registry):
-    """HTTP-front counters (single registration site, JAX's two names;
-    the port has no ``/predict`` front, so its counter reads 0)."""
+    """HTTP-front counters (single registration site, JAX's two names)."""
     return {
         "predict": registry.counter(
             "paddle_tpu_http_predict_requests_total",
@@ -139,6 +156,170 @@ def _serve_observability(handler, path: str, registry, ring,
             handler._reply(200, json.dumps(doc).encode())
         return True
     return False
+
+
+class DevicePool:
+    """Replica-per-device predictor pool: one Predictor loads the program
+    and the others share it (a copy on each other device); ``run``
+    round-robins, so concurrent callers fan out across devices."""
+
+    def __init__(self, config: Config, devices: Optional[List] = None):
+        import torch
+        if devices is None:
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+            if not devices:
+                raise RuntimeError(
+                    "DevicePool: no CUDA device is visible; name the devices "
+                    "(devices=['cpu']) to serve on the CPU")
+        self._devices = [torch.device(d) for d in devices]
+        first = Predictor(config, device=self._devices[0])
+        self._replicas = [first] + [
+            Predictor(config, _shared_from=first, device=d)
+            for d in self._devices[1:]]
+        self._rr = 0
+        self._lock = threading.Lock()
+
+    @property
+    def device_names(self) -> List[str]:
+        return [str(d) for d in self._devices]
+
+    def run(self, inputs: List[np.ndarray]) -> List[np.ndarray]:
+        with self._lock:
+            i = self._rr
+            self._rr = (self._rr + 1) % len(self._replicas)
+        return self.run_on(i, inputs)
+
+    def run_on(self, idx: int,
+               inputs: List[np.ndarray]) -> List[np.ndarray]:
+        # the stateless form: Predictor.run stages its result on the
+        # predictor, which concurrent server threads sharing a replica
+        # would race
+        return self._replicas[idx]._execute(inputs)
+
+
+def _pack_npz(arrays: List[np.ndarray]) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **{f"out{i}": a for i, a in enumerate(arrays)})
+    return buf.getvalue()
+
+
+def _unpack_npz(body: bytes) -> List[np.ndarray]:
+    with np.load(io.BytesIO(body)) as z:
+        names = sorted(z.files,
+                       key=lambda n: int("".join(c for c in n
+                                                 if c.isdigit()) or 0))
+        return [z[n] for n in names]
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server_version = "paddle_tpu_torch-serving/0.1"
+
+    def log_message(self, *a):
+        pass
+
+    def _reply(self, code, body, ctype="application/octet-stream"):
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        srv: "InferenceServer" = self.server.owner
+        path = urllib.parse.urlsplit(self.path).path.rstrip("/")
+        if path in ("", "/health"):
+            with srv._count_lock:
+                count = srv.request_count
+            meta = {"status": "ok", "devices": srv.pool.device_names,
+                    "requests": count}
+            self._reply(200, json.dumps(meta).encode(), "application/json")
+        elif not _serve_observability(self, path, srv.registry, srv.ring):
+            self._reply(404, b"not found", "text/plain")
+
+    def do_POST(self):
+        srv: "InferenceServer" = self.server.owner
+        if self.path.rstrip("/") != "/predict":
+            self._reply(404, b"not found", "text/plain")
+            return
+        n = int(self.headers.get("Content-Length", "0"))
+        body = self.rfile.read(n)
+        try:
+            inputs = _unpack_npz(body)
+        except Exception as e:
+            self._reply(400, f"bad payload: {type(e).__name__}".encode(),
+                        "text/plain")
+            return
+        try:
+            outs = srv.pool.run(inputs)
+        except ValueError as e:
+            # arity / shape mismatch: the caller's fault
+            self._reply(400, f"bad request: {e}".encode(), "text/plain")
+            return
+        except Exception:
+            # a failure of the program is the server's: 500, so a load
+            # balancer retries elsewhere; no internal detail in the body
+            self._reply(500, b"inference failed", "text/plain")
+            return
+        with srv._count_lock:
+            srv.request_count += 1
+        srv._http_counters["predict"].inc()
+        self._reply(200, _pack_npz(outs))
+
+
+class InferenceServer:
+    """``POST /predict`` (npz in and out) over a :class:`DevicePool`.
+
+    >>> srv = InferenceServer(Config(prog_file="m.pt2"))
+    >>> port = srv.start()            # background thread
+    >>> outs = predict_http(f"http://127.0.0.1:{port}", [x])
+    >>> srv.stop()
+    """
+
+    def __init__(self, config: Config, devices=None,
+                 host: str = "127.0.0.1", port: int = 0,
+                 metrics_registry=None):
+        self.pool = DevicePool(config, devices)
+        self._host, self._port = host, port
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._thread: Optional[threading.Thread] = None
+        self.request_count = 0
+        self._count_lock = threading.Lock()
+        # a registry of the server's own by default (exact scrapes); pass
+        # observability.default_registry() to publish process-wide
+        self.registry = metrics_registry if metrics_registry \
+            is not None else MetricsRegistry()
+        self.ring = default_ring()
+        self._http_counters = _http_metrics(self.registry)
+
+    def start(self) -> int:
+        self._httpd = ThreadingHTTPServer((self._host, self._port),
+                                          _Handler)
+        self._httpd.owner = self
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True)
+        self._thread.start()
+        return self._httpd.server_address[1]
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+
+
+def predict_http(url: str, inputs: List[np.ndarray],
+                 timeout: float = 30.0) -> List[np.ndarray]:
+    """Client for :class:`InferenceServer` (stdlib urllib)."""
+    buf = io.BytesIO()
+    np.savez(buf, **{f"x{i}": a for i, a in enumerate(inputs)})
+    req = urllib.request.Request(
+        url.rstrip("/") + "/predict", data=buf.getvalue(),
+        headers={"Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return _unpack_npz(r.read())
 
 
 class _GenHandler(BaseHTTPRequestHandler):

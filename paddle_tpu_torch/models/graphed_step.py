@@ -44,14 +44,7 @@ from typing import Dict, Optional
 import torch
 
 from .. import flags
-from ..ops import flash_attention as _fa
-from ..ops import fused_adamw as _aw
-from ..ops import int8_matmul as _im
-from ..ops import paged_attention as _pa
-from ..ops import rms_norm as _rn
-from ..ops import rmsnorm_matmul as _rmm
-from ..ops import rope as _rp
-from ..ops import swiglu as _sw
+from ..jit.capture import capture as _capture
 from .paged_decode import (make_paged_decode_step_async,
                            make_paged_decode_step_multi, make_spec_step)
 
@@ -62,32 +55,6 @@ _step_async_cache: Dict[tuple, "DecodeGraph"] = {}
 _step_multi_cache: Dict[tuple, "DecodeGraph"] = {}
 _spec_state_cache: Dict[tuple, "SpecState"] = {}
 _spec_graph_cache: Dict[tuple, "SpecGraph"] = {}
-# one warm-up stream per device: cuBLAS keeps a workspace for every stream
-# it has run on (32 MiB on Hopper), so a fresh stream per capture would hold
-# one more workspace after every capture (an engine rebuilt over a new
-# cache captures anew)
-_warmup_streams: Dict[str, "torch.cuda.Stream"] = {}
-
-# the launch counters a captured decode step or training step
-# (incubate/jit_train.py) can bump: (name, module, attribute)
-_COUNTERS = (("paged_decode_attention", _pa, "launches"),
-             ("paged_decode_attention_q8", _pa, "launches_q8"),
-             ("int8_matmul", _im, "launches"),
-             ("int8_matmul_wave", _im, "launches_wave"),
-             ("rms_norm_fwd", _rn, "launches"),
-             ("rms_norm_bwd", _rn, "launches_bwd"),
-             ("swiglu_fwd", _sw, "launches"),
-             ("swiglu_bwd", _sw, "launches_bwd"),
-             ("rmsnorm_matmul", _rmm, "launches"),
-             ("fused_rope", _rp, "launches"),
-             ("flash_attention_fwd", _fa, "launches"),
-             ("flash_attention_bwd_dq", _fa, "launches_dq"),
-             ("flash_attention_bwd_dkv", _fa, "launches_dkv"),
-             ("fused_adamw", _aw, "launches"))
-
-
-def _counts() -> Dict[str, int]:
-    return {name: getattr(mod, attr) for name, mod, attr in _COUNTERS}
 
 
 def _tensors_key(tree) -> tuple:
@@ -98,37 +65,6 @@ def _tensors_key(tree) -> tuple:
     if isinstance(tree, (tuple, list)):
         return tuple(_tensors_key(t) for t in tree)
     return (tree.data_ptr(), tree.dtype, tuple(tree.shape))
-
-
-def _capture(device, warm, body, generator=None):
-    """Capture ``body`` into a CUDA graph after one run of ``warm`` on the
-    warm-up stream (it builds the kernels and fills the wrappers' plan
-    caches) -> (graph, {kernel: launches recorded at capture}).  A failed
-    capture raises, with the caller's stream put back."""
-    cur = torch.cuda.current_stream(device)
-    side = _warmup_streams.get(str(device))
-    if side is None:
-        side = _warmup_streams[str(device)] = torch.cuda.Stream(device)
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        warm()
-    cur.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    before = _counts()
-    try:
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            body()
-    except BaseException:
-        # an aborted capture's context exit raises before it restores the
-        # caller's stream: put it back, so that the next step (a quarantined
-        # engine goes on serving) runs where it should
-        torch.cuda.set_stream(cur)
-        raise
-    after = _counts()
-    return graph, {k: after[k] - before[k] for k in after
-                   if after[k] != before[k]}
 
 
 class DecodeGraph:

@@ -5,9 +5,8 @@ buffers, forward pre / post hooks, ``state_dict`` / ``set_state_dict``
 with JAX's dotted names, ``train`` / ``eval``, ``to`` / ``astype`` /
 ``bfloat16`` and ``clear_gradients``; ``LayerList``, ``Sequential`` and
 ``ParameterList``.  Parameters are made on the current place.
-``in_dynamic_mode`` is always True: the static graph mode is not ported
-(``enable_static`` / ``disable_static`` raise, ROADMAP.md queue 1 item
-10(e)).
+``enable_static`` / ``disable_static`` / ``in_dynamic_mode`` keep JAX's
+mode flag.
 
 :func:`deferred_init` is the port's own: inside it, ``create_parameter``
 makes storage-less ``meta`` tensors, for a caller that sets every
@@ -38,20 +37,21 @@ __all__ = ["Layer", "LayerList", "Sequential", "ParameterList",
 _state = threading.local()
 
 
+_dynamic_mode = [True]
+
+
 def in_dynamic_mode() -> bool:
-    return True
+    return _dynamic_mode[0]
 
 
 def enable_static() -> None:
-    raise NotImplementedError(
-        "the static graph mode is not ported yet (ROADMAP.md queue 1 item "
-        "10(e))")
+    """Mirror of ``paddle.enable_static``: the mode flag, as JAX's (ops
+    still run eagerly; ``paddle.static`` records and replays them)."""
+    _dynamic_mode[0] = False
 
 
 def disable_static() -> None:
-    raise NotImplementedError(
-        "the static graph mode is not ported yet, so there is no mode to "
-        "leave (ROADMAP.md queue 1 item 10(e))")
+    _dynamic_mode[0] = True
 
 
 @contextlib.contextmanager

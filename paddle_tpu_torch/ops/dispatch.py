@@ -20,6 +20,14 @@ on what it returns (torch's autograd takes the casts back to the callers'
 types in the backward).  :func:`amp_cast_dtype` asks the hook, without
 running an op, what type it gives an input of ``name``: a route that picks
 a kernel by type (``F.sdpa_route``) decides on the type the op will see.
+
+:func:`set_capture_hook` is JAX's seam for the static graph:
+``static.program_guard`` installs ``hook(name, fn, inputs, outputs)``,
+called after every op with the function it ran (the AMP cast inside) so
+that ``static.Executor`` can run the recorded ops again.  Inside a block
+where host reads are forbidden (``jit.to_static``'s checked runs, a CUDA
+graph capture, an export) the hook is not called and the NaN / Inf check,
+a host read, is skipped, as JAX skips both inside a functional trace.
 """
 
 from __future__ import annotations
@@ -31,13 +39,23 @@ import numpy as np
 import torch
 
 from ..flags import flags
-from ..tensor.tensor import Tensor, _to_torch, wrap_array
+from ..tensor.tensor import (Tensor, _to_torch, host_reads_forbidden,
+                             wrap_array)
 
 __all__ = ["apply", "as_tensor", "unwrap", "register_op_impl", "get_op_impl",
-           "set_amp_hook", "amp_cast_dtype"]
+           "set_amp_hook", "amp_cast_dtype", "set_capture_hook"]
 
 _op_table: Dict[str, Callable] = {}
 _amp_hook: Optional[Callable] = None
+_capture_hook: Optional[Callable] = None
+
+
+def set_capture_hook(hook: Optional[Callable]) -> None:
+    """Installed by ``static.program_guard``: ``hook(name, fn, inputs,
+    out_tensors)`` after every op, ``fn`` taking and returning torch
+    tensors as the op ran them."""
+    global _capture_hook
+    _capture_hook = hook
 
 
 def set_amp_hook(hook: Optional[Callable]) -> None:
@@ -102,9 +120,15 @@ def apply(name: str, fn: Callable, *inputs: Tensor
     outs = fn(*arrays)
     single = not isinstance(outs, (tuple, list))
     outs_t = (outs,) if single else tuple(outs)
-    if flags.FLAGS_check_nan_inf:
+    traced = host_reads_forbidden() is not None
+    if flags.FLAGS_check_nan_inf and not traced:
         _check_nan_inf(name, outs_t)
     wrapped = tuple(wrap_array(o) for o in outs_t)
+    if _capture_hook is not None and not traced:
+        if _amp_hook is not None:
+            def fn(*arrs, _inner=fn, _hook=_amp_hook):
+                return _inner(*_hook(name, arrs))
+        _capture_hook(name, fn, inputs, wrapped)
     return wrapped[0] if single else wrapped
 
 

@@ -12,7 +12,12 @@ two backward passes (dq; dk and dv) with the hand-written Hopper kernels in
 ``ds = p * (dp - delta) * scale``).
 
 A tensor on the CPU goes to the plain versions; a CUDA tensor goes to the
-kernels, or the wrapper raises.  The JAX wrapper sends lengths no
+kernels, or the wrapper raises.  The forward is the ``torch.library``
+op ``paddle_tpu_torch::flash_attention_fwd`` (its CPU implementation the
+plain version, its CUDA one the kernel, its fake one shapes only), so an
+exported program (``torch.export``) names it and runs the kernel on the
+card; the backward passes launch through ctypes, as a program that is
+exported for inference never differentiates.  The JAX wrapper sends lengths no
 power-of-two block divides to its XLA composite; the kernels mask a ragged
 last tile, so on the card every length with ``q_len == kv_len`` runs them
 and there is no such branch.  ``q_len != kv_len`` (decode shapes) is not on
@@ -253,13 +258,30 @@ def _route(q):
     return q.device.type
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6a as an op -> (out, lse); on the CPU its plain version."""
+    return _fwd_plain(q, k, v, causal)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_op_cuda(q, k, v, causal):
+    return _fwd_kernel(q, k, v, causal)
+
+
+@_fwd_op.register_fake
+def _fwd_op_fake(q, k, v, causal):
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if _route(q) == "cpu":
-            out, lse = _fwd_plain(q, k, v, causal)
-        else:
-            out, lse = _fwd_kernel(q, k, v, causal)
+        _route(q)
+        out, lse = _fwd_op(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out

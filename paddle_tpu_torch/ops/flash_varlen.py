@@ -5,8 +5,8 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_varlen.py``:
 :func:`flash_attention_segmented` replaces the Pallas forward (``_seg_fwd``,
 K2, in ``csrc/flash_varlen.cu``) and its two backward passes (dq, K7a; dk and
 dv, K7b, in ``csrc/flash_varlen_bwd.cu``) with hand-written Hopper kernels
-behind one ``torch.autograd.Function``, as ``_flash_seg``'s custom_vjp does;
-all three take the per-128-row-tile ranges that one range-kernel launch
+behind one differentiable op, as ``_flash_seg``'s custom_vjp does; all
+three take the per-128-row-tile ranges that one range-kernel launch
 computes in the forward;
 :func:`segmented_sdpa_plain` mirrors ``xla_segmented_sdpa``, and
 :func:`segmented_sdpa_docs` runs it a document at a time;
@@ -17,8 +17,14 @@ PyTorch (dense masks; dk and dv summed over each GQA group's q heads);
 :func:`_bwd_tile_walk` lists the stages the backward kernels visit and which
 of them they mask.
 
-A tensor on the CPU goes to the plain version, which autograd
-differentiates; a CUDA tensor goes to the kernels, or the wrapper raises.
+The range kernel and the forward are the ``torch.library`` ops
+``paddle_tpu_torch::segment_tile_ranges`` and
+``paddle_tpu_torch::flash_segmented_fwd`` (CPU: the plain versions;
+CUDA: the kernels; fake: shapes only), so an exported program names them.
+The forward op's registered backward runs K7a and K7b through ctypes on
+CUDA tensors, their plain versions on CPU tensors; a tensor on another
+device raises.  Every call, on either device and with or without grad,
+takes this one path.
 The JAX wrapper's dense fallback for lengths no block divides has no
 counterpart: the kernels mask a ragged last tile themselves, so every length
 runs the block-skipping kernels.  The backward kernels round p and ds to
@@ -308,8 +314,31 @@ def _tile_ranges(seg, rows=BLOCK_ROWS):
     launch of the forward library's range kernel computes them."""
     if seg.device.type != "cuda":
         return _tile_ranges_plain(seg, rows)
-    if seg.dtype != torch.int32 or not seg.is_contiguous():
-        raise ValueError("segment ids must be contiguous int32")
+    return _ranges_op(seg, rows)
+
+
+@torch.library.custom_op("paddle_tpu_torch::segment_tile_ranges",
+                         mutates_args=(), device_types="cpu")
+def _ranges_op(seg: torch.Tensor,
+               rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-tile range kernel as an op; on the CPU its plain version."""
+    return _tile_ranges_plain(seg, rows)
+
+
+@_ranges_op.register_fake
+def _ranges_op_fake(seg, rows):
+    b, s = seg.shape
+    kmin = seg.new_empty((b, -(-s // rows)), dtype=torch.int32)
+    return kmin, torch.empty_like(kmin)
+
+
+@_ranges_op.register_kernel("cuda")
+def _ranges_kernel(seg, rows):
+    """The range kernel on a CUDA tensor."""
+    if seg.dtype != torch.int32:
+        raise TypeError(f"segment ids must be int32, got {seg.dtype}")
+    if not seg.is_contiguous():
+        raise ValueError("segment ids must be contiguous")
     global launches_ranges
     b, s = seg.shape
     nt = -(-s // rows)
@@ -328,10 +357,49 @@ def _tile_ranges(seg, rows=BLOCK_ROWS):
 def _seg_fwd(q, k, v, seg, causal, ranges=None):
     """K2 on CUDA tensors -> (out [b, s, h, d], lse [b, h, s] fp32).
     ``ranges``: :func:`_tile_ranges` of ``seg``, computed here if None."""
+    kmin, kmax = _tile_ranges(seg) if ranges is None else ranges
+    return _seg_fwd_op(q, k, v, seg, kmin, kmax, causal)
+
+
+def _seg_fwd_plain(q, k, v, seg, causal):
+    """K2's plain version -> (out, lse [b, h, s] f32), both from one f32
+    score tensor: out is :func:`segmented_sdpa_plain`'s (the same ops),
+    lse the visible scores' log-sum-exp."""
+    b, s, h, d = q.shape
+    nkv = k.shape[2]
+    q5 = q.float().reshape(b, s, nkv, h // nkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q5, k.float()) * (
+        1.0 / math.sqrt(d))
+    vis = _seg_vis(seg.to(q.device), causal)[:, None]     # [b, 1, 1, q, k]
+    logits = logits.masked_fill(~vis, -1e30)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(logits, -1),
+                       v.float())
+    lse = torch.logsumexp(logits, -1).reshape(b, h, s)
+    return out.reshape(b, s, h, d).to(q.dtype), lse
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_segmented_fwd",
+                         mutates_args=(), device_types="cpu")
+def _seg_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                seg: torch.Tensor, kmin: torch.Tensor, kmax: torch.Tensor,
+                causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 as an op -> (out, lse); on the CPU its plain version (the
+    ranges unread)."""
+    return _seg_fwd_plain(q, k, v, seg, causal)
+
+
+@_seg_fwd_op.register_fake
+def _seg_fwd_op_fake(q, k, v, seg, kmin, kmax, causal):
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+@_seg_fwd_op.register_kernel("cuda")
+def _seg_fwd_kernel(q, k, v, seg, kmin, kmax, causal):
+    """K2 on CUDA tensors with the ranges of ``seg``."""
     _check(q, k, v, seg)
     global launches
     b, s, h, d = q.shape
-    kmin, kmax = _tile_ranges(seg) if ranges is None else ranges
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _fwd_fn()(
@@ -360,6 +428,24 @@ def _bwd_tail(q, k, causal):
     b, s, h, d = q.shape
     return (b, s, h, k.shape[2], d, int(bool(causal)), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _seg_fwd_setup(ctx, inputs, output):
+    q, k, v, seg, kmin, kmax, causal = inputs
+    ctx.save_for_backward(q, k, v, seg, *output, kmin, kmax)
+    ctx.causal = causal
+
+
+def _seg_fwd_backward(ctx, dout, dlse):
+    """K7a / K7b (their plain versions on the CPU) from the saved lse and
+    the forward's ranges; lse is not differentiated."""
+    q, k, v, seg, out, lse, kmin, kmax = ctx.saved_tensors
+    dq, dk, dv = _seg_bwd(q, k, v, seg, out, lse, dout.contiguous(),
+                          ctx.causal, (kmin, kmax))
+    return dq, dk, dv, None, None, None, None
+
+
+_seg_fwd_op.register_autograd(_seg_fwd_backward, setup_context=_seg_fwd_setup)
 
 
 def _seg_bwd_dq_kernel(q, k, v, seg, dout, lse, delta, ranges, causal):
@@ -404,35 +490,19 @@ def _seg_bwd_dkv_kernel(q, k, v, seg, dout, lse, delta, ranges, causal):
 
 
 def _seg_bwd(q, k, v, seg, out, lse, dout, causal, ranges):
-    """The backward on CUDA tensors (``_seg_bwd_vjp``): delta, K7a and K7b
-    -> (dq, dk, dv).  ``ranges``: the forward's :func:`_tile_ranges`.  The
-    dk / dv kernel sums a GQA group's q heads in f32 and rounds to k's and
-    v's type once."""
+    """The backward (``_seg_bwd_vjp``): delta, K7a and K7b -> (dq, dk,
+    dv); on CPU tensors their plain versions.  ``ranges``: the forward's
+    :func:`_tile_ranges`.  The dk / dv kernel sums a GQA group's q heads
+    in f32 and rounds to k's and v's type once."""
     delta = _delta(dout, out)
+    if q.device.type != "cuda":
+        dq = _seg_bwd_dq_plain(q, k, v, seg, dout, lse, delta, causal)
+        return (dq,) + _seg_bwd_dkv_plain(q, k, v, seg, dout, lse, delta,
+                                          causal)
     dq = _seg_bwd_dq_kernel(q, k, v, seg, dout, lse, delta, ranges, causal)
     dk, dv = _seg_bwd_dkv_kernel(q, k, v, seg, dout, lse, delta, ranges,
                                  causal)
     return dq, dk, dv
-
-
-class _FlashSeg(torch.autograd.Function):
-    """K2 forward, K7a / K7b backward (``_flash_seg``'s custom_vjp); the
-    per-tile ranges are computed once, for all three."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, seg, causal):
-        ranges = _tile_ranges(seg)
-        out, lse = _seg_fwd(q, k, v, seg, causal, ranges)
-        ctx.save_for_backward(q, k, v, seg, out, lse, *ranges)
-        ctx.causal = causal
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, seg, out, lse, kmin, kmax = ctx.saved_tensors
-        dq, dk, dv = _seg_bwd(q, k, v, seg, out, lse, dout.contiguous(),
-                              ctx.causal, (kmin, kmax))
-        return dq, dk, dv, None, None
 
 
 def flash_attention_segmented(q, k, v, segment_ids, causal=False):
@@ -447,8 +517,8 @@ def flash_attention_segmented(q, k, v, segment_ids, causal=False):
         raise ValueError(
             f"q heads {q.shape[2]} must be a multiple of kv heads "
             f"{k.shape[2]}")
-    if q.device.type == "cpu":
-        return segmented_sdpa_plain(q, k, v, seg, causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no segmented attention for {q.device}")
-    return _FlashSeg.apply(q, k, v, seg.to(torch.int32).contiguous(), causal)
+    seg = seg.to(torch.int32).contiguous()
+    return _seg_fwd_op(q, k, v, seg, *_ranges_op(seg, BLOCK_ROWS),
+                       causal)[0]

@@ -9,7 +9,10 @@ composite ``_rms_norm``, which rounds ``x * rstd`` to x's type before the
 weight multiplies it: the kernel rounds once.
 
 A tensor on the CPU goes to the plain versions; a CUDA tensor goes to the
-kernels, or the wrapper raises.
+kernels, or the wrapper raises.  The forward is the ``torch.library`` op
+``paddle_tpu_torch::rms_norm_fwd`` (CPU: the plain version; CUDA: K9a;
+fake: shapes only), so an exported program names it; the backward
+launches K9b through ctypes.
 """
 
 from __future__ import annotations
@@ -96,10 +99,29 @@ def _stream(t):
 def _fwd(x, w, eps):
     """K9a for CUDA tensors, the plain version for CPU ones: rows
     ``x [n, h]`` -> ``(out, rstd)``."""
-    if x.device.type == "cpu":
-        return rms_norm_plain(x, w, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rms_norm kernel for {x.device}")
+    return _fwd_op(x, w, eps)
+
+
+@torch.library.custom_op("paddle_tpu_torch::rms_norm_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(x: torch.Tensor, w: torch.Tensor,
+            eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K9a as an op -> (out, rstd); on the CPU its plain version."""
+    return rms_norm_plain(x, w, eps)
+
+
+@_fwd_op.register_fake
+def _fwd_op_fake(x, w, eps):
+    return (x.new_empty(x.shape, dtype=torch.promote_types(x.dtype,
+                                                           w.dtype)),
+            x.new_empty((x.shape[0],), dtype=torch.float32))
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_kernel(x, w, eps):
+    """K9a on CUDA rows ``x [n, h]``."""
     _check(x, w)
     global launches
     n, h = x.shape

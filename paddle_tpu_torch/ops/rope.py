@@ -9,7 +9,9 @@ is the plain version.  :func:`cached_tables` keeps the tables of the last
 few (S, d, theta, device) keys, so a model's layers build them once.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor goes to the
-kernel, or the wrapper raises.  The JAX wrapper's composite fallback for
+kernel, or the wrapper raises.  One rotation is the ``torch.library`` op
+``paddle_tpu_torch::fused_rope`` (CPU: the plain version; CUDA: the
+kernel; fake: shapes only), so an exported program names it.  The JAX wrapper's composite fallback for
 sequence lengths no 8-aligned block divides has no counterpart: the kernel
 masks its own tail, so every length runs it.
 """
@@ -24,6 +26,7 @@ import threading
 import torch
 
 from .._device import resolve_device
+from ..tensor.tensor import host_reads_forbidden
 from . import _build
 
 __all__ = ["fused_rope", "rope_tables", "cached_tables", "rope_inv_freq",
@@ -61,17 +64,18 @@ def cached_tables(seq_len: int, head_dim: int, theta: float = 10000.0,
     """:func:`rope_tables` (f32) for (S, d, theta, device), built once and
     kept among the last ``TABLES_MAX`` keys.  The tensors are shared: a
     caller must not write them.  A call made while a CUDA graph is being
-    captured builds the tables fresh and keeps nothing, so no graph's
-    memory enters the cache and no graph reads a tensor the cache may
-    drop."""
+    captured, or inside a trace (host reads forbidden: an export's fake
+    tensors), builds the tables fresh and keeps nothing, so no graph's
+    memory and no traced tensor enters the cache, and no graph reads a
+    tensor the cache may drop."""
     global table_builds
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        if torch.cuda.is_current_stream_capturing():
-            table_builds += 1
-            return rope_tables(seq_len, head_dim, theta, device=dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if host_reads_forbidden() is not None or (
+            dev.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+        table_builds += 1
+        return rope_tables(seq_len, head_dim, theta, device=dev)
     key = (int(seq_len), int(head_dim), float(theta), dev)
     with _tables_lock:
         hit = _tables.get(key)
@@ -160,10 +164,27 @@ def _check(x, cos, sin):
 def _apply(x, cos, sin, neg_sin: bool):
     """One rotation: the plain version for a CPU tensor, the kernel for a
     CUDA tensor."""
-    if x.device.type == "cpu":
-        return _composite(x, cos, sin, neg_sin)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused rope for {x.device}")
+    return _rope_op(x, cos, sin, neg_sin)
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_rope", mutates_args=(),
+                         device_types="cpu")
+def _rope_op(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+             neg_sin: bool) -> torch.Tensor:
+    """K5 as an op; on the CPU its plain version."""
+    return _composite(x, cos, sin, neg_sin)
+
+
+@_rope_op.register_fake
+def _rope_op_fake(x, cos, sin, neg_sin):
+    return torch.empty_like(x)
+
+
+@_rope_op.register_kernel("cuda")
+def _rope_kernel(x, cos, sin, neg_sin):
+    """K5 on CUDA tensors."""
     _check(x, cos, sin)
     global launches
     b, s, n, d = x.shape

@@ -8,7 +8,10 @@ Hopper kernels in ``csrc/swiglu.cu`` behind one ``autograd.Function``;
 f32 arithmetic, rounded once to the inputs' type.
 
 A tensor on the CPU goes to the plain versions; a CUDA tensor goes to the
-kernels, or the wrapper raises.
+kernels, or the wrapper raises.  The forward is the ``torch.library`` op
+``paddle_tpu_torch::swiglu_fwd`` (CPU: the plain version; CUDA: K10a;
+fake: shapes only), so an exported program names it; the backward
+launches K10b through ctypes.
 """
 
 from __future__ import annotations
@@ -82,10 +85,26 @@ def _stream(t):
 
 def _fwd(gate, up):
     """K10a for CUDA tensors, the plain version for CPU ones."""
-    if gate.device.type == "cpu":
-        return swiglu_plain(gate, up)
-    if gate.device.type != "cuda":
+    if gate.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no swiglu kernel for {gate.device}")
+    return _fwd_op(gate, up)
+
+
+@torch.library.custom_op("paddle_tpu_torch::swiglu_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """K10a as an op; on the CPU its plain version."""
+    return swiglu_plain(gate, up)
+
+
+@_fwd_op.register_fake
+def _fwd_op_fake(gate, up):
+    return torch.empty_like(gate)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_kernel(gate, up):
+    """K10a on CUDA tensors."""
     _check(("gate", gate), ("up", up))
     global launches
     out = torch.empty_like(gate)

@@ -18,10 +18,19 @@ CUDA graphs that hold the storage see them.  That write is the one place
 an earlier reader can still meet torch's version counter: a backward
 through an op that saved the parameter before the write raises, where
 JAX's tape keeps the old value (ROADMAP.md queue 3).
+
+:func:`forbid_host_reads` marks a block (this thread only) in which a
+host read of a Tensor's values (``numpy``, ``item``, ``tolist``, ``bool``,
+``int``, ``float``, ``index``) raises :class:`HostReadError`, as a JAX
+tracer does: ``jit.to_static`` runs a signature's first call under it to
+find a graph break, and a CUDA graph capture and an export run under it,
+where a host read would fail or bake a value in.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable, List, Optional
 
 import numpy as np
@@ -30,7 +39,43 @@ import torch
 from ..framework import dtype as dtypes
 from ..framework import place as places
 
-__all__ = ["Tensor", "is_tensor", "wrap_array", "to_tensor"]
+__all__ = ["Tensor", "is_tensor", "wrap_array", "to_tensor",
+           "HostReadError", "forbid_host_reads", "host_reads_forbidden"]
+
+
+class HostReadError(RuntimeError):
+    """A host read of a Tensor's values inside :func:`forbid_host_reads`
+    (a graph break of ``jit.to_static``, or a read an export cannot
+    take)."""
+
+
+_host_reads = threading.local()
+
+
+@contextlib.contextmanager
+def forbid_host_reads(where: str):
+    """Inside the block (this thread), a host read of any Tensor's values
+    raises :class:`HostReadError` naming the read and ``where``."""
+    prev = getattr(_host_reads, "where", None)
+    _host_reads.where = where
+    try:
+        yield
+    finally:
+        _host_reads.where = prev
+
+
+def host_reads_forbidden() -> Optional[str]:
+    """``where`` of the innermost :func:`forbid_host_reads` block, or
+    None."""
+    return getattr(_host_reads, "where", None)
+
+
+def _host_read(what: str) -> None:
+    where = getattr(_host_reads, "where", None)
+    if where is not None:
+        raise HostReadError(
+            f"{what} reads a Tensor's values on the host inside {where}, "
+            f"where the values are not there yet (a graph break)")
 
 
 class Tensor:
@@ -146,17 +191,20 @@ class Tensor:
     def numpy(self) -> np.ndarray:
         """The values as a numpy array (bf16 comes back as float32: numpy
         has no bfloat16 of its own)."""
+        _host_read("Tensor.numpy()")
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             d = d.float()
         return d.cpu().numpy()
 
     def item(self, *args) -> Any:
+        _host_read("Tensor.item()")
         if args:
             return self.numpy().item(*args)
         return self._data.item()
 
     def tolist(self):
+        _host_read("Tensor.tolist()")
         return self.numpy().tolist()
 
     def __len__(self) -> int:
@@ -173,18 +221,22 @@ class Tensor:
         return a.astype(dtype) if dtype is not None else a
 
     def __int__(self):
+        _host_read("int(Tensor)")
         return int(self.item())
 
     def __float__(self):
+        _host_read("float(Tensor)")
         return float(self.item())
 
     def __bool__(self):
+        _host_read("bool(Tensor)")
         if self._data.numel() != 1:
             raise ValueError("The truth value of a Tensor with more than "
                              "one element is ambiguous.")
         return bool(self.item())
 
     def __index__(self):
+        _host_read("Tensor.__index__")
         return int(self.item())
 
     def __format__(self, spec):

@@ -1,5 +1,5 @@
 """The port's flag mirror (``paddle_tpu_torch/flags.py``): the three trunk
-flags off by default, the Paddle API's four at JAX's defaults, set and read
+flags off by default, the Paddle API's five at JAX's defaults, set and read
 at call time, initialised from the environment, and restored after each
 test that sets them."""
 
@@ -17,9 +17,11 @@ from paddle_tpu_torch import flags as tfl  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 TRUNK = ("FLAGS_pallas_rms_norm", "FLAGS_pallas_swiglu",
          "FLAGS_pallas_rmsnorm_matmul")
-# read by nn.functional / incubate.nn.functional / ops.dispatch
+# read by nn.functional / incubate.nn.functional / ops.dispatch; set by
+# jit.set_code_level / set_verbosity (FLAGS_log_level, JAX's default)
 API = {"FLAGS_pallas_flash_attention": True, "FLAGS_pallas_rope": True,
-       "FLAGS_check_nan_inf": False, "FLAGS_check_nan_inf_level": 0}
+       "FLAGS_check_nan_inf": False, "FLAGS_check_nan_inf_level": 0,
+       "FLAGS_log_level": 0}
 
 
 @pytest.fixture

@@ -316,12 +316,18 @@ def test_checkpoints_load_across_packages(tmp_path):
 
 
 def test_unported_save_and_jit_raise(tmp_path):
+    """``save(training=False)`` writes the jit.save bundle and
+    ``prepare(jit=True)`` wraps the network with to_static."""
     net = _mlp(tp)
     model = tp.Model(net)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        model.save(str(tmp_path / "m"), training=False)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        model.prepare(jit=True)
+    model.save(str(tmp_path / "m"), training=False)
+    x = tp.to_tensor(np.random.RandomState(0).randn(4, 8).astype(
+        np.float32))
+    loaded = tp.jit.load(str(tmp_path / "m"))
+    np.testing.assert_array_equal(_np(loaded(x)), _np(net(x)))
+    model.prepare(jit=True)
+    assert isinstance(model.network.forward_static, tp.jit.StaticFunction)
+    np.testing.assert_array_equal(_np(model.network(x)), _np(net(x)))
 
 
 def test_fit_with_shared_memory_workers_equals_in_process():

@@ -130,6 +130,11 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.nn.layer.rnn\n"
         "import paddle_tpu_torch.nn.layer.transformer\n"
         "import paddle_tpu_torch.nn.layer.extras\n"
+        "import paddle_tpu_torch.jit\n"
+        "import paddle_tpu_torch.jit.dy2static\n"
+        "import paddle_tpu_torch.jit.capture\n"
+        "import paddle_tpu_torch.static\n"
+        "import paddle_tpu_torch.inference\n"
         "import chip_smoke\n"
         "import tools.profile_torch_decode\n"
         "import tools.ab_torch_kernels\n"
@@ -158,7 +163,8 @@ NEW_SUBPACKAGES = ("io", "io.worker", "metric", "hapi", "hapi.model",
                    "nn.functional.common", "nn.functional.norm",
                    "nn.functional.loss", "nn.functional.extras",
                    "nn.layer.rnn", "nn.layer.transformer",
-                   "nn.layer.extras")
+                   "nn.layer.extras", "jit", "jit.dy2static", "jit.capture",
+                   "static", "inference", "inference.serving")
 
 
 def test_importing_the_port_makes_no_cuda_call():
@@ -199,6 +205,25 @@ def test_varlen_entry_point_runs_in_a_fresh_process():
         "cu = np.array([0, 2, 6])\n"
         "out = F.flash_attn_unpadded(q, q, q, cu, cu, causal=True)\n"
         "assert out.shape == [6, 2, 64]\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_serving_an_export_imports_neither_the_models_nor_jax():
+    """A process that serves an exported program imports
+    ``paddle_tpu_torch.inference`` (jit and static with it) and neither
+    the model package nor JAX."""
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch.inference\n"
+        "import paddle_tpu_torch.jit\n"
+        "import paddle_tpu_torch.static\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'paddle_tpu') or\n"
+        "             m.startswith('paddle_tpu_torch.models'))\n"
+        "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -270,6 +295,20 @@ def test_entry_points_without_a_device_and_without_cuda_raise(monkeypatch):
     step = tlp.make_train_step(cfg, device="cpu")
     _, _, loss = step(params, state, torch.zeros((2, 5), dtype=torch.long))
     assert loss.device.type == "cpu" and torch.isfinite(loss)
+    # the deployment entry points: a Predictor and a DevicePool run on
+    # the card unless asked for the CPU
+    from paddle_tpu_torch.inference import Config, Predictor
+    from paddle_tpu_torch.inference.serving import DevicePool
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Config().device()
+    icfg = Config()
+    icfg.disable_gpu()
+    assert icfg.device().type == "cpu"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevicePool(Config("unused.pt2"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(Config("unused.pt2"))
     # asking for the CPU explicitly is the one way to get it
     cache = PagedKVCache(cfg, num_pages=4, pages_max=2, batch=1, page=8,
                          device="cpu")

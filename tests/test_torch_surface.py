@@ -7,10 +7,11 @@ methods, nn's activation layers, nn.functional's activations and
 JAX's public names (``dir()``, submodules left out) minus the port's must
 be exactly a named remainder, and each remaining name maps to the
 ROADMAP.md queue 1 item that holds it: the top level keeps
-``DataParallel`` (item 9(a)) and ``enable_static`` / ``disable_static``
-(item 10(e)), present in the port as functions that raise
-``NotImplementedError`` naming their item.  The port's names that JAX
-lacks are named too (the port's own helpers).
+``DataParallel`` (item 9(a)), present in the port as a function that
+raises ``NotImplementedError`` naming its item (``enable_static`` /
+``disable_static`` set JAX's mode flag).  The
+port's names that JAX lacks are named too (the port's own helpers).
+``jit``, ``static`` and ``inference`` carry JAX's ``__all__`` exactly.
 """
 
 import types
@@ -43,8 +44,7 @@ def _public(mod):
 
 
 # name -> the ROADMAP.md queue 1 item that holds it
-TOP_REMAINDER = {"DataParallel": "9(a)", "enable_static": "10(e)",
-                 "disable_static": "10(e)"}
+TOP_REMAINDER = {"DataParallel": "9(a)"}
 # JAX's nn.functional activation block and its in-place aliases
 JAX_F_ACTIVATIONS = JF.__all__[:JF.__all__.index("linear")] + [
     "elu_", "hardtanh_", "leaky_relu_", "softmax_", "tanh_",
@@ -80,8 +80,24 @@ def test_top_level_misses_only_the_named_remainder():
     for name, item in TOP_REMAINDER.items():
         with pytest.raises(NotImplementedError, match=item.replace(
                 "(", r"\(").replace(")", r"\)")):
-            getattr(tp, name)(*([tp.nn.Linear(2, 2)] if name ==
-                                "DataParallel" else []))
+            getattr(tp, name)(tp.nn.Linear(2, 2))
+    # the static mode flag, as JAX's
+    for pkg in (jp, tp):
+        assert pkg.in_dynamic_mode()
+        pkg.enable_static()
+        assert not pkg.in_dynamic_mode()
+        pkg.disable_static()
+        assert pkg.in_dynamic_mode()
+
+
+@pytest.mark.parametrize("ns", ["jit", "static", "inference"])
+def test_deployment_namespaces_carry_jax_all(ns):
+    import importlib
+    jmod = importlib.import_module(f"paddle_tpu.{ns}")
+    tmod = getattr(tp, ns)
+    assert tmod.__all__ == jmod.__all__
+    missing = [n for n in jmod.__all__ if not hasattr(tmod, n)]
+    assert not missing, missing
 
 
 def test_linalg_is_whole():

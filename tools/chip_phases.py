@@ -12,8 +12,9 @@ Run from the repository root:
                                  [serve_disagg_before] [api_fit]
                                  [api_resnet] [api_ops] [api_vision]
                                  [api_transformer] [api_varlen] [api_nn]
+                                 [api_nn_before] [api_infer]
                                  [api_ops_before] [serve_swap]
-                                 [serve_swap_before]
+                                 [serve_swap_before] [serve_remote]
 
 Each phase prints its JSON line as in the whole script; a failed gate is
 printed and the next phase still runs.  ``serve_qos`` runs at LLaMA-7B
@@ -29,7 +30,10 @@ check, 5 profiled rounds), in one process; ``serve_mixed`` /
 tokens a request where the script takes 32); ``serve_swap`` with
 SWAP_BEFORE (96 new tokens a request where the script takes 72) and
 ``api_ops_before`` with OPS_BEFORE (2,048 rows where the script takes
-1,024).  The last line
+1,024), ``api_nn_before`` with the nn sweep at op_sweep.NN_SIZES (4,096
+rows and batch 8 where the script takes 1,024 and 2).  ``serve_remote``
+builds every kernel the whole script builds first (its spawned agents
+load the libraries the parent built), so that its time is the phase's.  The last line
 is ``{"phase_s": {...}, "fails": [...], "card": ...}``; the exit code is 1
 when a gate failed.  With no argument it runs serve_qos, serve_qos_recipe,
 api_fit and api_resnet in that order (the serving phases first, so that
@@ -53,6 +57,10 @@ SPEC_BEFORE = dict(SPEC_NEW=64, SPEC_CHECK_NEW=32, SPEC_DEVICE_REPS=5)
 MIXED_BEFORE = dict(MIXED_NEW=48)
 SWAP_BEFORE = dict(SWAP_NEW=96)
 OPS_BEFORE = dict(rows=2048)
+# the sources chip_smoke.main builds
+ALL_SOURCES = ("paged_attention", "flash_varlen", "int8_matmul", "rope",
+               "flash_attention", "fused_adamw", "flash_varlen_bwd",
+               "rms_norm", "swiglu", "rmsnorm_matmul")
 
 
 def main():
@@ -85,15 +93,24 @@ def main():
             cs.phase_api_ops(torch, 0, card, sizes=OPS_BEFORE)
         elif name == "api_vision":
             cs.phase_api_vision(torch, 0, card)
-        elif name in ("api_transformer", "api_varlen", "api_nn"):
+        elif name in ("api_transformer", "api_varlen", "api_nn",
+                      "api_nn_before", "api_infer"):
             mods = api_kernels()
             t = time.perf_counter()
             if name == "api_transformer":
                 cs.phase_api_transformer(torch, 0, mods, card)
             elif name == "api_varlen":
                 cs.phase_api_varlen(torch, 0, mods, card)
+            elif name == "api_infer":
+                cs.phase_api_infer(torch, 0, mods, card)
             else:
-                cs.phase_api_nn(torch, 0, card)
+                saved = cs.NN_SWEEP
+                if name.endswith("_before"):
+                    cs.NN_SWEEP = {}
+                try:
+                    cs.phase_api_nn(torch, 0, card)
+                finally:
+                    cs.NN_SWEEP = saved
         elif name.startswith(("serve_mixed", "serve_disagg")):
             if qos is None:
                 qos = qos_setup(torch)
@@ -136,6 +153,14 @@ def main():
             finally:
                 for k, v in saved.items():
                     setattr(cs, k, v)
+        elif name == "serve_remote":
+            if qos is None:
+                qos = qos_setup(torch)
+            from paddle_tpu_torch.ops import _build
+            _build.build(ALL_SOURCES)
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            cs.phase_serve_remote(torch, *qos, card=card)
         elif name.startswith("serve_spec"):
             if qos is None:
                 qos = qos_setup(torch)
